@@ -1,0 +1,127 @@
+"""Model configuration: a field-for-field mirror of
+:class:`tetranerf_tpu.models.config.TetrahedraNerfConfig` (same names and
+defaults, so a config moves between the packages with ``dataclasses.asdict``),
+plus the ``tetra-nerf`` preset of :mod:`tetranerf_tpu.training.presets`.
+
+Knobs of the JAX package that tune its TPU lowering are accepted here:
+
+- ``march_compaction`` / ``march_compact_ratio``: no-ops. The compaction
+  cascade is bit-identical to an uncompacted march; the CUDA march runs one
+  thread per ray and each thread stops at its own ray's end instead.
+- ``remat_mlps``: no-op. The render path keeps no activations for a
+  backward.
+- ``interp_mode``: no-op. ``"matmul"``, ``"pallas"`` and ``"gather"``
+  compute one function; the port always runs the sample-interp kernel.
+
+Settings whose code is not ported yet are refused by
+:func:`check_supported` with ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Literal, Optional, Union
+
+
+@dataclasses.dataclass
+class TetrahedraNerfConfig:
+    tetrahedra_path: Optional[Path] = None
+    num_tetrahedra_vertices: Optional[int] = None
+    num_tetrahedra_cells: Optional[int] = None
+
+    max_intersected_triangles: int = 512
+    """March step bound per ray."""
+    num_samples: int = 256
+    num_fine_samples: int = 256
+    use_biased_sampler: bool = False
+    field_dim: int = 64
+
+    num_color_layers: int = 1
+    num_density_layers: int = 3
+    hidden_size: int = 128
+
+    input_fourier_frequencies: int = 0
+
+    initialize_colors: bool = True
+
+    use_gradient_scaling: bool = False
+    """Radiance-field gradient scaling; the identity in the forward."""
+    background_color: Literal["random", "last_sample", "black", "white"] = "white"
+
+    appearance_embed_dim: int = 0
+
+    use_occupancy_field: bool = False
+    """Stop a ray once ``sum(occupancy[cell] * chord)`` passes the depth
+    cap ``-log(occupancy_threshold)`` (column 24 of the march rows)."""
+    occupancy_update_every: int = 16
+    occupancy_refresh_every: int = 64
+    occupancy_threshold: float = 1e-3
+    occupancy_decay: float = 0.95
+    occupancy_retune_every: int = 256
+    skip_grid_resolution: int = 0
+    skip_grid_eps: float = 1e-3
+    occupancy_retune_mode: Literal["transmittance", "march"] = "transmittance"
+    occupancy_retune_percentile: float = 100.0
+    occ_cap_margin: float = 1.2
+    occ_cap_percentile: float = 99.9
+
+    compute_dtype: str = "bfloat16"
+    """MLP operand dtype; parameters and the last layer's output stay f32."""
+    interp_mode: str = "matmul"
+    remat_mlps: Union[bool, Literal["auto"]] = "auto"
+    fused_mlps: bool = False
+    ray_buckets: int = 1
+    bucket_short_steps: Optional[int] = None
+    bucket_bound_margin: float = 1.15
+    bucket_merge_mlps: bool = False
+    bucket_adaptive_samples: bool = True
+    traversal_hops: int = 1
+    march_compaction: int = 4
+    march_compact_ratio: float = 0.7
+    grad_stream_budget_per_ray: Optional[int] = None
+    field_stream_dtype: str = "float32"
+    far_plane: float = 1e3
+    """Depth reported for rays that hit nothing."""
+    depth_method: Literal["median", "expected"] = "median"
+
+
+def check_supported(config: TetrahedraNerfConfig) -> None:
+    """Refuse settings whose code the port does not have yet."""
+    refused = {
+        "traversal_hops=2": config.traversal_hops != 1,
+        "fused_mlps=True": config.fused_mlps,
+        "ray_buckets>=2 (bucketed shading)": config.ray_buckets >= 2,
+        "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
+        is not None,
+        "field_stream_dtype='bfloat16'": config.field_stream_dtype
+        not in (None, "float32"),
+    }
+    missing = [name for name, hit in refused.items() if hit]
+    if missing:
+        raise NotImplementedError(
+            "not ported to tetranerf_torch yet: " + ", ".join(missing)
+        )
+    if config.interp_mode not in ("matmul", "pallas", "gather"):
+        raise ValueError(f"unknown interp_mode {config.interp_mode!r}")
+
+
+def tetranerf_preset(**overrides) -> TetrahedraNerfConfig:
+    """The model part of the ``tetra-nerf`` preset
+    (``tetranerf_tpu.training.presets.tetranerf_preset``): 128 biased +
+    128 PDF samples, gradient scaling, occupancy termination at 1e-4.
+
+    The JAX preset also sets ``ray_buckets=8``; bucketed shading is not
+    ported, so pass ``ray_buckets=1`` (the render slice does)."""
+    cfg = TetrahedraNerfConfig(
+        num_samples=128,
+        num_fine_samples=128,
+        use_biased_sampler=True,
+        use_gradient_scaling=True,
+        use_occupancy_field=True,
+        occupancy_retune_percentile=100.0,
+        occupancy_threshold=1e-4,
+        occupancy_retune_every=128,
+        ray_buckets=8,
+    )
+    return dataclasses.replace(cfg, **overrides)
