@@ -6,18 +6,33 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build of the CUDA kernels K1-K3 from ``tetranerf_torch/csrc`` (nvcc);
-3. each kernel against its plain PyTorch twin on the card, at the render
-   slice's shapes on the 100K-point sphere scene (8192 rays, T=512 march
-   slots, S=257 fine samples): max abs error against the stated tolerance,
-   median CUDA-event times of both;
+2. build of the CUDA kernels from ``tetranerf_torch/csrc`` (one nvcc per
+   source, side by side);
+3. K1 march, K2 stream blend and K3 sample interp against their plain
+   PyTorch twins on the card, at the render slice's shapes on the
+   100K-point sphere scene (8192 rays, T=512 march slots, S=257 fine
+   samples): max abs error against the stated tolerance, median CUDA-event
+   times of both, the least time the card could take (bytes over HBM rate
+   or operations over the f32 rate, from this run's data);
 4. K1 on ``tests/assets/golden_march.npz`` (exact cells, t within 1e-5);
-5. the end-to-end render of the ``tetra-nerf`` preset (``ray_buckets=1``,
-   seeded random weights with point colours, a synthetic occupancy column):
-   4 requests of 65,536 rays through ``Renderer.render_rays`` at chunk 8192,
+5. the render path: the ``tetra-nerf`` preset (``ray_buckets=1``, seeded
+   random weights with point colours, a synthetic occupancy column), 4
+   requests of 65,536 rays through ``Renderer.render_rays`` at chunk 8192,
    with the kernels' launch counts, and the outputs checked: finite, rgb in
    [0, 1], and equal within tolerance to the same render on the CPU, where
-   every kernel runs as its twin.
+   every kernel runs as its twin;
+6. the backward kernels K2b, K3b and K7 against their twins at the train
+   slice's shapes (4096 rays, the cold march at T=512, S=257, F=64, the
+   scene's 100K vertices), with K7 beside ``index_add_`` (``library_ms``);
+7. the train path: ``Trainer.train_step`` on the same preset, 65 steps on
+   five batches of 4096 rays in turn, with targets from
+   ``sphere_ray_targets`` (the traversal probe,
+   occupancy updates at steps 0, 16, 32, 48 and 64, the refresh at 64):
+   every loss finite, the mean loss of the last 5 steps below the first 5,
+   every kernel launched; the median step time and rays/s; a
+   ``torch.profiler`` breakdown of two steady steps; then one step's loss
+   and field gradient on 256 rays with injected random numbers, on the card
+   and on the CPU twins.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -39,9 +54,32 @@ NUM_POINTS = 100_000
 CHUNK = 8192
 REQUESTS = 4
 REQUEST_RAYS = 65_536
-TOLERANCES = {"march": 1e-5, "stream_blend_gather": 1e-5, "sample_interp": 1e-5}
+TRAIN_RAYS = 4096
+TRAIN_STEPS = 65
+TRAIN_BATCHES = 5
+REF_RAYS = 256
+# Kernel vs twin. K1-K3 and K2b/K3b sum a handful of f32 products per
+# output, in another order (and with FMA contraction) than the twin: 1e-5
+# on outputs of order 1 (forward) or 10 (the transposes add up to ~20
+# terms, so 1e-4). K7's float atomics add each vertex row in a run-
+# dependent order.
+TOLERANCES = {
+    "march": 1e-5, "stream_blend_gather": 1e-5, "sample_interp": 1e-5,
+    "stream_blend_backward": 1e-4, "sample_interp_backward": 1e-4,
+    "scatter_add_rows": 1e-4,
+}
 # bf16 MLP GEMMs round differently in cuBLAS and on the CPU.
 RENDER_RGB_TOL = 2e-2
+# The train step on the card vs the CPU twins, relative to the CPU value
+# (the field gradient: to its largest entry). bf16 GEMMs in cuBLAS and on
+# the CPU round differently, in the backward too, and K7 adds in atomic
+# order.
+REF_LOSS_RTOL = 1e-3
+REF_GRAD_RTOL = 5e-2
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def _time_ms(fn, reps):
@@ -81,6 +119,22 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
+def _bound(num_bytes, num_ops):
+    """Least time on the card: bytes over the HBM rate or operations over
+    the f32 rate, whichever is larger."""
+    t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = num_ops / F32_FLOPS * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound)
+
+
 def synthetic_occupancy(mesh_cpu):
     """Density 200 in cells whose centroid lies outside radius 0.9 (the
     scene's surface shell), 0 inside: a ray entering the shell passes the
@@ -92,7 +146,7 @@ def synthetic_occupancy(mesh_cpu):
 
 
 def kernel_checks(mesh, field, origins, directions):
-    """Phase 3: each kernel against its twin on the card."""
+    """Phase 3: each forward kernel against its twin on the card."""
     import torch
     from tetranerf_torch.ops import fused, interp
     from tetranerf_torch.ops.march import (
@@ -101,6 +155,7 @@ def kernel_checks(mesh, field, origins, directions):
     from tetranerf_torch.ops.traversal import hull_intersect
 
     results = []
+    num_rays = origins.shape[0]
     t_in, t_out, facet, hit = hull_intersect(mesh.hull_eqs, origins, directions)
     args = (mesh.march_table, mesh.hull_cells, origins, directions, t_in,
             t_out, facet, hit, 512, 512, 16, True, float(-np.log(1e-4)))
@@ -129,11 +184,15 @@ def kernel_checks(mesh, field, origins, directions):
           f"intervals per ray {float((ker.cells >= 0).sum(1).float().mean()):.1f} "
           f"(occupancy), {float(nv.mean()):.1f} mean / {int(nv.max())} max "
           f"(none)")
-    results.append(dict(
-        name="march", route="cuda", source="tetranerf_torch/csrc/march.cu",
-        replaces="tetranerf_tpu/ops/fused.py:125", max_abs_err=err,
-        ms=_time_ms(lambda: march_intervals(*args), 10),
-        plain_ms=_time_ms(lambda: march_intervals_twin(*args), 3),
+    # Per emitted step: one 256-byte table row read, 48 bytes of interval
+    # written (cells, t0, t1, new_vid, 4 barys, 4 positions), ~80 flops of
+    # plane arithmetic; per ray 37 bytes in and 38 out.
+    steps = int((ker.cells >= 0).sum()) + int(ker.hit.sum())
+    results.append(_entry(
+        "march", "tetranerf_torch/csrc/march.cu", "tetranerf_tpu/ops/fused.py:125",
+        err, _time_ms(lambda: march_intervals(*args), 10),
+        _time_ms(lambda: march_intervals_twin(*args), 3),
+        _bound(steps * (256 + 48) + num_rays * 75, steps * 80),
     ))
 
     res = march(mesh, origins, directions, 512, use_occupancy=True,
@@ -147,12 +206,16 @@ def kernel_checks(mesh, field, origins, directions):
     _check(err <= TOLERANCES["stream_blend_gather"],
            f"stream_blend_gather: max abs err {err}")
     print(f"stream_blend_gather: out {tuple(out_k.shape)}, max abs err {err:.3g}")
-    results.append(dict(
-        name="stream_blend_gather", route="cuda",
-        source="tetranerf_torch/csrc/blend.cu",
-        replaces="tetranerf_tpu/ops/pallas_interp.py:214", max_abs_err=err,
-        ms=_time_ms(lambda: interp.stream_blend_gather(*blend_args), 10),
-        plain_ms=_time_ms(lambda: interp.stream_blend_gather_twin(*blend_args), 3),
+    num_end, num_feat = out_k.shape[1:]
+    weighted = int((s.bary != 0).any(dim=-1).sum())
+    results.append(_entry(
+        "stream_blend_gather", "tetranerf_torch/csrc/blend.cu",
+        "tetranerf_tpu/ops/pallas_interp.py:214", err,
+        _time_ms(lambda: interp.stream_blend_gather(*blend_args), 10),
+        _time_ms(lambda: interp.stream_blend_gather_twin(*blend_args), 3),
+        # The output, pos + bary, the stream ids, the field once.
+        _bound(out_k.numel() * 4 + num_rays * num_end * 32 + s.vids.numel() * 4
+               + field.numel() * 4, weighted * 4 * num_feat * 2),
     ))
     del out_t
 
@@ -170,11 +233,110 @@ def kernel_checks(mesh, field, origins, directions):
     _check(err <= TOLERANCES["sample_interp"], f"sample_interp: max abs err {err}")
     print(f"sample_interp: out {tuple(f_k.shape)}, valid samples "
           f"{float(m_k.float().mean()):.3f}, max abs err {err:.3g}")
-    results.append(dict(
-        name="sample_interp", route="cuda", source="tetranerf_torch/csrc/interp.cu",
-        replaces="tetranerf_tpu/ops/pallas_interp.py:104", max_abs_err=err,
-        ms=_time_ms(lambda: interp.sample_interp(*interp_args), 10),
-        plain_ms=_time_ms(lambda: interp.sample_interp_twin(*interp_args), 3),
+    rows = _endpoint_rows_read(*interp_args[:5])
+    max_t = res.t1.shape[1]
+    results.append(_entry(
+        "sample_interp", "tetranerf_torch/csrc/interp.cu",
+        "tetranerf_tpu/ops/pallas_interp.py:104", err,
+        _time_ms(lambda: interp.sample_interp(*interp_args), 10),
+        _time_ms(lambda: interp.sample_interp_twin(*interp_args), 3),
+        # Output + mask, distances, t0/t1, the endpoint rows kept samples read.
+        _bound(f_k.numel() * 4 + m_k.numel() * 5 + num_rays * max_t * 8
+               + rows * num_feat * 4, int(m_k.sum()) * num_feat * 3),
+    ))
+    return results
+
+
+def _endpoint_rows_read(t0, t1, num_valid, ray_mask, distances):
+    """Distinct endpoint rows (ray, k) and (ray, k+1) of the kept samples."""
+    import torch
+    from tetranerf_torch.ops.interp import _match
+
+    k_c, _, mask = _match(t0, t1, num_valid, ray_mask, distances)
+    ray = torch.arange(k_c.shape[0], device=k_c.device)[:, None] * (t1.shape[1] + 1)
+    keys = (ray + k_c)[mask]
+    return int(torch.cat([keys, keys + 1]).unique().numel())
+
+
+def backward_checks(mesh, origins, directions):
+    """Phase 6: the backward kernels against their twins at the train
+    slice's shapes: the cold march (no occupancy, T=512), S=257, F=64."""
+    import torch
+    from tetranerf_torch.ops import fused, interp, scatter
+    from tetranerf_torch.ops.march import march
+
+    dev = origins.device
+    num_rays, num_feat, num_v = origins.shape[0], 64, mesh.num_vertices
+    gen = torch.Generator(device=dev).manual_seed(6)
+    res = march(mesh, origins, directions, 512)
+    s = res.stream
+    num_end, num_stream = s.pos.shape[1], s.vids.shape[1]
+    results = []
+
+    g_end = torch.randn((num_rays, num_end, num_feat), generator=gen, device=dev)
+    bwd_args = (g_end, s.pos.contiguous(), s.bary.contiguous(), num_stream)
+    gsf = interp.stream_blend_backward(*bwd_args)
+    err = _max_err(gsf, interp.stream_blend_backward_twin(*bwd_args))
+    _check(err <= TOLERANCES["stream_blend_backward"],
+           f"stream_blend_backward: max abs err {err}")
+    weighted = (s.bary != 0).any(dim=-1)
+    n_w = int(weighted.sum())
+    print(f"stream_blend_backward: out {tuple(gsf.shape)}, weighted endpoints "
+          f"{n_w / num_rays:.1f} per ray, max abs err {err:.3g}")
+    results.append(_entry(
+        "stream_blend_backward", "tetranerf_torch/csrc/blend.cu",
+        "tetranerf_tpu/ops/pallas_interp.py:257", err,
+        _time_ms(lambda: interp.stream_blend_backward(*bwd_args), 10),
+        _time_ms(lambda: interp.stream_blend_backward_twin(*bwd_args), 3),
+        # Output, all bary rows, pos + g rows of the weighted endpoints.
+        _bound(gsf.numel() * 4 + num_rays * num_end * 16
+               + n_w * (16 + num_feat * 4), int((s.bary != 0).sum()) * num_feat * 2),
+    ))
+
+    idx = s.vids.reshape(-1).clamp_min(0).contiguous()
+    vals = gsf.reshape(-1, num_feat)
+    out = scatter.scatter_add_rows(idx, vals, num_v)
+    err = _max_err(out, scatter.scatter_add_rows_twin(idx, vals, num_v))
+    _check(err <= TOLERANCES["scatter_add_rows"], f"scatter_add_rows: max abs err {err}")
+    nonzero = int((vals != 0).sum())
+    print(f"scatter_add_rows: {idx.numel()} rows into {tuple(out.shape)}, "
+          f"nonzero elements {nonzero / vals.numel():.3f}, max abs err {err:.3g}")
+    idx_long = idx.long()
+    results.append(_entry(
+        "scatter_add_rows", "tetranerf_torch/csrc/scatter.cu",
+        "tetranerf_tpu/ops/pallas_scatter.py:105", err,
+        _time_ms(lambda: scatter.scatter_add_rows(idx, vals, num_v), 10),
+        _time_ms(lambda: scatter.scatter_add_rows_twin(idx, vals, num_v), 3),
+        _bound(idx.numel() * 4 + vals.numel() * 4 + out.numel() * 4, nonzero),
+        library_ms=_time_ms(
+            lambda: torch.zeros((num_v, num_feat), device=dev).index_add_(
+                0, idx_long, vals), 10),
+    ))
+    del gsf, vals, out
+
+    nears, fars, _, _, ray_mask = fused.ray_bounds(res)
+    edges = torch.linspace(0.0, 1.0, 258, device=dev)
+    edges = nears[:, None] + edges[None, :] * (fars - nears)[:, None]
+    distances = ((edges[:, 1:] + edges[:, :-1]) / 2.0).contiguous()
+    i_args = (res.t0.contiguous(), res.t1.contiguous(), res.num_valid, ray_mask,
+              distances)
+    g_samp = torch.randn((num_rays, 257, num_feat), generator=gen, device=dev)
+    gf = interp.sample_interp_backward(*i_args, g_samp)
+    err = _max_err(gf, interp.sample_interp_backward_twin(*i_args, g_samp))
+    _check(err <= TOLERANCES["sample_interp_backward"],
+           f"sample_interp_backward: max abs err {err}")
+    kept = int(interp._match(*i_args)[2].sum())
+    max_t = res.t1.shape[1]
+    print(f"sample_interp_backward: out {tuple(gf.shape)}, kept samples "
+          f"{kept / distances.numel():.3f}, max abs err {err:.3g}")
+    results.append(_entry(
+        "sample_interp_backward", "tetranerf_torch/csrc/interp.cu",
+        "tetranerf_tpu/ops/pallas_interp.py:141", err,
+        _time_ms(lambda: interp.sample_interp_backward(*i_args, g_samp), 10),
+        _time_ms(lambda: interp.sample_interp_backward_twin(*i_args, g_samp), 3),
+        # Output, g rows of the kept samples, distances, t0/t1.
+        _bound(gf.numel() * 4 + kept * num_feat * 4 + distances.numel() * 4
+               + num_rays * max_t * 8, kept * num_feat * 4),
     ))
     return results
 
@@ -205,6 +367,239 @@ def golden_check(device):
     print(f"golden trace: {len(num)} rays, cells exact, t max abs err {err:.3g}")
 
 
+def render_phase(model, mesh, mesh_cpu, dev):
+    """Phase 5: the render path, and 256 of its rays on the CPU twins.
+    Returns the kernels' launch counts of the four requests."""
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.render import Renderer
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays
+    import torch
+
+    model_cpu = copy.deepcopy(model)
+    renderer = Renderer(model, mesh, dev)
+    origins, directions = sample_sphere_rays(
+        np.random.default_rng(0), REQUESTS * REQUEST_RAYS
+    )
+    renderer.render_rays(origins[:CHUNK], directions[:CHUNK], chunk=CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t = time.perf_counter()
+    outs = []
+    for i in range(REQUESTS):
+        sl = slice(i * REQUEST_RAYS, (i + 1) * REQUEST_RAYS)
+        outs.append(renderer.render_rays(origins[sl], directions[sl], chunk=CHUNK))
+    seconds = time.perf_counter() - t
+    launches = dict(cuda.launch_counts)
+    out = {k: np.concatenate([o_[k] for o_ in outs]) for k in outs[0]}
+    print(f"render: {REQUESTS} x {REQUEST_RAYS} rays in {seconds:.3f} s = "
+          f"{REQUESTS * REQUEST_RAYS / seconds:.0f} rays/s; "
+          f"overflow {int(out['traversal_overflow'].sum())}, "
+          f"hit {int(out['ray_mask'].sum())}, launches {launches}")
+    for k in ("march", "stream_blend_gather", "sample_interp"):
+        _check(launches[k] > 0, f"render: {k} did not launch: {launches}")
+    for k in ("rgb", "depth", "accumulation"):
+        _check(np.isfinite(out[k]).all(), f"render: non-finite {k}")
+    _check(out["rgb"].shape == (REQUESTS * REQUEST_RAYS, 3), "render: rgb shape")
+    _check(out["rgb"].min() >= 0.0 and out["rgb"].max() <= 1.0, "render: rgb range")
+
+    ref = Renderer(model_cpu, mesh_cpu, "cpu").render_rays(
+        origins[:REF_RAYS], directions[:REF_RAYS], chunk=REF_RAYS
+    )
+    _check(np.array_equal(ref["ray_mask"], out["ray_mask"][:REF_RAYS]), "ref: ray_mask")
+    _check(np.array_equal(ref["traversal_overflow"],
+                          out["traversal_overflow"][:REF_RAYS]), "ref: overflow")
+    rgb_err = float(np.abs(ref["rgb"] - out["rgb"][:REF_RAYS]).max())
+    _check(rgb_err <= RENDER_RGB_TOL, f"ref: rgb max abs err {rgb_err}")
+    print(f"render vs CPU twins ({REF_RAYS} rays): rgb max abs err {rgb_err:.3g}")
+    return launches
+
+
+def _train_batch(rng, num_rays):
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays, sphere_ray_targets
+
+    o, d = sample_sphere_rays(rng, num_rays)
+    return {"origins": o, "directions": d, "rgb": sphere_ray_targets(o, d)}
+
+
+def _loss_and_field_grad(model, mesh, trainer, batch, uniforms, device):
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    out = model.get_outputs(
+        torch.as_tensor(batch["origins"], device=device),
+        torch.as_tensor(batch["directions"], device=device), mesh,
+        max_steps=trainer.max_steps, occ_depth_cap=trainer.occ_depth_cap,
+        train=True, uniforms=uniforms,
+    )
+    loss = model.loss(out, torch.as_tensor(batch["rgb"], device=device))
+    loss.backward()
+    return float(loss.detach()), model.tetrahedra_field.grad.cpu()
+
+
+def _saved_bytes(trainer, batch, device):
+    """Bytes of the tensors autograd keeps for the backward of one train
+    forward (parameters excluded: they exist anyway)."""
+    import torch
+
+    params = {p.untyped_storage().data_ptr() for p in trainer.model.parameters()}
+    kept = {}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in params:
+            kept[storage.data_ptr()] = storage.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        trainer.model.get_outputs(
+            torch.as_tensor(batch["origins"], device=device),
+            torch.as_tensor(batch["directions"], device=device), trainer.mesh,
+            max_steps=trainer.max_steps, occ_depth_cap=trainer.occ_depth_cap,
+            train=True,
+        )
+    return sum(kept.values())
+
+
+def _profile_steps(trainer, batches, median_ms):
+    """Device time by kernel over ``batches`` train steps, and the share of
+    the time in which the card ran no kernel: within the profiled window
+    (the profiler's own host work slows the launches there) and against
+    the unprofiled median step ``median_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            trainer.train_step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("profile: the profiler recorded no device events: not measured")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    print(f"profile: {len(batches)} steps, wall {wall_us / 1e3:.2f} ms, kernels "
+          f"busy {busy / 1e3:.2f} ms of the {(end - start) / 1e3:.2f} ms from first "
+          f"to last kernel (idle share {1 - busy / (end - start):.3f}; "
+          f"{1 - busy / wall_us:.3f} of the wall window); against the "
+          f"unprofiled median step {median_ms:.2f} ms the idle share is "
+          f"{1 - busy / 1e3 / len(batches) / median_ms:.3f}")
+    groups = {}
+    for name, us in by_name.items():
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + us
+    print("profile by group (ms/step): " + ", ".join(
+        f"{g} {us / 1e3 / len(batches):.3f}"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 1e3 / len(batches):8.3f} ms/step  {name[:110]}")
+
+
+_PORT_KERNELS = ("march_kernel", "blend_kernel", "blend_bwd_kernel",
+                 "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel")
+
+
+def _kernel_group(name):
+    if "(anonymous namespace)::" in name and name.split("::")[1].split("(")[0] in _PORT_KERNELS:
+        return "port kernels"
+    lower = name.lower()
+    if "gemm" in lower or "nvjet" in lower or "gemv" in lower:
+        return "GEMM"
+    if "reduce_kernel" in name:
+        return "reductions"
+    if "copy" in lower or "catarray" in lower:
+        return "copies/casts/concat"
+    if "elementwise" in lower:
+        return "elementwise"
+    return "other"
+
+
+def train_phase(colors, mesh_plain, dev):
+    """Phase 7: the train path. Returns the kernels' launch counts of the
+    65 steps."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = tetranerf_preset(ray_buckets=1)
+    model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+    # Five batches in turn: steps 0-4 and 60-64 see the same rays, so the
+    # loss comparison is free of batch-to-batch noise.
+    rng = np.random.default_rng(1)
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    losses, overflow, step_ms = [], [], []
+    for step in range(TRAIN_STEPS):
+        b = batches[step % TRAIN_BATCHES]
+        t = time.perf_counter()
+        m = trainer.train_step(b)
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        overflow.append(int(m["overflow_rays"]))
+    launches = dict(cuda.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    med = float(np.median(step_ms[1:]))
+    every = cfg.occupancy_update_every
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, tuned bound "
+          f"{trainer.max_steps}, median step {med:.2f} ms (steps 1-{TRAIN_STEPS - 1}) "
+          f"= {TRAIN_RAYS / med * 1e3:.0f} rays/s trained; ms of the steps with "
+          f"occupancy work (0: probe + update, every {every}: update, "
+          f"{cfg.occupancy_refresh_every}: + refresh) "
+          f"{ {i: round(step_ms[i], 2) for i in range(0, TRAIN_STEPS, every)} }; "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"train: loss first 5 mean {first:.5f}, last 5 mean {last:.5f}; "
+          f"losses {[round(x, 5) for x in losses[::8]]} (every 8th); "
+          f"overflow_rays {overflow[::8]} (every 8th), max {max(overflow)}; "
+          f"occupancy mean {float(trainer.occupancy.mean()):.3f}; launches {launches}")
+    saved = _saved_bytes(trainer, batches[0], dev)
+    samples = TRAIN_RAYS * (cfg.num_samples + cfg.num_fine_samples + 1)
+    print(f"train: autograd keeps {saved / 1e9:.3f} GB for the backward of one "
+          f"step ({saved / samples:.0f} bytes per ray-sample)")
+    _check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    _check(last < first, f"train: loss did not fall ({first} -> {last})")
+    for k, n in launches.items():
+        _check(n > 0, f"train: {k} did not launch: {launches}")
+
+    # One step's loss and field gradient from this state on 256 rays, with
+    # injected random numbers, on the card and on the CPU twins.
+    b = _train_batch(rng, REF_RAYS)
+    u_rng = np.random.default_rng(7)
+    uniforms = {
+        "coarse": u_rng.random((REF_RAYS, cfg.num_samples + 1), np.float32),
+        "fine": u_rng.random((REF_RAYS, cfg.num_fine_samples + 1), np.float32),
+        "background": u_rng.random((REF_RAYS, 3), np.float32),
+    }
+    model_cpu = copy.deepcopy(trainer.model).to("cpu")
+    loss_g, grad_g = _loss_and_field_grad(trainer.model, trainer.mesh, trainer, b,
+                                          uniforms, dev)
+    loss_c, grad_c = _loss_and_field_grad(model_cpu, trainer.mesh.to("cpu"), trainer,
+                                          b, uniforms, "cpu")
+    loss_err = abs(loss_g - loss_c) / loss_c
+    grad_err = float((grad_g - grad_c).abs().max() / grad_c.abs().max())
+    print(f"train vs CPU twins ({REF_RAYS} rays): loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(rel {loss_err:.3g}), field gradient max abs diff / max "
+          f"{grad_err:.3g}")
+    _check(loss_err <= REF_LOSS_RTOL, f"train ref: loss rel err {loss_err}")
+    _check(grad_err <= REF_GRAD_RTOL, f"train ref: field grad rel err {grad_err}")
+    trainer.model.zero_grad(set_to_none=True)
+
+    _profile_steps(trainer, batches[:2], med)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -215,7 +610,6 @@ def main() -> int:
     from tetranerf_torch.geometry import build_mesh
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
-    from tetranerf_torch.render import Renderer
     from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,8 +633,8 @@ def main() -> int:
 
     t = time.perf_counter()
     points, colors = make_sphere_scene(NUM_POINTS, seed=0)
-    mesh_cpu = build_mesh(points)
-    mesh_cpu = mesh_cpu.with_occupancy(synthetic_occupancy(mesh_cpu))
+    mesh_plain = build_mesh(points, device="cpu")
+    mesh_cpu = mesh_plain.with_occupancy(synthetic_occupancy(mesh_plain))
     mesh = mesh_cpu.to(dev)
     print(f"scene: {NUM_POINTS} points, {mesh.num_cells} cells, "
           f"{len(mesh.hull_eqs)} hull facets, built in "
@@ -248,57 +642,33 @@ def main() -> int:
 
     cfg = tetranerf_preset(ray_buckets=1)
     model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0), device=dev)
 
     with torch.inference_mode():
         o, d = sample_sphere_rays(np.random.default_rng(0), CHUNK)
         kernels = kernel_checks(
-            mesh, model.tetrahedra_field.detach().to(dev),
+            mesh, model.tetrahedra_field.detach(),
             torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
         )
         golden_check(dev)
 
-    model_cpu = copy.deepcopy(model)
-    renderer = Renderer(model, mesh, dev)
-    origins, directions = sample_sphere_rays(
-        np.random.default_rng(0), REQUESTS * REQUEST_RAYS
-    )
-    renderer.render_rays(origins[:CHUNK], directions[:CHUNK], chunk=CHUNK)  # warm-up
-    torch.cuda.synchronize()
-    cuda.reset_launch_counts()
-    t = time.perf_counter()
-    outs = []
-    for i in range(REQUESTS):
-        sl = slice(i * REQUEST_RAYS, (i + 1) * REQUEST_RAYS)
-        outs.append(renderer.render_rays(origins[sl], directions[sl], chunk=CHUNK))
-    seconds = time.perf_counter() - t
-    launches = dict(cuda.launch_counts)
-    out = {k: np.concatenate([o_[k] for o_ in outs]) for k in outs[0]}
-    print(f"render: {REQUESTS} x {REQUEST_RAYS} rays in {seconds:.3f} s = "
-          f"{REQUESTS * REQUEST_RAYS / seconds:.0f} rays/s; "
-          f"overflow {int(out['traversal_overflow'].sum())}, "
-          f"hit {int(out['ray_mask'].sum())}, launches {launches}")
-    _check(all(launches[k["name"]] > 0 for k in kernels),
-           f"a kernel of the path did not launch: {launches}")
-    for k in ("rgb", "depth", "accumulation"):
-        _check(np.isfinite(out[k]).all(), f"render: non-finite {k}")
-    _check(out["rgb"].shape == (REQUESTS * REQUEST_RAYS, 3), "render: rgb shape")
-    _check(out["rgb"].min() >= 0.0 and out["rgb"].max() <= 1.0, "render: rgb range")
+    render_launches = render_phase(model, mesh, mesh_cpu, dev)
 
-    # The same rays through the CPU twins.
-    n_ref = 256
-    ref = Renderer(model_cpu, mesh_cpu, "cpu").render_rays(
-        origins[:n_ref], directions[:n_ref], chunk=n_ref
-    )
-    _check(np.array_equal(ref["ray_mask"], out["ray_mask"][:n_ref]), "ref: ray_mask")
-    _check(np.array_equal(ref["traversal_overflow"],
-                          out["traversal_overflow"][:n_ref]), "ref: overflow")
-    rgb_err = float(np.abs(ref["rgb"] - out["rgb"][:n_ref]).max())
-    _check(rgb_err <= RENDER_RGB_TOL, f"ref: rgb max abs err {rgb_err}")
-    print(f"render vs CPU twins ({n_ref} rays): rgb max abs err {rgb_err:.3g}")
+    with torch.inference_mode():
+        o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
+        kernels += backward_checks(
+            mesh_plain.to(dev), torch.from_numpy(o).to(dev),
+            torch.from_numpy(d).to(dev),
+        )
+    del model
+    torch.cuda.empty_cache()
+
+    train_launches = train_phase(colors, mesh_plain, dev)
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = train_launches[k["name"]]
+        if k["name"] in render_launches and render_launches[k["name"]]:
+            k["launches_render"] = render_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

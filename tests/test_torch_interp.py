@@ -31,7 +31,7 @@ BF16_ATOL = 2e-2
 @pytest.fixture(scope="module")
 def scene():
     points, _ = make_sphere_scene(800, seed=0)
-    mesh = build_mesh(points)
+    mesh = build_mesh(points, device="cpu")
     rng = np.random.default_rng(2)
     field = rng.uniform(-1, 1, (mesh.num_vertices, FIELD_DIM)).astype(np.float32)
     origins, directions = sample_sphere_rays(np.random.default_rng(1), 64)

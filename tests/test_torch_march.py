@@ -44,7 +44,7 @@ def golden():
 @pytest.fixture(scope="module")
 def scene():
     points, _ = make_sphere_scene(800, seed=0)
-    mesh = build_mesh(points)
+    mesh = build_mesh(points, device="cpu")
     centroids = mesh.vertices[mesh.cells.long()].mean(dim=1)
     occ = torch.where(centroids.norm(dim=1) > 0.85, 30.0, 0.0)
     origins, directions = sample_sphere_rays(np.random.default_rng(1), 256)
@@ -108,7 +108,7 @@ def _check_golden(res, golden):
 
 
 def test_twin_matches_golden_trace(golden):
-    mesh = build_mesh(golden["points"])
+    mesh = build_mesh(golden["points"], device="cpu")
     res = march(mesh, torch.from_numpy(golden["origins"]),
                 torch.from_numpy(golden["directions"]), max_steps=96)
     _check_golden(res, golden)

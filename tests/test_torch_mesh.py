@@ -27,7 +27,7 @@ def _points(name):
 @pytest.mark.parametrize("scene", ["sphere800", "golden300"])
 def test_build_mesh_matches_jax_bit_for_bit(scene):
     points = _points(scene)
-    mesh = build_mesh(points)
+    mesh = build_mesh(points, device="cpu")
     ref = jax_build_mesh(points)
     for name in TABLES:
         ours = getattr(mesh, name).numpy()
@@ -46,7 +46,7 @@ def test_triangulate_matches_jax():
 
 
 def test_with_occupancy_writes_column_24_only():
-    mesh = build_mesh(_points("golden300"))
+    mesh = build_mesh(_points("golden300"), device="cpu")
     occ = torch.arange(mesh.num_cells, dtype=torch.float32) * 0.5
     new = mesh.with_occupancy(occ)
     assert torch.equal(new.march_table[:, 24], occ)
@@ -63,7 +63,7 @@ def test_with_occupancy_writes_column_24_only():
 def test_from_tables_wraps_jax_mesh_and_refuses_skip_grid():
     points = _points("golden300")
     ref = jax_build_mesh(points)
-    mesh = TorchMesh.from_tables(ref)
+    mesh = TorchMesh.from_tables(ref, device="cpu")
     np.testing.assert_array_equal(
         mesh.march_table.numpy().view(np.int32),
         np.asarray(ref.march_table).view(np.int32),
@@ -73,7 +73,7 @@ def test_from_tables_wraps_jax_mesh_and_refuses_skip_grid():
         **{**ref.__dict__, "skip_table": np.ones((2, 2, 2, 8), np.float32)}
     )
     with pytest.raises(NotImplementedError):
-        TorchMesh.from_tables(with_skip)
+        TorchMesh.from_tables(with_skip, device="cpu")
 
 
 def test_synthetic_scene_matches_jax():

@@ -42,7 +42,7 @@ def setup():
     occ = np.where(np.linalg.norm(centroids, axis=1) > 0.85, 30.0, 0.0)
     jmesh = jmesh.with_occupancy(occ.astype(np.float32))
     origins, directions = sample_sphere_rays(np.random.default_rng(1), 128)
-    return dict(jmesh=jmesh, mesh=TorchMesh.from_tables(jmesh), colors=colors,
+    return dict(jmesh=jmesh, mesh=TorchMesh.from_tables(jmesh, device="cpu"), colors=colors,
                 origins=origins, directions=directions, jax=jax)
 
 
@@ -60,7 +60,7 @@ def _jax_model_and_params(setup, jcfg):
 
 
 def _port_model(cfg, params, num_vertices):
-    model = TetraNerf(cfg, num_vertices)
+    model = TetraNerf(cfg, num_vertices, device="cpu")
     params_from_jax(model, params)
     return model
 
@@ -101,7 +101,7 @@ def test_params_from_jax_round_trips(setup):
     assert ours.keys() == theirs.keys()
     for k in ours:
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
-    other = TetraNerf(cfg, setup["mesh"].num_vertices)
+    other = TetraNerf(cfg, setup["mesh"].num_vertices, device="cpu")
     load_reference_state_dict(other, ours)
     for a, b in zip(model.parameters(), other.parameters()):
         assert torch.equal(a, b)
@@ -119,7 +119,7 @@ def test_field_and_density_mlps_match_jax_at_float32(setup):
     dens_only_ref = jmodel._density_mlp(params, fv, dirs, None, False)
     with torch.inference_mode():
         rgb, dens = model.field_mlps(torch.from_numpy(fv), torch.from_numpy(dirs))
-        dens_only = model.density_mlp(torch.from_numpy(fv))
+        dens_only = model.density_at(torch.from_numpy(fv))
     # f32 throughout; only the GEMM accumulation order differs.
     np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_ref), atol=1e-5, rtol=0)
     np.testing.assert_allclose(dens.numpy(), np.asarray(dens_ref), atol=1e-5, rtol=1e-5)
@@ -162,7 +162,8 @@ def test_white_and_black_backgrounds(setup):
     for color in ("white", "black"):
         cfg = tetranerf_preset(**SMALL, background_color=color)
         model = TetraNerf(cfg, setup["mesh"].num_vertices,
-                          generator=torch.Generator().manual_seed(0))
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu")
         o = np.concatenate([setup["origins"][:32], np.float32([[5, 5, 5]])])
         d = np.concatenate([setup["directions"][:32], np.float32([[1, 0, 0]])])
         with torch.inference_mode():

@@ -24,12 +24,13 @@ SMALL = dict(field_dim=16, hidden_size=32, num_samples=16, num_fine_samples=16,
 @pytest.fixture(scope="module")
 def renderer():
     points, colors = make_sphere_scene(800, seed=0)
-    mesh = build_mesh(points)
+    mesh = build_mesh(points, device="cpu")
     centroids = mesh.vertices[mesh.cells.long()].mean(dim=1)
     mesh = mesh.with_occupancy(torch.where(centroids.norm(dim=1) > 0.85, 30.0, 0.0))
     model = TetraNerf(tetranerf_preset(**SMALL), mesh.num_vertices,
                       point_colors=colors,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     return Renderer(model, mesh, "cpu")
 
 
@@ -55,12 +56,12 @@ import numpy as np, torch
 from tetranerf_torch import Renderer, TetraNerf, build_mesh, tetranerf_preset
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 points, colors = make_sphere_scene(300, seed=0)
-mesh = build_mesh(points)
+mesh = build_mesh(points, device="cpu")
 cfg = tetranerf_preset(field_dim=8, hidden_size=16, num_samples=8,
                        num_fine_samples=8, max_intersected_triangles=32,
                        ray_buckets=1)
 model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
-                  generator=torch.Generator().manual_seed(0))
+                  generator=torch.Generator().manual_seed(0), device="cpu")
 o, d = sample_sphere_rays(np.random.default_rng(0), 16)
 out = Renderer(model, mesh, "cpu").render_rays(o, d, chunk=8)
 assert np.isfinite(out["rgb"]).all() and out["rgb"].shape == (16, 3)

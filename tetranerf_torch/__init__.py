@@ -5,14 +5,17 @@ repository unchanged). The package mirrors its layout:
 
 - ``geometry``: Delaunay triangulation and the packed mesh tables
   (:class:`TorchMesh`), built with numpy/scipy on the host.
-- ``ops``: hull slab, the march (kernel K1), the stream blend (K2), the
-  sample interpolation (K3), samplers, encoding and volume rendering.
+- ``ops``: hull slab, the march (kernel K1), the stream blend (K2, and
+  its backward K2b), the sample interpolation (K3, and K3b), the row
+  scatter-add (K7), samplers, encoding and volume rendering.
   Every kernel has a plain PyTorch twin; a wrapper runs the twin for CPU
   tensors and the kernel for CUDA tensors.
 - ``models``: the config dataclass, the MLP building blocks and the
   :class:`TetraNerf` module.
-- ``training.checkpoints``: weights to and from the JAX package and the
-  reference's state-dict layout.
+- ``training``: the train step (:class:`Trainer`: occupancy upkeep,
+  forward, backward through the kernels K2b, K3b and K7, RAdam) and
+  weights to and from the JAX package and the reference's state-dict
+  layout.
 - ``render``: :class:`Renderer`, chunked ray rendering (the serving path).
 
 The package imports ``torch`` and never ``jax``.
@@ -28,6 +31,8 @@ _EXPORTS = {
     "TetrahedraNerfConfig": "models",
     "tetranerf_preset": "models",
     "Renderer": "render",
+    "Trainer": "training.trainer",
+    "TrainConfig": "training.trainer",
 }
 
 

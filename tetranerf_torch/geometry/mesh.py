@@ -97,7 +97,7 @@ class TorchMesh:
         return dataclasses.replace(self, march_table=table)
 
     @classmethod
-    def from_tables(cls, tables, device="cpu") -> "TorchMesh":
+    def from_tables(cls, tables, device="cuda") -> "TorchMesh":
         """Wrap numpy tables with the attribute names above, e.g. a mesh
         built by :func:`tetranerf_tpu.geometry.build_mesh`.
 
@@ -246,7 +246,7 @@ def _convex_hull(vertices: np.ndarray):
 def build_mesh(
     vertices: np.ndarray,
     cells: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
 ) -> TorchMesh:
     """Build the mesh tables from vertices (Delaunay-tetrahedralized when
     ``cells`` is None) and place them on ``device``."""

@@ -19,18 +19,14 @@ from torch import nn
 
 
 class Linear(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, generator=None, device=None):
+    def __init__(self, in_dim: int, out_dim: int, generator=None):
         super().__init__()
         bound = 1.0 / math.sqrt(in_dim)
         self.weight = nn.Parameter(
-            torch.empty(out_dim, in_dim, device=device).uniform_(
-                -bound, bound, generator=generator
-            )
+            torch.empty(out_dim, in_dim).uniform_(-bound, bound, generator=generator)
         )
         self.bias = nn.Parameter(
-            torch.empty(out_dim, device=device).uniform_(
-                -bound, bound, generator=generator
-            )
+            torch.empty(out_dim).uniform_(-bound, bound, generator=generator)
         )
 
     def forward(
@@ -54,14 +50,11 @@ class MLP(nn.Module):
     """``num_layers`` Linear layers of ``width`` outputs with ReLU between
     them."""
 
-    def __init__(
-        self, in_dim: int, num_layers: int, width: int, generator=None,
-        device=None,
-    ):
+    def __init__(self, in_dim: int, num_layers: int, width: int, generator=None):
         super().__init__()
         dims = [in_dim] + [width] * num_layers
         self.layers = nn.ModuleList(
-            Linear(dims[i], dims[i + 1], generator=generator, device=device)
+            Linear(dims[i], dims[i + 1], generator=generator)
             for i in range(len(dims) - 1)
         )
 

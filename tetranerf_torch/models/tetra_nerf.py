@@ -1,14 +1,16 @@
 """The Tetra-NeRF model: march -> sampling -> field -> MLPs -> rendering.
 
-Counterpart of :class:`tetranerf_tpu.models.tetra_nerf.TetraNerf`, render
-(eval) forward with ``ray_buckets=1``. The module holds the per-vertex
-feature field ``tetrahedra_field [V, F]`` (vertex-major, as in the JAX
-package) and the four MLP parts; the mesh is passed to each call.
+Counterpart of :class:`tetranerf_tpu.models.tetra_nerf.TetraNerf` with
+``ray_buckets=1``: the render (eval) forward and the train forward, whose
+backward runs through the kernels' autograd Functions (``ops.interp``). The
+module holds the per-vertex feature field ``tetrahedra_field [V, F]``
+(vertex-major, as in the JAX package) and the four MLP parts; the mesh is
+passed to each call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,13 +31,49 @@ from .nn import MLP, Linear
 _DIR_FREQS = 4
 
 
+class GradientScaler(torch.autograd.Function):
+    """Identity on ``(colors [R, S, 3], sigmas [R, S])``; the backward scales
+    both gradients by ``scaling [R, S]`` (``_gradient_scaler`` of the JAX
+    model, reference ``model.py:625-630``)."""
+
+    @staticmethod
+    def forward(ctx, colors, sigmas, scaling):
+        ctx.save_for_backward(scaling)
+        return colors.view_as(colors), sigmas.view_as(sigmas)
+
+    @staticmethod
+    def backward(ctx, g_colors, g_sigmas):
+        (scaling,) = ctx.saved_tensors
+        return g_colors * scaling[..., None], g_sigmas * scaling, None
+
+
+def draw_uniforms(num_rays, num_samples, num_fine_samples, generator=None,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """The train forward's random numbers, uniform in [0, 1): the coarse
+    bin jitter ``[R, S+1]``, the PDF strata ``[R, N+1]`` and the
+    ``"random"`` background ``[R, 3]``, drawn from ``generator`` on its own
+    device and placed on ``device``."""
+    gdev = generator.device if generator is not None else device
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=gdev).to(device)
+
+    return {
+        "coarse": rand(num_rays, num_samples + 1),
+        "fine": rand(num_rays, num_fine_samples + 1),
+        "background": rand(num_rays, 3),
+    }
+
+
 class TetraNerf(nn.Module):
     """Usage::
 
         model = TetraNerf(config, mesh.num_vertices, point_colors=colors,
                           generator=torch.Generator().manual_seed(0))
         out = model.get_outputs(origins, directions, mesh)
-    """
+
+    Parameters are drawn on the CPU from ``generator`` and then moved to
+    ``device``, so a seed gives the same weights on every device."""
 
     def __init__(
         self,
@@ -44,19 +82,19 @@ class TetraNerf(nn.Module):
         num_train_images: int = 0,
         point_colors=None,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         check_supported(config)
         self.config = config
         cfg = config
         g = generator
-        field = torch.empty(num_vertices, cfg.field_dim, device=device)
+        field = torch.empty(num_vertices, cfg.field_dim)
         field.uniform_(-1e-4, 1e-4, generator=g)
         if cfg.initialize_colors and point_colors is not None:
             # Channels 1..3 from the point colours in [-1, 1], channel 0 from
             # alpha (or 1); reference model.py:337-343, 380-386.
-            colors = torch.as_tensor(point_colors).to(field.device, torch.float32)
+            colors = torch.as_tensor(point_colors).to(torch.float32)
             field[:, 1:4] = colors[:, :3] * 2.0 / 255.0 - 1.0
             if colors.shape[1] >= 4:
                 field[:, 0] = colors[:, 3] * 2.0 / 255.0 - 1.0
@@ -68,18 +106,19 @@ class TetraNerf(nn.Module):
             cfg.hidden_size + nerf_encoding_dim(3, _DIR_FREQS)
             + cfg.appearance_embed_dim
         )
-        kw = dict(generator=g, device=device)
-        self.mlp_base = MLP(mlp_in, cfg.num_density_layers, cfg.hidden_size, **kw)
-        self.mlp_head = MLP(head_in, cfg.num_color_layers, cfg.hidden_size, **kw)
-        self.field_output_color = Linear(cfg.hidden_size, 3, **kw)
-        self.field_output_density = Linear(cfg.hidden_size, 1, **kw)
+        self.mlp_base = MLP(mlp_in, cfg.num_density_layers, cfg.hidden_size,
+                            generator=g)
+        self.mlp_head = MLP(head_in, cfg.num_color_layers, cfg.hidden_size,
+                            generator=g)
+        self.field_output_color = Linear(cfg.hidden_size, 3, generator=g)
+        self.field_output_density = Linear(cfg.hidden_size, 1, generator=g)
         if cfg.appearance_embed_dim > 0:
             self.appearance_embedding = nn.Parameter(
                 torch.randn(
-                    num_train_images, cfg.appearance_embed_dim, generator=g,
-                    device=device,
+                    num_train_images, cfg.appearance_embed_dim, generator=g
                 )
             )
+        self.to(device)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -97,13 +136,16 @@ class TetraNerf(nn.Module):
         density = F.softplus(self.field_output_density(base_out, dt)[..., 0])
         return base_out, density
 
-    def density_mlp(self, field_values):
-        """Density ``f32[R, S]`` only: the coarse PDF round reads no colour."""
+    def density_at(self, field_values):
+        """Density ``f32[...]`` only, at feature vectors ``[..., F]``: the
+        coarse PDF round and the occupancy updates read no colour."""
         return self._base(field_values)[1].float()
 
-    def field_mlps(self, field_values, directions):
+    def field_mlps(self, field_values, directions, camera_indices=None):
         """``(rgb f32[R, S, 3], density f32[R, S])`` at per-sample features
-        ``[R, S, F]`` seen along ``directions [R, 3]``."""
+        ``[R, S, F]`` seen along ``directions [R, 3]``. With an appearance
+        embedding, ``camera_indices i32[R]`` pick each ray's row; without
+        them every ray takes the mean row (eval)."""
         dt = self.compute_dtype
         base_out, density = self._base(field_values)
         num_rays, num_samples = base_out.shape[:2]
@@ -111,9 +153,12 @@ class TetraNerf(nn.Module):
         head_in = [dir_enc.to(dt)[:, None, :].expand(-1, num_samples, -1),
                    base_out.to(dt)]
         if self.config.appearance_embed_dim > 0:
-            # Eval: the mean embedding (no camera indices on this path).
-            app = self.appearance_embedding.mean(dim=0).to(dt)
-            head_in.append(app.expand(num_rays, num_samples, -1))
+            emb = self.appearance_embedding
+            if camera_indices is not None:
+                app = emb[torch.as_tensor(camera_indices, device=emb.device).long()]
+            else:
+                app = emb.mean(dim=0).expand(num_rays, -1)
+            head_in.append(app.to(dt)[:, None, :].expand(-1, num_samples, -1))
         head_out = self.mlp_head(torch.cat(head_in, dim=-1), torch.relu, dt, dt)
         rgb = torch.sigmoid(self.field_output_color(head_out, dt))
         return rgb.float(), density.float()
@@ -137,9 +182,21 @@ class TetraNerf(nn.Module):
         num_samples: Optional[int] = None,
         num_fine_samples: Optional[int] = None,
         occ_depth_cap=None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        uniforms: Optional[Mapping[str, torch.Tensor]] = None,
+        camera_indices=None,
     ) -> Dict[str, torch.Tensor]:
-        """Render (eval) forward of rays ``[R, 3]`` through ``mesh`` (a
+        """Forward of rays ``[R, 3]`` through ``mesh`` (a
         :class:`~..geometry.TorchMesh` on the rays' device).
+
+        ``train=True`` is the train forward (``TetraNerf._forward`` of the
+        JAX model with ``train=True``): stratified coarse bins, stratified
+        PDF samples and a random background (``"random"`` only), from
+        ``uniforms`` (keys of :func:`draw_uniforms`) or else drawn from
+        ``generator``; per-ray appearance rows from ``camera_indices``. The
+        coarse round runs without autograd, as the JAX model stops its
+        gradients.
 
         Returns ``rgb [R, 3]``, ``accumulation [R, 1]``, ``depth [R, 1]``,
         ``ray_mask [R]`` and ``traversal_overflow [R]`` (rays whose march
@@ -150,6 +207,15 @@ class TetraNerf(nn.Module):
         n_fine = cfg.num_fine_samples if num_fine_samples is None else num_fine_samples
         num_rays = origins.shape[0]
         dev = origins.device
+        u = {}
+        if train:
+            u = uniforms if uniforms is not None else draw_uniforms(
+                num_rays, n_coarse, n_fine, generator, dev
+            )
+            u = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in u.items()}
+        else:
+            camera_indices = None
 
         res = march_features(
             mesh, self.tetrahedra_field, origins, directions, max_steps,
@@ -160,7 +226,7 @@ class TetraNerf(nn.Module):
         nears, fars, first_kept, num_kept, ray_mask = ray_bounds(res)
         span = (fars - nears)[:, None]
 
-        bins01 = stratified_bins(num_rays, n_coarse, device=dev)
+        bins01 = stratified_bins(num_rays, n_coarse, device=dev, u=u.get("coarse"))
         euclid = nears[:, None] + bins01 * span
         if cfg.use_biased_sampler:
             euclid = biased_warp_range(res, first_kept, num_kept, nears, fars, euclid)
@@ -173,20 +239,27 @@ class TetraNerf(nn.Module):
             return distances, deltas, smask, field_values
 
         if n_fine > 0:
-            _, deltas, smask, field_values = run_field(euclid)
-            density_c = torch.where(smask, self.density_mlp(field_values), 0.0)
-            weights_c = render_weights(density_c, deltas)
-            spacing = pdf_sample(spacing, weights_c, n_fine, include_original=True)
+            with torch.no_grad():
+                _, deltas, smask, field_values = run_field(euclid)
+                density_c = torch.where(smask, self.density_at(field_values), 0.0)
+                weights_c = render_weights(density_c, deltas)
+            spacing = pdf_sample(spacing, weights_c, n_fine, include_original=True,
+                                 u=u.get("fine"))
             euclid = nears[:, None] + spacing * span
 
         distances, deltas, smask, field_values = run_field(euclid)
-        rgb, density = self.field_mlps(field_values, directions)
+        rgb, density = self.field_mlps(field_values, directions, camera_indices)
         density = torch.where(smask, density, 0.0)
-        # Gradient scaling (use_gradient_scaling) is the identity in the
-        # forward; it only rescales gradients in training.
+        if cfg.use_gradient_scaling and torch.is_grad_enabled():
+            # Spacing-domain distance doubles as distance-to-object-centre
+            # (reference model.py:625-630); the identity in the forward.
+            scaling = torch.square(spacing[:, 1:] + spacing[:, :-1]).clamp(0.0, 1.0)
+            rgb, density = GradientScaler.apply(rgb, density, scaling)
         weights = render_weights(density, deltas)
         if cfg.background_color == "last_sample":
             background = rgb[:, -1, :]
+        elif train and cfg.background_color == "random":
+            background = u["background"]
         else:
             background = self.background(num_rays, dev)
         rgb_out, acc, depth = render_rgb_depth_acc(
@@ -203,3 +276,9 @@ class TetraNerf(nn.Module):
             "ray_mask": ray_mask,
             "traversal_overflow": res.overflow,
         }
+
+    # ------------------------------------------------------------------ loss
+    @staticmethod
+    def loss(outputs, image) -> torch.Tensor:
+        """MSE on RGB, the reference's only loss (``model.py:665-674``)."""
+        return torch.mean(torch.square(outputs["rgb"] - image))

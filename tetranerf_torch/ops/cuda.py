@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` and links
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links
 them into one shared library with a plain C interface under
 ``build/tetranerf_torch/`` at the root of the checkout; ``ctypes`` loads it.
 The library's name carries a hash of the sources and flags, so an edited
@@ -38,6 +39,7 @@ _SOURCES = {
     "march.cu": ["--fmad=false"],
     "blend.cu": [],
     "interp.cu": [],
+    "scatter.cu": [],
 }
 
 _P = ctypes.c_void_p
@@ -48,9 +50,16 @@ _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 11 + [_P],
     "tetranerf_stream_blend_gather": [_P] * 5 + [_I] * 4 + [_P],
     "tetranerf_sample_interp": [_P] * 8 + [_I] * 4 + [_P],
+    "tetranerf_stream_blend_backward": [_P] * 4 + [_I] * 4 + [_P],
+    "tetranerf_sample_interp_backward": [_P] * 7 + [_I] * 4 + [_P],
+    "tetranerf_scatter_add_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
 
-launch_counts = {"march": 0, "stream_blend_gather": 0, "sample_interp": 0}
+launch_counts = {
+    "march": 0, "stream_blend_gather": 0, "sample_interp": 0,
+    "stream_blend_backward": 0, "sample_interp_backward": 0,
+    "scatter_add_rows": 0,
+}
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 
 build_log = ""
@@ -73,14 +82,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _run(cmd) -> str:
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(map(str, cmd))}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    return proc.stdout + proc.stderr
+def _run(cmds) -> str:
+    """Run the commands side by side; raise if any fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(
+                f"nvcc failed ({proc.returncode}): "
+                f"{' '.join(map(str, cmd))}\n{out}"
+            )
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
 
 
 def library_path() -> Path:
@@ -101,20 +121,16 @@ def load() -> ctypes.CDLL:
         if not so.exists():
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            logs = []
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                objs = []
-                for name, extra in _SOURCES.items():
-                    obj = Path(tmp) / (name + ".o")
-                    logs.append(
-                        _run([nvcc, *_COMMON, *extra, "-c", _CSRC / name,
-                              "-o", obj])
-                    )
-                    objs.append(obj)
+                objs = [Path(tmp) / (name + ".o") for name in _SOURCES]
+                log = _run([
+                    [nvcc, *_COMMON, *extra, "-c", _CSRC / name, "-o", obj]
+                    for (name, extra), obj in zip(_SOURCES.items(), objs)
+                ])
                 staged = Path(tmp) / so.name
-                logs.append(_run([nvcc, *_ARCH, "-shared", *objs, "-o", staged]))
+                log += _run([[nvcc, *_ARCH, "-shared", *objs, "-o", staged]])
                 os.replace(staged, so)  # atomic: a concurrent loader sees all or nothing
-            build_log = "".join(logs)
+            build_log = log
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes

@@ -6,23 +6,31 @@ Counterpart of ``march_features``, ``endpoint_features``, ``ray_bounds``,
 ray inside a cell and continuous across faces, so a sample's feature is
 the exact lerp of the features at its interval's two endpoints: the march
 emits endpoint features once (K2) and every sampling round lerps them (K3).
+Where autograd records (grad enabled and a differentiable input), the two go
+through the autograd Functions whose backwards are K2b + K7 and K3b.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .interp import sample_interp, stream_blend_gather
+from .interp import (
+    SampleInterp,
+    StreamBlendGather,
+    sample_interp,
+    stream_blend_gather,
+)
 from .march import FusedMarch, MarchStream, march
 
 
 def endpoint_features(field: torch.Tensor, stream: MarchStream) -> torch.Tensor:
     """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2); the
     only field-dependent part of the traversal."""
-    return stream_blend_gather(
-        field.contiguous(), stream.vids.contiguous(),
-        stream.pos.contiguous(), stream.bary.contiguous(),
-    )
+    args = (field.contiguous(), stream.vids.contiguous(),
+            stream.pos.contiguous(), stream.bary.contiguous())
+    if torch.is_grad_enabled() and field.requires_grad:
+        return StreamBlendGather.apply(*args)
+    return stream_blend_gather(*args)
 
 
 def march_features(
@@ -86,7 +94,8 @@ def biased_warp_range(res: FusedMarch, first, num_kept, nears, fars, samples):
 def sample_features(res: FusedMarch, distances, ray_mask):
     """Per-sample features ``f32[R, S, F]`` and validity ``bool[R, S]`` at
     sorted ``distances f32[R, S]`` (K3)."""
-    return sample_interp(
-        res.t0.contiguous(), res.t1.contiguous(), res.num_valid.contiguous(),
-        ray_mask.contiguous(), distances.contiguous(), res.feats.contiguous(),
-    )
+    args = (res.t0.contiguous(), res.t1.contiguous(), res.num_valid.contiguous(),
+            ray_mask.contiguous(), distances.contiguous(), res.feats.contiguous())
+    if torch.is_grad_enabled() and res.feats.requires_grad:
+        return SampleInterp.apply(*args)
+    return sample_interp(*args)

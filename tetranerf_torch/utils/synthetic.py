@@ -1,6 +1,7 @@
 """Synthetic sphere scene (host side, numpy).
 
-Copies of ``make_sphere_scene`` and ``sample_sphere_rays`` from
+Copies of ``make_sphere_scene``, ``sample_sphere_rays`` and
+``sphere_ray_targets`` from
 :mod:`tetranerf_tpu.utils.synthetic`, so that the port runs where the JAX
 package is absent; a test holds them equal to the originals.
 """
@@ -52,3 +53,18 @@ def sample_sphere_rays(
     d = target - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def sphere_ray_targets(origins: np.ndarray, directions: np.ndarray) -> np.ndarray:
+    """Analytic ground truth: albedo at the first unit-sphere hit, else white."""
+    o, d = origins.astype(np.float64), directions.astype(np.float64)
+    b = np.sum(o * d, axis=1)
+    c = np.sum(o * o, axis=1) - 1.0
+    disc = b * b - c
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    hit &= t > 0
+    p = o + t[:, None] * d
+    rgb = np.ones((len(o), 3), np.float32)
+    rgb[hit] = _albedo(p[hit]).astype(np.float32)
+    return rgb
