@@ -32,7 +32,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    every kernel launched; the median step time and rays/s; a
    ``torch.profiler`` breakdown of two steady steps; then one step's loss
    and field gradient on 256 rays with injected random numbers, on the card
-   and on the CPU twins.
+   and on the CPU twins;
+8. the fused MLP kernels K4, K4b (field MLPs forward and backward), K5 and
+   K5b (density MLP) against their twins on the card at the train slice's
+   shapes (4096 rays; 257 samples for K4/K4b, 128 for K5/K5b) with the
+   preset's seeded weights, beside the un-fused plain-torch stack on the
+   same inputs (``unfused_ms``);
+9. the fused render: phase 5 with ``fused_mlps=True`` (K4 and K5 must
+   launch);
+10. the fused train run: phase 7 with ``fused_mlps=True`` (K4, K4b and K5
+    must launch).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -41,6 +50,7 @@ last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -68,6 +78,16 @@ TOLERANCES = {
     "stream_blend_backward": 1e-4, "sample_interp_backward": 1e-4,
     "scatter_add_rows": 1e-4,
 }
+# The fused MLP kernels vs their twins, both in bf16. Sums of exact
+# products in another order (WMMA tiles vs cuBLAS f32) round a bf16
+# activation or cotangent one ulp (2^-8) the other way now and then, and
+# put a pre-activation within an ulp of 0 on the other side of a ReLU:
+# that moves the rows downstream of it, and a ReLU flip moves an entry of
+# dx by one whole term of its sum (several % of the largest entry at 1M
+# rows). So each output is held to 1e-2 in relative Frobenius norm, and
+# its max abs error to 0.1 of its largest entry.
+MLP_NORM_RTOL = 1e-2
+MLP_MAX_RTOL = 0.1
 # bf16 MLP GEMMs round differently in cuBLAS and on the CPU.
 RENDER_RGB_TOL = 2e-2
 # The train step on the card vs the CPU twins, relative to the CPU value
@@ -77,9 +97,13 @@ RENDER_RGB_TOL = 2e-2
 REF_LOSS_RTOL = 1e-3
 REF_GRAD_RTOL = 5e-2
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores, bf16 dense FLOP/s on the tensor cores (the
+# fused MLP kernels' products).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
+_PEAKS = {F32_FLOPS: "f32 outside the tensor cores, 67 TFLOP/s",
+          BF16_TENSOR_FLOPS: "bf16 dense on the tensor cores, 989 TFLOP/s"}
 
 
 def _time_ms(fn, reps):
@@ -119,20 +143,22 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
-def _bound(num_bytes, num_ops):
+def _bound(num_bytes, num_ops, flops=F32_FLOPS):
     """Least time on the card: bytes over the HBM rate or operations over
-    the f32 rate, whichever is larger."""
+    the ``flops`` rate, whichever is larger; ``bound_peak`` names the peak
+    that sets it."""
     t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = num_ops / F32_FLOPS * 1e3
+    t_ops = num_ops / flops * 1e3
     if t_bytes >= t_ops:
-        return dict(bound_ms=t_bytes, bound_by="bytes")
-    return dict(bound_ms=t_ops, bound_by="operations")
+        return dict(bound_ms=t_bytes, bound_by="bytes", bound_peak="HBM, 3.35 TB/s")
+    return dict(bound_ms=t_ops, bound_by="operations", bound_peak=_PEAKS[flops])
 
 
-def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None,
+           **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound)
+                **bound, **extra)
 
 
 def synthetic_occupancy(mesh_cpu):
@@ -341,6 +367,132 @@ def backward_checks(mesh, origins, directions):
     return results
 
 
+def _rel_check(name, pairs):
+    """Max abs error over (kernel, twin) pairs, each held to MLP_NORM_RTOL
+    and MLP_MAX_RTOL."""
+    err = 0.0
+    for i, (k, t) in enumerate(pairs):
+        e = _max_err(k, t)
+        scale = float(t.abs().max())
+        diff = (k.double() - t.double())
+        norm_err = float(diff.norm() / t.double().norm().clamp_min(1e-30))
+        far = int((diff.abs() > 1e-2 * scale).sum())
+        print(f"  {name} output {i} {tuple(t.shape)}: max abs err {e:.3g} of largest "
+              f"{scale:.3g}, relative norm err {norm_err:.3g}, {far} entries off "
+              f"by more than 1% of the largest")
+        _check(norm_err <= MLP_NORM_RTOL, f"{name}: output {i}: norm err {norm_err}")
+        _check(e <= MLP_MAX_RTOL * max(scale, 1e-30),
+               f"{name}: output {i}: max abs err {e} against largest entry {scale}")
+        err = max(err, e)
+    return err
+
+
+def mlp_checks(model, dev):
+    """Phase 8: K4, K4b, K5 and K5b against their twins on the card at the
+    train slice's shapes, with the preset's seeded weights and features,
+    directions and cotangents from a seeded generator. ``unfused_ms`` times
+    the plain-torch MLP stack of ``fused_mlps=False`` on the same inputs:
+    ``field_mlps`` (K4) and its autograd backward (K4b), ``density_at`` (K5)
+    and its autograd backward (K5b)."""
+    import torch
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.ops import mlp
+
+    cfg = model.config
+    plain = TetraNerf(dataclasses.replace(cfg, fused_mlps=False),
+                      model.tetrahedra_field.shape[0], device=dev)
+    plain.load_state_dict(model.state_dict())
+    params = [p for n, p in plain.named_parameters() if n != "tetrahedra_field"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    num_fine = cfg.num_samples + cfg.num_fine_samples + 1
+    dt = model.compute_dtype
+    n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(TRAIN_RAYS, num_fine, cfg.field_dim)
+    d = torch.nn.functional.normalize(randn(TRAIN_RAYS, 3), dim=1)
+    g_rgb, g_dens = randn(TRAIN_RAYS, num_fine, 3), randn(TRAIN_RAYS, num_fine, 1)
+    x_c = randn(TRAIN_RAYS, cfg.num_samples, cfg.field_dim)
+    g_c = randn(TRAIN_RAYS, cfg.num_samples, 1)
+    with torch.no_grad():
+        head_dir, weights = model.fused_field_inputs(d)
+        weights = [w.detach() for w in weights]
+        w_dens = [w.detach() for w in model.density_weights()]
+    results = []
+
+    def entry(name, replaces, err, ms, plain_ms, unfused_ms, num_bytes, num_ops):
+        print(f"{name}: max abs err {err:.3g}; {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+              f"un-fused stack {unfused_ms:.3f} ms")
+        results.append(_entry(
+            name, "tetranerf_torch/csrc/mlp.cu", replaces, err, ms, plain_ms,
+            _bound(num_bytes, num_ops, BF16_TENSOR_FLOPS), unfused_ms=unfused_ms))
+
+    def unfused_backward(fn, x_in, grads):
+        """Time of the autograd backward alone of ``fn(x_in)`` (its
+        forward recorded once, the graph kept)."""
+        xg = x_in.clone().requires_grad_()
+        outs = fn(xg)
+        return _time_ms(lambda: torch.autograd.grad(
+            outs, [xg, *params], grads, retain_graph=True, allow_unused=True), 5)
+
+    # K4 / K4b: the field MLPs at 4096 x 257 rows.
+    rows = x.shape[0] * x.shape[1]
+    macs = sum(w.numel() for w in weights if w.dim() == 2)  # per row
+    param_bytes = sum(w.numel() for w in weights) * 4
+    fwd = (x, head_dir, weights, n_base, n_head, dt)
+    err = _rel_check("fused_field_mlps", zip(mlp.fused_field_mlps(*fwd),
+                                             mlp.fused_field_mlps_twin(*fwd)))
+    with torch.no_grad():
+        unfused = _time_ms(lambda: plain.field_mlps(x, d), 10)
+    entry("fused_field_mlps", "tetranerf_tpu/ops/pallas_mlp.py:244", err,
+          _time_ms(lambda: mlp.fused_field_mlps(*fwd), 10),
+          _time_ms(lambda: mlp.fused_field_mlps_twin(*fwd), 3), unfused,
+          x.numel() * 4 + head_dir.numel() * 4 + param_bytes + rows * 16,
+          2 * macs * rows)
+    bwd = (x, head_dir, weights, g_rgb, g_dens, n_base, n_head, dt)
+    dx, dhd, grads = mlp.fused_field_mlps_backward(*bwd)
+    dx_t, dhd_t, grads_t = mlp.fused_field_mlps_backward_twin(*bwd)
+    err = _rel_check("fused_field_mlps_backward",
+                     [(dx, dx_t), (dhd, dhd_t), *zip(grads, grads_t)])
+    del dx, dhd, grads, dx_t, dhd_t, grads_t
+    # Recompute, the cotangents through every layer, every weight gradient.
+    entry("fused_field_mlps_backward", "tetranerf_tpu/ops/pallas_mlp.py:290", err,
+          _time_ms(lambda: mlp.fused_field_mlps_backward(*bwd), 10),
+          _time_ms(lambda: mlp.fused_field_mlps_backward_twin(*bwd), 3),
+          unfused_backward(lambda xg: plain.field_mlps(xg, d), x,
+                           (g_rgb, g_dens[..., 0])),
+          2 * x.numel() * 4 + 2 * head_dir.numel() * 4 + 2 * param_bytes
+          + rows * 16, 6 * macs * rows)
+
+    # K5 / K5b: the density MLP at 4096 x 128 rows (the coarse round).
+    rows = x_c.shape[0] * x_c.shape[1]
+    macs = sum(w.numel() for w in w_dens if w.dim() == 2)
+    param_bytes = sum(w.numel() for w in w_dens) * 4
+    fwd = (x_c, w_dens, n_base, dt)
+    err = _rel_check("fused_density_mlp", [(mlp.fused_density_mlp(*fwd),
+                                           mlp.fused_density_mlp_twin(*fwd))])
+    with torch.no_grad():
+        unfused = _time_ms(lambda: plain.density_at(x_c), 10)
+    entry("fused_density_mlp", "tetranerf_tpu/ops/pallas_mlp.py:415", err,
+          _time_ms(lambda: mlp.fused_density_mlp(*fwd), 10),
+          _time_ms(lambda: mlp.fused_density_mlp_twin(*fwd), 3), unfused,
+          x_c.numel() * 4 + param_bytes + rows * 4, 2 * macs * rows)
+    bwd = (x_c, w_dens, g_c, n_base, dt)
+    dx, grads = mlp.fused_density_mlp_backward(*bwd)
+    dx_t, grads_t = mlp.fused_density_mlp_backward_twin(*bwd)
+    err = _rel_check("fused_density_mlp_backward", [(dx, dx_t), *zip(grads, grads_t)])
+    del dx, grads, dx_t, grads_t
+    entry("fused_density_mlp_backward", "tetranerf_tpu/ops/pallas_mlp.py:448", err,
+          _time_ms(lambda: mlp.fused_density_mlp_backward(*bwd), 10),
+          _time_ms(lambda: mlp.fused_density_mlp_backward_twin(*bwd), 3),
+          unfused_backward(plain.density_at, x_c, g_c[..., 0]),
+          2 * x_c.numel() * 4 + 2 * param_bytes + rows * 4, 6 * macs * rows)
+    del plain
+    return results
+
+
 def golden_check(device):
     """Phase 4: the golden march trace through K1."""
     import torch
@@ -367,9 +519,18 @@ def golden_check(device):
     print(f"golden trace: {len(num)} rays, cells exact, t max abs err {err:.3g}")
 
 
-def render_phase(model, mesh, mesh_cpu, dev):
-    """Phase 5: the render path, and 256 of its rays on the CPU twins.
-    Returns the kernels' launch counts of the four requests."""
+RENDER_KERNELS = ("march", "stream_blend_gather", "sample_interp")
+FUSED_RENDER_KERNELS = RENDER_KERNELS + ("fused_field_mlps", "fused_density_mlp")
+TRAIN_KERNELS = RENDER_KERNELS + ("stream_blend_backward", "sample_interp_backward",
+                                  "scatter_add_rows")
+FUSED_TRAIN_KERNELS = TRAIN_KERNELS + ("fused_field_mlps", "fused_field_mlps_backward",
+                                       "fused_density_mlp")
+
+
+def render_phase(model, mesh, mesh_cpu, dev, must_launch=RENDER_KERNELS):
+    """Phases 5 and 9: the render path, and 256 of its rays on the CPU
+    twins. Every kernel of ``must_launch`` must launch. Returns the
+    kernels' launch counts of the four requests."""
     from tetranerf_torch.ops import cuda
     from tetranerf_torch.render import Renderer
     from tetranerf_torch.utils.synthetic import sample_sphere_rays
@@ -391,12 +552,13 @@ def render_phase(model, mesh, mesh_cpu, dev):
     seconds = time.perf_counter() - t
     launches = dict(cuda.launch_counts)
     out = {k: np.concatenate([o_[k] for o_ in outs]) for k in outs[0]}
-    print(f"render: {REQUESTS} x {REQUEST_RAYS} rays in {seconds:.3f} s = "
+    label = "render (fused MLPs)" if model.config.fused_mlps else "render"
+    print(f"{label}: {REQUESTS} x {REQUEST_RAYS} rays in {seconds:.3f} s = "
           f"{REQUESTS * REQUEST_RAYS / seconds:.0f} rays/s; "
           f"overflow {int(out['traversal_overflow'].sum())}, "
           f"hit {int(out['ray_mask'].sum())}, launches {launches}")
-    for k in ("march", "stream_blend_gather", "sample_interp"):
-        _check(launches[k] > 0, f"render: {k} did not launch: {launches}")
+    for k in must_launch:
+        _check(launches[k] > 0, f"{label}: {k} did not launch: {launches}")
     for k in ("rgb", "depth", "accumulation"):
         _check(np.isfinite(out[k]).all(), f"render: non-finite {k}")
     _check(out["rgb"].shape == (REQUESTS * REQUEST_RAYS, 3), "render: rgb shape")
@@ -410,7 +572,7 @@ def render_phase(model, mesh, mesh_cpu, dev):
                           out["traversal_overflow"][:REF_RAYS]), "ref: overflow")
     rgb_err = float(np.abs(ref["rgb"] - out["rgb"][:REF_RAYS]).max())
     _check(rgb_err <= RENDER_RGB_TOL, f"ref: rgb max abs err {rgb_err}")
-    print(f"render vs CPU twins ({REF_RAYS} rays): rgb max abs err {rgb_err:.3g}")
+    print(f"{label} vs CPU twins ({REF_RAYS} rays): rgb max abs err {rgb_err:.3g}")
     return launches
 
 
@@ -503,7 +665,8 @@ def _profile_steps(trainer, batches, median_ms):
 
 
 _PORT_KERNELS = ("march_kernel", "blend_kernel", "blend_bwd_kernel",
-                 "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel")
+                 "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel",
+                 "mlp_fwd_kernel", "mlp_bwd_kernel", "sum_rows_kernel")
 
 
 def _kernel_group(name):
@@ -521,15 +684,17 @@ def _kernel_group(name):
     return "other"
 
 
-def train_phase(colors, mesh_plain, dev):
-    """Phase 7: the train path. Returns the kernels' launch counts of the
-    65 steps."""
+def train_phase(colors, mesh_plain, dev, fused=False):
+    """Phases 7 and 10: the train path, with the fused MLP kernels when
+    ``fused``. Returns the kernels' launch counts of the 65 steps and of
+    step 1 alone (a steady step: no occupancy work)."""
     import torch
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
     from tetranerf_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = tetranerf_preset(ray_buckets=1)
+    cfg = tetranerf_preset(ray_buckets=1, fused_mlps=fused)
+    label = "train (fused MLPs)" if fused else "train"
     model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
                       generator=torch.Generator().manual_seed(0), device=dev)
     trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
@@ -543,35 +708,39 @@ def train_phase(colors, mesh_plain, dev):
     losses, overflow, step_ms = [], [], []
     for step in range(TRAIN_STEPS):
         b = batches[step % TRAIN_BATCHES]
+        before = dict(cuda.launch_counts)
         t = time.perf_counter()
         m = trainer.train_step(b)
         losses.append(float(m["loss"]))  # waits for the step
         step_ms.append((time.perf_counter() - t) * 1e3)
         overflow.append(int(m["overflow_rays"]))
+        if step == 1:
+            per_step = {k: n - before[k] for k, n in cuda.launch_counts.items()}
     launches = dict(cuda.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     med = float(np.median(step_ms[1:]))
     every = cfg.occupancy_update_every
-    print(f"train: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, tuned bound "
+    print(f"{label}: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, tuned bound "
           f"{trainer.max_steps}, median step {med:.2f} ms (steps 1-{TRAIN_STEPS - 1}) "
           f"= {TRAIN_RAYS / med * 1e3:.0f} rays/s trained; ms of the steps with "
           f"occupancy work (0: probe + update, every {every}: update, "
           f"{cfg.occupancy_refresh_every}: + refresh) "
           f"{ {i: round(step_ms[i], 2) for i in range(0, TRAIN_STEPS, every)} }; "
           f"peak memory {peak_gb:.2f} GB")
-    print(f"train: loss first 5 mean {first:.5f}, last 5 mean {last:.5f}; "
+    print(f"{label}: loss first 5 mean {first:.5f}, last 5 mean {last:.5f}; "
           f"losses {[round(x, 5) for x in losses[::8]]} (every 8th); "
           f"overflow_rays {overflow[::8]} (every 8th), max {max(overflow)}; "
-          f"occupancy mean {float(trainer.occupancy.mean()):.3f}; launches {launches}")
+          f"occupancy mean {float(trainer.occupancy.mean()):.3f}; launches {launches}; "
+          f"launches in step 1 {per_step}")
     saved = _saved_bytes(trainer, batches[0], dev)
     samples = TRAIN_RAYS * (cfg.num_samples + cfg.num_fine_samples + 1)
-    print(f"train: autograd keeps {saved / 1e9:.3f} GB for the backward of one "
+    print(f"{label}: autograd keeps {saved / 1e9:.3f} GB for the backward of one "
           f"step ({saved / samples:.0f} bytes per ray-sample)")
-    _check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
-    _check(last < first, f"train: loss did not fall ({first} -> {last})")
-    for k, n in launches.items():
-        _check(n > 0, f"train: {k} did not launch: {launches}")
+    _check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    _check(last < first, f"{label}: loss did not fall ({first} -> {last})")
+    for k in FUSED_TRAIN_KERNELS if fused else TRAIN_KERNELS:
+        _check(launches[k] > 0, f"{label}: {k} did not launch: {launches}")
 
     # One step's loss and field gradient from this state on 256 rays, with
     # injected random numbers, on the card and on the CPU twins.
@@ -589,7 +758,7 @@ def train_phase(colors, mesh_plain, dev):
                                           b, uniforms, "cpu")
     loss_err = abs(loss_g - loss_c) / loss_c
     grad_err = float((grad_g - grad_c).abs().max() / grad_c.abs().max())
-    print(f"train vs CPU twins ({REF_RAYS} rays): loss {loss_g:.6f} vs {loss_c:.6f} "
+    print(f"{label} vs CPU twins ({REF_RAYS} rays): loss {loss_g:.6f} vs {loss_c:.6f} "
           f"(rel {loss_err:.3g}), field gradient max abs diff / max "
           f"{grad_err:.3g}")
     _check(loss_err <= REF_LOSS_RTOL, f"train ref: loss rel err {loss_err}")
@@ -597,7 +766,7 @@ def train_phase(colors, mesh_plain, dev):
     trainer.model.zero_grad(set_to_none=True)
 
     _profile_steps(trainer, batches[:2], med)
-    return launches
+    return launches, per_step
 
 
 def main() -> int:
@@ -652,7 +821,7 @@ def main() -> int:
         )
         golden_check(dev)
 
-    render_launches = render_phase(model, mesh, mesh_cpu, dev)
+    render_phase(model, mesh, mesh_cpu, dev)
 
     with torch.inference_mode():
         o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
@@ -663,12 +832,27 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    train_launches = train_phase(colors, mesh_plain, dev)
+    train_phase(colors, mesh_plain, dev)
+    torch.cuda.empty_cache()
 
+    # The fused-MLP configuration: the same seeded weights.
+    model = TetraNerf(tetranerf_preset(ray_buckets=1, fused_mlps=True),
+                      mesh.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    kernels += mlp_checks(model, dev)
+    torch.cuda.empty_cache()
+    render_launches = render_phase(model, mesh, mesh_cpu, dev, FUSED_RENDER_KERNELS)
+    del model
+    torch.cuda.empty_cache()
+    train_launches, step_launches = train_phase(colors, mesh_plain, dev, fused=True)
+
+    chunks = REQUESTS * REQUEST_RAYS // CHUNK
     for k in kernels:
-        k["launches"] = train_launches[k["name"]]
-        if k["name"] in render_launches and render_launches[k["name"]]:
-            k["launches_render"] = render_launches[k["name"]]
+        name = k["name"]
+        k["launches"] = train_launches[name]
+        k["launches_per_step"] = step_launches[name]
+        k["launches_render"] = render_launches[name]
+        k["launches_per_chunk"] = render_launches[name] / chunks
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

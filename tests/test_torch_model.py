@@ -128,9 +128,15 @@ def test_field_and_density_mlps_match_jax_at_float32(setup):
     )
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_get_outputs_match_jax(setup, compute_dtype):
-    jcfg, cfg = _configs(compute_dtype)
+@pytest.mark.parametrize(
+    "compute_dtype, fused",
+    [("float32", False), ("bfloat16", False), ("bfloat16", True)],
+    ids=["float32", "bfloat16", "bfloat16-fused"],
+)
+def test_get_outputs_match_jax(setup, compute_dtype, fused):
+    """With ``fused``, both models run the fused MLP kernels (the JAX one in
+    interpret mode, the port's twins here)."""
+    jcfg, cfg = _configs(compute_dtype, fused_mlps=fused)
     params, ref = _jax_outputs(setup, jcfg)
     out = _port_outputs(setup, cfg, params)
     np.testing.assert_array_equal(out["ray_mask"], ref["ray_mask"])
@@ -183,7 +189,6 @@ def test_white_and_black_backgrounds(setup):
 
 @pytest.mark.parametrize("override", [
     dict(traversal_hops=2),
-    dict(fused_mlps=True),
     dict(ray_buckets=8),
     dict(grad_stream_budget_per_ray=128),
     dict(field_stream_dtype="bfloat16"),

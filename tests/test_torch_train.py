@@ -100,13 +100,19 @@ def _configs(compute_dtype, **extra):
 # ------------------------------------------------- (d) loss and gradients
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_train_forward_loss_and_gradients_match_jax(scene, compute_dtype):
+@pytest.mark.parametrize(
+    "compute_dtype, fused",
+    [("float32", False), ("bfloat16", False), ("bfloat16", True)],
+    ids=["float32", "bfloat16", "bfloat16-fused"],
+)
+def test_train_forward_loss_and_gradients_match_jax(scene, compute_dtype, fused):
+    """With ``fused``, both models run the fused MLP kernels forward and
+    backward (the JAX ones in interpret mode, the port's twins here)."""
     import jax
     import jax.numpy as jnp
     from tetranerf_tpu.models.tetra_nerf import RayBundle, TetraNerf as JaxTetraNerf
 
-    jcfg, cfg = _configs(compute_dtype)
+    jcfg, cfg = _configs(compute_dtype, fused_mlps=fused)
     jmesh = scene["jmesh_occ"]
     jmodel = JaxTetraNerf(jcfg.model, jmesh)
     params = jmodel.init_params(jax.random.PRNGKey(0), point_colors=scene["colors"])

@@ -7,7 +7,8 @@ repository unchanged). The package mirrors its layout:
   (:class:`TorchMesh`), built with numpy/scipy on the host.
 - ``ops``: hull slab, the march (kernel K1), the stream blend (K2, and
   its backward K2b), the sample interpolation (K3, and K3b), the row
-  scatter-add (K7), samplers, encoding and volume rendering.
+  scatter-add (K7), the fused field MLPs (K4, K4b) and density MLP (K5,
+  K5b) of ``fused_mlps=True``, samplers, encoding and volume rendering.
   Every kernel has a plain PyTorch twin; a wrapper runs the twin for CPU
   tensors and the kernel for CUDA tensors.
 - ``models``: the config dataclass, the MLP building blocks and the

@@ -12,7 +12,14 @@ Knobs of the JAX package that tune its TPU lowering are accepted here:
   its backward instead of recomputing them: autograd keeps 2.73 GB for a
   step of 4096 rays x 257 samples at the preset's widths, about 2.6 KB
   per (ray, sample) (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
-  700 W). The render path keeps none.
+  700 W). The render path keeps none. With ``fused_mlps`` the fused
+  kernels recompute them in their backward instead, as JAX's do.
+
+``fused_mlps=True`` runs the MLP stack as the fused CUDA kernels of
+``ops/mlp.py`` (without a Fourier input encoding, as in JAX). On the card
+they compute in bfloat16 only: ``compute_dtype="float32"`` with
+``fused_mlps`` raises ``NotImplementedError`` for CUDA tensors (its CPU
+twins run at either dtype).
 - ``interp_mode``: no-op. ``"matmul"``, ``"pallas"`` and ``"gather"``
   compute one function; the port always runs the sample-interp kernel.
 
@@ -93,7 +100,6 @@ def check_supported(config: TetrahedraNerfConfig) -> None:
     """Refuse settings whose code the port does not have yet."""
     refused = {
         "traversal_hops=2": config.traversal_hops != 1,
-        "fused_mlps=True": config.fused_mlps,
         "ray_buckets>=2 (bucketed shading)": config.ray_buckets >= 2,
         "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
         is not None,

@@ -2,10 +2,10 @@
 
 Counterpart of :class:`tetranerf_tpu.models.tetra_nerf.TetraNerf` with
 ``ray_buckets=1``: the render (eval) forward and the train forward, whose
-backward runs through the kernels' autograd Functions (``ops.interp``). The
-module holds the per-vertex feature field ``tetrahedra_field [V, F]``
-(vertex-major, as in the JAX package) and the four MLP parts; the mesh is
-passed to each call.
+backward runs through the kernels' autograd Functions (``ops.interp``, and
+with ``fused_mlps`` the fused MLP kernels of ``ops.mlp``). The module holds
+the per-vertex feature field ``tetrahedra_field [V, F]`` (vertex-major, as
+in the JAX package) and the four MLP parts; the mesh is passed to each call.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..ops.fused import (
     ray_bounds,
     sample_features,
 )
+from ..ops.mlp import FusedDensityMLP, FusedFieldMLPs, as_operand
 from ..ops.rendering import render_rgb_depth_acc, render_weights
 from ..ops.sampling import pdf_sample, stratified_bins
 from .config import TetrahedraNerfConfig, check_supported
@@ -137,15 +138,85 @@ class TetraNerf(nn.Module):
         return base_out, density
 
     def density_at(self, field_values):
-        """Density ``f32[...]`` only, at feature vectors ``[..., F]``: the
-        coarse PDF round and the occupancy updates read no colour."""
+        """Density ``f32[...]`` only, at feature vectors ``[..., F]``, on the
+        plain path: the occupancy updates read no colour (and stay un-fused
+        with ``fused_mlps``, as in the JAX trainer)."""
         return self._base(field_values)[1].float()
+
+    @property
+    def _fused(self) -> bool:
+        """The fused kernels (K4/K5) run the MLPs: ``fused_mlps`` without a
+        Fourier input encoding, as in the JAX model."""
+        cfg = self.config
+        return cfg.fused_mlps and cfg.input_fourier_frequencies == 0
+
+    def density_weights(self):
+        """The fused density kernel's flat weights (``ops.mlp``): base
+        ``(W, b)`` pairs, then the density layer's."""
+        weights = []
+        for layer in self.mlp_base.layers:
+            weights += [layer.weight, layer.bias]
+        return weights + [self.field_output_density.weight,
+                          self.field_output_density.bias]
+
+    def density_mlp(self, field_values):
+        """Density ``f32[R, S]`` of the coarse PDF round at features
+        ``[R, S, F]``: the fused density kernel K5 with ``fused_mlps``
+        (JAX ``_density_mlp``), else :meth:`density_at`."""
+        if self._fused:
+            return FusedDensityMLP.apply(
+                field_values, len(self.mlp_base.layers), self.compute_dtype,
+                *self.density_weights(),
+            )[..., 0]
+        return self.density_at(field_values)
+
+    def _appearance(self, num_rays, camera_indices):
+        emb = self.appearance_embedding
+        if camera_indices is not None:
+            return emb[torch.as_tensor(camera_indices, device=emb.device).long()]
+        return emb.mean(dim=0).expand(num_rays, -1)
+
+    def fused_field_inputs(self, directions, camera_indices=None):
+        """``(head_dir f32[R, H], weights)`` of the fused field kernel
+        (``ops.mlp``, JAX ``_field_mlps_fused``). The first head layer's
+        direction and appearance columns and its bias act per ray, so they
+        enter as ``head_dir``, computed here at ``[R, H]`` cost; its
+        base-feature columns go into ``weights``. Autograd carries the
+        gradients back through the column slices."""
+        cfg = self.config
+        dt = self.compute_dtype
+        head0 = self.mlp_head.layers[0]
+        w0 = head0.weight  # [H, 27 + H + A]: direction, base, appearance columns
+        d_dir, hidden = nerf_encoding_dim(3, _DIR_FREQS), cfg.hidden_size
+        dir_enc = nerf_encoding(directions, _DIR_FREQS, 0.0, 4.0)  # [R, 27]
+        head_dir = (as_operand(dir_enc, dt) @ as_operand(w0[:, :d_dir], dt).T
+                    + head0.bias)
+        if cfg.appearance_embed_dim > 0:
+            app = self._appearance(directions.shape[0], camera_indices)
+            head_dir = head_dir + (as_operand(app, dt)
+                                   @ as_operand(w0[:, d_dir + hidden:], dt).T)
+        weights = self.density_weights() + [w0[:, d_dir : d_dir + hidden]]
+        for layer in self.mlp_head.layers[1:]:
+            weights += [layer.weight, layer.bias]
+        weights += [self.field_output_color.weight, self.field_output_color.bias]
+        return head_dir, weights
+
+    def _field_mlps_fused(self, field_values, directions, camera_indices):
+        head_dir, weights = self.fused_field_inputs(directions, camera_indices)
+        rgb, density = FusedFieldMLPs.apply(
+            field_values, head_dir, len(self.mlp_base.layers),
+            len(self.mlp_head.layers), self.compute_dtype, *weights,
+        )
+        return rgb, density[..., 0]
 
     def field_mlps(self, field_values, directions, camera_indices=None):
         """``(rgb f32[R, S, 3], density f32[R, S])`` at per-sample features
         ``[R, S, F]`` seen along ``directions [R, 3]``. With an appearance
         embedding, ``camera_indices i32[R]`` pick each ray's row; without
-        them every ray takes the mean row (eval)."""
+        them every ray takes the mean row (eval). With ``fused_mlps`` (and
+        no Fourier input encoding) the fused field kernel K4 runs them."""
+        if self._fused:
+            return self._field_mlps_fused(field_values, directions, camera_indices)
         dt = self.compute_dtype
         base_out, density = self._base(field_values)
         num_rays, num_samples = base_out.shape[:2]
@@ -153,11 +224,7 @@ class TetraNerf(nn.Module):
         head_in = [dir_enc.to(dt)[:, None, :].expand(-1, num_samples, -1),
                    base_out.to(dt)]
         if self.config.appearance_embed_dim > 0:
-            emb = self.appearance_embedding
-            if camera_indices is not None:
-                app = emb[torch.as_tensor(camera_indices, device=emb.device).long()]
-            else:
-                app = emb.mean(dim=0).expand(num_rays, -1)
+            app = self._appearance(num_rays, camera_indices)
             head_in.append(app.to(dt)[:, None, :].expand(-1, num_samples, -1))
         head_out = self.mlp_head(torch.cat(head_in, dim=-1), torch.relu, dt, dt)
         rgb = torch.sigmoid(self.field_output_color(head_out, dt))
@@ -241,7 +308,7 @@ class TetraNerf(nn.Module):
         if n_fine > 0:
             with torch.no_grad():
                 _, deltas, smask, field_values = run_field(euclid)
-                density_c = torch.where(smask, self.density_at(field_values), 0.0)
+                density_c = torch.where(smask, self.density_mlp(field_values), 0.0)
                 weights_c = render_weights(density_c, deltas)
             spacing = pdf_sample(spacing, weights_c, n_fine, include_original=True,
                                  u=u.get("fine"))

@@ -40,6 +40,7 @@ _SOURCES = {
     "blend.cu": [],
     "interp.cu": [],
     "scatter.cu": [],
+    "mlp.cu": [],
 }
 
 _P = ctypes.c_void_p
@@ -53,12 +54,15 @@ _SIGNATURES = {
     "tetranerf_stream_blend_backward": [_P] * 4 + [_I] * 4 + [_P],
     "tetranerf_sample_interp_backward": [_P] * 7 + [_I] * 4 + [_P],
     "tetranerf_scatter_add_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 7 + [_P],
+    "tetranerf_fused_mlp_backward": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 launch_counts = {
     "march": 0, "stream_blend_gather": 0, "sample_interp": 0,
     "stream_blend_backward": 0, "sample_interp_backward": 0,
-    "scatter_add_rows": 0,
+    "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
+    "fused_density_mlp": 0, "fused_density_mlp_backward": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 
