@@ -41,7 +41,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 9. the fused render: phase 5 with ``fused_mlps=True`` (K4 and K5 must
    launch);
 10. the fused train run: phase 7 with ``fused_mlps=True`` (K4, K4b and K5
-    must launch).
+    must launch);
+11. the row gather K8 against its twin and ``torch.index_select``
+    (``library_ms``) at the flagship's bucket-slice shapes (the cold march
+    of 4096 train rays at T=384 cut into 8 quantile buckets at the cold
+    tune's bounds: cells, t0, t1, valid, stream ids, positions and
+    weights) and on a [100,000, 128] f32 table x 65,536 rows;
+12. the flagship train run: ``tetranerf_preset()`` with no overrides (8
+    quantile buckets, the transmittance retune every 128 steps), 260 steps
+    on the five batches of phase 7: the ``# retune@`` lines of steps 128
+    and 256, every loss finite and the last 5 below the first 5, every
+    kernel of the path launched (K8 included), the median step of steps
+    1-127 (cold) and 129-255 (after the first retune) beside phase 7's, a
+    profile of two steady steps after the retune, and one 256-ray step's
+    loss and field gradient against the CPU twins, un-fused and fused;
+13. the flagship render: ``Trainer.render_rays`` of phase 12's trainer (its
+    tuned bounds and calibrated cap) on 4 x 65,536 rays at chunk 8192, and
+    256 rays against the CPU twins.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -49,8 +65,10 @@ last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -67,7 +85,10 @@ REQUEST_RAYS = 65_536
 TRAIN_RAYS = 4096
 TRAIN_STEPS = 65
 TRAIN_BATCHES = 5
+FLAGSHIP_STEPS = 260
 REF_RAYS = 256
+GATHER_TABLE = (100_000, 128)
+GATHER_ROWS = 65_536
 # Kernel vs twin. K1-K3 and K2b/K3b sum a handful of f32 products per
 # output, in another order (and with FMA contraction) than the twin: 1e-5
 # on outputs of order 1 (forward) or 10 (the transposes add up to ~20
@@ -121,6 +142,25 @@ def _time_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn):
+    """Device time of the kernels ``fn`` launches, from ``torch.profiler``
+    (the sum of their durations, without the gaps between them), or None
+    where the profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def _max_err(a, b, finite_only=False):
@@ -493,6 +533,51 @@ def mlp_checks(model, dev):
     return results
 
 
+def mlp_bucket_checks(model, dev, shapes):
+    """K4, K4b, K5 and K5b against their twins at the shapes bucketed
+    shading gives them: ``(rays, coarse samples, fine samples)`` per case,
+    each held to ``MLP_NORM_RTOL`` and ``MLP_MAX_RTOL`` as in phase 8."""
+    import torch
+    from tetranerf_torch.ops import mlp
+
+    cfg = model.config
+    dt = model.compute_dtype
+    n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for rays, n_coarse, n_fine in shapes:
+        num_fine = n_coarse + n_fine + 1
+        x = randn(rays, num_fine, cfg.field_dim)
+        d = torch.nn.functional.normalize(randn(rays, 3), dim=1)
+        g_rgb, g_dens = randn(rays, num_fine, 3), randn(rays, num_fine, 1)
+        x_c, g_c = randn(rays, n_coarse, cfg.field_dim), randn(rays, n_coarse, 1)
+        with torch.no_grad():
+            head_dir, weights = model.fused_field_inputs(d)
+            weights = [w.detach() for w in weights]
+            w_dens = [w.detach() for w in model.density_weights()]
+        label = f"at {rays} rays x {num_fine} / {n_coarse} samples"
+        fwd = (x, head_dir, weights, n_base, n_head, dt)
+        _rel_check(f"fused_field_mlps {label}",
+                   zip(mlp.fused_field_mlps(*fwd), mlp.fused_field_mlps_twin(*fwd)))
+        bwd = (x, head_dir, weights, g_rgb, g_dens, n_base, n_head, dt)
+        dx, dhd, grads = mlp.fused_field_mlps_backward(*bwd)
+        dx_t, dhd_t, grads_t = mlp.fused_field_mlps_backward_twin(*bwd)
+        _rel_check(f"fused_field_mlps_backward {label}",
+                   [(dx, dx_t), (dhd, dhd_t), *zip(grads, grads_t)])
+        fwd = (x_c, w_dens, n_base, dt)
+        _rel_check(f"fused_density_mlp {label}", [(mlp.fused_density_mlp(*fwd),
+                                                   mlp.fused_density_mlp_twin(*fwd))])
+        bwd = (x_c, w_dens, g_c, n_base, dt)
+        dx, grads = mlp.fused_density_mlp_backward(*bwd)
+        dx_t, grads_t = mlp.fused_density_mlp_backward_twin(*bwd)
+        _rel_check(f"fused_density_mlp_backward {label}",
+                   [(dx, dx_t), *zip(grads, grads_t)])
+        print(f"fused MLP kernels {label}: within tolerance of their twins")
+
+
 def golden_check(device):
     """Phase 4: the golden march trace through K1."""
     import torch
@@ -591,7 +676,7 @@ def _loss_and_field_grad(model, mesh, trainer, batch, uniforms, device):
         torch.as_tensor(batch["origins"], device=device),
         torch.as_tensor(batch["directions"], device=device), mesh,
         max_steps=trainer.max_steps, occ_depth_cap=trainer.occ_depth_cap,
-        train=True, uniforms=uniforms,
+        train=True, uniforms=uniforms, bucket_steps=trainer.tuned_bucket_steps,
     )
     loss = model.loss(out, torch.as_tensor(batch["rgb"], device=device))
     loss.backward()
@@ -617,7 +702,7 @@ def _saved_bytes(trainer, batch, device):
             torch.as_tensor(batch["origins"], device=device),
             torch.as_tensor(batch["directions"], device=device), trainer.mesh,
             max_steps=trainer.max_steps, occ_depth_cap=trainer.occ_depth_cap,
-            train=True,
+            train=True, bucket_steps=trainer.tuned_bucket_steps,
         )
     return sum(kept.values())
 
@@ -666,7 +751,8 @@ def _profile_steps(trainer, batches, median_ms):
 
 _PORT_KERNELS = ("march_kernel", "blend_kernel", "blend_bwd_kernel",
                  "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel",
-                 "mlp_fwd_kernel", "mlp_bwd_kernel", "sum_rows_kernel")
+                 "mlp_fwd_kernel", "mlp_bwd_kernel", "sum_rows_kernel",
+                 "gather_kernel")
 
 
 def _kernel_group(name):
@@ -687,7 +773,8 @@ def _kernel_group(name):
 def train_phase(colors, mesh_plain, dev, fused=False):
     """Phases 7 and 10: the train path, with the fused MLP kernels when
     ``fused``. Returns the kernels' launch counts of the 65 steps and of
-    step 1 alone (a steady step: no occupancy work)."""
+    step 1 alone (a steady step: no occupancy work), and the median step
+    in ms."""
     import torch
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
@@ -766,7 +853,259 @@ def train_phase(colors, mesh_plain, dev, fused=False):
     trainer.model.zero_grad(set_to_none=True)
 
     _profile_steps(trainer, batches[:2], med)
-    return launches, per_step
+    return launches, per_step, med
+
+
+FLAGSHIP_KERNELS = TRAIN_KERNELS + ("row_gather",)
+
+
+def _slice_calls(res, bounds):
+    """The K8 calls with which ``slice_march`` cuts ``res`` into its
+    quantile buckets at ``bounds``: ``(table, idx, width)`` per tensor and
+    bucket, as ``TetraNerf._get_outputs_bucketed`` makes them."""
+    import torch
+
+    order = torch.argsort(res.num_valid, stable=True)
+    num_rays, k_buckets = res.num_valid.shape[0], len(bounds)
+    s = res.stream
+    pos, bary = (x.reshape(num_rays, -1) for x in (s.pos, s.bary))
+    calls = []
+    for k, t in enumerate(bounds):
+        idx = order[num_rays * k // k_buckets : num_rays * (k + 1) // k_buckets]
+        idx = idx.to(torch.int32).contiguous()
+        calls += [(res.cells, idx, t), (res.t1, idx, t), (res.t0s, idx, t),
+                  (res.valid, idx, t), (s.vids, idx, t + 4),
+                  (pos, idx, (t + 1) * 4), (bary, idx, (t + 1) * 4)]
+    return calls
+
+
+def gather_checks(mesh, origins, directions):
+    """Phase 11: K8 against its twin (bit for bit: a copy) and against
+    ``torch.index_select`` of the same rows and columns (``library_ms``),
+    at the flagship's bucket-slice shapes and on a wide f32 table."""
+    import torch
+    from tetranerf_torch.ops import gather
+    from tetranerf_torch.ops.march import march
+    from tetranerf_torch.training.trainer import quantile_bucket_bounds
+
+    res = march(mesh, origins, directions, 384)
+    bounds = quantile_bucket_bounds(res.num_valid.cpu().numpy(), 8, 384, 100.0,
+                                    margin=1.5) + (384,)
+    calls = _slice_calls(res, bounds)
+    for table, idx, w in calls:
+        _check(torch.equal(gather.row_gather(table, idx, w),
+                           gather.row_gather_twin(table, idx, w)),
+               f"row_gather: differs from the twin at {tuple(table.shape)} "
+               f"{table.dtype} width {w}")
+    moved = sum(idx.shape[0] * (2 * w * table.element_size() + 4)
+                for table, idx, w in calls)
+
+    def run(fn):
+        return lambda: [fn(table, idx, w) for table, idx, w in calls]
+
+    def index_select(table, idx, w):
+        return torch.index_select(table[:, :w], 0, idx)
+
+    gen = torch.Generator(device=origins.device).manual_seed(11)
+    wide = torch.randn(GATHER_TABLE, generator=gen, device=origins.device)
+    rows = torch.randint(0, GATHER_TABLE[0], (GATHER_ROWS,), generator=gen,
+                         device=origins.device, dtype=torch.int32)
+    _check(torch.equal(gather.row_gather(wide, rows), gather.row_gather_twin(wide, rows)),
+           "row_gather: differs from the twin on the wide table")
+    wide_bound = _bound(GATHER_ROWS * (2 * GATHER_TABLE[1] * 4 + 4), 0)
+    entry = _entry(
+        "row_gather", "tetranerf_torch/csrc/gather.cu",
+        "tetranerf_tpu/ops/pallas_gather.py:73", 0.0,
+        _time_ms(run(gather.row_gather), 10), _time_ms(run(gather.row_gather_twin), 10),
+        _bound(moved, 0), library_ms=_time_ms(run(index_select), 10),
+        calls_per_slice=len(calls), slice_bounds=list(bounds),
+        device_ms=_device_ms(run(gather.row_gather)),
+        library_device_ms=_device_ms(run(index_select)),
+        wide_table_ms=_time_ms(lambda: gather.row_gather(wide, rows), 20),
+        wide_table_plain_ms=_time_ms(lambda: gather.row_gather_twin(wide, rows), 20),
+        wide_table_library_ms=_time_ms(lambda: torch.index_select(wide, 0, rows), 20),
+        wide_table_bound_ms=wide_bound["bound_ms"],
+    )
+    print(f"row_gather: bit-exact against the twin; one bucketed slice of "
+          f"{origins.shape[0]} rays at bounds {bounds} = {len(calls)} calls, "
+          f"{moved / 1e6:.1f} MB moved: {entry['ms']:.3f} ms (twin "
+          f"{entry['plain_ms']:.3f}, index_select {entry['library_ms']:.3f}, bound "
+          f"{entry['bound_ms']:.4f}; kernels alone by the profiler: K8 "
+          f"{entry['device_ms']} ms, index_select {entry['library_device_ms']} ms); "
+          f"[{GATHER_TABLE[0]}, {GATHER_TABLE[1]}] f32 x "
+          f"{GATHER_ROWS} rows: {entry['wide_table_ms']:.4f} ms (twin "
+          f"{entry['wide_table_plain_ms']:.4f}, index_select "
+          f"{entry['wide_table_library_ms']:.4f}, bound {entry['wide_table_bound_ms']:.4f})")
+    return entry
+
+
+def _ref_uniforms(model, trainer, num_rays, seed):
+    """Numpy uniforms of one train forward at the trainer's bounds: one dict
+    per bucket of the model's plan (or one dict when the forward is not
+    bucketed)."""
+    cfg = model.config
+    rng = np.random.default_rng(seed)
+
+    def draw(n, n_coarse, n_fine):
+        return {"coarse": rng.random((n, n_coarse + 1), np.float32),
+                "fine": rng.random((n, n_fine + 1), np.float32),
+                "background": rng.random((n, 3), np.float32)}
+
+    full = trainer.max_steps
+    bounds = model.bucket_bounds(full, None, trainer.tuned_bucket_steps)
+    if cfg.ray_buckets < 2 or all(b >= full for b in bounds):
+        return draw(num_rays, cfg.num_samples, cfg.num_fine_samples)
+    out = [None] * len(bounds)
+    for k, lo, hi, _, n_coarse, n_fine in model.bucket_plan(num_rays, bounds):
+        out[k] = draw(hi - lo, n_coarse, n_fine)
+    return out
+
+
+def _ref_step(label, model, trainer, batch, dev):
+    """One 256-ray step's loss and field gradient of ``model`` at the
+    trainer's bounds and cap, on the card and on the CPU twins."""
+    uniforms = _ref_uniforms(model, trainer, REF_RAYS, 7)
+    model_cpu = copy.deepcopy(model).to("cpu")
+    loss_g, grad_g = _loss_and_field_grad(model, trainer.mesh, trainer, batch,
+                                          uniforms, dev)
+    loss_c, grad_c = _loss_and_field_grad(model_cpu, trainer.mesh.to("cpu"), trainer,
+                                          batch, uniforms, "cpu")
+    model.zero_grad(set_to_none=True)
+    loss_err = abs(loss_g - loss_c) / loss_c
+    grad_err = float((grad_g - grad_c).abs().max() / grad_c.abs().max())
+    print(f"{label} vs CPU twins ({REF_RAYS} rays): loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(rel {loss_err:.3g}), field gradient max abs diff / max {grad_err:.3g}")
+    _check(loss_err <= REF_LOSS_RTOL, f"{label} ref: loss rel err {loss_err}")
+    _check(grad_err <= REF_GRAD_RTOL, f"{label} ref: field grad rel err {grad_err}")
+
+
+def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
+    """Phase 12: the preset as it ships, trained through two retunes.
+    Returns the trainer, the launch counts of the run and of one steady
+    step after the first retune."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = tetranerf_preset()
+    model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+    rng = np.random.default_rng(1)  # phase 7's five batches
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    losses, overflow, step_ms, log = [], [], [], io.StringIO()
+    bounds = {}
+    for step in range(FLAGSHIP_STEPS):
+        b = batches[step % TRAIN_BATCHES]
+        before = dict(cuda.launch_counts)
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            m = trainer.train_step(b)
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        overflow.append(int(m["overflow_rays"]))
+        if step in (0, 128, 256):
+            bounds[step] = (trainer.max_steps, trainer.tuned_bucket_steps,
+                            round(trainer.occ_depth_cap, 3))
+        if step == 130:
+            per_step = {k: n - before[k] for k, n in cuda.launch_counts.items()}
+    launches = dict(cuda.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    retunes = [line for line in log.getvalue().splitlines() if line.startswith("# retune@")]
+    for line in retunes:
+        print(line)
+    _check([line.split(":")[0] for line in retunes] == ["# retune@128", "# retune@256"],
+           f"flagship train: retune lines {retunes}")
+    cold = float(np.median(step_ms[1:128]))
+    warm = float(np.median(step_ms[129:256]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"flagship train: {FLAGSHIP_STEPS} steps of {TRAIN_RAYS} rays; (bound, bucket "
+          f"bounds, cap) at steps 0 / 128 / 256: {bounds}; median step {cold:.2f} ms "
+          f"cold (steps 1-127) = {TRAIN_RAYS / cold * 1e3:.0f} rays/s, {warm:.2f} ms "
+          f"after the first retune (steps 129-255) = {TRAIN_RAYS / warm * 1e3:.0f} rays/s; "
+          f"phase 7 (ray_buckets=1) median {plain_median_ms:.2f} ms; ms of the retune "
+          f"steps {round(step_ms[128], 2)} / {round(step_ms[256], 2)}; peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"flagship train: loss first 5 mean {first:.5f}, last 5 mean {last:.5f}; "
+          f"losses {[round(x, 5) for x in losses[::20]]} (every 20th); overflow_rays "
+          f"{overflow[::20]} (every 20th), max {max(overflow)}; occupancy mean "
+          f"{float(trainer.occupancy.mean()):.3f}; launches {launches}; launches in "
+          f"step 130 {per_step}")
+    saved = _saved_bytes(trainer, batches[0], dev)
+    print(f"flagship train: autograd keeps {saved / 1e9:.3f} GB for the backward of one "
+          f"step after the retunes")
+    _check(all(np.isfinite(losses)), f"flagship train: non-finite loss {losses}")
+    _check(last < first, f"flagship train: loss did not fall ({first} -> {last})")
+    for k in FLAGSHIP_KERNELS:
+        _check(launches[k] > 0, f"flagship train: {k} did not launch: {launches}")
+        _check(per_step[k] > 0, f"flagship train: {k} not in a steady step: {per_step}")
+
+    ref_batch = _train_batch(rng, REF_RAYS)
+    _ref_step("flagship train", trainer.model, trainer, ref_batch, dev)
+    fused = TetraNerf(dataclasses.replace(cfg, fused_mlps=True), mesh_plain.num_vertices,
+                      device=dev)
+    fused.load_state_dict(trainer.model.state_dict())
+    _ref_step("flagship train (fused MLPs)", fused, trainer, ref_batch, dev)
+    # The fused kernels at a shallow bucket's shape: the shallowest bucket
+    # of this batch at the tuned bounds, and the budgets' floor (16 + 16).
+    bounds = fused.bucket_bounds(trainer.max_steps, None, trainer.tuned_bucket_steps)
+    _, lo, hi, _, n_coarse, n_fine = fused.bucket_plan(TRAIN_RAYS, bounds)[0]
+    mlp_bucket_checks(fused, dev, [(hi - lo, n_coarse, n_fine), (hi - lo, 16, 16)])
+    del fused
+    _profile_steps(trainer, batches[:2], warm)
+    return trainer, launches, per_step
+
+
+def flagship_render_phase(trainer, dev):
+    """Phase 13: ``Trainer.render_rays`` of the flagship trainer, and 256
+    rays against the CPU twins (both rendered as one 256-ray chunk: the
+    buckets are quantiles of the chunk's own rays)."""
+    import torch
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.render import Renderer
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays
+
+    origins, directions = sample_sphere_rays(
+        np.random.default_rng(0), REQUESTS * REQUEST_RAYS
+    )
+    trainer.render_rays(origins[:CHUNK], directions[:CHUNK], chunk=CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t = time.perf_counter()
+    outs = []
+    for i in range(REQUESTS):
+        sl = slice(i * REQUEST_RAYS, (i + 1) * REQUEST_RAYS)
+        outs.append(trainer.render_rays(origins[sl], directions[sl], chunk=CHUNK))
+    seconds = time.perf_counter() - t
+    launches = dict(cuda.launch_counts)
+    out = {k: np.concatenate([o_[k] for o_ in outs]) for k in outs[0]}
+    print(f"flagship render: {REQUESTS} x {REQUEST_RAYS} rays in {seconds:.3f} s = "
+          f"{REQUESTS * REQUEST_RAYS / seconds:.0f} rays/s at bound {trainer.max_steps}, "
+          f"buckets {trainer.tuned_bucket_steps}, cap {trainer.occ_depth_cap:.3f}; "
+          f"overflow {int(out['traversal_overflow'].sum())}, hit "
+          f"{int(out['ray_mask'].sum())}, launches {launches}")
+    for k in RENDER_KERNELS + ("row_gather",):
+        _check(launches[k] > 0, f"flagship render: {k} did not launch: {launches}")
+    for k in ("rgb", "depth", "accumulation"):
+        _check(np.isfinite(out[k]).all(), f"flagship render: non-finite {k}")
+    _check(out["rgb"].min() >= 0.0 and out["rgb"].max() <= 1.0, "flagship render: rgb range")
+
+    o, d = origins[:REF_RAYS], directions[:REF_RAYS]
+    got = trainer.render_rays(o, d, chunk=REF_RAYS)
+    ref = Renderer(copy.deepcopy(trainer.model).to("cpu"), trainer.mesh.to("cpu"), "cpu",
+                   occ_depth_cap=trainer.occ_depth_cap, max_steps=trainer.max_steps,
+                   bucket_steps=trainer.tuned_bucket_steps).render_rays(o, d, chunk=REF_RAYS)
+    _check(np.array_equal(ref["ray_mask"], got["ray_mask"]), "flagship ref: ray_mask")
+    _check(np.array_equal(ref["traversal_overflow"], got["traversal_overflow"]),
+           "flagship ref: overflow")
+    rgb_err = float(np.abs(ref["rgb"] - got["rgb"]).max())
+    _check(rgb_err <= RENDER_RGB_TOL, f"flagship ref: rgb max abs err {rgb_err}")
+    print(f"flagship render vs CPU twins ({REF_RAYS} rays): rgb max abs err {rgb_err:.3g}")
+    return launches
 
 
 def main() -> int:
@@ -821,7 +1160,7 @@ def main() -> int:
         )
         golden_check(dev)
 
-    render_phase(model, mesh, mesh_cpu, dev)
+    paths = {"render": render_phase(model, mesh, mesh_cpu, dev)}
 
     with torch.inference_mode():
         o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
@@ -832,7 +1171,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    train_phase(colors, mesh_plain, dev)
+    paths["train"], _, plain_median = train_phase(colors, mesh_plain, dev)
     torch.cuda.empty_cache()
 
     # The fused-MLP configuration: the same seeded weights.
@@ -841,18 +1180,35 @@ def main() -> int:
                       generator=torch.Generator().manual_seed(0), device=dev)
     kernels += mlp_checks(model, dev)
     torch.cuda.empty_cache()
-    render_launches = render_phase(model, mesh, mesh_cpu, dev, FUSED_RENDER_KERNELS)
+    paths["render_fused"] = render_phase(model, mesh, mesh_cpu, dev, FUSED_RENDER_KERNELS)
     del model
     torch.cuda.empty_cache()
-    train_launches, step_launches = train_phase(colors, mesh_plain, dev, fused=True)
+    paths["train_fused"], step_launches, _ = train_phase(colors, mesh_plain, dev,
+                                                         fused=True)
+    torch.cuda.empty_cache()
+
+    # The preset as it ships: bucketed shading through K8, the retunes.
+    with torch.inference_mode():
+        o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
+        kernels.append(gather_checks(mesh_plain.to(dev), torch.from_numpy(o).to(dev),
+                                     torch.from_numpy(d).to(dev)))
+    trainer, paths["flagship_train"], flagship_step = flagship_train_phase(
+        colors, mesh_plain, dev, plain_median)
+    paths["flagship_render"] = flagship_render_phase(trainer, dev)
+    del trainer
+    torch.cuda.empty_cache()
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     for k in kernels:
         name = k["name"]
-        k["launches"] = train_launches[name]
-        k["launches_per_step"] = step_launches[name]
-        k["launches_render"] = render_launches[name]
-        k["launches_per_chunk"] = render_launches[name] / chunks
+        # The train run of the configuration whose path runs the kernel: the
+        # flagship (phase 12), else the fused-MLP run (phase 10).
+        flagship = paths["flagship_train"][name] > 0
+        k["launches"] = paths["flagship_train" if flagship else "train_fused"][name]
+        k["launches_per_step"] = (flagship_step if flagship else step_launches)[name]
+        k["launches_per_chunk"] = paths["flagship_render" if flagship
+                                        else "render_fused"][name] / chunks
+        k["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

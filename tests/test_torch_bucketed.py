@@ -1,0 +1,328 @@
+"""Quantile-bucketed shading (``ray_buckets >= 2``) against the JAX model:
+the march slice (K8's path), the bucket bounds and budgets, the eval
+forward and the train forward's loss and gradients."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tetranerf_torch.geometry import TorchMesh
+from tetranerf_torch.models import TetraNerf, tetranerf_preset
+from tetranerf_torch.ops.fused import march_features, slice_march
+from tetranerf_torch.ops.march import FusedMarch, MarchStream
+from tetranerf_torch.training.checkpoints import params_from_jax
+from tetranerf_torch.utils.shapes import inner_bound, scaled_budget
+from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
+from test_torch_train import _jax_layout, _rel_err, _step_uniforms
+
+# The tetra-nerf preset narrowed, with 4 buckets.
+SMALL = dict(field_dim=16, hidden_size=32, num_samples=16, num_fine_samples=16,
+             max_intersected_triangles=64, ray_buckets=4)
+THRESHOLD = 1e-4
+CAP = float(-np.log(THRESHOLD))
+K = SMALL["ray_buckets"]
+
+
+def _configs(compute_dtype="float32", **extra):
+    from tetranerf_tpu.training.presets import tetranerf_preset as jax_preset
+
+    kw = dict(SMALL, compute_dtype=compute_dtype, **extra)
+    return dataclasses.replace(jax_preset().model, **kw), tetranerf_preset(**kw)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The 800-point sphere with a shell occupancy column (crossing counts
+    3-50 under the cap), 128 rays, and JAX parameters whose field carries
+    point colours plus noise."""
+    import jax
+    from tetranerf_tpu.geometry import build_mesh as jax_build_mesh
+    from tetranerf_tpu.models.tetra_nerf import TetraNerf as JaxTetraNerf
+
+    points, colors = make_sphere_scene(800, seed=0)
+    jmesh = jax_build_mesh(points)
+    centroids = np.asarray(jmesh.vertices)[np.asarray(jmesh.cells)].mean(axis=1)
+    occ = np.where(np.linalg.norm(centroids, axis=1) > 0.85, 30.0, 0.0)
+    jmesh = jmesh.with_occupancy(occ.astype(np.float32))
+    mesh = TorchMesh.from_tables(jmesh, device="cpu")
+    origins, directions = sample_sphere_rays(np.random.default_rng(1), 128)
+    jcfg, _ = _configs()
+    params = JaxTetraNerf(jcfg, jmesh).init_params(jax.random.PRNGKey(0),
+                                                   point_colors=colors)
+    noise = np.random.default_rng(3).normal(scale=0.5, size=params["tetrahedra_field"].shape)
+    params["tetrahedra_field"] = params["tetrahedra_field"] + noise.astype(np.float32)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    # Each quantile chunk's deepest crossing count under the cap: covering
+    # inner bounds, below the bound 64 (so the bucketed path runs).
+    nv = march_features(mesh, None, torch.from_numpy(origins),
+                        torch.from_numpy(directions), 64, use_occupancy=True,
+                        occ_depth_cap=CAP).num_valid.numpy()
+    snv = np.sort(nv)
+    covering = tuple(int(snv[: len(snv) * (k + 1) // K].max()) for k in range(K - 1))
+    assert max(covering) < 64
+    return dict(jmesh=jmesh, mesh=mesh, origins=origins, directions=directions,
+                params=params, covering=covering, nv=nv)
+
+
+def _jax_model(setup, jcfg):
+    from tetranerf_tpu.models.tetra_nerf import TetraNerf as JaxTetraNerf
+
+    return JaxTetraNerf(jcfg, setup["jmesh"])
+
+
+def _port_model(setup, cfg):
+    model = TetraNerf(cfg, setup["mesh"].num_vertices, device="cpu")
+    params_from_jax(model, setup["params"])
+    return model
+
+
+def _to_port(jres) -> FusedMarch:
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    s = jres.stream
+    return FusedMarch(
+        cells=t(jres.cells), t1=t(jres.t1), t_entry=t(jres.t_entry),
+        valid=t(jres.valid), num_valid=t(jres.num_valid), feats=None,
+        hit=t(jres.hit), overflow=t(jres.overflow),
+        stream=MarchStream(vids=t(s.vids), pos=t(s.pos), bary=t(s.bary)),
+        t0s=t(jres.t0s),
+    )
+
+
+# ---------------------------------------------------------- the slice
+
+
+@pytest.mark.parametrize("t", [5, 16, 40, 64, 80])
+def test_slice_march_matches_jax_field_by_field(setup, t):
+    """The same march cut by both: a copy, so every field is equal bit for
+    bit, truncation folded into ``overflow`` and ``num_valid`` recounted."""
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.fused import _slice_march
+    from tetranerf_tpu.ops.fused import march_features as jax_march_features
+
+    jres = jax_march_features(
+        setup["jmesh"].on_device(), None, jnp.asarray(setup["origins"]),
+        jnp.asarray(setup["directions"]), 64, use_occupancy=True,
+        occ_threshold=THRESHOLD, occ_depth_cap=CAP,
+    )
+    idx = np.random.default_rng(t).permutation(128)[:50].astype(np.int32)
+    ref = _slice_march(jres, jnp.asarray(idx), t)
+    out = slice_march(_to_port(jres), torch.from_numpy(idx), t)
+    assert out.feats is None and ref.feats is None
+    for name in ("cells", "t1", "t_entry", "valid", "num_valid", "hit", "overflow", "t0s"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+        assert getattr(out, name).dtype == torch.from_numpy(
+            np.array(getattr(ref, name))).dtype, name
+    for name in ("vids", "pos", "bary"):
+        np.testing.assert_array_equal(getattr(out.stream, name).numpy(),
+                                      np.asarray(getattr(ref.stream, name)), err_msg=name)
+    if t < 40:
+        assert out.overflow.any()  # deep rays lose their tails
+
+
+# ---------------------------------------------------- bounds and budgets
+
+
+@pytest.mark.parametrize("max_steps, short, bucket_steps, k_buckets", [
+    (64, None, None, 4), (384, None, None, 8), (40, None, None, 4),
+    (256, 40, None, 8), (96, None, (8, 200, 30), 4), (512, None, (48, 96, 96, 128, 200, 256, 300), 8),
+    (64, None, (20, 30, 40, 50, 60), 4),
+])
+def test_bucket_bounds_match_jax(setup, max_steps, short, bucket_steps, k_buckets):
+    jcfg, cfg = _configs(ray_buckets=k_buckets)
+    ref = _jax_model(setup, jcfg)._bucket_bounds(max_steps, short, bucket_steps)
+    assert _port_model(setup, cfg).bucket_bounds(max_steps, short, bucket_steps) == ref
+
+
+def test_bounds_and_budgets_match_the_jax_shape_policy():
+    from tetranerf_tpu.utils import shapes
+
+    for n in (0, 3, 13.9, 14, 16, 57, 101, 217, 384, 1000):
+        assert inner_bound(n) == shapes.inner_bound(n)
+        assert inner_bound(n, 1.5) == shapes.inner_bound(n, 1.5)
+    for base in (0, 16, 128):
+        for t in (16, 40, 100, 384):
+            assert scaled_budget(base, t, 384) == shapes.scaled_budget(base, t, 384)
+
+
+def test_bucket_plan_splits_equal_quantile_chunks(setup):
+    _, cfg = _configs(ray_buckets=8, num_samples=128, num_fine_samples=128)
+    model = _port_model(setup, cfg)
+    plan = model.bucket_plan(4096, (48, 64, 96, 128, 160, 200, 256, 384))
+    assert [(lo, hi) for _, lo, hi, *_ in plan] == [(512 * k, 512 * (k + 1)) for k in range(8)]
+    assert [p[4] for p in plan] == [scaled_budget(128, t, 384) for t in
+                                    (48, 64, 96, 128, 160, 200, 256, 384)]
+    assert [k for k, *_ in model.bucket_plan(3, (16, 16, 32, 64))] == [1, 2, 3]
+
+
+# ------------------------------------------------------ the eval forward
+
+
+def _eval(setup, jcfg, cfg, bucket_steps):
+    import jax.numpy as jnp
+    from tetranerf_tpu.models.tetra_nerf import RayBundle
+
+    rays = RayBundle(jnp.asarray(setup["origins"]), jnp.asarray(setup["directions"]))
+    ref = _jax_model(setup, jcfg).get_outputs(
+        setup["params"], rays, rng=None, train=False, mesh=setup["jmesh"].on_device(),
+        occ_depth_cap=CAP, bucket_steps=bucket_steps,
+    )
+    with torch.inference_mode():
+        out = _port_model(setup, cfg).get_outputs(
+            torch.from_numpy(setup["origins"]), torch.from_numpy(setup["directions"]),
+            setup["mesh"], occ_depth_cap=CAP, bucket_steps=bucket_steps,
+        )
+    return ({k: v.numpy() for k, v in out.items()},
+            {k: np.asarray(v) for k, v in ref.items()})
+
+
+def _assert_close_to_jax(out, ref):
+    np.testing.assert_array_equal(out["ray_mask"], ref["ray_mask"])
+    np.testing.assert_array_equal(out["traversal_overflow"], ref["traversal_overflow"])
+    # As in test_torch_model.py: JAX blends endpoint features with a bf16
+    # contraction even at float32 compute; the port computes in f32.
+    np.testing.assert_allclose(out["rgb"], ref["rgb"], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(out["accumulation"], ref["accumulation"], atol=2e-2, rtol=0)
+
+
+def test_covering_buckets_match_jax_and_the_unbucketed_forward(setup):
+    """Bounds that cover each chunk and unscaled budgets: the bucketed
+    forward computes the unbucketed one (as ``tests/test_model.py:323-373``
+    holds for JAX)."""
+    jcfg, cfg = _configs(bucket_adaptive_samples=False)
+    out, ref = _eval(setup, jcfg, cfg, setup["covering"])
+    _assert_close_to_jax(out, ref)
+    assert not out["traversal_overflow"].any()
+    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    np.testing.assert_array_equal(out["ray_mask"], plain["ray_mask"])
+    np.testing.assert_array_equal(out["traversal_overflow"], plain["traversal_overflow"])
+    # f32 throughout; only the MLP GEMMs' batch differs between the two.
+    np.testing.assert_allclose(out["rgb"], plain["rgb"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out["depth"], plain["depth"], atol=1e-4, rtol=0)
+
+
+def test_adaptive_budgets_match_jax(setup):
+    """Shallow buckets shade fewer samples (``scaled_budget``), at least the
+    full budget's per-crossing density: close to the unbucketed forward."""
+    jcfg, cfg = _configs(bucket_adaptive_samples=True)
+    out, ref = _eval(setup, jcfg, cfg, setup["covering"])
+    _assert_close_to_jax(out, ref)
+    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    np.testing.assert_array_equal(out["ray_mask"], plain["ray_mask"])
+    assert float(np.mean((out["rgb"] - plain["rgb"]) ** 2)) < 1e-3
+
+
+def test_truncating_inner_bounds_match_jax_overflow(setup):
+    jcfg, cfg = _configs(bucket_adaptive_samples=True)
+    out, ref = _eval(setup, jcfg, cfg, (4, 8, 16))
+    _assert_close_to_jax(out, ref)
+    deep = setup["nv"] > 16
+    assert deep.any() and out["traversal_overflow"].sum() > 0
+    np.testing.assert_array_equal(out["traversal_overflow"] & ~deep, False)
+
+
+def test_untuned_bounds_and_the_full_bound_path(setup):
+    """Without tuned bounds the linear split (16, 32, 48, 64) is used; with
+    every bound at ``max_steps`` bucketing is a no-op and the plain forward
+    runs (no K8 slice)."""
+    jcfg, cfg = _configs(bucket_adaptive_samples=True)
+    out, ref = _eval(setup, jcfg, cfg, None)
+    _assert_close_to_jax(out, ref)
+    full, _ = _eval(setup, jcfg, cfg, (64, 64, 64))
+    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    for k in full:
+        np.testing.assert_array_equal(full[k], plain[k], err_msg=k)
+
+
+# ----------------------------------------------------- the train forward
+
+
+@pytest.mark.parametrize(
+    "compute_dtype, fused",
+    [("float32", False), ("bfloat16", False), ("bfloat16", True)],
+    ids=["float32", "bfloat16", "bfloat16-fused"],
+)
+def test_bucketed_train_forward_loss_and_gradients_match_jax(setup, compute_dtype, fused):
+    """Per-bucket random numbers from JAX's bucket keys; adaptive budgets
+    (32 samples per round scale down to 16 in shallow buckets) and one
+    truncating bucket (inner bounds below the covering ones)."""
+    import jax
+    import jax.numpy as jnp
+    from tetranerf_tpu.models.tetra_nerf import RayBundle
+
+    jcfg, cfg = _configs(compute_dtype, fused_mlps=fused, num_samples=32,
+                         num_fine_samples=32)
+    jmodel = _jax_model(setup, jcfg)
+    inner = (16,) + setup["covering"][1:]
+    o, d = setup["origins"][:64], setup["directions"][:64]
+    target = np.random.default_rng(5).random((64, 3)).astype(np.float32)
+    rng = jax.random.PRNGKey(11)
+
+    def loss_fn(p):
+        out = jmodel.get_outputs(
+            p, RayBundle(jnp.asarray(o), jnp.asarray(d)), rng=rng, train=True,
+            mesh=setup["jmesh"].on_device(), occ_depth_cap=CAP, bucket_steps=inner,
+        )
+        return jnp.mean(jnp.square(out["rgb"] - target))
+
+    loss_ref, grads_ref = jax.jit(jax.value_and_grad(loss_fn))(setup["params"])
+    model = _port_model(setup, cfg)
+    uniforms = _step_uniforms(rng, model, 64, 64, inner)
+    assert isinstance(uniforms, list) and len(uniforms) == K
+    assert len({u["coarse"].shape[1] for u in uniforms}) > 1  # budgets differ
+    out = model.get_outputs(torch.from_numpy(o), torch.from_numpy(d), setup["mesh"],
+                            occ_depth_cap=CAP, train=True, uniforms=uniforms,
+                            bucket_steps=inner)
+    loss = model.loss(out, torch.from_numpy(target))
+    loss.backward()
+    # The tolerances of test_torch_train.py's unbucketed case: JAX's bf16
+    # blend contraction moves the PDF samples, so everything downstream
+    # differs at that level, relative to each gradient's largest entry.
+    tol = {"float32": 5e-2, "bfloat16": 1e-1}[compute_dtype]
+    assert abs(float(loss.detach()) - float(loss_ref)) <= 1e-4 * float(loss_ref)
+    flat_ours = jax.tree_util.tree_leaves(_jax_layout(model, grads=True))
+    flat_ref = jax.tree_util.tree_leaves(grads_ref)
+    assert len(flat_ours) == len(flat_ref)
+    for i, (a, r) in enumerate(zip(flat_ours, flat_ref)):
+        assert a.shape == r.shape, i
+        assert np.abs(np.asarray(r)).max() > 0, i
+        assert _rel_err(a, r) <= tol, (i, _rel_err(a, r))
+
+
+def test_bucketed_train_forward_draws_per_bucket_from_the_generator(setup):
+    """Without injected numbers each bucket draws its own from the step's
+    generator, in bucket order: the same seed gives the same loss."""
+    _, cfg = _configs()
+    losses = []
+    for _ in range(2):
+        model = _port_model(setup, cfg)
+        out = model.get_outputs(
+            torch.from_numpy(setup["origins"]), torch.from_numpy(setup["directions"]),
+            setup["mesh"], occ_depth_cap=CAP, train=True,
+            generator=torch.Generator().manual_seed(9), bucket_steps=setup["covering"],
+        )
+        losses.append(float(out["rgb"].detach().square().mean()))
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+
+
+@pytest.mark.parametrize("ray_buckets", [1, 4])
+def test_cached_march_reshades_the_same_rays(setup, ray_buckets):
+    """A geometry-only march of the same rays, re-shaded against the field
+    (the cached-march branch of ``_forward``), gives the forward's outputs."""
+    _, cfg = _configs(ray_buckets=ray_buckets)
+    model = _port_model(setup, cfg)
+    o = torch.from_numpy(setup["origins"])
+    d = torch.from_numpy(setup["directions"])
+    res = march_features(setup["mesh"], None, o, d, 64, use_occupancy=True,
+                         occ_depth_cap=CAP)
+    with torch.inference_mode():
+        ref = model.get_outputs(o, d, setup["mesh"], occ_depth_cap=CAP,
+                                bucket_steps=setup["covering"])
+        out = model.get_outputs(o, d, setup["mesh"], cached_march=res,
+                                bucket_steps=setup["covering"])
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k

@@ -189,7 +189,7 @@ def test_white_and_black_backgrounds(setup):
 
 @pytest.mark.parametrize("override", [
     dict(traversal_hops=2),
-    dict(ray_buckets=8),
+    dict(ray_buckets=8, bucket_merge_mlps=True),
     dict(grad_stream_budget_per_ray=128),
     dict(field_stream_dtype="bfloat16"),
 ])

@@ -35,18 +35,42 @@ def _batch(rng, num_rays=NUM_RAYS):
     return {"origins": o, "directions": d, "rgb": sphere_ray_targets(o, d)}
 
 
-def _jax_uniforms(rng, num_rays, cfg):
+def _jax_uniforms(rng, num_rays, cfg, buckets=None):
     """The numbers the JAX train forward draws from ``rng``: the keys of
     ``TetraNerf._forward`` at the shapes of ``stratified_bins`` and
-    ``pdf_sample`` (``ops/sampling.py:44``, ``:126``)."""
+    ``pdf_sample`` (``ops/sampling.py:44``, ``:126``). With ``buckets``
+    (``(K, plan)``, ``plan`` from the port's ``TetraNerf.bucket_plan``),
+    those of the bucketed forward: ``rng`` split into K bucket keys
+    (``models/tetra_nerf.py:513-517``), each bucket's numbers drawn at its
+    own ray and sample counts; a list indexed by bucket."""
     import jax
 
-    k_coarse, k_fine, k_bg = jax.random.split(rng, 3)
-    return {
-        "coarse": np.array(jax.random.uniform(k_coarse, (num_rays, cfg.num_samples + 1))),
-        "fine": np.array(jax.random.uniform(k_fine, (num_rays, cfg.num_fine_samples + 1))),
-        "background": np.array(jax.random.uniform(k_bg, (num_rays, 3))),
-    }
+    def draw(key, n, n_coarse, n_fine):
+        k_coarse, k_fine, k_bg = jax.random.split(key, 3)
+        return {
+            "coarse": np.array(jax.random.uniform(k_coarse, (n, n_coarse + 1))),
+            "fine": np.array(jax.random.uniform(k_fine, (n, n_fine + 1))),
+            "background": np.array(jax.random.uniform(k_bg, (n, 3))),
+        }
+
+    if buckets is None:
+        return draw(rng, num_rays, cfg.num_samples, cfg.num_fine_samples)
+    k_buckets, plan = buckets
+    keys = jax.random.split(rng, k_buckets)
+    out = [None] * k_buckets
+    for k, lo, hi, _, n_coarse, n_fine in plan:
+        out[k] = draw(keys[k], hi - lo, n_coarse, n_fine)
+    return out
+
+
+def _step_uniforms(rng, model, num_rays, max_steps, bucket_steps):
+    """:func:`_jax_uniforms` of a train forward of the port's ``model`` at
+    these bounds: per bucket when the forward is bucketed."""
+    cfg = model.config
+    bounds = model.bucket_bounds(max_steps, None, bucket_steps)
+    if cfg.ray_buckets < 2 or all(b >= max_steps for b in bounds):
+        return _jax_uniforms(rng, num_rays, cfg)
+    return _jax_uniforms(rng, num_rays, cfg, (len(bounds), model.bucket_plan(num_rays, bounds)))
 
 
 def _jax_layout(model, grads=False):
@@ -293,27 +317,6 @@ def test_eight_train_steps_match_jax_trainer(scene):
         np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
 
 
-# ----------------------------------------------------------- (g) the retune
-
-
-def test_retune_step_raises_not_implemented():
-    points, colors = make_sphere_scene(300, seed=0)
-    mesh = build_mesh(points, device="cpu")
-    cfg = tetranerf_preset(**dict(SMALL, occupancy_retune_every=2))
-    model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
-                      generator=torch.Generator().manual_seed(0), device="cpu")
-    trainer = Trainer(TrainConfig(), model, mesh, device="cpu")
-    rng = np.random.default_rng(0)
-    for _ in range(2):
-        metrics = trainer.train_step(_batch(rng, 32))
-        assert np.isfinite(float(metrics["loss"]))
-    before = [p.detach().clone() for p in model.parameters()]
-    with pytest.raises(NotImplementedError, match="retune"):
-        trainer.train_step(_batch(rng, 32))
-    assert trainer.step == 2
-    assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))
-
-
 def test_train_step_draws_its_own_numbers_reproducibly():
     """Without injected uniforms the step draws from a generator seeded by
     the trainer's seed and the step count: two trainers agree."""
@@ -333,6 +336,7 @@ def test_train_step_draws_its_own_numbers_reproducibly():
 
 
 def test_trainer_imports_and_steps_without_jax():
+    """The preset steps past its first retune with no JAX importable."""
     code = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -342,14 +346,21 @@ from tetranerf_torch.utils.synthetic import (make_sphere_scene, sample_sphere_ra
                                              sphere_ray_targets)
 points, colors = make_sphere_scene(300, seed=0)
 mesh = build_mesh(points, device="cpu")
+# The preset as it ships (8 buckets, the retune at step 128), narrowed.
 cfg = tetranerf_preset(field_dim=8, hidden_size=16, num_samples=8, num_fine_samples=8,
-                       max_intersected_triangles=32, ray_buckets=1)
+                       max_intersected_triangles=64)
+assert cfg.ray_buckets == 8 and cfg.occupancy_retune_every == 128
 model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
                   generator=torch.Generator().manual_seed(0), device="cpu")
 o, d = sample_sphere_rays(np.random.default_rng(0), 16)
-metrics = Trainer(TrainConfig(), model, mesh, device="cpu").train_step(
-    {"origins": o, "directions": d, "rgb": sphere_ray_targets(o, d)})
-assert np.isfinite(float(metrics["loss"]))
+trainer = Trainer(TrainConfig(), model, mesh, device="cpu")
+batch = {"origins": o, "directions": d, "rgb": sphere_ray_targets(o, d)}
+for _ in range(130):
+    metrics = trainer.train_step(batch)
+    assert np.isfinite(float(metrics["loss"]))
+assert trainer.step == 130 and len(trainer.tuned_bucket_steps) == 7
+assert len(trainer._cap_history) == 1  # the retune at step 128 ran
+assert np.isfinite(trainer.render_rays(o, d, chunk=8)["rgb"]).all()
 leaked = [m for m in sys.modules if m.startswith(("jax", "tetranerf_tpu"))
           and sys.modules[m] is not None]
 assert not leaked, leaked
@@ -362,6 +373,7 @@ print("OK")
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+    assert "# retune@128: bound=" in proc.stderr
 
 
 def test_entry_points_default_to_the_card():

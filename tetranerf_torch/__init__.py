@@ -8,13 +8,15 @@ repository unchanged). The package mirrors its layout:
 - ``ops``: hull slab, the march (kernel K1), the stream blend (K2, and
   its backward K2b), the sample interpolation (K3, and K3b), the row
   scatter-add (K7), the fused field MLPs (K4, K4b) and density MLP (K5,
-  K5b) of ``fused_mlps=True``, samplers, encoding and volume rendering.
+  K5b) of ``fused_mlps=True``, the row gather (K8) that cuts the quantile
+  buckets out of a march, samplers, encoding and volume rendering.
   Every kernel has a plain PyTorch twin; a wrapper runs the twin for CPU
   tensors and the kernel for CUDA tensors.
 - ``models``: the config dataclass, the MLP building blocks and the
   :class:`TetraNerf` module.
-- ``training``: the train step (:class:`Trainer`: occupancy upkeep,
-  forward, backward through the kernels K2b, K3b and K7, RAdam) and
+- ``training``: the train step (:class:`Trainer`: bound tune and
+  retunes, occupancy upkeep, forward, backward through the kernels K2b,
+  K3b and K7, RAdam, eval and rendering at the tuned bounds) and
   weights to and from the JAX package and the reference's state-dict
   layout.
 - ``render``: :class:`Renderer`, chunked ray rendering (the serving path).

@@ -23,6 +23,12 @@ twins run at either dtype).
 - ``interp_mode``: no-op. ``"matmul"``, ``"pallas"`` and ``"gather"``
   compute one function; the port always runs the sample-interp kernel.
 
+``ray_buckets >= 2`` shades rays in quantile buckets of their crossing
+count, each at its own bound (``TetraNerf.get_outputs``); the buckets are
+cut from one march with the row-gather kernel K8. The JAX variant that
+merges the buckets' MLP calls (``bucket_merge_mlps``, which JAX runs only
+without ``fused_mlps``) is not ported.
+
 Settings whose code is not ported yet are refused by
 :func:`check_supported` with ``NotImplementedError``.
 """
@@ -100,7 +106,8 @@ def check_supported(config: TetrahedraNerfConfig) -> None:
     """Refuse settings whose code the port does not have yet."""
     refused = {
         "traversal_hops=2": config.traversal_hops != 1,
-        "ray_buckets>=2 (bucketed shading)": config.ray_buckets >= 2,
+        "bucket_merge_mlps with ray_buckets>=2": config.ray_buckets >= 2
+        and config.bucket_merge_mlps and not config.fused_mlps,
         "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
         is not None,
         "field_stream_dtype='bfloat16'": config.field_stream_dtype
@@ -118,10 +125,9 @@ def check_supported(config: TetrahedraNerfConfig) -> None:
 def tetranerf_preset(**overrides) -> TetrahedraNerfConfig:
     """The model part of the ``tetra-nerf`` preset
     (``tetranerf_tpu.training.presets.tetranerf_preset``): 128 biased +
-    128 PDF samples, gradient scaling, occupancy termination at 1e-4.
-
-    The JAX preset also sets ``ray_buckets=8``; bucketed shading is not
-    ported, so pass ``ray_buckets=1`` (the render and train slices do)."""
+    128 PDF samples, gradient scaling, occupancy termination at 1e-4 with
+    the transmittance retune every 128 steps, and shading in 8 quantile
+    buckets with adaptive sample budgets."""
     cfg = TetrahedraNerfConfig(
         num_samples=128,
         num_fine_samples=128,

@@ -1,16 +1,18 @@
 """The Tetra-NeRF model: march -> sampling -> field -> MLPs -> rendering.
 
-Counterpart of :class:`tetranerf_tpu.models.tetra_nerf.TetraNerf` with
-``ray_buckets=1``: the render (eval) forward and the train forward, whose
-backward runs through the kernels' autograd Functions (``ops.interp``, and
-with ``fused_mlps`` the fused MLP kernels of ``ops.mlp``). The module holds
+Counterpart of :class:`tetranerf_tpu.models.tetra_nerf.TetraNerf`: the
+render (eval) forward and the train forward, whose backward runs through
+the kernels' autograd Functions (``ops.interp``, and with ``fused_mlps`` the
+fused MLP kernels of ``ops.mlp``), plain or in quantile buckets
+(``ray_buckets >= 2``, each bucket cut from one march by the row gather
+K8). The module holds
 the per-vertex feature field ``tetrahedra_field [V, F]`` (vertex-major, as
 in the JAX package) and the four MLP parts; the mesh is passed to each call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -19,13 +21,17 @@ from torch import nn
 from ..ops.encoding import nerf_encoding, nerf_encoding_dim
 from ..ops.fused import (
     biased_warp_range,
+    endpoint_features,
     march_features,
     ray_bounds,
     sample_features,
+    slice_march,
 )
+from ..ops.march import FusedMarch
 from ..ops.mlp import FusedDensityMLP, FusedFieldMLPs, as_operand
 from ..ops.rendering import render_rgb_depth_acc, render_weights
 from ..ops.sampling import pdf_sample, stratified_bins
+from ..utils.shapes import scaled_budget
 from .config import TetrahedraNerfConfig, check_supported
 from .nn import MLP, Linear
 
@@ -217,6 +223,11 @@ class TetraNerf(nn.Module):
         no Fourier input encoding) the fused field kernel K4 runs them."""
         if self._fused:
             return self._field_mlps_fused(field_values, directions, camera_indices)
+        return self.plain_field_mlps(field_values, directions, camera_indices)
+
+    def plain_field_mlps(self, field_values, directions, camera_indices=None):
+        """:meth:`field_mlps` on the plain path whatever ``fused_mlps`` says
+        (the transmittance probe's, as in the JAX trainer)."""
         dt = self.compute_dtype
         base_out, density = self._base(field_values)
         num_rays, num_samples = base_out.shape[:2]
@@ -251,8 +262,11 @@ class TetraNerf(nn.Module):
         occ_depth_cap=None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-        uniforms: Optional[Mapping[str, torch.Tensor]] = None,
+        uniforms=None,
         camera_indices=None,
+        bucket_steps: Optional[Sequence[int]] = None,
+        short_steps: Optional[int] = None,
+        cached_march: Optional[FusedMarch] = None,
     ) -> Dict[str, torch.Tensor]:
         """Forward of rays ``[R, 3]`` through ``mesh`` (a
         :class:`~..geometry.TorchMesh` on the rays' device).
@@ -260,18 +274,141 @@ class TetraNerf(nn.Module):
         ``train=True`` is the train forward (``TetraNerf._forward`` of the
         JAX model with ``train=True``): stratified coarse bins, stratified
         PDF samples and a random background (``"random"`` only), from
-        ``uniforms`` (keys of :func:`draw_uniforms`) or else drawn from
-        ``generator``; per-ray appearance rows from ``camera_indices``. The
-        coarse round runs without autograd, as the JAX model stops its
-        gradients.
+        ``uniforms`` (keys of :func:`draw_uniforms`; with bucketed shading
+        a list of such dicts, one per bucket of :meth:`bucket_plan` in
+        bucket order) or else drawn from ``generator``, bucket by bucket;
+        per-ray appearance rows from ``camera_indices``. The coarse round
+        runs without autograd, as the JAX model stops its gradients.
+
+        With ``ray_buckets >= 2`` the rays are shaded in quantile buckets
+        of their crossing count at the bounds of :meth:`bucket_bounds`
+        (``bucket_steps`` are the trainer's tuned inner bounds); when every
+        bound equals ``max_steps`` bucketing is a no-op and the plain
+        forward runs. ``cached_march`` re-shades a geometry-only march of
+        the same rays against the current field.
 
         Returns ``rgb [R, 3]``, ``accumulation [R, 1]``, ``depth [R, 1]``,
         ``ray_mask [R]`` and ``traversal_overflow [R]`` (rays whose march
-        reached ``max_steps`` before ending)."""
+        reached its bound, or a bucket's bound, before ending)."""
         cfg = self.config
         max_steps = max_steps or cfg.max_intersected_triangles
         n_coarse = cfg.num_samples if num_samples is None else num_samples
         n_fine = cfg.num_fine_samples if num_fine_samples is None else num_fine_samples
+        if not train:
+            camera_indices = None
+        elif camera_indices is not None:
+            camera_indices = torch.as_tensor(camera_indices, device=origins.device)
+        if cfg.ray_buckets >= 2:
+            if cached_march is not None:
+                max_steps = cached_march.t1.shape[1]
+            bounds = self.bucket_bounds(max_steps, short_steps, bucket_steps)
+            if any(b < max_steps for b in bounds):
+                return self._get_outputs_bucketed(
+                    origins, directions, mesh, bounds, n_coarse, n_fine,
+                    occ_depth_cap, train, generator, uniforms, camera_indices,
+                    cached_march,
+                )
+        return self._forward(
+            origins, directions, mesh, max_steps, n_coarse, n_fine,
+            occ_depth_cap, train, generator, uniforms, camera_indices,
+            cached_march,
+        )
+
+    def bucket_bounds(self, max_steps: int, short_steps: Optional[int] = None,
+                      bucket_steps: Optional[Sequence[int]] = None) -> tuple:
+        """The ``ray_buckets`` ascending bounds of quantile-bucketed shading,
+        the deepest at ``max_steps`` (JAX ``_bucket_bounds``). Priority:
+        ``bucket_steps`` (trainer-tuned inner bounds), then ``short_steps``
+        or ``config.bucket_short_steps`` interpolated linearly, then an
+        untuned linear split."""
+        cfg = self.config
+        k_buckets = cfg.ray_buckets
+        if bucket_steps is not None:
+            inner = [int(b) for b in bucket_steps][: k_buckets - 1]
+        else:
+            short = short_steps or cfg.bucket_short_steps
+            if short is None:
+                inner = [max(16, max_steps * (k + 1) // k_buckets)
+                         for k in range(k_buckets - 1)]
+            else:
+                inner = [int(short + (max_steps - short) * k / max(k_buckets - 1, 1))
+                         for k in range(k_buckets - 1)]
+        # Clamp into (0, max_steps], force nondecreasing.
+        bounds, cur = [], 16
+        for b in inner:
+            cur = min(max(b, cur), max_steps)
+            bounds.append(cur)
+        bounds.append(max_steps)
+        return tuple(bounds)
+
+    def bucket_plan(self, num_rays: int, bounds: Sequence[int],
+                    num_samples: Optional[int] = None,
+                    num_fine_samples: Optional[int] = None) -> List[tuple]:
+        """``(k, lo, hi, t_k, ns_k, nf_k)`` of each non-empty bucket: the
+        rays ``lo:hi`` of the crossing-count order, shaded at bound ``t_k``
+        with ``ns_k`` coarse and ``nf_k`` fine samples (scaled to the bound
+        with ``bucket_adaptive_samples``)."""
+        cfg = self.config
+        n_coarse = cfg.num_samples if num_samples is None else num_samples
+        n_fine = cfg.num_fine_samples if num_fine_samples is None else num_fine_samples
+        k_buckets, max_steps = len(bounds), bounds[-1]
+        plan = []
+        for k, t_k in enumerate(bounds):
+            lo, hi = num_rays * k // k_buckets, num_rays * (k + 1) // k_buckets
+            if hi == lo:
+                continue
+            if cfg.bucket_adaptive_samples:
+                ns_k = scaled_budget(n_coarse, t_k, max_steps)
+                nf_k = scaled_budget(n_fine, t_k, max_steps)
+            else:
+                ns_k, nf_k = n_coarse, n_fine
+            plan.append((k, lo, hi, t_k, ns_k, nf_k))
+        return plan
+
+    def _get_outputs_bucketed(
+        self, origins, directions, mesh, bounds, n_coarse, n_fine,
+        occ_depth_cap, train, generator, uniforms, camera_indices,
+        cached_march,
+    ):
+        """Quantile-bucketed shading (JAX ``_get_outputs_bucketed``, its
+        per-bucket path): one geometry-only march at the full bound (K1),
+        rays sorted by crossing count (stably, as ``jnp.argsort``) and cut
+        into equal quantile chunks; each chunk is sliced to its own bound
+        (K8) and shaded by :meth:`_forward` on that slice, and the outputs
+        go back to ray order."""
+        cfg = self.config
+        res = cached_march
+        if res is None:
+            res = march_features(
+                mesh, None, origins, directions, bounds[-1],
+                use_occupancy=cfg.use_occupancy_field,
+                occ_threshold=cfg.occupancy_threshold,
+                occ_depth_cap=occ_depth_cap,
+            )
+        order = torch.argsort(res.num_valid, stable=True)
+        inv_order = torch.argsort(order)
+        outs = []
+        for k, lo, hi, t_k, ns_k, nf_k in self.bucket_plan(
+            origins.shape[0], bounds, n_coarse, n_fine
+        ):
+            idx = order[lo:hi]
+            outs.append(self._forward(
+                origins[idx], directions[idx], mesh, t_k, ns_k, nf_k, None,
+                train, generator, None if uniforms is None else uniforms[k],
+                None if camera_indices is None else camera_indices[idx],
+                slice_march(res, idx, t_k),
+            ))
+        return {key: torch.cat([o[key] for o in outs])[inv_order] for key in outs[0]}
+
+    def _forward(
+        self, origins, directions, mesh, max_steps, n_coarse, n_fine,
+        occ_depth_cap, train, generator, uniforms, camera_indices,
+        cached_march=None,
+    ) -> Dict[str, torch.Tensor]:
+        """The forward of one batch of rays at one bound (JAX ``_forward``);
+        a ``cached_march`` is re-shaded: only its endpoint features (K2) are
+        computed, against the current field."""
+        cfg = self.config
         num_rays = origins.shape[0]
         dev = origins.device
         u = {}
@@ -281,15 +418,18 @@ class TetraNerf(nn.Module):
             )
             u = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
                  for k, v in u.items()}
-        else:
-            camera_indices = None
 
-        res = march_features(
-            mesh, self.tetrahedra_field, origins, directions, max_steps,
-            use_occupancy=cfg.use_occupancy_field,
-            occ_threshold=cfg.occupancy_threshold,
-            occ_depth_cap=occ_depth_cap,
-        )
+        if cached_march is not None:
+            res = cached_march._replace(
+                feats=endpoint_features(self.tetrahedra_field, cached_march.stream)
+            )
+        else:
+            res = march_features(
+                mesh, self.tetrahedra_field, origins, directions, max_steps,
+                use_occupancy=cfg.use_occupancy_field,
+                occ_threshold=cfg.occupancy_threshold,
+                occ_depth_cap=occ_depth_cap,
+            )
         nears, fars, first_kept, num_kept, ray_mask = ray_bounds(res)
         span = (fars - nears)[:, None]
 

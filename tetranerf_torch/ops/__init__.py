@@ -1,4 +1,4 @@
-"""Ray ops and fused MLPs of the port; the kernels (K1-K5, ``csrc/``) have
+"""Ray ops and fused MLPs of the port; the kernels (K1-K8, ``csrc/``) have
 PyTorch twins."""
 
 from .fused import (
@@ -7,7 +7,9 @@ from .fused import (
     march_features,
     ray_bounds,
     sample_features,
+    slice_march,
 )
+from .gather import row_gather
 from .march import FusedMarch, MarchStream, march
 from .mlp import (
     FusedDensityMLP,
@@ -39,6 +41,8 @@ __all__ = [
     "ray_bounds",
     "render_rgb_depth_acc",
     "render_weights",
+    "row_gather",
     "sample_features",
+    "slice_march",
     "stratified_bins",
 ]

@@ -41,11 +41,13 @@ _SOURCES = {
     "interp.cu": [],
     "scatter.cu": [],
     "mlp.cu": [],
+    "gather.cu": [],
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each C entry point (the trailing pointer is the CUDA stream).
 _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 11 + [_P],
@@ -56,13 +58,14 @@ _SIGNATURES = {
     "tetranerf_scatter_add_rows": [_P] * 3 + [_I] * 3 + [_P],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 7 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 10 + [_I] * 8 + [_P],
+    "tetranerf_row_gather": [_P] * 3 + [_I, _L, _I] + [_P],
 }
 
 launch_counts = {
     "march": 0, "stream_blend_gather": 0, "sample_interp": 0,
     "stream_blend_backward": 0, "sample_interp_backward": 0,
     "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
-    "fused_density_mlp": 0, "fused_density_mlp_backward": 0,
+    "fused_density_mlp": 0, "fused_density_mlp_backward": 0, "row_gather": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 

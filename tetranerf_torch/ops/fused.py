@@ -6,6 +6,8 @@ Counterpart of ``march_features``, ``endpoint_features``, ``ray_bounds``,
 ray inside a cell and continuous across faces, so a sample's feature is
 the exact lerp of the features at its interval's two endpoints: the march
 emits endpoint features once (K2) and every sampling round lerps them (K3).
+Bucketed shading cuts each quantile bucket out of one march with the row
+gather K8 (:func:`slice_march`) and recomputes its endpoint features.
 Where autograd records (grad enabled and a differentiable input), the two go
 through the autograd Functions whose backwards are K2b + K7 and K3b.
 """
@@ -20,6 +22,7 @@ from .interp import (
     sample_interp,
     stream_blend_gather,
 )
+from .gather import row_gather
 from .march import FusedMarch, MarchStream, march
 
 
@@ -53,6 +56,44 @@ def march_features(
     if field is None:
         return res
     return res._replace(feats=endpoint_features(field, res.stream))
+
+
+def slice_march(res: FusedMarch, idx: torch.Tensor, t: int) -> FusedMarch:
+    """Rays ``idx`` of a geometry-only march, cut to their first ``t``
+    intervals (JAX ``_slice_march``); ``feats`` is left None (recompute
+    with :func:`endpoint_features`).
+
+    Endpoint ``k`` references stream positions below ``4 + k``, so a stream
+    cut to ``t + 4`` ids and ``t + 1`` endpoints is self-consistent. The
+    ``[R, T]`` tensors and the stream go through K8, one launch each; the
+    per-ray vectors through plain indexing. Rays with more than ``t`` valid
+    intervals lose their far tail, and that truncation is folded into
+    ``overflow``."""
+    t = min(t, res.t1.shape[1])
+    idx = idx.to(torch.int32).contiguous()
+    num = idx.shape[0]
+    s = res.stream
+
+    def endpoints(x):  # [R, T+1, 4] as [R, (T+1)*4] rows, cut to t+1 endpoints
+        return row_gather(x.reshape(x.shape[0], -1), idx, (t + 1) * 4).view(num, t + 1, 4)
+
+    stream = MarchStream(vids=row_gather(s.vids, idx, t + 4),
+                         pos=endpoints(s.pos), bary=endpoints(s.bary))
+    valid = row_gather(res.valid, idx, t)
+    num_valid = valid.sum(dim=-1, dtype=torch.int32)
+    rows = idx.long()
+    return FusedMarch(
+        cells=row_gather(res.cells, idx, t),
+        t1=row_gather(res.t1, idx, t),
+        t_entry=res.t_entry[rows],
+        valid=valid,
+        num_valid=num_valid,
+        feats=None,
+        hit=res.hit[rows],
+        overflow=res.overflow[rows] | (num_valid < res.num_valid[rows]),
+        stream=stream,
+        t0s=row_gather(res.t0s, idx, t) if res.t0s is not None else None,
+    )
 
 
 def ray_bounds(res: FusedMarch, near: float = 0.0):

@@ -8,7 +8,7 @@ dummy rays, and per-ray outputs come back as numpy arrays.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,24 +20,48 @@ class Renderer:
 
     ``occ_depth_cap`` is the optical depth at which the march stops a ray
     when the config uses the occupancy field; None means
-    ``-log(occupancy_threshold)``, the JAX trainer's initial cap."""
+    ``-log(occupancy_threshold)``, the JAX trainer's initial cap.
+    ``max_steps`` and ``bucket_steps`` are the march bound and the inner
+    bucket bounds (a trainer's tuned ones, :meth:`~.training.trainer.Trainer.
+    renderer`); None means the configured bound and, with ``ray_buckets >=
+    2``, its untuned linear split, as the JAX model's eval without a
+    trainer."""
 
-    def __init__(self, model, mesh, device, occ_depth_cap=None):
+    def __init__(self, model, mesh, device, occ_depth_cap=None,
+                 max_steps: Optional[int] = None,
+                 bucket_steps: Optional[Sequence[int]] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.mesh = mesh.to(self.device)
         self.occ_depth_cap = occ_depth_cap
+        self.max_steps = max_steps
+        self.bucket_steps = bucket_steps
 
     @torch.inference_mode()
-    def render_rays(self, origins, directions, chunk: int = 8192) -> Dict[str, np.ndarray]:
-        """Render ``[N, 3]`` rays; returns ``rgb [N, 3]``, ``depth [N, 1]``,
-        ``accumulation [N, 1]``, ``ray_mask [N]`` and
-        ``traversal_overflow [N]``."""
+    def render_batch(self, origins, directions, num_samples: Optional[int] = None,
+                     num_fine_samples: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The eval forward of one batch of rays ``[R, 3]``, as tensors on
+        the device: ``rgb [R, 3]``, ``depth [R, 1]``, ``accumulation [R, 1]``,
+        ``ray_mask [R]`` and ``traversal_overflow [R]``.
+        ``num_samples``/``num_fine_samples`` override the sample budget."""
+        return self.model.get_outputs(
+            torch.as_tensor(origins, dtype=torch.float32, device=self.device),
+            torch.as_tensor(directions, dtype=torch.float32, device=self.device),
+            self.mesh, max_steps=self.max_steps, num_samples=num_samples,
+            num_fine_samples=num_fine_samples, occ_depth_cap=self.occ_depth_cap,
+            bucket_steps=self.bucket_steps,
+        )
+
+    def render_rays(self, origins, directions, chunk: int = 8192,
+                    num_samples: Optional[int] = None,
+                    num_fine_samples: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render ``[N, 3]`` rays in chunks of ``chunk`` (the last one padded
+        with rays from the origin along +z); returns the outputs of
+        :meth:`render_batch` for the ``N`` rays as numpy arrays."""
         origins = torch.as_tensor(origins, dtype=torch.float32)
         directions = torch.as_tensor(directions, dtype=torch.float32)
         num = origins.shape[0]
         dev = self.device
-        # Padding rays: from the origin straight along +z.
         pad_dir = torch.tensor([0.0, 0.0, 1.0], device=dev)
         outs = []
         for i in range(0, num, chunk):
@@ -47,9 +71,7 @@ class Renderer:
             if pad:
                 o = torch.cat([o, torch.zeros((pad, 3), device=dev)])
                 d = torch.cat([d, pad_dir.expand(pad, 3)])
-            out = self.model.get_outputs(
-                o, d, self.mesh, occ_depth_cap=self.occ_depth_cap
-            )
+            out = self.render_batch(o, d, num_samples, num_fine_samples)
             outs.append({k: v[: chunk - pad] for k, v in out.items()})
         return {
             k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]

@@ -1,24 +1,32 @@
-"""The train step: occupancy upkeep, forward, MSE loss, backward, RAdam.
+"""The train step: occupancy upkeep, bound retunes, forward, MSE loss,
+backward, RAdam.
 
 Counterpart of ``Trainer.train_step`` and ``make_train_step`` in
-:mod:`tetranerf_tpu.training.trainer`, on one device and with
-``ray_buckets=1``. Before a step, as in the JAX trainer:
+:mod:`tetranerf_tpu.training.trainer`, on one device. Before a step, as in
+the JAX trainer:
 
 - on the first call, a geometry-only probe tightens the march bound to the
-  scene (:meth:`Trainer.tune_traversal_steps`);
+  scene and, with ``ray_buckets >= 2``, sizes the quantile-bucket bounds
+  (:meth:`Trainer.tune_traversal_steps`);
 - every ``occupancy_update_every`` steps from step 0, a ray-based update
   of the per-cell density EMA (:meth:`Trainer.update_occupancy`);
 - every ``occupancy_refresh_every`` steps after step 0, a refresh at every
-  cell centroid (:meth:`Trainer.refresh_occupancy`);
+  cell centroid (:meth:`Trainer.refresh_occupancy`), each written into
+  column 24 of the march table;
+- every ``occupancy_retune_every`` steps after step 0, a retune of the
+  bounds: from the model's own optical depth, which also calibrates the
+  march's termination cap (:meth:`Trainer.retune_with_transmittance`), or
+  from the occupancy march (:meth:`Trainer.retune_with_occupancy`), as
+  ``occupancy_retune_mode`` says.
 
-each written into column 24 of the march table. The transmittance retune
-(JAX ``trainer.py:687-963``) is not ported: a step at which
-``occupancy_retune_every`` would fire raises ``NotImplementedError``.
+The trainer holds one termination cap, :attr:`Trainer.occ_depth_cap`: the
+train forward, the occupancy update, the probes and rendering all read it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -27,11 +35,63 @@ import torch
 from ..ops.fused import biased_warp_range, march_features, ray_bounds, sample_features
 from ..ops.march import march
 from ..ops.sampling import stratified_bins
-from ..utils.shapes import rounded_bound
+from ..render import Renderer
+from ..utils.shapes import inner_bound, rounded_bound
 from .optim import make_optimizer, set_step
 
 _PROBE_RAYS = 8192
 _REFRESH_CHUNK = 65536
+
+
+# Bucket-bound statistics: copies of the JAX trainer's helpers
+# (``training/trainer.py:59-125``), so that the port's tuned bounds equal
+# the JAX trainer's on the same crossing counts.
+def quantile_bucket_stats(nv: np.ndarray, k_buckets: int, percentile: float) -> tuple:
+    """Rays sorted by crossing count and split into K equal chunks; each
+    chunk's ``percentile`` crossing count (no margin, no grid)."""
+    snv = np.sort(nv)
+    return tuple(
+        float(np.percentile(
+            snv[snv.size * k // k_buckets : snv.size * (k + 1) // k_buckets],
+            percentile,
+        ))
+        for k in range(k_buckets)
+    )
+
+
+def ranked_chunk_stats(key: np.ndarray, value: np.ndarray, k_buckets: int,
+                       percentile: float) -> tuple:
+    """Per-chunk ``percentile`` of ``value`` with rays ranked (stably) by
+    ``key``: chunks follow the shading's sort key (the march's emitted
+    crossing counts) and are sized from their members' true need."""
+    order = np.argsort(key, kind="stable")
+    n = order.size
+    return tuple(
+        float(np.percentile(
+            value[order[n * k // k_buckets : n * (k + 1) // k_buckets]],
+            percentile,
+        ))
+        for k in range(k_buckets)
+    )
+
+
+def bounds_from_stats(stats, full: int, margin: float = 1.15) -> tuple:
+    """Inner bounds (``K - 1``) from the first K-1 chunk statistics:
+    :func:`~..utils.shapes.inner_bound`, clamped to ``full`` and forced
+    nondecreasing."""
+    inner, cur = [], 16
+    for s in stats[:-1]:
+        cur = min(max(inner_bound(s, margin), cur), full)
+        inner.append(cur)
+    return tuple(inner)
+
+
+def quantile_bucket_bounds(nv: np.ndarray, k_buckets: int, full: int,
+                           percentile: float, margin: float = 1.15) -> tuple:
+    """:func:`bounds_from_stats` of :func:`quantile_bucket_stats` (one probe)."""
+    return bounds_from_stats(
+        quantile_bucket_stats(nv, k_buckets, percentile), full, margin
+    )
 
 
 @dataclasses.dataclass
@@ -66,11 +126,18 @@ class Trainer:
         self.step = 0
         """Updates taken so far (the JAX ``TrainState.step``)."""
         self.tuned_max_steps: Optional[int] = None
+        self.tuned_bucket_steps: Optional[tuple] = None
+        """The ``ray_buckets - 1`` ascending inner bucket bounds (the deepest
+        bucket shades at :attr:`max_steps`); None until tuned."""
         self._tuned = False
         cfg = model.config
         self.occupancy: Optional[torch.Tensor] = None
         """Per-cell density EMA ``f32[C]`` (None until the first update)."""
         self.occ_depth_cap = float(-np.log(cfg.occupancy_threshold))
+        """The march's termination cap: ``-log(occupancy_threshold)`` until
+        :meth:`retune_with_transmittance` calibrates it."""
+        self._cap_history: list = []
+        self._retune_stats: list = []
         self._generator = torch.Generator(device=self.device)
 
     def _tensor(self, x, dtype=torch.float32):
@@ -81,19 +148,181 @@ class Trainer:
         return self.tuned_max_steps or self.model.config.max_intersected_triangles
 
     # ------------------------------------------------------------ bounds
+    def _probe_rays(self, batch: Mapping):
+        return (self._tensor(batch["origins"][:_PROBE_RAYS]),
+                self._tensor(batch["directions"][:_PROBE_RAYS]))
+
     @torch.no_grad()
     def tune_traversal_steps(self, batch: Mapping) -> int:
         """March up to 8192 of the batch's rays without occupancy and set
         the bound to 1.5x the deepest crossing count, rounded up to the
-        bound grid, if that is below the configured bound."""
+        bound grid, if that is below the configured bound. With
+        ``ray_buckets >= 2`` (and no ``bucket_short_steps``) the inner bucket
+        bounds come from the crossing counts' own quantile chunks, at their
+        maximum with a 1.5x margin."""
         cfg = self.model.config
-        o = self._tensor(batch["origins"][:_PROBE_RAYS])
-        d = self._tensor(batch["directions"][:_PROBE_RAYS])
+        o, d = self._probe_rays(batch)
         num_valid = march(self.mesh, o, d, cfg.max_intersected_triangles).num_valid
-        tuned = min(cfg.max_intersected_triangles,
-                    rounded_bound(int(num_valid.max())))
+        num_valid = num_valid.cpu().numpy()
+        tuned = min(cfg.max_intersected_triangles, rounded_bound(num_valid.max()))
         if tuned < cfg.max_intersected_triangles:
             self.tuned_max_steps = tuned
+        if cfg.ray_buckets >= 2 and cfg.bucket_short_steps is None:
+            self.tuned_bucket_steps = quantile_bucket_bounds(
+                num_valid, cfg.ray_buckets, tuned, 100.0, margin=1.5
+            )
+        return self.max_steps
+
+    @torch.no_grad()
+    def _nv_eff(self, o, d):
+        """Per ray, the crossings up to the point where the model's own
+        optical depth passes ``-log(occupancy_threshold)``, and the EMA's
+        estimated depth there (JAX ``Trainer._nv_eff_fn``). Marches the
+        configured bound without termination, samples as the coarse round
+        does without jitter, and runs the plain MLPs even with
+        ``fused_mlps``, as the JAX probe does."""
+        model = self.model
+        cfg = model.config
+        res = march_features(self.mesh, model.tetrahedra_field, o, d,
+                             cfg.max_intersected_triangles)
+        nears, fars, first, num_kept, mask = ray_bounds(res)
+        bins01 = stratified_bins(o.shape[0], cfg.num_samples, device=self.device)
+        euclid = nears[:, None] + bins01 * (fars - nears)[:, None]
+        if cfg.use_biased_sampler:
+            euclid = biased_warp_range(res, first, num_kept, nears, fars, euclid)
+        distances = ((euclid[:, 1:] + euclid[:, :-1]) / 2.0).contiguous()
+        deltas = euclid[:, 1:] - euclid[:, :-1]
+        feats, smask = sample_features(res, distances, mask)
+        _, dens = model.plain_field_mlps(feats, d)
+        dens = torch.where(smask, dens, 0.0)
+        optical = torch.cumsum(dens * deltas, dim=1)
+        depth_cap = -float(np.log(cfg.occupancy_threshold))
+        d_star = torch.where(optical > depth_cap, distances, float("inf")).amin(dim=1)
+        t0 = res.t0
+        nv_eff = (res.valid & (t0 <= d_star[:, None])).sum(dim=1)
+        # The EMA's depth accumulated up to the true exhaustion point (the
+        # full chord for rays that never exhaust): the cap must exceed it.
+        sig_est = self.mesh.march_table[:, 24][res.cells.clamp_min(0).long()]
+        dt = torch.where(res.valid, res.t1 - t0, 0.0)
+        est_cum = torch.cumsum(sig_est * dt, dim=1)
+        within = res.valid & (res.t1 <= d_star[:, None])
+        est_at = torch.where(within, est_cum, 0.0).amax(dim=1)
+        return nv_eff.cpu().numpy(), est_at.cpu().numpy()
+
+    @torch.no_grad()
+    def _march_nv(self, o, d):
+        """The march's emitted crossing counts at the configured bound under
+        the current termination cap: the key bucketed shading sorts by."""
+        cfg = self.model.config
+        return march(
+            self.mesh, o, d, cfg.max_intersected_triangles,
+            use_occupancy=cfg.use_occupancy_field,
+            occ_threshold=cfg.occupancy_threshold,
+            occ_depth_cap=self.occ_depth_cap,
+        ).num_valid.cpu().numpy()
+
+    def retune_with_transmittance(self, batch: Mapping) -> int:
+        """Size the bounds from the model's own optical depth and calibrate
+        the termination cap (JAX ``Trainer.retune_with_transmittance``, the
+        numpy part copied as it is). Returns the main bound.
+
+        - The cap: 1.2x the 99.9th percentile of the EMA's depth at the
+          true exhaustion point, at least ``-log(threshold)``, the maximum
+          over the last 3 probes (it only comes down once 3 probes agree).
+        - The statistics (the main bound's need, the tie guard, each
+          chunk's need with rays ranked by the march's emitted counts) are
+          each the maximum over the last 3 probes.
+        - With buckets the main bound is sized like the inner ones from the
+          top chunk, never below the tie guard; else 1.5x on the grid.
+        - Hysteresis: a bound grows at once and shrinks only by more than
+          16; the inner bounds are then made nondecreasing again.
+
+        Prints a ``# retune@<step>`` line on stderr."""
+        cfg = self.model.config
+        o, d = self._probe_rays(batch)
+        nv, est_at = self._nv_eff(o, d)
+        floor = float(-np.log(cfg.occupancy_threshold))
+        cap_now = max(
+            floor,
+            cfg.occ_cap_margin
+            * float(np.percentile(est_at, cfg.occ_cap_percentile)),
+        )
+        self._cap_history = (self._cap_history + [cap_now])[-3:]
+        self.occ_depth_cap = max(self._cap_history)
+        nv_m = self._march_nv(o, d)
+        k_buckets = max(cfg.ray_buckets, 1)
+        raw = (
+            float(np.percentile(nv, cfg.occupancy_retune_percentile)),
+            # Tie guard: rays tied at the bound sort arbitrarily, so the main
+            # bound covers the top chunk's emitted range.
+            float(np.percentile(nv_m, 100.0 * (k_buckets - 1) / k_buckets)),
+        ) + ranked_chunk_stats(nv_m, nv, k_buckets, cfg.occupancy_retune_percentile)
+        hist = [h for h in self._retune_stats if len(h) == len(raw)] + [raw]
+        self._retune_stats = hist[-3:]
+        smoothed = tuple(max(col) for col in zip(*self._retune_stats))
+        observed = int(smoothed[0])
+        tie_b = smoothed[1]
+        chunk_stats = smoothed[2:]
+        cur = self.max_steps
+        bucketed = cfg.ray_buckets >= 2 and cfg.bucket_short_steps is None
+        if bucketed:
+            bound = min(cfg.max_intersected_triangles, max(
+                16,
+                inner_bound(chunk_stats[-1], cfg.bucket_bound_margin),
+                inner_bound(tie_b, cfg.bucket_bound_margin),
+            ))
+        else:
+            bound = min(cfg.max_intersected_triangles, rounded_bound(observed))
+        if bound < cur - 16 or bound > cur:
+            self.tuned_max_steps = bound
+        full = self.max_steps
+        if bucketed:
+            proposed = bounds_from_stats(chunk_stats, full,
+                                         margin=cfg.bucket_bound_margin)
+            cur_b = self.tuned_bucket_steps or proposed
+            if len(cur_b) != len(proposed):
+                cur_b = proposed
+            new_b = tuple(p if (p > c or p < c - 16) else c
+                          for p, c in zip(proposed, cur_b))
+            mono, low = [], 16
+            for b in new_b:
+                low = min(max(b, low), full)
+                mono.append(low)
+            self.tuned_bucket_steps = tuple(mono)
+        elif self.tuned_bucket_steps is not None:
+            self.tuned_bucket_steps = tuple(min(b, full) for b in self.tuned_bucket_steps)
+        print(
+            f"# retune@{self.step}: bound={self.tuned_max_steps} "
+            f"buckets={self.tuned_bucket_steps} "
+            f"occ_cap={self.occ_depth_cap:.1f} (floor {floor:.1f}) "
+            f"nv_eff p50/p99={int(np.percentile(nv, 50))}/"
+            f"{int(np.percentile(nv, 99))} "
+            f"nv_march p50/p99={int(np.percentile(nv_m, 50))}/"
+            f"{int(np.percentile(nv_m, 99))}",
+            file=sys.stderr,
+        )
+        return full
+
+    @torch.no_grad()
+    def retune_with_occupancy(self, batch: Mapping) -> int:
+        """Re-probe the crossing counts with occupancy termination at the
+        current bound and set the bound to 1.5x their
+        ``occupancy_retune_percentile`` on the grid, with the same
+        hysteresis (JAX ``Trainer.retune_with_occupancy``); the bucket
+        bounds are clamped to it. Returns the main bound."""
+        cfg = self.model.config
+        cur = self.max_steps
+        o, d = self._probe_rays(batch)
+        nv = march(self.mesh, o, d, cur, use_occupancy=True,
+                   occ_depth_cap=self.occ_depth_cap).num_valid.cpu().numpy()
+        observed = int(np.percentile(nv, cfg.occupancy_retune_percentile))
+        bound = min(cfg.max_intersected_triangles, rounded_bound(observed))
+        if bound < cur - 16 or bound > cur:
+            self.tuned_max_steps = bound
+            if self.tuned_bucket_steps is not None:
+                self.tuned_bucket_steps = tuple(
+                    min(b, bound) for b in self.tuned_bucket_steps
+                )
         return self.max_steps
 
     # --------------------------------------------------------- occupancy
@@ -167,22 +396,15 @@ class Trainer:
         seed = int(np.random.SeedSequence([self.config.seed, step]).generate_state(1)[0])
         return self._generator.manual_seed(seed)
 
-    def train_step(self, batch: Mapping, uniforms: Optional[Mapping] = None
-                   ) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch: Mapping, uniforms=None) -> Dict[str, torch.Tensor]:
         """One optimisation step. ``uniforms`` (keys of
-        :func:`~..models.tetra_nerf.draw_uniforms`) replace the step's own
-        random numbers. Returns ``loss``, ``psnr`` and ``overflow_rays``
-        (rays whose march reached the bound) as device scalars."""
+        :func:`~..models.tetra_nerf.draw_uniforms`, or with bucketed shading
+        a list of them, one per bucket) replace the step's own random
+        numbers. Returns ``loss``, ``psnr`` and ``overflow_rays`` (rays whose
+        march reached its bound) as device scalars."""
         cfg = self.model.config
         step = self.step
         occ = cfg.use_occupancy_field
-        if (occ and cfg.occupancy_retune_every and step > 0
-                and step % cfg.occupancy_retune_every == 0):
-            raise NotImplementedError(
-                f"step {step}: the occupancy bound retune "
-                f"(occupancy_retune_every={cfg.occupancy_retune_every}) is not "
-                "ported yet (ROADMAP.md, Next: the transmittance retune)"
-            )
         if not self._tuned:
             self._tuned = True
             self.tune_traversal_steps(batch)
@@ -191,6 +413,12 @@ class Trainer:
         if (occ and cfg.occupancy_refresh_every and step > 0
                 and step % cfg.occupancy_refresh_every == 0):
             self.refresh_occupancy()
+        if (occ and cfg.occupancy_retune_every and step > 0
+                and step % cfg.occupancy_retune_every == 0):
+            if cfg.occupancy_retune_mode == "transmittance":
+                self.retune_with_transmittance(batch)
+            else:
+                self.retune_with_occupancy(batch)
 
         o = self._tensor(batch["origins"])
         d = self._tensor(batch["directions"])
@@ -201,6 +429,7 @@ class Trainer:
         model = self.model
         out = model.get_outputs(
             o, d, self.mesh, max_steps=self.max_steps,
+            bucket_steps=self.tuned_bucket_steps,
             occ_depth_cap=self.occ_depth_cap, train=True,
             generator=None if uniforms is not None else self._step_generator(step),
             uniforms=uniforms, camera_indices=cams,
@@ -217,3 +446,26 @@ class Trainer:
             "psnr": -10.0 * torch.log10(loss + 1e-12),
             "overflow_rays": out["traversal_overflow"].sum(),
         }
+
+    # -------------------------------------------------------------- eval
+    def renderer(self) -> Renderer:
+        """A :class:`~..render.Renderer` of the model at the trainer's tuned
+        bounds and calibrated termination cap."""
+        return Renderer(self.model, self.mesh, self.device,
+                        occ_depth_cap=self.occ_depth_cap, max_steps=self.max_steps,
+                        bucket_steps=self.tuned_bucket_steps)
+
+    def eval_batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """The eval forward of one batch (``origins``, ``directions``) as
+        device tensors (JAX ``Trainer.eval_batch``)."""
+        return self.renderer().render_batch(batch["origins"], batch["directions"])
+
+    def render_rays(self, origins, directions, chunk: int = 8192,
+                    num_samples: Optional[int] = None,
+                    num_fine_samples: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render ``[N, 3]`` rays in chunks as numpy arrays (JAX
+        ``Trainer.render_rays``); ``num_samples``/``num_fine_samples``
+        override the sample budget (``num_fine_samples=0`` skips the PDF
+        round)."""
+        return self.renderer().render_rays(origins, directions, chunk,
+                                           num_samples, num_fine_samples)
