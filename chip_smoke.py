@@ -24,6 +24,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 6. the backward kernels K2b, K3b and K7 against their twins at the train
    slice's shapes (4096 rays, the cold march at T=512, S=257, F=64, the
    scene's 100K vertices), with K7 beside ``index_add_`` (``library_ms``);
+   K3b also at three buckets of the flagship's cold step (512 rays: the
+   deepest bound at S=257, the median at its adaptive budget, the
+   shallowest at S=33), sorted and shuffled, two launches bit-equal;
 7. the train path: ``Trainer.train_step`` on the same preset, 65 steps on
    five batches of 4096 rays in turn, with targets from
    ``sphere_ray_targets`` (the traversal probe,
@@ -42,22 +45,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launch);
 10. the fused train run: phase 7 with ``fused_mlps=True`` (K4, K4b and K5
     must launch);
-11. the row gather K8 against its twin and ``torch.index_select``
-    (``library_ms``) at the flagship's bucket-slice shapes (the cold march
-    of 4096 train rays at T=384 cut into 8 quantile buckets at the cold
-    tune's bounds: cells, t0, t1, valid, stream ids, positions and
-    weights) and on a [100,000, 128] f32 table x 65,536 rows;
+11. the row gather K8 against its twin (bit for bit, job by job), against
+    itself one table per launch and against ``torch.index_select``
+    (``library_ms``) on one cold flagship step's bucket slices in one batch
+    (the cold march of 4096 train rays at T=384 cut into 8 quantile
+    buckets at the cold tune's bounds: cells, t0, t1, valid, stream ids,
+    positions and weights, the per-ray vectors, origins and directions),
+    with the host time per launch of both ways, and on a [100,000, 128]
+    f32 table x 65,536 rows;
 12. the flagship train run: ``tetranerf_preset()`` with no overrides (8
     quantile buckets, the transmittance retune every 128 steps), 260 steps
     on the five batches of phase 7: the ``# retune@`` lines of steps 128
     and 256, every loss finite and the last 5 below the first 5, every
     kernel of the path launched (K8 included), the median step of steps
     1-127 (cold) and 129-255 (after the first retune) beside phase 7's, a
-    profile of two steady steps after the retune, and one 256-ray step's
-    loss and field gradient against the CPU twins, un-fused and fused;
+    profile of two steady steps after the retune with each port kernel's
+    ms per step beside its bound (from one step's own inputs), K8 launched
+    once per step, and one 256-ray step's loss and field gradient against
+    the CPU twins, un-fused and fused;
 13. the flagship render: ``Trainer.render_rays`` of phase 12's trainer (its
-    tuned bounds and calibrated cap) on 4 x 65,536 rays at chunk 8192, and
-    256 rays against the CPU twins.
+    tuned bounds and calibrated cap) on 4 x 65,536 rays at chunk 8192 (K8
+    launched once per chunk), and 256 rays against the CPU twins.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -201,6 +209,60 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None,
                 **bound, **extra)
 
 
+def _blend_bound(field, vids, pos, bary):
+    """K2: the output, pos + bary, the stream ids, the field once."""
+    num_rays, num_end = pos.shape[:2]
+    num_feat = field.shape[1]
+    weighted = int((bary != 0).any(dim=-1).sum())
+    return _bound(num_rays * num_end * num_feat * 4 + num_rays * num_end * 32
+                  + vids.numel() * 4 + field.numel() * 4, weighted * 4 * num_feat * 2)
+
+
+def _interp_bound(t0, t1, num_valid, ray_mask, distances, feats):
+    """K3: output + mask, distances, t0/t1, the endpoint rows kept samples
+    read."""
+    from tetranerf_torch.ops.interp import _match
+
+    num_rays, max_t = t1.shape
+    num_feat = feats.shape[2]
+    kept = int(_match(t0, t1, num_valid, ray_mask, distances)[2].sum())
+    rows = _endpoint_rows_read(t0, t1, num_valid, ray_mask, distances)
+    return _bound(distances.numel() * (num_feat * 4 + 5) + num_rays * max_t * 8
+                  + rows * num_feat * 4, kept * num_feat * 3)
+
+
+def _interp_bwd_bound(t0, t1, num_valid, ray_mask, distances, g):
+    """K3b: the output, the g rows of the kept samples, distances, t0/t1."""
+    from tetranerf_torch.ops.interp import _match
+
+    num_rays, max_t = t1.shape
+    num_feat = g.shape[2]
+    kept = int(_match(t0, t1, num_valid, ray_mask, distances)[2].sum())
+    return _bound(num_rays * (max_t + 1) * num_feat * 4 + kept * num_feat * 4
+                  + distances.numel() * 4 + num_rays * max_t * 8, kept * num_feat * 4)
+
+
+def _blend_bwd_bound(g, pos, bary, num_stream):
+    """K2b: the output, all bary rows, pos + g rows of the weighted
+    endpoints."""
+    num_rays, num_end, num_feat = g.shape
+    n_w = int((bary != 0).any(dim=-1).sum())
+    return _bound(num_rays * num_stream * num_feat * 4 + num_rays * num_end * 16
+                  + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
+
+
+def _scatter_bound(idx, vals, num_rows):
+    """K7: indices, values, the table; one add per nonzero element."""
+    return _bound(idx.numel() * 4 + vals.numel() * 4 + num_rows * vals.shape[1] * 4,
+                  int((vals != 0).sum()))
+
+
+def _gather_bound(jobs):
+    """K8: each copied row read and written once, and its index."""
+    return _bound(sum(idx.shape[0] * (2 * w * table.element_size() + 4)
+                      for table, idx, w in jobs), 0)
+
+
 def synthetic_occupancy(mesh_cpu):
     """Density 200 in cells whose centroid lies outside radius 0.9 (the
     scene's surface shell), 0 inside: a ray entering the shell passes the
@@ -272,16 +334,12 @@ def kernel_checks(mesh, field, origins, directions):
     _check(err <= TOLERANCES["stream_blend_gather"],
            f"stream_blend_gather: max abs err {err}")
     print(f"stream_blend_gather: out {tuple(out_k.shape)}, max abs err {err:.3g}")
-    num_end, num_feat = out_k.shape[1:]
-    weighted = int((s.bary != 0).any(dim=-1).sum())
     results.append(_entry(
         "stream_blend_gather", "tetranerf_torch/csrc/blend.cu",
         "tetranerf_tpu/ops/pallas_interp.py:214", err,
         _time_ms(lambda: interp.stream_blend_gather(*blend_args), 10),
         _time_ms(lambda: interp.stream_blend_gather_twin(*blend_args), 3),
-        # The output, pos + bary, the stream ids, the field once.
-        _bound(out_k.numel() * 4 + num_rays * num_end * 32 + s.vids.numel() * 4
-               + field.numel() * 4, weighted * 4 * num_feat * 2),
+        _blend_bound(*blend_args),
     ))
     del out_t
 
@@ -299,16 +357,12 @@ def kernel_checks(mesh, field, origins, directions):
     _check(err <= TOLERANCES["sample_interp"], f"sample_interp: max abs err {err}")
     print(f"sample_interp: out {tuple(f_k.shape)}, valid samples "
           f"{float(m_k.float().mean()):.3f}, max abs err {err:.3g}")
-    rows = _endpoint_rows_read(*interp_args[:5])
-    max_t = res.t1.shape[1]
     results.append(_entry(
         "sample_interp", "tetranerf_torch/csrc/interp.cu",
         "tetranerf_tpu/ops/pallas_interp.py:104", err,
         _time_ms(lambda: interp.sample_interp(*interp_args), 10),
         _time_ms(lambda: interp.sample_interp_twin(*interp_args), 3),
-        # Output + mask, distances, t0/t1, the endpoint rows kept samples read.
-        _bound(f_k.numel() * 4 + m_k.numel() * 5 + num_rays * max_t * 8
-               + rows * num_feat * 4, int(m_k.sum()) * num_feat * 3),
+        _interp_bound(*interp_args),
     ))
     return results
 
@@ -354,9 +408,7 @@ def backward_checks(mesh, origins, directions):
         "tetranerf_tpu/ops/pallas_interp.py:257", err,
         _time_ms(lambda: interp.stream_blend_backward(*bwd_args), 10),
         _time_ms(lambda: interp.stream_blend_backward_twin(*bwd_args), 3),
-        # Output, all bary rows, pos + g rows of the weighted endpoints.
-        _bound(gsf.numel() * 4 + num_rays * num_end * 16
-               + n_w * (16 + num_feat * 4), int((s.bary != 0).sum()) * num_feat * 2),
+        _blend_bwd_bound(*bwd_args),
     ))
 
     idx = s.vids.reshape(-1).clamp_min(0).contiguous()
@@ -373,7 +425,7 @@ def backward_checks(mesh, origins, directions):
         "tetranerf_tpu/ops/pallas_scatter.py:105", err,
         _time_ms(lambda: scatter.scatter_add_rows(idx, vals, num_v), 10),
         _time_ms(lambda: scatter.scatter_add_rows_twin(idx, vals, num_v), 3),
-        _bound(idx.numel() * 4 + vals.numel() * 4 + out.numel() * 4, nonzero),
+        _scatter_bound(idx, vals, num_v),
         library_ms=_time_ms(
             lambda: torch.zeros((num_v, num_feat), device=dev).index_add_(
                 0, idx_long, vals), 10),
@@ -392,19 +444,87 @@ def backward_checks(mesh, origins, directions):
     _check(err <= TOLERANCES["sample_interp_backward"],
            f"sample_interp_backward: max abs err {err}")
     kept = int(interp._match(*i_args)[2].sum())
-    max_t = res.t1.shape[1]
     print(f"sample_interp_backward: out {tuple(gf.shape)}, kept samples "
           f"{kept / distances.numel():.3f}, max abs err {err:.3g}")
-    results.append(_entry(
+    entry = _entry(
         "sample_interp_backward", "tetranerf_torch/csrc/interp.cu",
         "tetranerf_tpu/ops/pallas_interp.py:141", err,
         _time_ms(lambda: interp.sample_interp_backward(*i_args, g_samp), 10),
         _time_ms(lambda: interp.sample_interp_backward_twin(*i_args, g_samp), 3),
-        # Output, g rows of the kept samples, distances, t0/t1.
-        _bound(gf.numel() * 4 + kept * num_feat * 4 + distances.numel() * 4
-               + num_rays * max_t * 8, kept * num_feat * 4),
-    ))
+        _interp_bwd_bound(*i_args, g_samp),
+    )
+    del gf, g_samp
+    entry["bucket_shapes"] = _interp_bwd_bucket_checks(mesh, origins, directions, gen)
+    entry["max_abs_err"] = max([err] + [b["max_abs_err"] for b in entry["bucket_shapes"]])
+    results.append(entry)
     return results
+
+
+def _interp_bwd_bucket_checks(mesh, origins, directions, gen):
+    """K3b at three buckets of the flagship's cold step: the train rays
+    marched at bound 384 and cut into 8 quantile buckets of 512 rays at the
+    cold tune's bounds (as phase 11 cuts them); the deepest at S=257, the
+    median at its adaptive budget, the shallowest at the budgets' floor,
+    S=33. Samples evenly spread over each ray's range, sorted and shuffled:
+    each within the tolerance of the twin, and two launches bit-equal."""
+    import torch
+    from tetranerf_torch.ops import fused, interp
+    from tetranerf_torch.utils.shapes import scaled_budget
+
+    res, order, plan = _cold_bucket_plan(mesh, origins, directions)
+    shapes = []
+    for label, k in (("deepest", 7), ("median", 3), ("shallowest", 0)):
+        _, lo, hi, t = plan[k]
+        budget = {"deepest": 128, "shallowest": 16}.get(label, scaled_budget(128, t, 384))
+        num_samples = 2 * budget + 1
+        sl = fused.slice_march(res, order[lo:hi], t)
+        nears, fars, _, _, ray_mask = fused.ray_bounds(sl)
+        edges = torch.linspace(0.0, 1.0, num_samples + 1, device=origins.device)
+        edges = nears[:, None] + edges[None, :] * (fars - nears)[:, None]
+        distances = ((edges[:, 1:] + edges[:, :-1]) / 2.0).contiguous()
+        g = torch.randn((hi - lo, num_samples, 64), generator=gen, device=origins.device)
+        perm = torch.randperm(num_samples, generator=gen, device=origins.device)
+        errs = []
+        for order_name, dist in (("sorted", distances), ("shuffled", distances[:, perm])):
+            args = (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask, dist.contiguous(), g)
+            first = interp.sample_interp_backward(*args)
+            err = _max_err(first, interp.sample_interp_backward_twin(*args))
+            _check(err <= TOLERANCES["sample_interp_backward"],
+                   f"sample_interp_backward ({label} bucket, {order_name}): max abs err {err}")
+            _check(torch.equal(first, interp.sample_interp_backward(*args)),
+                   f"sample_interp_backward ({label} bucket, {order_name}): two launches differ")
+            errs.append(err)
+        args = (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask, distances, g)
+        shape = dict(bucket=label, rays=hi - lo, max_t=t, samples=num_samples,
+                     max_abs_err=max(errs),
+                     ms=_time_ms(lambda: interp.sample_interp_backward(*args), 20),
+                     device_ms=_device_ms(lambda: interp.sample_interp_backward(*args)),
+                     plain_ms=_time_ms(lambda: interp.sample_interp_backward_twin(*args), 3),
+                     **_interp_bwd_bound(*args))
+        print(f"sample_interp_backward, {label} bucket ({hi - lo} rays, T={t}, "
+              f"S={num_samples}): max abs err {max(errs):.3g} sorted and shuffled, two "
+              f"launches bit-equal; {shape['ms']:.4f} ms by CUDA events, kernel "
+              f"{shape['device_ms']} ms by the profiler (twin {shape['plain_ms']:.3f}, "
+              f"bound {shape['bound_ms']:.4f})")
+        shapes.append(shape)
+    return shapes
+
+
+def _cold_bucket_plan(mesh, origins, directions):
+    """The cold march of the train rays at bound 384, its crossing-count
+    order and its 8-bucket plan ``(k, lo, hi, t)`` at the cold tune's
+    bounds (``Trainer.tune_traversal_steps``'s quantiles)."""
+    import torch
+    from tetranerf_torch.ops.march import march
+    from tetranerf_torch.training.trainer import quantile_bucket_bounds
+
+    res = march(mesh, origins, directions, 384)
+    bounds = quantile_bucket_bounds(res.num_valid.cpu().numpy(), 8, 384, 100.0,
+                                    margin=1.5) + (384,)
+    order = torch.argsort(res.num_valid, stable=True)
+    num_rays = origins.shape[0]
+    plan = [(k, num_rays * k // 8, num_rays * (k + 1) // 8, t) for k, t in enumerate(bounds)]
+    return res, order, plan
 
 
 def _rel_check(name, pairs):
@@ -726,7 +846,7 @@ def _profile_steps(trainer, batches, median_ms):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler recorded no device events: not measured")
-        return
+        return {}
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -747,16 +867,75 @@ def _profile_steps(trainer, batches, median_ms):
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3 / len(batches):8.3f} ms/step  {name[:110]}")
+    per_step = {}
+    for name, us in by_name.items():
+        wrapper = _WRAPPER_OF.get(_port_kernel(name))
+        if wrapper:
+            per_step[wrapper] = per_step.get(wrapper, 0.0) + us / 1e3 / len(batches)
+    return per_step
 
 
 _PORT_KERNELS = ("march_kernel", "blend_kernel", "blend_bwd_kernel",
                  "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel",
                  "mlp_fwd_kernel", "mlp_bwd_kernel", "sum_rows_kernel",
                  "gather_kernel")
+# The wrapper (launch counter) of each port kernel with a bound per step.
+_WRAPPER_OF = {"march_kernel": "march", "blend_kernel": "stream_blend_gather",
+               "blend_bwd_kernel": "stream_blend_backward",
+               "interp_kernel": "sample_interp",
+               "interp_bwd_kernel": "sample_interp_backward",
+               "scatter_add_kernel": "scatter_add_rows", "gather_kernel": "row_gather"}
+
+
+def _port_kernel(name):
+    """The function name of a port kernel in a profiler event, else None."""
+    if "(anonymous namespace)::" not in name:
+        return None
+    fn = name.split("::")[1].split("(")[0]
+    return fn if fn in _PORT_KERNELS else None
+
+
+@contextlib.contextmanager
+def _recording_bounds():
+    """Within the block, every call of a port wrapper on the model's path
+    (K2, K2b, K3, K3b, K7, K8) adds its bound in ms, from its own inputs,
+    to the yielded dict under its launch counter. The bounds are computed
+    on the card before each call, so time nothing inside the block."""
+    from tetranerf_torch.ops import fused, interp, scatter
+
+    sums = {}
+    sites = [
+        (fused, "stream_blend_gather", _blend_bound),
+        (interp, "stream_blend_gather", _blend_bound),
+        (fused, "sample_interp", _interp_bound),
+        (interp, "sample_interp", _interp_bound),
+        (interp, "sample_interp_backward", _interp_bwd_bound),
+        (interp, "stream_blend_backward", _blend_bwd_bound),
+        (interp, "scatter_add_rows", _scatter_bound),
+        (scatter, "scatter_add_rows", _scatter_bound),
+        (fused, "row_gather_batch", _gather_bound),
+    ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+
+    def record(fn, bound):
+        counter = "row_gather" if fn.__name__ == "row_gather_batch" else fn.__name__
+
+        def call(*args):
+            sums[counter] = sums.get(counter, 0.0) + bound(*args)["bound_ms"]
+            return fn(*args)
+        return call
+
+    for (mod, attr, bound), (_, _, fn) in zip(sites, saved):
+        setattr(mod, attr, record(fn, bound))
+    try:
+        yield sums
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def _kernel_group(name):
-    if "(anonymous namespace)::" in name and name.split("::")[1].split("(")[0] in _PORT_KERNELS:
+    if _port_kernel(name):
         return "port kernels"
     lower = name.lower()
     if "gemm" in lower or "nvjet" in lower or "gemv" in lower:
@@ -859,52 +1038,51 @@ def train_phase(colors, mesh_plain, dev, fused=False):
 FLAGSHIP_KERNELS = TRAIN_KERNELS + ("row_gather",)
 
 
-def _slice_calls(res, bounds):
-    """The K8 calls with which ``slice_march`` cuts ``res`` into its
-    quantile buckets at ``bounds``: ``(table, idx, width)`` per tensor and
-    bucket, as ``TetraNerf._get_outputs_bucketed`` makes them."""
+def _host_us(fn, calls, reps=10):
+    """Host time to enqueue ``fn``'s launches (the card idle, nothing
+    waited for), per launch: the median over ``reps``."""
     import torch
 
-    order = torch.argsort(res.num_valid, stable=True)
-    num_rays, k_buckets = res.num_valid.shape[0], len(bounds)
-    s = res.stream
-    pos, bary = (x.reshape(num_rays, -1) for x in (s.pos, s.bary))
-    calls = []
-    for k, t in enumerate(bounds):
-        idx = order[num_rays * k // k_buckets : num_rays * (k + 1) // k_buckets]
-        idx = idx.to(torch.int32).contiguous()
-        calls += [(res.cells, idx, t), (res.t1, idx, t), (res.t0s, idx, t),
-                  (res.valid, idx, t), (s.vids, idx, t + 4),
-                  (pos, idx, (t + 1) * 4), (bary, idx, (t + 1) * 4)]
-    return calls
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def gather_checks(mesh, origins, directions):
-    """Phase 11: K8 against its twin (bit for bit: a copy) and against
-    ``torch.index_select`` of the same rows and columns (``library_ms``),
-    at the flagship's bucket-slice shapes and on a wide f32 table."""
+    """Phase 11: K8 against its twin (bit for bit: a copy), against itself
+    one table per launch, and against ``torch.index_select`` of the same
+    rows and columns (``library_ms``), on one cold flagship step's bucket
+    slices (one batch) and on a wide f32 table (one job)."""
     import torch
-    from tetranerf_torch.ops import gather
-    from tetranerf_torch.ops.march import march
-    from tetranerf_torch.training.trainer import quantile_bucket_bounds
+    from tetranerf_torch.ops import fused, gather
 
-    res = march(mesh, origins, directions, 384)
-    bounds = quantile_bucket_bounds(res.num_valid.cpu().numpy(), 8, 384, 100.0,
-                                    margin=1.5) + (384,)
-    calls = _slice_calls(res, bounds)
-    for table, idx, w in calls:
-        _check(torch.equal(gather.row_gather(table, idx, w),
-                           gather.row_gather_twin(table, idx, w)),
-               f"row_gather: differs from the twin at {tuple(table.shape)} "
-               f"{table.dtype} width {w}")
-    moved = sum(idx.shape[0] * (2 * w * table.element_size() + 4)
-                for table, idx, w in calls)
+    res, order, plan = _cold_bucket_plan(mesh, origins, directions)
+    jobs = fused.slice_march_jobs(res, order, plan, (origins, directions))
+    per_bucket = len(jobs) // len(plan)
+    # The 7 march tensors of each bucket: the per-table design's 56 launches.
+    march_jobs = [j for i, j in enumerate(jobs) if i % per_bucket < 7]
+    outs = gather.row_gather_batch(jobs)
+    for (table, idx, w), out, ref in zip(jobs, outs, gather.row_gather_batch_twin(jobs)):
+        what = f"{tuple(table.shape)} {table.dtype} width {w}"
+        _check(torch.equal(out, ref), f"row_gather_batch: differs from the twin at {what}")
+        _check(torch.equal(out, gather.row_gather(table, idx, w)),
+               f"row_gather_batch: differs from the single-table K8 at {what}")
+    del outs
 
-    def run(fn):
-        return lambda: [fn(table, idx, w) for table, idx, w in calls]
+    def batch(js):
+        return lambda: gather.row_gather_batch(js)
 
-    def index_select(table, idx, w):
-        return torch.index_select(table[:, :w], 0, idx)
+    def single(js):
+        return lambda: [gather.row_gather(*j) for j in js]
+
+    def index_select(js):
+        return lambda: [torch.index_select(table[:, :w], 0, idx) for table, idx, w in js]
 
     gen = torch.Generator(device=origins.device).manual_seed(11)
     wide = torch.randn(GATHER_TABLE, generator=gen, device=origins.device)
@@ -912,30 +1090,50 @@ def gather_checks(mesh, origins, directions):
                          device=origins.device, dtype=torch.int32)
     _check(torch.equal(gather.row_gather(wide, rows), gather.row_gather_twin(wide, rows)),
            "row_gather: differs from the twin on the wide table")
-    wide_bound = _bound(GATHER_ROWS * (2 * GATHER_TABLE[1] * 4 + 4), 0)
     entry = _entry(
         "row_gather", "tetranerf_torch/csrc/gather.cu",
         "tetranerf_tpu/ops/pallas_gather.py:73", 0.0,
-        _time_ms(run(gather.row_gather), 10), _time_ms(run(gather.row_gather_twin), 10),
-        _bound(moved, 0), library_ms=_time_ms(run(index_select), 10),
-        calls_per_slice=len(calls), slice_bounds=list(bounds),
-        device_ms=_device_ms(run(gather.row_gather)),
-        library_device_ms=_device_ms(run(index_select)),
+        _time_ms(batch(jobs), 10), _time_ms(lambda: gather.row_gather_batch_twin(jobs), 10),
+        _gather_bound(jobs), library_ms=_time_ms(index_select(jobs), 10),
+        jobs_per_step=len(jobs), slice_bounds=[t for *_, t in plan],
+        device_ms=_device_ms(batch(jobs)),
+        library_device_ms=_device_ms(index_select(jobs)),
+        single_table_ms=_time_ms(single(jobs), 10),
+        single_table_device_ms=_device_ms(single(jobs)),
+        host_us_per_launch_single=_host_us(single(march_jobs), len(march_jobs)),
+        host_us_per_launch_batch=_host_us(batch(march_jobs), 1),
+        march_jobs_ms=_time_ms(batch(march_jobs), 10),
+        march_jobs_device_ms=_device_ms(batch(march_jobs)),
+        march_jobs_single_ms=_time_ms(single(march_jobs), 10),
+        march_jobs_library_ms=_time_ms(index_select(march_jobs), 10),
+        march_jobs_library_device_ms=_device_ms(index_select(march_jobs)),
+        march_jobs_bound_ms=_gather_bound(march_jobs)["bound_ms"],
         wide_table_ms=_time_ms(lambda: gather.row_gather(wide, rows), 20),
         wide_table_plain_ms=_time_ms(lambda: gather.row_gather_twin(wide, rows), 20),
         wide_table_library_ms=_time_ms(lambda: torch.index_select(wide, 0, rows), 20),
-        wide_table_bound_ms=wide_bound["bound_ms"],
+        wide_table_bound_ms=_gather_bound([(wide, rows, GATHER_TABLE[1])])["bound_ms"],
     )
-    print(f"row_gather: bit-exact against the twin; one bucketed slice of "
-          f"{origins.shape[0]} rays at bounds {bounds} = {len(calls)} calls, "
-          f"{moved / 1e6:.1f} MB moved: {entry['ms']:.3f} ms (twin "
-          f"{entry['plain_ms']:.3f}, index_select {entry['library_ms']:.3f}, bound "
-          f"{entry['bound_ms']:.4f}; kernels alone by the profiler: K8 "
-          f"{entry['device_ms']} ms, index_select {entry['library_device_ms']} ms); "
-          f"[{GATHER_TABLE[0]}, {GATHER_TABLE[1]}] f32 x "
-          f"{GATHER_ROWS} rows: {entry['wide_table_ms']:.4f} ms (twin "
-          f"{entry['wide_table_plain_ms']:.4f}, index_select "
-          f"{entry['wide_table_library_ms']:.4f}, bound {entry['wide_table_bound_ms']:.4f})")
+    moved = sum(idx.shape[0] * (2 * w * table.element_size() + 4) for table, idx, w in jobs)
+    print(f"row_gather: bit-exact against the twin and the single-table K8, job by job; "
+          f"one cold step's slices of {origins.shape[0]} rays at bounds "
+          f"{entry['slice_bounds']} = {len(jobs)} jobs, {moved / 1e6:.1f} MB moved, "
+          f"one launch: {entry['ms']:.4f} ms (kernel {entry['device_ms']} ms by the "
+          f"profiler; twin {entry['plain_ms']:.3f}; {len(jobs)} single-table K8 "
+          f"{entry['single_table_ms']:.3f}, kernels {entry['single_table_device_ms']}; "
+          f"{len(jobs)} index_select {entry['library_ms']:.3f}, kernels "
+          f"{entry['library_device_ms']}; bound {entry['bound_ms']:.4f})")
+    print(f"row_gather: the {len(march_jobs)} march-tensor copies: one batch "
+          f"{entry['march_jobs_ms']:.4f} ms (kernel {entry['march_jobs_device_ms']}), "
+          f"{len(march_jobs)} single-table K8 {entry['march_jobs_single_ms']:.3f} ms, "
+          f"{len(march_jobs)} index_select {entry['march_jobs_library_ms']:.3f} ms (kernels "
+          f"{entry['march_jobs_library_device_ms']}), bound "
+          f"{entry['march_jobs_bound_ms']:.4f}; host us per K8 launch: "
+          f"{entry['host_us_per_launch_single']:.1f} single-table x {len(march_jobs)}, "
+          f"{entry['host_us_per_launch_batch']:.1f} for the one batch")
+    print(f"row_gather: [{GATHER_TABLE[0]}, {GATHER_TABLE[1]}] f32 x {GATHER_ROWS} rows: "
+          f"{entry['wide_table_ms']:.4f} ms (twin {entry['wide_table_plain_ms']:.4f}, "
+          f"index_select {entry['wide_table_library_ms']:.4f}, bound "
+          f"{entry['wide_table_bound_ms']:.4f})")
     return entry
 
 
@@ -1043,6 +1241,8 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
     for k in FLAGSHIP_KERNELS:
         _check(launches[k] > 0, f"flagship train: {k} did not launch: {launches}")
         _check(per_step[k] > 0, f"flagship train: {k} not in a steady step: {per_step}")
+    _check(per_step["row_gather"] == 1,
+           f"flagship train: K8 launched {per_step['row_gather']} times in a step, not once")
 
     ref_batch = _train_batch(rng, REF_RAYS)
     _ref_step("flagship train", trainer.model, trainer, ref_batch, dev)
@@ -1056,8 +1256,16 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
     _, lo, hi, _, n_coarse, n_fine = fused.bucket_plan(TRAIN_RAYS, bounds)[0]
     mlp_bucket_checks(fused, dev, [(hi - lo, n_coarse, n_fine), (hi - lo, 16, 16)])
     del fused
-    _profile_steps(trainer, batches[:2], warm)
-    return trainer, launches, per_step
+    step_ms = _profile_steps(trainer, batches[:2], warm)
+    with _recording_bounds() as step_bounds:
+        trainer.train_step(batches[2])
+    step_ms = {k: dict(ms=step_ms.get(k), bound_ms=step_bounds[k], launches=per_step[k])
+               for k in step_bounds}
+    print("flagship train: port kernels per steady step after the retune (ms by the "
+          "profiler, bound ms from the step's own inputs, launches): " + "; ".join(
+              f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} / "
+              f"{v['bound_ms']:.4f} / {v['launches']}" for k, v in step_ms.items()))
+    return trainer, launches, per_step, step_ms
 
 
 def flagship_render_phase(trainer, dev):
@@ -1090,6 +1298,9 @@ def flagship_render_phase(trainer, dev):
           f"{int(out['ray_mask'].sum())}, launches {launches}")
     for k in RENDER_KERNELS + ("row_gather",):
         _check(launches[k] > 0, f"flagship render: {k} did not launch: {launches}")
+    chunks = REQUESTS * REQUEST_RAYS // CHUNK
+    _check(launches["row_gather"] == chunks,
+           f"flagship render: K8 launched {launches['row_gather']} times in {chunks} chunks")
     for k in ("rgb", "depth", "accumulation"):
         _check(np.isfinite(out[k]).all(), f"flagship render: non-finite {k}")
     _check(out["rgb"].min() >= 0.0 and out["rgb"].max() <= 1.0, "flagship render: rgb range")
@@ -1192,7 +1403,7 @@ def main() -> int:
         o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
         kernels.append(gather_checks(mesh_plain.to(dev), torch.from_numpy(o).to(dev),
                                      torch.from_numpy(d).to(dev)))
-    trainer, paths["flagship_train"], flagship_step = flagship_train_phase(
+    trainer, paths["flagship_train"], flagship_step, flagship_ms = flagship_train_phase(
         colors, mesh_plain, dev, plain_median)
     paths["flagship_render"] = flagship_render_phase(trainer, dev)
     del trainer
@@ -1209,6 +1420,9 @@ def main() -> int:
         k["launches_per_chunk"] = paths["flagship_render" if flagship
                                         else "render_fused"][name] / chunks
         k["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
+        if name in flagship_ms:
+            k["flagship_step_ms"] = flagship_ms[name]["ms"]
+            k["flagship_step_bound_ms"] = flagship_ms[name]["bound_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -379,3 +379,55 @@ def test_autograd_functions_launch_the_backward_kernels(scene, cuda_device):
     cpu = torch.from_numpy(scene["field"]).requires_grad_()
     StreamBlendGather.apply(cpu, s.vids, s.pos, s.bary).backward(g.cpu())
     torch.testing.assert_close(field.grad.cpu(), cpu.grad, atol=1e-4, rtol=0)
+
+
+def _bucket_intervals(num_rays, max_t, num_samples, order, seed):
+    """Intervals of a flagship bucket's shape without a march: per ray a
+    sorted run of ``num_valid`` intervals (0 to ``max_t``) from its entry
+    point, ``+inf`` past it, one ray in ten masked, and ``num_samples``
+    distances over the run plus a margin before and after it."""
+    rng = np.random.default_rng(seed)
+    num_valid = rng.integers(0, max_t + 1, num_rays).astype(np.int32)
+    t_entry = rng.uniform(0.0, 1.0, num_rays).astype(np.float32)
+    lengths = rng.exponential(0.01, (num_rays, max_t)).astype(np.float32)
+    t1 = t_entry[:, None] + np.cumsum(lengths, axis=1, dtype=np.float32)
+    t1[np.arange(max_t)[None, :] >= num_valid[:, None]] = np.inf
+    t0 = np.concatenate([t_entry[:, None], t1[:, :-1]], axis=1)
+    far = np.where(num_valid > 0, t1[np.arange(num_rays), np.maximum(num_valid - 1, 0)],
+                   t_entry + 0.1)
+    u = np.linspace(-0.02, 1.02, num_samples, dtype=np.float32)
+    distances = t_entry[:, None] + u[None] * (far - t_entry)[:, None]
+    if order == "shuffled":
+        distances = distances[:, rng.permutation(num_samples)]
+    ray_mask = rng.random(num_rays) > 0.1
+    g = rng.standard_normal((num_rays, num_samples, 64)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in
+                 (t0, t1, num_valid, ray_mask, distances.astype(np.float32), g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("num_samples", [33, 257])
+def test_interp_backward_kernel_matches_twin_at_a_bucket_shape(cuda_device, num_samples,
+                                                               order):
+    """A flagship bucket: 512 rays, T=232, the budgets' floor (S=33) and
+    the full budget (S=257); within the chip smoke's tolerance."""
+    args = tuple(x.to(cuda_device) for x in
+                 _bucket_intervals(512, 232, num_samples, order, num_samples))
+    before = cuda.launch_counts["sample_interp_backward"]
+    out = sample_interp_backward(*args)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["sample_interp_backward"] == before + 1
+    assert out.shape == (512, 233, 64)
+    torch.testing.assert_close(out, sample_interp_backward_twin(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_interp_backward_kernel_is_deterministic(cuda_device, order):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = tuple(x.to(cuda_device) for x in _bucket_intervals(512, 232, 257, order, 5))
+    first = sample_interp_backward(*args)
+    second = sample_interp_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

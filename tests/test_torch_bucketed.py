@@ -1,6 +1,7 @@
 """Quantile-bucketed shading (``ray_buckets >= 2``) against the JAX model:
-the march slice (K8's path), the bucket bounds and budgets, the eval
-forward and the train forward's loss and gradients."""
+the march slice (K8's path, one bucket and all buckets of a plan in one
+batch), the bucket bounds and budgets, the eval forward and the train
+forward's loss and gradients."""
 
 import dataclasses
 
@@ -10,7 +11,7 @@ import torch
 
 from tetranerf_torch.geometry import TorchMesh
 from tetranerf_torch.models import TetraNerf, tetranerf_preset
-from tetranerf_torch.ops.fused import march_features, slice_march
+from tetranerf_torch.ops.fused import march_features, slice_march, slice_march_buckets
 from tetranerf_torch.ops.march import FusedMarch, MarchStream
 from tetranerf_torch.training.checkpoints import params_from_jax
 from tetranerf_torch.utils.shapes import inner_bound, scaled_budget
@@ -124,6 +125,67 @@ def test_slice_march_matches_jax_field_by_field(setup, t):
         assert out.overflow.any()  # deep rays lose their tails
 
 
+def test_slice_march_buckets_matches_jax_for_every_bucket(setup):
+    """One batch cuts all 8 buckets of a plan (quantile chunks of the
+    crossing-count order, truncating and covering bounds, the last at the
+    full bound): each bucket equal field by field to JAX ``_slice_march``
+    of its rays, and the rays' origins and directions ride along."""
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.fused import _slice_march
+    from tetranerf_tpu.ops.fused import march_features as jax_march_features
+
+    jres = jax_march_features(
+        setup["jmesh"].on_device(), None, jnp.asarray(setup["origins"]),
+        jnp.asarray(setup["directions"]), 64, use_occupancy=True,
+        occ_threshold=THRESHOLD, occ_depth_cap=CAP,
+    )
+    res = _to_port(jres)
+    _, cfg = _configs(ray_buckets=8)
+    model = _port_model(setup, cfg)
+    bounds = model.bucket_bounds(64, None, (4, 8, 12, 16, 24, 32, 48))
+    order = torch.argsort(res.num_valid, stable=True)
+    plan = model.bucket_plan(128, bounds)
+    assert len(plan) == 8
+    rays = (torch.from_numpy(setup["origins"]), torch.from_numpy(setup["directions"]))
+    slices = slice_march_buckets(res, order, plan, rays)
+    assert len(slices) == len(plan)
+    for (_, lo, hi, t, *_), (out, (o_k, d_k)) in zip(plan, slices):
+        idx = order[lo:hi]
+        ref = _slice_march(jres, jnp.asarray(idx.numpy().astype(np.int32)), t)
+        assert out.feats is None
+        for name in ("cells", "t1", "t_entry", "valid", "num_valid", "hit", "overflow",
+                     "t0s"):
+            np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                          np.asarray(getattr(ref, name)),
+                                          err_msg=f"{name} at bound {t}")
+            assert getattr(out, name).dtype == torch.from_numpy(
+                np.array(getattr(ref, name))).dtype, name
+        for name in ("vids", "pos", "bary"):
+            np.testing.assert_array_equal(getattr(out.stream, name).numpy(),
+                                          np.asarray(getattr(ref.stream, name)),
+                                          err_msg=f"{name} at bound {t}")
+        assert torch.equal(o_k, rays[0][idx]) and torch.equal(d_k, rays[1][idx])
+    assert any(sl.overflow.any() for sl, _ in slices[:-1])  # inner bounds truncate
+
+
+def test_slice_march_is_the_one_bucket_case(setup):
+    """``slice_march`` gives what ``slice_march_buckets`` gives for a plan
+    of one bucket holding exactly those rays."""
+    res = march_features(setup["mesh"], None, torch.from_numpy(setup["origins"]),
+                         torch.from_numpy(setup["directions"]), 64, use_occupancy=True,
+                         occ_depth_cap=CAP)
+    idx = torch.from_numpy(np.random.default_rng(4).permutation(128)[:40])
+    one = slice_march(res, idx, 20)
+    (batch, rays), = slice_march_buckets(res, idx, [(0, 0, 40, 20)])
+    assert rays == []
+    for a, b in zip(one, batch):
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        elif a is not None:
+            assert torch.equal(a, b)
+
+
 # ---------------------------------------------------- bounds and budgets
 
 
@@ -214,6 +276,14 @@ def test_adaptive_budgets_match_jax(setup):
     plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
     np.testing.assert_array_equal(out["ray_mask"], plain["ray_mask"])
     assert float(np.mean((out["rgb"] - plain["rgb"]) ** 2)) < 1e-3
+
+
+def test_eight_bucket_eval_forward_matches_jax(setup):
+    """The preset's 8 buckets, untuned bounds (a linear split of 64) and
+    adaptive budgets: every bucket cut by the one batched slice."""
+    jcfg, cfg = _configs(ray_buckets=8, bucket_adaptive_samples=True)
+    out, ref = _eval(setup, jcfg, cfg, None)
+    _assert_close_to_jax(out, ref)
 
 
 def test_truncating_inner_bounds_match_jax_overflow(setup):

@@ -93,10 +93,11 @@ extern "C" int tetranerf_sample_interp(
 //   gfeats[r, k]     += (1 - frac) * g[r, s]
 //   gfeats[r, k + 1] +=       frac * g[r, s]     over samples s with mask
 //
-// with k, frac and mask exactly as K3 computes them (the binary search and
-// the same float expressions are redone here rather than saved by the
-// forward: the train step then keeps no extra [R, S] tensors, and K3's
-// launch is the same in render and train).
+// into a dense f32[R, T+1, F] that is zero where nothing lands, with k,
+// frac and mask exactly as K3 computes them (the binary search and the same
+// float expressions are redone here rather than saved by the forward: the
+// train step then keeps no extra [R, S] tensors, and K3's launch is the
+// same in render and train).
 //
 // Replaces: tetranerf_tpu/ops/pallas_interp.py `_interp_bwd`
 // (`_interp_bwd_kernel` :82, pallas_call at :104 via `_run_interp`), and
@@ -104,98 +105,202 @@ extern "C" int tetranerf_sample_interp(
 // matmul that the JAX default `interp_mode="matmul"` runs. Both contracted
 // a [T+1, S] selection matrix with g on the MXU.
 //
-// Design: one warp per ray, each lane owning a float2 of feature columns.
-// The warp zeroes its ray's [T+1, F] slab, then walks the ray's samples in
-// order. Sorted samples visit non-decreasing k, so a lane keeps the running
-// sums of slots k and k+1 in registers and adds them into memory only when
-// k moves on (samples out of order are still summed right: a flush adds to
-// what the slot holds). No atomics: only that lane touches that column of
-// that ray, and the sums come out in sample order every run.
+// Design: one block of 8 warps per ray.
+// 1. The block stages the ray's t0 and t1 rows in shared memory, then runs
+//    the match once per sample with its threads in parallel (a binary
+//    search over the staged t1 row each) and keeps k and frac (-1 where
+//    the sample is not kept) in shared memory.
+// 2. The warps own disjoint, equal ranges of the T+1 endpoint slots, and
+//    each lane a float2 of feature columns. A warp scans the samples in
+//    order, 32 at a time from shared memory; a ballot picks the kept ones
+//    whose k or k+1 lands in its range, and it reads their g rows, four in
+//    flight. So each slot's sum is taken in sample order by one lane, with
+//    no atomics: two runs give the same bits.
+// 3. Sorted samples (the model always passes them, `ops/sampling.py`) visit
+//    non-decreasing k: the lane carries the sums of slots k and k+1 in
+//    registers and writes a slot once, when k moves past it, with the
+//    empty slots before it as zeros. So every slot of the range is written
+//    exactly once, whole, in coalesced rows, with no zeroing pass. Samples
+//    out of order (the block checks) take the slow path: the warp zeroes
+//    its range, then adds each sample into the two slots in memory.
 //
-// What bounds it on the H100: writing the dense [R, T+1, F] f32 output
-// (538 MB at 4096 x 513 x 64: 0.16 ms at the 3.35 TB/s of an H100 SXM at
-// 700 W, NVIDIA's data sheet) plus reading
-// the g rows of the kept samples. Each sample's binary search over the
-// ray's t1 row is a chain of about log2(T) L1-resident loads.
+// What bounds it on the H100: bytes, writing the dense output plus reading
+// the g rows of the kept samples, the distances and the t rows (0.25 ms at
+// the train shape, 4096 rays x T=512 x S=257 x F=64, at the 3.35 TB/s of
+// an H100 SXM at 700 W, NVIDIA's data sheet; ~0.02 ms for a 512-ray
+// bucket). The earlier design, one warp per ray with a single lane
+// walking the samples one after another (a binary search of dependent
+// loads each), with a serial zeroing pass: 0.63-0.72 ms at the train shape
+// and 2.32 ms for the 8 launches of a flagship step, on an H100 80GB HBM3
+// at 700 W.
 
 namespace {
 
-__device__ __forceinline__ void add_row(float* row, float2 v) {
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+__device__ __forceinline__ void store_row(float* row, float2 v, bool active) {
+  if (active) *reinterpret_cast<float2*>(row) = v;
+}
+
+__device__ __forceinline__ void add_row(float* row, float w, float2 x,
+                                        bool active) {
+  if (!active) return;
   float2* p = reinterpret_cast<float2*>(row);
   float2 acc = *p;
-  acc.x += v.x;
-  acc.y += v.y;
+  acc.x += w * x.x;
+  acc.y += w * x.y;
   *p = acc;
 }
 
-__global__ void __launch_bounds__(256) interp_bwd_kernel(
+__global__ void __launch_bounds__(kBwdThreads) interp_bwd_kernel(
     const float* __restrict__ t0, const float* __restrict__ t1,
     const int* __restrict__ num_valid, const bool* __restrict__ ray_mask,
     const float* __restrict__ dist, const float* __restrict__ g,
-    float* __restrict__ gfeats, int num_rays, int max_t, int num_samples,
-    int num_feat) {
-  const long long r =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= num_rays) return;
-  float* dst = gfeats + r * (max_t + 1) * num_feat;
-  for (int t = 0; t <= max_t; ++t) {
-    for (int f = 2 * lane; f < num_feat; f += 64) {
-      *reinterpret_cast<float2*>(dst + t * num_feat + f) =
-          make_float2(0.0f, 0.0f);
-    }
-  }
-  if (!ray_mask[r]) return;
-  const int nv = num_valid[r];
-  const float* t0r = t0 + r * max_t;
-  const float* t1r = t1 + r * max_t;
-  const float* dr = dist + r * num_samples;
-  const float* gr = g + r * num_samples * num_feat;
-  for (int f = 2 * lane; f < num_feat; f += 64) {
-    int cur = -1;  // slot whose sums a0 (cur) and a1 (cur + 1) hold
-    float2 a0 = make_float2(0.0f, 0.0f), a1 = make_float2(0.0f, 0.0f);
-    for (int s = 0; s < num_samples; ++s) {
-      const float d = __ldg(dr + s);
-      int lo = 0, hi = max_t;  // first slot with t1 > d
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(t1r + mid) <= d) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
+    float* __restrict__ gfeats, int max_t, int num_samples, int num_feat) {
+  extern __shared__ float smem[];
+  float* s_t0 = smem;                     // [max_t]
+  float* s_t1 = s_t0 + max_t;             // [max_t]
+  float* s_frac = s_t1 + max_t;           // [S]: frac, or -1 if not kept
+  int* s_k = reinterpret_cast<int*>(s_frac + num_samples);  // [S]
+  const long long r = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int num_slots = max_t + 1;
+  const int per_warp = (num_slots + kBwdWarps - 1) / kBwdWarps;
+  const int a = min(warp * per_warp, num_slots);  // this warp's slots [a, b)
+  const int b = min(a + per_warp, num_slots);
+  float* dst = gfeats + r * num_slots * num_feat;
+
+  if (!ray_mask[r]) {  // uniform across the block
+    for (int f0 = 0; f0 < num_feat; f0 += 64) {
+      const int col = f0 + 2 * lane;
+      for (int j = a; j < b; ++j) {
+        store_row(dst + j * num_feat + col, make_float2(0.0f, 0.0f),
+                  col < num_feat);
       }
-      const int k = lo;
-      if (k >= nv) continue;  // nv <= max_t, so k < max_t below
-      const float t0k = __ldg(t0r + k);
-      if (!(d >= t0k)) continue;
-      const float t1k = __ldg(t1r + k);
-      float frac = (d - t0k) / fmaxf(t1k - t0k, 1e-20f);
-      frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-      const float2 x =
-          __ldg(reinterpret_cast<const float2*>(gr + s * num_feat + f));
-      const float w0 = 1.0f - frac;
-      if (k != cur) {
-        if (cur >= 0) {
-          add_row(dst + cur * num_feat + f, a0);
-          if (k == cur + 1) {
-            a0 = a1;
-          } else {
-            add_row(dst + (cur + 1) * num_feat + f, a1);
-            a0 = make_float2(0.0f, 0.0f);
+    }
+    return;
+  }
+
+  for (int i = threadIdx.x; i < max_t; i += kBwdThreads) {
+    s_t0[i] = __ldg(t0 + r * max_t + i);
+    s_t1[i] = __ldg(t1 + r * max_t + i);
+  }
+  __syncthreads();
+  const int nv = num_valid[r];
+  const float* dr = dist + r * num_samples;
+  for (int s = threadIdx.x; s < num_samples; s += kBwdThreads) {
+    const float d = __ldg(dr + s);
+    int lo = 0, hi = max_t;  // first slot with t1 > d
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_t1[mid] <= d) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    const int k = lo;
+    float frac = -1.0f;
+    if (k < nv && k < max_t) {
+      const float t0k = s_t0[k];
+      if (d >= t0k) {
+        frac = (d - t0k) / fmaxf(s_t1[k] - t0k, 1e-20f);
+        frac = fminf(fmaxf(frac, 0.0f), 1.0f);
+      }
+    }
+    s_k[s] = k;
+    s_frac[s] = frac;
+  }
+  __syncthreads();
+  bool in_order = true;
+  for (int s = threadIdx.x + 1; s < num_samples; s += kBwdThreads) {
+    in_order = in_order && s_k[s] >= s_k[s - 1];
+  }
+  const bool sorted = __syncthreads_and(in_order);
+
+  const float* gr = g + r * num_samples * num_feat;
+  for (int f0 = 0; f0 < num_feat; f0 += 64) {
+    const int col = f0 + 2 * lane;
+    const bool active = col < num_feat;
+    if (!sorted) {
+      for (int j = a; j < b; ++j) {
+        store_row(dst + j * num_feat + col, make_float2(0.0f, 0.0f), active);
+      }
+    }
+    int next = a;     // sorted: the first slot of [a, b) not yet written
+    int cur = a - 2;  // sorted: acc0 sums slot cur, acc1 slot cur + 1
+    float2 acc0 = make_float2(0.0f, 0.0f), acc1 = acc0;
+    // Slot j's sum is final: write the empty slots before it, then it.
+    auto emit = [&](int j, float2 v) {
+      if (j < a || j >= b) return;
+      for (; next < j; ++next) {
+        store_row(dst + next * num_feat + col, make_float2(0.0f, 0.0f), active);
+      }
+      store_row(dst + j * num_feat + col, v, active);
+      next = j + 1;
+    };
+    for (int base = 0; base < num_samples; base += 32) {
+      const int s = base + lane;
+      const bool rel = s < num_samples && s_frac[s] >= 0.0f &&
+                       s_k[s] >= a - 1 && s_k[s] < b;
+      unsigned bal = __ballot_sync(0xffffffffu, rel);
+      while (bal) {
+        int ss[4];
+        float2 xs[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ss[q] = -1;
+          if (bal) {
+            ss[q] = base + __ffs(bal) - 1;
+            bal &= bal - 1;
           }
         }
-        a1 = make_float2(0.0f, 0.0f);
-        cur = k;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          xs[q] = make_float2(0.0f, 0.0f);
+          if (ss[q] >= 0 && active) {
+            xs[q] = __ldg(reinterpret_cast<const float2*>(
+                gr + static_cast<long long>(ss[q]) * num_feat + col));
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (ss[q] < 0) continue;
+          const int k = s_k[ss[q]];
+          const float frac = s_frac[ss[q]];
+          const float w0 = 1.0f - frac;
+          if (!sorted) {
+            if (k >= a) add_row(dst + k * num_feat + col, w0, xs[q], active);
+            if (k + 1 < b) {
+              add_row(dst + (k + 1) * num_feat + col, frac, xs[q], active);
+            }
+            continue;
+          }
+          if (k != cur) {
+            emit(cur, acc0);
+            if (k == cur + 1) {
+              acc0 = acc1;
+            } else {
+              emit(cur + 1, acc1);
+              acc0 = make_float2(0.0f, 0.0f);
+            }
+            acc1 = make_float2(0.0f, 0.0f);
+            cur = k;
+          }
+          acc0.x += w0 * xs[q].x;
+          acc0.y += w0 * xs[q].y;
+          acc1.x += frac * xs[q].x;
+          acc1.y += frac * xs[q].y;
+        }
       }
-      a0.x += w0 * x.x;
-      a0.y += w0 * x.y;
-      a1.x += frac * x.x;
-      a1.y += frac * x.y;
     }
-    if (cur >= 0) {
-      add_row(dst + cur * num_feat + f, a0);
-      add_row(dst + (cur + 1) * num_feat + f, a1);
+    if (sorted) {
+      emit(cur, acc0);
+      emit(cur + 1, acc1);
+      for (; next < b; ++next) {
+        store_row(dst + next * num_feat + col, make_float2(0.0f, 0.0f), active);
+      }
     }
   }
 }
@@ -207,12 +312,19 @@ extern "C" int tetranerf_sample_interp_backward(
     const bool* ray_mask, const float* dist, const float* g, float* gfeats,
     int num_rays, int max_t, int num_samples, int num_feat,
     cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long blocks =
-      (static_cast<long long>(num_rays) * 32 + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  interp_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      t0, t1, num_valid, ray_mask, dist, g, gfeats, num_rays, max_t,
-      num_samples, num_feat);
+  const size_t smem =
+      (2 * static_cast<size_t>(max_t) + 2 * static_cast<size_t>(num_samples)) *
+      sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        interp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (num_rays > 0) {
+    interp_bwd_kernel<<<static_cast<unsigned>(num_rays), kBwdThreads, smem,
+                        stream>>>(t0, t1, num_valid, ray_mask, dist, g, gfeats,
+                                  max_t, num_samples, num_feat);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@ from ..ops.fused import (
     march_features,
     ray_bounds,
     sample_features,
-    slice_march,
+    slice_march_buckets,
 )
 from ..ops.march import FusedMarch
 from ..ops.mlp import FusedDensityMLP, FusedFieldMLPs, as_operand
@@ -373,9 +373,10 @@ class TetraNerf(nn.Module):
         """Quantile-bucketed shading (JAX ``_get_outputs_bucketed``, its
         per-bucket path): one geometry-only march at the full bound (K1),
         rays sorted by crossing count (stably, as ``jnp.argsort``) and cut
-        into equal quantile chunks; each chunk is sliced to its own bound
-        (K8) and shaded by :meth:`_forward` on that slice, and the outputs
-        go back to ray order."""
+        into equal quantile chunks; one K8 launch slices every chunk to its
+        own bound (geometry only: the slices take no gradient), each is
+        shaded by :meth:`_forward` on its slice, and the outputs go back to
+        ray order."""
         cfg = self.config
         res = cached_march
         if res is None:
@@ -387,16 +388,15 @@ class TetraNerf(nn.Module):
             )
         order = torch.argsort(res.num_valid, stable=True)
         inv_order = torch.argsort(order)
+        plan = self.bucket_plan(origins.shape[0], bounds, n_coarse, n_fine)
+        slices = slice_march_buckets(res, order, plan, (origins, directions))
         outs = []
-        for k, lo, hi, t_k, ns_k, nf_k in self.bucket_plan(
-            origins.shape[0], bounds, n_coarse, n_fine
-        ):
-            idx = order[lo:hi]
+        for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)) in zip(plan, slices):
             outs.append(self._forward(
-                origins[idx], directions[idx], mesh, t_k, ns_k, nf_k, None,
+                o_k, d_k, mesh, t_k, ns_k, nf_k, None,
                 train, generator, None if uniforms is None else uniforms[k],
-                None if camera_indices is None else camera_indices[idx],
-                slice_march(res, idx, t_k),
+                None if camera_indices is None else camera_indices[order[lo:hi]],
+                sliced,
             ))
         return {key: torch.cat([o[key] for o in outs])[inv_order] for key in outs[0]}
 

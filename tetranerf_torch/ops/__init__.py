@@ -8,8 +8,9 @@ from .fused import (
     ray_bounds,
     sample_features,
     slice_march,
+    slice_march_buckets,
 )
-from .gather import row_gather
+from .gather import row_gather, row_gather_batch
 from .march import FusedMarch, MarchStream, march
 from .mlp import (
     FusedDensityMLP,
@@ -42,7 +43,9 @@ __all__ = [
     "render_rgb_depth_acc",
     "render_weights",
     "row_gather",
+    "row_gather_batch",
     "sample_features",
     "slice_march",
+    "slice_march_buckets",
     "stratified_bins",
 ]

@@ -47,7 +47,6 @@ _SOURCES = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 # argtypes of each C entry point (the trailing pointer is the CUDA stream).
 _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 11 + [_P],
@@ -58,7 +57,8 @@ _SIGNATURES = {
     "tetranerf_scatter_add_rows": [_P] * 3 + [_I] * 3 + [_P],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 7 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 10 + [_I] * 8 + [_P],
-    "tetranerf_row_gather": [_P] * 3 + [_I, _L, _I] + [_P],
+    "tetranerf_row_gather_batch": [_P, _I, _P],
+    "tetranerf_row_gather_max_jobs": [],
 }
 
 launch_counts = {
@@ -73,6 +73,7 @@ build_log = ""
 """nvcc's output (``-Xptxas -v``: registers, spills) of the last build."""
 
 _lib = None
+_fns = {}  # C entry point name -> its ctypes function, argtypes set
 _lock = threading.Lock()
 
 
@@ -140,27 +141,41 @@ def load() -> ctypes.CDLL:
             build_log = log
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _fns[fn] = f
         lib.tetranerf_error_string.argtypes = [ctypes.c_int]
         lib.tetranerf_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
 
-def ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, as the ``c_void_p`` arguments take it."""
+    return t.data_ptr()
+
+
+def entry(fn: str):
+    """C entry point ``fn`` of the kernel library (built and loaded at
+    first use), its ``argtypes`` set."""
+    if _lib is None:
+        load()
+    return _fns[fn]
 
 
 def launch(counter: str, fn: str, device: torch.device, *args) -> None:
     """Call C entry point ``fn`` on ``device``'s current stream; raise on a
-    CUDA error, count the launch under ``counter`` otherwise."""
-    lib = load()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = getattr(lib, fn)(*args, stream)
+    CUDA error, count the launch under ``counter`` otherwise. The entry
+    point is looked up once; a call costs the stream handle and the call."""
+    f = _fns.get(fn) or entry(fn)
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):  # the runtime launches on the current device
+            rc = f(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        rc = f(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        msg = lib.tetranerf_error_string(rc).decode()
+        msg = _lib.tetranerf_error_string(rc).decode()
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({msg})")
     launch_counts[counter] += 1
 

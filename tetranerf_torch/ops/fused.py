@@ -6,8 +6,9 @@ Counterpart of ``march_features``, ``endpoint_features``, ``ray_bounds``,
 ray inside a cell and continuous across faces, so a sample's feature is
 the exact lerp of the features at its interval's two endpoints: the march
 emits endpoint features once (K2) and every sampling round lerps them (K3).
-Bucketed shading cuts each quantile bucket out of one march with the row
-gather K8 (:func:`slice_march`) and recomputes its endpoint features.
+Bucketed shading cuts every quantile bucket out of one march with one
+launch of the row gather K8 (:func:`slice_march_buckets`) and recomputes
+each bucket's endpoint features.
 Where autograd records (grad enabled and a differentiable input), the two go
 through the autograd Functions whose backwards are K2b + K7 and K3b.
 """
@@ -22,7 +23,7 @@ from .interp import (
     sample_interp,
     stream_blend_gather,
 )
-from .gather import row_gather
+from .gather import row_gather_batch
 from .march import FusedMarch, MarchStream, march
 
 
@@ -58,42 +59,74 @@ def march_features(
     return res._replace(feats=endpoint_features(field, res.stream))
 
 
-def slice_march(res: FusedMarch, idx: torch.Tensor, t: int) -> FusedMarch:
-    """Rays ``idx`` of a geometry-only march, cut to their first ``t``
-    intervals (JAX ``_slice_march``); ``feats`` is left None (recompute
-    with :func:`endpoint_features`).
+def slice_march_jobs(res: FusedMarch, order: torch.Tensor, plan, rays=()):
+    """The K8 jobs ``(table, idx, width)`` with which
+    :func:`slice_march_buckets` cuts ``res``, bucket by bucket: per entry
+    ``(_, lo, hi, t, ...)`` of ``plan``, rays ``order[lo:hi]`` cut to
+    ``min(t, T)`` intervals. A bucket's jobs are, in order: cells, t1, t0s
+    (where the march has them), valid, the stream's ids, positions and
+    weights, then ``t_entry``, ``hit``, ``num_valid`` and ``overflow`` as
+    1-column jobs, then each of ``rays`` (``[R, C]`` tensors) whole.
 
     Endpoint ``k`` references stream positions below ``4 + k``, so a stream
-    cut to ``t + 4`` ids and ``t + 1`` endpoints is self-consistent. The
-    ``[R, T]`` tensors and the stream go through K8, one launch each; the
-    per-ray vectors through plain indexing. Rays with more than ``t`` valid
-    intervals lose their far tail, and that truncation is folded into
-    ``overflow``."""
-    t = min(t, res.t1.shape[1])
-    idx = idx.to(torch.int32).contiguous()
-    num = idx.shape[0]
+    cut to ``t + 4`` ids and ``t + 1`` endpoints is self-consistent; ``pos``
+    and ``bary`` are cut as ``[R, (T+1)*4]`` rows."""
+    order = order.to(torch.int32).contiguous()
+    num_rays, max_t = res.t1.shape
     s = res.stream
+    pos, bary = (x.reshape(num_rays, -1) for x in (s.pos, s.bary))
+    per_ray = [x[:, None] for x in (res.t_entry, res.hit, res.num_valid, res.overflow)]
+    jobs = []
+    for _, lo, hi, t, *_ in plan:
+        t = min(t, max_t)
+        idx = order[lo:hi]
+        tensors = [(res.cells, t), (res.t1, t)]
+        if res.t0s is not None:
+            tensors.append((res.t0s, t))
+        tensors += [(res.valid, t), (s.vids, t + 4), (pos, (t + 1) * 4),
+                    (bary, (t + 1) * 4)]
+        tensors += [(x, 1) for x in per_ray] + [(x, x.shape[1]) for x in rays]
+        jobs += [(table, idx, width) for table, width in tensors]
+    return jobs
 
-    def endpoints(x):  # [R, T+1, 4] as [R, (T+1)*4] rows, cut to t+1 endpoints
-        return row_gather(x.reshape(x.shape[0], -1), idx, (t + 1) * 4).view(num, t + 1, 4)
 
-    stream = MarchStream(vids=row_gather(s.vids, idx, t + 4),
-                         pos=endpoints(s.pos), bary=endpoints(s.bary))
-    valid = row_gather(res.valid, idx, t)
-    num_valid = valid.sum(dim=-1, dtype=torch.int32)
-    rows = idx.long()
-    return FusedMarch(
-        cells=row_gather(res.cells, idx, t),
-        t1=row_gather(res.t1, idx, t),
-        t_entry=res.t_entry[rows],
-        valid=valid,
-        num_valid=num_valid,
-        feats=None,
-        hit=res.hit[rows],
-        overflow=res.overflow[rows] | (num_valid < res.num_valid[rows]),
-        stream=stream,
-        t0s=row_gather(res.t0s, idx, t) if res.t0s is not None else None,
-    )
+def slice_march_buckets(res: FusedMarch, order: torch.Tensor, plan, rays=()):
+    """Every bucket of ``plan`` cut out of a geometry-only march in one K8
+    launch (JAX ``_slice_march`` per bucket): per entry ``(_, lo, hi, t,
+    ...)``, rays ``order[lo:hi]`` cut to their first ``t`` intervals, and
+    those rays' rows of each ``[R, C]`` tensor of ``rays`` (origins,
+    directions). Returns one ``(FusedMarch, [ray rows])`` per entry;
+    ``feats`` is left None (recompute with :func:`endpoint_features`).
+
+    Rays with more than ``t`` valid intervals lose their far tail, and that
+    truncation is folded into ``overflow``."""
+    jobs = slice_march_jobs(res, order, plan, rays)
+    outs = iter(row_gather_batch(jobs))
+    slices = []
+    for _, lo, hi, t, *_ in plan:
+        t = min(t, res.t1.shape[1])
+        num = hi - lo
+        cells, t1 = next(outs), next(outs)
+        t0s = next(outs) if res.t0s is not None else None
+        valid, vids, pos, bary = (next(outs) for _ in range(4))
+        t_entry, hit, num_valid_before, overflow = (next(outs).view(num) for _ in range(4))
+        num_valid = valid.sum(dim=-1, dtype=torch.int32)
+        march = FusedMarch(
+            cells=cells, t1=t1, t_entry=t_entry, valid=valid, num_valid=num_valid,
+            feats=None, hit=hit, overflow=overflow | (num_valid < num_valid_before),
+            stream=MarchStream(vids=vids, pos=pos.view(num, t + 1, 4),
+                               bary=bary.view(num, t + 1, 4)),
+            t0s=t0s,
+        )
+        slices.append((march, [next(outs) for _ in rays]))
+    return slices
+
+
+def slice_march(res: FusedMarch, idx: torch.Tensor, t: int) -> FusedMarch:
+    """Rays ``idx`` of a geometry-only march, cut to their first ``t``
+    intervals (JAX ``_slice_march``): the one-bucket case of
+    :func:`slice_march_buckets`."""
+    return slice_march_buckets(res, idx, [(0, 0, idx.shape[0], t)])[0][0]
 
 
 def ray_bounds(res: FusedMarch, near: float = 0.0):
