@@ -13,7 +13,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    100K-point sphere scene (8192 rays, T=512 march slots, S=257 fine
    samples): max abs error against the stated tolerance, median CUDA-event
    times of both, the least time the card could take (bytes over HBM rate
-   or operations over the f32 rate, from this run's data);
+   or operations over the f32 rate, from this run's data); K3 also at
+   three buckets of the flagship's cold step (512 train rays: the deepest
+   bound at S=257, the median at its adaptive budget, the shallowest at
+   S=33), sorted and shuffled, mask equal, two launches bit-equal;
 4. K1 on ``tests/assets/golden_march.npz`` (exact cells, t within 1e-5);
 5. the render path: the ``tetra-nerf`` preset (``ray_buckets=1``, seeded
    random weights with point colours, a synthetic occupancy column), 4
@@ -24,9 +27,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 6. the backward kernels K2b, K3b and K7 against their twins at the train
    slice's shapes (4096 rays, the cold march at T=512, S=257, F=64, the
    scene's 100K vertices), with K7 beside ``index_add_`` (``library_ms``);
-   K3b also at three buckets of the flagship's cold step (512 rays: the
-   deepest bound at S=257, the median at its adaptive budget, the
-   shallowest at S=33), sorted and shuffled, two launches bit-equal;
+   K2b and K3b also at phase 3's three bucket shapes (K3b sorted and
+   shuffled), two launches bit-equal;
 7. the train path: ``Trainer.train_step`` on the same preset, 65 steps on
    five batches of 4096 rays in turn, with targets from
    ``sphere_ray_targets`` (the traversal probe,
@@ -273,8 +275,10 @@ def synthetic_occupancy(mesh_cpu):
     return torch.where(centroids.norm(dim=1) > 0.9, 200.0, 0.0)
 
 
-def kernel_checks(mesh, field, origins, directions):
-    """Phase 3: each forward kernel against its twin on the card."""
+def kernel_checks(mesh, field, origins, directions, bucket_rays):
+    """Phase 3: each forward kernel against its twin on the card; K3 also
+    at three flagship bucket shapes cut from the march of ``bucket_rays``
+    (the train rays' origins and directions)."""
     import torch
     from tetranerf_torch.ops import fused, interp
     from tetranerf_torch.ops.march import (
@@ -357,13 +361,18 @@ def kernel_checks(mesh, field, origins, directions):
     _check(err <= TOLERANCES["sample_interp"], f"sample_interp: max abs err {err}")
     print(f"sample_interp: out {tuple(f_k.shape)}, valid samples "
           f"{float(m_k.float().mean()):.3f}, max abs err {err:.3g}")
-    results.append(_entry(
+    entry = _entry(
         "sample_interp", "tetranerf_torch/csrc/interp.cu",
         "tetranerf_tpu/ops/pallas_interp.py:104", err,
         _time_ms(lambda: interp.sample_interp(*interp_args), 10),
         _time_ms(lambda: interp.sample_interp_twin(*interp_args), 3),
         _interp_bound(*interp_args),
-    ))
+    )
+    del f_k, f_t
+    gen = torch.Generator(device=origins.device).manual_seed(3)
+    entry["bucket_shapes"] = _interp_bucket_checks(mesh, *bucket_rays, gen)
+    entry["max_abs_err"] = max([err] + [b["max_abs_err"] for b in entry["bucket_shapes"]])
+    results.append(entry)
     return results
 
 
@@ -454,25 +463,28 @@ def backward_checks(mesh, origins, directions):
         _interp_bwd_bound(*i_args, g_samp),
     )
     del gf, g_samp
-    entry["bucket_shapes"] = _interp_bwd_bucket_checks(mesh, origins, directions, gen)
-    entry["max_abs_err"] = max([err] + [b["max_abs_err"] for b in entry["bucket_shapes"]])
     results.append(entry)
+    by_name = {e["name"]: e for e in results}
+    for name, shapes in zip(("stream_blend_backward", "sample_interp_backward"),
+                            _backward_bucket_checks(mesh, origins, directions, gen)):
+        entry = by_name[name]
+        entry["bucket_shapes"] = shapes
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [b["max_abs_err"] for b in shapes])
     return results
 
 
-def _interp_bwd_bucket_checks(mesh, origins, directions, gen):
-    """K3b at three buckets of the flagship's cold step: the train rays
-    marched at bound 384 and cut into 8 quantile buckets of 512 rays at the
-    cold tune's bounds (as phase 11 cuts them); the deepest at S=257, the
-    median at its adaptive budget, the shallowest at the budgets' floor,
-    S=33. Samples evenly spread over each ray's range, sorted and shuffled:
-    each within the tolerance of the twin, and two launches bit-equal."""
+def _bucket_slices(mesh, origins, directions):
+    """Three buckets of the flagship's cold step: the train rays marched at
+    bound 384 and cut into 8 quantile buckets of 512 rays at the cold
+    tune's bounds (as phase 11 cuts them); the deepest at S=257, the median
+    at its adaptive budget, the shallowest at the budgets' floor, S=33.
+    Yields (label, slice, samples, ray mask, distances evenly spread over
+    each ray's range)."""
     import torch
-    from tetranerf_torch.ops import fused, interp
+    from tetranerf_torch.ops import fused
     from tetranerf_torch.utils.shapes import scaled_budget
 
     res, order, plan = _cold_bucket_plan(mesh, origins, directions)
-    shapes = []
     for label, k in (("deepest", 7), ("median", 3), ("shallowest", 0)):
         _, lo, hi, t = plan[k]
         budget = {"deepest": 128, "shallowest": 16}.get(label, scaled_budget(128, t, 384))
@@ -482,32 +494,94 @@ def _interp_bwd_bucket_checks(mesh, origins, directions, gen):
         edges = torch.linspace(0.0, 1.0, num_samples + 1, device=origins.device)
         edges = nears[:, None] + edges[None, :] * (fars - nears)[:, None]
         distances = ((edges[:, 1:] + edges[:, :-1]) / 2.0).contiguous()
-        g = torch.randn((hi - lo, num_samples, 64), generator=gen, device=origins.device)
+        yield label, sl, num_samples, ray_mask, distances
+
+
+def _bucket_shape_check(name, label, shape, cases, bound):
+    """Kernel ``name`` of ``ops/interp.py`` at one bucket's ``shape``: each
+    of ``cases`` ((case, args) pairs) within its tolerance of the twin (a
+    mask output equal), and two launches bit-equal; then the first case
+    timed by CUDA events and the profiler beside its twin and ``bound``."""
+    import torch
+    from tetranerf_torch.ops import interp
+
+    kernel, twin = getattr(interp, name), getattr(interp, name + "_twin")
+    errs = []
+    for case, args in cases:
+        first, ref = kernel(*args), twin(*args)
+        if isinstance(first, tuple):  # K3: (out, mask)
+            _check(torch.equal(first[1], ref[1]),
+                   f"{name} ({label} bucket, {case}): mask differs from the twin")
+            first_out, ref = first[0], ref[0]
+        else:
+            first_out = first
+        err = _max_err(first_out, ref)
+        _check(err <= TOLERANCES[name], f"{name} ({label} bucket, {case}): max abs err {err}")
+        again = kernel(*args)
+        _check(all(torch.equal(x, y) for x, y in zip(
+            first if isinstance(first, tuple) else (first,),
+            again if isinstance(again, tuple) else (again,))),
+            f"{name} ({label} bucket, {case}): two launches differ")
+        errs.append(err)
+    args = cases[0][1]
+    out = dict(bucket=label, **shape, max_abs_err=max(errs),
+               ms=_time_ms(lambda: kernel(*args), 20),
+               device_ms=_device_ms(lambda: kernel(*args)),
+               plain_ms=_time_ms(lambda: twin(*args), 3), **bound(*args))
+    print(f"{name}, {label} bucket ({', '.join(f'{k} {v}' for k, v in shape.items())}): "
+          f"max abs err {max(errs):.3g} ({', '.join(c for c, _ in cases)}), two launches "
+          f"bit-equal; {out['ms']:.4f} ms by CUDA events, kernel {out['device_ms']} ms by "
+          f"the profiler (twin {out['plain_ms']:.3f}), bound {out['bound_ms']:.4f}")
+    return out
+
+
+def _interp_bucket_checks(mesh, origins, directions, gen):
+    """K3 at the three bucket shapes of :func:`_bucket_slices`, with random
+    endpoint features; samples sorted and shuffled."""
+    import torch
+
+    shapes = []
+    for label, sl, num_samples, ray_mask, distances in _bucket_slices(mesh, origins,
+                                                                      directions):
+        num_rays, max_t = sl.t1.shape
+        feats = torch.randn((num_rays, max_t + 1, 64), generator=gen, device=origins.device)
         perm = torch.randperm(num_samples, generator=gen, device=origins.device)
-        errs = []
-        for order_name, dist in (("sorted", distances), ("shuffled", distances[:, perm])):
-            args = (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask, dist.contiguous(), g)
-            first = interp.sample_interp_backward(*args)
-            err = _max_err(first, interp.sample_interp_backward_twin(*args))
-            _check(err <= TOLERANCES["sample_interp_backward"],
-                   f"sample_interp_backward ({label} bucket, {order_name}): max abs err {err}")
-            _check(torch.equal(first, interp.sample_interp_backward(*args)),
-                   f"sample_interp_backward ({label} bucket, {order_name}): two launches differ")
-            errs.append(err)
-        args = (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask, distances, g)
-        shape = dict(bucket=label, rays=hi - lo, max_t=t, samples=num_samples,
-                     max_abs_err=max(errs),
-                     ms=_time_ms(lambda: interp.sample_interp_backward(*args), 20),
-                     device_ms=_device_ms(lambda: interp.sample_interp_backward(*args)),
-                     plain_ms=_time_ms(lambda: interp.sample_interp_backward_twin(*args), 3),
-                     **_interp_bwd_bound(*args))
-        print(f"sample_interp_backward, {label} bucket ({hi - lo} rays, T={t}, "
-              f"S={num_samples}): max abs err {max(errs):.3g} sorted and shuffled, two "
-              f"launches bit-equal; {shape['ms']:.4f} ms by CUDA events, kernel "
-              f"{shape['device_ms']} ms by the profiler (twin {shape['plain_ms']:.3f}, "
-              f"bound {shape['bound_ms']:.4f})")
-        shapes.append(shape)
+        cases = [(order, (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask,
+                          dist.contiguous(), feats))
+                 for order, dist in (("sorted", distances), ("shuffled", distances[:, perm]))]
+        shapes.append(_bucket_shape_check(
+            "sample_interp", label, dict(rays=num_rays, max_t=max_t, samples=num_samples),
+            cases, _interp_bound))
     return shapes
+
+
+def _backward_bucket_checks(mesh, origins, directions, gen):
+    """K2b (random endpoint cotangents onto the bucket's stream) and K3b
+    (random sample cotangents, samples sorted and shuffled) at the three
+    bucket shapes of :func:`_bucket_slices`."""
+    import torch
+
+    blend, interp_bwd = [], []
+    for label, sl, num_samples, ray_mask, distances in _bucket_slices(mesh, origins,
+                                                                      directions):
+        num_rays, max_t = sl.t1.shape
+        s = sl.stream
+        num_end, num_stream = s.pos.shape[1], s.vids.shape[1]
+        g_end = torch.randn((num_rays, num_end, 64), generator=gen, device=origins.device)
+        blend.append(_bucket_shape_check(
+            "stream_blend_backward", label,
+            dict(rays=num_rays, max_t=max_t, endpoints=num_end, slots=num_stream),
+            [("stream", (g_end, s.pos.contiguous(), s.bary.contiguous(), num_stream))],
+            _blend_bwd_bound))
+        g = torch.randn((num_rays, num_samples, 64), generator=gen, device=origins.device)
+        perm = torch.randperm(num_samples, generator=gen, device=origins.device)
+        cases = [(order, (sl.t0.contiguous(), sl.t1, sl.num_valid, ray_mask,
+                          dist.contiguous(), g))
+                 for order, dist in (("sorted", distances), ("shuffled", distances[:, perm]))]
+        interp_bwd.append(_bucket_shape_check(
+            "sample_interp_backward", label,
+            dict(rays=num_rays, max_t=max_t, samples=num_samples), cases, _interp_bwd_bound))
+    return blend, interp_bwd
 
 
 def _cold_bucket_plan(mesh, origins, directions):
@@ -891,7 +965,7 @@ def _port_kernel(name):
     """The function name of a port kernel in a profiler event, else None."""
     if "(anonymous namespace)::" not in name:
         return None
-    fn = name.split("::")[1].split("(")[0]
+    fn = name.split("::")[1].split("(")[0].split("<")[0]
     return fn if fn in _PORT_KERNELS else None
 
 
@@ -1365,9 +1439,11 @@ def main() -> int:
 
     with torch.inference_mode():
         o, d = sample_sphere_rays(np.random.default_rng(0), CHUNK)
+        train_o, train_d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
         kernels = kernel_checks(
             mesh, model.tetrahedra_field.detach(),
             torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            (torch.from_numpy(train_o).to(dev), torch.from_numpy(train_d).to(dev)),
         )
         golden_check(dev)
 

@@ -431,3 +431,80 @@ def test_interp_backward_kernel_is_deterministic(cuda_device, order):
     second = sample_interp_backward(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _bucket_stream(num_rays, max_t, feat, seed):
+    """A stream of a flagship bucket's shape without a march: endpoint 0
+    names slots 0-3, and each later endpoint replaces one of its
+    predecessor's four slots with the new slot ``e + 3``, as the march's
+    dedup does; endpoints past a ray's ``num_valid`` carry zero weights and
+    position 0; one weight in ten of the others is zero."""
+    rng = np.random.default_rng(seed)
+    num_end = max_t + 1
+    cur = np.tile(np.arange(4, dtype=np.int32), (num_rays, 1))
+    pos = np.empty((num_rays, num_end, 4), np.int32)
+    pos[:, 0] = cur
+    for e in range(1, num_end):
+        cur[np.arange(num_rays), rng.integers(0, 4, num_rays)] = e + 3
+        pos[:, e] = cur
+    bary = rng.uniform(0.05, 1.0, (num_rays, num_end, 4)).astype(np.float32)
+    bary[rng.random(bary.shape) < 0.1] = 0.0
+    num_valid = rng.integers(0, max_t + 1, num_rays)
+    pad = np.arange(num_end)[None, :] > num_valid[:, None]
+    bary[pad], pos[pad] = 0.0, 0
+    g = rng.standard_normal((num_rays, num_end, feat)).astype(np.float32)
+    return tuple(torch.from_numpy(x) for x in (g, pos, bary))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [16, 64])
+def test_blend_backward_kernel_matches_twin_at_a_bucket_shape(cuda_device, feat):
+    """A flagship bucket: 512 rays, T=232 (E=233 endpoints, U=236 stream
+    slots), two slot tiles per ray; within the chip smoke's tolerance."""
+    g, pos, bary = (x.to(cuda_device) for x in _bucket_stream(512, 232, feat, feat))
+    before = cuda.launch_counts["stream_blend_backward"]
+    out = stream_blend_backward(g, pos, bary, 236)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["stream_blend_backward"] == before + 1
+    assert out.shape == (512, 236, feat)
+    torch.testing.assert_close(out, stream_blend_backward_twin(g, pos, bary, 236),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_blend_backward_kernel_is_deterministic(cuda_device):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = tuple(x.to(cuda_device) for x in _bucket_stream(512, 232, 64, 5))
+    first = stream_blend_backward(*args, 236)
+    second = stream_blend_backward(*args, 236)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_blend_backward_kernel_adds_repeats_and_skips_zero_weights(cuda_device):
+    """Hand-made endpoints: one names a slot twice, zero weights point
+    outside the stream, and the g rows of padding endpoints (all four
+    weights zero) are NaN. Each repeat adds, nothing NaN is read, and every
+    slot nothing names comes out zero."""
+    num_end, num_stream, feat = 6, 9, 64
+    pos = np.zeros((2, num_end, 4), np.int32)
+    bary = np.zeros((2, num_end, 4), np.float32)
+    pos[0, :3] = [[0, 1, 2, 3], [4, 4, 2, 3], [4, 5, 2, -7]]
+    bary[0, :3] = [[0.5, 0.25, 0.125, 0.125], [0.25, 0.5, 0.125, 0.125],
+                   [0.75, 0.25, 1.0, 0.0]]
+    pos[0, 3:] = 999  # padding with garbage positions
+    pos[1, :2] = [[8, 7, 6, 5], [8, 8, 8, 8]]
+    bary[1, :2] = [[1.0, 0.5, 0.25, 0.0], [0.25, 0.25, 0.25, 0.25]]
+    g = np.random.default_rng(4).standard_normal((2, num_end, feat)).astype(np.float32)
+    padding = (bary == 0).all(axis=-1)
+    g[padding] = np.nan
+    expected = np.zeros((2, num_stream, feat))
+    for r, e, j in zip(*np.nonzero(bary)):
+        expected[r, pos[r, e, j]] += float(bary[r, e, j]) * g[r, e].astype(np.float64)
+    out = stream_blend_backward(*(torch.from_numpy(x).to(cuda_device) for x in (g, pos, bary)),
+                                num_stream)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert not expected[0, 6:].any() and not expected[1, :5].any()
+    np.testing.assert_allclose(out.cpu().numpy(), expected, atol=1e-5, rtol=0)

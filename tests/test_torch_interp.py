@@ -182,3 +182,36 @@ def test_interp_kernel_matches_twin(scene, cuda_device):
     ref, ref_mask = sample_interp_twin(*args)
     assert torch.equal(mask, ref_mask)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _bucket_feats(num_rays, max_t, num_samples, order, seed):
+    """K3's inputs at a flagship bucket's shape: the intervals and
+    distances of ``tests/test_torch_backward.py`` and endpoint features
+    ``f32[R, T+1, 64]``."""
+    from test_torch_backward import _bucket_intervals
+
+    *args, _ = _bucket_intervals(num_rays, max_t, num_samples, order, seed)
+    feats = np.random.default_rng(seed + 1).standard_normal((num_rays, max_t + 1, 64))
+    return (*args, torch.from_numpy(feats.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("num_samples", [33, 257])
+def test_interp_kernel_matches_twin_at_a_bucket_shape(cuda_device, num_samples, order):
+    """A flagship bucket: 512 rays, T=232, the budgets' floor (S=33, one
+    sample tile per ray) and the full budget (S=257, three tiles); within
+    the chip smoke's tolerance, the mask exactly."""
+    args = tuple(x.to(cuda_device) for x in
+                 _bucket_feats(512, 232, num_samples, order, num_samples))
+    before = cuda.launch_counts["sample_interp"]
+    out, mask = sample_interp(*args)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["sample_interp"] == before + 1
+    assert out.shape == (512, num_samples, 64)
+    ref, ref_mask = sample_interp_twin(*args)
+    assert torch.equal(mask, ref_mask)
+    assert 0.3 < mask.float().mean() < 1.0
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    again, again_mask = sample_interp(*args)
+    assert torch.equal(out, again) and torch.equal(mask, again_mask)

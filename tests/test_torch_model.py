@@ -188,7 +188,7 @@ def test_white_and_black_backgrounds(setup):
 
 
 @pytest.mark.parametrize("override", [
-    dict(traversal_hops=2),
+    dict(skip_grid_resolution=16),
     dict(ray_buckets=8, bucket_merge_mlps=True),
     dict(grad_stream_budget_per_ray=128),
     dict(field_stream_dtype="bfloat16"),
@@ -199,3 +199,67 @@ def test_unported_settings_are_refused(override):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         TetraNerf(cfg, 10)
+
+
+@pytest.mark.parametrize("hops", [0, 3])
+def test_traversal_hops_other_than_one_or_two_are_refused(hops):
+    cfg = tetranerf_preset(**dict(SMALL, traversal_hops=hops))
+    with pytest.raises(ValueError, match="traversal_hops"):
+        check_supported(cfg)
+    with pytest.raises(ValueError, match="traversal_hops"):
+        TetraNerf(cfg, 10)
+
+
+@pytest.mark.parametrize("ray_buckets", [1, 2])
+def test_two_hops_train_as_jax_two_hops_and_as_one_hop(ray_buckets):
+    """``traversal_hops=2`` as ``tests/test_synthetic.py`` holds it in JAX:
+    three train steps of the narrowed preset at bound 96 (so that two
+    buckets split it), the occupancy EMA updated at every step, on a JAX
+    mesh built with the two-hop table. With JAX's
+    random numbers, the port at two hops takes the losses of the JAX
+    trainer at two hops (to the trainer tests' tolerance), and the losses,
+    EMA and parameters of the port at one hop exactly."""
+    import jax
+    from tetranerf_tpu.geometry import build_mesh as jax_build_mesh
+    from tetranerf_tpu.models.tetra_nerf import TetraNerf as JaxTetraNerf
+    from tetranerf_tpu.training.trainer import Trainer as JaxTrainer
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+    from test_torch_train import NUM_RAYS, _batch, _step_uniforms
+    from test_torch_train import _configs as train_configs
+
+    points, colors = make_sphere_scene(800, seed=0)
+    jmesh = jax_build_mesh(points, two_hop_table=True)
+    assert np.asarray(jmesh.march_table2).shape[0] == jmesh.num_cells
+    jcfg, cfg = train_configs("float32", traversal_hops=2, ray_buckets=ray_buckets,
+                              max_intersected_triangles=96, occupancy_update_every=1, occupancy_refresh_every=0,
+                              occupancy_retune_every=0)
+    jtrainer = JaxTrainer(jcfg, JaxTetraNerf(jcfg.model, jmesh), point_colors=colors,
+                          mesh_devices=1)
+    params = jax.tree_util.tree_map(np.asarray, jtrainer.state.params)
+    trainers = {}
+    for hops in (2, 1):
+        model = TetraNerf(dataclasses.replace(cfg, traversal_hops=hops), jmesh.num_vertices,
+                          device="cpu")
+        params_from_jax(model, params)
+        trainers[hops] = Trainer(TrainConfig(), model,
+                                 TorchMesh.from_tables(jmesh, device="cpu"), device="cpu")
+    rng = np.random.default_rng(13)
+    losses, ref_losses = {2: [], 1: []}, []
+    for step in range(3):
+        batch = _batch(rng)
+        ref_losses.append(float(jtrainer.train_step(batch)["loss"]))
+        u = _step_uniforms(jax.random.fold_in(jtrainer.train_key, step), trainers[2].model,
+                           NUM_RAYS, jtrainer.tuned_max_steps or cfg.max_intersected_triangles,
+                           jtrainer.tuned_bucket_steps)
+        for hops, trainer in trainers.items():
+            losses[hops].append(float(trainer.train_step(batch, uniforms=u)["loss"]))
+        assert trainers[2].tuned_bucket_steps == jtrainer.tuned_bucket_steps
+    if ray_buckets == 2:  # the bucketed path ran: a bucket below the bound
+        assert min(trainers[2].tuned_bucket_steps) < trainers[2].max_steps
+    # The JAX bf16 blend moves each loss by about 1e-6 of itself
+    # (test_eight_train_steps_match_jax_trainer).
+    np.testing.assert_allclose(losses[2], ref_losses, rtol=1e-4, atol=0)
+    assert losses[2] == losses[1]
+    assert torch.equal(trainers[2].occupancy, trainers[1].occupancy)
+    for a, b in zip(trainers[2].model.parameters(), trainers[1].model.parameters()):
+        assert torch.equal(a, b)

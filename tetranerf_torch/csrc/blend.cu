@@ -83,62 +83,137 @@ extern "C" int tetranerf_stream_blend_gather(
 // the MXU. The scatter of the stream rows into the [V, F] field gradient is
 // K7 (scatter.cu), a separate launch.
 //
-// Design: one warp per ray, each lane owning a float2 of feature columns.
-// The warp first zeroes its ray's [U, F] slab, then walks the ray's
-// endpoints in order and, for each nonzero weight, adds bary * g[r, e] into
-// stream row pos[r, e, j] with a plain load-add-store. Only that lane ever
-// touches that column of that ray, so there are no atomics and the sums
-// come out in endpoint order every run. Endpoints whose four weights are
-// zero (the padding past a ray's valid prefix) are skipped after one 16-byte
-// read of their weights.
+// Design: a block of 8 warps per (ray, tile of stream slots).
+// 1. The grid spans rays x slot tiles; the launcher sizes the tile (at most
+//    128 slots, a multiple of 8) from the shared-memory plan below. The
+//    block stages its ray's pos and bary rows (E x 32 bytes) in shared
+//    memory; beside them lies the tile's [tile, min(F, 64)] f32
+//    accumulator.
+// 2. Each warp owns a disjoint, equal range of the tile's slots, each lane
+//    a float2 of feature columns (64 columns a pass). A warp scans the
+//    endpoints in order, 32 at a time from shared memory; a ballot keeps
+//    those with a nonzero weight on a slot of its range, and it reads
+//    their g rows, eight in flight, and adds each weighted row into its
+//    accumulator rows in (e, j) order. An endpoint that names one slot
+//    twice adds twice; zero weights are skipped, so the g rows of padding
+//    endpoints are never read.
+// 3. The warp then writes its rows once, zeros included, in coalesced
+//    256-byte rows. No zeroing pass over device memory, no atomics: every
+//    output slot is written by one lane of one warp, and two launches give
+//    the same bits.
 //
-// What bounds it on the H100: writing the dense [R, U, F] f32 output (541 MB
-// at 4096 x 516 x 64: 0.16 ms at the 3.35 TB/s of an H100 SXM at 700 W,
-// NVIDIA's data sheet) plus reading the g rows
-// of the weighted endpoints. The read-modify-writes of a ray's touched rows
-// hit L1/L2 (a ray's rows span U * 256 bytes), but each endpoint's update
-// waits on the previous one's store: a latency chain of about num_valid steps
-// per warp.
+// What bounds it on the H100: bytes, writing the dense [R, U, F] f32
+// output plus reading the g rows of the weighted endpoints and pos/bary
+// (0.23 ms at the train shape, 4096 rays x T=512 x F=64; ~0.13 ms for
+// the 8 launches of a flagship step, at the 3.35 TB/s of an H100 SXM at
+// 700 W, NVIDIA's data sheet). The g rows are gathers out of L2 (a ray's
+// rows are read by the one or two warps whose slots they touch). The
+// earlier design, one warp per ray zeroing its [U, F] slab and then adding
+// each weighted endpoint with a chain of dependent load-add-stores in
+// device memory: 0.64-0.68 ms at the train shape and 1.98 ms for the 8
+// launches of a flagship step, on an H100 80GB HBM3 at 700 W.
 
 namespace {
 
-__global__ void __launch_bounds__(256) blend_bwd_kernel(
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdMaxTile = 128;   // stream slots a block owns, at most
+constexpr int kBwdCols = 64;       // feature columns a pass (a float2 a lane)
+constexpr int kBwdInFlight = 8;    // g rows a warp loads before adding them
+
+__global__ void __launch_bounds__(kBwdThreads) blend_bwd_kernel(
     const float* __restrict__ g, const int* __restrict__ pos,
-    const float* __restrict__ bary, float* __restrict__ gsf, int num_rays,
-    int num_end, int num_stream, int num_feat) {
-  const long long r =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= num_rays) return;
-  float* dst = gsf + r * num_stream * num_feat;
-  for (int u = 0; u < num_stream; ++u) {
-    for (int f = 2 * lane; f < num_feat; f += 64) {
-      *reinterpret_cast<float2*>(dst + u * num_feat + f) =
-          make_float2(0.0f, 0.0f);
-    }
-  }
+    const float* __restrict__ bary, float* __restrict__ gsf, int num_end,
+    int num_stream, int num_feat, int tile, int num_tiles) {
+  extern __shared__ float4 smem4[];
+  int4* s_pos = reinterpret_cast<int4*>(smem4);          // [E]
+  float4* s_bary = smem4 + num_end;                       // [E]
+  float* s_acc = reinterpret_cast<float*>(s_bary + num_end);  // [tile, cols]
+  const long long r = blockIdx.x / num_tiles;
+  const int u0 = (blockIdx.x % num_tiles) * tile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_warp = tile / kBwdWarps;
+  const int a = min(u0 + warp * per_warp, num_stream);  // this warp's slots [a, b)
+  const int b = min(a + per_warp, num_stream);
+  const int cols = min(num_feat, kBwdCols);
+
   const int4* pr = reinterpret_cast<const int4*>(pos) + r * num_end;
   const float4* br = reinterpret_cast<const float4*>(bary) + r * num_end;
+  for (int e = threadIdx.x; e < num_end; e += kBwdThreads) {
+    s_pos[e] = __ldg(pr + e);
+    s_bary[e] = __ldg(br + e);
+  }
+  __syncthreads();
+
   const float* gr = g + r * num_end * num_feat;
-  for (int e = 0; e < num_end; ++e) {
-    const float4 w = __ldg(br + e);
-    if (w.x == 0.0f && w.y == 0.0f && w.z == 0.0f && w.w == 0.0f) continue;
-    const int4 p = __ldg(pr + e);
-    const int pj[4] = {p.x, p.y, p.z, p.w};
-    const float wj[4] = {w.x, w.y, w.z, w.w};
-    for (int f = 2 * lane; f < num_feat; f += 64) {
-      const float2 x =
-          __ldg(reinterpret_cast<const float2*>(gr + e * num_feat + f));
+  float* dst = gsf + r * num_stream * num_feat;
+  // The lane's accumulator column in row 0 of the warp's range; rows are
+  // `cols` floats apart. Only this lane ever touches these entries.
+  float* acc = s_acc + (a - u0) * cols + 2 * lane;
+  for (int f0 = 0; f0 < num_feat; f0 += kBwdCols) {
+    const int col = f0 + 2 * lane;
+    const bool active = 2 * lane < min(num_feat - f0, kBwdCols);
+    if (active) {
+      for (int j = 0; j < b - a; ++j) {
+        *reinterpret_cast<float2*>(acc + j * cols) = make_float2(0.0f, 0.0f);
+      }
+    }
+    for (int base = 0; base < num_end; base += 32) {
+      const int e = base + lane;
+      bool rel = false;
+      if (e < num_end) {
+        const int4 p = s_pos[e];
+        const float4 w = s_bary[e];
+        rel = (w.x != 0.0f && p.x >= a && p.x < b) ||
+              (w.y != 0.0f && p.y >= a && p.y < b) ||
+              (w.z != 0.0f && p.z >= a && p.z < b) ||
+              (w.w != 0.0f && p.w >= a && p.w < b);
+      }
+      unsigned bal = __ballot_sync(0xffffffffu, rel);
+      while (bal) {  // uniform across the warp
+        int es[kBwdInFlight];
+        float2 xs[kBwdInFlight];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (wj[j] != 0.0f) {
-          float2* row =
-              reinterpret_cast<float2*>(dst + pj[j] * num_feat + f);
-          float2 acc = *row;
-          acc.x += wj[j] * x.x;
-          acc.y += wj[j] * x.y;
-          *row = acc;
+        for (int q = 0; q < kBwdInFlight; ++q) {
+          es[q] = -1;
+          if (bal) {
+            es[q] = base + __ffs(bal) - 1;
+            bal &= bal - 1;
+          }
         }
+#pragma unroll
+        for (int q = 0; q < kBwdInFlight; ++q) {
+          xs[q] = make_float2(0.0f, 0.0f);
+          if (es[q] >= 0 && active) {
+            xs[q] = __ldg(reinterpret_cast<const float2*>(
+                gr + static_cast<long long>(es[q]) * num_feat + col));
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kBwdInFlight; ++q) {
+          if (es[q] < 0 || !active) continue;
+          const int4 p = s_pos[es[q]];
+          const float4 w = s_bary[es[q]];
+          const int pj[4] = {p.x, p.y, p.z, p.w};
+          const float wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (wj[j] != 0.0f && pj[j] >= a && pj[j] < b) {
+              float2* row = reinterpret_cast<float2*>(acc + (pj[j] - a) * cols);
+              float2 v = *row;
+              v.x += wj[j] * xs[q].x;
+              v.y += wj[j] * xs[q].y;
+              *row = v;
+            }
+          }
+        }
+      }
+    }
+    if (active) {
+      for (int j = 0; j < b - a; ++j) {
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(a + j) * num_feat +
+                                   col) =
+            *reinterpret_cast<const float2*>(acc + j * cols);
       }
     }
   }
@@ -150,11 +225,34 @@ extern "C" int tetranerf_stream_blend_backward(
     const float* g, const int* pos, const float* bary, float* gsf,
     int num_rays, int num_end, int num_stream, int num_feat,
     cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long blocks =
-      (static_cast<long long>(num_rays) * 32 + kThreads - 1) / kThreads;
+  constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
+  const size_t cols = static_cast<size_t>(num_feat < kBwdCols ? num_feat : kBwdCols);
+  // Fewest tiles of at most kBwdMaxTile slots whose plan fits: the staged
+  // pos/bary rows plus the accumulator.
+  int num_tiles = (num_stream + kBwdMaxTile - 1) / kBwdMaxTile;
+  if (num_tiles < 1) num_tiles = 1;
+  int tile;
+  size_t smem;
+  for (;;) {
+    const int slots = (num_stream + num_tiles - 1) / num_tiles;
+    tile = kBwdWarps * ((slots + kBwdWarps - 1) / kBwdWarps);
+    smem = static_cast<size_t>(num_end) * 32 + static_cast<size_t>(tile) * cols * 4;
+    if (smem <= kMaxSmem || tile <= kBwdWarps) break;
+    ++num_tiles;
+  }
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(num_rays) * num_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  blend_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      g, pos, bary, gsf, num_rays, num_end, num_stream, num_feat);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (blocks > 0) {
+    blend_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem,
+                       stream>>>(g, pos, bary, gsf, num_end, num_stream,
+                                 num_feat, tile, num_tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }

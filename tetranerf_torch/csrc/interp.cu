@@ -12,63 +12,149 @@
 // contracted it in bf16 on the MXU; here each sample reads its two endpoint
 // rows directly and lerps in f32.
 //
-// What bounds it on the H100: one warp per (ray, sample); every lane runs
-// the same binary search over the ray's t1 row (broadcast loads, the row
-// stays in L1 for the block's neighbouring samples), then the lanes read
-// the two 256-byte endpoint rows as float2s and write the output row
-// coalesced. The [R, S, F] f32 output dominates the traffic (0.54 GB at
-// 8192 x 257 x 64), so the kernel is bound by HBM write bandwidth.
+// Design: a block of 8 warps per (ray, tile of samples).
+// 1. The grid spans rays x sample tiles (at most 128 samples a tile, the
+//    tiles of a ray as even as they come). The block stages the ray's t0
+//    and t1 rows in shared memory; one thread per sample runs the match
+//    (`match_sample`, which K3b calls too, so the two kernels agree on k,
+//    frac and mask to the bit) against the staged rows, keeps k and frac
+//    in shared memory and writes the tile's mask in one coalesced store.
+// 2. Each output row is written by 16 lanes as float4s (float2s where F
+//    or an address does not allow 16 bytes), so a warp writes two rows per
+//    instruction and a block 4 KB. Sorted samples read the same endpoint
+//    rows one after another, which L1 serves.
+//
+// What bounds it on the H100: bytes, writing the dense [R, S, F] f32
+// output (0.54 GB at 8192 x 257 x 64: 0.18 ms at the 3.35 TB/s of an H100
+// SXM at 700 W, NVIDIA's data sheet) plus the endpoint rows the kept
+// samples read. The earlier design, one warp per (ray, sample) whose 32
+// lanes all ran the same binary search in device memory (about 9 dependent
+// loads) and then wrote one row, with 1-byte mask stores: 1.03-1.06 ms at
+// the render shape and 0.65 ms for the 16 launches of a flagship step, on
+// an H100 80GB HBM3 at 700 W.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256) interp_kernel(
-    const float* __restrict__ t0, const float* __restrict__ t1,
-    const int* __restrict__ num_valid, const bool* __restrict__ ray_mask,
-    const float* __restrict__ dist, const float* __restrict__ feats,
-    float* __restrict__ out, bool* __restrict__ mask_out, int num_rays,
-    int max_t, int num_samples, int num_feat) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<long long>(num_rays) * num_samples) return;
-  const long long r = warp / num_samples;
-  const float d = dist[warp];
-  const float* t1r = t1 + r * max_t;
-  int lo = 0, hi = max_t;  // first slot with t1 > d
+// The match of K3 and K3b against a ray's t0/t1 rows staged in shared
+// memory: k = #(t1 <= d), the first slot whose t1 passes d; the lerp
+// weight frac in [0, 1] when the sample lies in a valid interval
+// (k < num_valid, d >= t0[k]), else -1.
+__device__ __forceinline__ float match_sample(const float* s_t0,
+                                              const float* s_t1, int max_t,
+                                              int num_valid, float d, int& k) {
+  int lo = 0, hi = max_t;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (__ldg(t1r + mid) <= d) {
+    if (s_t1[mid] <= d) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  const int k = lo;
-  const float t0k = k < max_t ? __ldg(t0 + r * max_t + k) : CUDART_INF_F;
-  const float t1k = k < max_t ? __ldg(t1r + k) : CUDART_INF_F;
-  const bool m = ray_mask[r] && k < num_valid[r] && d >= t0k;
-  float frac = 0.0f;
-  if (m) {
-    frac = (d - t0k) / fmaxf(t1k - t0k, 1e-20f);
-    frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-  }
-  const int kc = min(k, max_t - 1);
-  const float* f0 = feats + (r * (max_t + 1) + kc) * num_feat;
-  const float* f1 = f0 + num_feat;
-  float* dst = out + warp * num_feat;
-  for (int f = 2 * lane; f < num_feat; f += 64) {
-    float2 y = make_float2(0.0f, 0.0f);
-    if (m) {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(f0 + f));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(f1 + f));
-      y.x = (1.0f - frac) * a.x + frac * b.x;
-      y.y = (1.0f - frac) * a.y + frac * b.y;
+  k = lo;
+  float frac = -1.0f;
+  if (k < num_valid && k < max_t) {
+    const float t0k = s_t0[k];
+    if (d >= t0k) {
+      frac = (d - t0k) / fmaxf(s_t1[k] - t0k, 1e-20f);
+      frac = fminf(fmaxf(frac, 0.0f), 1.0f);
     }
-    *reinterpret_cast<float2*>(dst + f) = y;
   }
-  if (lane == 0) mask_out[warp] = m;
+  return frac;
+}
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdMaxTile = 128;  // samples a block matches and writes
+constexpr int kRowLanes = 16;     // lanes that write one output row
+
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static T lerp(float frac, T a, T b) {
+    return make_float4((1.0f - frac) * a.x + frac * b.x,
+                       (1.0f - frac) * a.y + frac * b.y,
+                       (1.0f - frac) * a.z + frac * b.z,
+                       (1.0f - frac) * a.w + frac * b.w);
+  }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.0f, 0.0f); }
+  __device__ static T lerp(float frac, T a, T b) {
+    return make_float2((1.0f - frac) * a.x + frac * b.x,
+                       (1.0f - frac) * a.y + frac * b.y);
+  }
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kFwdThreads) interp_kernel(
+    const float* __restrict__ t0, const float* __restrict__ t1,
+    const int* __restrict__ num_valid, const bool* __restrict__ ray_mask,
+    const float* __restrict__ dist, const float* __restrict__ feats,
+    float* __restrict__ out, bool* __restrict__ mask_out, int max_t,
+    int num_samples, int num_feat, int tile, int num_tiles) {
+  using V = typename Vec<kVec>::T;
+  extern __shared__ float smem[];
+  float* s_t0 = smem;               // [max_t]
+  float* s_t1 = s_t0 + max_t;       // [max_t]
+  float* s_frac = s_t1 + max_t;     // [tile]: frac, or -1 if not kept
+  int* s_k = reinterpret_cast<int*>(s_frac + tile);  // [tile]
+  const long long r = blockIdx.x / num_tiles;
+  const int s0 = (blockIdx.x % num_tiles) * tile;
+  const int ns = min(tile, num_samples - s0);
+  const bool ray_ok = ray_mask[r];
+
+  if (ray_ok) {  // uniform across the block
+    for (int i = threadIdx.x; i < max_t; i += kFwdThreads) {
+      s_t0[i] = __ldg(t0 + r * max_t + i);
+      s_t1[i] = __ldg(t1 + r * max_t + i);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < ns) {
+    const long long s = r * num_samples + s0 + threadIdx.x;
+    int k = 0;
+    float frac = -1.0f;
+    if (ray_ok) {
+      frac = match_sample(s_t0, s_t1, max_t, num_valid[r], __ldg(dist + s), k);
+    }
+    s_k[threadIdx.x] = k;
+    s_frac[threadIdx.x] = frac;
+    mask_out[s] = frac >= 0.0f;
+  }
+  __syncthreads();
+
+  const int sub = threadIdx.x % kRowLanes;
+  const float* fr = feats + r * (max_t + 1) * num_feat;
+  float* dst = out + (r * num_samples + s0) * num_feat;
+  for (int i = threadIdx.x / kRowLanes; i < ns; i += kFwdThreads / kRowLanes) {
+    const float frac = s_frac[i];
+    const float* f0 = fr + static_cast<long long>(s_k[i]) * num_feat;
+    for (int c = kVec * sub; c < num_feat; c += kVec * kRowLanes) {
+      V y = Vec<kVec>::zero();
+      if (frac >= 0.0f) {
+        y = Vec<kVec>::lerp(frac, __ldg(reinterpret_cast<const V*>(f0 + c)),
+                            __ldg(reinterpret_cast<const V*>(f0 + num_feat + c)));
+      }
+      *reinterpret_cast<V*>(dst + static_cast<long long>(i) * num_feat + c) = y;
+    }
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
 }
 
 }  // namespace
@@ -78,13 +164,33 @@ extern "C" int tetranerf_sample_interp(
     const bool* ray_mask, const float* dist, const float* feats, float* out,
     bool* mask_out, int num_rays, int max_t, int num_samples, int num_feat,
     cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long warps = static_cast<long long>(num_rays) * num_samples;
-  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+  int num_tiles = (num_samples + kFwdMaxTile - 1) / kFwdMaxTile;
+  if (num_tiles < 1) num_tiles = 1;
+  const int tile = (num_samples + num_tiles - 1) / num_tiles;
+  const long long blocks = static_cast<long long>(num_rays) * num_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  interp_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      t0, t1, num_valid, ray_mask, dist, feats, out, mask_out, num_rays,
-      max_t, num_samples, num_feat);
+  const size_t smem =
+      (2 * static_cast<size_t>(max_t) + 2 * static_cast<size_t>(tile)) *
+      sizeof(float);
+  const bool vec4 = num_feat % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(feats) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int err = vec4 ? set_smem(interp_kernel<4>, smem)
+                       : set_smem(interp_kernel<2>, smem);
+  if (err != 0) return err;
+  if (blocks > 0) {
+    if (vec4) {
+      interp_kernel<4><<<static_cast<unsigned>(blocks), kFwdThreads, smem,
+                         stream>>>(t0, t1, num_valid, ray_mask, dist, feats,
+                                   out, mask_out, max_t, num_samples,
+                                   num_feat, tile, num_tiles);
+    } else {
+      interp_kernel<2><<<static_cast<unsigned>(blocks), kFwdThreads, smem,
+                         stream>>>(t0, t1, num_valid, ray_mask, dist, feats,
+                                   out, mask_out, max_t, num_samples,
+                                   num_feat, tile, num_tiles);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -94,10 +200,9 @@ extern "C" int tetranerf_sample_interp(
 //   gfeats[r, k + 1] +=       frac * g[r, s]     over samples s with mask
 //
 // into a dense f32[R, T+1, F] that is zero where nothing lands, with k,
-// frac and mask exactly as K3 computes them (the binary search and the same
-// float expressions are redone here rather than saved by the forward: the
-// train step then keeps no extra [R, S] tensors, and K3's launch is the
-// same in render and train).
+// frac and mask from K3's own match (`match_sample` is redone here rather
+// than saved by the forward: the train step then keeps no extra [R, S]
+// tensors, and K3's launch is the same in render and train).
 //
 // Replaces: tetranerf_tpu/ops/pallas_interp.py `_interp_bwd`
 // (`_interp_bwd_kernel` :82, pallas_call at :104 via `_run_interp`), and
@@ -107,9 +212,9 @@ extern "C" int tetranerf_sample_interp(
 //
 // Design: one block of 8 warps per ray.
 // 1. The block stages the ray's t0 and t1 rows in shared memory, then runs
-//    the match once per sample with its threads in parallel (a binary
-//    search over the staged t1 row each) and keeps k and frac (-1 where
-//    the sample is not kept) in shared memory.
+//    the match (`match_sample`) once per sample with its threads in
+//    parallel and keeps k and frac (-1 where the sample is not kept) in
+//    shared memory.
 // 2. The warps own disjoint, equal ranges of the T+1 endpoint slots, and
 //    each lane a float2 of feature columns. A warp scans the samples in
 //    order, 32 at a time from shared memory; a ballot picks the kept ones
@@ -190,27 +295,9 @@ __global__ void __launch_bounds__(kBwdThreads) interp_bwd_kernel(
   const int nv = num_valid[r];
   const float* dr = dist + r * num_samples;
   for (int s = threadIdx.x; s < num_samples; s += kBwdThreads) {
-    const float d = __ldg(dr + s);
-    int lo = 0, hi = max_t;  // first slot with t1 > d
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_t1[mid] <= d) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    const int k = lo;
-    float frac = -1.0f;
-    if (k < nv && k < max_t) {
-      const float t0k = s_t0[k];
-      if (d >= t0k) {
-        frac = (d - t0k) / fmaxf(s_t1[k] - t0k, 1e-20f);
-        frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-      }
-    }
+    int k;
+    s_frac[s] = match_sample(s_t0, s_t1, max_t, nv, __ldg(dr + s), k);
     s_k[s] = k;
-    s_frac[s] = frac;
   }
   __syncthreads();
   bool in_order = true;
@@ -315,12 +402,8 @@ extern "C" int tetranerf_sample_interp_backward(
   const size_t smem =
       (2 * static_cast<size_t>(max_t) + 2 * static_cast<size_t>(num_samples)) *
       sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        interp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int err = set_smem(interp_bwd_kernel, smem);
+  if (err != 0) return err;
   if (num_rays > 0) {
     interp_bwd_kernel<<<static_cast<unsigned>(num_rays), kBwdThreads, smem,
                         stream>>>(t0, t1, num_valid, ray_mask, dist, g, gfeats,

@@ -8,6 +8,12 @@ Knobs of the JAX package that tune its TPU lowering are accepted here:
 - ``march_compaction`` / ``march_compact_ratio``: no-ops. The compaction
   cascade is bit-identical to an uncompacted march; the CUDA march runs one
   thread per ray and each thread stops at its own ray's end instead.
+- ``traversal_hops``: 1 or 2, the same march. Two hops fetch a cell's row
+  with its neighbours' from a two-hop table, and give outputs bit-identical
+  to one hop; the CUDA march reads one row per step at either setting and
+  needs no two-hop table (a mesh built with one wraps unchanged). Any other
+  value raises ``ValueError``: the JAX march does not check it, divides by
+  zero at 0 and marches another function at the other values.
 - ``remat_mlps``: no-op. The train step keeps the MLP activations for
   its backward instead of recomputing them: autograd keeps 2.73 GB for a
   step of 4096 rays x 257 samples at the preset's widths, about 2.6 KB
@@ -30,7 +36,11 @@ merges the buckets' MLP calls (``bucket_merge_mlps``, which JAX runs only
 without ``fused_mlps``) is not ported.
 
 Settings whose code is not ported yet are refused by
-:func:`check_supported` with ``NotImplementedError``.
+:func:`check_supported` with ``NotImplementedError``. Among them is the
+empty-space skip grid (``skip_grid_resolution > 0``), which the JAX trainer
+builds at each occupancy refresh and the march then sphere-traces through:
+it changes where samples fall, so the port refuses it rather than train
+another function.
 """
 
 from __future__ import annotations
@@ -105,7 +115,7 @@ class TetrahedraNerfConfig:
 def check_supported(config: TetrahedraNerfConfig) -> None:
     """Refuse settings whose code the port does not have yet."""
     refused = {
-        "traversal_hops=2": config.traversal_hops != 1,
+        "skip_grid_resolution>0": config.skip_grid_resolution > 0,
         "bucket_merge_mlps with ray_buckets>=2": config.ray_buckets >= 2
         and config.bucket_merge_mlps and not config.fused_mlps,
         "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
@@ -118,6 +128,8 @@ def check_supported(config: TetrahedraNerfConfig) -> None:
         raise NotImplementedError(
             "not ported to tetranerf_torch yet: " + ", ".join(missing)
         )
+    if config.traversal_hops not in (1, 2):
+        raise ValueError(f"traversal_hops must be 1 or 2, got {config.traversal_hops!r}")
     if config.interp_mode not in ("matmul", "pallas", "gather"):
         raise ValueError(f"unknown interp_mode {config.interp_mode!r}")
 
