@@ -12,8 +12,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    PyTorch twins on the card, at the render slice's shapes on the
    100K-point sphere scene (8192 rays, T=512 march slots, S=257 fine
    samples): max abs error against the stated tolerance, median CUDA-event
-   times of both, the least time the card could take (bytes over HBM rate
-   or operations over the f32 rate, from this run's data); K3 also at
+   times of both (and K2's kernel time by the profiler), the least time the
+   card could take (bytes over HBM rate or operations over the f32 rate,
+   from this run's data); K3 also at
    three buckets of the flagship's cold step (512 train rays: the deepest
    bound at S=257, the median at its adaptive budget, the shallowest at
    S=33), sorted and shuffled, mask equal, two launches bit-equal;
@@ -28,7 +29,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    slice's shapes (4096 rays, the cold march at T=512, S=257, F=64, the
    scene's 100K vertices), with K7 beside ``index_add_`` (``library_ms``);
    K2b and K3b also at phase 3's three bucket shapes (K3b sorted and
-   shuffled), two launches bit-equal;
+   shuffled), two launches bit-equal; then K2 at those three bucket shapes
+   and over all 8 buckets of the cold flagship step in one launch (two
+   launches bit-equal), and the 8-job K7 of that step (K2b of random
+   endpoint cotangents per bucket into one [V, 64] table) beside
+   ``index_add_`` of the jobs' concatenation and the per-bucket design (8
+   one-job launches, their tables summed);
 7. the train path: ``Trainer.train_step`` on the same preset, 65 steps on
    five batches of 4096 rays in turn, with targets from
    ``sphere_ray_targets`` (the traversal probe,
@@ -62,12 +68,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     kernel of the path launched (K8 included), the median step of steps
     1-127 (cold) and 129-255 (after the first retune) beside phase 7's, a
     profile of two steady steps after the retune with each port kernel's
-    ms per step beside its bound (from one step's own inputs), K8 launched
-    once per step, and one 256-ray step's loss and field gradient against
-    the CPU twins, un-fused and fused;
+    ms per step beside its bound (from one step's own inputs), K8, K2 and
+    K7 launched once per steady step and K2b once per bucket, and one
+    256-ray step's loss and field gradient against the CPU twins, un-fused
+    and fused;
 13. the flagship render: ``Trainer.render_rays`` of phase 12's trainer (its
     tuned bounds and calibrated cap) on 4 x 65,536 rays at chunk 8192 (K8
-    launched once per chunk), and 256 rays against the CPU twins.
+    and K2 launched once per chunk), and 256 rays against the CPU twins.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -211,13 +218,23 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None,
                 **bound, **extra)
 
 
-def _blend_bound(field, vids, pos, bary):
-    """K2: the output, pos + bary, the stream ids, the field once."""
-    num_rays, num_end = pos.shape[:2]
+def _blend_batch_bound(field, streams):
+    """K2, one launch: per stream the output, pos + bary and the stream
+    ids; the field once."""
     num_feat = field.shape[1]
-    weighted = int((bary != 0).any(dim=-1).sum())
-    return _bound(num_rays * num_end * num_feat * 4 + num_rays * num_end * 32
-                  + vids.numel() * 4 + field.numel() * 4, weighted * 4 * num_feat * 2)
+    num_bytes, num_ops = field.numel() * 4, 0
+    for vids, pos, bary in streams:
+        num_rays, num_end = pos.shape[:2]
+        weighted = int((bary != 0).any(dim=-1).sum())
+        num_bytes += (num_rays * num_end * num_feat * 4 + num_rays * num_end * 32
+                      + vids.numel() * 4)
+        num_ops += weighted * 4 * num_feat * 2
+    return _bound(num_bytes, num_ops)
+
+
+def _blend_bound(field, vids, pos, bary):
+    """K2 on one stream."""
+    return _blend_batch_bound(field, [(vids, pos, bary)])
 
 
 def _interp_bound(t0, t1, num_valid, ray_mask, distances, feats):
@@ -253,10 +270,17 @@ def _blend_bwd_bound(g, pos, bary, num_stream):
                   + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
 
 
+def _scatter_batch_bound(jobs, num_rows):
+    """K7, one launch: each job's indices and values, the table once; one
+    add per nonzero element."""
+    return _bound(sum(idx.numel() * 4 + vals.numel() * 4 for idx, vals in jobs)
+                  + num_rows * jobs[0][1].shape[1] * 4,
+                  sum(int((vals != 0).sum()) for _, vals in jobs))
+
+
 def _scatter_bound(idx, vals, num_rows):
-    """K7: indices, values, the table; one add per nonzero element."""
-    return _bound(idx.numel() * 4 + vals.numel() * 4 + num_rows * vals.shape[1] * 4,
-                  int((vals != 0).sum()))
+    """K7 on one job."""
+    return _scatter_batch_bound([(idx, vals)], num_rows)
 
 
 def _gather_bound(jobs):
@@ -337,15 +361,19 @@ def kernel_checks(mesh, field, origins, directions, bucket_rays):
     err = _max_err(out_k, out_t)
     _check(err <= TOLERANCES["stream_blend_gather"],
            f"stream_blend_gather: max abs err {err}")
-    print(f"stream_blend_gather: out {tuple(out_k.shape)}, max abs err {err:.3g}")
-    results.append(_entry(
+    del out_t
+    entry = _entry(
         "stream_blend_gather", "tetranerf_torch/csrc/blend.cu",
         "tetranerf_tpu/ops/pallas_interp.py:214", err,
         _time_ms(lambda: interp.stream_blend_gather(*blend_args), 10),
         _time_ms(lambda: interp.stream_blend_gather_twin(*blend_args), 3),
         _blend_bound(*blend_args),
-    ))
-    del out_t
+        device_ms=_device_ms(lambda: interp.stream_blend_gather(*blend_args)),
+    )
+    print(f"stream_blend_gather: out {tuple(out_k.shape)}, max abs err {err:.3g}; "
+          f"{entry['ms']:.4f} ms by CUDA events, kernel {entry['device_ms']} ms by the "
+          f"profiler (twin {entry['plain_ms']:.3f}), bound {entry['bound_ms']:.4f}")
+    results.append(entry)
 
     res = res._replace(feats=out_k)
     nears, fars, _, _, ray_mask = fused.ray_bounds(res)
@@ -387,9 +415,11 @@ def _endpoint_rows_read(t0, t1, num_valid, ray_mask, distances):
     return int(torch.cat([keys, keys + 1]).unique().numel())
 
 
-def backward_checks(mesh, origins, directions):
+def backward_checks(mesh, origins, directions, blend_entry):
     """Phase 6: the backward kernels against their twins at the train
-    slice's shapes: the cold march (no occupancy, T=512), S=257, F=64."""
+    slice's shapes: the cold march (no occupancy, T=512), S=257, F=64; then
+    K2 (its phase 3 entry ``blend_entry`` gains the results) and K7 at a
+    cold flagship step's buckets."""
     import torch
     from tetranerf_torch.ops import fused, interp, scatter
     from tetranerf_torch.ops.march import march
@@ -470,7 +500,112 @@ def backward_checks(mesh, origins, directions):
         entry = by_name[name]
         entry["bucket_shapes"] = shapes
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [b["max_abs_err"] for b in shapes])
+    _flagship_batch_checks(mesh, origins, directions, gen, blend_entry,
+                           by_name["scatter_add_rows"])
     return results
+
+
+def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_entry):
+    """K2 at the three bucket shapes of :func:`_bucket_slices` (one stream
+    each) and over all 8 buckets of the cold flagship step in one launch;
+    then that step's K7: K2b of random endpoint cotangents per bucket, the
+    8 stream gradients scattered into one [V, 64] table in one launch,
+    beside ``index_add_`` of the jobs' concatenation (``library_ms``) and
+    the per-bucket design (8 one-job launches, their tables summed)."""
+    import functools
+    import torch
+    from tetranerf_torch.ops import fused, interp, scatter
+
+    dev = origins.device
+    num_v = mesh.num_vertices
+    field = torch.randn((num_v, 64), generator=gen, device=dev)
+    shapes = []
+    for label, sl, *_ in _bucket_slices(mesh, origins, directions):
+        s = sl.stream
+        shapes.append(_bucket_shape_check(
+            "stream_blend_gather", label,
+            dict(rays=sl.t1.shape[0], max_t=sl.t1.shape[1], endpoints=s.pos.shape[1],
+                 slots=s.vids.shape[1]),
+            [("stream", (field, s.vids, s.pos, s.bary))], _blend_bound))
+    blend_entry["bucket_shapes"] = shapes
+
+    res, order, plan = _cold_bucket_plan(mesh, origins, directions)
+    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
+               for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    outs = interp.stream_blend_gather_batch(field, streams)
+    err = max(_max_err(out, ref) for out, ref in
+              zip(outs, interp.stream_blend_gather_batch_twin(field, streams)))
+    _check(err <= TOLERANCES["stream_blend_gather"],
+           f"stream_blend_gather (8-bucket batch): max abs err {err}")
+    _check(all(torch.equal(x, y) for x, y in
+               zip(outs, interp.stream_blend_gather_batch(field, streams))),
+           "stream_blend_gather (8-bucket batch): two launches differ")
+
+    def blend_batch():
+        return interp.stream_blend_gather_batch(field, streams)
+
+    def blend_one_job():
+        return [interp.stream_blend_gather(field, *st) for st in streams]
+
+    batch = dict(
+        jobs=len(streams), slice_bounds=[t for *_, t in plan], max_abs_err=err,
+        ms=_time_ms(blend_batch, 20), device_ms=_device_ms(blend_batch),
+        plain_ms=_time_ms(lambda: interp.stream_blend_gather_batch_twin(field, streams), 3),
+        one_job_launches_ms=_time_ms(blend_one_job, 20),
+        one_job_launches_device_ms=_device_ms(blend_one_job),
+        **_blend_batch_bound(field, streams))
+    blend_entry["flagship_batch"] = batch
+    blend_entry["max_abs_err"] = max([blend_entry["max_abs_err"], err]
+                                     + [b["max_abs_err"] for b in shapes])
+    print(f"stream_blend_gather: the {len(streams)} buckets of a cold flagship step "
+          f"(bounds {batch['slice_bounds']}) in one launch: max abs err {err:.3g}, two "
+          f"launches bit-equal; {batch['ms']:.4f} ms by CUDA events, kernel "
+          f"{batch['device_ms']} ms by the profiler (twin {batch['plain_ms']:.3f}; "
+          f"{len(streams)} one-stream launches {batch['one_job_launches_ms']:.4f}, kernels "
+          f"{batch['one_job_launches_device_ms']}), bound {batch['bound_ms']:.4f}")
+
+    jobs = []
+    for (vids, pos, bary), out in zip(streams, outs):
+        g_end = torch.randn(out.shape, generator=gen, device=dev)
+        gsf = interp.stream_blend_backward(g_end, pos, bary, vids.shape[1])
+        jobs.append((vids.reshape(-1).clamp_min(0), gsf.reshape(-1, 64)))
+    del outs
+    got = scatter.scatter_add_rows_batch(jobs, num_v)
+    err = _max_err(got, scatter.scatter_add_rows_batch_twin(jobs, num_v))
+    _check(err <= TOLERANCES["scatter_add_rows"],
+           f"scatter_add_rows (8-job batch): max abs err {err}")
+    del got
+    idx_cat = torch.cat([idx for idx, _ in jobs]).long()
+    vals_cat = torch.cat([vals for _, vals in jobs])
+
+    def k7_batch():
+        return scatter.scatter_add_rows_batch(jobs, num_v)
+
+    def per_bucket():
+        return functools.reduce(torch.add, [scatter.scatter_add_rows(idx, vals, num_v)
+                                            for idx, vals in jobs])
+
+    def index_add():
+        return torch.zeros((num_v, 64), device=dev).index_add_(0, idx_cat, vals_cat)
+
+    rows = int(idx_cat.numel())
+    batch = dict(
+        jobs=len(jobs), rows=rows, nonzero=float((vals_cat != 0).float().mean()),
+        max_abs_err=err, ms=_time_ms(k7_batch, 20), device_ms=_device_ms(k7_batch),
+        plain_ms=_time_ms(lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v), 3),
+        library_ms=_time_ms(index_add, 20), library_device_ms=_device_ms(index_add),
+        per_bucket_ms=_time_ms(per_bucket, 20), per_bucket_device_ms=_device_ms(per_bucket),
+        **_scatter_batch_bound(jobs, num_v))
+    scatter_entry["flagship_batch"] = batch
+    scatter_entry["max_abs_err"] = max(scatter_entry["max_abs_err"], err)
+    print(f"scatter_add_rows: the {len(jobs)} buckets' stream gradients of a cold flagship "
+          f"step ({rows} rows, nonzero share {batch['nonzero']:.3f}) into one "
+          f"[{num_v}, 64] table in one launch: max abs err {err:.3g}; {batch['ms']:.4f} ms "
+          f"by CUDA events, kernels {batch['device_ms']} ms by the profiler (memset "
+          f"included; twin {batch['plain_ms']:.3f}; index_add_ {batch['library_ms']:.4f}, "
+          f"kernels {batch['library_device_ms']}; per-bucket design "
+          f"{batch['per_bucket_ms']:.4f}, kernels {batch['per_bucket_device_ms']}), bound "
+          f"{batch['bound_ms']:.4f}")
 
 
 def _bucket_slices(mesh, origins, directions):
@@ -921,6 +1056,9 @@ def _profile_steps(trainer, batches, median_ms):
     if not kernels:
         print("profile: the profiler recorded no device events: not measured")
         return {}
+    memsets = [e for e in kernels if "memset" in e.name.lower()]
+    print(f"profile: memsets per step {len(memsets) / len(batches):.1f}, "
+          f"{sum(e.time_range.elapsed_us() for e in memsets) / 1e3 / len(batches):.4f} ms")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -972,27 +1110,31 @@ def _port_kernel(name):
 @contextlib.contextmanager
 def _recording_bounds():
     """Within the block, every call of a port wrapper on the model's path
-    (K2, K2b, K3, K3b, K7, K8) adds its bound in ms, from its own inputs,
-    to the yielded dict under its launch counter. The bounds are computed
-    on the card before each call, so time nothing inside the block."""
+    (K2, K2b, K3, K3b, K7, K8; the batched ones where the path calls them)
+    adds its bound in ms, from its own inputs, to the yielded dict under
+    its launch counter. The bounds are computed on the card before each
+    call, so time nothing inside the block."""
     from tetranerf_torch.ops import fused, interp, scatter
 
     sums = {}
     sites = [
-        (fused, "stream_blend_gather", _blend_bound),
-        (interp, "stream_blend_gather", _blend_bound),
+        (fused, "stream_blend_gather_batch", _blend_batch_bound),
+        (interp, "stream_blend_gather_batch", _blend_batch_bound),
         (fused, "sample_interp", _interp_bound),
         (interp, "sample_interp", _interp_bound),
         (interp, "sample_interp_backward", _interp_bwd_bound),
         (interp, "stream_blend_backward", _blend_bwd_bound),
-        (interp, "scatter_add_rows", _scatter_bound),
-        (scatter, "scatter_add_rows", _scatter_bound),
+        (interp, "scatter_add_rows_batch", _scatter_batch_bound),
+        (scatter, "scatter_add_rows_batch", _scatter_batch_bound),
         (fused, "row_gather_batch", _gather_bound),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    counters = {"stream_blend_gather_batch": "stream_blend_gather",
+                "scatter_add_rows_batch": "scatter_add_rows",
+                "row_gather_batch": "row_gather"}
 
     def record(fn, bound):
-        counter = "row_gather" if fn.__name__ == "row_gather_batch" else fn.__name__
+        counter = counters.get(fn.__name__, fn.__name__)
 
         def call(*args):
             sums[counter] = sums.get(counter, 0.0) + bound(*args)["bound_ms"]
@@ -1315,8 +1457,15 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
     for k in FLAGSHIP_KERNELS:
         _check(launches[k] > 0, f"flagship train: {k} did not launch: {launches}")
         _check(per_step[k] > 0, f"flagship train: {k} not in a steady step: {per_step}")
-    _check(per_step["row_gather"] == 1,
-           f"flagship train: K8 launched {per_step['row_gather']} times in a step, not once")
+    # One K8 slice, one K2 over every bucket, K2b per bucket, one K7 into
+    # the one field gradient.
+    expected = {"row_gather": 1, "stream_blend_gather": 1,
+                "stream_blend_backward": cfg.ray_buckets, "scatter_add_rows": 1}
+    print("flagship train: launches per steady step: " + ", ".join(
+        f"{k} {per_step[k]} (expected {n})" for k, n in expected.items()))
+    for k, n in expected.items():
+        _check(per_step[k] == n,
+               f"flagship train: {k} launched {per_step[k]} times in a step, not {n}")
 
     ref_batch = _train_batch(rng, REF_RAYS)
     _ref_step("flagship train", trainer.model, trainer, ref_batch, dev)
@@ -1373,8 +1522,11 @@ def flagship_render_phase(trainer, dev):
     for k in RENDER_KERNELS + ("row_gather",):
         _check(launches[k] > 0, f"flagship render: {k} did not launch: {launches}")
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
-    _check(launches["row_gather"] == chunks,
-           f"flagship render: K8 launched {launches['row_gather']} times in {chunks} chunks")
+    print(f"flagship render: launches per chunk: K8 {launches['row_gather'] / chunks}, "
+          f"K2 {launches['stream_blend_gather'] / chunks}")
+    for k in ("row_gather", "stream_blend_gather"):
+        _check(launches[k] == chunks,
+               f"flagship render: {k} launched {launches[k]} times in {chunks} chunks")
     for k in ("rgb", "depth", "accumulation"):
         _check(np.isfinite(out[k]).all(), f"flagship render: non-finite {k}")
     _check(out["rgb"].min() >= 0.0 and out["rgb"].max() <= 1.0, "flagship render: rgb range")
@@ -1454,6 +1606,7 @@ def main() -> int:
         kernels += backward_checks(
             mesh_plain.to(dev), torch.from_numpy(o).to(dev),
             torch.from_numpy(d).to(dev),
+            next(k for k in kernels if k["name"] == "stream_blend_gather"),
         )
     del model
     torch.cuda.empty_cache()

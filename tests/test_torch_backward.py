@@ -1,7 +1,7 @@
 """The backward kernels' twins (K2b stream-blend transpose, K3b sample-interp
-transpose, K7 row scatter-add) against a float64 numpy oracle and the JAX
-package's VJPs, the autograd Functions under ``gradcheck``, and the kernels
-(on a GPU) against the twins.
+transpose, K7 row scatter-add, one job or a batch) against a float64 numpy
+oracle and the JAX package's VJPs, the autograd Functions under
+``gradcheck``, and the kernels (on a GPU) against the twins.
 
 JAX is imported inside tests only, so the CUDA cases also run where JAX is
 absent: ``python -m pytest --noconftest -m cuda tests/test_torch_backward.py``.
@@ -18,6 +18,7 @@ from tetranerf_torch.ops.fused import ray_bounds
 from tetranerf_torch.ops.interp import (
     SampleInterp,
     StreamBlendGather,
+    StreamBlendGatherBatch,
     sample_interp_backward,
     sample_interp_backward_twin,
     stream_blend_backward,
@@ -28,6 +29,8 @@ from tetranerf_torch.ops.march import march
 from tetranerf_torch.ops.scatter import (
     gather_rows,
     scatter_add_rows,
+    scatter_add_rows_batch,
+    scatter_add_rows_batch_twin,
     scatter_add_rows_twin,
 )
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
@@ -219,6 +222,39 @@ def test_scatter_matches_jax_scatter_add_rows():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ORACLE_ATOL, rtol=0)
 
 
+def _scatter_jobs(rng, sizes, num_rows, feat):
+    """Jobs ``(idx i32[n], vals f32[n, feat])``: ids in ``[-1, num_rows +
+    30)``, so -1, out-of-range and repeated ids; every third row zero."""
+    jobs = []
+    for n in sizes:
+        idx = rng.integers(-1, num_rows + 30, n).astype(np.int32)
+        vals = rng.standard_normal((n, feat)).astype(np.float32)
+        vals[::3] = 0.0
+        jobs.append((torch.from_numpy(idx), torch.from_numpy(vals)))
+    return jobs
+
+
+def test_scatter_batch_twin_matches_jax_scatter_of_the_concatenation():
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.pallas_scatter import scatter_add_rows as jax_scatter
+
+    jobs = _scatter_jobs(np.random.default_rng(12), (700, 290, 10), 300, 64)
+    idx = torch.cat([i for i, _ in jobs])
+    assert (idx == -1).any() and (idx >= 300).any() and len(idx.unique()) < len(idx)
+    ref = jax_scatter(jnp.asarray(idx.numpy()), jnp.asarray(torch.cat([v for _, v in jobs]).numpy()),
+                      300, window_rows=64, chunk=256, interpret=True)
+    out = scatter_add_rows_batch_twin(jobs, 300)
+    # Both sum in f32, in different orders.
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ORACLE_ATOL, rtol=0)
+
+
+def test_scatter_one_job_case_is_the_single_scatter():
+    (idx, vals), = _scatter_jobs(np.random.default_rng(13), (500,), 50, 24)
+    twin = scatter_add_rows_twin(idx, vals, 50)
+    assert torch.equal(scatter_add_rows(idx, vals, 50), twin)
+    assert torch.equal(scatter_add_rows_batch([(idx, vals)], 50), twin)
+
+
 def test_gather_rows_gradient_matches_jax():
     import jax
     import jax.numpy as jnp
@@ -251,6 +287,62 @@ def test_gradcheck_stream_blend_gather():
     assert torch.autograd.gradcheck(
         lambda f: StreamBlendGather.apply(f, vids, pos, bary), (field,)
     )
+
+
+def _tiny_streams(rng, num_vertices):
+    """Three tiny streams of different (R, U, E) in float64, stream ids in
+    ``[-1, V)``, the last endpoint of each ray padding."""
+    streams = []
+    for rays, slots, ends in ((3, 9, 6), (2, 5, 3), (4, 7, 4)):
+        vids = torch.from_numpy(rng.integers(-1, num_vertices, (rays, slots)).astype(np.int32))
+        pos = torch.from_numpy(rng.integers(0, slots, (rays, ends, 4)).astype(np.int32))
+        bary = torch.from_numpy(rng.uniform(-1, 1, (rays, ends, 4)))
+        bary[:, -1] = 0.0
+        streams.append((vids, pos, bary))
+    return streams
+
+
+def test_gradcheck_stream_blend_gather_batch():
+    rng = np.random.default_rng(14)
+    flat = [x for s in _tiny_streams(rng, 12) for x in s]
+    field = torch.from_numpy(rng.standard_normal((12, 4))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda f: StreamBlendGatherBatch.apply(f, *flat), (field,)
+    )
+
+
+def test_batch_field_gradient_is_the_per_stream_sum_and_jax(scene):
+    """One backward node for three streams of different (R, T): its one
+    field gradient equals the sum of the per-stream ``StreamBlendGather``
+    gradients (both in float64, so only the order of the sums differs), and
+    the VJP of the JAX ``endpoint_features`` of each."""
+    import jax
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.fused import MarchStream as JaxStream, endpoint_features
+    from test_torch_interp import _three_streams
+
+    streams = [(s.vids, s.pos, s.bary) for s in _three_streams(scene)]
+    rng = np.random.default_rng(15)
+    gs = [torch.from_numpy(rng.standard_normal(pos.shape[:2] + (FIELD_DIM,)))
+          for _, pos, _ in streams]
+    field = torch.from_numpy(scene["field"]).double().requires_grad_()
+    outs = StreamBlendGatherBatch.apply(field, *(x for s in streams for x in s))
+    assert len(outs) == 3 and len({o.grad_fn for o in outs}) == 1
+    torch.autograd.backward(outs, gs)
+    per_stream = torch.zeros_like(field)
+    for s, g in zip(streams, gs):
+        f = torch.from_numpy(scene["field"]).double().requires_grad_()
+        StreamBlendGather.apply(f, *s).backward(g)
+        per_stream += f.grad
+    torch.testing.assert_close(field.grad, per_stream, atol=1e-6, rtol=0)
+
+    jstreams = [JaxStream(*(jnp.asarray(x.numpy()) for x in s)) for s in streams]
+    _, vjp = jax.vjp(lambda f: [endpoint_features(f, js) for js in jstreams],
+                     jnp.asarray(scene["field"]))
+    (ref,) = vjp([jnp.asarray(g.float().numpy()) for g in gs])
+    np.testing.assert_allclose(field.grad.numpy(), np.asarray(ref), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+    assert np.abs(np.asarray(ref)).max() > 1.0
 
 
 def test_gradcheck_sample_interp(scene):
@@ -363,6 +455,81 @@ def test_scatter_kernel_matches_twin(cuda_device):
     # Float atomics add in a run-dependent order: equal to rounding only.
     torch.testing.assert_close(out, scatter_add_rows_twin(idx, vals, 1000),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [64, 6, 3])
+def test_scatter_batch_kernel_matches_twin(cuda_device, feat):
+    """Eight jobs (one of them empty) into one table in one launch: -1,
+    out-of-range, repeated ids and zero rows; F=6 takes the float2 path,
+    F=3 single floats."""
+    jobs = _scatter_jobs(np.random.default_rng(feat), (20000, 7000, 0, 1, 3000, 12000, 64, 999),
+                         1000, feat)
+    jobs = [(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs]
+    before = cuda.launch_counts["scatter_add_rows"]
+    out = scatter_add_rows_batch(jobs, 1000)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["scatter_add_rows"] == before + 1
+    # Float atomics add in a run-dependent order: equal to rounding only.
+    torch.testing.assert_close(out, scatter_add_rows_batch_twin(jobs, 1000), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_scatter_batch_kernel_splits_a_long_job_list(cuda_device):
+    """More jobs than one launch takes (64): two launches, the second adds
+    into the table the first zeroed."""
+    jobs = _scatter_jobs(np.random.default_rng(16), [500] * 70, 300, 64)
+    jobs = [(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs]
+    before = cuda.launch_counts["scatter_add_rows"]
+    out = scatter_add_rows_batch(jobs, 300)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["scatter_add_rows"] == before + 2
+    torch.testing.assert_close(out, scatter_add_rows_batch_twin(jobs, 300), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flagship_step_launches_k2_once_k2b_per_bucket_k7_once(cuda_device):
+    """The preset's 8 buckets (narrowed widths, tuned inner bounds below the
+    march bound): one train forward and backward launches K2 once, K2b once
+    per bucket and K7 once, and its field gradient is the CPU twins'."""
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+
+    points, colors = make_sphere_scene(800, seed=0)
+    cfg = tetranerf_preset(field_dim=16, hidden_size=32, num_samples=16,
+                           num_fine_samples=16, max_intersected_triangles=64,
+                           use_occupancy_field=False, compute_dtype="float32")
+    mesh = build_mesh(points, device="cpu")
+    origins, directions = sample_sphere_rays(np.random.default_rng(17), 256)
+    steps = (8, 16, 24, 32, 40, 48, 56)
+    model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device="cpu")
+    plan = model.bucket_plan(256, model.bucket_bounds(64, None, steps))
+    assert len(plan) == 8
+    rng = np.random.default_rng(18)
+    uniforms = [{"coarse": rng.random((hi - lo, ns + 1), np.float32),
+                 "fine": rng.random((hi - lo, nf + 1), np.float32),
+                 "background": rng.random((hi - lo, 3), np.float32)}
+                for _, lo, hi, _, ns, nf in plan]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        model = model.to(dev)
+        model.zero_grad(set_to_none=True)
+        before = dict(cuda.launch_counts)
+        out = model.get_outputs(torch.from_numpy(origins).to(dev),
+                                torch.from_numpy(directions).to(dev), mesh.to(dev),
+                                train=True, uniforms=uniforms, bucket_steps=steps)
+        out["rgb"].square().mean().backward()
+        grads.append(model.tetrahedra_field.grad.to("cpu", copy=True))
+    torch.cuda.synchronize()
+    launched = {k: cuda.launch_counts[k] - before[k] for k in before}
+    assert launched["stream_blend_gather"] == 1, launched
+    assert launched["stream_blend_backward"] == 8, launched
+    assert launched["scatter_add_rows"] == 1, launched
+    assert launched["row_gather"] == 1, launched
+    # K7's atomics add in a run-dependent order, K2/K2b/K3 in another order
+    # than the twins: the chip smoke's field-gradient tolerance.
+    scale = float(grads[0].abs().max())
+    assert scale > 0 and float((grads[1] - grads[0]).abs().max()) <= 5e-2 * scale
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Quantile-bucketed shading (``ray_buckets >= 2``) against the JAX model:
 the march slice (K8's path, one bucket and all buckets of a plan in one
 batch), the bucket bounds and budgets, the eval forward and the train
-forward's loss and gradients."""
+forward's loss and gradients; every bucket's endpoint features in one
+batch (K2's path), and a cached march's stale features recomputed."""
 
 import dataclasses
 
@@ -396,3 +397,53 @@ def test_cached_march_reshades_the_same_rays(setup, ray_buckets):
                                 bucket_steps=setup["covering"])
     for k in ref:
         assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.parametrize("ray_buckets", [1, 4])
+def test_cached_march_with_stale_features_is_reshaded(setup, ray_buckets):
+    """A cached march that carries endpoint features of an older field is
+    re-shaded against the current one: its ``feats`` are never used."""
+    _, cfg = _configs(ray_buckets=ray_buckets)
+    model = _port_model(setup, cfg)
+    o = torch.from_numpy(setup["origins"])
+    d = torch.from_numpy(setup["directions"])
+    res = march_features(setup["mesh"], torch.randn(model.tetrahedra_field.shape), o, d,
+                         64, use_occupancy=True, occ_depth_cap=CAP)
+    assert res.feats is not None
+    with torch.inference_mode():
+        ref = model.get_outputs(o, d, setup["mesh"], occ_depth_cap=CAP,
+                                bucket_steps=setup["covering"])
+        out = model.get_outputs(o, d, setup["mesh"], cached_march=res,
+                                bucket_steps=setup["covering"])
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+def test_bucketed_forward_blends_every_bucket_in_one_batch(setup, monkeypatch):
+    """The train forward over 4 buckets computes the endpoint features of
+    all of them with one ``endpoint_features_batch`` call (one K2 launch on
+    the card), and the one-stream path is not taken."""
+    import tetranerf_torch.models.tetra_nerf as tetra_nerf
+
+    calls = []
+    batch = tetra_nerf.endpoint_features_batch
+
+    def counting(field, streams):
+        calls.append(len(streams))
+        return batch(field, streams)
+
+    def refuse(*args):
+        raise AssertionError("a bucket recomputed its endpoint features alone")
+
+    monkeypatch.setattr(tetra_nerf, "endpoint_features_batch", counting)
+    monkeypatch.setattr(tetra_nerf, "endpoint_features", refuse)
+    _, cfg = _configs()
+    model = _port_model(setup, cfg)
+    out = model.get_outputs(torch.from_numpy(setup["origins"]),
+                            torch.from_numpy(setup["directions"]), setup["mesh"],
+                            occ_depth_cap=CAP, train=True,
+                            generator=torch.Generator().manual_seed(2),
+                            bucket_steps=setup["covering"])
+    out["rgb"].square().mean().backward()
+    assert calls == [K]
+    assert model.tetrahedra_field.grad.abs().max() > 0

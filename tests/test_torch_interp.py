@@ -1,6 +1,6 @@
-"""Stream blend (K2) and sample interpolation (K3): the PyTorch twins
-against a float64 numpy oracle and the JAX package, the kernels (on a GPU)
-against the twins.
+"""Stream blend (K2, one stream or a batch of them) and sample
+interpolation (K3): the PyTorch twins against a float64 numpy oracle and the
+JAX package, the kernels (on a GPU) against the twins.
 
 JAX is imported inside fixtures only, so the CUDA cases also run where JAX
 is absent: ``python -m pytest --noconftest -m cuda tests/test_torch_interp.py``.
@@ -12,11 +12,13 @@ import torch
 
 from tetranerf_torch.geometry import build_mesh
 from tetranerf_torch.ops import cuda
-from tetranerf_torch.ops.fused import ray_bounds
+from tetranerf_torch.ops.fused import endpoint_features, endpoint_features_batch, ray_bounds
 from tetranerf_torch.ops.interp import (
     sample_interp,
     sample_interp_twin,
     stream_blend_gather,
+    stream_blend_gather_batch,
+    stream_blend_gather_batch_twin,
     stream_blend_gather_twin,
 )
 from tetranerf_torch.ops.march import march
@@ -75,6 +77,46 @@ def test_blend_twin_matches_jax_stream_blend(scene):
         jnp.asarray(s.pos.numpy()), jnp.asarray(s.bary.numpy()),
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=BF16_ATOL, rtol=0)
+
+
+def _three_streams(scene):
+    """Streams of three different (R, T): rays of the scene marched at
+    bounds 64, 40 and 16."""
+    o, d = (torch.from_numpy(x) for x in (scene["origins"], scene["directions"]))
+    return [march(scene["mesh"], o[lo:hi], d[lo:hi], max_steps=t).stream
+            for lo, hi, t in ((0, 64, 64), (10, 50, 40), (41, 64, 16))]
+
+
+def test_blend_batch_twin_matches_jax_stream_blend_per_job(scene):
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.pallas_interp import stream_blend
+
+    streams = _three_streams(scene)
+    field = scene["field"]
+    outs = stream_blend_gather_batch_twin(
+        torch.from_numpy(field), [(s.vids, s.pos, s.bary) for s in streams])
+    assert len({out.shape for out in outs}) == 3
+    for s, out in zip(streams, outs):
+        ref = stream_blend(
+            jnp.asarray(field)[jnp.maximum(jnp.asarray(s.vids.numpy()), 0)],
+            jnp.asarray(s.pos.numpy()), jnp.asarray(s.bary.numpy()),
+        )
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=BF16_ATOL, rtol=0)
+
+
+def test_one_stream_cases_are_the_single_blend(scene):
+    """``stream_blend_gather``, ``endpoint_features`` (with and without
+    autograd) and the batch of one stream give the twin's bits."""
+    s = scene["res"].stream
+    field = torch.from_numpy(scene["field"])
+    twin = stream_blend_gather_twin(field, s.vids, s.pos, s.bary)
+    assert torch.equal(stream_blend_gather(field, s.vids, s.pos, s.bary), twin)
+    (batch,) = stream_blend_gather_batch(field, [(s.vids, s.pos, s.bary)])
+    assert torch.equal(batch, twin)
+    assert torch.equal(endpoint_features(field, s), twin)
+    (feats,) = endpoint_features_batch(field.clone().requires_grad_(), [s])
+    assert feats.grad_fn is not None and torch.equal(feats.detach(), twin)
 
 
 @pytest.fixture(scope="module")
@@ -215,3 +257,56 @@ def test_interp_kernel_matches_twin_at_a_bucket_shape(cuda_device, num_samples, 
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     again, again_mask = sample_interp(*args)
     assert torch.equal(out, again) and torch.equal(mask, again_mask)
+
+
+def _bucket_blend_streams(feat, num_vertices, seed):
+    """K2's streams at the three flagship bucket shapes of the cold step
+    (512 rays at T=384, 272 and 232; ``tests/test_torch_backward.py``'s
+    stream generator) with stream ids in ``[-1, V)``, and a field."""
+    from test_torch_backward import _bucket_stream
+
+    rng = np.random.default_rng(seed)
+    streams = []
+    for max_t in (384, 272, 232):
+        _, pos, bary = _bucket_stream(512, max_t, 2, max_t)
+        vids = rng.integers(-1, num_vertices, (512, max_t + 4)).astype(np.int32)
+        streams.append((torch.from_numpy(vids), pos, bary))
+    field = rng.uniform(-1, 1, (num_vertices, feat)).astype(np.float32)
+    return torch.from_numpy(field), streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [64, 16, 6])
+def test_blend_batch_kernel_matches_twin_at_the_bucket_shapes(cuda_device, feat):
+    """The three bucket shapes in one launch, within the chip smoke's
+    tolerance; F=6 takes the float2 path. Two launches are bit-equal (no
+    atomics)."""
+    field, streams = _bucket_blend_streams(feat, 5000, feat)
+    field = field.to(cuda_device)
+    streams = [tuple(x.to(cuda_device) for x in s) for s in streams]
+    before = cuda.launch_counts["stream_blend_gather"]
+    outs = stream_blend_gather_batch(field, streams)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["stream_blend_gather"] == before + 1
+    for (vids, pos, _), out, ref in zip(streams, outs,
+                                        stream_blend_gather_batch_twin(field, streams)):
+        assert out.shape == pos.shape[:2] + (feat,)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    again = stream_blend_gather_batch(field, streams)
+    assert all(torch.equal(x, y) for x, y in zip(outs, again))
+
+
+@pytest.mark.cuda
+def test_blend_batch_kernel_splits_a_long_job_list(scene, cuda_device):
+    """More streams than one launch takes (64): two launches, each stream
+    blended as the twin blends it."""
+    s = scene["res"].stream
+    field = torch.from_numpy(scene["field"]).to(cuda_device)
+    streams = [tuple(x[i % 60:i % 60 + 4].to(cuda_device) for x in (s.vids, s.pos, s.bary))
+               for i in range(70)]
+    before = cuda.launch_counts["stream_blend_gather"]
+    outs = stream_blend_gather_batch(field, streams)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["stream_blend_gather"] == before + 2
+    for out, ref in zip(outs, stream_blend_gather_batch_twin(field, streams)):
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

@@ -1,75 +1,269 @@
-// K2: stream blend with the field row gather fused in.
+// K2: stream blend with the field row gather fused in, for a batch of
+// streams over one field.
 //
-//   out[r, e, :] = sum_j bary[r, e, j] * field[vids[r, pos[r, e, j]], :]
+//   out_j[r, e, :] = sum_i bary_j[r, e, i] * field[max(vids_j[r, pos_j[r, e, i]], 0), :]
 //
 // Replaces: tetranerf_tpu/ops/pallas_interp.py `stream_blend` forward
 // (`_blend_fwd_kernel` :172, pallas_call at :214) together with the
 // `field[vids]` row gather in front of it (ops/fused.py:733). The TPU kernel
 // built a [T+4, T+1] blend matrix per ray and contracted it on the MXU in
 // bf16; here each endpoint reads its (at most four) field rows directly and
-// sums in f32, so no [R, T+4, F] gathered stream is written to memory.
+// sums in f32, so no [R, T+4, F] gathered stream is written to memory. On
+// the port's path one launch computes the endpoint features of every
+// quantile bucket of a step or render chunk (JAX: one `endpoint_features`
+// per bucket).
 //
-// What bounds it on the H100: one warp per endpoint, lanes over the feature
-// axis (a float2 each), so every field row read and every output row write
-// is one coalesced 256-byte transaction at F=64. The output [R, T+1, F]
-// f32 is written densely (1.08 GB at 8192 x 513 x 64, about 0.3 ms of
-// HBM write bandwidth); the row reads are random gathers from a field that
-// fits the 50 MB L2 at 100K vertices (25.6 MB), so they are L2-gather-bound.
-// Padding endpoints (all four weights zero, most of a ray's T+1 slots) skip
-// their reads and write zeros.
+// Design: one block of 8 warps per (job, ray, tile of at most 128
+// endpoints).
+// 1. The job list (stream and output addresses, shapes, tiling) is a
+//    kernel parameter (a `__grid_constant__` struct, as K8's); a block
+//    finds its job by binary search over the prefix of the jobs' block
+//    counts. A ray's endpoints split into the fewest tiles of at most 128,
+//    as even as they come.
+// 2. The block stages its tile's pos and bary rows (32 bytes per endpoint)
+//    in shared memory with `cp.async` (16 bytes a thread, coalesced), and
+//    each staging thread then resolves its endpoint's four vertex ids once,
+//    v = bary != 0 ? max(vids[r, pos], 0) : -1, into shared memory. One
+//    barrier.
+// 3. Lane groups of min(16, F / 4) lanes (rounded up to a power of two)
+//    own endpoints, each lane a float4 of columns (float2 where F or an
+//    address does not allow 16 bytes, as K3). A lane loads 2 endpoints x 4
+//    rows before it adds, sums in f32 in the twin's order,
+//    ((w0 x0 + w1 x1) + w2 x2) + w3 x3, and writes each output row once.
+//    An endpoint whose four weights are all zero (padding: most of a ray's
+//    T+1 slots) writes zeros and reads nothing.
+//
+// What bounds it on the H100: bytes. The dense [R, T+1, F] f32 output is
+// written once, pos + bary read once, the stream ids and the field once
+// (1.25 GB at the render slice's 8192 x 513 x 64: 0.374 ms at the 3.35 TB/s
+// of an H100 SXM at 700 W, NVIDIA's data sheet; ~0.14 ms for a flagship
+// step's 8 buckets). The row reads are gathers from a field that fits the
+// 50 MB L2 at 100K vertices (25.6 MB).
+//
+// The earlier design, one warp per endpoint (a chain of dependent loads:
+// pos/bary, then up to 4 stream ids, then up to 4 rows; a float2 per lane,
+// so 256 bytes of output per warp) and one launch per bucket: 1.143-1.145
+// ms at the render shape, 0.296 ms for the 8 launches of a flagship step,
+// on an H100 80GB HBM3 at 700 W.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256) blend_kernel(
-    const float* __restrict__ field, const int* __restrict__ vids,
-    const int* __restrict__ pos, const float* __restrict__ bary,
-    float* __restrict__ out, int num_rays, int num_end, int num_stream,
-    int num_feat) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<long long>(num_rays) * num_end) return;
-  const long long r = warp / num_end;
-  const int4 p = __ldg(reinterpret_cast<const int4*>(pos) + warp);
-  const float4 w = __ldg(reinterpret_cast<const float4*>(bary) + warp);
-  const int* vr = vids + r * num_stream;
-  const int pj[4] = {p.x, p.y, p.z, p.w};
-  const float wj[4] = {w.x, w.y, w.z, w.w};
-  const float* rows[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int v = wj[j] != 0.0f ? max(__ldg(vr + pj[j]), 0) : 0;
-    rows[j] = field + static_cast<long long>(v) * num_feat;
+struct BlendJob {
+  const int* vids;      // [R, U]
+  const int4* pos;      // [R, E]
+  const float4* bary;   // [R, E]
+  float* out;           // [R, E, F]
+  int num_end;
+  int num_stream;
+  int tile;             // endpoints a block owns, at most kMaxTile
+  int num_tiles;        // tiles per ray
+  int first_block;      // prefix over the jobs of their block counts
+};
+
+constexpr int kBlendMaxJobs = 64;
+
+struct BlendBatch {
+  int num_jobs;
+  BlendJob jobs[kBlendMaxJobs];
+};
+
+constexpr int kFwdThreads = 256;
+constexpr int kMaxTile = 128;
+constexpr int kEndInFlight = 2;  // endpoints a lane loads before it adds
+
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static T blend(const float4& w, const T* x) {
+    return make_float4(
+        ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
+        ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y,
+        ((w.x * x[0].z + w.y * x[1].z) + w.z * x[2].z) + w.w * x[3].z,
+        ((w.x * x[0].w + w.y * x[1].w) + w.z * x[2].w) + w.w * x[3].w);
   }
-  float* dst = out + warp * num_feat;
-  for (int f = 2 * lane; f < num_feat; f += 64) {
-    float2 acc = make_float2(0.0f, 0.0f);
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.0f, 0.0f); }
+  __device__ static T blend(const float4& w, const T* x) {
+    return make_float2(
+        ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
+        ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// At most 64 registers a thread, so 4 blocks share an SM: more row
+// gathers and output rows in flight than at 3 blocks (72 registers).
+template <int kVec>
+__global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
+    const __grid_constant__ BlendBatch batch, const float* __restrict__ field,
+    int num_feat, int group_log2) {
+  using V = typename Vec<kVec>::T;
+  __shared__ int4 s_pos[kMaxTile];
+  __shared__ float4 s_w[kMaxTile];
+  __shared__ int4 s_v[kMaxTile];
+  int lo = 0, hi = batch.num_jobs - 1;  // last job with first_block <= block
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (batch.jobs[mid].first_block <= static_cast<int>(blockIdx.x)) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const BlendJob& job = batch.jobs[lo];
+  const int local = blockIdx.x - job.first_block;
+  const long long r = local / job.num_tiles;
+  const int e0 = (local % job.num_tiles) * job.tile;
+  const int n = min(job.tile, job.num_end - e0);
+
+  if (static_cast<int>(threadIdx.x) < n) {
+    const long long e = r * job.num_end + e0 + threadIdx.x;
+    cp_async16(s_pos + threadIdx.x, job.pos + e);
+    cp_async16(s_w + threadIdx.x, job.bary + e);
+    cp_async_wait_all();  // this thread's own copies are now visible to it
+    const int4 p = s_pos[threadIdx.x];
+    const float4 w = s_w[threadIdx.x];
+    const int* vr = job.vids + r * job.num_stream;
+    int4 v;
+    v.x = w.x != 0.0f ? max(__ldg(vr + p.x), 0) : -1;
+    v.y = w.y != 0.0f ? max(__ldg(vr + p.y), 0) : -1;
+    v.z = w.z != 0.0f ? max(__ldg(vr + p.z), 0) : -1;
+    v.w = w.w != 0.0f ? max(__ldg(vr + p.w), 0) : -1;
+    s_v[threadIdx.x] = v;
+  }
+  __syncthreads();
+
+  const int group = 1 << group_log2;
+  const int groups = kFwdThreads >> group_log2;
+  const int lane = threadIdx.x & (group - 1);
+  const int units = num_feat / kVec;
+  float* dst = job.out + (r * job.num_end + e0) * num_feat;
+  for (int i0 = threadIdx.x >> group_log2; i0 < n; i0 += groups * kEndInFlight) {
+    int vs[kEndInFlight][4];
+    float4 ws[kEndInFlight];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (wj[j] != 0.0f) {
-        const float2 x = __ldg(reinterpret_cast<const float2*>(rows[j] + f));
-        acc.x += wj[j] * x.x;
-        acc.y += wj[j] * x.y;
+    for (int q = 0; q < kEndInFlight; ++q) {
+      const int i = i0 + q * groups;
+      int4 v = make_int4(-1, -1, -1, -1);
+      ws[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n) {
+        v = s_v[i];
+        ws[q] = s_w[i];
+      }
+      vs[q][0] = v.x;
+      vs[q][1] = v.y;
+      vs[q][2] = v.z;
+      vs[q][3] = v.w;
+    }
+    for (int c = lane; c < units; c += group) {
+      V x[kEndInFlight][4];
+#pragma unroll
+      for (int q = 0; q < kEndInFlight; ++q) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x[q][j] = Vec<kVec>::zero();
+          if (vs[q][j] >= 0) {
+            x[q][j] = __ldg(reinterpret_cast<const V*>(
+                                field + static_cast<long long>(vs[q][j]) * num_feat) + c);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kEndInFlight; ++q) {
+        const int i = i0 + q * groups;
+        if (i < n) {
+          reinterpret_cast<V*>(dst + static_cast<long long>(i) * num_feat)[c] =
+              Vec<kVec>::blend(ws[q], x[q]);
+        }
       }
     }
-    *reinterpret_cast<float2*>(dst + f) = acc;
   }
 }
 
 }  // namespace
 
-extern "C" int tetranerf_stream_blend_gather(
-    const float* field, const int* vids, const int* pos, const float* bary,
-    float* out, int num_rays, int num_end, int num_stream, int num_feat,
+extern "C" int tetranerf_stream_blend_max_jobs() { return kBlendMaxJobs; }
+
+// `jobs` is a host array of `num_jobs` x 7 int64: stream ids, positions,
+// weights and output addresses; rays, endpoints and stream slots. F must be
+// even, positions and weights 16-byte aligned. Jobs with no rays or
+// endpoints are skipped; one launch runs the rest (at most kBlendMaxJobs),
+// none if nothing is left.
+extern "C" int tetranerf_stream_blend_gather_batch(
+    const float* field, const long long* jobs, int num_jobs, int num_feat,
     cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long warps = static_cast<long long>(num_rays) * num_end;
-  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  blend_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      field, vids, pos, bary, out, num_rays, num_end, num_stream, num_feat);
+  if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // float4 columns where the row bytes, the field and every output allow.
+  uint64_t bits = reinterpret_cast<uintptr_t>(field) |
+                  static_cast<uint64_t>(num_feat) * sizeof(float);
+  for (int i = 0; i < num_jobs; ++i) {
+    const long long* j = jobs + 7 * i;
+    if ((static_cast<uint64_t>(j[1]) | static_cast<uint64_t>(j[2])) & 15) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    bits |= static_cast<uint64_t>(j[3]);
+  }
+  if (bits & 7) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int vec = (bits & 15) == 0 ? 4 : 2;
+  const int units = num_feat / vec;
+  int group_log2 = 0;
+  while (group_log2 < 4 && (1 << group_log2) < units) ++group_log2;
+
+  thread_local BlendBatch batch;  // kept off the host stack
+  batch.num_jobs = 0;
+  long long blocks = 0;
+  for (int i = 0; i < num_jobs; ++i) {
+    const long long* j = jobs + 7 * i;
+    const long long rays = j[4], num_end = j[5], num_stream = j[6];
+    if (rays <= 0 || num_end <= 0) continue;
+    if (num_end > 0x7fffffffLL || num_stream > 0x7fffffffLL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long num_tiles = (num_end + kMaxTile - 1) / kMaxTile;
+    BlendJob& job = batch.jobs[batch.num_jobs++];
+    job.vids = reinterpret_cast<const int*>(j[0]);
+    job.pos = reinterpret_cast<const int4*>(j[1]);
+    job.bary = reinterpret_cast<const float4*>(j[2]);
+    job.out = reinterpret_cast<float*>(j[3]);
+    job.num_end = static_cast<int>(num_end);
+    job.num_stream = static_cast<int>(num_stream);
+    job.num_tiles = static_cast<int>(num_tiles);
+    job.tile = static_cast<int>((num_end + num_tiles - 1) / num_tiles);
+    job.first_block = static_cast<int>(blocks);
+    blocks += rays * num_tiles;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (blocks > 0) {
+    const unsigned grid = static_cast<unsigned>(blocks);
+    if (vec == 4) {
+      blend_kernel<4><<<grid, kFwdThreads, 0, stream>>>(batch, field,
+                                                        num_feat, group_log2);
+    } else {
+      blend_kernel<2><<<grid, kFwdThreads, 0, stream>>>(batch, field,
+                                                        num_feat, group_log2);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

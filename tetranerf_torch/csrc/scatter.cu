@@ -1,70 +1,213 @@
-// K7: scatter-add of feature rows into a table.
+// K7: batched scatter-add of feature rows into one table.
 //
-//   out = zeros[num_rows, F];  out[idx[i], :] += values[i, :]
-//   for every i with 0 <= idx[i] < num_rows (other rows are dropped).
+//   out = zeros[num_rows, F];  out[idx_j[i], :] += values_j[i, :]
+//   for every job j and every i with 0 <= idx_j[i] < num_rows (other rows
+//   are dropped).
 //
 // Replaces: tetranerf_tpu/ops/pallas_scatter.py `scatter_add_rows`
 // (`_scatter_kernel` :36, pallas_call at :105), the backward of its
-// `gather_rows` (:132-162). On the port's train path it scatters the
-// stream-row gradient of K2b into the [V, F] field gradient (the JAX path's
-// autodiff scatter of `field[max(vids, 0)]`, ops/fused.py:733).
+// `gather_rows` (:132-162). On the port's train path one launch scatters
+// the stream-row gradients of every quantile bucket of a step (K2b's
+// outputs) into the one [V, F] field gradient (the JAX path's autodiff
+// scatter of `field[max(vids, 0)]`, ops/fused.py:733, once per bucket).
 //
 // The TPU kernel kept a window of the table resident in VMEM and walked
-// the rows serially, one window per pass over the input. Here every
-// (row, column) element is one thread that issues one float atomicAdd into
-// the table (a RED to L2, no return value): reads of `values` are
-// coalesced, and the 64 columns of a row hit one 256-byte line. The table
-// is zeroed with cudaMemsetAsync on the same stream first.
+// the rows serially, one window per pass over the input. Here:
+// 1. The job list (index and value addresses, row counts) is a kernel
+//    parameter (a `__grid_constant__` struct, as K8's); each job owns a run
+//    of blocks, and a block finds its job by binary search over the prefix
+//    of the jobs' block counts.
+// 2. A row is owned by a lane group of min(16, F / 4) lanes (rounded up to
+//    a power of two), each lane on a float4 of columns: float2 where F or
+//    an address does not allow 16 bytes, single floats where F is odd.
+//    Each group keeps 4 rows in flight: it reads their indices once (one
+//    broadcast load per row), then their value vectors, then adds.
+// 3. A lane whose values are all zero issues nothing (adding zero changes
+//    nothing: +0 + -0 is +0). Any other lane issues one vector atomic,
+//    `atomicAdd(float4*, float4)`, Hopper's `red.global.add.v4.f32`
+//    (sm_90 and later, global memory only): a quarter of the atomics of one
+//    per element. Most stream rows of a train step are zero (slots past a
+//    ray's valid prefix, slots no endpoint weights), and the zero skip also
+//    keeps those padding slots, whose vertex id is 0, from piling atomics
+//    onto row 0.
+// 4. The table is zeroed by cudaMemsetAsync on the same stream, once per
+//    entry-point call: the wrapper splits a list longer than kMaxJobs
+//    into several launches, and every later one adds into the same table.
 //
-// What bounds it on the H100: reading `values` (N x F f32, 541 MB for the
-// train slice's 4096 x 516 x 64 stream: 0.16 ms at the 3.35 TB/s of an H100
-// SXM at 700 W, NVIDIA's data sheet) and the L2 atomic throughput for
-// the nonzero elements. Most stream rows of a train step are zero (padding
-// slots past a ray's valid prefix, slots no endpoint references), and
-// adding zero changes nothing (+0 + -0 is +0), so zero elements issue no
-// atomic. That also keeps the padding slots, whose vertex id is 0, from
-// piling atomics onto row 0.
+// What bounds it on the H100: bytes. The indices and values are read once
+// and the table written once per launch, not once per bucket: at the train
+// slice's 4096 x 516 x 64 stream, 0.17 ms at the 3.35 TB/s of an H100 SXM
+// at 700 W (NVIDIA's data sheet), of which the 25.6 MB table is 0.008 ms;
+// ~0.08 ms for the 8 buckets of a flagship step. The L2 atomic rate for
+// the nonzero vectors is the second limit.
+//
+// The earlier design, one thread per element issuing one scalar atomicAdd,
+// one launch with its own zeroed [V, F] table per bucket (and autograd
+// summing the 8 tables): 0.655-0.722 ms at the train shape, 0.301 ms of
+// kernel time for the 8 launches of a flagship step, on an H100 80GB HBM3
+// at 700 W.
 //
 // The order of the float additions into a row varies from run to run, so
 // results agree with the plain version to rounding, not bit for bit.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256) scatter_add_kernel(
-    const int* __restrict__ idx, const float* __restrict__ values,
-    float* __restrict__ out, long long num_elems, int num_rows,
-    int num_feat) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_elems) return;
-  const long long row = i / num_feat;
-  const int col = static_cast<int>(i - row * num_feat);
-  const int v = __ldg(idx + row);
-  if (v < 0 || v >= num_rows) return;
-  const float x = __ldg(values + i);
-  if (x == 0.0f) return;
-  atomicAdd(out + static_cast<long long>(v) * num_feat + col, x);
+struct ScatterJob {
+  const int* idx;
+  const float* values;
+  int rows;
+  int first_block;  // prefix over the jobs of their block counts
+};
+
+constexpr int kMaxJobs = 64;
+
+struct ScatterBatch {
+  int num_jobs;
+  ScatterJob jobs[kMaxJobs];
+};
+
+constexpr int kThreads = 256;
+constexpr int kRowsInFlight = 4;
+
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static bool nonzero(T v) {
+    return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
+  }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.0f, 0.0f); }
+  __device__ static bool nonzero(T v) { return v.x != 0.0f || v.y != 0.0f; }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static T zero() { return 0.0f; }
+  __device__ static bool nonzero(T v) { return v != 0.0f; }
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads) scatter_add_kernel(
+    const __grid_constant__ ScatterBatch batch, float* __restrict__ out,
+    int num_rows, int num_feat, int group_log2) {
+  using V = typename Vec<kVec>::T;
+  int lo = 0, hi = batch.num_jobs - 1;  // last job with first_block <= block
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (batch.jobs[mid].first_block <= static_cast<int>(blockIdx.x)) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const ScatterJob& job = batch.jobs[lo];
+  const int group = 1 << group_log2;
+  const int groups = kThreads >> group_log2;
+  const int lane = threadIdx.x & (group - 1);
+  // Row k of this group: base + k * groups, so the groups of a warp read
+  // neighbouring rows.
+  const long long base =
+      static_cast<long long>(blockIdx.x - job.first_block) * groups *
+          kRowsInFlight +
+      (threadIdx.x >> group_log2);
+  int v[kRowsInFlight];
+#pragma unroll
+  for (int k = 0; k < kRowsInFlight; ++k) {
+    const long long row = base + k * groups;
+    v[k] = row < job.rows ? __ldg(job.idx + row) : -1;
+    if (v[k] >= num_rows) v[k] = -1;
+  }
+  const int units = num_feat / kVec;
+  for (int c = lane; c < units; c += group) {
+    V x[kRowsInFlight];
+#pragma unroll
+    for (int k = 0; k < kRowsInFlight; ++k) {
+      x[k] = Vec<kVec>::zero();
+      if (v[k] >= 0) {
+        x[k] = __ldg(reinterpret_cast<const V*>(
+                         job.values + (base + k * groups) * num_feat) + c);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRowsInFlight; ++k) {
+      if (v[k] >= 0 && Vec<kVec>::nonzero(x[k])) {
+        atomicAdd(reinterpret_cast<V*>(
+                      out + static_cast<long long>(v[k]) * num_feat) + c,
+                  x[k]);
+      }
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int tetranerf_scatter_add_rows(
-    const int* idx, const float* values, float* out, int num_in,
-    int num_rows, int num_feat, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(num_rows) * num_feat * sizeof(float),
-      stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kThreads = 256;
-  const long long elems = static_cast<long long>(num_in) * num_feat;
-  const long long blocks = (elems + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int tetranerf_scatter_add_max_jobs() { return kMaxJobs; }
+
+// `jobs` is a host array of `num_jobs` x 3 int64: index address, values
+// address, row count. `zero` != 0 zeroes the [num_rows, num_feat] table
+// first. Jobs with no rows are skipped; one launch runs the rest (at most
+// kMaxJobs of them), none if nothing is left.
+extern "C" int tetranerf_scatter_add_rows_batch(
+    const long long* jobs, int num_jobs, float* out, int num_rows,
+    int num_feat, int zero, cudaStream_t stream) {
+  if (num_jobs > kMaxJobs || num_feat <= 0 || num_rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (zero) {
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(num_rows) * num_feat * sizeof(float),
+        stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // The widest vector that divides the row bytes and every address.
+  uint64_t bits = reinterpret_cast<uintptr_t>(out) |
+                  static_cast<uint64_t>(num_feat) * sizeof(float);
+  for (int i = 0; i < num_jobs; ++i) bits |= static_cast<uint64_t>(jobs[3 * i + 1]);
+  const int vec = (bits & 15) == 0 ? 4 : (bits & 7) == 0 ? 2 : 1;
+  const int units = num_feat / vec;
+  int group_log2 = 0;
+  while (group_log2 < 4 && (1 << group_log2) < units) ++group_log2;
+  const long long rows_per_block =
+      static_cast<long long>(kThreads >> group_log2) * kRowsInFlight;
+
+  thread_local ScatterBatch batch;  // kept off the host stack
+  batch.num_jobs = 0;
+  long long blocks = 0;
+  for (int i = 0; i < num_jobs; ++i) {
+    const long long* j = jobs + 3 * i;
+    const long long rows = j[2];
+    if (rows <= 0) continue;
+    if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    ScatterJob& job = batch.jobs[batch.num_jobs++];
+    job.idx = reinterpret_cast<const int*>(j[0]);
+    job.values = reinterpret_cast<const float*>(j[1]);
+    job.rows = static_cast<int>(rows);
+    job.first_block = static_cast<int>(blocks);
+    blocks += (rows + rows_per_block - 1) / rows_per_block;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (blocks > 0) {
-    scatter_add_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(idx, values, out, elems, num_rows,
-                                   num_feat);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    if (vec == 4) {
+      scatter_add_kernel<4><<<grid, kThreads, 0, stream>>>(
+          batch, out, num_rows, num_feat, group_log2);
+    } else if (vec == 2) {
+      scatter_add_kernel<2><<<grid, kThreads, 0, stream>>>(
+          batch, out, num_rows, num_feat, group_log2);
+    } else {
+      scatter_add_kernel<1><<<grid, kThreads, 0, stream>>>(
+          batch, out, num_rows, num_feat, group_log2);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

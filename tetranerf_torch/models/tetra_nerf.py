@@ -22,6 +22,7 @@ from ..ops.encoding import nerf_encoding, nerf_encoding_dim
 from ..ops.fused import (
     biased_warp_range,
     endpoint_features,
+    endpoint_features_batch,
     march_features,
     ray_bounds,
     sample_features,
@@ -374,9 +375,11 @@ class TetraNerf(nn.Module):
         per-bucket path): one geometry-only march at the full bound (K1),
         rays sorted by crossing count (stably, as ``jnp.argsort``) and cut
         into equal quantile chunks; one K8 launch slices every chunk to its
-        own bound (geometry only: the slices take no gradient), each is
-        shaded by :meth:`_forward` on its slice, and the outputs go back to
-        ray order."""
+        own bound (geometry only: the slices take no gradient), one K2
+        launch computes every slice's endpoint features against the field
+        (so the field gradient is one ``[V, F]`` tensor, one K7 launch),
+        each slice is shaded by :meth:`_forward`, and the outputs go back
+        to ray order."""
         cfg = self.config
         res = cached_march
         if res is None:
@@ -390,24 +393,30 @@ class TetraNerf(nn.Module):
         inv_order = torch.argsort(order)
         plan = self.bucket_plan(origins.shape[0], bounds, n_coarse, n_fine)
         slices = slice_march_buckets(res, order, plan, (origins, directions))
+        feats = endpoint_features_batch(self.tetrahedra_field,
+                                        [sliced.stream for sliced, _ in slices])
         outs = []
-        for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)) in zip(plan, slices):
+        for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)), feats_k in zip(
+                plan, slices, feats):
             outs.append(self._forward(
                 o_k, d_k, mesh, t_k, ns_k, nf_k, None,
                 train, generator, None if uniforms is None else uniforms[k],
                 None if camera_indices is None else camera_indices[order[lo:hi]],
-                sliced,
+                sliced, endpoint_feats=feats_k,
             ))
         return {key: torch.cat([o[key] for o in outs])[inv_order] for key in outs[0]}
 
     def _forward(
         self, origins, directions, mesh, max_steps, n_coarse, n_fine,
         occ_depth_cap, train, generator, uniforms, camera_indices,
-        cached_march=None,
+        cached_march=None, endpoint_feats=None,
     ) -> Dict[str, torch.Tensor]:
         """The forward of one batch of rays at one bound (JAX ``_forward``);
-        a ``cached_march`` is re-shaded: only its endpoint features (K2) are
-        computed, against the current field."""
+        a ``cached_march`` is re-shaded: its endpoint features are
+        ``endpoint_feats`` where the caller computed them against the
+        current field, else they are computed here (K2). The ``feats`` a
+        cached march carries are never used: they may be an older
+        field's."""
         cfg = self.config
         num_rays = origins.shape[0]
         dev = origins.device
@@ -420,9 +429,10 @@ class TetraNerf(nn.Module):
                  for k, v in u.items()}
 
         if cached_march is not None:
-            res = cached_march._replace(
-                feats=endpoint_features(self.tetrahedra_field, cached_march.stream)
-            )
+            if endpoint_feats is None:
+                endpoint_feats = endpoint_features(self.tetrahedra_field,
+                                                   cached_march.stream)
+            res = cached_march._replace(feats=endpoint_feats)
         else:
             res = march_features(
                 mesh, self.tetrahedra_field, origins, directions, max_steps,

@@ -4,6 +4,7 @@ PyTorch twins."""
 from .fused import (
     biased_warp_range,
     endpoint_features,
+    endpoint_features_batch,
     march_features,
     ray_bounds,
     sample_features,
@@ -31,6 +32,7 @@ __all__ = [
     "MarchStream",
     "biased_warp_range",
     "endpoint_features",
+    "endpoint_features_batch",
     "fused_density_mlp",
     "fused_density_mlp_backward",
     "fused_field_mlps",

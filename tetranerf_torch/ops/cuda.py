@@ -20,6 +20,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,11 +51,13 @@ _F = ctypes.c_float
 # argtypes of each C entry point (the trailing pointer is the CUDA stream).
 _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 11 + [_P],
-    "tetranerf_stream_blend_gather": [_P] * 5 + [_I] * 4 + [_P],
+    "tetranerf_stream_blend_gather_batch": [_P, _P, _I, _I, _P],
+    "tetranerf_stream_blend_max_jobs": [],
     "tetranerf_sample_interp": [_P] * 8 + [_I] * 4 + [_P],
     "tetranerf_stream_blend_backward": [_P] * 4 + [_I] * 4 + [_P],
     "tetranerf_sample_interp_backward": [_P] * 7 + [_I] * 4 + [_P],
-    "tetranerf_scatter_add_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "tetranerf_scatter_add_rows_batch": [_P, _I, _P, _I, _I, _I, _P],
+    "tetranerf_scatter_add_max_jobs": [],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 7 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 10 + [_I] * 8 + [_P],
     "tetranerf_row_gather_batch": [_P, _I, _P],
@@ -178,6 +181,22 @@ def launch(counter: str, fn: str, device: torch.device, *args) -> None:
         msg = _lib.tetranerf_error_string(rc).decode()
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc} ({msg})")
     launch_counts[counter] += 1
+
+
+@functools.cache
+def max_jobs(query: str) -> int:
+    """Jobs one launch of a batched kernel takes (its parameter space holds
+    the job list), from the C entry point ``query``."""
+    return entry(query)()
+
+
+def job_chunks(cap: int, jobs):
+    """``jobs`` (equal-length tuples of ints) cut into runs of at most
+    ``cap`` (what one launch takes), each as ``(ctypes int64 array, job
+    count)`` for a batched C entry point."""
+    for start in range(0, len(jobs), cap):
+        part = [v for job in jobs[start:start + cap] for v in job]
+        yield (ctypes.c_longlong * len(part))(*part), len(jobs[start:start + cap])
 
 
 def check_cuda_inputs(name: str, **tensors) -> None:

@@ -8,33 +8,46 @@ the exact lerp of the features at its interval's two endpoints: the march
 emits endpoint features once (K2) and every sampling round lerps them (K3).
 Bucketed shading cuts every quantile bucket out of one march with one
 launch of the row gather K8 (:func:`slice_march_buckets`) and recomputes
-each bucket's endpoint features.
+every bucket's endpoint features with one launch of K2
+(:func:`endpoint_features_batch`).
 Where autograd records (grad enabled and a differentiable input), the two go
 through the autograd Functions whose backwards are K2b + K7 and K3b.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from .interp import (
     SampleInterp,
-    StreamBlendGather,
+    StreamBlendGatherBatch,
     sample_interp,
-    stream_blend_gather,
+    split_streams,
+    stream_blend_gather_batch,
 )
 from .gather import row_gather_batch
 from .march import FusedMarch, MarchStream, march
 
 
-def endpoint_features(field: torch.Tensor, stream: MarchStream) -> torch.Tensor:
-    """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2); the
-    only field-dependent part of the traversal."""
-    args = (field.contiguous(), stream.vids.contiguous(),
-            stream.pos.contiguous(), stream.bary.contiguous())
+def endpoint_features_batch(field: torch.Tensor,
+                            streams: Sequence[MarchStream]) -> List[torch.Tensor]:
+    """Interval-endpoint features ``f32[R_j, T_j+1, F]`` of each march
+    stream, in one K2 launch; the only field-dependent part of the
+    traversal. Where autograd records, the field gradient of all streams is
+    one ``[V, F]`` tensor (one K7 launch)."""
+    field = field.contiguous()
+    flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
-        return StreamBlendGather.apply(*args)
-    return stream_blend_gather(*args)
+        return list(StreamBlendGatherBatch.apply(field, *flat))
+    return stream_blend_gather_batch(field, split_streams(flat))
+
+
+def endpoint_features(field: torch.Tensor, stream: MarchStream) -> torch.Tensor:
+    """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2): the
+    one-stream case of :func:`endpoint_features_batch`."""
+    return endpoint_features_batch(field, [stream])[0]
 
 
 def march_features(
@@ -96,7 +109,7 @@ def slice_march_buckets(res: FusedMarch, order: torch.Tensor, plan, rays=()):
     ...)``, rays ``order[lo:hi]`` cut to their first ``t`` intervals, and
     those rays' rows of each ``[R, C]`` tensor of ``rays`` (origins,
     directions). Returns one ``(FusedMarch, [ray rows])`` per entry;
-    ``feats`` is left None (recompute with :func:`endpoint_features`).
+    ``feats`` is left None (recompute with :func:`endpoint_features_batch`).
 
     Rays with more than ``t`` valid intervals lose their far tail, and that
     truncation is folded into ``overflow``."""

@@ -9,8 +9,6 @@ batch cuts every quantile bucket of a step out of a march
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -62,18 +60,14 @@ def _row_gather_batch_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
         outs.append(out)
         if ind[1] and width:
             flat.append((tab[0], tab[1], out.data_ptr(), width * tab[2], ind[0], ind[1]))
-    max_jobs = _max_jobs()
-    for start in range(0, len(flat), max_jobs):
-        part = [v for job in flat[start:start + max_jobs] for v in job]
-        cuda.launch("row_gather", "tetranerf_row_gather_batch", device,
-                    (ctypes.c_longlong * len(part))(*part), len(part) // 6)
+    for jobs_arr, num in cuda.job_chunks(_max_jobs(), flat):
+        cuda.launch("row_gather", "tetranerf_row_gather_batch", device, jobs_arr, num)
     return outs
 
 
-@functools.cache
 def _max_jobs() -> int:
     """Jobs one launch takes (the kernel's parameter space holds the list)."""
-    return cuda.entry("tetranerf_row_gather_max_jobs")()
+    return cuda.max_jobs("tetranerf_row_gather_max_jobs")
 
 
 def row_gather_batch(jobs: Sequence[Job]) -> List[torch.Tensor]:

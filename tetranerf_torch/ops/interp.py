@@ -10,10 +10,16 @@ part of the function.
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 
 from . import cuda
-from .scatter import scatter_add_rows
+from .scatter import scatter_add_rows_batch
+
+Stream = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+"""``(vids i32[R, U], pos i32[R, E, 4], bary f32[R, E, 4])``: one march
+stream (``MarchStream``'s fields) to blend against the field."""
 
 
 def stream_blend_gather_twin(field, vids, pos, bary):
@@ -31,38 +37,58 @@ def stream_blend_gather_twin(field, vids, pos, bary):
     ) + w[:, :, 2] * rows[:, :, 2] + w[:, :, 3] * rows[:, :, 3]
 
 
-def _stream_blend_gather_cuda(field, vids, pos, bary):
-    cuda.check_cuda_inputs(
-        "stream_blend_gather", field=field, vids=vids, pos=pos, bary=bary
-    )
-    num_rays, num_end = pos.shape[:2]
-    num_feat = field.shape[1]
-    if (
-        field.dtype != torch.float32 or num_feat % 2
-        or vids.dtype != torch.int32 or vids.shape[0] != num_rays
-        or pos.dtype != torch.int32 or pos.shape != (num_rays, num_end, 4)
-        or bary.dtype != torch.float32 or bary.shape != pos.shape
-    ):
-        raise ValueError("stream_blend_gather: unexpected shapes or dtypes")
-    out = torch.empty(
-        (num_rays, num_end, num_feat), dtype=torch.float32, device=field.device
-    )
-    if out.numel():
-        cuda.launch(
-            "stream_blend_gather", "tetranerf_stream_blend_gather",
-            field.device, *map(cuda.ptr, (field, vids, pos, bary, out)),
-            num_rays, num_end, vids.shape[1], num_feat,
-        )
-    return out
+def stream_blend_gather_batch_twin(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
+    """:func:`stream_blend_gather_twin` of each stream."""
+    return [stream_blend_gather_twin(field, *s) for s in streams]
+
+
+def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
+    num_feat = field.shape[-1]
+    if (field.dim() != 2 or field.dtype != torch.float32 or num_feat % 2
+            or field.data_ptr() % 8):
+        raise ValueError("stream_blend_gather: unexpected field shape, dtype or alignment")
+    outs, flat = [], []
+    for vids, pos, bary in streams:
+        cuda.check_cuda_inputs("stream_blend_gather", field=field, vids=vids,
+                               pos=pos, bary=bary)
+        num_rays, num_end = pos.shape[:2]
+        if (
+            vids.dtype != torch.int32 or vids.dim() != 2 or vids.shape[0] != num_rays
+            or pos.dtype != torch.int32 or pos.shape != (num_rays, num_end, 4)
+            or bary.dtype != torch.float32 or bary.shape != pos.shape
+            or pos.data_ptr() % 16 or bary.data_ptr() % 16
+        ):
+            raise ValueError("stream_blend_gather: unexpected shapes, dtypes or alignment")
+        out = torch.empty((num_rays, num_end, num_feat), dtype=torch.float32,
+                          device=field.device)
+        outs.append(out)
+        if out.numel():
+            flat.append((vids.data_ptr(), pos.data_ptr(), bary.data_ptr(),
+                         out.data_ptr(), num_rays, num_end, vids.shape[1]))
+    for jobs_arr, num in cuda.job_chunks(cuda.max_jobs("tetranerf_stream_blend_max_jobs"), flat):
+        cuda.launch("stream_blend_gather", "tetranerf_stream_blend_gather_batch",
+                    field.device, cuda.ptr(field), jobs_arr, num, num_feat)
+    return outs
+
+
+def stream_blend_gather_batch(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
+    """K2 on CUDA tensors, :func:`stream_blend_gather_batch_twin` on CPU
+    tensors: the endpoint features ``f32[R_j, E_j, F]`` of each stream
+    against one ``field f32[V, F]`` (``F`` even). On the card one launch
+    blends every stream (more only past the kernel's job capacity, 64
+    streams); the tensors must be contiguous, ``pos`` and ``bary``
+    16-byte aligned."""
+    if field.is_cuda:
+        return _stream_blend_gather_batch_cuda(field, streams)
+    if field.device.type == "cpu":
+        return stream_blend_gather_batch_twin(field, streams)
+    raise ValueError(f"stream_blend_gather: unsupported device {field.device}")
 
 
 def stream_blend_gather(field, vids, pos, bary):
-    """K2 on CUDA tensors, :func:`stream_blend_gather_twin` on CPU tensors."""
-    if field.is_cuda:
-        return _stream_blend_gather_cuda(field, vids, pos, bary)
-    if field.device.type == "cpu":
-        return stream_blend_gather_twin(field, vids, pos, bary)
-    raise ValueError(f"stream_blend_gather: unsupported device {field.device}")
+    """K2 on CUDA tensors, :func:`stream_blend_gather_twin` on CPU tensors:
+    the one-stream case of :func:`stream_blend_gather_batch`."""
+    return stream_blend_gather_batch(field, [(vids, pos, bary)])[0]
 
 
 def _match(t0, t1, num_valid, ray_mask, distances):
@@ -234,29 +260,49 @@ def sample_interp_backward(t0, t1, num_valid, ray_mask, distances, g):
     raise ValueError(f"sample_interp_backward: unsupported device {g.device}")
 
 
+def split_streams(flat) -> List[Stream]:
+    """``(vids_0, pos_0, bary_0, vids_1, ...)`` as a list of streams."""
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+class StreamBlendGatherBatch(torch.autograd.Function):
+    """:func:`stream_blend_gather_batch` (one K2 launch) with the field
+    gradient: K2b per stream onto its stream rows, then one K7 scatters all
+    of them into one ``[V, F]`` gradient by vertex id. Called as
+    ``apply(field, vids_0, pos_0, bary_0, vids_1, ...)``; returns one
+    ``f32[R_j, E_j, F]`` per stream. The forward reads row ``max(vid, 0)``,
+    so the backward scatters there too, as autodiff of the JAX
+    ``field[max(vids, 0)]`` does; a march emits no negative ids, and the
+    zero rows of unused slots issue no atomics. The streams take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, field, *flat):
+        ctx.save_for_backward(*flat)
+        ctx.num_rows = field.shape[0]
+        return tuple(stream_blend_gather_batch(field, split_streams(flat)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        jobs = []
+        for (vids, pos, bary), g in zip(split_streams(flat), grads):
+            gsf = stream_blend_backward(g.contiguous(), pos, bary, vids.shape[1])
+            jobs.append((vids.reshape(-1).clamp_min(0), gsf.reshape(-1, gsf.shape[-1])))
+        return (scatter_add_rows_batch(jobs, ctx.num_rows),) + (None,) * len(flat)
+
+
 class StreamBlendGather(torch.autograd.Function):
-    """:func:`stream_blend_gather` (K2) with the field gradient: K2b onto
-    the stream rows, then K7 scatters them into ``[V, F]`` by vertex id.
-    The forward reads row ``max(vid, 0)``, so the backward scatters there
-    too, as autodiff of the JAX ``field[max(vids, 0)]`` does; a march emits
-    no negative ids, and the zero rows of unused slots issue no atomics.
-    ``vids``, ``pos`` and ``bary`` take no gradient."""
+    """The one-stream case of :class:`StreamBlendGatherBatch`:
+    ``apply(field, vids, pos, bary)`` -> ``f32[R, E, F]``."""
 
     @staticmethod
     def forward(ctx, field, vids, pos, bary):
-        ctx.save_for_backward(vids, pos, bary)
-        ctx.num_rows = field.shape[0]
-        return stream_blend_gather(field, vids, pos, bary)
+        return StreamBlendGatherBatch.forward(ctx, field, vids, pos, bary)[0]
 
     @staticmethod
     def backward(ctx, g):
-        vids, pos, bary = ctx.saved_tensors
-        gsf = stream_blend_backward(g.contiguous(), pos, bary, vids.shape[1])
-        grad = scatter_add_rows(
-            vids.reshape(-1).clamp_min(0), gsf.reshape(-1, gsf.shape[-1]),
-            ctx.num_rows,
-        )
-        return grad, None, None, None
+        return StreamBlendGatherBatch.backward(ctx, g)
 
 
 class SampleInterp(torch.autograd.Function):

@@ -1,17 +1,24 @@
 """Row scatter-add (kernel K7, ``csrc/scatter.cu``) beside its plain PyTorch
-twin, and the row gather whose backward it is.
+twin, for one or several index/value pairs into one table, and the row
+gather whose backward it is.
 
 Counterpart of :mod:`tetranerf_tpu.ops.pallas_scatter`. On the train path
 K7 is the second half of the stream blend's backward
-(:class:`~.interp.StreamBlendGather`): it scatters the per-ray stream-row
-gradient into the ``[V, F]`` field gradient.
+(:class:`~.interp.StreamBlendGatherBatch`): one launch scatters the
+stream-row gradients of every bucket of a step into the one ``[V, F]``
+field gradient.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 
 from . import cuda
+
+Job = Tuple[torch.Tensor, torch.Tensor]
+"""``(indices i32[N], values f32[N, F])``: rows to add into the table."""
 
 
 def scatter_add_rows_twin(indices, values, num_rows: int):
@@ -25,33 +32,62 @@ def scatter_add_rows_twin(indices, values, num_rows: int):
     return out.scatter_add_(0, idx, vals)
 
 
-def _scatter_add_rows_cuda(indices, values, num_rows: int):
-    cuda.check_cuda_inputs("scatter_add_rows", indices=indices, values=values)
-    if (
-        indices.dtype != torch.int32 or values.dtype != torch.float32
-        or indices.dim() != 1 or values.dim() != 2
-        or values.shape[0] != indices.shape[0]
-    ):
-        raise ValueError("scatter_add_rows: unexpected shapes or dtypes")
-    out = torch.empty(
-        (num_rows, values.shape[1]), dtype=torch.float32, device=values.device
-    )
-    if out.numel():
-        cuda.launch(
-            "scatter_add_rows", "tetranerf_scatter_add_rows", values.device,
-            *map(cuda.ptr, (indices, values, out)),
-            indices.shape[0], num_rows, values.shape[1],
-        )
+def scatter_add_rows_batch_twin(jobs: Sequence[Job], num_rows: int):
+    """:func:`scatter_add_rows_twin` of the jobs' concatenation: one
+    ``scatter_add_``."""
+    return scatter_add_rows_twin(torch.cat([idx for idx, _ in jobs]),
+                                 torch.cat([vals for _, vals in jobs]), num_rows)
+
+
+def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
+    device = jobs[0][1].device
+    num_feat = jobs[0][1].shape[-1]
+    flat: List[tuple] = []
+    for idx, vals in jobs:
+        cuda.check_cuda_inputs("scatter_add_rows", indices=idx, values=vals)
+        if (
+            vals.device != device or idx.dtype != torch.int32
+            or vals.dtype != torch.float32 or idx.dim() != 1 or vals.dim() != 2
+            or vals.shape != (idx.shape[0], num_feat)
+        ):
+            raise ValueError("scatter_add_rows: unexpected shapes or dtypes")
+        if idx.shape[0]:
+            flat.append((idx.data_ptr(), vals.data_ptr(), idx.shape[0]))
+    out = torch.empty((num_rows, num_feat), dtype=torch.float32, device=device)
+    if not out.numel():
+        return out
+    if not flat:
+        return out.zero_()
+    chunks = cuda.job_chunks(cuda.max_jobs("tetranerf_scatter_add_max_jobs"), flat)
+    for i, (jobs_arr, num) in enumerate(chunks):
+        # The first launch zeroes the table; later ones add into it.
+        cuda.launch("scatter_add_rows", "tetranerf_scatter_add_rows_batch", device,
+                    jobs_arr, num, cuda.ptr(out), num_rows, num_feat, int(i == 0))
     return out
 
 
+def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int):
+    """K7 on CUDA tensors, :func:`scatter_add_rows_batch_twin` on CPU
+    tensors: ``zeros[num_rows, F]`` with every job's rows added in.
+
+    ``jobs`` is a non-empty list of ``(indices i32[N_j], values f32[N_j,
+    F])``, all contiguous, one device, one ``F``; rows whose index is
+    ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
+    every job (more only past the kernel's job capacity, 64 jobs)."""
+    if not jobs:
+        raise ValueError("scatter_add_rows: no jobs (the row width is unknown)")
+    device = jobs[0][1].device
+    if device.type == "cuda":
+        return _scatter_add_rows_batch_cuda(jobs, num_rows)
+    if device.type == "cpu":
+        return scatter_add_rows_batch_twin(jobs, num_rows)
+    raise ValueError(f"scatter_add_rows: unsupported device {device}")
+
+
 def scatter_add_rows(indices, values, num_rows: int):
-    """K7 on CUDA tensors, :func:`scatter_add_rows_twin` on CPU tensors."""
-    if values.is_cuda:
-        return _scatter_add_rows_cuda(indices, values, num_rows)
-    if values.device.type == "cpu":
-        return scatter_add_rows_twin(indices, values, num_rows)
-    raise ValueError(f"scatter_add_rows: unsupported device {values.device}")
+    """K7 on CUDA tensors, :func:`scatter_add_rows_twin` on CPU tensors: the
+    one-job case of :func:`scatter_add_rows_batch`."""
+    return scatter_add_rows_batch([(indices, values)], num_rows)
 
 
 class _GatherRows(torch.autograd.Function):
