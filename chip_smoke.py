@@ -48,11 +48,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    K5b (density MLP) against their twins on the card at the train slice's
    shapes (4096 rays; 257 samples for K4/K4b, 128 for K5/K5b) with the
    preset's seeded weights, beside the un-fused plain-torch stack on the
-   same inputs (``unfused_ms``);
+   same inputs (``unfused_ms``), and checked and timed beside their
+   bounds at the flagship's three bucket shapes (512 rays x 257, 193 and
+   33 samples); the build's ``-Xptxas -v`` report of ``mlp.cu`` and the
+   preset's launch plans;
 9. the fused render: phase 5 with ``fused_mlps=True`` (K4 and K5 must
    launch);
 10. the fused train run: phase 7 with ``fused_mlps=True`` (K4, K4b and K5
-    must launch);
+    must launch), with the device busy time, idle share and the fused
+    kernels' profiler ms per step beside their bounds;
 11. the row gather K8 against its twin (bit for bit, job by job), against
     itself one table per launch and against ``torch.index_select``
     (``library_ms``) on one cold flagship step's bucket slices in one batch
@@ -126,6 +130,9 @@ TOLERANCES = {
 # its max abs error to 0.1 of its largest entry.
 MLP_NORM_RTOL = 1e-2
 MLP_MAX_RTOL = 0.1
+# The flagship's three bucket shapes (phase 3): 512 rays x 257, 193 and
+# 33 fine samples, as (rays, coarse samples, fine samples).
+MLP_BUCKET_SHAPES = ((512, 128, 128), (512, 96, 96), (512, 16, 16))
 # bf16 MLP GEMMs round differently in cuBLAS and on the CPU.
 RENDER_RGB_TOL = 2e-2
 # The train step on the card vs the CPU twins, relative to the CPU value
@@ -756,6 +763,23 @@ def _rel_check(name, pairs):
     return err
 
 
+def _mlp_bounds(x, head_dir, weights):
+    """Bounds of K4 and K4b (``head_dir`` given) or K5 and K5b on these
+    inputs: the bytes each must move (x, head_dir, the weights and the
+    outputs once; the backward reads the cotangents and writes dx,
+    dhead_dir and the weight gradients) against the bf16 products (one
+    pass forward, three backward)."""
+    rows = x.shape[0] * x.shape[1]
+    macs = sum(w.numel() for w in weights if w.dim() == 2)  # per row
+    param_bytes = sum(w.numel() for w in weights) * 4
+    hd = 0 if head_dir is None else head_dir.numel() * 4
+    out = rows * (16 if head_dir is not None else 4)
+    return (_bound(x.numel() * 4 + hd + param_bytes + out, 2 * macs * rows,
+                   BF16_TENSOR_FLOPS),
+            _bound(2 * x.numel() * 4 + 2 * hd + 2 * param_bytes + out,
+                   6 * macs * rows, BF16_TENSOR_FLOPS))
+
+
 def mlp_checks(model, dev):
     """Phase 8: K4, K4b, K5 and K5b against their twins on the card at the
     train slice's shapes, with the preset's seeded weights and features,
@@ -791,12 +815,12 @@ def mlp_checks(model, dev):
         w_dens = [w.detach() for w in model.density_weights()]
     results = []
 
-    def entry(name, replaces, err, ms, plain_ms, unfused_ms, num_bytes, num_ops):
+    def entry(name, replaces, err, ms, plain_ms, unfused_ms, bound):
         print(f"{name}: max abs err {err:.3g}; {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-              f"un-fused stack {unfused_ms:.3f} ms")
+              f"un-fused stack {unfused_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms")
         results.append(_entry(
-            name, "tetranerf_torch/csrc/mlp.cu", replaces, err, ms, plain_ms,
-            _bound(num_bytes, num_ops, BF16_TENSOR_FLOPS), unfused_ms=unfused_ms))
+            name, "tetranerf_torch/csrc/mlp.cu", replaces, err, ms, plain_ms, bound,
+            unfused_ms=unfused_ms))
 
     def unfused_backward(fn, x_in, grads):
         """Time of the autograd backward alone of ``fn(x_in)`` (its
@@ -807,9 +831,7 @@ def mlp_checks(model, dev):
             outs, [xg, *params], grads, retain_graph=True, allow_unused=True), 5)
 
     # K4 / K4b: the field MLPs at 4096 x 257 rows.
-    rows = x.shape[0] * x.shape[1]
-    macs = sum(w.numel() for w in weights if w.dim() == 2)  # per row
-    param_bytes = sum(w.numel() for w in weights) * 4
+    bound_fwd, bound_bwd = _mlp_bounds(x, head_dir, weights)
     fwd = (x, head_dir, weights, n_base, n_head, dt)
     err = _rel_check("fused_field_mlps", zip(mlp.fused_field_mlps(*fwd),
                                              mlp.fused_field_mlps_twin(*fwd)))
@@ -817,9 +839,7 @@ def mlp_checks(model, dev):
         unfused = _time_ms(lambda: plain.field_mlps(x, d), 10)
     entry("fused_field_mlps", "tetranerf_tpu/ops/pallas_mlp.py:244", err,
           _time_ms(lambda: mlp.fused_field_mlps(*fwd), 10),
-          _time_ms(lambda: mlp.fused_field_mlps_twin(*fwd), 3), unfused,
-          x.numel() * 4 + head_dir.numel() * 4 + param_bytes + rows * 16,
-          2 * macs * rows)
+          _time_ms(lambda: mlp.fused_field_mlps_twin(*fwd), 3), unfused, bound_fwd)
     bwd = (x, head_dir, weights, g_rgb, g_dens, n_base, n_head, dt)
     dx, dhd, grads = mlp.fused_field_mlps_backward(*bwd)
     dx_t, dhd_t, grads_t = mlp.fused_field_mlps_backward_twin(*bwd)
@@ -831,14 +851,10 @@ def mlp_checks(model, dev):
           _time_ms(lambda: mlp.fused_field_mlps_backward(*bwd), 10),
           _time_ms(lambda: mlp.fused_field_mlps_backward_twin(*bwd), 3),
           unfused_backward(lambda xg: plain.field_mlps(xg, d), x,
-                           (g_rgb, g_dens[..., 0])),
-          2 * x.numel() * 4 + 2 * head_dir.numel() * 4 + 2 * param_bytes
-          + rows * 16, 6 * macs * rows)
+                           (g_rgb, g_dens[..., 0])), bound_bwd)
 
     # K5 / K5b: the density MLP at 4096 x 128 rows (the coarse round).
-    rows = x_c.shape[0] * x_c.shape[1]
-    macs = sum(w.numel() for w in w_dens if w.dim() == 2)
-    param_bytes = sum(w.numel() for w in w_dens) * 4
+    bound_fwd, bound_bwd = _mlp_bounds(x_c, None, w_dens)
     fwd = (x_c, w_dens, n_base, dt)
     err = _rel_check("fused_density_mlp", [(mlp.fused_density_mlp(*fwd),
                                            mlp.fused_density_mlp_twin(*fwd))])
@@ -846,8 +862,7 @@ def mlp_checks(model, dev):
         unfused = _time_ms(lambda: plain.density_at(x_c), 10)
     entry("fused_density_mlp", "tetranerf_tpu/ops/pallas_mlp.py:415", err,
           _time_ms(lambda: mlp.fused_density_mlp(*fwd), 10),
-          _time_ms(lambda: mlp.fused_density_mlp_twin(*fwd), 3), unfused,
-          x_c.numel() * 4 + param_bytes + rows * 4, 2 * macs * rows)
+          _time_ms(lambda: mlp.fused_density_mlp_twin(*fwd), 3), unfused, bound_fwd)
     bwd = (x_c, w_dens, g_c, n_base, dt)
     dx, grads = mlp.fused_density_mlp_backward(*bwd)
     dx_t, grads_t = mlp.fused_density_mlp_backward_twin(*bwd)
@@ -856,16 +871,21 @@ def mlp_checks(model, dev):
     entry("fused_density_mlp_backward", "tetranerf_tpu/ops/pallas_mlp.py:448", err,
           _time_ms(lambda: mlp.fused_density_mlp_backward(*bwd), 10),
           _time_ms(lambda: mlp.fused_density_mlp_backward_twin(*bwd), 3),
-          unfused_backward(plain.density_at, x_c, g_c[..., 0]),
-          2 * x_c.numel() * 4 + 2 * param_bytes + rows * 4, 6 * macs * rows)
+          unfused_backward(plain.density_at, x_c, g_c[..., 0]), bound_bwd)
     del plain
+    # The flagship's bucket shapes (512 rays; 257, 193 and 33 fine samples).
+    timed = mlp_bucket_checks(model, dev, MLP_BUCKET_SHAPES, timed=True)
+    for r in results:
+        r["bucket_shapes"] = timed[r["name"]]
     return results
 
 
-def mlp_bucket_checks(model, dev, shapes):
+def mlp_bucket_checks(model, dev, shapes, timed=False):
     """K4, K4b, K5 and K5b against their twins at the shapes bucketed
     shading gives them: ``(rays, coarse samples, fine samples)`` per case,
-    each held to ``MLP_NORM_RTOL`` and ``MLP_MAX_RTOL`` as in phase 8."""
+    each held to ``MLP_NORM_RTOL`` and ``MLP_MAX_RTOL`` as in phase 8.
+    With ``timed``, also each kernel's CUDA-event ms beside its bound:
+    returns ``{wrapper: [{"shape", "ms", "bound_ms"}, ...]}``."""
     import torch
     from tetranerf_torch.ops import mlp
 
@@ -873,6 +893,7 @@ def mlp_bucket_checks(model, dev, shapes):
     dt = model.compute_dtype
     n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
     gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -896,15 +917,32 @@ def mlp_bucket_checks(model, dev, shapes):
         dx_t, dhd_t, grads_t = mlp.fused_field_mlps_backward_twin(*bwd)
         _rel_check(f"fused_field_mlps_backward {label}",
                    [(dx, dx_t), (dhd, dhd_t), *zip(grads, grads_t)])
-        fwd = (x_c, w_dens, n_base, dt)
-        _rel_check(f"fused_density_mlp {label}", [(mlp.fused_density_mlp(*fwd),
-                                                   mlp.fused_density_mlp_twin(*fwd))])
-        bwd = (x_c, w_dens, g_c, n_base, dt)
-        dx, grads = mlp.fused_density_mlp_backward(*bwd)
-        dx_t, grads_t = mlp.fused_density_mlp_backward_twin(*bwd)
+        fwd_c = (x_c, w_dens, n_base, dt)
+        _rel_check(f"fused_density_mlp {label}", [(mlp.fused_density_mlp(*fwd_c),
+                                                   mlp.fused_density_mlp_twin(*fwd_c))])
+        bwd_c = (x_c, w_dens, g_c, n_base, dt)
+        dx, grads = mlp.fused_density_mlp_backward(*bwd_c)
+        dx_t, grads_t = mlp.fused_density_mlp_backward_twin(*bwd_c)
         _rel_check(f"fused_density_mlp_backward {label}",
                    [(dx, dx_t), *zip(grads, grads_t)])
         print(f"fused MLP kernels {label}: within tolerance of their twins")
+        if timed:
+            del dx, dhd, grads, dx_t, dhd_t, grads_t
+            field, dens = _mlp_bounds(x, head_dir, weights), _mlp_bounds(x_c, None, w_dens)
+            for name, fn, args, bound in (
+                    ("fused_field_mlps", mlp.fused_field_mlps, fwd, field[0]),
+                    ("fused_field_mlps_backward", mlp.fused_field_mlps_backward, bwd,
+                     field[1]),
+                    ("fused_density_mlp", mlp.fused_density_mlp, fwd_c, dens[0]),
+                    ("fused_density_mlp_backward", mlp.fused_density_mlp_backward,
+                     bwd_c, dens[1])):
+                ms = _time_ms(lambda: fn(*args), 10)
+                rows = args[0].shape[0] * args[0].shape[1]
+                print(f"  {name} {label} ({rows} rows): {ms:.4f} ms, bound "
+                      f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+                out.setdefault(name, []).append(dict(
+                    shape=list(args[0].shape), ms=ms, bound_ms=bound["bound_ms"]))
+    return out
 
 
 def golden_check(device):
@@ -1089,14 +1127,19 @@ def _profile_steps(trainer, batches, median_ms):
 
 _PORT_KERNELS = ("march_kernel", "blend_kernel", "blend_bwd_kernel",
                  "interp_kernel", "interp_bwd_kernel", "scatter_add_kernel",
-                 "mlp_fwd_kernel", "mlp_bwd_kernel", "sum_rows_kernel",
+                 "mlp_fwd_kernel", "mlp_aux_kernel", "mlp_bwd_kernel", "sum_rows_kernel",
                  "gather_kernel")
 # The wrapper (launch counter) of each port kernel with a bound per step.
 _WRAPPER_OF = {"march_kernel": "march", "blend_kernel": "stream_blend_gather",
                "blend_bwd_kernel": "stream_blend_backward",
                "interp_kernel": "sample_interp",
                "interp_bwd_kernel": "sample_interp_backward",
-               "scatter_add_kernel": "scatter_add_rows", "gather_kernel": "row_gather"}
+               "scatter_add_kernel": "scatter_add_rows", "gather_kernel": "row_gather",
+               # K4 and K5 run one kernel (K5: no head); K4b is three launches.
+               "mlp_fwd_kernel": "fused_mlp_forward",
+               "mlp_aux_kernel": "fused_field_mlps_backward",
+               "mlp_bwd_kernel": "fused_field_mlps_backward",
+               "sum_rows_kernel": "fused_field_mlps_backward"}
 
 
 def _port_kernel(name):
@@ -1114,7 +1157,7 @@ def _recording_bounds():
     adds its bound in ms, from its own inputs, to the yielded dict under
     its launch counter. The bounds are computed on the card before each
     call, so time nothing inside the block."""
-    from tetranerf_torch.ops import fused, interp, scatter
+    from tetranerf_torch.ops import fused, interp, mlp, scatter
 
     sums = {}
     sites = [
@@ -1127,6 +1170,9 @@ def _recording_bounds():
         (interp, "scatter_add_rows_batch", _scatter_batch_bound),
         (scatter, "scatter_add_rows_batch", _scatter_batch_bound),
         (fused, "row_gather_batch", _gather_bound),
+        (mlp, "fused_field_mlps", lambda x, hd, w, *_: _mlp_bounds(x, hd, w)[0]),
+        (mlp, "fused_field_mlps_backward", lambda x, hd, w, *_: _mlp_bounds(x, hd, w)[1]),
+        (mlp, "fused_density_mlp", lambda x, w, *_: _mlp_bounds(x, None, w)[0]),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
     counters = {"stream_blend_gather_batch": "stream_blend_gather",
@@ -1247,7 +1293,21 @@ def train_phase(colors, mesh_plain, dev, fused=False):
     _check(grad_err <= REF_GRAD_RTOL, f"train ref: field grad rel err {grad_err}")
     trainer.model.zero_grad(set_to_none=True)
 
-    _profile_steps(trainer, batches[:2], med)
+    prof = _profile_steps(trainer, batches[:2], med)
+    if fused:
+        # Each fused kernel's device ms per step beside its bound from the
+        # step's own inputs (K4 and K5 share one kernel, so one line).
+        with _recording_bounds() as bounds:
+            trainer.train_step(batches[2])
+        rows = {"fused_mlp_forward (K4 + K5)": (
+                    prof.get("fused_mlp_forward"),
+                    bounds["fused_field_mlps"] + bounds["fused_density_mlp"]),
+                "fused_field_mlps_backward (K4b)": (
+                    prof.get("fused_field_mlps_backward"),
+                    bounds["fused_field_mlps_backward"])}
+        print(f"{label}: fused kernels per step (ms by the profiler / bound ms): " +
+              "; ".join(f"{k} {'not measured' if ms is None else f'{ms:.4f}'} / "
+                        f"{b:.4f}" for k, (ms, b) in rows.items()))
     return launches, per_step, med
 
 
@@ -1545,6 +1605,36 @@ def flagship_render_phase(trainer, dev):
     return launches
 
 
+def _mlp_build_report(log):
+    """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
+    spills, stack), with the dynamic shared memory of the preset's launch
+    plans."""
+    import re
+    from tetranerf_torch.ops.mlp import launch_plan
+
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(mlp_fwd_kernel|mlp_aux_kernel|"
+                      r"mlp_bwd_kernel|sum_rows_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
+            spill = ""
+        elif "Compiling entry function" in line:
+            name = None
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"mlp.cu {name}: {regs} registers; {spill}")
+            name = None
+    for n_head, what in ((1, "field (K4, K4b)"), (0, "density (K5, K5b)")):
+        fwd, bwd = (launch_plan(64, 128, 3, n_head, b) for b in (False, True))
+        print(f"mlp.cu launch plan, preset widths, {what}: forward {fwd.warpgroups} "
+              f"warpgroups, {fwd.smem_bytes} bytes of shared memory; backward "
+              f"{bwd.warpgroups} warpgroups, x prefetch {bool(bwd.stages)}, "
+              f"{bwd.smem_bytes} bytes, workspace row {bwd.ws_floats} floats")
+
+
 def main() -> int:
     import torch
 
@@ -1575,6 +1665,7 @@ def main() -> int:
     for line in cuda.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    _mlp_build_report(cuda.build_log)
 
     t = time.perf_counter()
     points, colors = make_sphere_scene(NUM_POINTS, seed=0)

@@ -17,6 +17,7 @@ import torch
 from tetranerf_torch.models import TetraNerf, check_supported, tetranerf_preset
 from tetranerf_torch.ops import cuda
 from tetranerf_torch.ops.mlp import (
+    MAX_SMEM_BYTES,
     FusedDensityMLP,
     FusedFieldMLPs,
     fused_density_mlp,
@@ -27,6 +28,7 @@ from tetranerf_torch.ops.mlp import (
     fused_field_mlps_backward,
     fused_field_mlps_backward_twin,
     fused_field_mlps_twin,
+    launch_plan,
 )
 from tetranerf_torch.training.checkpoints import params_from_jax
 
@@ -367,11 +369,21 @@ CUDA_CASES = {
     "preset": (64, 128, 3, 1, 32, 257),
     "ragged": (16, 32, 3, 1, 7, 5),
     "deep-head": (16, 32, 2, 3, 16, 40),
+    # The preset's widths with two head layers: the backward's x stages
+    # share its cotangent staging (no room for a prefetch).
+    "preset-head-2": (64, 128, 3, 2, 24, 65),
+    # 1,591 rows: not a multiple of a 128-row tile pair, and 43 samples a
+    # ray, so tiles and warps span ray boundaries.
+    "preset-ragged": (64, 128, 3, 1, 37, 43),
 }
+# The preset's widths at two bucket shapes of the flagship's cold step
+# (512 rays x 33 and x 193 fine samples).
+BUCKET_SAMPLES = (33, 193)
 
 
 def _cuda_inputs(case, dev, seed=0):
-    d_in, hidden, n_base, n_head, rays, samples = CUDA_CASES[case]
+    d_in, hidden, n_base, n_head, rays, samples = (
+        CUDA_CASES[case] if isinstance(case, str) else case)
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -483,3 +495,102 @@ def test_kernels_refuse_what_they_lack(cuda_device):
         fused_field_mlps(x[..., :8].contiguous(), hd,
                          [weights[0][:, :8].contiguous()] + weights[1:],
                          n_base, n_head, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", BUCKET_SAMPLES)
+def test_kernels_match_twin_at_a_bucket_shape(cuda_device, samples):
+    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs(
+        (64, 128, 3, 1, 512, samples), cuda_device, seed=2)
+    dt = torch.bfloat16
+    rgb, dens = fused_field_mlps(x, hd, weights, n_base, n_head, dt)
+    dx, dhd, grads = fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens,
+                                               n_base, n_head, dt)
+    rgb_t, dens_t = fused_field_mlps_twin(x, hd, weights, n_base, n_head, dt)
+    assert _close(rgb, rgb_t) and _close(dens, dens_t)
+    dx_t, dhd_t, grads_t = fused_field_mlps_backward_twin(
+        x, hd, weights, g_rgb, g_dens, n_base, n_head, dt)
+    assert _close(dx, dx_t) and _close(dhd, dhd_t)
+    for i, (a, b) in enumerate(zip(grads, grads_t)):
+        assert _close(a, b), i
+    wd = weights[: 2 * n_base + 2]
+    assert _close(fused_density_mlp(x, wd, n_base, dt),
+                  fused_density_mlp_twin(x, wd, n_base, dt))
+    dx, grads = fused_density_mlp_backward(x, wd, g_dens, n_base, dt)
+    dx_t, grads_t = fused_density_mlp_backward_twin(x, wd, g_dens, n_base, dt)
+    assert _close(dx, dx_t) and all(_close(a, b) for a, b in zip(grads, grads_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [True, False], ids=["field", "density"])
+def test_backward_weight_gradients_are_bit_equal_over_two_launches(cuda_device, head):
+    """K4b and K5b sum the weight gradients per block, then over blocks in
+    block order: the same bits in every launch (no float atomics)."""
+    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs("preset", cuda_device)
+    dt = torch.bfloat16
+    if head:
+        def run():
+            return fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens,
+                                             n_base, n_head, dt)[2]
+    else:
+        wd = weights[: 2 * n_base + 2]
+
+        def run():
+            return fused_density_mlp_backward(x, wd, g_dens, n_base, dt)[1]
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_an_oversized_stack(cuda_device):
+    """Three base and three head layers at the preset's widths do not fit
+    the backward's shared memory: ValueError before any launch."""
+    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs(
+        (64, 128, 3, 3, 4, 16), cuda_device)
+    before = dict(cuda.launch_counts)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens, n_base, n_head,
+                                  torch.bfloat16)
+    assert cuda.launch_counts == before
+
+
+# ------------------------------------------------------- the launch plan
+
+
+PLAN_STACKS = {name: case[:4] for name, case in CUDA_CASES.items()}
+PLAN_STACKS.update({"preset-density": (64, 128, 3, 0), "narrow-density": (16, 32, 3, 0),
+                    "preset-head-3-forward": (64, 128, 3, 3)})
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("stack", list(PLAN_STACKS))
+def test_launch_plan_takes_the_kernel_stacks(stack, backward):
+    d_in, hidden, n_base, n_head = PLAN_STACKS[stack]
+    if stack == "preset-head-3-forward" and backward:
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            launch_plan(d_in, hidden, n_base, n_head, backward)
+        return
+    plan = launch_plan(d_in, hidden, n_base, n_head, backward)
+    assert plan.rows_per_tile == 64 and 0 < plan.smem_bytes <= MAX_SMEM_BYTES
+    assert plan.warpgroups == 2 if backward else 1 <= plan.warpgroups <= 3
+    rng = np.random.default_rng(0)
+    weights = [_port(w) for w in _jax_weights(rng, d_in, hidden, n_base, n_head)]
+    size = sum(w.numel() for w in weights)
+    # The workspace row holds every gradient, rounded up to 8 floats.
+    assert plan.ws_floats == (-(-size // 8) * 8 if backward else 0)
+
+
+def test_launch_plan_stages_and_warpgroups_follow_shared_memory():
+    """Where shared memory is short the plan gives up the backward's x
+    prefetch, then the forward's third warpgroup, then refuses."""
+    assert launch_plan(64, 128, 3, 1, True).stages == 1
+    assert launch_plan(64, 128, 3, 2, True).stages == 0
+    assert launch_plan(64, 128, 3, 2, False).warpgroups == 3
+    assert launch_plan(64, 128, 3, 3, False).warpgroups == 2
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        launch_plan(64, 128, 3, 5, False)
+    with pytest.raises(ValueError, match="not among the compiled"):
+        launch_plan(32, 64, 3, 1, False)
+    with pytest.raises(ValueError):
+        launch_plan(16, 32, 0, 1, True)

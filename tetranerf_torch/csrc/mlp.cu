@@ -2,11 +2,11 @@
 // K5 / K5b: the fused density MLP (the coarse round's head-free chain),
 //           forward and backward.
 //
-//   base:    h_0 = x;  h_{i+1} = relu(h_i W_i^T + b_i)          i < n_base
-//   density: density = softplus(h_top w_d^T + b_d)
-//   head:    u_0 = relu(h_top W_bh^T + head_dir[ray])           (K4 only)
-//            u_{j} = relu(u_{j-1} W_hj^T + b_hj)                 0 < j < n_head
-//   colour:  rgb = sigmoid(u_last W_c^T + b_c)
+//   base:    a_0 = x;  a_{k+1} = relu(a_k W_k^T + b_k)           k < n_base
+//   density: density = softplus(a_nb w_d^T + b_d)                  (nb = n_base)
+//   head:    a_{nb+1} = relu(a_nb W_bh^T + head_dir[ray])          (K4 only)
+//            a_{k+1} = relu(a_k W_k^T + b_k)                 nb < k < L
+//   colour:  rgb = sigmoid(a_L W_c^T + b_c)                        (L = n_base + n_head)
 //
 // Every product takes bf16 operands and sums in f32; biases and head_dir
 // are added in f32; activations are rounded to bf16 only as the next
@@ -21,48 +21,73 @@
 // pallas_call at :415) and `_dens_bwd` (`_dens_bwd_kernel` :353, pallas_call
 // at :448).
 //
-// Design. Rows (samples) are flattened to N = R * S and cut into tiles of
-// kRows = 64; the ray of row n is n / S, and the ragged tail is masked.
-// Persistent blocks, at most one per SM, walk the tiles. Each block copies
-// the weights into shared memory once, as bf16 (115,712 bytes at the
-// preset's widths; 124 KB with the row padding that spreads the rows over
-// the banks), and keeps a tile's activations there too, so no activation
-// reaches device memory: only x, head_dir and the outputs cross it. The
-// products run on the tensor cores as mma.sync m16n8k16 (bf16 operands
-// from shared memory through ldmatrix, f32 accumulators in registers); a
-// warp takes one 16-row tile against up to eight neighbouring 8-column
-// tiles at once (as many as still leave a unit for each of the 16 warps),
-// so one A fragment feeds several independent accumulators, and the
-// epilogue (bias, ReLU, the cast to bf16, the backward's masks and sums)
-// works on the accumulators in registers. The density (1 output) and
-// colour (3 outputs) products are warp-reduced dot products, 4 rows per
-// warp at once.
+// What bounds it on the H100: bf16 operations on the tensor cores. At the
+// train slice (4096 rays x 257 samples, 57,856 MACs per row) K4 does 121.8
+// GFLOP, 0.123 ms at the 989 TFLOP/s bf16 dense peak of an H100 SXM at
+// 700 W, against 0.080 ms to read x; K4b needs three times K4's products.
+// On the TPU the backward adds its weight gradients into one output along
+// the sequential grid; here blocks run in parallel, so each block needs
+// its own f32 weight-gradient sums, 229 KB at the preset's widths: more
+// than an SM holds beside the 115 KB of bf16 weights.
 //
-// The TPU kernels add their weight gradients into one output across the
-// sequential grid; on the H100 blocks run in parallel in no order. So each
-// backward block adds its tiles' weight gradients into a workspace row of
-// its own (`ws`, [num_blocks, P] f32, about 30 MB at 132 blocks, which
-// stays in L2) with a read-modify-write of its accumulators per 64 rows; the small
-// gradients (biases, density and colour weights) stay in shared memory
-// until the block ends. A second launch sums the rows over blocks in a
-// fixed order, so the weight gradients are the same in every run. The
-// backward keeps every recomputed activation of its tile (x and each
-// layer's output) and writes each layer's bf16 cotangent over the
-// activation it masks, once nothing reads that activation any more.
-// dhead_dir sums a ray's rows: a 16-row tile of one ray adds its column
-// sums with one float atomic per column, a tile that spans rays one per
-// (row, column), so a ray's sum comes out in a run-dependent order. The ReLU masks are
-// read from the bf16 copy of each activation: without fast math a positive
-// f32 rounds to a zero bf16 only below 2^-133, inside the f32 denormals.
+// Design. Rows (samples) are flattened to N = R * S; the ray of row n is
+// n / S. Persistent blocks, one per SM, convert the weights once to bf16
+// in shared memory, laid out as wgmma's 8x8 core matrices (no swizzle).
+// Each warpgroup owns a 64-row tile. Every layer is one chain of `wgmma`
+// m64nNk16 (N = the layer's output width) with B the weight matrix in
+// shared memory and A the previous activation in registers: the f32
+// accumulator of layer k, after bias, ReLU and the cast to bf16 in
+// registers, is layer k+1's A fragment, so activations never touch shared
+// memory and layers need no barrier beyond the warpgroup's own wgmma wait.
+// The density (1 output) and colour (3) heads are dot products in
+// registers reduced over the four lanes that share a row: a padded N = 8
+// wgmma would waste 7/8 of its work and still need the same reduction of
+// its accumulator layout into rows. x arrives by cp.async, 16 bytes per
+// thread into an XOR-swizzled f32 stage per warpgroup; each warpgroup
+// starts its next tile's copy as soon as its current x sits in registers,
+// so the copy overlaps the whole tile (one stage per warpgroup; where the
+// backward's shared memory is short, the stage shares the cotangent
+// staging and the copy waits for the tile's end: the plan's `prefetch`).
 //
-// What bounds it on the H100: operations. At the train slice (4096 rays x
-// 257 samples, 57,856 MACs per row) K4 does 121.8 GFLOP, 0.123 ms at the
-// 989 TFLOP/s bf16 dense peak of an H100 SXM at 700 W (NVIDIA's data
-// sheet), against 0.080 ms to read x; K4b about three times that. This
-// first version is simple: one block of 16 warps per SM (the weights fill
-// half of shared memory), fragments loaded from shared memory without
-// software pipelining, a barrier between layers, and the weight-gradient
-// read-modify-write through L2 once per 64 rows.
+// The backward (option (a) of the redesign: a larger reduction depth per
+// weight-gradient write; chosen because a per-pass clock split of the
+// first design, which added every 64 rows' weight gradients into a
+// workspace in L2, put 39% of its time in that read-modify-write).
+// Three launches:
+//  1. `mlp_aux_kernel` runs the whole forward chain of every tile and
+//     writes what the cotangents need from it into a scratch (`aux`, 80
+//     bytes a row at the preset: a bit per element of each layer's ReLU
+//     mask, and the cotangents of pre_d and pre_c), with the heads'
+//     gradients (w_d, b_d, W_c, b_c) as running sums in registers.
+//  2. `mlp_bwd_kernel` runs one phase per hidden matrix W_k, top first,
+//     each over all of the block's rows, two warpgroups on a 128-row tile
+//     pair: recompute the layers below W_k (a_k staged as bf16 in shared
+//     memory), take the masks and head cotangents of the tile from `aux`
+//     (copied by cp.async while the tile before it runs), run the
+//     cotangents down to gz_{k+1} with `wgmma` (A = the bf16 cotangent in
+//     registers, B = W in its MN-major form from the same shared-memory
+//     copy) and stage gz_{k+1}; then each warpgroup adds its 64 rows of
+//     dW_k += gz^T a over the pair's 128 rows with one shared-memory
+//     `wgmma` chain into f32 registers that live for the whole phase, and
+//     goes on to its next tile, waiting for the other warpgroup only
+//     before it writes the staging again. At the phase's end the block
+//     writes its dW_k once into its own workspace row.
+//  3. `sum_rows_kernel` adds the workspace rows in block order.
+// The weight gradients are the same in every run (no float atomics). Bias
+// gradients are f32 column sums of the unrounded cotangents: a reduce-
+// scatter over the lanes, running sums per lane, per-warp partials summed
+// in warp order. Weight-gradient workspace traffic: (n_w + n_b) f32
+// written and read once per block, 2 x 233 KB per 7,975 rows at the train
+// slice, 58 bytes per row (the first design: 7.2 KB per row, a read-
+// modify-write of the 229 KB every 64 rows). The price is recomputation: 1.7x
+// the products of one pass at the preset (294,912 MACs per row against
+// 172,032), with x read once per launch and phase and `aux` once per
+// phase. Launch 1 holds no weight-gradient registers and launch 2 no head
+// state, so each gets the registers it needs: one kernel holding both ran
+// out of registers, and ptxas serialised its wgmma. dhead_dir sums a
+// ray's rows in f32 with atomics (16 rows of one ray: one atomic per
+// column; rows that span rays: one per element), in a run-dependent
+// order. A ReLU mask bit is set where the bf16-rounded activation is > 0.
 
 #include <cuda_bf16.h>
 
@@ -73,653 +98,1024 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int kRows = 64;         // rows per warpgroup tile (wgmma's M)
+constexpr int kMaxLayers = 8;     // hidden matrices, n_base + n_head
+constexpr int kMaxSmem = 232448;  // shared memory a block may use
+constexpr int kMaxFwdGroups = 3;  // warpgroups of a forward block, at most
+constexpr int kBwdGroups = 2;     // warpgroups of a backward block
+constexpr int kPairBarrier = 8;   // named barrier of the backward's two warpgroups
 
-constexpr int kRows = 64;          // rows per tile
-constexpr int kRowTiles = kRows / 16;
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;            // bf16 elements of padding per row
-constexpr int kMaxMats = 20;
-constexpr int kMaxSmem = 232448;   // shared memory a block may use
-
-// Matrices in order: base 0..n_base-1, density (n_base), then with a head:
-// the first head layer's base rows (n_base + 1), head layers 1..n_head-1,
-// colour (n_base + 1 + n_head). Weights are [out, in] (rows x cols),
-// packed flat in this order; biases likewise (the first head layer has
-// none: its bias is inside head_dir). Activation buffers: 0 is x, 1..n_base
-// the base outputs, n_base + 1 + j the output of head layer j.
+// The launch plan. Hidden matrix k maps a_k to a_{k+1}: base layers
+// k < n_base, then the head layers (k = n_base is W_bh, whose bias is
+// head_dir). Offsets of the packed f32 weights (`w_off`, in floats) and
+// biases (`b_off`, -1: none) follow ops/mlp.py's `_pack`; `s_off` is the
+// byte offset of a matrix's bf16 copy in shared memory. `prefetch`: the x
+// stages have room of their own (else they share the backward's cotangent
+// staging). The host computes the same plan (ops/mlp.py `launch_plan`)
+// and passes `warpgroups`, `prefetch` and `smem_bytes`; a mismatch is
+// refused.
 struct Plan {
-  int d_in, hidden, n_base, n_head, n_mats, n_acts, n_w, n_b;
-  int rows[kMaxMats], cols[kMaxMats];
-  int w_off[kMaxMats];    // float offset in the packed weights (and in ws)
-  int b_off[kMaxMats];    // float offset in the packed biases, -1: none
-  int s_off[kMaxMats];    // byte offset of the bf16 copy in shared memory
-  int act_off[kMaxMats];  // byte offset of activation buffer i
-  int bias_off, rowbuf_off, acc_off, bpart_off, smem_bytes;
+  int d_in, hidden, n_base, n_head, n_layers, n_w, n_b;
+  int warpgroups, prefetch;
+  int in_dim[kMaxLayers], w_off[kMaxLayers], b_off[kMaxLayers], s_off[kMaxLayers];
+  int wd_off, bd_off, wc_off, bc_off;  // the heads' offsets (-1: no colour head)
+  int small_off;  // f32: biases [n_b], then bf16-rounded w_d [H] and W_c [3, H]
+  int x_off, x_stride;  // x stage of warpgroup w at x_off + w * x_stride
+  int g_off, a_off;     // backward: staged cotangents and layer inputs, 128 rows
+  int aux_off, aux_words;  // backward: a tile's cached masks and head cotangents
+  int smem_bytes;
 };
 
 int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
-bool make_plan(int d_in, int hidden, int n_base, int n_head, Plan* p) {
-  if (d_in <= 0 || hidden <= 0 || d_in % 16 || hidden % 16 || n_base < 1 ||
-      n_head < 0) {
+bool make_plan(int d_in, int hidden, int n_base, int n_head, bool backward,
+               int warpgroups, int prefetch, Plan* p) {
+  const int n_layers = n_base + n_head;
+  if (n_base < 1 || n_head < 0 || n_layers > kMaxLayers) return false;
+  if (backward ? warpgroups != kBwdGroups
+               : (warpgroups < 1 || warpgroups > kMaxFwdGroups)) {
     return false;
   }
-  const int n_mats = n_base + 1 + (n_head > 0 ? n_head + 1 : 0);
-  if (n_mats > kMaxMats || 1 + n_base + n_head > kMaxMats) return false;
+  *p = Plan{};
   p->d_in = d_in;
   p->hidden = hidden;
   p->n_base = n_base;
   p->n_head = n_head;
-  int m = 0, w = 0, b = 0;
-  auto add = [&](int rows, int cols, bool has_bias) {
-    p->rows[m] = rows;
-    p->cols[m] = cols;
-    p->w_off[m] = w;
-    w += rows * cols;
-    p->b_off[m] = has_bias ? b : -1;
-    if (has_bias) b += rows;
-    ++m;
-  };
-  for (int i = 0; i < n_base; ++i) add(hidden, i == 0 ? d_in : hidden, true);
-  add(1, hidden, true);
-  if (n_head > 0) {
-    add(hidden, hidden, false);
-    for (int j = 1; j < n_head; ++j) add(hidden, hidden, true);
-    add(3, hidden, true);
+  p->n_layers = n_layers;
+  p->warpgroups = warpgroups;
+  p->prefetch = backward ? prefetch : 1;
+  // Packed order: base (W, b) pairs, density (w_d, b_d), then W_bh, the
+  // other head (W, b) pairs, colour (W_c, b_c); matrices first, then biases.
+  int w = 0, b = 0;
+  for (int k = 0; k < n_layers; ++k) {
+    if (k == n_base) {
+      p->wd_off = w;
+      w += hidden;
+      p->bd_off = b;
+      b += 1;
+    }
+    p->in_dim[k] = k == 0 ? d_in : hidden;
+    p->w_off[k] = w;
+    w += hidden * p->in_dim[k];
+    p->b_off[k] = k == n_base ? -1 : b;
+    if (k != n_base) b += hidden;
   }
-  p->n_mats = m;
+  if (n_head == 0) {
+    p->wd_off = w;
+    w += hidden;
+    p->bd_off = b;
+    b += 1;
+    p->wc_off = p->bc_off = -1;
+  } else {
+    p->wc_off = w;
+    w += 3 * hidden;
+    p->bc_off = b;
+    b += 3;
+  }
   p->n_w = w;
   p->n_b = b;
-  int off = align_up(static_cast<int>(sizeof(Plan)), 128);  // the Plan itself
-  for (int i = 0; i < m; ++i) {
-    p->s_off[i] = off;
-    off += align_up(p->rows[i] * (p->cols[i] + kPad) * 2, 128);
+  int off = 0;
+  for (int k = 0; k < n_layers; ++k) {
+    p->s_off[k] = off;
+    off += align_up(hidden * p->in_dim[k] * 2, 128);
   }
-  p->n_acts = 1 + n_base + n_head;
-  for (int i = 0; i < p->n_acts; ++i) {
-    p->act_off[i] = off;
-    off += align_up(kRows * ((i == 0 ? d_in : hidden) + kPad) * 2, 128);
-  }
-  p->bias_off = off;
-  off += align_up(b * 4, 128);
-  p->rowbuf_off = off;  // pre_d, gpd [kRows]; rgb, gpc [kRows, 3]; ray_of
-  off += align_up(9 * kRows * 4, 128);
-  p->acc_off = off;  // bias grads [n_b], d w_d [hidden], d W_c [3, hidden]
+  p->small_off = off;
   off += align_up((b + 4 * hidden) * 4, 128);
-  p->bpart_off = off;
-  off += align_up(kRowTiles * hidden * 4, 128);
+  const int x_bytes = kRows * d_in * 4;
+  if (!backward) {
+    p->x_off = off;
+    p->x_stride = align_up(x_bytes, 128);
+    off += warpgroups * p->x_stride;
+  } else {
+    // The cotangent staging, with 512 bytes past its end that a padded
+    // M = 64 read of H < 64 columns may touch.
+    const int g_bytes = align_up(2 * kRows * hidden * 2 + 512, 128);
+    if (prefetch) {
+      p->x_off = off;
+      p->x_stride = align_up(x_bytes, 128);
+      off += kBwdGroups * p->x_stride;
+    }
+    p->g_off = off;
+    off += g_bytes;
+    p->a_off = off;
+    off += align_up(2 * kRows * std::max(d_in, hidden) * 2, 128);
+    if (!prefetch) {  // warpgroup w's x in the half of the staging of its rows
+      p->x_off = p->g_off;
+      p->x_stride = kRows * hidden * 2;
+      if (x_bytes > p->x_stride) return false;
+    }
+    // One tile's block of the aux scratch (see mlp_bwd_kernel), per warpgroup.
+    p->aux_words = kRows * 4 + n_layers * ((hidden / 2 + 31) / 32) * 128;
+    p->aux_off = off;
+    off += kBwdGroups * align_up(p->aux_words * 4, 128);
+  }
   p->smem_bytes = off;
   return off <= kMaxSmem;
 }
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+// ---------------------------------------------------------------- helpers
+
 __device__ __forceinline__ float bfr(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
-
-// Shared-memory views of one block.
-struct View {
-  const Plan& p;
-  char* s;
-  __device__ bf16* mat(int i) const {
-    return reinterpret_cast<bf16*>(s + p.s_off[i]);
-  }
-  __device__ int mat_ld(int i) const { return p.cols[i] + kPad; }
-  __device__ bf16* act(int i) const {
-    return reinterpret_cast<bf16*>(s + p.act_off[i]);
-  }
-  __device__ int act_ld(int i) const {
-    return (i == 0 ? p.d_in : p.hidden) + kPad;
-  }
-  __device__ float* bias() const {
-    return reinterpret_cast<float*>(s + p.bias_off);
-  }
-  __device__ float* pre_d() const {
-    return reinterpret_cast<float*>(s + p.rowbuf_off);
-  }
-  __device__ float* gpd() const { return pre_d() + kRows; }
-  __device__ float* rgb() const { return pre_d() + 2 * kRows; }
-  __device__ float* gpc() const { return pre_d() + 5 * kRows; }
-  // The ray of each row of the tile, -1 past the last row.
-  __device__ int* ray_of() const {
-    return reinterpret_cast<int*>(pre_d() + 8 * kRows);
-  }
-  __device__ float* acc() const {
-    return reinterpret_cast<float*>(s + p.acc_off);
-  }
-  __device__ float* bpart() const {
-    return reinterpret_cast<float*>(s + p.bpart_off);
-  }
-};
-
-// The three products, each over the tile's rows or a weight's rows:
-enum Kind {
-  kXWt,  // a[rows, k] @ w[n, k]^T   (forward; w is [out, in])
-  kGW,   // g[rows, k] @ w[k, n]     (cotangents; w is [out = k, in = n])
-  kGtA,  // g[k, m]^T @ a[k, n]      (weight gradients, k over the rows)
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
 }
-
-// c += a @ b for one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-
-// c[j] += A(rows i0*16..+16) @ B(cols (j0 + j)*8..+8) over k_dim, for j < NB
-// (NB even): one A fragment feeds NB independent accumulators. Lane l
-// holds c[j][0..1] at (row l/4, cols 2(l%4)..+1) of its 16x8 tile and
-// c[j][2..3] eight rows below (the m16n8 accumulator layout).
-template <int kind, int NB>
-__device__ __forceinline__ void mma_strip(const bf16* a, int lda, const bf16* b,
-                                          int ldb, int k_dim, int i0, int j0,
-                                          float (&c)[NB][4]) {
-  const int l = threadIdx.x & 31;
-  const uint32_t a0 = smem_addr(a), b0 = smem_addr(b);
-#pragma unroll 4
-  for (int k = 0; k < k_dim; k += 16) {
-    uint32_t fa[4];
-    if constexpr (kind == kGtA) {  // A(m, k) = g[k, m]: transposed load
-      const int row = k + (l & 7) + ((l >> 4) << 3), col = i0 * 16 + ((l >> 3) & 1) * 8;
-      ldmatrix_x4_trans(a0 + 2 * (row * lda + col), fa);
-    } else {
-      const int row = i0 * 16 + (l & 15), col = k + (l >> 4) * 8;
-      ldmatrix_x4(a0 + 2 * (row * lda + col), fa);
-    }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Shared-memory writes of the generic proxy made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator accesses across a wgmma.
+template <int n>
+__device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-    for (int j = 0; j < NB; j += 2) {
-      uint32_t fb[4];  // b0, b1 of tile j, then of tile j + 1
-      if constexpr (kind == kXWt) {  // B(k, n) = w[n, k]
-        const int n = (j0 + j) * 8 + (l & 7) + ((l >> 4) << 3);
-        ldmatrix_x4(b0 + 2 * (n * ldb + k + ((l >> 3) & 1) * 8), fb);
-      } else {  // B(k, n) = w[k, n]: transposed load
-        const int row = k + (l & 7) + ((l >> 3) & 1) * 8;
-        ldmatrix_x4_trans(b0 + 2 * (row * ldb + (j0 + j) * 8 + (l >> 4) * 8), fb);
-      }
-      mma_16816(c[j], fa, fb[0], fb[1]);
-      mma_16816(c[j + 1], fa, fb[2], fb[3]);
-    }
-  }
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// For every 16x8 tile of the tile's [kRows, n_cols] product:
-// epi(rt, col, c) with this lane's four accumulators, at rows rt*16 + l/4
-// (c[0..1]) and 8 below (c[2..3]), columns col and col + 1. A warp takes
-// one 16-row tile and NB neighbouring 8-column tiles at a time.
-template <int kind, int NB, class Epi>
-__device__ void row_pass_n(const bf16* a, int lda, const bf16* b, int ldb,
-                           int k_dim, int n_cols, const Epi& epi) {
-  const int strips = n_cols / 8 / NB, l = threadIdx.x & 31;
-  for (int u = threadIdx.x >> 5; u < kRowTiles * strips; u += kWarps) {
-    const int rt = u % kRowTiles, j0 = (u / kRowTiles) * NB;
-    float c[NB][4] = {};
-    mma_strip<kind, NB>(a, lda, b, ldb, k_dim, rt, j0, c);
+// wgmma's shared-memory matrix descriptor, no swizzle: 8x8 core matrices
+// of 128 contiguous bytes (8 rows of 16 bytes); `lbo` is the byte stride
+// between core matrices along K, `sbo` along M or N.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Byte offset of element (r, c) of a bf16 matrix with `cols` columns laid
+// out as core matrices: row-groups of 8 rows, each a run of cols / 8 core
+// matrices of 8 columns. As W [out, in] this is K-major for x W^T and
+// MN-major for g W; staged [rows, cols] operands are MN-major for g^T a.
+__device__ __forceinline__ int cm_off(int r, int c, int cols) {
+  return ((r >> 3) * (cols >> 3) + (c >> 3)) * 128 + (r & 7) * 16 + (c & 7) * 2;
+}
+
+// The accumulator layout of an m64nN wgmma: element i of a thread holds
+// row 16 * warp + lane / 4 + 8 * sel_of(i), column col_of(i).
+__device__ __forceinline__ int sel_of(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int col_of(int i, int lane) {
+  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+template <int N, int TB>
+struct WgmmaRS;  // d[N/2] (+)= A (registers) x B (shared memory), bf16
+template <int N>
+struct WgmmaSS;  // d[N/2] += A x B, both MN-major in shared memory, bf16
+
+template <int TB>
+struct WgmmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %12, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %13, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %21, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<32> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<128, TB> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// acc = A @ W^T over K = KD: A in registers (bf16 fragments, as the m16n8k16
+// A operand of each warp), W [N, KD] in shared memory (K-major).
+template <int N, int KD>
+__device__ __forceinline__ void layer_fwd(float* acc, const uint32_t (&a)[KD / 16][4],
+                                          uint32_t w) {
+  fence_regs<N / 2>(acc);
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NB; ++j) epi(rt, (j0 + j) * 8 + 2 * (l & 3), c[j]);
+  for (int kc = 0; kc < KD / 16; ++kc) {
+    WgmmaRS<N, 0>::run(acc, a[kc], make_desc(w + kc * 256, 128, KD * 16), kc > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<N / 2>(acc);
+}
+
+// acc = G @ W over K = KH: G in registers, W [KH, N] in shared memory, read
+// as B (K = W's rows, N = its columns: MN-major).
+template <int N, int KH>
+__device__ __forceinline__ void layer_bwd(float* acc, const uint32_t (&a)[KH / 16][4],
+                                          uint32_t w) {
+  fence_regs<N / 2>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < KH / 16; ++kc) {
+    WgmmaRS<N, 1>::run(acc, a[kc], make_desc(w + kc * N * 32, N * 16, 128), kc > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<N / 2>(acc);
+}
+
+// The f32 accumulator of an N-column tile as bf16 A fragments over K = N.
+template <int N>
+__device__ __forceinline__ void to_frags(const float* acc, uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[kc][q] = pack_bf16(acc[8 * kc + 2 * q], acc[8 * kc + 2 * q + 1]);
   }
 }
 
-// The widest strip (8, 4 or 2 tiles of 8 columns) that still gives every
-// warp a unit, over `rows16` row tiles and `n8` column tiles.
-__device__ __forceinline__ int strip_width(int rows16, int n8) {
-  if (n8 % 8 == 0 && rows16 * n8 / 8 >= kWarps) return 8;
-  if (n8 % 4 == 0 && rows16 * n8 / 4 >= kWarps) return 4;
-  return 2;
-}
-
-template <int kind, class Epi>
-__device__ void row_pass(const bf16* a, int lda, const bf16* b, int ldb,
-                         int k_dim, int n_cols, const Epi& epi) {
-  const int nb = strip_width(kRowTiles, n_cols / 8);
-  if (nb == 8) {
-    row_pass_n<kind, 8>(a, lda, b, ldb, k_dim, n_cols, epi);
-  } else if (nb == 4) {
-    row_pass_n<kind, 4>(a, lda, b, ldb, k_dim, n_cols, epi);
-  } else {
-    row_pass_n<kind, 2>(a, lda, b, ldb, k_dim, n_cols, epi);
-  }
-}
-
-__device__ void load_params(const View& v, const float* w, const float* b) {
-  const Plan& p = v.p;
-  for (int i = 0; i < p.n_mats; ++i) {
-    bf16* dst = v.mat(i);
-    const int cols = p.cols[i], ld = v.mat_ld(i), n = p.rows[i] * cols;
-    const float* src = w + p.w_off[i];
-    for (int e = threadIdx.x; e < n; e += kThreads) {
-      dst[(e / cols) * ld + e % cols] = __float2bfloat16(src[e]);
-    }
-  }
-  for (int e = threadIdx.x; e < p.n_b; e += kThreads) v.bias()[e] = b[e];
-}
-
-constexpr int kRowsPerWarp = kRows / kWarps;
-static_assert(kRowsPerWarp * kWarps == kRows, "rows split evenly over warps");
-
-// out[r, k] = a[r, :] . w[k, :] + bias[k] for k < K: each warp takes its
-// kRowsPerWarp rows at once, each lane a stride of the columns.
-template <int K>
-__device__ void row_dots(const View& v, int in_act, int m, float* out) {
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRowsPerWarp;
-  const bf16* a = v.act(in_act) + r0 * v.act_ld(in_act);
-  const int lda = v.act_ld(in_act), ldw = v.mat_ld(m);
-  const bf16* w = v.mat(m);
-  float s[kRowsPerWarp][K] = {};
-  for (int j = lane; j < v.p.hidden; j += 32) {
-    float wk[K];
-    for (int k = 0; k < K; ++k) wk[k] = bf(w[k * ldw + j]);
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float av = bf(a[i * lda + j]);
-      for (int k = 0; k < K; ++k) s[i][k] += av * wk[k];
-    }
-  }
-  for (int o = 16; o; o >>= 1) {
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      for (int k = 0; k < K; ++k) s[i][k] += __shfl_xor_sync(0xffffffffu, s[i][k], o);
-    }
-  }
-  if (lane == 0) {
-    const float* bias = v.bias() + v.p.b_off[m];
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      for (int k = 0; k < K; ++k) out[(r0 + i) * K + k] = s[i][k] + bias[k];
+// Fragments a (K = C) of this warp's 16 rows into a staged [128, C] matrix.
+template <int C>
+__device__ __forceinline__ void stage_frags(char* buf, int row0, int lane,
+                                            const uint32_t (&a)[C / 16][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < C / 16; ++kc) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = row0 + g + 8 * (q & 1), c = 16 * kc + 8 * (q >> 1) + 2 * t;
+      *reinterpret_cast<uint32_t*>(buf + cm_off(r, c, C)) = a[kc][q];
     }
   }
 }
 
-// One hidden layer over the tile: out = relu(in @ W_m^T + bias), or with
-// `head_dir` + head_dir[ray] in place of the bias.
-__device__ void hidden_layer(const View& v, int m, int in_act, int out_act,
-                             const float* head_dir) {
-  const int g = (threadIdx.x & 31) >> 2, h = v.p.hidden;
-  bf16* o = v.act(out_act);
-  const int ldo = v.act_ld(out_act);
-  const float* bias = v.bias() + v.p.b_off[m];
-  const int* ray_of = v.ray_of();
-  auto epi = [&](int rt, int col, const float (&c)[4]) {
-    for (int half = 0; half < 2; ++half) {
-      const int row = rt * 16 + g + 8 * half;
-      float2 add;
-      if (head_dir) {
-        const int ray = ray_of[row];
-        add = ray >= 0 ? *reinterpret_cast<const float2*>(
-                             head_dir + static_cast<long long>(ray) * h + col)
-                       : make_float2(0.0f, 0.0f);
-      } else {
-        add = make_float2(bias[col], bias[col + 1]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(o + row * ldo + col) =
-          __floats2bfloat162_rn(nan_max(c[2 * half] + add.x, 0.0f),
-                                nan_max(c[2 * half + 1] + add.y, 0.0f));
-    }
-  };
-  row_pass<kXWt>(v.act(in_act), v.act_ld(in_act), v.mat(m), v.mat_ld(m),
-                 v.p.cols[m], h, epi);
-  __syncthreads();
+// x rows [row0, row0 + 64) into a warpgroup's f32 stage by cp.async, 16
+// bytes a thread; chunk c of row r lands at c ^ (r & mask) so the
+// fragment reads below spread over the banks; rows past the end are zeros.
+template <int D>
+__device__ __forceinline__ void issue_x(char* stage, const float* x, long long row0,
+                                        long long num_rows, int tid) {
+  constexpr int kChunks = D / 4, kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  const uint32_t s = smem_u32(stage);
+  for (int e = tid; e < kRows * kChunks; e += 128) {
+    const int r = e / kChunks, c = e % kChunks;
+    const long long n = row0 + r;
+    const bool ok = n < num_rows;
+    cp_async16(s + (r * kChunks + (c ^ (r & kMask))) * 16, ok ? x + n * D + c * 4 : x,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
 }
 
-// The forward chain of one tile into shared memory: every activation,
-// pre_d and (with a head) rgb.
-__device__ void forward_tile(const View& v, const float* x,
-                             const float* head_dir, long long row0,
-                             long long num_rows, int num_samples) {
-  const Plan& p = v.p;
-  {
-    bf16* a0 = v.act(0);
-    const int ld = v.act_ld(0), q = p.d_in / 4;
-    for (int e = threadIdx.x; e < kRows * q; e += kThreads) {
-      const int r = e / q, j = (e - r * q) * 4;
-      const long long n = row0 + r;
-      const float4 val = n < num_rows
-                             ? *reinterpret_cast<const float4*>(x + n * p.d_in + j)
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      auto* dst = reinterpret_cast<__nv_bfloat162*>(a0 + r * ld + j);
-      dst[0] = __floats2bfloat162_rn(val.x, val.y);
-      dst[1] = __floats2bfloat162_rn(val.z, val.w);
-    }
-    for (int r = threadIdx.x; r < kRows; r += kThreads) {
-      const long long n = row0 + r;
-      v.ray_of()[r] = n < num_rows ? static_cast<int>(n / num_samples) : -1;
+template <int D>
+__device__ __forceinline__ void x_frags(const char* stage, int warp, int lane,
+                                        uint32_t (&a)[D / 16][4]) {
+  constexpr int kChunks = D / 4, kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  const float* s = reinterpret_cast<const float*>(stage);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 16 * warp + g + 8 * (q & 1), c = 16 * kc + 8 * (q >> 1) + 2 * t;
+      const float2 v = *reinterpret_cast<const float2*>(
+          s + (r * kChunks + ((c >> 2) ^ (r & kMask))) * 4 + (c & 3));
+      a[kc][q] = pack_bf16(v.x, v.y);
     }
   }
-  __syncthreads();
-  for (int i = 0; i < p.n_base; ++i) hidden_layer(v, i, i, i + 1, nullptr);
-  row_dots<1>(v, p.n_base, p.n_base, v.pre_d());
+}
+
+// Column sums over a warp's 16 rows of v(i), per element i of an N-column
+// accumulator, reduce-scattered over the eight lanes that share lane % 4:
+// run[q] += the sum of column sum_col<N>(q, lane).
+template <int N, class F>
+__device__ __forceinline__ void colsum_add(float (&run)[N / 32], int lane, const F& v) {
+  // The sum over a lane's two rows of column pair index c (c = 2j + b).
+  const auto rows2 = [&](int c) { return v(4 * (c >> 1) + (c & 1)) + v(4 * (c >> 1) + 2 + (c & 1)); };
+  float s1[N / 8], s2[N / 16];
+  bool h = lane & 16;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const float lo = rows2(i), hi = rows2(N / 8 + i);
+    s1[i] = (h ? hi : lo) + __shfl_xor_sync(0xffffffffu, h ? lo : hi, 16);
+  }
+  h = lane & 8;
+#pragma unroll
+  for (int i = 0; i < N / 16; ++i) {
+    const float lo = s1[i], hi = s1[N / 16 + i];
+    s2[i] = (h ? hi : lo) + __shfl_xor_sync(0xffffffffu, h ? lo : hi, 8);
+  }
+  h = lane & 4;
+#pragma unroll
+  for (int i = 0; i < N / 32; ++i) {
+    const float lo = s2[i], hi = s2[N / 32 + i];
+    run[i] += (h ? hi : lo) + __shfl_xor_sync(0xffffffffu, h ? lo : hi, 4);
+  }
+}
+template <int N>
+__device__ __forceinline__ int sum_col(int q, int lane) {
+  const int idx = (N / 32) * (lane >> 2) + q;
+  return 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float row_sum(float v) {  // over the 8 rows of a warp half
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// The weights into shared memory, once per block: each hidden matrix as
+// bf16 core matrices; biases f32; w_d and W_c rounded to bf16 (held as f32).
+template <int H>
+__device__ void load_params(const Plan& p, char* smem, const float* w, const float* b) {
+  const int nt = blockDim.x;
+  for (int k = 0; k < p.n_layers; ++k) {
+    const int in = p.in_dim[k], half = H * in / 2;
+    const float* src = w + p.w_off[k];
+    char* dst = smem + p.s_off[k];
+    for (int e = threadIdx.x; e < half; e += nt) {
+      const int r = (2 * e) / in, c = (2 * e) % in;
+      const float2 v = *reinterpret_cast<const float2*>(src + 2 * e);
+      *reinterpret_cast<uint32_t*>(dst + cm_off(r, c, in)) = pack_bf16(v.x, v.y);
+    }
+  }
+  float* small = reinterpret_cast<float*>(smem + p.small_off);
+  for (int e = threadIdx.x; e < p.n_b; e += nt) small[e] = b[e];
+  for (int e = threadIdx.x; e < H; e += nt) small[p.n_b + e] = bfr(w[p.wd_off + e]);
   if (p.n_head > 0) {
-    const int h0 = p.n_base + 1;
-    hidden_layer(v, h0, p.n_base, p.n_base + 1, head_dir);
-    for (int j = 1; j < p.n_head; ++j) {
-      hidden_layer(v, h0 + j, p.n_base + j, p.n_base + 1 + j, nullptr);
-    }
-    row_dots<3>(v, p.n_base + p.n_head, h0 + p.n_head, v.rgb());
-    __syncthreads();
-    for (int e = threadIdx.x; e < kRows * 3; e += kThreads) {
-      v.rgb()[e] = sigmoid(v.rgb()[e]);
-    }
+    for (int e = threadIdx.x; e < 3 * H; e += nt) small[p.n_b + H + e] = bfr(w[p.wc_off + e]);
   }
+  fence_async_smem();
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(
-    Plan plan, const float* __restrict__ x, const float* __restrict__ head_dir,
-    const float* __restrict__ w, const float* __restrict__ b,
-    float* __restrict__ rgb_out, float* __restrict__ dens_out,
-    long long num_rows, int num_samples) {
-  extern __shared__ __align__(128) char smem[];
-  Plan& p = *reinterpret_cast<Plan*>(smem);
-  if (threadIdx.x == 0) p = plan;
-  __syncthreads();
-  const View v{p, smem};
-  load_params(v, w, b);
-  __syncthreads();
-  const long long tiles = (num_rows + kRows - 1) / kRows;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long row0 = t * kRows;
-    forward_tile(v, x, head_dir, row0, num_rows, num_samples);
-    for (int r = threadIdx.x; r < kRows; r += kThreads) {
-      const long long n = row0 + r;
-      if (n >= num_rows) continue;
-      const float pd = v.pre_d()[r];
-      dens_out[n] = fmaxf(pd, 0.0f) + log1pf(expf(-fabsf(pd)));
-      if (p.n_head > 0) {
-        for (int k = 0; k < 3; ++k) rgb_out[n * 3 + k] = v.rgb()[r * 3 + k];
-      }
-    }
-    __syncthreads();
+// One warpgroup tile's rows as this thread sees them: rows 0 and 1 are
+// 16 * warp + lane / 4 and 8 below it.
+struct Rows {
+  long long n[2];
+  int ray[2];
+  bool valid[2];
+};
+
+__device__ __forceinline__ Rows tile_rows(long long row_base, int warp, int lane,
+                                          long long num_rows, int num_samples) {
+  Rows rw;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    rw.n[s] = row_base + 16 * warp + (lane >> 2) + 8 * s;
+    rw.valid[s] = rw.n[s] < num_rows;
+    rw.ray[s] = rw.valid[s] ? static_cast<int>(rw.n[s] / num_samples) : 0;
   }
+  return rw;
 }
 
-// The backward's epilogue for the cotangent of activation `act` (this
-// lane's four f32 values, plus the density term when `add_density`):
-// masked by act > 0 and written as bf16 over act; its f32 column sums go
-// to `bpart` (for a bias gradient) and, with `dhd`, its per-ray sums to
-// dhead_dir.
-struct MaskEpi {
-  const View& v;
-  bf16* act;
-  int lda;
-  float* dhd;  // nullptr: no dhead_dir
-  bool add_density, bias;
-  __device__ void operator()(int rt, int col, const float (&c)[4]) const {
-    const int l = threadIdx.x & 31, g = l >> 2, h = v.p.hidden;
-    const bf16* wd = v.mat(v.p.n_base);
-    const int* ray_of = v.ray_of();
-    float gp[2][2];
-    for (int half = 0; half < 2; ++half) {
-      const int row = rt * 16 + g + 8 * half;
-      float g0 = c[2 * half], g1 = c[2 * half + 1];
-      if (add_density) {
-        const float gd = bfr(v.gpd()[row]);
-        g0 += gd * bf(wd[col]);
-        g1 += gd * bf(wd[col + 1]);
-      }
-      auto* ap = reinterpret_cast<__nv_bfloat162*>(act + row * lda + col);
-      const float2 a = __bfloat1622float2(*ap);
-      gp[half][0] = a.x > 0.0f ? g0 : 0.0f;
-      gp[half][1] = a.y > 0.0f ? g1 : 0.0f;
-      *ap = __floats2bfloat162_rn(gp[half][0], gp[half][1]);
-    }
-    // Column sums over the 16 rows: the lanes that share l % 4.
-    float s0 = gp[0][0] + gp[1][0], s1 = gp[0][1] + gp[1][1];
-    for (int o = 4; o < 32; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    if (bias && g == 0) {
-      v.bpart()[rt * h + col] = s0;
-      v.bpart()[rt * h + col + 1] = s1;
-    }
-    if (dhd) {
-      const int first = ray_of[rt * 16], last = ray_of[rt * 16 + 15];
-      if (first == last && first >= 0) {  // the 16 rows of one ray
-        if (g == 0) {
-          float* dst = dhd + static_cast<long long>(first) * h + col;
-          atomicAdd(dst, s0);
-          atomicAdd(dst + 1, s1);
-        }
-      } else {
-        for (int half = 0; half < 2; ++half) {
-          const int ray = ray_of[rt * 16 + g + 8 * half];
-          if (ray < 0) continue;
-          float* dst = dhd + static_cast<long long>(ray) * h + col;
-          atomicAdd(dst, gp[half][0]);
-          atomicAdd(dst + 1, gp[half][1]);
-        }
-      }
+// The aux pass's state of one thread (K4b's and K5b's first launch).
+template <int H>
+struct AuxState {
+  float* aux;    // this tile's block of the aux scratch
+  int tid;       // thread within the warpgroup
+  float g_dens[2], g_rgb[2][3];  // the tile's output cotangents
+  float gpd[2], gpc[2][3];       // cotangents of pre_d and pre_c
+  // Running column sums (colsum_add's columns) of the heads' gradients.
+  float run_wd[H / 32], run_wc[3][H / 32], run_bd, run_bc[3];
+};
+
+// The backward phases' staging of a warpgroup's rows for dW.
+struct Staging {
+  char* a_stage;
+  int stage_k;   // stage a_k (k >= 1) in this phase
+  int row0;      // this warp's first row within the staged 128
+  bool pending;  // the other warpgroup may still read the staging
+  // Waits, before the first write into the staging of a tile, until the
+  // other warpgroup's dW update of the pair before it is done.
+  __device__ __forceinline__ void free_staging() {
+    if (pending) {
+      bar_sync(kPairBarrier, kBwdGroups * 128);
+      pending = false;
     }
   }
 };
 
-// After a MaskEpi pass: the bias gradient of matrix bias_m from `bpart`,
-// summed over the row tiles in order.
-__device__ void finish_bias(const View& v, int bias_m) {
-  __syncthreads();
-  if (bias_m >= 0) {
-    const int h = v.p.hidden;
-    float* acc = v.acc() + v.p.b_off[bias_m];
-    for (int j = threadIdx.x; j < h; j += kThreads) {
-      float s = 0.0f;
-      for (int rt = 0; rt < kRowTiles; ++rt) s += v.bpart()[rt * h + j];
-      acc[j] += s;
+// A bf16-rounded activation a >= 0 (after ReLU) is > 0 exactly when the
+// f32 a is above 2^-134: below, round-to-nearest-even gives bf16 zero.
+__device__ __forceinline__ bool bf16_positive(float a) { return a > 0x1p-134f; }
+
+enum ChainMode {
+  kPlain,    // K4 / K5: the outputs
+  kAuxPass,  // the backward's first launch: masks and head cotangents into
+             // the aux scratch, the heads' gradients into the warp's slot
+  kPhase,    // a backward phase: the layers below its matrix, a_k staged
+};
+
+// The forward chain of one warpgroup tile from its x fragments, over its
+// first n_fwd hidden layers; with the heads (kPlain, kAuxPass) pre_d and,
+// with a head, rgb per row.
+template <int D, int H, int kMode>
+__device__ __forceinline__ void forward_chain(const Plan& p, char* smem,
+                                              const uint32_t (&ax)[D / 16][4],
+                                              const float* head_dir, const Rows& rw,
+                                              int lane, int n_fwd, float (&pre_d)[2],
+                                              float (&rgb)[2][3], AuxState<H>* st,
+                                              Staging* stg) {
+  constexpr int kMW = (H / 2 + 31) / 32;
+  constexpr bool kHeads = kMode != kPhase;
+  const float* bias = reinterpret_cast<const float*>(smem + p.small_off);
+  const float* wdr = bias + p.n_b;
+  const float* wcr = wdr + H;
+  float acc[H / 2];
+  uint32_t ah[H / 16][4];
+  for (int k = 0; k < n_fwd; ++k) {
+    if (k == 0) {
+      layer_fwd<H, D>(acc, ax, smem_u32(smem + p.s_off[0]));
+    } else {
+      layer_fwd<H, H>(acc, ah, smem_u32(smem + p.s_off[k]));
+    }
+    if (k == p.n_base) {  // W_bh: head_dir[ray] in place of the bias
+#pragma unroll
+      for (int i = 0; i < H / 2; i += 2) {
+        const int s = sel_of(i);
+        const float2 hd = rw.valid[s]
+                              ? *reinterpret_cast<const float2*>(
+                                    head_dir + static_cast<long long>(rw.ray[s]) * H +
+                                    col_of(i, lane))
+                              : make_float2(0.0f, 0.0f);
+        acc[i] = nan_max(acc[i] + hd.x, 0.0f);
+        acc[i + 1] = nan_max(acc[i + 1] + hd.y, 0.0f);
+      }
+    } else {
+      const float* bk = bias + p.b_off[k];
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) acc[i] = nan_max(acc[i] + bk[col_of(i, lane)], 0.0f);
+    }
+    to_frags<H>(acc, ah);
+    if constexpr (kMode == kAuxPass) {  // the ReLU masks into the aux scratch
+#pragma unroll
+      for (int wd = 0; wd < kMW; ++wd) {
+        uint32_t m = 0;
+#pragma unroll
+        for (int i = 32 * wd; i < 32 * wd + 32 && i < H / 2; ++i) {
+          m |= (bf16_positive(acc[i]) ? 1u : 0u) << (i - 32 * wd);
+        }
+        st->aux[kRows * 4 + (k * kMW + wd) * 128 + st->tid] = __uint_as_float(m);
+      }
+    }
+    if constexpr (kMode == kPhase) {
+      if (stg->stage_k == k + 1) {
+        stg->free_staging();
+        stage_frags<H>(stg->a_stage, stg->row0, lane, ah);
+      }
+    }
+    if (kHeads && k + 1 == p.n_base) {  // the density head
+      float d[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) d[sel_of(i)] += bfr(acc[i]) * wdr[col_of(i, lane)];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) pre_d[s] = quad_sum(d[s]) + bias[p.bd_off];
+      if constexpr (kMode == kAuxPass) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          st->gpd[s] = rw.valid[s] ? st->g_dens[s] * sigmoid(pre_d[s]) : 0.0f;
+        }
+        const float g0 = bfr(st->gpd[0]), g1 = bfr(st->gpd[1]);
+        colsum_add<H>(st->run_wd, lane,
+                      [&](int i) { return (sel_of(i) ? g1 : g0) * bfr(acc[i]); });
+        st->run_bd += st->gpd[0] + st->gpd[1];
+      }
     }
   }
-  __syncthreads();
+  if (kHeads && p.n_head > 0) {  // the colour head on a_L
+    float c[2][3] = {};
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) {
+      const float a = bfr(acc[i]);
+      const int col = col_of(i, lane);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) c[sel_of(i)][q] += a * wcr[q * H + col];
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) rgb[s][q] = sigmoid(quad_sum(c[s][q]) + bias[p.bc_off + q]);
+    }
+    if constexpr (kMode == kAuxPass) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float y = rgb[s][q];
+          st->gpc[s][q] = rw.valid[s] ? st->g_rgb[s][q] * y * (1.0f - y) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float g0 = bfr(st->gpc[0][q]), g1 = bfr(st->gpc[1][q]);
+        colsum_add<H>(st->run_wc[q], lane,
+                      [&](int i) { return (sel_of(i) ? g1 : g0) * bfr(acc[i]); });
+        st->run_bc[q] += st->gpc[0][q] + st->gpc[1][q];
+      }
+    }
+  }
+  if constexpr (kMode == kAuxPass) {
+    if ((lane & 3) == 0) {  // the rows' head cotangents into the aux scratch
+      const int warp = st->tid >> 5;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const bool c = p.n_head > 0;
+        reinterpret_cast<float4*>(st->aux)[16 * warp + (lane >> 2) + 8 * s] =
+            make_float4(st->gpd[s], c ? st->gpc[s][0] : 0.0f, c ? st->gpc[s][1] : 0.0f,
+                        c ? st->gpc[s][2] : 0.0f);
+      }
+    }
+  }
 }
 
-// The cotangent of activation `act_i` through matrix m's product
-// (gp of act g_act @ W_m), then MaskEpi.
-__device__ void mask_product(const View& v, int g_act, int m, int act_i,
-                             int bias_m, float* dhd, bool add_density) {
-  const MaskEpi epi{v, v.act(act_i), v.act_ld(act_i), dhd, add_density,
-                    bias_m >= 0};
-  row_pass<kGW>(v.act(g_act), v.act_ld(g_act), v.mat(m), v.mat_ld(m),
-                v.p.rows[m], v.p.hidden, epi);
-  finish_bias(v, bias_m);
-}
+// ---------------------------------------------------------------- forward
 
-// The same when the cotangent comes from the colour head (bf16(gpc) @ W_c,
-// `colour`) or from the density head alone (no head).
-__device__ void mask_scalar(const View& v, bool colour, int act_i, int bias_m,
-                            float* dhd, bool add_density) {
-  const MaskEpi epi{v, v.act(act_i), v.act_ld(act_i), dhd, add_density,
-                    bias_m >= 0};
-  const int l = threadIdx.x & 31, g = l >> 2;
-  const int n8 = v.p.hidden / 8, mc = v.p.n_base + 1 + v.p.n_head;
-  for (int t = threadIdx.x >> 5; t < kRowTiles * n8; t += kWarps) {
-    const int rt = t / n8, col = (t - rt * n8) * 8 + 2 * (l & 3);
-    float c[4] = {};
-    if (colour) {
-      const bf16* wc = v.mat(mc);
-      const int ldc = v.mat_ld(mc);
-      for (int half = 0; half < 2; ++half) {
-        const int row = rt * 16 + g + 8 * half;
-        for (int k = 0; k < 3; ++k) {
-          const float gk = bfr(v.gpc()[row * 3 + k]);
-          c[2 * half] += gk * bf(wc[k * ldc + col]);
-          c[2 * half + 1] += gk * bf(wc[k * ldc + col + 1]);
+template <int D, int H>
+__global__ void __launch_bounds__(kMaxFwdGroups * 128, 1) mlp_fwd_kernel(
+    const __grid_constant__ Plan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ rgb_out,
+    float* __restrict__ dens_out, long long num_rows, int num_samples) {
+  extern __shared__ __align__(128) char smem[];
+  load_params<H>(p, smem, w, b);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long tiles = (num_rows + kRows - 1) / kRows;
+  const long long stride = static_cast<long long>(gridDim.x) * p.warpgroups;
+  char* xs = smem + p.x_off + wg * p.x_stride;
+  long long t = static_cast<long long>(blockIdx.x) * p.warpgroups + wg;
+  if (t < tiles) issue_x<D>(xs, x, t * kRows, num_rows, tid);
+  for (; t < tiles; t += stride) {
+    cp_async_wait_all();
+    bar_sync(1 + wg, 128);
+    uint32_t ax[D / 16][4];
+    x_frags<D>(xs, warp, lane, ax);
+    bar_sync(1 + wg, 128);
+    if (t + stride < tiles) issue_x<D>(xs, x, (t + stride) * kRows, num_rows, tid);
+    const Rows rw = tile_rows(t * kRows, warp, lane, num_rows, num_samples);
+    float pre_d[2], rgb[2][3];
+    forward_chain<D, H, kPlain>(p, smem, ax, head_dir, rw, lane, p.n_layers, pre_d, rgb,
+                                nullptr, nullptr);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (!rw.valid[s]) continue;
+        const float pd = pre_d[s];
+        dens_out[rw.n[s]] = fmaxf(pd, 0.0f) + log1pf(expf(-fabsf(pd)));
+        if (p.n_head > 0) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) rgb_out[rw.n[s] * 3 + q] = rgb[s][q];
         }
       }
     }
-    epi(rt, col, c);
   }
-  finish_bias(v, bias_m);
 }
 
-// dW_m += gp(act g_act)^T @ act(in_act) into this block's workspace row:
-// each unit reads its accumulators from device memory (L2), adds the
-// tile's rows and writes them back.
-template <int NB>
-__device__ void dw_pass_n(const View& v, int m, int g_act, int in_act,
-                          float* ws_row) {
-  const int rows = v.p.rows[m], cols = v.p.cols[m], l = threadIdx.x & 31;
-  const int mtiles = rows / 16, strips = cols / 8 / NB;
-  float* dw = ws_row + v.p.w_off[m];
-  for (int u = threadIdx.x >> 5; u < mtiles * strips; u += kWarps) {
-    const int mt = u % mtiles, j0 = (u / mtiles) * NB;
-    float c[NB][4];
-    float* base = dw + (mt * 16 + (l >> 2)) * cols + j0 * 8 + 2 * (l & 3);
+// ---------------------------------------------------------------- backward
+
+// This warpgroup's 64 rows of dW_k (N columns) into the block's workspace
+// row, then zeroed for the next phase.
+template <int N, int H>
+__device__ __forceinline__ void write_dw(float* dw, float* dst, int wg, int warp, int lane) {
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float2 lo = *reinterpret_cast<const float2*>(base + j * 8);
-      const float2 hi = *reinterpret_cast<const float2*>(base + 8 * cols + j * 8);
-      c[j][0] = lo.x;
-      c[j][1] = lo.y;
-      c[j][2] = hi.x;
-      c[j][3] = hi.y;
+  for (int i = 0; i < N / 2; i += 2) {
+    const int o = 64 * wg + 16 * warp + (lane >> 2) + 8 * sel_of(i);
+    if (o < H) {
+      *reinterpret_cast<float2*>(dst + o * N + col_of(i, lane)) = make_float2(dw[i], dw[i + 1]);
     }
-    mma_strip<kGtA, NB>(v.act(g_act), v.act_ld(g_act), v.act(in_act),
-                        v.act_ld(in_act), kRows, mt, j0, c);
+    dw[i] = dw[i + 1] = 0.0f;
+  }
+}
+
+// The warps' column sums ([8 warps][5H + 4] f32 of the block's slots)
+// summed in warp order into the workspace row: the bias of hidden matrix
+// kp (kp < 0: none), and with `first` the heads' gradients.
+template <int H>
+__device__ __forceinline__ void sum_partials(const Plan& p, const float* part, float* ws_row,
+                                             int kp, bool first) {
+  const int np = 5 * H + 4;
+  for (int e = threadIdx.x; e < np; e += kBwdGroups * 128) {
+    float s = 0.0f;
+    for (int v = 0; v < 4 * kBwdGroups; ++v) s += __ldcg(part + v * np + e);
+    int dst = -1;
+    if (e < H) {
+      dst = kp >= 0 && p.b_off[kp] >= 0 ? p.n_w + p.b_off[kp] + e : -1;
+    } else if (first) {
+      if (e < 2 * H) {
+        dst = p.wd_off + e - H;
+      } else if (e < 5 * H) {
+        dst = p.n_head > 0 ? p.wc_off + e - 2 * H : -1;
+      } else if (e == 5 * H) {
+        dst = p.n_w + p.bd_off;
+      } else {
+        dst = p.n_head > 0 ? p.n_w + p.bc_off + e - 5 * H - 1 : -1;
+      }
+    }
+    if (dst >= 0) ws_row[dst] = s;
+  }
+}
+
+// Writes a lane's running column sums (colsum_add's columns) into a
+// warp's slot of partial sums.
+template <int H>
+__device__ __forceinline__ void put_sums(float* slot, int lane, const float (&run)[H / 32]) {
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      *reinterpret_cast<float2*>(base + j * 8) = make_float2(c[j][0], c[j][1]);
-      *reinterpret_cast<float2*>(base + 8 * cols + j * 8) =
-          make_float2(c[j][2], c[j][3]);
-    }
-  }
-  __syncthreads();
+  for (int q = 0; q < H / 32; ++q) slot[sum_col<H>(q, lane)] = run[q];
 }
 
-__device__ void dw_pass(const View& v, int m, int g_act, int in_act,
-                        float* ws_row) {
-  const int nb = strip_width(v.p.rows[m] / 16, v.p.cols[m] / 8);
-  if (nb == 8) {
-    dw_pass_n<8>(v, m, g_act, in_act, ws_row);
-  } else if (nb == 4) {
-    dw_pass_n<4>(v, m, g_act, in_act, ws_row);
-  } else {
-    dw_pass_n<2>(v, m, g_act, in_act, ws_row);
+// dW[64 mb.., :] += (rows 64 mb.. of G^T) @ A over the pair's 128 staged
+// rows: G [128, H] and A [128, N] bf16 in shared memory, both MN-major.
+template <int N, int H>
+__device__ __forceinline__ void dw_update(float* dw, uint32_t g, uint32_t a, int mb) {
+  fence_regs<N / 2>(dw);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 2 * kRows / 16; ++kc) {
+    WgmmaSS<N>::run(dw, make_desc(g + mb * 1024 + kc * H * 32, H * 16, 128),
+                    make_desc(a + kc * N * 32, N * 16, 128));
   }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<N / 2>(dw);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(
-    Plan plan, const float* __restrict__ x, const float* __restrict__ head_dir,
-    const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ g_rgb, const float* __restrict__ g_dens,
-    float* __restrict__ dx, float* dhd, float* __restrict__ ws, int ws_stride,
+// Each warp's partial column sums in global memory (L2), after the aux
+// scratch's tiles: [8 warps][5H + 4] f32 a block: the bias of a phase's
+// matrix, then (aux pass) w_d, W_c, b_d and b_c; summed in warp order.
+template <int H>
+__device__ __forceinline__ float* block_parts(const Plan& p, float* aux, long long pairs) {
+  return aux + 2 * pairs * p.aux_words +
+         static_cast<long long>(blockIdx.x) * 4 * kBwdGroups * (5 * H + 4);
+}
+
+// The backward's first launch: the whole forward chain of every tile, its
+// ReLU masks and head cotangents into the tile's block of `aux` (80
+// bytes a row at the preset), and the heads' gradients (w_d, b_d, W_c,
+// b_c) into the workspace row. No dW registers, so the chain runs
+// without spills.
+template <int D, int H>
+__global__ void __launch_bounds__(kBwdGroups * 128, 1) mlp_aux_kernel(
+    const __grid_constant__ Plan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ g_rgb,
+    const float* __restrict__ g_dens, float* __restrict__ ws, int ws_stride, float* aux,
     long long num_rows, int num_samples) {
   extern __shared__ __align__(128) char smem[];
-  Plan& p = *reinterpret_cast<Plan*>(smem);
-  if (threadIdx.x == 0) p = plan;
+  load_params<H>(p, smem, w, b);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long pairs = (num_rows + 2 * kRows - 1) / (2 * kRows), tiles = 2 * pairs;
+  float* parts = block_parts<H>(p, aux, pairs);
+  AuxState<H> st;
+  st.tid = tid;
+#pragma unroll
+  for (int q = 0; q < H / 32; ++q) {
+    st.run_wd[q] = st.run_wc[0][q] = st.run_wc[1][q] = st.run_wc[2][q] = 0.0f;
+  }
+  st.run_bd = st.run_bc[0] = st.run_bc[1] = st.run_bc[2] = 0.0f;
+  char* xs = smem + p.x_off + wg * p.x_stride;
+  const long long stride = 2 * static_cast<long long>(gridDim.x);
+  long long t = 2 * static_cast<long long>(blockIdx.x) + wg;
+  if (t < tiles) issue_x<D>(xs, x, t * kRows, num_rows, tid);
+  for (; t < tiles; t += stride) {
+    cp_async_wait_all();
+    bar_sync(1 + wg, 128);
+    uint32_t ax[D / 16][4];
+    x_frags<D>(xs, warp, lane, ax);
+    bar_sync(1 + wg, 128);
+    if (t + stride < tiles) issue_x<D>(xs, x, (t + stride) * kRows, num_rows, tid);
+    const Rows rw = tile_rows(t * kRows, warp, lane, num_rows, num_samples);
+    st.aux = aux + t * p.aux_words;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      st.g_dens[s] = rw.valid[s] ? g_dens[rw.n[s]] : 0.0f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        st.g_rgb[s][q] = p.n_head > 0 && rw.valid[s] ? g_rgb[rw.n[s] * 3 + q] : 0.0f;
+      }
+    }
+    float pre_d[2], rgb[2][3];
+    forward_chain<D, H, kAuxPass>(p, smem, ax, head_dir, rw, lane, p.n_layers, pre_d, rgb,
+                                  &st, nullptr);
+  }
+  float* slot = parts + (4 * wg + warp) * (5 * H + 4);
+  put_sums<H>(slot + H, lane, st.run_wd);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) put_sums<H>(slot + (2 + q) * H, lane, st.run_wc[q]);
+  const float sbd = row_sum(st.run_bd);  // the 4 lanes of a row hold the same sums
+  float sbc[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sbc[q] = row_sum(st.run_bc[q]);
+  if (lane == 0) {
+    slot[5 * H] = sbd;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) slot[5 * H + 1 + q] = sbc[q];
+  }
+  __threadfence();  // the slots, before other warps read them
   __syncthreads();
-  const View v{p, smem};
-  load_params(v, w, b);
-  const int h = p.hidden, tid = threadIdx.x;
-  float* acc = v.acc();
-  for (int e = tid; e < p.n_b + 4 * h; e += kThreads) acc[e] = 0.0f;
+  sum_partials<H>(p, parts, ws + static_cast<long long>(blockIdx.x) * ws_stride, -1, true);
+}
+
+// The backward's second launch: one phase per hidden matrix W_kp, top
+// first, each over all of the block's tile pairs. Per tile it recomputes
+// the layers below W_kp (a_kp staged), takes the masks and head
+// cotangents from the tile's aux block (copied into shared memory by
+// cp.async while the tile before it runs), runs the cotangents down to
+// gz_{kp+1} (staged), and each warpgroup adds its 64 rows of dW_kp.
+template <int D, int H>
+__global__ void __launch_bounds__(kBwdGroups * 128, 1) mlp_bwd_kernel(
+    const __grid_constant__ Plan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ dx, float* dhd,
+    float* __restrict__ ws, int ws_stride, float* aux, long long num_rows,
+    int num_samples) {
+  extern __shared__ __align__(128) char smem[];
+  constexpr int kMW = (H / 2 + 31) / 32;
+  constexpr int kDW = (D > H ? D : H) / 2;
+  load_params<H>(p, smem, w, b);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
   float* ws_row = ws + static_cast<long long>(blockIdx.x) * ws_stride;
-  __syncthreads();
-  const int top = p.n_base, last = p.n_base + p.n_head;
-  const int md = p.n_base, h0 = p.n_base + 1, mc = p.n_base + 1 + p.n_head;
+  const long long pairs = (num_rows + 2 * kRows - 1) / (2 * kRows);
+  // This warpgroup's 64 rows (m-block wg) of dW_kp, for a whole phase.
+  const bool owns = 64 * wg < H;  // at hidden 32 one m-block covers dW
+  float dw[kDW];
+#pragma unroll
+  for (int i = 0; i < kDW; ++i) dw[i] = 0.0f;
+  const float* wdr = reinterpret_cast<const float*>(smem + p.small_off) + p.n_b;
+  const float* wcr = wdr + H;
+  char* gs = smem + p.g_off;
+  char* as = smem + p.a_off;
+  char* xs = smem + p.x_off + wg * p.x_stride;
+  char* aux_stage = smem + p.aux_off + wg * ((p.aux_words * 4 + 127) / 128 * 128);
+  const float* aux_in = reinterpret_cast<const float*>(aux_stage);
+  const int n_layers = p.n_layers, nb = p.n_base;
   const bool head = p.n_head > 0;
-  const long long tiles = (num_rows + kRows - 1) / kRows;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long row0 = t * kRows;
-    forward_tile(v, x, head_dir, row0, num_rows, num_samples);
-    // Cotangents of the density and colour pre-activations.
-    for (int r = tid; r < kRows; r += kThreads) {
-      const long long n = row0 + r;
-      const bool valid = n < num_rows;
-      v.gpd()[r] = valid ? g_dens[n] * sigmoid(v.pre_d()[r]) : 0.0f;
-      if (head) {
-        for (int k = 0; k < 3; ++k) {
-          const float y = v.rgb()[r * 3 + k];
-          v.gpc()[r * 3 + k] = valid ? g_rgb[n * 3 + k] * y * (1.0f - y) : 0.0f;
-        }
-      }
+  float* parts = block_parts<H>(p, aux, pairs);
+  float* slot = parts + (4 * wg + warp) * (5 * H + 4);
+  float run_b[H / 32] = {};  // running column sums of the bias gradient
+  Staging stg{as, 0, 64 * wg + 16 * warp, false};
+
+  // The x copy of the next (phase, pair) is issued while this one runs
+  // (or, without room for it, after the dW update); its aux block after
+  // this tile's cotangents.
+  int phase = 0;
+  long long tp = blockIdx.x;
+  issue_x<D>(xs, x, tp * 2 * kRows + kRows * wg, num_rows, tid);
+  const auto issue_aux = [&](long long pair) {
+    const float* src = aux + (pair * 2 + wg) * p.aux_words;
+    for (int e = tid; e < p.aux_words / 4; e += 128) {
+      cp_async16(smem_u32(aux_stage) + 16 * e, src + 4 * e, 16);
     }
-    __syncthreads();
-    // d w_d and d W_c (bf16 cotangents), one (output, column) per thread;
-    // b_d and b_c (f32 sums).
-    for (int e = tid; e < (head ? 4 : 1) * h; e += kThreads) {
-      const int k = e / h, j = e - k * h;  // k = 0: density, 1..3: colour
-      const bf16* a = v.act(k == 0 ? top : last) + j;
-      const int lda = v.act_ld(k == 0 ? top : last);
-      float s = 0.0f;
-      for (int r = 0; r < kRows; ++r) {
-        const float g = k == 0 ? v.gpd()[r] : v.gpc()[r * 3 + k - 1];
-        s += bfr(g) * bf(a[r * lda]);
-      }
-      acc[p.n_b + e] += s;
+    cp_async_commit();
+  };
+  issue_aux(tp);
+  for (;;) {
+    const int kp = n_layers - 1 - phase;
+    stg.stage_k = kp;
+    const long long row_base = tp * 2 * kRows + kRows * wg;
+    cp_async_wait_all();
+    bar_sync(1 + wg, 128);
+    uint32_t ax[D / 16][4];
+    x_frags<D>(xs, warp, lane, ax);
+    bar_sync(1 + wg, 128);
+    long long ntp = tp + gridDim.x;
+    int nphase = phase;
+    if (ntp >= pairs) {
+      ntp = blockIdx.x;
+      ++nphase;
     }
-    if (tid == kThreads - 1) {
-      float s = 0.0f;
-      for (int r = 0; r < kRows; ++r) s += v.gpd()[r];
-      acc[p.b_off[md]] += s;
-    } else if (head && tid >= kThreads - 4) {
-      const int k = kThreads - 2 - tid;  // 0, 1, 2
-      float s = 0.0f;
-      for (int r = 0; r < kRows; ++r) s += v.gpc()[r * 3 + k];
-      acc[p.b_off[mc] + k] += s;
+    const bool more = nphase < n_layers;
+    if (p.prefetch && more) issue_x<D>(xs, x, ntp * 2 * kRows + kRows * wg, num_rows, tid);
+    if (kp == 0) {
+      stg.free_staging();
+      stage_frags<D>(as, stg.row0, lane, ax);
     }
-    __syncthreads();
+    const Rows rw = tile_rows(row_base, warp, lane, num_rows, num_samples);
+    float pre_d[2], rgb[2][3];
+    forward_chain<D, H, kPhase>(p, smem, ax, head_dir, rw, lane, kp, pre_d, rgb, nullptr,
+                                &stg);
+
+    // The cotangent chain from the heads down to gz_{kp+1}.
+    float gd[2], gc[2][3];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float4 v = reinterpret_cast<const float4*>(aux_in)[16 * warp + (lane >> 2) + 8 * s];
+      gd[s] = bfr(v.x);
+      gc[s][0] = bfr(v.y);
+      gc[s][1] = bfr(v.z);
+      gc[s][2] = bfr(v.w);
+    }
+    float ga[H / 2];
+    uint32_t gf[H / 16][4];
     if (head) {
-      // The last head output, from the colour head.
-      mask_scalar(v, true, last, p.n_head > 1 ? h0 + p.n_head - 1 : -1,
-                  p.n_head == 1 ? dhd : nullptr, false);
-      for (int j = p.n_head - 1; j >= 1; --j) {
-        dw_pass(v, h0 + j, p.n_base + 1 + j, p.n_base + j, ws_row);
-        mask_product(v, p.n_base + 1 + j, h0 + j, p.n_base + j,
-                     j > 1 ? h0 + j - 1 : -1, j == 1 ? dhd : nullptr, false);
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) {
+        const int s = sel_of(i), col = col_of(i, lane);
+        ga[i] = gc[s][0] * wcr[col] + gc[s][1] * wcr[H + col] + gc[s][2] * wcr[2 * H + col];
       }
-      dw_pass(v, h0, p.n_base + 1, top, ws_row);
-      mask_product(v, p.n_base + 1, h0, top, p.n_base - 1, nullptr, true);
     } else {
-      mask_scalar(v, false, top, p.n_base - 1, nullptr, true);
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) ga[i] = gd[sel_of(i)] * wdr[col_of(i, lane)];
     }
-    for (int i = p.n_base - 1; i >= 1; --i) {
-      dw_pass(v, i, i + 1, i, ws_row);
-      mask_product(v, i + 1, i, i, i - 1, nullptr, false);
+    for (int l = n_layers;; --l) {  // ga: the cotangent of a_l
+      if (head && l == nb) {
+#pragma unroll
+        for (int i = 0; i < H / 2; ++i) ga[i] += gd[sel_of(i)] * wdr[col_of(i, lane)];
+      }
+      uint32_t mask[kMW];
+#pragma unroll
+      for (int wd = 0; wd < kMW; ++wd) {
+        mask[wd] = __float_as_uint(aux_in[kRows * 4 + ((l - 1) * kMW + wd) * 128 + tid]);
+      }
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) {
+        if (!((mask[i >> 5] >> (i & 31)) & 1u)) ga[i] = 0.0f;
+      }
+      to_frags<H>(ga, gf);
+      if (l == kp + 1) break;
+      layer_bwd<H, H>(ga, gf, smem_u32(smem + p.s_off[l - 1]));
     }
-    dw_pass(v, 0, 1, 0, ws_row);
-    // dx = gp_0 @ W_0, straight to device memory.
-    {
-      const int g = (tid & 31) >> 2;
-      auto epi = [&](int rt, int col, const float (&c)[4]) {
-        for (int half = 0; half < 2; ++half) {
-          const long long n = row0 + rt * 16 + g + 8 * half;
-          if (n < num_rows) {
-            *reinterpret_cast<float2*>(dx + n * p.d_in + col) =
-                make_float2(c[2 * half], c[2 * half + 1]);
+    // ga = gz_{kp+1} in f32, gf its bf16 fragments.
+    stage_frags<H>(gs, stg.row0, lane, gf);
+    if (p.b_off[kp] >= 0) colsum_add<H>(run_b, lane, [&](int i) { return ga[i]; });
+    if (head && kp == nb) {  // dhead_dir: per-ray sums of gz_{nb+1}
+      const long long first = row_base + 16 * warp, last = first + 15;
+      if (last < num_rows && first / num_samples == last / num_samples) {
+        float sums[H / 32] = {};
+        colsum_add<H>(sums, lane, [&](int i) { return ga[i]; });
+        float* dst = dhd + (first / num_samples) * H;
+#pragma unroll
+        for (int q = 0; q < H / 32; ++q) atomicAdd(dst + sum_col<H>(q, lane), sums[q]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < H / 2; ++i) {
+          const int s = sel_of(i);
+          if (rw.valid[s]) {
+            atomicAdd(dhd + static_cast<long long>(rw.ray[s]) * H + col_of(i, lane), ga[i]);
           }
         }
-      };
-      row_pass<kGW>(v.act(1), v.act_ld(1), v.mat(0), v.mat_ld(0), h, p.d_in, epi);
-    }
-    __syncthreads();
-  }
-  // The gradients kept in shared memory go to this block's row.
-  for (int e = tid; e < p.n_b; e += kThreads) ws_row[p.n_w + e] = acc[e];
-  for (int j = tid; j < h; j += kThreads) {
-    ws_row[p.w_off[md] + j] = acc[p.n_b + j];
-    if (head) {
-      for (int k = 0; k < 3; ++k) {
-        ws_row[p.w_off[mc] + k * h + j] = acc[p.n_b + h + k * h + j];
       }
     }
+    if (kp == 0) {  // dx = gz_1 @ W_0
+      float dxa[D / 2];
+      layer_bwd<D, H>(dxa, gf, smem_u32(smem + p.s_off[0]));
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int s = sel_of(i);
+        if (rw.valid[s]) {
+          *reinterpret_cast<float2*>(dx + rw.n[s] * D + col_of(i, lane)) =
+              make_float2(dxa[i], dxa[i + 1]);
+        }
+      }
+    }
+    // The pair's gz_{kp+1} and a_kp are staged: each warpgroup adds its
+    // 64 rows of dW_kp += gz^T a_kp, then goes on to the next tile and
+    // waits for the other only before it writes the staging again.
+    fence_async_smem();
+    bar_sync(kPairBarrier, kBwdGroups * 128);
+    if (owns) {
+      if (kp == 0) {
+        dw_update<D, H>(dw, smem_u32(gs), smem_u32(as), wg);
+      } else {
+        dw_update<H, H>(dw, smem_u32(gs), smem_u32(as), wg);
+      }
+    }
+    stg.pending = true;
+    if (more) issue_aux(ntp);
+
+    if (nphase != phase) {  // the phase's gradients into the workspace row
+      stg.free_staging();
+      if (owns) {
+        if (kp == 0) {
+          write_dw<D, H>(dw, ws_row + p.w_off[kp], wg, warp, lane);
+        } else {
+          write_dw<H, H>(dw, ws_row + p.w_off[kp], wg, warp, lane);
+        }
+      }
+      put_sums<H>(slot, lane, run_b);
+#pragma unroll
+      for (int q = 0; q < H / 32; ++q) run_b[q] = 0.0f;
+      __threadfence();  // the slots, before other warps read them
+      bar_sync(kPairBarrier, kBwdGroups * 128);
+      sum_partials<H>(p, parts, ws_row, kp, false);
+      bar_sync(kPairBarrier, kBwdGroups * 128);
+    }
+    if (!p.prefetch && more) {  // x shares the staging: after the dW update
+      stg.free_staging();
+      issue_x<D>(xs, x, ntp * 2 * kRows + kRows * wg, num_rows, tid);
+    }
+    if (!more) break;
+    phase = nphase;
+    tp = ntp;
   }
 }
 
@@ -736,65 +1132,108 @@ __global__ void __launch_bounds__(256) sum_rows_kernel(
   out[i] = s;
 }
 
-int launch_grid(long long num_rows, int num_blocks) {
+template <int D, int H>
+cudaError_t launch_forward(const Plan& plan, const float* x, const float* head_dir,
+                           const float* w, const float* b, float* rgb, float* dens,
+                           long long num_rows, int num_samples, int num_blocks,
+                           cudaStream_t stream) {
+  const auto kernel = mlp_fwd_kernel<D, H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+  if (err != cudaSuccess) return err;
   const long long tiles = (num_rows + kRows - 1) / kRows;
-  return static_cast<int>(std::min<long long>(num_blocks, tiles));
+  const long long groups = (tiles + plan.warpgroups - 1) / plan.warpgroups;
+  const int grid = static_cast<int>(std::min<long long>(num_blocks, groups));
+  kernel<<<grid, plan.warpgroups * 128, plan.smem_bytes, stream>>>(
+      plan, x, head_dir, w, b, rgb, dens, num_rows, num_samples);
+  return cudaGetLastError();
+}
+
+template <int D, int H>
+cudaError_t launch_backward(const Plan& plan, const float* x, const float* head_dir,
+                            const float* w, const float* b, const float* g_rgb,
+                            const float* g_dens, float* dx, float* dhd, float* ws,
+                            int ws_stride, float* aux, long long num_rows,
+                            int num_samples, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_aux_kernel<D, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+  if (err != cudaSuccess) return err;
+  mlp_aux_kernel<D, H><<<grid, kBwdGroups * 128, plan.smem_bytes, stream>>>(
+      plan, x, head_dir, w, b, g_rgb, g_dens, ws, ws_stride, aux, num_rows, num_samples);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mlp_bwd_kernel<D, H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+  if (err != cudaSuccess) return err;
+  mlp_bwd_kernel<D, H><<<grid, kBwdGroups * 128, plan.smem_bytes, stream>>>(
+      plan, x, head_dir, w, b, dx, dhd, ws, ws_stride, aux, num_rows, num_samples);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Forward (K4 with n_head >= 1, K5 with n_head == 0). w, b: the packed
-// weights ([out, in] each) and biases in the Plan's order. rgb and head_dir
-// are unused when n_head == 0.
+// weights ([out, in] each) and biases in ops/mlp.py's order. rgb and
+// head_dir are unused when n_head == 0. warpgroups and smem_bytes come
+// from the host's launch plan and must match this file's.
 extern "C" int tetranerf_fused_mlp_forward(
     const float* x, const float* head_dir, const float* w, const float* b,
     float* rgb, float* dens, int num_rays, int num_samples, int d_in,
-    int hidden, int n_base, int n_head, int num_blocks, cudaStream_t stream) {
+    int hidden, int n_base, int n_head, int num_blocks, int warpgroups,
+    int smem_bytes, cudaStream_t stream) {
   Plan plan;
-  if (!make_plan(d_in, hidden, n_base, n_head, &plan) || num_blocks < 1) {
+  if (!make_plan(d_in, hidden, n_base, n_head, false, warpgroups, 1, &plan) ||
+      plan.smem_bytes != smem_bytes || num_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long num_rows = static_cast<long long>(num_rays) * num_samples;
   if (num_rows == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      plan.smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_fwd_kernel<<<launch_grid(num_rows, num_blocks), kThreads,
-                   plan.smem_bytes, stream>>>(plan, x, head_dir, w, b, rgb,
-                                              dens, num_rows, num_samples);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d_in == 16 && hidden == 32) {
+    err = launch_forward<16, 32>(plan, x, head_dir, w, b, rgb, dens, num_rows,
+                                 num_samples, num_blocks, stream);
+  } else if (d_in == 64 && hidden == 128) {
+    err = launch_forward<64, 128>(plan, x, head_dir, w, b, rgb, dens, num_rows,
+                                  num_samples, num_blocks, stream);
+  }
+  return static_cast<int>(err);
 }
 
-// Backward (K4b, K5b). dhd must be zeroed and ws ([num_blocks, ws_stride])
-// zeroed by the caller; grads gets the packed weight gradients (n_w floats)
-// followed by the bias gradients (n_b floats).
+// Backward (K4b, K5b). dhd must be zeroed by the caller; ws is
+// [num_blocks, ws_stride] and needs no zeroing (each launched block writes
+// its row once); grads gets the packed weight gradients (n_w floats)
+// followed by the bias gradients (n_b floats); aux is scratch of
+// 2 * ceil(rows / 128) tiles of the plan's aux_words floats, then
+// num_blocks * 8 * (5 * hidden + 4) floats of column sums.
 extern "C" int tetranerf_fused_mlp_backward(
     const float* x, const float* head_dir, const float* w, const float* b,
     const float* g_rgb, const float* g_dens, float* dx, float* dhd, float* ws,
-    float* grads, int num_rays, int num_samples, int d_in, int hidden,
-    int n_base, int n_head, int num_blocks, int ws_stride,
-    cudaStream_t stream) {
+    float* grads, float* aux, int num_rays, int num_samples, int d_in, int hidden,
+    int n_base, int n_head, int num_blocks, int ws_stride, int prefetch,
+    int smem_bytes, cudaStream_t stream) {
   Plan plan;
-  if (!make_plan(d_in, hidden, n_base, n_head, &plan) || num_blocks < 1 ||
-      ws_stride < plan.n_w + plan.n_b || ws_stride % 8) {
+  if (!make_plan(d_in, hidden, n_base, n_head, true, kBwdGroups, prefetch, &plan) ||
+      plan.smem_bytes != smem_bytes || num_blocks < 1 ||
+      ws_stride < plan.n_w + plan.n_b) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long num_rows = static_cast<long long>(num_rays) * num_samples;
-  if (num_rows > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        plan.smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mlp_bwd_kernel<<<launch_grid(num_rows, num_blocks), kThreads,
-                     plan.smem_bytes, stream>>>(
-        plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws, ws_stride,
-        num_rows, num_samples);
-    err = cudaGetLastError();
+  const long long pairs = (num_rows + 2 * kRows - 1) / (2 * kRows);
+  const int grid = static_cast<int>(std::min<long long>(num_blocks, pairs));
+  if (grid > 0) {
+    cudaError_t err = cudaErrorInvalidValue;
+    if (d_in == 16 && hidden == 32) {
+      err = launch_backward<16, 32>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd,
+                                    ws, ws_stride, aux, num_rows, num_samples, grid,
+                                    stream);
+    } else if (d_in == 64 && hidden == 128) {
+      err = launch_backward<64, 128>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd,
+                                     ws, ws_stride, aux, num_rows, num_samples, grid,
+                                     stream);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int n = plan.n_w + plan.n_b;
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, stream>>>(ws, num_blocks,
-                                                       ws_stride, n, grads);
+  sum_rows_kernel<<<(n + 255) / 256, 256, 0, stream>>>(ws, grid, ws_stride, n, grads);
   return static_cast<int>(cudaGetLastError());
 }

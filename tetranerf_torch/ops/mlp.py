@@ -21,6 +21,7 @@ bias and direction columns live in ``head_dir``), the remaining head
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Sequence
 
 import torch
@@ -172,6 +173,84 @@ def fused_density_mlp_backward_twin(x, weights, g_dens, n_base: int,
 # ---------------------------------------------------------------- kernels
 
 
+# The kernels' widths (d_in, hidden): each pair is a template instance of
+# csrc/mlp.cu, whose wgmma shapes and register arrays are fixed at compile
+# time.
+KERNEL_WIDTHS = ((16, 32), (64, 128))
+MAX_SMEM_BYTES = 232448  # shared memory one block may use on the H100
+MAX_LAYERS = 8  # hidden matrices, n_base + n_head
+ROWS_PER_TILE = 64  # rows per warpgroup: wgmma's M
+_MAX_FWD_WARPGROUPS = 3
+_BWD_WARPGROUPS = 2
+
+
+def _align(n: int, a: int = 128) -> int:
+    return -(-n // a) * a
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How K4/K5 (``backward=False``) or K4b/K5b lay a stack out on the
+    card, as ``csrc/mlp.cu``'s ``make_plan`` does: the kernel checks the
+    numbers it is given against its own and refuses a mismatch."""
+
+    rows_per_tile: int  # rows of one warpgroup's tile
+    warpgroups: int  # per block (one block per SM)
+    stages: int  # x stages of a warpgroup with room of their own; 0: the
+    # stage shares the backward's cotangent staging (no prefetch)
+    smem_bytes: int  # dynamic shared memory per block
+    ws_floats: int  # one block's weight-gradient workspace row (backward)
+    aux_tile_floats: int  # the backward's cached masks and head cotangents
+    # of one 64-row tile
+
+
+def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int,
+                backward: bool) -> LaunchPlan:
+    """The launch plan of a fused-MLP kernel for this stack; raises
+    ``ValueError`` for a stack the kernels do not take or that does not fit
+    in a block's shared memory."""
+    if (d_in, hidden) not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"fused MLP kernels: widths (d_in, hidden) = {(d_in, hidden)} not "
+            f"among the compiled {KERNEL_WIDTHS}")
+    layers = n_base + n_head
+    if n_base < 1 or n_head < 0 or layers > MAX_LAYERS:
+        raise ValueError(f"fused MLP kernels: n_base={n_base}, n_head={n_head}: "
+                         f"1 <= n_base and n_base + n_head <= {MAX_LAYERS}")
+    n_w = hidden * d_in + hidden * hidden * (layers - 1) + hidden
+    n_w += 3 * hidden if n_head else 0
+    n_b = hidden * (layers - (1 if n_head else 0)) + (4 if n_head else 1)
+    # bf16 weights as core matrices, then the f32 biases, w_d and W_c.
+    fixed = sum(_align(hidden * (d_in if k == 0 else hidden) * 2) for k in range(layers))
+    fixed += _align((n_b + 4 * hidden) * 4)
+    x_stage = _align(ROWS_PER_TILE * d_in * 4)
+    ws_floats = _align(n_w + n_b, 8)
+    # Per row: pre_d's and pre_c's cotangents; per thread: a bit per
+    # element of each layer's ReLU mask.
+    aux = ROWS_PER_TILE * 4 + layers * -(-(hidden // 2) // 32) * 128
+    if not backward:
+        for groups in range(_MAX_FWD_WARPGROUPS, 0, -1):
+            smem = fixed + groups * x_stage
+            if smem <= MAX_SMEM_BYTES:
+                return LaunchPlan(ROWS_PER_TILE, groups, 1, smem, 0, 0)
+        need = fixed + x_stage
+    else:
+        staging = _align(2 * ROWS_PER_TILE * hidden * 2 + 512)
+        staging += _align(2 * ROWS_PER_TILE * max(d_in, hidden) * 2)
+        staging += _BWD_WARPGROUPS * _align(aux * 4)
+        smem = fixed + staging + _BWD_WARPGROUPS * x_stage
+        if smem <= MAX_SMEM_BYTES:
+            return LaunchPlan(ROWS_PER_TILE, _BWD_WARPGROUPS, 1, smem, ws_floats, aux)
+        need = fixed + staging
+        if need <= MAX_SMEM_BYTES and ROWS_PER_TILE * d_in * 4 <= ROWS_PER_TILE * hidden * 2:
+            return LaunchPlan(ROWS_PER_TILE, _BWD_WARPGROUPS, 0, need, ws_floats, aux)
+    raise ValueError(
+        f"fused MLP kernels: a stack of d_in={d_in}, hidden={hidden}, "
+        f"n_base={n_base}, n_head={n_head} needs {need} bytes of shared memory "
+        f"per block for the {'backward' if backward else 'forward'}, more than "
+        f"the {MAX_SMEM_BYTES} a block can use")
+
+
 def _check(name, x, head_dir, weights, n_base, n_head, compute_dtype):
     """Refuse what K4/K4b/K5/K5b do not take."""
     if compute_dtype != torch.bfloat16:
@@ -194,13 +273,14 @@ def _check(name, x, head_dir, weights, n_base, n_head, compute_dtype):
         expected += [(hidden, hidden)] + [(hidden, hidden), (hidden,)] * (n_head - 1)
         expected += [(3, hidden), (3,)]
     if (
-        x.dtype != torch.float32 or d_in % 16 or hidden % 16 or n_base < 1
+        x.dtype != torch.float32
         or [tuple(w.shape) for w in weights] != expected
         or any(w.dtype != torch.float32 for w in weights)
         or (head_dir is not None and (head_dir.dtype != torch.float32
                                       or head_dir.shape != (num_rays, hidden)))
     ):
         raise ValueError(f"{name}: unsupported shapes, widths or dtypes")
+    return launch_plan(d_in, hidden, n_base, n_head, "backward" in name)
 
 
 def _pack(weights):
@@ -227,7 +307,7 @@ def _num_blocks(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _forward_cuda(counter, x, head_dir, weights, n_base, n_head):
+def _forward_cuda(counter, plan, x, head_dir, weights, n_base, n_head):
     num_rays, num_samples, d_in = x.shape
     dev = x.device
     wpack, bpack = _pack(weights)
@@ -240,12 +320,13 @@ def _forward_cuda(counter, x, head_dir, weights, n_base, n_head):
             cuda.ptr(wpack), cuda.ptr(bpack),
             None if rgb is None else cuda.ptr(rgb), cuda.ptr(dens),
             num_rays, num_samples, d_in, weights[0].shape[0], n_base, n_head,
-            _num_blocks(dev),
+            _num_blocks(dev), plan.warpgroups, plan.smem_bytes,
         )
     return rgb, dens
 
 
-def _backward_cuda(counter, x, head_dir, weights, g_rgb, g_dens, n_base, n_head):
+def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
+                   n_head):
     num_rays, num_samples, d_in = x.shape
     hidden = weights[0].shape[0]
     dev = x.device
@@ -256,12 +337,15 @@ def _backward_cuda(counter, x, head_dir, weights, g_rgb, g_dens, n_base, n_head)
     cuda.check_cuda_inputs(counter, g_dens=g_dens,
                            **({"g_rgb": g_rgb} if n_head else {}))
     wpack, bpack = _pack(weights)
-    size = wpack.numel() + bpack.numel()
     num_blocks = _num_blocks(dev)
-    ws_stride = -(-size // 8) * 8
-    # Each block adds its rows' weight gradients into a row of its own.
-    ws = torch.zeros((num_blocks, ws_stride), device=dev)
-    grads = torch.empty(size, device=dev)
+    # Each block writes its rows' weight gradients once into a row of its own.
+    ws = torch.empty((num_blocks, plan.ws_floats), device=dev)
+    grads = torch.empty(wpack.numel() + bpack.numel(), device=dev)
+    tiles = 2 * -(-(num_rays * num_samples) // (2 * ROWS_PER_TILE))
+    # The tiles' cached masks and head cotangents, then per block each
+    # warp's column sums ([8][5H + 4]).
+    aux = torch.empty(tiles * plan.aux_tile_floats + num_blocks * 8 * (5 * hidden + 4),
+                      device=dev)
     dx = torch.empty_like(x)
     dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
     cuda.launch(
@@ -270,9 +354,9 @@ def _backward_cuda(counter, x, head_dir, weights, g_rgb, g_dens, n_base, n_head)
         cuda.ptr(wpack), cuda.ptr(bpack),
         cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens),
         cuda.ptr(dx), None if dhd is None else cuda.ptr(dhd),
-        cuda.ptr(ws), cuda.ptr(grads),
+        cuda.ptr(ws), cuda.ptr(grads), cuda.ptr(aux),
         num_rays, num_samples, d_in, hidden, n_base, n_head, num_blocks,
-        ws_stride,
+        plan.ws_floats, plan.stages, plan.smem_bytes,
     )
     return dx, dhd, _unpack(grads, weights)
 
@@ -288,9 +372,9 @@ def _on(name, x):
 def fused_field_mlps(x, head_dir, weights, n_base, n_head, compute_dtype):
     """K4 on CUDA tensors, :func:`fused_field_mlps_twin` on CPU tensors."""
     if _on("fused_field_mlps", x):
-        _check("fused_field_mlps", x, head_dir, weights, n_base, n_head,
-               compute_dtype)
-        return _forward_cuda("fused_field_mlps", x, head_dir, weights,
+        plan = _check("fused_field_mlps", x, head_dir, weights, n_base, n_head,
+                      compute_dtype)
+        return _forward_cuda("fused_field_mlps", plan, x, head_dir, weights,
                              n_base, n_head)
     return fused_field_mlps_twin(x, head_dir, weights, n_base, n_head,
                                  compute_dtype)
@@ -301,9 +385,9 @@ def fused_field_mlps_backward(x, head_dir, weights, g_rgb, g_dens, n_base,
     """K4b on CUDA tensors, :func:`fused_field_mlps_backward_twin` on CPU
     tensors."""
     if _on("fused_field_mlps_backward", x):
-        _check("fused_field_mlps_backward", x, head_dir, weights, n_base,
-               n_head, compute_dtype)
-        return _backward_cuda("fused_field_mlps_backward", x, head_dir,
+        plan = _check("fused_field_mlps_backward", x, head_dir, weights, n_base,
+                      n_head, compute_dtype)
+        return _backward_cuda("fused_field_mlps_backward", plan, x, head_dir,
                               weights, g_rgb, g_dens, n_base, n_head)
     return fused_field_mlps_backward_twin(x, head_dir, weights, g_rgb, g_dens,
                                           n_base, n_head, compute_dtype)
@@ -312,8 +396,10 @@ def fused_field_mlps_backward(x, head_dir, weights, g_rgb, g_dens, n_base,
 def fused_density_mlp(x, weights, n_base, compute_dtype):
     """K5 on CUDA tensors, :func:`fused_density_mlp_twin` on CPU tensors."""
     if _on("fused_density_mlp", x):
-        _check("fused_density_mlp", x, None, weights, n_base, 0, compute_dtype)
-        return _forward_cuda("fused_density_mlp", x, None, weights, n_base, 0)[1]
+        plan = _check("fused_density_mlp", x, None, weights, n_base, 0,
+                      compute_dtype)
+        return _forward_cuda("fused_density_mlp", plan, x, None, weights, n_base,
+                             0)[1]
     return fused_density_mlp_twin(x, weights, n_base, compute_dtype)
 
 
@@ -321,9 +407,9 @@ def fused_density_mlp_backward(x, weights, g_dens, n_base, compute_dtype):
     """K5b on CUDA tensors, :func:`fused_density_mlp_backward_twin` on CPU
     tensors."""
     if _on("fused_density_mlp_backward", x):
-        _check("fused_density_mlp_backward", x, None, weights, n_base, 0,
-               compute_dtype)
-        dx, _, grads = _backward_cuda("fused_density_mlp_backward", x, None,
+        plan = _check("fused_density_mlp_backward", x, None, weights, n_base, 0,
+                      compute_dtype)
+        dx, _, grads = _backward_cuda("fused_density_mlp_backward", plan, x, None,
                                       weights, None, g_dens, n_base, 0)
         return dx, grads
     return fused_density_mlp_backward_twin(x, weights, g_dens, n_base,
