@@ -78,7 +78,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     and fused;
 13. the flagship render: ``Trainer.render_rays`` of phase 12's trainer (its
     tuned bounds and calibrated cap) on 4 x 65,536 rays at chunk 8192 (K8
-    and K2 launched once per chunk), and 256 rays against the CPU twins.
+    and K2 launched once per chunk), and 256 rays against the CPU twins;
+14. the CLI path: the sphere dataset at the generator's defaults (40 + 8
+    views at 256^2, phase 1's 100,000 points and cells) written to disk
+    through the port's PNG writer, then ``tetranerf_torch.training.cli.main``
+    with the ``tetra-nerf`` preset unmodified for 300 steps (logs every 50,
+    eval batch / image / all images every 100 / 200 / 300, so through the
+    retunes at 128 and 256): every logged loss finite, the held-out PSNR at
+    step 300 above step 100's, the final metrics in range on the test split,
+    ``final/`` restored into a fresh ``Trainer`` bit for bit (weights and
+    occupancy column), a second ``main`` resuming from it for 16 steps, and
+    K1, K2, K2b, K3, K3b, K7 and K8 launched (the path ``cli_train``); the
+    seconds from ``main()`` to the first step, the log lines' rays/s, the
+    eval renders' rays/s and the metrics.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -107,6 +119,8 @@ TRAIN_RAYS = 4096
 TRAIN_STEPS = 65
 TRAIN_BATCHES = 5
 FLAGSHIP_STEPS = 260
+CLI_STEPS = 300
+CLI_RESUME_STEPS = 16
 REF_RAYS = 256
 GATHER_TABLE = (100_000, 128)
 GATHER_ROWS = 65_536
@@ -1605,6 +1619,183 @@ def flagship_render_phase(trainer, dev):
     return launches
 
 
+def _png_decode_ms(tmp):
+    """Host ms to decode one 800x800 RGBA PNG by ``utils/png.py``: rows of
+    the sub filter (the row path; what ``write_png`` writes) and rows of the
+    Paeth filter (the wavefront), each checked against the pixels."""
+    import struct
+    import zlib
+
+    from tetranerf_torch.utils import png
+
+    yy, xx = np.mgrid[0:800, 0:800]
+    img = np.stack([np.sin(xx / 30.0 + k) * 100 + np.cos(yy / 17.0) * 20 + 128
+                    for k in range(4)], axis=-1).astype(np.uint8)
+    sub = tmp / "sub.png"
+    png.write_png(sub, img)
+    # Paeth rows: the predictor from the raw neighbours, vectorised.
+    raw = img.reshape(800, -1).astype(np.int16)
+    a = np.pad(raw, ((0, 0), (4, 0)))[:, :-4]
+    b = np.pad(raw, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(raw, ((1, 0), (4, 0)))[:-1, :-4]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((800, 1), 4), (raw - pred) & 255], axis=1)
+    paeth = tmp / "paeth.png"
+    with open(paeth, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        for kind, body in ((b"IHDR", struct.pack(">IIBBBBB", 800, 800, 8, 6, 0, 0, 0)),
+                           (b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes())),
+                           (b"IEND", b"")):
+            f.write(struct.pack(">I", len(body)) + kind + body
+                    + struct.pack(">I", zlib.crc32(kind + body)))
+    out = {}
+    for name, path in (("sub", sub), ("paeth", paeth)):
+        _check(np.array_equal(png.read_png(path), img), f"png: {name} decode differs")
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            png.read_png(path)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = float(np.median(times))
+    return out
+
+
+def cli_phase(scene, dev):
+    """Phase 14: train the sphere dataset from disk through the port's CLI.
+    ``scene`` is phase 1's ``(points, colors, cells)``. Returns the kernel
+    launches of the 300-step run."""
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training import cli
+    from tetranerf_torch.training.checkpoints import reference_state_dict
+    from tetranerf_torch.training.trainer import Trainer
+    from tetranerf_torch.utils.synthetic_dataset import write_sphere_dataset
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
+    data, out = tmp / "sphere", tmp / "out"
+    try:
+        dec = _png_decode_ms(tmp)
+        print(f"cli: png decode of one 800x800 RGBA image on the host, median of 5: "
+              f"{dec['sub']:.1f} ms with sub rows (the row path), {dec['paeth']:.1f} ms "
+              f"with Paeth rows (the wavefront)")
+        t = time.perf_counter()
+        write_sphere_dataset(data, scene=scene)
+        print(f"cli: sphere dataset (40 + 8 views at 256^2, {len(scene[0])} points) "
+              f"written in {time.perf_counter() - t:.2f} s")
+
+        # Instrumentation of this run only: when the first step ends, and
+        # the eval renders' rays and seconds (render_rays returns numpy,
+        # so each call has finished on the card when it returns).
+        marks = {"first_step": None, "render_rays": 0, "render_s": 0.0}
+        train_step, render_rays = Trainer.train_step, Trainer.render_rays
+
+        def timed_step(self, batch, uniforms=None):
+            m = train_step(self, batch, uniforms)
+            if marks["first_step"] is None:
+                float(m["loss"])
+                marks["first_step"] = time.perf_counter()
+            return m
+
+        def timed_render(self, origins, directions, *a, **k):
+            t = time.perf_counter()
+            r = render_rays(self, origins, directions, *a, **k)
+            marks["render_s"] += time.perf_counter() - t
+            marks["render_rays"] += len(origins)
+            return r
+
+        args = ["--data", str(data), "--tetrahedra-path", str(data / "tetra.npz"),
+                "--device", str(dev), "--log-every", "50",
+                "--steps-per-eval-batch", "100", "--steps-per-eval-image", "200",
+                "--steps-per-eval-all-images", str(CLI_STEPS)]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        Trainer.train_step, Trainer.render_rays = timed_step, timed_render
+        try:
+            torch.cuda.synchronize()
+            cuda.reset_launch_counts()
+            t_main = time.perf_counter()
+            with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+                trainer = cli.main(args + ["--output-dir", str(out),
+                                           "--max-num-iterations", str(CLI_STEPS)])
+            main_s = time.perf_counter() - t_main
+            launches = dict(cuda.launch_counts)
+        finally:
+            Trainer.train_step, Trainer.render_rays = train_step, render_rays
+        log = stderr.getvalue().splitlines()
+        for line in log:
+            if not line.startswith("step "):
+                print("cli:", line)
+        steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3).replace(",", "")))
+                 for m in (re.match(r"step (\d+)/\d+ loss=(\S+) psnr=\S+ rays/s=(\S+)", x)
+                           for x in log) if m]
+        evals = {int(m.group(1)): float(m.group(2))
+                 for m in (re.match(r"eval step (\d+): psnr=(\S+)", x) for x in log) if m}
+        final = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        print(f"cli: main() to the end of step 1 {marks['first_step'] - t_main:.2f} s "
+              f"(dataset load, mesh build, model, the bound tune; the kernels were built "
+              f"in phase 2); {CLI_STEPS} steps, evals and the final eval in {main_s:.2f} s")
+        print("cli: fit's log lines (step, loss, rays/s since step 1, eval time "
+              f"included after step 100): {steps}")
+        print(f"cli: eval renders {marks['render_rays']} rays in {marks['render_s']:.3f} s "
+              f"= {marks['render_rays'] / marks['render_s']:.0f} rays/s; held-out "
+              f"psnr of the eval batches {evals}; final {final}")
+        print(f"cli: launches {launches}")
+
+        _check([s[0] for s in steps] == list(range(50, CLI_STEPS + 1, 50)),
+               f"cli: log steps {steps}")
+        _check(all(np.isfinite(s[1]) for s in steps), f"cli: non-finite loss {steps}")
+        _check(sorted(evals) == [100, 200, 300], f"cli: eval steps {sorted(evals)}")
+        _check(evals[300] > evals[100], f"cli: eval psnr did not rise {evals}")
+        _check(any(x.startswith("eval-image step 200") for x in log)
+               and any(x.startswith(f"eval-all-images step {CLI_STEPS}") for x in log),
+               "cli: image evals missing")
+        _check([x.split(":")[0] for x in log if x.startswith("# retune@")]
+               == ["# retune@128", "# retune@256"], "cli: retune lines")
+        _check(final["eval_split"] == "test", f"cli: eval split {final}")
+        _check(0.0 < final["psnr"] < 100.0 and -1.0 <= final["mipnerf_ssim"] <= 1.0
+               and -1.0 <= final["skimage_ssim"] <= 1.0, f"cli: final metrics {final}")
+        for k in FLAGSHIP_KERNELS:
+            _check(launches[k] > 0, f"cli: {k} did not launch: {launches}")
+
+        # final/ into a fresh trainer: the weights and the occupancy column.
+        model = TetraNerf(trainer.model.config, trainer.mesh.num_vertices,
+                          num_train_images=40, device=dev)
+        fresh = Trainer(trainer.config, model,
+                        trainer.mesh.with_occupancy(torch.zeros_like(trainer.occupancy)),
+                        device=dev)
+        fresh.restore_checkpoint(out / "final")
+        want, got = reference_state_dict(trainer.model), reference_state_dict(fresh.model)
+        _check(fresh.step == trainer.step == CLI_STEPS, f"cli: restored step {fresh.step}")
+        for k in want:
+            _check(np.array_equal(want[k], got[k]), f"cli: restored {k} differs")
+        _check(torch.equal(fresh.mesh.march_table[:, 24], trainer.mesh.march_table[:, 24]),
+               "cli: restored occupancy column differs")
+        del fresh, model, trainer
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            resumed = cli.main(args + ["--output-dir", str(tmp / "resumed"),
+                                       "--max-num-iterations", str(CLI_RESUME_STEPS),
+                                       "--load-checkpoint", str(out / "final")])
+        _check(resumed.step == CLI_STEPS + CLI_RESUME_STEPS, f"cli: resumed step {resumed.step}")
+        print(f"cli: resumed from final/ for {CLI_RESUME_STEPS} steps (with its final eval) "
+              f"in {time.perf_counter() - t:.2f} s; restored weights and occupancy bit-equal")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli: phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -1642,7 +1833,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from tetranerf_torch.geometry import build_mesh
+    from tetranerf_torch.geometry import build_mesh, triangulate
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
     from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
@@ -1669,7 +1860,8 @@ def main() -> int:
 
     t = time.perf_counter()
     points, colors = make_sphere_scene(NUM_POINTS, seed=0)
-    mesh_plain = build_mesh(points, device="cpu")
+    cells = triangulate(points)
+    mesh_plain = build_mesh(points, cells, device="cpu")
     mesh_cpu = mesh_plain.with_occupancy(synthetic_occupancy(mesh_plain))
     mesh = mesh_cpu.to(dev)
     print(f"scene: {NUM_POINTS} points, {mesh.num_cells} cells, "
@@ -1727,6 +1919,10 @@ def main() -> int:
         colors, mesh_plain, dev, plain_median)
     paths["flagship_render"] = flagship_render_phase(trainer, dev)
     del trainer
+    torch.cuda.empty_cache()
+
+    # Training from disk through the port's CLI.
+    paths["cli_train"] = cli_phase((points, colors, cells), dev)
     torch.cuda.empty_cache()
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK

@@ -335,12 +335,17 @@ def test_train_step_draws_its_own_numbers_reproducibly():
     assert all(np.isfinite(losses[0]))
 
 
-def test_trainer_imports_and_steps_without_jax():
-    """The preset steps past its first retune with no JAX importable."""
+def test_trainer_imports_and_steps_without_jax(tmp_path):
+    """The preset steps past its first retune with no JAX importable; and,
+    with neither JAX, the JAX package nor Pillow importable (the GPU
+    machine's installation), the CLI imports and a sphere dataset is
+    written and loaded."""
     code = """
 import sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+for blocked in ("jax", "tetranerf_tpu", "PIL"):
+    sys.modules[blocked] = None  # any import of it now raises ImportError
 import numpy as np, torch
+torch.set_num_threads(1)  # the suite's workers share few cores
 from tetranerf_torch import TetraNerf, TrainConfig, Trainer, build_mesh, tetranerf_preset
 from tetranerf_torch.utils.synthetic import (make_sphere_scene, sample_sphere_rays,
                                              sphere_ray_targets)
@@ -361,14 +366,23 @@ for _ in range(130):
 assert trainer.step == 130 and len(trainer.tuned_bucket_steps) == 7
 assert len(trainer._cap_history) == 1  # the retune at step 128 ran
 assert np.isfinite(trainer.render_rays(o, d, chunk=8)["rgb"]).all()
-leaked = [m for m in sys.modules if m.startswith(("jax", "tetranerf_tpu"))
+import tetranerf_torch.training.cli
+from tetranerf_torch.training.datasets import load_dataset
+from tetranerf_torch.utils.synthetic_dataset import write_sphere_dataset
+write_sphere_dataset(sys.argv[1], side=16, train=3, test=2, points=300)
+for split, n in (("train", 3), ("test", 2)):
+    ds = load_dataset(sys.argv[1], split)
+    assert ds.images.shape == (n, 16, 16, 3) and ds.images.dtype == np.float32
+    assert 0.0 <= ds.images.min() and ds.images.max() <= 1.0 and ds.images.min() < 1.0
+leaked = [m for m in sys.modules if m.startswith(("jax", "tetranerf_tpu", "PIL"))
           and sys.modules[m] is not None]
 assert not leaked, leaked
 print("OK")
 """
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, cwd=root,
+        [sys.executable, "-c", code, str(tmp_path / "sphere")], capture_output=True,
+        text=True, cwd=root,
         env=dict(os.environ, PYTHONPATH=str(root)), timeout=300,
     )
     assert proc.returncode == 0, proc.stderr

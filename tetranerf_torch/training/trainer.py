@@ -21,13 +21,20 @@ the JAX trainer:
 
 The trainer holds one termination cap, :attr:`Trainer.occ_depth_cap`: the
 train forward, the occupancy update, the probes and rendering all read it.
+
+:meth:`Trainer.fit` is the training loop (JAX ``Trainer.fit``): batches
+assembled on a producer thread, log lines, ``eval_fn`` and checkpoints
+(:mod:`.checkpoints`) on their cadences.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
+import queue
 import sys
-from typing import Dict, Mapping, Optional
+import threading
+import time
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -37,7 +44,11 @@ from ..ops.march import march
 from ..ops.sampling import stratified_bins
 from ..render import Renderer
 from ..utils.shapes import inner_bound, rounded_bound
+from . import checkpoints
 from .optim import make_optimizer, set_step
+from .presets import TrainConfig, check_single_device
+
+__all__ = ["TrainConfig", "Trainer"]
 
 _PROBE_RAYS = 8192
 _REFRESH_CHUNK = 65536
@@ -94,17 +105,6 @@ def quantile_bucket_bounds(nv: np.ndarray, k_buckets: int, full: int,
     )
 
 
-@dataclasses.dataclass
-class TrainConfig:
-    """The fields of :class:`tetranerf_tpu.training.presets.TrainConfig`
-    that the train step reads (same names and defaults)."""
-
-    learning_rate: float = 1e-3
-    learning_rate_final: float = 1e-4
-    lr_max_steps: int = 300_000
-    seed: int = 42
-
-
 class Trainer:
     """Trains ``model`` (a :class:`~..models.TetraNerf`) on ``mesh`` (a
     :class:`~..geometry.TorchMesh`), both moved to ``device``.
@@ -115,10 +115,14 @@ class Trainer:
         metrics = trainer.train_step({"origins": o, "directions": d, "rgb": c})
 
     A batch holds ``origins [R, 3]``, ``directions [R, 3]``, ``rgb [R, 3]``
-    and optionally ``camera_indices [R]`` (numpy arrays or tensors)."""
+    and optionally ``camera_indices [R]`` (numpy arrays or tensors).
+    ``auto_tune_steps=False`` skips the first step's bound tune."""
 
-    def __init__(self, config: TrainConfig, model, mesh, device="cuda"):
+    def __init__(self, config: TrainConfig, model, mesh, device="cuda",
+                 auto_tune_steps: bool = True):
+        check_single_device(config)
         self.config = config
+        self._auto_tune_steps = auto_tune_steps
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.mesh = mesh.to(self.device)
@@ -405,7 +409,7 @@ class Trainer:
         cfg = self.model.config
         step = self.step
         occ = cfg.use_occupancy_field
-        if not self._tuned:
+        if self._auto_tune_steps and not self._tuned:
             self._tuned = True
             self.tune_traversal_steps(batch)
         if occ and cfg.occupancy_update_every and step % cfg.occupancy_update_every == 0:
@@ -469,3 +473,119 @@ class Trainer:
         round)."""
         return self.renderer().render_rays(origins, directions, chunk,
                                            num_samples, num_fine_samples)
+
+    # -------------------------------------------------------- checkpoint
+    def save_checkpoint(self, path) -> None:
+        """Write the step, parameters, optimizer state and occupancy EMA
+        into the directory ``path`` (:func:`.checkpoints.save_checkpoint`)."""
+        checkpoints.save_checkpoint(path, self)
+
+    def restore_checkpoint(self, path) -> None:
+        """Load a directory written by :meth:`save_checkpoint`. The bounds
+        and the cap are not saved: the next step tunes them if this
+        trainer has not yet."""
+        checkpoints.restore_checkpoint(path, self)
+
+    # -------------------------------------------------------------- loop
+    def fit(self, next_batch: Callable[[int], Dict[str, np.ndarray]],
+            num_iterations: Optional[int] = None, log_every: int = 100, log_fn=print,
+            eval_fn: Optional[Callable[[int, "Trainer"], None]] = None,
+            eval_every: Optional[int] = None, prefetch: int = 2) -> "Trainer":
+        """The training loop (JAX ``Trainer.fit``). ``next_batch(i)`` gives
+        step ``i``'s batch; ``eval_fn(step, trainer)`` runs every
+        ``eval_every`` steps (default ``steps_per_eval_batch``); a log line
+        every ``log_every`` steps; a checkpoint ``step-{step:09d}`` under
+        ``output_dir`` every ``steps_per_save`` steps.
+
+        With ``prefetch`` > 0 a producer thread calls ``next_batch`` once
+        per step, in order, up to ``prefetch`` steps ahead of the train step
+        and concurrently with ``eval_fn``, and its errors are re-raised
+        here: ``next_batch`` must be a function of ``i`` and its own state
+        (numpy only). One that reads the trainer or shares a generator with
+        ``eval_fn`` needs ``prefetch=0``."""
+        num_iterations = num_iterations or self.config.max_num_iterations
+        eval_every = eval_every or self.config.steps_per_eval_batch
+        if not prefetch or num_iterations <= 1:
+            self._fit_loop(next_batch, num_iterations, log_every, log_fn, eval_fn,
+                           eval_every)
+            return self
+
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+
+        def produce():
+            try:
+                for j in range(num_iterations):
+                    put(next_batch(j))  # exactly once per step
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # re-raised by the consumer
+                put(e)
+
+        def get_batch(_):
+            b = q.get()
+            if isinstance(b, BaseException):
+                raise b
+            return b
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        try:
+            self._fit_loop(get_batch, num_iterations, log_every, log_fn, eval_fn,
+                           eval_every)
+        finally:
+            stop.set()
+            while not q.empty():  # unblock a producer waiting on put
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            producer.join()
+        return self
+
+    def _fit_loop(self, next_batch, num_iterations, log_every, log_fn, eval_fn,
+                  eval_every) -> None:
+        t0 = t_start = time.perf_counter()
+        rays_per_batch = None
+        steps_at_t0 = 0
+        for i in range(num_iterations):
+            batch = next_batch(i)
+            if rays_per_batch is None:
+                rays_per_batch = len(batch["origins"])
+            metrics = self.train_step(batch)
+            if i == 0:
+                # Restart the rate clock after step 1, which pays for the
+                # kernel build and the bound tune.
+                float(metrics["loss"])
+                t0 = time.perf_counter()
+                steps_at_t0 = 1
+            if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
+                eval_fn(i + 1, self)
+            if log_every and (i + 1) % log_every == 0:
+                # The only host syncs besides step 1's.
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                steps_done = i + 1 - steps_at_t0
+                # log_every=1: the first log line is step 1 itself.
+                if steps_done == 0:
+                    steps_done, dt = 1, time.perf_counter() - t_start
+                rate = steps_done * rays_per_batch / max(dt, 1e-9)
+                ovf = int(metrics.get("overflow_rays", 0))
+                log_fn(
+                    f"step {i + 1}/{num_iterations} "
+                    f"loss={metrics['loss']:.5f} psnr={metrics['psnr']:.2f} "
+                    f"rays/s={rate:,.0f}"
+                    + (f" OVERFLOW={ovf} rays truncated" if ovf else "")
+                )
+            if (self.config.output_dir and self.config.steps_per_save
+                    and (i + 1) % self.config.steps_per_save == 0):
+                self.save_checkpoint(
+                    os.path.join(self.config.output_dir, f"step-{i + 1:09d}"))
