@@ -72,7 +72,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     kernel of the path launched (K8 included), the median step of steps
     1-127 (cold) and 129-255 (after the first retune) beside phase 7's, a
     profile of two steady steps after the retune with each port kernel's
-    ms per step beside its bound (from one step's own inputs), K8, K2 and
+    ms per step beside its bound (from one step's own inputs; K1 from the
+    steps its rays took), K8, K2 and
     K7 launched once per steady step and K2b once per bucket, and one
     256-ray step's loss and field gradient against the CPU twins, un-fused
     and fused;
@@ -90,7 +91,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     occupancy column), a second ``main`` resuming from it for 16 steps, and
     K1, K2, K2b, K3, K3b, K7 and K8 launched (the path ``cli_train``); the
     seconds from ``main()`` to the first step, the log lines' rays/s, the
-    eval renders' rays/s and the metrics.
+    eval renders' rays/s and the metrics;
+15. the serving path on phase 14's ``final/`` (under 30 s): the render CLI
+    (``tetranerf_torch.scripts.render.main``) over the 8 test views at
+    256^2 (every PNG decodes, ``metrics.json`` finite, view 0 within the
+    render tolerance of ``render_rays`` of a trainer restored the same way;
+    its PSNR beside phase 14's, its rays/s; the path ``serve_render``); then
+    ``ViewerServer`` on localhost: the page, a fast 400^2 frame, an 800^2
+    pose as 8 progressive bands of 800 x 100 (cache misses: K1 launched),
+    the same 8 bands again (cache hits: K1 not launched, K2 and K3 launched;
+    the path ``serve_viewer_cached``), one band's dense re-shade against
+    ``render_rays``, the bytes the 8 cached marches hold (all requests: the
+    path ``serve_viewer``); then 16 train steps on one thread while the main
+    thread asks for 4 fast frames (every one a PNG, ``march_version``
+    advanced, the next full band marched again).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -103,8 +117,11 @@ import copy
 import dataclasses
 import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -123,6 +140,11 @@ CLI_STEPS = 300
 CLI_RESUME_STEPS = 16
 REF_RAYS = 256
 GATHER_TABLE = (100_000, 128)
+# Phase 15's viewer frames: the page's fast side, its full side in bands.
+SERVE_FAST_SIDE = 400
+SERVE_FULL_SIDE = 800
+SERVE_BANDS = 8
+SERVE_LIVE_STEPS = 16
 GATHER_ROWS = 65_536
 # Kernel vs twin. K1-K3 and K2b/K3b sum a handful of f32 products per
 # output, in another order (and with FMA contraction) than the twin: 1e-5
@@ -239,6 +261,16 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None,
                 **bound, **extra)
 
 
+def _march_bound(out):
+    """K1 from its outputs (``MarchOutputs``): per emitted step one 256-byte
+    table row read, 48 bytes of interval written (cells, t0, t1, new_vid,
+    4 barys, 4 positions) and ~80 flops of plane arithmetic; per ray 37
+    bytes in and 38 out."""
+    num_rays = out.hit.shape[0]
+    steps = int((out.cells >= 0).sum()) + int(out.hit.sum())
+    return _bound(steps * (256 + 48) + num_rays * 75, steps * 80)
+
+
 def _blend_batch_bound(field, streams):
     """K2, one launch: per stream the output, pos + bary and the stream
     ids; the field once."""
@@ -332,7 +364,6 @@ def kernel_checks(mesh, field, origins, directions, bucket_rays):
     from tetranerf_torch.ops.traversal import hull_intersect
 
     results = []
-    num_rays = origins.shape[0]
     t_in, t_out, facet, hit = hull_intersect(mesh.hull_eqs, origins, directions)
     args = (mesh.march_table, mesh.hull_cells, origins, directions, t_in,
             t_out, facet, hit, 512, 512, 16, True, float(-np.log(1e-4)))
@@ -361,15 +392,10 @@ def kernel_checks(mesh, field, origins, directions, bucket_rays):
           f"intervals per ray {float((ker.cells >= 0).sum(1).float().mean()):.1f} "
           f"(occupancy), {float(nv.mean()):.1f} mean / {int(nv.max())} max "
           f"(none)")
-    # Per emitted step: one 256-byte table row read, 48 bytes of interval
-    # written (cells, t0, t1, new_vid, 4 barys, 4 positions), ~80 flops of
-    # plane arithmetic; per ray 37 bytes in and 38 out.
-    steps = int((ker.cells >= 0).sum()) + int(ker.hit.sum())
     results.append(_entry(
         "march", "tetranerf_torch/csrc/march.cu", "tetranerf_tpu/ops/fused.py:125",
         err, _time_ms(lambda: march_intervals(*args), 10),
-        _time_ms(lambda: march_intervals_twin(*args), 3),
-        _bound(steps * (256 + 48) + num_rays * 75, steps * 80),
+        _time_ms(lambda: march_intervals_twin(*args), 3), _march_bound(ker),
     ))
 
     res = march(mesh, origins, directions, 512, use_occupancy=True,
@@ -1167,11 +1193,16 @@ def _port_kernel(name):
 @contextlib.contextmanager
 def _recording_bounds():
     """Within the block, every call of a port wrapper on the model's path
-    (K2, K2b, K3, K3b, K7, K8; the batched ones where the path calls them)
-    adds its bound in ms, from its own inputs, to the yielded dict under
-    its launch counter. The bounds are computed on the card before each
-    call, so time nothing inside the block."""
+    (K1, K2, K2b, K3, K3b, K7, K8; the batched ones where the path calls
+    them) adds its bound in ms, from its own inputs (K1: from the steps its
+    rays took), to the yielded dict under its launch counter. The bounds
+    are computed on the card around each call, so time nothing inside the
+    block."""
+    import importlib
+
     from tetranerf_torch.ops import fused, interp, mlp, scatter
+
+    march_mod = importlib.import_module("tetranerf_torch.ops.march")
 
     sums = {}
     sites = [
@@ -1201,13 +1232,22 @@ def _recording_bounds():
             return fn(*args)
         return call
 
+    march_intervals = march_mod.march_intervals
+
+    def record_march(*args):
+        out = march_intervals(*args)
+        sums["march"] = sums.get("march", 0.0) + _march_bound(out)["bound_ms"]
+        return out
+
     for (mod, attr, bound), (_, _, fn) in zip(sites, saved):
         setattr(mod, attr, record(fn, bound))
+    march_mod.march_intervals = record_march
     try:
         yield sums
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+        march_mod.march_intervals = march_intervals
 
 
 def _kernel_group(name):
@@ -1661,13 +1701,12 @@ def _png_decode_ms(tmp):
     return out
 
 
-def cli_phase(scene, dev):
-    """Phase 14: train the sphere dataset from disk through the port's CLI.
-    ``scene`` is phase 1's ``(points, colors, cells)``. Returns the kernel
-    launches of the 300-step run."""
+def cli_phase(scene, dev, tmp):
+    """Phase 14: train the sphere dataset from disk through the port's CLI,
+    under the directory ``tmp`` (``sphere/``, ``out/final/``). ``scene`` is
+    phase 1's ``(points, colors, cells)``. Returns the kernel launches of
+    the 300-step run and its final metrics."""
     import re
-    import shutil
-    import tempfile
 
     import torch
     from tetranerf_torch.models import TetraNerf
@@ -1678,122 +1717,319 @@ def cli_phase(scene, dev):
     from tetranerf_torch.utils.synthetic_dataset import write_sphere_dataset
 
     t_phase = time.perf_counter()
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
     data, out = tmp / "sphere", tmp / "out"
+    dec = _png_decode_ms(tmp)
+    print(f"cli: png decode of one 800x800 RGBA image on the host, median of 5: "
+          f"{dec['sub']:.1f} ms with sub rows (the row path), {dec['paeth']:.1f} ms "
+          f"with Paeth rows (the wavefront)")
+    t = time.perf_counter()
+    write_sphere_dataset(data, scene=scene)
+    print(f"cli: sphere dataset (40 + 8 views at 256^2, {len(scene[0])} points) "
+          f"written in {time.perf_counter() - t:.2f} s")
+
+    # Instrumentation of this run only: when the first step ends, and
+    # the eval renders' rays and seconds (render_rays returns numpy,
+    # so each call has finished on the card when it returns).
+    marks = {"first_step": None, "render_rays": 0, "render_s": 0.0}
+    train_step, render_rays = Trainer.train_step, Trainer.render_rays
+
+    def timed_step(self, batch, uniforms=None):
+        m = train_step(self, batch, uniforms)
+        if marks["first_step"] is None:
+            float(m["loss"])
+            marks["first_step"] = time.perf_counter()
+        return m
+
+    def timed_render(self, origins, directions, *a, **k):
+        t = time.perf_counter()
+        r = render_rays(self, origins, directions, *a, **k)
+        marks["render_s"] += time.perf_counter() - t
+        marks["render_rays"] += len(origins)
+        return r
+
+    args = ["--data", str(data), "--tetrahedra-path", str(data / "tetra.npz"),
+            "--device", str(dev), "--log-every", "50",
+            "--steps-per-eval-batch", "100", "--steps-per-eval-image", "200",
+            "--steps-per-eval-all-images", str(CLI_STEPS)]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    Trainer.train_step, Trainer.render_rays = timed_step, timed_render
     try:
-        dec = _png_decode_ms(tmp)
-        print(f"cli: png decode of one 800x800 RGBA image on the host, median of 5: "
-              f"{dec['sub']:.1f} ms with sub rows (the row path), {dec['paeth']:.1f} ms "
-              f"with Paeth rows (the wavefront)")
-        t = time.perf_counter()
-        write_sphere_dataset(data, scene=scene)
-        print(f"cli: sphere dataset (40 + 8 views at 256^2, {len(scene[0])} points) "
-              f"written in {time.perf_counter() - t:.2f} s")
-
-        # Instrumentation of this run only: when the first step ends, and
-        # the eval renders' rays and seconds (render_rays returns numpy,
-        # so each call has finished on the card when it returns).
-        marks = {"first_step": None, "render_rays": 0, "render_s": 0.0}
-        train_step, render_rays = Trainer.train_step, Trainer.render_rays
-
-        def timed_step(self, batch, uniforms=None):
-            m = train_step(self, batch, uniforms)
-            if marks["first_step"] is None:
-                float(m["loss"])
-                marks["first_step"] = time.perf_counter()
-            return m
-
-        def timed_render(self, origins, directions, *a, **k):
-            t = time.perf_counter()
-            r = render_rays(self, origins, directions, *a, **k)
-            marks["render_s"] += time.perf_counter() - t
-            marks["render_rays"] += len(origins)
-            return r
-
-        args = ["--data", str(data), "--tetrahedra-path", str(data / "tetra.npz"),
-                "--device", str(dev), "--log-every", "50",
-                "--steps-per-eval-batch", "100", "--steps-per-eval-image", "200",
-                "--steps-per-eval-all-images", str(CLI_STEPS)]
-        stdout, stderr = io.StringIO(), io.StringIO()
-        Trainer.train_step, Trainer.render_rays = timed_step, timed_render
-        try:
-            torch.cuda.synchronize()
-            cuda.reset_launch_counts()
-            t_main = time.perf_counter()
-            with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
-                trainer = cli.main(args + ["--output-dir", str(out),
-                                           "--max-num-iterations", str(CLI_STEPS)])
-            main_s = time.perf_counter() - t_main
-            launches = dict(cuda.launch_counts)
-        finally:
-            Trainer.train_step, Trainer.render_rays = train_step, render_rays
-        log = stderr.getvalue().splitlines()
-        for line in log:
-            if not line.startswith("step "):
-                print("cli:", line)
-        steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3).replace(",", "")))
-                 for m in (re.match(r"step (\d+)/\d+ loss=(\S+) psnr=\S+ rays/s=(\S+)", x)
-                           for x in log) if m]
-        evals = {int(m.group(1)): float(m.group(2))
-                 for m in (re.match(r"eval step (\d+): psnr=(\S+)", x) for x in log) if m}
-        final = json.loads(stdout.getvalue().strip().splitlines()[-1])
-        print(f"cli: main() to the end of step 1 {marks['first_step'] - t_main:.2f} s "
-              f"(dataset load, mesh build, model, the bound tune; the kernels were built "
-              f"in phase 2); {CLI_STEPS} steps, evals and the final eval in {main_s:.2f} s")
-        print("cli: fit's log lines (step, loss, rays/s since step 1, eval time "
-              f"included after step 100): {steps}")
-        print(f"cli: eval renders {marks['render_rays']} rays in {marks['render_s']:.3f} s "
-              f"= {marks['render_rays'] / marks['render_s']:.0f} rays/s; held-out "
-              f"psnr of the eval batches {evals}; final {final}")
-        print(f"cli: launches {launches}")
-
-        _check([s[0] for s in steps] == list(range(50, CLI_STEPS + 1, 50)),
-               f"cli: log steps {steps}")
-        _check(all(np.isfinite(s[1]) for s in steps), f"cli: non-finite loss {steps}")
-        _check(sorted(evals) == [100, 200, 300], f"cli: eval steps {sorted(evals)}")
-        _check(evals[300] > evals[100], f"cli: eval psnr did not rise {evals}")
-        _check(any(x.startswith("eval-image step 200") for x in log)
-               and any(x.startswith(f"eval-all-images step {CLI_STEPS}") for x in log),
-               "cli: image evals missing")
-        _check([x.split(":")[0] for x in log if x.startswith("# retune@")]
-               == ["# retune@128", "# retune@256"], "cli: retune lines")
-        _check(final["eval_split"] == "test", f"cli: eval split {final}")
-        _check(0.0 < final["psnr"] < 100.0 and -1.0 <= final["mipnerf_ssim"] <= 1.0
-               and -1.0 <= final["skimage_ssim"] <= 1.0, f"cli: final metrics {final}")
-        for k in FLAGSHIP_KERNELS:
-            _check(launches[k] > 0, f"cli: {k} did not launch: {launches}")
-
-        # final/ into a fresh trainer: the weights and the occupancy column.
-        model = TetraNerf(trainer.model.config, trainer.mesh.num_vertices,
-                          num_train_images=40, device=dev)
-        fresh = Trainer(trainer.config, model,
-                        trainer.mesh.with_occupancy(torch.zeros_like(trainer.occupancy)),
-                        device=dev)
-        fresh.restore_checkpoint(out / "final")
-        want, got = reference_state_dict(trainer.model), reference_state_dict(fresh.model)
-        _check(fresh.step == trainer.step == CLI_STEPS, f"cli: restored step {fresh.step}")
-        for k in want:
-            _check(np.array_equal(want[k], got[k]), f"cli: restored {k} differs")
-        _check(torch.equal(fresh.mesh.march_table[:, 24], trainer.mesh.march_table[:, 24]),
-               "cli: restored occupancy column differs")
-        del fresh, model, trainer
-        torch.cuda.empty_cache()
-
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-            resumed = cli.main(args + ["--output-dir", str(tmp / "resumed"),
-                                       "--max-num-iterations", str(CLI_RESUME_STEPS),
-                                       "--load-checkpoint", str(out / "final")])
-        _check(resumed.step == CLI_STEPS + CLI_RESUME_STEPS, f"cli: resumed step {resumed.step}")
-        print(f"cli: resumed from final/ for {CLI_RESUME_STEPS} steps (with its final eval) "
-              f"in {time.perf_counter() - t:.2f} s; restored weights and occupancy bit-equal")
-        del resumed
-        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t_main = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            trainer = cli.main(args + ["--output-dir", str(out),
+                                       "--max-num-iterations", str(CLI_STEPS)])
+        main_s = time.perf_counter() - t_main
+        launches = dict(cuda.launch_counts)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        Trainer.train_step, Trainer.render_rays = train_step, render_rays
+    log = stderr.getvalue().splitlines()
+    for line in log:
+        if not line.startswith("step "):
+            print("cli:", line)
+    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3).replace(",", "")))
+             for m in (re.match(r"step (\d+)/\d+ loss=(\S+) psnr=\S+ rays/s=(\S+)", x)
+                       for x in log) if m]
+    evals = {int(m.group(1)): float(m.group(2))
+             for m in (re.match(r"eval step (\d+): psnr=(\S+)", x) for x in log) if m}
+    final = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    print(f"cli: main() to the end of step 1 {marks['first_step'] - t_main:.2f} s "
+          f"(dataset load, mesh build, model, the bound tune; the kernels were built "
+          f"in phase 2); {CLI_STEPS} steps, evals and the final eval in {main_s:.2f} s")
+    print("cli: fit's log lines (step, loss, rays/s since step 1, eval time "
+          f"included after step 100): {steps}")
+    print(f"cli: eval renders {marks['render_rays']} rays in {marks['render_s']:.3f} s "
+          f"= {marks['render_rays'] / marks['render_s']:.0f} rays/s; held-out "
+          f"psnr of the eval batches {evals}; final {final}")
+    print(f"cli: launches {launches}")
+
+    _check([s[0] for s in steps] == list(range(50, CLI_STEPS + 1, 50)),
+           f"cli: log steps {steps}")
+    _check(all(np.isfinite(s[1]) for s in steps), f"cli: non-finite loss {steps}")
+    _check(sorted(evals) == [100, 200, 300], f"cli: eval steps {sorted(evals)}")
+    _check(evals[300] > evals[100], f"cli: eval psnr did not rise {evals}")
+    _check(any(x.startswith("eval-image step 200") for x in log)
+           and any(x.startswith(f"eval-all-images step {CLI_STEPS}") for x in log),
+           "cli: image evals missing")
+    _check([x.split(":")[0] for x in log if x.startswith("# retune@")]
+           == ["# retune@128", "# retune@256"], "cli: retune lines")
+    _check(final["eval_split"] == "test", f"cli: eval split {final}")
+    _check(0.0 < final["psnr"] < 100.0 and -1.0 <= final["mipnerf_ssim"] <= 1.0
+           and -1.0 <= final["skimage_ssim"] <= 1.0, f"cli: final metrics {final}")
+    for k in FLAGSHIP_KERNELS:
+        _check(launches[k] > 0, f"cli: {k} did not launch: {launches}")
+
+    # final/ into a fresh trainer: the weights and the occupancy column.
+    model = TetraNerf(trainer.model.config, trainer.mesh.num_vertices,
+                      num_train_images=40, device=dev)
+    fresh = Trainer(trainer.config, model,
+                    trainer.mesh.with_occupancy(torch.zeros_like(trainer.occupancy)),
+                    device=dev)
+    fresh.restore_checkpoint(out / "final")
+    want, got = reference_state_dict(trainer.model), reference_state_dict(fresh.model)
+    _check(fresh.step == trainer.step == CLI_STEPS, f"cli: restored step {fresh.step}")
+    for k in want:
+        _check(np.array_equal(want[k], got[k]), f"cli: restored {k} differs")
+    _check(torch.equal(fresh.mesh.march_table[:, 24], trainer.mesh.march_table[:, 24]),
+           "cli: restored occupancy column differs")
+    del fresh, model, trainer
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        resumed = cli.main(args + ["--output-dir", str(tmp / "resumed"),
+                                   "--max-num-iterations", str(CLI_RESUME_STEPS),
+                                   "--load-checkpoint", str(out / "final")])
+    _check(resumed.step == CLI_STEPS + CLI_RESUME_STEPS, f"cli: resumed step {resumed.step}")
+    print(f"cli: resumed from final/ for {CLI_RESUME_STEPS} steps (with its final eval) "
+          f"in {time.perf_counter() - t:.2f} s; restored weights and occupancy bit-equal")
+    del resumed
+    torch.cuda.empty_cache()
     print(f"cli: phase 14 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, final
+
+
+def _cache_bytes(cache):
+    """Device bytes of a ``Trainer.cache_camera`` cache: every chunk's march
+    tensors (its vertex stream included) and padded rays."""
+    import torch
+
+    total = 0
+    for res, o, d in cache["chunks"]:
+        for x in [*res, *res.stream, o, d]:
+            if isinstance(x, torch.Tensor):
+                total += x.numel() * x.element_size()
+    return total
+
+
+def _post_png(port, body, tmp):
+    """A viewer frame, decoded by ``utils/png.py`` (through a file under
+    ``tmp``), and the seconds the request took."""
+    import urllib.request
+
+    from tetranerf_torch.utils.png import read_png
+
+    t = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/render", method="POST",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=300) as r:
+        _check(r.headers["Content-Type"] == "image/png", "serve: frame is not a PNG")
+        data = r.read()
+    seconds = time.perf_counter() - t
+    path = tmp / "frame.png"
+    path.write_bytes(data)
+    return read_png(path), seconds
+
+
+def serve_phase(tmp, dev, cli_final):
+    """Phase 15: serve phase 14's ``final/`` checkpoint: the render CLI over
+    the 8 test views, the viewer (page, a fast 400^2 frame, an 800^2 pose
+    as 8 progressive bands twice: misses, then hits on the cached
+    marches), and the live viewer while the restored trainer trains.
+    ``cli_final`` is phase 14's final metrics. Returns the launches of the
+    render CLI, of every viewer request and of the cached bands alone."""
+    import urllib.request
+
+    import torch
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.render import Renderer
+    from tetranerf_torch.scripts import render
+    from tetranerf_torch.training.datasets import load_dataset
+    from tetranerf_torch.utils.png import read_png
+    from tetranerf_torch.viewer import ViewerServer, _camera_rays, _look_at
+
+    t_phase = time.perf_counter()
+    data, final = tmp / "sphere", tmp / "out" / "final"
+    args = ["--checkpoint", str(final), "--data", str(data), "--tetrahedra-path",
+            str(data / "tetra.npz"), "--output", str(tmp / "renders"), "--device", str(dev)]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        mean = render.main(args)
+    render_s = time.perf_counter() - t
+    render_launches = dict(cuda.launch_counts)
+    with open(tmp / "renders" / "metrics.json") as f:
+        saved = json.load(f)
+    _check(saved == mean and all(np.isfinite(v) for v in saved.values()),
+           f"serve render: metrics.json {saved}")
+    for k in RENDER_KERNELS:
+        _check(render_launches[k] > 0, f"serve render: {k} did not launch: {render_launches}")
+    print(f"serve render: tetranerf-torch-render over the 8 test views in "
+          f"{render_s:.2f} s (mesh build and restore included): psnr {mean['psnr']:.3f} "
+          f"(phase 14's final eval {cli_final['psnr']:.3f}: a checkpoint holds neither "
+          f"the tuned bounds nor the cap), mipnerf_ssim {mean['mipnerf_ssim']:.4f}, "
+          f"render_rays_per_sec {mean['render_rays_per_sec']:.0f}; launches "
+          f"{render_launches}")
+
+    t = time.perf_counter()
+    trainer, test = render.load_trainer(final, data, "test", data / "tetra.npz",
+                                        device=dev)
+    h, w = test.height, test.width
+    pngs = sorted((tmp / "renders").glob("test_*.png"))
+    _check(len(pngs) == 2 * test.num_images, f"serve render: {len(pngs)} PNGs")
+    shapes = {read_png(x).shape for x in pngs}
+    _check(shapes == {(h, w, 3), (h, w)}, f"serve render: PNG shapes {shapes}")
+    o, d = test.camera_rays(0)
+    want = trainer.render_rays(o, d, chunk=16384)["rgb"].reshape(h, w, 3)
+    got = read_png(tmp / "renders" / "test_0000.png").astype(np.float32) / 255.0
+    err = float(np.abs(got - np.clip(want, 0, 1)).max())
+    _check(err <= RENDER_RGB_TOL, f"serve render: view 0 rgb max abs err {err}")
+    print(f"serve render: view 0's PNG against render_rays of a trainer restored the "
+          f"same way ({time.perf_counter() - t:.2f} s): max abs err {err:.4f}")
+
+    viewer = ViewerServer(trainer, port=0, chunk=16384, host="127.0.0.1").start()
+    try:
+        port = viewer.port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=60) as r:
+            _check("orbit" in r.read().decode(), "serve viewer: page")
+        pos, side = [0.3, 2.4, 0.6], SERVE_FULL_SIDE
+        band = side // SERVE_BANDS
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        fast = {"position": pos, "side": SERVE_FAST_SIDE, "quality": "fast"}
+        img, fast_s = _post_png(port, fast, tmp)
+        _check(img.shape == (SERVE_FAST_SIDE,) * 2 + (3,),
+               f"serve viewer: fast frame {img.shape}")
+        fast_launches = dict(cuda.launch_counts)
+
+        def full_frame():
+            before = dict(cuda.launch_counts)
+            t = time.perf_counter()
+            for y in range(0, side, band):
+                img, _ = _post_png(port, {"position": pos, "side": side, "quality": "full",
+                                          "rows": [y, y + band]}, tmp)
+                _check(img.shape == (band, side, 3), f"serve viewer: band {img.shape}")
+            return time.perf_counter() - t, {k: n - before[k]
+                                             for k, n in cuda.launch_counts.items()}
+
+        miss_s, miss = full_frame()
+        hit_s, hits = full_frame()
+        viewer_launches = dict(cuda.launch_counts)
+        caches = list(viewer._caches.values())
+        cache_gb = sum(_cache_bytes(c) for c in caches) / 1e9
+        print(f"serve viewer: fast {SERVE_FAST_SIDE}^2 frame {fast_s * 1e3:.1f} ms "
+              f"(launches {fast_launches}); first full {side}^2 frame in "
+              f"{SERVE_BANDS} bands (cache misses) "
+              f"{miss_s:.3f} s; the cached refine {hit_s:.3f} s = "
+              f"{side * side / hit_s:.0f} rays/s; the {len(caches)} cached bands hold "
+              f"{cache_gb:.3f} GB on the device; launches on the misses {miss}, on the "
+              f"hits {hits}")
+        _check(len(caches) == SERVE_BANDS, f"serve viewer: {len(caches)} cached bands")
+        _check(miss["march"] > 0, f"serve viewer: K1 not launched on the misses: {miss}")
+        _check(hits["march"] == 0, f"serve viewer: K1 launched on the hits: {hits}")
+        for k in ("stream_blend_gather", "sample_interp"):
+            _check(hits[k] > 0, f"serve viewer: {k} not launched on the hits: {hits}")
+
+        # Band 0's dense re-shade against the render forward of its rays. A
+        # restored trainer has no tuned bucket bounds, so render_rays shades
+        # at the untuned linear split, which cuts rays deeper than their
+        # bucket's bound (the traversal_overflow count): the check takes the
+        # forward with every bucket at the full bound, which cuts nothing,
+        # and the gap to render_rays is printed beside it.
+        ro, rd = _camera_rays(_look_at(pos), side, viewer.camera_angle_x)
+        ro, rd = ro[: band * side], rd[: band * side]
+        dense = trainer.render_cached(caches[0])
+        full = trainer.max_steps
+        ref = Renderer(trainer.model, trainer.mesh, dev, occ_depth_cap=trainer.occ_depth_cap,
+                       max_steps=full, bucket_steps=(full,) * (trainer.model.config.ray_buckets - 1)
+                       ).render_rays(ro, rd, chunk=16384)
+        err = float(np.abs(dense["rgb"] - ref["rgb"]).max())
+        rays = trainer.render_rays(ro, rd, chunk=16384)
+        print(f"serve viewer: band 0's dense re-shade against the forward at the full "
+              f"bound {full}: rgb max abs err {err:.3g}; against render_rays (untuned "
+              f"bucket bounds {trainer.model.bucket_bounds(full)}): "
+              f"{float(np.abs(dense['rgb'] - rays['rgb']).max()):.3g}, with "
+              f"{int(rays['traversal_overflow'].sum())} of {band * side} rays cut")
+        _check(err <= RENDER_RGB_TOL, f"serve viewer: dense re-shade rgb max abs err {err}")
+
+        # Live: train on one thread while the main thread asks for frames.
+        train = load_dataset(data, "train")
+        rng = np.random.default_rng(3)
+        batches = [train.sample_ray_batch(rng, TRAIN_RAYS) for _ in range(SERVE_LIVE_STEPS)]
+        step, version = trainer.step, trainer.march_version
+        errors = []
+
+        def train_loop():
+            try:
+                for b in batches:
+                    trainer.train_step(b)
+                torch.cuda.synchronize()
+            except BaseException as exc:  # re-raised on the main thread
+                errors.append(exc)
+
+        thread = threading.Thread(target=train_loop)
+        t = time.perf_counter()
+        thread.start()
+        try:
+            frame_s = [_post_png(port, fast, tmp)[1] for _ in range(4)]
+        finally:
+            thread.join(timeout=300)
+        live_s = time.perf_counter() - t
+        _check(not thread.is_alive(), "serve live: the train thread did not end")
+        if errors:
+            raise errors[0]
+        _check(trainer.step == step + SERVE_LIVE_STEPS, f"serve live: step {trainer.step}")
+        _check(trainer.march_version > version, "serve live: march_version did not move")
+        before = cuda.launch_counts["march"]
+        _post_png(port, {"position": pos, "side": side, "quality": "full",
+                         "rows": [0, band]}, tmp)
+        _check(cuda.launch_counts["march"] > before,
+               "serve live: the full frame after training did not march")
+        print(f"serve live: {SERVE_LIVE_STEPS} train steps of {TRAIN_RAYS} rays and 4 "
+              f"fast frames "
+              f"({', '.join(f'{x * 1e3:.1f}' for x in frame_s)} ms) in {live_s:.2f} s; "
+              f"march_version {version} -> {trainer.march_version}; the next full band "
+              f"marched again")
+    finally:
+        viewer.stop()
+    del trainer, viewer
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    print(f"serve: phase 15 took {elapsed:.1f} s")
+    _check(elapsed < 30.0, f"serve: phase 15 took {elapsed:.1f} s, not under 30 s")
+    return render_launches, viewer_launches, hits
 
 
 def _mlp_build_report(log):
@@ -1921,9 +2157,16 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
-    # Training from disk through the port's CLI.
-    paths["cli_train"] = cli_phase((points, colors, cells), dev)
-    torch.cuda.empty_cache()
+    # Training from disk through the port's CLI, then serving its checkpoint.
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
+    try:
+        paths["cli_train"], cli_final = cli_phase((points, colors, cells), dev, tmp)
+        torch.cuda.empty_cache()
+        paths["serve_render"], paths["serve_viewer"], paths["serve_viewer_cached"] = \
+            serve_phase(tmp, dev, cli_final)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     for k in kernels:

@@ -19,6 +19,16 @@ from tetranerf_torch.utils.shapes import inner_bound, scaled_budget
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 from test_torch_train import _jax_layout, _rel_err, _step_uniforms
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores, and
+    torch's thread pool oversubscribed slows these small ops many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 # The tetra-nerf preset narrowed, with 4 buckets.
 SMALL = dict(field_dim=16, hidden_size=32, num_samples=16, num_fine_samples=16,
              max_intersected_triangles=64, ray_buckets=4)

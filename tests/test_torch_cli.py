@@ -2,7 +2,9 @@
 ``tests/test_cli.py``: the same cadence of log and eval lines, the same
 final metrics and checkpoint; resume; the flag semantics (alias conflicts,
 zero-valued aliases, the missing test split); the flags of code the port
-does not have; and the device default."""
+does not have; and the device default. Then the serving entry points on the
+run's checkpoint: the render script's files against the JAX script's names
+and keys, and the live viewer during ``fit``."""
 
 import json
 import re
@@ -202,7 +204,6 @@ def test_missing_test_split(tiny_scene_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--viewer-port", "8080"], "A7"),
     (["--num-model-shards", "2"], "A9"),
     (["--skip-grid", "16"], "A8"),
     (["--model.skip-grid-resolution", "16"], "A8"),
@@ -220,3 +221,70 @@ def test_device_defaults_to_the_card(tmp_path):
         # No card: exit, never train on the CPU instead.
         with pytest.raises(SystemExit, match="no CUDA device"):
             port_main(["--data", str(tmp_path)])
+
+
+def test_render_script_writes_the_jax_outputs(port_run, tmp_path, capsys):
+    """``scripts.render.main`` on ``final/``: JAX's file names and
+    ``metrics.json`` keys; the rgb PNG is ``render_rays`` of a trainer
+    restored the same way, to within one 8-bit level."""
+    from tetranerf_torch.scripts import render
+    from tetranerf_torch.utils.png import read_png
+    from tetranerf_tpu.training.metrics import compute_image_metrics
+
+    scene, final = port_run["scene"], port_run["root"] / "port" / "final"
+    out = tmp_path / "renders"
+    args = ["--checkpoint", str(final), "--data", str(scene), "--tetrahedra-path",
+            str(scene / "tetra.npz"), "--output", str(out), "--device", "cpu"]
+    mean = render.main(args + ["--max-images", "2"])
+    assert sorted(p.name for p in out.iterdir()) == [
+        "metrics.json", "test_0000.png", "test_0000_depth.png", "test_0001.png",
+        "test_0001_depth.png"]
+    img = np.zeros((16, 16, 3), np.float32)
+    keys = list(compute_image_metrics(img, img + 0.5)) + ["render_rays_per_sec"]
+    with open(out / "metrics.json") as f:
+        saved = json.load(f)
+    assert list(saved) == keys and saved == mean
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == mean
+    assert all(np.isfinite(v) for v in saved.values())
+    trainer, dataset = render.load_trainer(final, scene, "test", scene / "tetra.npz",
+                                           device="cpu")
+    assert trainer.step == 20 and trainer.tuned_max_steps is None
+    o, d = dataset.camera_rays(1)
+    want = np.clip(trainer.render_rays(o, d, chunk=16384)["rgb"], 0, 1).reshape(16, 16, 3)
+    got = read_png(out / "test_0001.png")
+    assert np.abs(got.astype(np.float32) - want * 255).max() <= 1.0
+    assert read_png(out / "test_0001_depth.png").shape == (16, 16)
+
+
+def test_viewer_port_serves_during_fit(port_run, tmp_path, monkeypatch, capsys):
+    """``--viewer-port 0`` starts the viewer before ``fit``, answers a fast
+    frame between two steps, and stops after ``fit``."""
+    import urllib.request
+
+    from tetranerf_torch import viewer
+    from tetranerf_torch.training.trainer import Trainer
+
+    servers, frames = [], []
+    start, train_step = viewer.ViewerServer.start, Trainer.train_step
+
+    def recording_start(self, background=True):
+        servers.append(self)
+        return start(self, background)
+
+    def step_then_frame(self, batch, uniforms=None):
+        metrics = train_step(self, batch, uniforms)
+        if self.step == 2:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{servers[0].port}/render", method="POST",
+                data=json.dumps({"position": [0, 2.5, 0.5], "side": 16}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                frames.append(r.read())
+        return metrics
+
+    monkeypatch.setattr(viewer.ViewerServer, "start", recording_start)
+    monkeypatch.setattr(Trainer, "train_step", step_then_frame)
+    trainer = port_main(_flags(port_run["scene"], tmp_path / "v", 3)
+                        + ["--device", "cpu", "--viewer-port", "0"])
+    assert trainer.step == 3 and len(servers) == 1 and servers[0]._httpd is None
+    assert len(frames) == 1 and frames[0][:4] == b"\x89PNG"
+    assert f"live viewer at http://localhost:{servers[0].port}" in capsys.readouterr().err

@@ -15,6 +15,16 @@ from tetranerf_torch.training.checkpoints import (
 )
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores, and
+    torch's thread pool oversubscribed slows these small ops many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 # The slice's configuration (tetra-nerf preset, ray_buckets=1) narrowed.
 SMALL = dict(field_dim=16, hidden_size=32, num_samples=16, num_fine_samples=16,
              max_intersected_triangles=64, ray_buckets=1)

@@ -20,6 +20,16 @@ from tetranerf_torch.utils.synthetic import (
 )
 from test_torch_train import _batch, _configs, _step_uniforms
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores, and
+    torch's thread pool oversubscribed slows these small ops many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 NUM_RAYS = 64
 
 

@@ -14,6 +14,23 @@ import numpy as np
 import torch
 
 
+def chunks(origins, directions, chunk: int, device):
+    """``[N, 3]`` rays in chunks of ``chunk`` on ``device``, as ``(origins,
+    directions, rays)``: the last chunk padded with rays from the origin
+    along +z, ``rays`` the number of real ones."""
+    origins = torch.as_tensor(origins, dtype=torch.float32)
+    directions = torch.as_tensor(directions, dtype=torch.float32)
+    pad_dir = torch.tensor([0.0, 0.0, 1.0], device=device)
+    for i in range(0, origins.shape[0], chunk):
+        o = origins[i : i + chunk].to(device)
+        d = directions[i : i + chunk].to(device)
+        num = o.shape[0]
+        if num < chunk:
+            o = torch.cat([o, torch.zeros((chunk - num, 3), device=device)])
+            d = torch.cat([d, pad_dir.expand(chunk - num, 3)])
+        yield o, d, num
+
+
 class Renderer:
     """Renders rays with ``model`` (a :class:`~.models.TetraNerf`) through
     ``mesh`` (a :class:`~.geometry.TorchMesh`), both moved to ``device``.
@@ -58,21 +75,10 @@ class Renderer:
         """Render ``[N, 3]`` rays in chunks of ``chunk`` (the last one padded
         with rays from the origin along +z); returns the outputs of
         :meth:`render_batch` for the ``N`` rays as numpy arrays."""
-        origins = torch.as_tensor(origins, dtype=torch.float32)
-        directions = torch.as_tensor(directions, dtype=torch.float32)
-        num = origins.shape[0]
-        dev = self.device
-        pad_dir = torch.tensor([0.0, 0.0, 1.0], device=dev)
         outs = []
-        for i in range(0, num, chunk):
-            o = origins[i : i + chunk].to(dev)
-            d = directions[i : i + chunk].to(dev)
-            pad = chunk - o.shape[0]
-            if pad:
-                o = torch.cat([o, torch.zeros((pad, 3), device=dev)])
-                d = torch.cat([d, pad_dir.expand(pad, 3)])
+        for o, d, num in chunks(origins, directions, chunk, self.device):
             out = self.render_batch(o, d, num_samples, num_fine_samples)
-            outs.append({k: v[: chunk - pad] for k, v in out.items()})
+            outs.append({k: v[:num] for k, v in out.items()})
         return {
             k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]
         }

@@ -17,6 +17,8 @@ evaluation over every held-out image (one JSON line on stdout and
 ``cuda``) names the torch device; without a card the CLI exits rather than
 train on the CPU, which takes ``--device cpu``. Flags for code the port
 does not have yet exit with the ``ROADMAP.md`` item that ports it.
+``--viewer-port`` serves the live viewer (:mod:`..viewer`) while ``fit``
+runs.
 """
 
 from __future__ import annotations
@@ -178,7 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "without this flag a missing test split aborts)")
     _add_model_flags(parser)
     parser.add_argument("--viewer-port", type=int, default=None,
-                        help="the live viewer is not ported yet (ROADMAP A7)")
+                        help="serve the live viewer of the model while it trains "
+                        "on this port (0: any free port)")
     return parser
 
 
@@ -236,9 +239,6 @@ def _refuse_unported(args, config):
     from ..models.config import check_supported
     from .presets import check_single_device
 
-    if args.viewer_port is not None:
-        raise SystemExit("--viewer-port: the live viewer is not ported to "
-                         "tetranerf_torch yet (ROADMAP A7)")
     if config.model.skip_grid_resolution > 0:
         raise SystemExit("--skip-grid / skip_grid_resolution > 0: the empty-space "
                          "skip grid is not ported to tetranerf_torch yet (ROADMAP A8)")
@@ -249,13 +249,13 @@ def _refuse_unported(args, config):
         raise SystemExit(str(exc)) from None
 
 
-def _check_device(device: str):
+def check_device(device: str):
     import torch
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {device}: no CUDA device is available; pass "
-                         "--device cpu to train on the CPU")
+                         "--device cpu to run on the CPU")
     return device
 
 
@@ -263,7 +263,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     config = _config_from_args(args)
     _refuse_unported(args, config)
-    device = _check_device(args.device)
+    device = check_device(args.device)
 
     import torch
 
@@ -355,8 +355,18 @@ def main(argv=None):
             idx = int(eval_rng.integers(eval_ds.num_images))
             log_fn(f"eval-image step {step} (image {idx}): {fmt(eval_image(tr, idx))}")
 
-    trainer.fit(next_batch, log_every=args.log_every, log_fn=log_fn, eval_fn=eval_fn,
-                eval_every=every_batch)
+    viewer = None
+    if args.viewer_port is not None:
+        from ..viewer import ViewerServer
+
+        viewer = ViewerServer(trainer, port=args.viewer_port).start()
+        log_fn(f"live viewer at http://localhost:{viewer.port}")
+    try:
+        trainer.fit(next_batch, log_every=args.log_every, log_fn=log_fn,
+                    eval_fn=eval_fn, eval_every=every_batch)
+    finally:
+        if viewer is not None:
+            viewer.stop()
 
     # Final eval over the whole held-out split with every metric.
     mean_metrics = eval_all(trainer)

@@ -21,6 +21,12 @@ the JAX trainer:
 
 The trainer holds one termination cap, :attr:`Trainer.occ_depth_cap`: the
 train forward, the occupancy update, the probes and rendering all read it.
+:attr:`Trainer.march_version` counts the changes to what a march depends on
+(the bounds, the occupancy column, the cap), so that a march cached by
+:meth:`Trainer.cache_camera` and re-shaded by :meth:`Trainer.render_cached`
+(the viewer's refine) is not taken for a current one. :attr:`Trainer.lock`
+lets a viewer render while another thread trains: a step, and every render,
+holds it.
 
 :meth:`Trainer.fit` is the training loop (JAX ``Trainer.fit``): batches
 assembled on a producer thread, log lines, ``eval_fn`` and checkpoints
@@ -42,8 +48,8 @@ import torch
 from ..ops.fused import biased_warp_range, march_features, ray_bounds, sample_features
 from ..ops.march import march
 from ..ops.sampling import stratified_bins
-from ..render import Renderer
-from ..utils.shapes import inner_bound, rounded_bound
+from ..render import Renderer, chunks
+from ..utils.shapes import grid_ceil, inner_bound, rounded_bound
 from . import checkpoints
 from .optim import make_optimizer, set_step
 from .presets import TrainConfig, check_single_device
@@ -143,6 +149,12 @@ class Trainer:
         self._cap_history: list = []
         self._retune_stats: list = []
         self._generator = torch.Generator(device=self.device)
+        self.march_version = 0
+        """Bumped whenever the bounds, the occupancy column or the cap change,
+        or a checkpoint is restored (JAX ``Trainer.march_version``)."""
+        self.lock = threading.RLock()
+        """Held by :meth:`train_step` and by every render, so that a viewer
+        thread never reads the parameters while the optimizer writes them."""
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -165,6 +177,7 @@ class Trainer:
         bounds come from the crossing counts' own quantile chunks, at their
         maximum with a 1.5x margin."""
         cfg = self.model.config
+        before = (self.tuned_max_steps, self.tuned_bucket_steps)
         o, d = self._probe_rays(batch)
         num_valid = march(self.mesh, o, d, cfg.max_intersected_triangles).num_valid
         num_valid = num_valid.cpu().numpy()
@@ -175,6 +188,8 @@ class Trainer:
             self.tuned_bucket_steps = quantile_bucket_bounds(
                 num_valid, cfg.ray_buckets, tuned, 100.0, margin=1.5
             )
+        if (self.tuned_max_steps, self.tuned_bucket_steps) != before:
+            self.march_version += 1
         return self.max_steps
 
     @torch.no_grad()
@@ -253,6 +268,7 @@ class Trainer:
         )
         self._cap_history = (self._cap_history + [cap_now])[-3:]
         self.occ_depth_cap = max(self._cap_history)
+        self.march_version += 1  # the cap moves where marches stop
         nv_m = self._march_nv(o, d)
         k_buckets = max(cfg.ray_buckets, 1)
         raw = (
@@ -327,6 +343,7 @@ class Trainer:
                 self.tuned_bucket_steps = tuple(
                     min(b, bound) for b in self.tuned_bucket_steps
                 )
+            self.march_version += 1
         return self.max_steps
 
     # --------------------------------------------------------- occupancy
@@ -336,6 +353,7 @@ class Trainer:
 
     def _write_occupancy(self):
         self.mesh = self.mesh.with_occupancy(self.occupancy)
+        self.march_version += 1
 
     @torch.no_grad()
     def update_occupancy(self, batch: Mapping) -> None:
@@ -401,11 +419,15 @@ class Trainer:
         return self._generator.manual_seed(seed)
 
     def train_step(self, batch: Mapping, uniforms=None) -> Dict[str, torch.Tensor]:
-        """One optimisation step. ``uniforms`` (keys of
+        """One optimisation step, under :attr:`lock`. ``uniforms`` (keys of
         :func:`~..models.tetra_nerf.draw_uniforms`, or with bucketed shading
         a list of them, one per bucket) replace the step's own random
         numbers. Returns ``loss``, ``psnr`` and ``overflow_rays`` (rays whose
         march reached its bound) as device scalars."""
+        with self.lock:
+            return self._train_step(batch, uniforms)
+
+    def _train_step(self, batch: Mapping, uniforms) -> Dict[str, torch.Tensor]:
         cfg = self.model.config
         step = self.step
         occ = cfg.use_occupancy_field
@@ -462,7 +484,8 @@ class Trainer:
     def eval_batch(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """The eval forward of one batch (``origins``, ``directions``) as
         device tensors (JAX ``Trainer.eval_batch``)."""
-        return self.renderer().render_batch(batch["origins"], batch["directions"])
+        with self.lock:
+            return self.renderer().render_batch(batch["origins"], batch["directions"])
 
     def render_rays(self, origins, directions, chunk: int = 8192,
                     num_samples: Optional[int] = None,
@@ -471,8 +494,121 @@ class Trainer:
         ``Trainer.render_rays``); ``num_samples``/``num_fine_samples``
         override the sample budget (``num_fine_samples=0`` skips the PDF
         round)."""
-        return self.renderer().render_rays(origins, directions, chunk,
-                                           num_samples, num_fine_samples)
+        with self.lock:
+            return self.renderer().render_rays(origins, directions, chunk,
+                                               num_samples, num_fine_samples)
+
+    # ------------------------------------------------ static-camera cache
+    @torch.inference_mode()
+    def cache_camera(self, origins, directions, chunk: int = 8192,
+                     sort_by_depth: bool = False) -> dict:
+        """March a camera's ``[N, 3]`` rays once, geometry only (K1), and keep
+        each chunk's march on the device, for :meth:`render_cached` to
+        re-shade against the parameters of the time (JAX
+        ``Trainer.cache_camera``). Chunks are padded as
+        :meth:`render_rays` pads them, and march at the eval forward's bound
+        and termination settings, so a re-shade reproduces
+        :meth:`render_rays`.
+
+        ``sort_by_depth`` marches twice: the first pass gives every ray's
+        crossing count, then the rays are re-chunked in that order (stably)
+        and each chunk re-marched at its own bound, ``grid_ceil`` of its
+        deepest ray (at least 16, at most the full bound), so that a
+        shallow chunk is shaded at its own depth.
+
+        Returns ``{"chunks": [(march, origins, directions)], "chunk",
+        "num_rays"}``, and with ``sort_by_depth`` also ``"perm"`` (the
+        order of the rays) and ``"bounds"`` (one per chunk)."""
+        cfg = self.model.config
+        origins = torch.as_tensor(np.asarray(origins, np.float32))
+        directions = torch.as_tensor(np.asarray(directions, np.float32))
+        num = origins.shape[0]
+        with self.lock:
+            # One snapshot for both passes: an occupancy write swaps the mesh
+            # for a new table, and the cap moves at a retune.
+            mesh, cap, full = self.mesh, self.occ_depth_cap, self.max_steps
+
+            def march_chunks(o_all, d_all, bounds=None):
+                return [
+                    (march_features(mesh, None, o, d, bounds[ci] if bounds else full,
+                                    use_occupancy=cfg.use_occupancy_field,
+                                    occ_threshold=cfg.occupancy_threshold,
+                                    occ_depth_cap=cap), o, d)
+                    for ci, (o, d, _) in enumerate(chunks(o_all, d_all, chunk, self.device))
+                ]
+
+            marched = march_chunks(origins, directions)
+            if not sort_by_depth:
+                return {"chunks": marched, "chunk": chunk, "num_rays": num}
+            # Every chunk's crossing counts in one transfer.
+            nv = torch.cat([
+                res.num_valid[: min(chunk, num - ci * chunk)]
+                for ci, (res, _, _) in enumerate(marched)
+            ]).cpu().numpy()
+            perm = np.argsort(nv, kind="stable")
+            bounds = [
+                min(full, grid_ceil(max(int(nv[perm[i : i + chunk]].max()), 16)))
+                for i in range(0, num, chunk)
+            ]
+            order = torch.from_numpy(perm)
+            marched = march_chunks(origins[order], directions[order], bounds)
+        return {"chunks": marched, "chunk": chunk, "num_rays": num,
+                "perm": perm, "bounds": bounds}
+
+    def adaptive_budget(self, bounds, ci: int, num_samples: Optional[int] = None,
+                        num_fine_samples: Optional[int] = None) -> tuple:
+        """``(num_samples, num_fine_samples)`` of chunk ``ci`` of a
+        depth-sorted cache (JAX ``Trainer.adaptive_budget``): the budgets
+        scaled by the chunk's bound over the deepest, so that the samples
+        per crossing never drop below the full budget's, rounded up on the
+        bound grid, at least 16; a zero fine budget stays 0."""
+        cfg = self.model.config
+        t_c = bounds[ci]
+        full = max(bounds) if bounds else 1
+        base_ns = num_samples if num_samples is not None else cfg.num_samples
+        base_nf = num_fine_samples if num_fine_samples is not None else cfg.num_fine_samples
+        frac = t_c / max(full, 1)
+        ns = min(base_ns, grid_ceil(max(16, base_ns * frac)))
+        nf = min(base_nf, grid_ceil(max(16, base_nf * frac))) if base_nf else base_nf
+        return ns, nf
+
+    @torch.inference_mode()
+    def render_cached(self, cache: dict, num_samples: Optional[int] = None,
+                      num_fine_samples: Optional[int] = None,
+                      adaptive_samples: bool = False) -> Dict[str, np.ndarray]:
+        """Re-shade a camera cached by :meth:`cache_camera` with the current
+        parameters, without a march (JAX ``Trainer.render_cached``); the
+        outputs of :meth:`render_rays`, in the rays' own order.
+
+        A depth-sorted chunk is shaded at its own bound with every bucket
+        bound equal to it, so the plain forward runs (no bucket slice);
+        ``adaptive_samples`` scales its sample budget by
+        :meth:`adaptive_budget`. An unsorted chunk is shaded as
+        :meth:`render_rays` shades it, in buckets at the tuned bounds."""
+        bounds = cache.get("bounds")
+        outs = []
+        with self.lock:
+            model = self.model
+            for ci, (cached, o, d) in enumerate(cache["chunks"]):
+                t_c = bounds[ci] if bounds else None
+                ns, nf = num_samples, num_fine_samples
+                if adaptive_samples and t_c is not None:
+                    ns, nf = self.adaptive_budget(bounds, ci, ns, nf)
+                out = model.get_outputs(
+                    o, d, self.mesh, num_samples=ns, num_fine_samples=nf,
+                    short_steps=t_c,
+                    bucket_steps=None if t_c else self.tuned_bucket_steps,
+                    cached_march=cached,
+                )
+                valid = min(cache["chunk"], cache["num_rays"] - ci * cache["chunk"])
+                outs.append({k: v[:valid] for k, v in out.items()})
+        out = {k: torch.cat([o_[k] for o_ in outs]).cpu().numpy() for k in outs[0]}
+        perm = cache.get("perm")
+        if perm is not None:
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+            out = {k: v[inv] for k, v in out.items()}
+        return out
 
     # -------------------------------------------------------- checkpoint
     def save_checkpoint(self, path) -> None:
@@ -484,7 +620,9 @@ class Trainer:
         """Load a directory written by :meth:`save_checkpoint`. The bounds
         and the cap are not saved: the next step tunes them if this
         trainer has not yet."""
-        checkpoints.restore_checkpoint(path, self)
+        with self.lock:
+            checkpoints.restore_checkpoint(path, self)
+            self.march_version += 1
 
     # -------------------------------------------------------------- loop
     def fit(self, next_batch: Callable[[int], Dict[str, np.ndarray]],

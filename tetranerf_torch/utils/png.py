@@ -4,8 +4,9 @@ way with and without Pillow.
 - :func:`read_png`: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced,
   all five row filters. Other bit depths, interlaced files and palette
   images raise ``ValueError`` naming the file.
-- :func:`write_png`: 8-bit RGB or RGBA rows with filter 0 (none) or 1
-  (sub).
+- :func:`encode_png`: 8-bit gray, gray+alpha, RGB or RGBA rows with
+  filter 0 (none) or 1 (sub), as the bytes of a PNG file;
+  :func:`write_png` writes them to a path.
 - :func:`read_image`: PNG through :func:`read_png`, anything else (JPEG)
   through Pillow when it can be imported.
 
@@ -164,28 +165,41 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path, image: np.ndarray, filter_type: int = 1) -> None:
-    """Write ``uint8 [H, W, 3]`` (RGB) or ``[H, W, 4]`` (RGBA) as an 8-bit
-    PNG whose rows all use ``filter_type`` 0 (none) or 1 (sub)."""
+def encode_png(image: np.ndarray, filter_type: int = 1) -> bytes:
+    """The bytes of an 8-bit PNG of ``uint8 [H, W]`` (gray) or ``[H, W, C]``
+    with C = 1 (gray), 2 (gray+alpha), 3 (RGB) or 4 (RGBA), whose rows all
+    use ``filter_type`` 0 (none) or 1 (sub)."""
     img = np.asarray(image)
     if img.dtype != np.uint8:
-        raise ValueError(f"{path}: write_png takes uint8 images, got {img.dtype}")
-    if img.ndim != 3 or img.shape[-1] not in (3, 4):
-        raise ValueError(f"{path}: image of shape {img.shape} is not RGB or RGBA")
+        raise ValueError(f"encode_png takes uint8 images, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}.get(img.shape[-1]) if img.ndim == 3 else None
+    if color_type is None:
+        raise ValueError(f"image of shape {image.shape} is not gray, gray+alpha, "
+                         "RGB or RGBA")
     if filter_type not in (0, 1):
-        raise ValueError(f"{path}: filter_type must be 0 or 1, got {filter_type}")
+        raise ValueError(f"filter_type must be 0 or 1, got {filter_type}")
     h, w, ch = img.shape
     rows = img.reshape(h, w * ch)
     if filter_type == 1:
         rows = rows.copy()
         rows[:, ch:] = img[:, 1:].reshape(h, -1) - img[:, :-1].reshape(h, -1)
     raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2 if ch == 3 else 6, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return b"".join((_SIGNATURE, _chunk(b"IHDR", header),
+                     _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+                     _chunk(b"IEND", b"")))
+
+
+def write_png(path, image: np.ndarray, filter_type: int = 1) -> None:
+    """Write :func:`encode_png` of ``image`` to ``path``."""
+    try:
+        data = encode_png(image, filter_type)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from None
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", header))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def read_image(path) -> np.ndarray:
