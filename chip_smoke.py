@@ -14,7 +14,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    samples): max abs error against the stated tolerance, median CUDA-event
    times of both (and K2's kernel time by the profiler), the least time the
    card could take (bytes over HBM rate or operations over the f32 rate,
-   from this run's data); K3 also at
+   from this run's data); K1 field by field (every output of ``march()``,
+   which its one launch writes), also at the flagship step's shape (4096
+   train rays, bound 384), with the profiler's kernel time, ``march()`` by
+   CUDA events and its kernels per call, and the latency floor (the
+   longest ray's rows times the dependent-load latency that a pointer
+   chase over the march table measures, built beside the kernels); K3 also at
    three buckets of the flagship's cold step (512 train rays: the deepest
    bound at S=257, the median at its adaptive budget, the shallowest at
    S=33), sorted and shuffled, mask equal, two launches bit-equal;
@@ -73,8 +78,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     1-127 (cold) and 129-255 (after the first retune) beside phase 7's, a
     profile of two steady steps after the retune with each port kernel's
     ms per step beside its bound (from one step's own inputs; K1 from the
-    steps its rays took), K8, K2 and
-    K7 launched once per steady step and K2b once per bucket, and one
+    steps its rays took), K8, K2, K7 and K1 launched once per steady step
+    and K2b once per bucket, ``march()``'s kernels per step, and one
     256-ray step's loss and field gradient against the CPU twins, un-fused
     and fused;
 13. the flagship render: ``Trainer.render_rays`` of phase 12's trainer (its
@@ -102,9 +107,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     the same 8 bands again (cache hits: K1 not launched, K2 and K3 launched;
     the path ``serve_viewer_cached``), one band's dense re-shade against
     ``render_rays``, the bytes the 8 cached marches hold (all requests: the
-    path ``serve_viewer``); then 16 train steps on one thread while the main
-    thread asks for 4 fast frames (every one a PNG, ``march_version``
-    advanced, the next full band marched again).
+    path ``serve_viewer``), and the missed frame's extra time split: the
+    caches dropped, the frame asked for again with ``cache_camera`` timed
+    on the host and every ``march()`` and K1 by CUDA events; then 16 train
+    steps on one thread while the main thread asks for 4 fast frames (every
+    one a PNG, the occupancy updated on the restored trainer's first step,
+    ``march_version`` advanced, the next full band marched again).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -204,10 +212,9 @@ def _time_ms(fn, reps):
     return float(np.median(times))
 
 
-def _device_ms(fn):
-    """Device time of the kernels ``fn`` launches, from ``torch.profiler``
-    (the sum of their durations, without the gaps between them), or None
-    where the profiler records no device events."""
+def _device_kernels(fn):
+    """The device events of the kernels ``fn`` launches, from
+    ``torch.profiler`` (after one call outside it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,7 +224,14 @@ def _device_ms(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_ms(fn):
+    """Device time of the kernels ``fn`` launches (the sum of their
+    durations, without the gaps between them), or None where the profiler
+    records no device events."""
+    kernels = _device_kernels(fn)
     if not kernels:
         return None
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -261,14 +275,94 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None,
                 **bound, **extra)
 
 
-def _march_bound(out):
-    """K1 from its outputs (``MarchOutputs``): per emitted step one 256-byte
-    table row read, 48 bytes of interval written (cells, t0, t1, new_vid,
-    4 barys, 4 positions) and ~80 flops of plane arithmetic; per ray 37
-    bytes in and 38 out."""
-    num_rays = out.hit.shape[0]
-    steps = int((out.cells >= 0).sum()) + int(out.hit.sum())
-    return _bound(steps * (256 + 48) + num_rays * 75, steps * 80)
+def _march_bound(res):
+    """K1 from its outputs (a ``FusedMarch``): per table row a ray visited
+    (each emitted step's, and each hit ray's entry row) its 100 used bytes
+    read and ~80 flops of plane arithmetic; per ray 41 bytes in and every
+    output byte written once, padding included: 49 bytes a slot (cells, t0,
+    t1, valid, a stream id, a position and a weight row) and 58 more (the
+    stream's slot 0, t_entry, num_valid, hit, overflow)."""
+    num_rays, max_t = res.cells.shape
+    rows = int(res.num_valid.sum()) + int(res.hit.sum())
+    return _bound(rows * 100 + num_rays * (41 + 49 * max_t + 58), rows * 80)
+
+
+# Dependent loads over the march table, for K1's latency floor: each hop
+# reads a row at an address hashed from the previous hop's bits.
+_CHASE_CU = r"""
+#include <cuda_runtime.h>
+namespace {
+__device__ __forceinline__ unsigned mix(unsigned x) {
+  x ^= x >> 16; x *= 0x7feb352dU; x ^= x >> 15; x *= 0x846ca68bU; x ^= x >> 16;
+  return x;
+}
+__global__ void chase_kernel(const float* __restrict__ table, unsigned rows,
+                             int hops, unsigned seed, unsigned* out) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned r = (unsigned)(((unsigned long long)mix(seed ^ (tid * 2654435761U)) * rows) >> 32);
+  for (int i = 0; i < hops; ++i) {
+    const unsigned bits = __float_as_uint(__ldg(table + (long long)r * 64 + 16 + (i & 3)));
+    r = (unsigned)(((unsigned long long)mix(r ^ bits ^ i) * rows) >> 32);
+  }
+  out[tid] = r;
+}
+}  // namespace
+extern "C" int chase(const float* table, unsigned rows, int hops, unsigned seed,
+                     int threads, unsigned* out, cudaStream_t stream) {
+  const int block = threads < 64 ? threads : 64;
+  chase_kernel<<<(threads + block - 1) / block, block, 0, stream>>>(table, rows, hops,
+                                                                    seed, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _start_chase_build():
+    """nvcc of the pointer chase, started beside the kernels' build."""
+    from tetranerf_torch.ops import cuda
+
+    cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda.BUILD_DIR / "chase.cu"
+    src.write_text(_CHASE_CU)
+    so = cuda.BUILD_DIR / "libchase.so"
+    proc = subprocess.Popen(
+        [cuda._nvcc(), *cuda._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-shared", str(src), "-o", str(so)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def _load_chase(build):
+    import ctypes
+
+    proc, so = build
+    out = proc.communicate()[0]
+    _check(proc.returncode == 0, f"pointer chase: nvcc failed\n{out}")
+    lib = ctypes.CDLL(str(so))
+    lib.chase.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.chase.restype = ctypes.c_int
+    return lib
+
+
+def dependent_load_ns(chase_lib, table, hops=2000):
+    """ns per dependent load of a random row of ``table`` (hash included),
+    by CUDA events over ``hops`` hops: ``{threads: ns}`` for one chain
+    and for 4096 side by side (the flagship step's rays)."""
+    import torch
+
+    out = {}
+    for threads in (1, TRAIN_RAYS):
+        buf = torch.empty(threads, dtype=torch.int32, device=table.device)
+
+        def run(seed):
+            rc = chase_lib.chase(table.data_ptr(), table.shape[0], hops, seed, threads,
+                                 buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            _check(rc == 0, f"pointer chase: CUDA error {rc}")
+
+        seeds = iter(range(1, 100))
+        out[threads] = _time_ms(lambda: run(next(seeds)), 5) * 1e6 / hops
+    return out
 
 
 def _blend_batch_bound(field, streams):
@@ -352,15 +446,62 @@ def synthetic_occupancy(mesh_cpu):
     return torch.where(centroids.norm(dim=1) > 0.9, 200.0, 0.0)
 
 
-def kernel_checks(mesh, field, origins, directions, bucket_rays):
+_MARCH_EXACT = ("cells", "valid", "num_valid", "hit", "overflow")
+_STREAM_EXACT = ("vids", "pos")
+
+
+def _march_err(ker, twin, label):
+    """K1 against its twin, field by field: ids, masks and counts exact,
+    distances where finite (the same infinities), t_entry on hit rays,
+    weights: the max abs error."""
+    import torch
+
+    for name in _MARCH_EXACT:
+        _check(torch.equal(getattr(ker, name), getattr(twin, name)),
+               f"{label}: {name} differs from the twin")
+    for name in _STREAM_EXACT:
+        _check(torch.equal(getattr(ker.stream, name), getattr(twin.stream, name)),
+               f"{label}: stream {name} differs from the twin")
+    hit = twin.hit
+    return max(_max_err(ker.t0, twin.t0, True), _max_err(ker.t1, twin.t1, True),
+               _max_err(ker.t_entry[hit], twin.t_entry[hit]),
+               _max_err(ker.stream.bary, twin.stream.bary))
+
+
+def _march_timing(mesh, origins, directions, args, chase_ns):
+    """K1 alone (CUDA events around ``march_intervals``, one launch; and
+    the profiler's kernel time), ``march()`` end to end by CUDA events with
+    its kernels per call, the bound from the outputs and the latency floor
+    (the longest ray's rows x the dependent-load latency of 4096 chains)."""
+    from tetranerf_torch.ops.march import march, march_intervals
+
+    max_steps, use_occ = args[8], args[11]
+    res = march_intervals(*args)
+
+    def whole():
+        return march(mesh, origins, directions, max_steps, use_occupancy=use_occ,
+                     occ_threshold=1e-4)
+
+    launches = len(_device_kernels(whole)) or None
+    longest = int(res.num_valid.max()) + 1  # + the entry row
+    return dict(
+        ms=_time_ms(lambda: march_intervals(*args), 10),
+        device_ms=_device_ms(lambda: march_intervals(*args)),
+        march_ms=_time_ms(whole, 10), march_kernels_per_call=launches,
+        latency_floor_ms=longest * chase_ns / 1e6, longest_ray_rows=longest,
+        intervals_mean=float(res.num_valid.float().mean()), **_march_bound(res))
+
+
+def kernel_checks(mesh, field, origins, directions, bucket_rays, chase_ns):
     """Phase 3: each forward kernel against its twin on the card; K3 also
     at three flagship bucket shapes cut from the march of ``bucket_rays``
-    (the train rays' origins and directions)."""
+    (the train rays' origins and directions). K1 is also checked and timed
+    at the flagship step's shape (those rays, bound 384, no termination as
+    under the cold zero column); ``chase_ns`` is the dependent-load latency
+    of 4096 chains over the march table."""
     import torch
     from tetranerf_torch.ops import fused, interp
-    from tetranerf_torch.ops.march import (
-        march, march_intervals, march_intervals_twin,
-    )
+    from tetranerf_torch.ops.march import march, march_intervals, march_intervals_twin
     from tetranerf_torch.ops.traversal import hull_intersect
 
     results = []
@@ -369,33 +510,40 @@ def kernel_checks(mesh, field, origins, directions, bucket_rays):
             t_out, facet, hit, 512, 512, 16, True, float(-np.log(1e-4)))
     ker = march_intervals(*args)
     twin = march_intervals_twin(*args)
-    for name in ("cells", "pos", "new_vid", "vids0", "hit", "done"):
-        _check(torch.equal(getattr(ker, name), getattr(twin, name)),
-               f"march: {name} differs from the twin")
-    err = max(
-        _max_err(ker.t0, twin.t0, True), _max_err(ker.t1, twin.t1, True),
-        _max_err(ker.bary_exit, twin.bary_exit),
-        _max_err(ker.t_entry[ker.hit], twin.t_entry[twin.hit]),
-        _max_err(ker.bary_entry[ker.hit], twin.bary_entry[twin.hit]),
-    )
+    err = _march_err(ker, twin, "march")
     _check(err <= TOLERANCES["march"], f"march: max abs err {err}")
     # Without occupancy the rays cross the whole ball: long marches.
     args_long = args[:11] + (False, 0.0)
     ker_long = march_intervals(*args_long)
     twin_long = march_intervals_twin(*args_long)
-    _check(torch.equal(ker_long.cells, twin_long.cells),
-           "march (no occupancy): cells differ from the twin")
-    err = max(err, _max_err(ker_long.t1, twin_long.t1, True))
+    err = max(err, _march_err(ker_long, twin_long, "march (no occupancy)"))
     _check(err <= TOLERANCES["march"], f"march: max abs err {err}")
-    nv = (ker_long.cells >= 0).sum(dim=1).float()
-    print(f"march: cells exact; t/bary max abs err {err:.3g}; "
-          f"intervals per ray {float((ker.cells >= 0).sum(1).float().mean()):.1f} "
-          f"(occupancy), {float(nv.mean()):.1f} mean / {int(nv.max())} max "
-          f"(none)")
+    # The flagship step's march: the train rays at the cold bound 384.
+    bo, bd = bucket_rays
+    hull = hull_intersect(mesh.hull_eqs, bo, bd)
+    args_step = (mesh.march_table, mesh.hull_cells, bo, bd, *hull, 384, 384, 16, False, 0.0)
+    err = max(err, _march_err(march_intervals(*args_step), march_intervals_twin(*args_step),
+                              "march (flagship shape)"))
+    _check(err <= TOLERANCES["march"], f"march: max abs err {err}")
+    nv = ker_long.num_valid.float()
+    print(f"march: every field of the kernel's FusedMarch equal to the twin's (t, bary "
+          f"max abs err {err:.3g}); intervals per ray {float(ker.num_valid.float().mean()):.1f} "
+          f"(occupancy), {float(nv.mean()):.1f} mean / {int(nv.max())} max (none)")
+    timing = _march_timing(mesh, origins, directions, args, chase_ns)
+    step = _march_timing(mesh, bo, bd, args_step, chase_ns)
+    for label, tm in ((f"render shape ({origins.shape[0]} rays, T=512, occupancy)", timing),
+                      (f"flagship step shape ({bo.shape[0]} rays, T=384, cold)", step)):
+        print(f"march at the {label}: K1 {tm['ms']:.4f} ms by CUDA events (profiler "
+              f"{tm['device_ms']}), march() {tm['march_ms']:.4f} ms by CUDA events in "
+              f"{tm['march_kernels_per_call']} kernels (the hull slab and K1); bound "
+              f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); latency floor "
+              f"{tm['latency_floor_ms']:.4f} ms ({tm['longest_ray_rows']} rows x "
+              f"{chase_ns:.1f} ns); {tm['intervals_mean']:.1f} intervals per ray")
     results.append(_entry(
         "march", "tetranerf_torch/csrc/march.cu", "tetranerf_tpu/ops/fused.py:125",
-        err, _time_ms(lambda: march_intervals(*args), 10),
-        _time_ms(lambda: march_intervals_twin(*args), 3), _march_bound(ker),
+        err, timing.pop("ms"), _time_ms(lambda: march_intervals_twin(*args), 3),
+        {k: timing.pop(k) for k in ("bound_ms", "bound_by", "bound_peak")},
+        **timing, flagship_shape=step,
     ))
 
     res = march(mesh, origins, directions, 512, use_occupancy=True,
@@ -1507,10 +1655,11 @@ def _ref_step(label, model, trainer, batch, dev):
     _check(grad_err <= REF_GRAD_RTOL, f"{label} ref: field grad rel err {grad_err}")
 
 
-def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
+def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms, march_kernels=None):
     """Phase 12: the preset as it ships, trained through two retunes.
     Returns the trainer, the launch counts of the run and of one steady
-    step after the first retune."""
+    step after the first retune. ``march_kernels`` is the kernels one
+    ``march()`` call launches (phase 3's count: the hull slab and K1)."""
     import torch
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
@@ -1598,6 +1747,10 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms):
         trainer.train_step(batches[2])
     step_ms = {k: dict(ms=step_ms.get(k), bound_ms=step_bounds[k], launches=per_step[k])
                for k in step_bounds}
+    print(f"flagship train: march() per steady step: {per_step['march']} call(s), each "
+          f"{march_kernels} kernels (the hull slab and one K1 launch, no fill or epilogue "
+          f"kernel): {per_step['march'] * march_kernels if march_kernels else None} launches")
+    _check(per_step["march"] == 1, f"flagship train: K1 {per_step['march']} times in a step")
     print("flagship train: port kernels per steady step after the retune (ms by the "
           "profiler, bound ms from the step's own inputs, launches): " + "; ".join(
               f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} / "
@@ -1862,6 +2015,56 @@ def _post_png(port, body, tmp):
     return read_png(path), seconds
 
 
+def _missed_frame_split(viewer, trainer, full_frame):
+    """The viewer's caches dropped and the full frame asked for again: its
+    seconds, the host seconds inside ``Trainer.cache_camera`` (each call
+    synchronised at its end), and the card's milliseconds of every
+    ``march()`` and K1 launch inside it (CUDA events around each call)."""
+    import importlib
+
+    import torch
+    from tetranerf_torch.ops import fused
+
+    march_mod = importlib.import_module("tetranerf_torch.ops.march")
+    spans = {"march": [], "k1": []}
+    host = [0.0]
+
+    def evented(fn, key):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return call
+
+    cache_camera = trainer.cache_camera
+
+    def timed_cache(*args, **kwargs):
+        t = time.perf_counter()
+        out = cache_camera(*args, **kwargs)
+        torch.cuda.synchronize()
+        host[0] += time.perf_counter() - t
+        return out
+
+    saved = fused.march, march_mod.march_intervals
+    viewer._caches.clear()
+    trainer.cache_camera = timed_cache
+    fused.march = evented(fused.march, "march")
+    march_mod.march_intervals = evented(march_mod.march_intervals, "k1")
+    try:
+        frame_s, _ = full_frame()
+    finally:
+        fused.march, march_mod.march_intervals = saved
+        del trainer.cache_camera
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return dict(frame_s=frame_s, cache_camera_s=host[0], march_ms=ms["march"],
+                k1_ms=ms["k1"], marches=len(spans["march"]))
+
+
 def serve_phase(tmp, dev, cli_final):
     """Phase 15: serve phase 14's ``final/`` checkpoint: the render CLI over
     the 8 test views, the viewer (page, a fast 400^2 frame, an 800^2 pose
@@ -1946,6 +2149,7 @@ def serve_phase(tmp, dev, cli_final):
 
         miss_s, miss = full_frame()
         hit_s, hits = full_frame()
+        split = _missed_frame_split(viewer, trainer, full_frame)
         viewer_launches = dict(cuda.launch_counts)
         caches = list(viewer._caches.values())
         cache_gb = sum(_cache_bytes(c) for c in caches) / 1e9
@@ -1956,6 +2160,13 @@ def serve_phase(tmp, dev, cli_final):
               f"{side * side / hit_s:.0f} rays/s; the {len(caches)} cached bands hold "
               f"{cache_gb:.3f} GB on the device; launches on the misses {miss}, on the "
               f"hits {hits}")
+        print(f"serve viewer: missed minus cached frame {miss_s - hit_s:.3f} s; a third "
+              f"frame with the caches dropped ({split['frame_s']:.3f} s) spent "
+              f"{split['cache_camera_s']:.3f} s in cache_camera (host clock, to its "
+              f"end on the card), of which march() {split['march_ms']:.2f} ms and K1 "
+              f"{split['k1_ms']:.2f} ms on the card (CUDA events, {split['marches']} "
+              f"calls), the rest the host's launches, the depth sort's transfer and "
+              f"sort")
         _check(len(caches) == SERVE_BANDS, f"serve viewer: {len(caches)} cached bands")
         _check(miss["march"] > 0, f"serve viewer: K1 not launched on the misses: {miss}")
         _check(hits["march"] == 0, f"serve viewer: K1 launched on the hits: {hits}")
@@ -1989,7 +2200,9 @@ def serve_phase(tmp, dev, cli_final):
         rng = np.random.default_rng(3)
         batches = [train.sample_ray_batch(rng, TRAIN_RAYS) for _ in range(SERVE_LIVE_STEPS)]
         step, version = trainer.step, trainer.march_version
-        errors = []
+        errors, updates = [], []
+        update_occupancy = trainer.update_occupancy
+        trainer.update_occupancy = lambda b: updates.append(trainer.step) or update_occupancy(b)
 
         def train_loop():
             try:
@@ -2008,10 +2221,13 @@ def serve_phase(tmp, dev, cli_final):
             thread.join(timeout=300)
         live_s = time.perf_counter() - t
         _check(not thread.is_alive(), "serve live: the train thread did not end")
+        del trainer.update_occupancy
         if errors:
             raise errors[0]
         _check(trainer.step == step + SERVE_LIVE_STEPS, f"serve live: step {trainer.step}")
         _check(trainer.march_version > version, "serve live: march_version did not move")
+        # The cadence counts the restored trainer's own steps, as JAX's does.
+        _check(updates == [step], f"serve live: occupancy updates at steps {updates}")
         before = cuda.launch_counts["march"]
         _post_png(port, {"position": pos, "side": side, "quality": "full",
                          "rows": [0, band]}, tmp)
@@ -2020,6 +2236,7 @@ def serve_phase(tmp, dev, cli_final):
         print(f"serve live: {SERVE_LIVE_STEPS} train steps of {TRAIN_RAYS} rays and 4 "
               f"fast frames "
               f"({', '.join(f'{x * 1e3:.1f}' for x in frame_s)} ms) in {live_s:.2f} s; "
+              f"occupancy updated at step(s) {updates} (restored at step {step}); "
               f"march_version {version} -> {trainer.march_version}; the next full band "
               f"marched again")
     finally:
@@ -2087,7 +2304,9 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     t = time.perf_counter()
+    chase_build = _start_chase_build()
     cuda.load()
+    chase_lib = _load_chase(chase_build)
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     for line in cuda.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -2104,6 +2323,11 @@ def main() -> int:
           f"{len(mesh.hull_eqs)} hull facets, built in "
           f"{time.perf_counter() - t:.1f} s")
 
+    chase_ns = dependent_load_ns(chase_lib, mesh.march_table)
+    print(f"dependent loads over the {mesh.march_table.numel() * 4 / 1e6:.1f} MB march "
+          f"table: {chase_ns[1]:.1f} ns a hop in 1 chain, {chase_ns[TRAIN_RAYS]:.1f} ns "
+          f"in {TRAIN_RAYS} chains side by side (CUDA events, the hash included)")
+
     cfg = tetranerf_preset(ray_buckets=1)
     model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
                       generator=torch.Generator().manual_seed(0), device=dev)
@@ -2115,6 +2339,7 @@ def main() -> int:
             mesh, model.tetrahedra_field.detach(),
             torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
             (torch.from_numpy(train_o).to(dev), torch.from_numpy(train_d).to(dev)),
+            chase_ns[TRAIN_RAYS],
         )
         golden_check(dev)
 
@@ -2151,8 +2376,9 @@ def main() -> int:
         o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
         kernels.append(gather_checks(mesh_plain.to(dev), torch.from_numpy(o).to(dev),
                                      torch.from_numpy(d).to(dev)))
+    march_kernels = next(k for k in kernels if k["name"] == "march")["march_kernels_per_call"]
     trainer, paths["flagship_train"], flagship_step, flagship_ms = flagship_train_phase(
-        colors, mesh_plain, dev, plain_median)
+        colors, mesh_plain, dev, plain_median, march_kernels)
     paths["flagship_render"] = flagship_render_phase(trainer, dev)
     del trainer
     torch.cuda.empty_cache()

@@ -107,6 +107,45 @@ def _to_port(jres) -> FusedMarch:
 # ---------------------------------------------------------- the slice
 
 
+@pytest.mark.parametrize("t", [64, 20])
+def test_march_matches_jax_field_by_field(setup, t):
+    """The march that the slices cut, the port's (its twin here) against
+    JAX ``march_features`` under the shell column and the cap: every field
+    of the layout K1 writes, with its dtype; the distances within 1e-5
+    (the JAX CPU build contracts plane sums into FMAs), the weights within
+    1e-3 (an ulp of t times a sliver cell's rate), the rest exact."""
+    import jax.numpy as jnp
+    from tetranerf_tpu.ops.fused import march_features as jax_march_features
+
+    jres = jax_march_features(
+        setup["jmesh"].on_device(), None, jnp.asarray(setup["origins"]),
+        jnp.asarray(setup["directions"]), t, use_occupancy=True,
+        occ_threshold=THRESHOLD, occ_depth_cap=CAP,
+    )
+    ref = _to_port(jres)
+    out = march_features(setup["mesh"], None, torch.from_numpy(setup["origins"]),
+                         torch.from_numpy(setup["directions"]), t, use_occupancy=True,
+                         occ_depth_cap=CAP)
+    assert out.feats is None and ref.feats is None
+    pairs = [(name, getattr(out, name), getattr(ref, name)) for name in
+             ("cells", "t1", "t0s", "t_entry", "valid", "num_valid", "hit", "overflow")]
+    pairs += [(name, getattr(out.stream, name), getattr(ref.stream, name))
+              for name in ("vids", "pos", "bary")]
+    for name, a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name in ("t1", "t0s", "t_entry"):
+            a, b = a[ref.hit], b[ref.hit]
+            np.testing.assert_array_equal(torch.isfinite(a).numpy(), torch.isfinite(b).numpy())
+            fin = torch.isfinite(b)
+            np.testing.assert_allclose(a[fin].numpy(), b[fin].numpy(), atol=1e-5, rtol=0)
+        elif name == "bary":
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-3, rtol=0)
+        else:
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    if t == 20:
+        assert out.overflow.any()
+
+
 @pytest.mark.parametrize("t", [5, 16, 40, 64, 80])
 def test_slice_march_matches_jax_field_by_field(setup, t):
     """The same march cut by both: a copy, so every field is equal bit for

@@ -1,7 +1,8 @@
 """The port's training loop against the JAX package's: ``Trainer.fit`` over
 20 steps of a narrowed preset fed the port's dataset (the losses, and the
 steps of the log lines, evals and checkpoints), the producer thread, and
-checkpoints: save and restore, and a resumed run against an unbroken one."""
+checkpoints: save and restore, and a resumed run's occupancy cadence
+against JAX's."""
 
 import os
 
@@ -201,26 +202,95 @@ def test_save_and_restore(scene, tmp_path):
     assert fresh.tuned_max_steps is None and not fresh._tuned
 
 
-def test_resume_equals_an_unbroken_run(scene, tmp_path):
-    """24 steps in one run against 12, save, restore into a fresh trainer,
-    12 more (no tune, so that no retune falls in the window; the occupancy
-    update at step 16 runs in both)."""
-    n = 12
-    whole = _small_trainer(scene, auto_tune_steps=False)
-    whole.fit(_batches(scene["dataset"]), num_iterations=2 * n, log_every=0)
+def test_resume_times_occupancy_work_as_jax(scene, tmp_path):
+    """A port trainer and a JAX trainer, each restored at step 12 from the
+    same parameters, optimizer moments and occupancy EMA, step through
+    steps 12-18 with the JAX step's random numbers. JAX times the occupancy
+    update by the steps the trainer has taken since it was built, so both
+    update at step 12 (the port's ``self.step`` would have put it at step
+    16, on another batch): losses within rtol 1e-4, and the EMA after, as
+    ``test_eight_train_steps_match_jax_trainer`` holds it."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from tetranerf_tpu.geometry import build_mesh as jax_build_mesh
+    from tetranerf_tpu.models.tetra_nerf import TetraNerf as JaxTetraNerf
+    from tetranerf_tpu.training.checkpoints import save_checkpoint as jax_save
+    from tetranerf_tpu.training.trainer import Trainer as JaxTrainer
 
+    start, num_steps = 12, 7
+    jcfg, cfg = _configs("float32", ray_buckets=2)
+    assert cfg.occupancy_update_every == 16
+    jmesh = jax_build_mesh(scene["points"], scene["cells"])
+    jtrainer = JaxTrainer(jcfg, JaxTetraNerf(jcfg.model, jmesh),
+                          point_colors=scene["colors"], mesh_devices=1)
+    centroids = np.asarray(jmesh.vertices)[np.asarray(jmesh.cells)].mean(axis=1)
+    occ = np.where(np.linalg.norm(centroids, axis=1) > 0.85, 30.0, 0.0).astype(np.float32)
+    # Step 12 with the moments still zero: optax's count and the step agree.
+    state = jtrainer.state.replace(
+        step=jnp.asarray(start, jtrainer.state.step.dtype),
+        opt_state=optax.tree_utils.tree_set(jtrainer.state.opt_state,
+                                            count=jnp.asarray(start, jnp.int32)))
+    jax_save(str(tmp_path / "jax"), state)
+    np.save(tmp_path / "jax" / "occupancy.npy", occ)
+    jtrainer.restore_checkpoint(str(tmp_path / "jax"))
+    params = jax.tree_util.tree_map(np.asarray, jtrainer.state.params)
+
+    src = Trainer(TrainConfig(), TetraNerf(cfg, jmesh.num_vertices, device="cpu"),
+                  TorchMesh.from_tables(jmesh, device="cpu"), device="cpu")
+    params_from_jax(src.model, params)
+    src.step = start
+    for p in src.model.parameters():
+        src.optimizer.state[p] = {"step": torch.tensor(float(start)),
+                                  "exp_avg": torch.zeros_like(p),
+                                  "exp_avg_sq": torch.zeros_like(p)}
+    src.occupancy = torch.from_numpy(occ)
+    src.save_checkpoint(tmp_path / "port")
+    trainer = Trainer(TrainConfig(), TetraNerf(cfg, jmesh.num_vertices, device="cpu"),
+                      TorchMesh.from_tables(jmesh, device="cpu"), device="cpu")
+    trainer.restore_checkpoint(tmp_path / "port")
+    assert (trainer.step, trainer._step_count) == (start, 0)
+
+    updates, ref_updates = [], []
+    for tr, log, get_step in ((trainer, updates, lambda: trainer.step),
+                              (jtrainer, ref_updates, lambda: int(jtrainer.state.step))):
+        update = tr.update_occupancy
+        tr.update_occupancy = (lambda b, update=update, log=log, get_step=get_step:
+                               log.append(get_step()) or update(b))
+    draw = _batches(scene["dataset"], seed=5)
+    losses, ref_losses = [], []
+    for i in range(num_steps):
+        batch = draw(i)
+        ref_losses.append(float(jtrainer.train_step(batch)["loss"]))
+        bounds = (jtrainer.tuned_max_steps or cfg.max_intersected_triangles,
+                  jtrainer.tuned_bucket_steps)
+        u = _step_uniforms(jax.random.fold_in(jtrainer.train_key, start + i),
+                           trainer.model, NUM_RAYS, *bounds)
+        losses.append(float(trainer.train_step(batch, uniforms=u)["loss"]))
+        assert (trainer.max_steps, trainer.tuned_bucket_steps) == bounds
+    assert updates == ref_updates == [start]
+    assert trainer.step == int(jtrainer.state.step) == start + num_steps
+    assert trainer._step_count == jtrainer._step_count == num_steps
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4, atol=0)
+    ema, ema_ref = trainer.occupancy.numpy(), np.asarray(jtrainer._occ)
+    np.testing.assert_array_equal(ema > 0, ema_ref > 0)
+    assert float(np.abs(ema - ema_ref).max() / np.abs(ema_ref).max()) <= 1e-3
+
+
+def test_restore_leaves_the_step_count_at_zero(scene, tmp_path):
+    """The port alone, at the file's cheap size: a trainer restored at step
+    12 has taken no step, so its occupancy updates fall on steps 12 and 28;
+    the learning rate and random stream keep reading the restored step."""
     first = _small_trainer(scene, auto_tune_steps=False)
-    draw = _batches(scene["dataset"])
-    first.fit(draw, num_iterations=n, log_every=0)
+    first.fit(_batches(scene["dataset"]), num_iterations=1, log_every=0)
+    first.step = 12
     first.save_checkpoint(tmp_path / "mid")
-    second = _small_trainer(scene, seed=7, auto_tune_steps=False)
-    second.restore_checkpoint(tmp_path / "mid")
-    assert second.step == n
-    second.fit(draw, num_iterations=n, log_every=0)
-    assert second.step == whole.step == 2 * n
-    assert whole.max_steps == second.max_steps == SMALL["max_intersected_triangles"]
-    ours, ref = reference_state_dict(second.model), reference_state_dict(whole.model)
-    for k in ref:
-        np.testing.assert_allclose(ours[k], ref[k], atol=1e-6, rtol=0, err_msg=k)
-    np.testing.assert_allclose(second.occupancy.numpy(), whole.occupancy.numpy(),
-                               atol=1e-6, rtol=0)
+    trainer = _small_trainer(scene, seed=7, auto_tune_steps=False)
+    trainer.restore_checkpoint(tmp_path / "mid")
+    assert (trainer.step, trainer._step_count) == (12, 0)
+    steps = []
+    update = trainer.update_occupancy
+    trainer.update_occupancy = lambda b: steps.append(trainer.step) or update(b)
+    trainer.fit(_batches(scene["dataset"], seed=3), num_iterations=17, log_every=0)
+    assert steps == [12, 28]
+    assert (trainer.step, trainer._step_count) == (29, 17)

@@ -15,6 +15,9 @@ positions in the stream. With occupancy, the ray accumulates
 cap. A ray stops at its own end; slots after it keep the padding
 ``cells=-1``, ``t0=t1=+inf``, ``bary=pos=new_vid=0``.
 
+One K1 launch writes every output in its final layout, padding included;
+:func:`march` is the hull slab and that launch.
+
 The JAX march runs its steps in blocks of ``min(16, max_steps)``, so a ray
 may take up to the block-rounded step count before its ``done`` flag is
 read, while only the first ``max_steps`` intervals are kept. Both
@@ -67,22 +70,6 @@ class FusedMarch(NamedTuple):
         return torch.cat([self.t_entry[:, None], self.t1[:, :-1]], dim=1)
 
 
-class MarchOutputs(NamedTuple):
-    """Raw per-ray march outputs, as K1 writes them."""
-
-    cells: torch.Tensor  # i32[R, T]
-    t0: torch.Tensor  # f32[R, T]
-    t1: torch.Tensor  # f32[R, T]
-    bary_exit: torch.Tensor  # f32[R, T, 4]
-    pos: torch.Tensor  # i32[R, T, 4]
-    new_vid: torch.Tensor  # i32[R, T]
-    t_entry: torch.Tensor  # f32[R]
-    bary_entry: torch.Tensor  # f32[R, 4]
-    vids0: torch.Tensor  # i32[R, 4]
-    hit: torch.Tensor  # bool[R]: hull hit and entry cell found
-    done: torch.Tensor  # bool[R]: the ray ended before the step bound
-
-
 def _first_min(x):
     """Row-wise ``(min, argmin)`` over 4 columns, first index on ties."""
     best = x[:, 0]
@@ -117,9 +104,9 @@ def march_intervals_twin(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps: int, num_steps: int, walk_steps: int,
     use_occupancy: bool, depth_cap: float,
-) -> MarchOutputs:
+) -> FusedMarch:
     """Plain PyTorch version of K1 (any device): every ray steps in lock
-    step until all are done."""
+    step until all are done; :func:`march`'s outputs without ``feats``."""
     dev = origins.device
     num_rays = origins.shape[0]
     inf = torch.tensor(float("inf"), device=dev)
@@ -197,16 +184,27 @@ def march_intervals_twin(
         done = new_done
         vids_prev = vids_cur
         pos_prev = pos_cur
-    return MarchOutputs(
-        cells, t0s, t1s, barys, poss, new_vids, t_entry, bary_entry,
-        vids0.contiguous(), hit, done,
+    valid = cells >= 0
+    num_valid = valid.sum(dim=-1).to(torch.int32)
+    hit = hit & (num_valid > 0)
+    pos0 = torch.arange(4, dtype=torch.int32, device=dev).expand(num_rays, 1, 4)
+    bary_entry = torch.where(hit[:, None], bary_entry, 0.0)
+    return FusedMarch(
+        cells=cells, t1=t1s, t_entry=t_entry, valid=valid, num_valid=num_valid,
+        feats=None, hit=hit, overflow=hit & ~done,
+        stream=MarchStream(
+            vids=torch.cat([vids0, new_vids], dim=1),
+            pos=torch.cat([pos0, poss], dim=1),
+            bary=torch.cat([bary_entry[:, None], barys], dim=1),
+        ),
+        t0s=t0s,
     )
 
 
 def _march_cuda(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps, num_steps, walk_steps, use_occupancy, depth_cap,
-) -> MarchOutputs:
+) -> FusedMarch:
     cuda.check_cuda_inputs(
         "march", table=table, hull_cells=hull_cells, origins=origins,
         directions=directions, t_in=t_in, t_out=t_out,
@@ -222,38 +220,38 @@ def _march_cuda(
         raise ValueError("march: unexpected input shapes or dtypes")
     dev = origins.device
     T = max_steps
-    # Padding of the gated emission; the kernel writes only valid steps.
-    out = MarchOutputs(
-        cells=torch.full((num_rays, T), -1, dtype=torch.int32, device=dev),
-        t0=torch.full((num_rays, T), float("inf"), device=dev),
-        t1=torch.full((num_rays, T), float("inf"), device=dev),
-        bary_exit=torch.zeros((num_rays, T, 4), device=dev),
-        pos=torch.zeros((num_rays, T, 4), dtype=torch.int32, device=dev),
-        new_vid=torch.zeros((num_rays, T), dtype=torch.int32, device=dev),
-        t_entry=torch.empty(num_rays, device=dev),
-        bary_entry=torch.empty((num_rays, 4), device=dev),
-        vids0=torch.empty((num_rays, 4), dtype=torch.int32, device=dev),
-        hit=torch.empty(num_rays, dtype=torch.bool, device=dev),
-        done=torch.empty(num_rays, dtype=torch.bool, device=dev),
-    )
-    if num_rays == 0:
-        return out
-    cuda.launch(
-        "march", "tetranerf_march", dev,
-        *map(cuda.ptr, (table, hull_cells, origins, directions, t_in, t_out,
-                        entry_facet, hit)),
-        num_rays, T, num_steps, walk_steps, int(bool(use_occupancy)),
-        float(depth_cap),
-        *map(cuda.ptr, out),
-    )
-    return out
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # K1 writes every byte of these, the padding included.
+    cells, t0s, t1s = empty(num_rays, T, dtype=torch.int32), empty(num_rays, T), empty(num_rays, T)
+    valid = empty(num_rays, T, dtype=torch.bool)
+    stream = MarchStream(vids=empty(num_rays, T + 4, dtype=torch.int32),
+                         pos=empty(num_rays, T + 1, 4, dtype=torch.int32),
+                         bary=empty(num_rays, T + 1, 4))
+    t_entry, num_valid = empty(num_rays), empty(num_rays, dtype=torch.int32)
+    hit_out, overflow = empty(num_rays, dtype=torch.bool), empty(num_rays, dtype=torch.bool)
+    if num_rays:
+        cuda.launch(
+            "march", "tetranerf_march", dev,
+            *map(cuda.ptr, (table, hull_cells, origins, directions, t_in, t_out,
+                            entry_facet, hit)),
+            num_rays, T, num_steps, walk_steps, int(bool(use_occupancy)),
+            float(depth_cap),
+            *map(cuda.ptr, (cells, t0s, t1s, valid, *stream, t_entry, num_valid,
+                            hit_out, overflow)),
+        )
+    return FusedMarch(cells=cells, t1=t1s, t_entry=t_entry, valid=valid,
+                      num_valid=num_valid, feats=None, hit=hit_out, overflow=overflow,
+                      stream=stream, t0s=t0s)
 
 
 def march_intervals(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps: int, num_steps: int, walk_steps: int,
     use_occupancy: bool, depth_cap: float,
-) -> MarchOutputs:
+) -> FusedMarch:
     """K1 on CUDA tensors, :func:`march_intervals_twin` on CPU tensors."""
     args = (table, hull_cells, origins, directions, t_in, t_out,
             entry_facet, hit, max_steps, num_steps, walk_steps,
@@ -288,35 +286,9 @@ def march(
                      else float(occ_depth_cap))
     chunk = min(16, max_steps)
     num_steps = -(-max_steps // chunk) * chunk
-    raw = march_intervals(
+    return march_intervals(
         mesh.march_table, mesh.hull_cells, origins.contiguous(),
         directions.contiguous(), t_in.contiguous(), t_out.contiguous(),
         entry_facet.contiguous(), hit.contiguous(), max_steps, num_steps,
         entry_walk_steps, use_occupancy, depth_cap,
-    )
-    valid = raw.cells >= 0
-    num_valid = valid.sum(dim=-1).to(torch.int32)
-    hit = raw.hit & (num_valid > 0)
-    overflow = hit & ~raw.done
-    all_bary = torch.cat([raw.bary_entry[:, None], raw.bary_exit], dim=1)
-    all_valid = torch.cat([hit[:, None], valid], dim=1)
-    pos0 = torch.arange(4, dtype=torch.int32, device=origins.device)
-    stream = MarchStream(
-        vids=torch.cat([raw.vids0, raw.new_vid], dim=1),
-        pos=torch.cat(
-            [pos0.expand(origins.shape[0], 1, 4), raw.pos], dim=1
-        ),
-        bary=torch.where(all_valid[..., None], all_bary, 0.0),
-    )
-    return FusedMarch(
-        cells=raw.cells,
-        t1=raw.t1,
-        t_entry=raw.t_entry,
-        valid=valid,
-        num_valid=num_valid,
-        feats=None,
-        hit=hit,
-        overflow=overflow,
-        stream=stream,
-        t0s=raw.t0,
     )

@@ -39,7 +39,9 @@ def hull_intersect(hull_eqs: torch.Tensor, origins, directions):
     d = hull_eqs[:, 3]
     num = torch.matmul(origins, n.T) + d
     den = torch.matmul(directions, n.T)
-    inf = torch.tensor(float("inf"), device=den.device)
+    # Python-scalar infinities: a 0-d tensor built from one would be copied
+    # from the host, which synchronises the stream.
+    inf = float("inf")
     t_hit = -num / torch.where(den == 0.0, inf, den)
     lower = torch.where(den < 0.0, t_hit, -inf)
     upper = torch.where(den > 0.0, t_hit, inf)

@@ -19,6 +19,11 @@ the JAX trainer:
   from the occupancy march (:meth:`Trainer.retune_with_occupancy`), as
   ``occupancy_retune_mode`` says.
 
+These cadences count the steps this trainer has taken
+(:attr:`Trainer._step_count`, JAX ``Trainer._step_count``), not the
+restored step: a trainer resumed at step 12 updates its occupancy at steps
+12, 28, 44, ...
+
 The trainer holds one termination cap, :attr:`Trainer.occ_depth_cap`: the
 train forward, the occupancy update, the probes and rendering all read it.
 :attr:`Trainer.march_version` counts the changes to what a march depends on
@@ -134,7 +139,12 @@ class Trainer:
         self.mesh = mesh.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), config)
         self.step = 0
-        """Updates taken so far (the JAX ``TrainState.step``)."""
+        """Updates taken so far (the JAX ``TrainState.step``): the learning
+        rate, the step's random stream; restored with a checkpoint."""
+        self._step_count = 0
+        """Steps this trainer has taken since it was built (JAX
+        ``Trainer._step_count``): the occupancy update, refresh and retune
+        cadences read it, and :meth:`restore_checkpoint` leaves it alone."""
         self.tuned_max_steps: Optional[int] = None
         self.tuned_bucket_steps: Optional[tuple] = None
         """The ``ray_buckets - 1`` ascending inner bucket bounds (the deepest
@@ -256,7 +266,8 @@ class Trainer:
         - Hysteresis: a bound grows at once and shrinks only by more than
           16; the inner bounds are then made nondecreasing again.
 
-        Prints a ``# retune@<step>`` line on stderr."""
+        Prints a ``# retune@<n>`` line on stderr, ``n`` the steps this
+        trainer has taken."""
         cfg = self.model.config
         o, d = self._probe_rays(batch)
         nv, est_at = self._nv_eff(o, d)
@@ -312,7 +323,7 @@ class Trainer:
         elif self.tuned_bucket_steps is not None:
             self.tuned_bucket_steps = tuple(min(b, full) for b in self.tuned_bucket_steps)
         print(
-            f"# retune@{self.step}: bound={self.tuned_max_steps} "
+            f"# retune@{self._step_count}: bound={self.tuned_max_steps} "
             f"buckets={self.tuned_bucket_steps} "
             f"occ_cap={self.occ_depth_cap:.1f} (floor {floor:.1f}) "
             f"nv_eff p50/p99={int(np.percentile(nv, 50))}/"
@@ -429,22 +440,23 @@ class Trainer:
 
     def _train_step(self, batch: Mapping, uniforms) -> Dict[str, torch.Tensor]:
         cfg = self.model.config
-        step = self.step
+        step, count = self.step, self._step_count
         occ = cfg.use_occupancy_field
         if self._auto_tune_steps and not self._tuned:
             self._tuned = True
             self.tune_traversal_steps(batch)
-        if occ and cfg.occupancy_update_every and step % cfg.occupancy_update_every == 0:
+        if occ and cfg.occupancy_update_every and count % cfg.occupancy_update_every == 0:
             self.update_occupancy(batch)
-        if (occ and cfg.occupancy_refresh_every and step > 0
-                and step % cfg.occupancy_refresh_every == 0):
+        if (occ and cfg.occupancy_refresh_every and count > 0
+                and count % cfg.occupancy_refresh_every == 0):
             self.refresh_occupancy()
-        if (occ and cfg.occupancy_retune_every and step > 0
-                and step % cfg.occupancy_retune_every == 0):
+        if (occ and cfg.occupancy_retune_every and count > 0
+                and count % cfg.occupancy_retune_every == 0):
             if cfg.occupancy_retune_mode == "transmittance":
                 self.retune_with_transmittance(batch)
             else:
                 self.retune_with_occupancy(batch)
+        self._step_count += 1
 
         o = self._tensor(batch["origins"])
         d = self._tensor(batch["directions"])
@@ -619,7 +631,8 @@ class Trainer:
     def restore_checkpoint(self, path) -> None:
         """Load a directory written by :meth:`save_checkpoint`. The bounds
         and the cap are not saved: the next step tunes them if this
-        trainer has not yet."""
+        trainer has not yet. The count of steps taken, which times the
+        occupancy work, is not restored either."""
         with self.lock:
             checkpoints.restore_checkpoint(path, self)
             self.march_version += 1
