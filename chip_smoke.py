@@ -112,7 +112,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     on the host and every ``march()`` and K1 by CUDA events; then 16 train
     steps on one thread while the main thread asks for 4 fast frames (every
     one a PNG, the occupancy updated on the restored trainer's first step,
-    ``march_version`` advanced, the next full band marched again).
+    ``march_version`` advanced, the next full band marched again);
+16. the empty-space skip grid on ``make_camera_scene(100_000)`` (objects
+    inside a sparse background shell that stretches the hull): K9, the
+    point-location walk, against its twin on the 64^3 voxel centres (every
+    cell exactly; CUDA-event ms, bound, latency floor from phase 3's
+    pointer chase), ``make_skip_setup``'s seconds; 160 train steps of
+    ``tetranerf_preset(skip_grid_resolution=64)`` on camera batches of 4096
+    rays and the same run with ``skip_grid_resolution=0`` from the same
+    seeds (the grid attaches at the refresh of step 64 and
+    ``march_version`` moves once more there than without it; losses fall
+    in both); ``build_skip_table`` on the card against the CPU, bit for
+    bit, with its ms; K1 with the trained grid and with a grid of the
+    objects' shells against its twin in every output, its ms with and
+    without the grid on the last step's batch, the rays the trace drops
+    and the crossings a ray; median ms/step before and after the attach in
+    both runs with the idle share; eval render rays/s of both trainers
+    (the path ``skip_train``: K9 launched once, at the attach);
+17. merged-MLP buckets: phase 12's flagship with ``bucket_merge_mlps``
+    against the per-bucket shading from the same seeds, 72 steps each:
+    one 4096-ray step's loss and field gradient against the per-bucket
+    step at phase 12's tolerances, the MLP chains (1 + 1 against 8 + 8)
+    and GEMM launches a step, median ms/step and the idle share (the path
+    ``merged_train``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -2249,6 +2271,383 @@ def serve_phase(tmp, dev, cli_final):
     return render_launches, viewer_launches, hits
 
 
+SKIP_RESOLUTION = 64
+SKIP_STEPS = 160
+MERGED_STEPS = 72
+
+
+def _camera_batch(rng, num_rays):
+    from tetranerf_torch.utils.synthetic import camera_ray_targets, sample_camera_rays
+
+    o, d = sample_camera_rays(rng, num_rays)
+    return {"origins": o, "directions": d, "rgb": camera_ray_targets(o, d)}
+
+
+def _locate_bound(rows, num_points):
+    """K9 from the rows its walks need (``rows``): per row its four planes
+    and neighbour ids read (80 bytes) and four planes evaluated (28 flops);
+    per point its position and seed read and its cell written (20 bytes)."""
+    return _bound(rows * 80 + num_points * 20, rows * 28)
+
+
+def locate_checks(mesh, chase_ns):
+    """Phase 16a: K9 against its twin on the camera mesh's 64^3 voxel
+    centres from their nearest vertices' cells, as ``make_skip_setup`` calls
+    it: every cell exactly; its time by CUDA events, its bound and its
+    latency floor (the longest walk's rows x ``chase_ns``)."""
+    import torch
+    from tetranerf_torch.ops.march import locate_points, locate_points_twin
+    from tetranerf_torch.ops.skip_grid import LOCATE_STEPS, voxel_centers_and_seeds
+
+    dev = mesh.device
+    centers, seeds = voxel_centers_and_seeds(mesh, SKIP_RESOLUTION)
+    points, seeds = torch.from_numpy(centers).to(dev), torch.from_numpy(seeds).to(dev)
+    args = (mesh.march_table, seeds, points, LOCATE_STEPS)
+    ker = locate_points(*args)
+    twin, rows = locate_points_twin(*args, return_rows=True)
+    _check(torch.equal(ker, twin), "locate: cells differ from the twin")
+    longest = int(rows.max())
+    entry = _entry(
+        "locate", "tetranerf_torch/csrc/march.cu", "tetranerf_tpu/ops/fused.py:87", 0.0,
+        _time_ms(lambda: locate_points(*args), 10),
+        _time_ms(lambda: locate_points_twin(*args), 3),
+        _locate_bound(int(rows.sum()), points.shape[0]),
+        latency_floor_ms=longest * chase_ns / 1e6, longest_walk_rows=longest,
+        walk_rows_mean=float(rows.float().mean()),
+        outside_hull=int((ker < 0).sum()), points=points.shape[0],
+    )
+    print(f"locate: {points.shape[0]} voxel centres, every cell equal to the twin's "
+          f"({entry['outside_hull']} outside the hull); {entry['ms']:.4f} ms by CUDA "
+          f"events (twin {entry['plain_ms']:.3f}), bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), latency floor {entry['latency_floor_ms']:.4f} ms "
+          f"({longest} rows x {chase_ns:.1f} ns); rows a walk {entry['walk_rows_mean']:.2f} "
+          f"mean")
+    return entry
+
+
+def _skip_table_bound(occ, setup, max_dist=16):
+    """``build_skip_table`` from its inputs: the EMA, the anchors, the
+    vertex and centroid voxels read once and the table written once (bytes);
+    27 compares a voxel for the dilation and each of the ``max_dist``
+    Chebyshev rounds (operations)."""
+    voxels = setup.anchors.numel()
+    num_bytes = sum(x.numel() * x.element_size() for x in (occ, *setup)) + voxels * 32
+    return _bound(num_bytes, voxels * 27 * (max_dist + 1))
+
+
+def _skip_run(cfg, colors, mesh_plain, dev, batches, label):
+    """``SKIP_STEPS`` train steps of the preset ``cfg`` on the camera batches
+    in turn: the trainer, the losses, the ms of each step, the launches, and
+    the step at which a skip grid attached (None)."""
+    import torch
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    losses, step_ms, attach, log = [], [], None, io.StringIO()
+    versions = []
+    for step in range(SKIP_STEPS):
+        had = trainer.mesh.has_skip_grid
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            m = trainer.train_step(batches[step % len(batches)])
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        versions.append(trainer.march_version)
+        if not had and trainer.mesh.has_skip_grid:
+            attach = step
+    launches = dict(cuda.launch_counts)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"{label}: {SKIP_STEPS} steps, bound {trainer.max_steps}, buckets "
+          f"{trainer.tuned_bucket_steps}, cap {trainer.occ_depth_cap:.2f}; loss first 5 "
+          f"mean {first:.5f}, last 5 mean {last:.5f}; losses "
+          f"{[round(x, 5) for x in losses[::20]]} (every 20th); grid attached at step "
+          f"{attach}; march_version {versions[::16]} (every 16th); "
+          + "; ".join(line for line in log.getvalue().splitlines()
+                      if line.startswith("# retune@")))
+    _check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    _check(last < first, f"{label}: loss did not fall ({first} -> {last})")
+    return trainer, step_ms, launches, attach, versions
+
+
+def _march_stats(res):
+    nv = res.num_valid.float()
+    return dict(hit=int(res.hit.sum()), crossings_mean=float(nv.mean()),
+                crossings_max=int(nv.max()))
+
+
+def _object_shell_occupancy(mesh):
+    """Density 1e3 in the cells whose centroid lies within 0.05 of an object
+    sphere's surface of the camera scene, 0 elsewhere."""
+    import torch
+    from tetranerf_torch.utils.synthetic import _CAM_SPHERES
+
+    centroids = mesh.vertices[mesh.cells.long()].mean(dim=1).double()
+    near = torch.zeros(mesh.num_cells, dtype=torch.bool, device=mesh.device)
+    for c, r in _CAM_SPHERES:
+        dist = (centroids - torch.from_numpy(c).to(mesh.device)).norm(dim=1)
+        near |= (dist - r).abs() < 0.05
+    return torch.where(near, 1e3, 0.0).float()
+
+
+def _k1_grid_check(mesh, o, d, steps, cap, label, march_entry):
+    """K1 with ``mesh``'s skip grid against its twin (every output), and its
+    time with and without the grid on the same rays, with the share of rays
+    the trace drops and the crossings a ray either way."""
+    from tetranerf_torch.ops.march import march_intervals, march_intervals_twin
+    from tetranerf_torch.ops.traversal import hull_intersect
+
+    args = (mesh.march_table, mesh.hull_cells, o, d, *hull_intersect(mesh.hull_eqs, o, d),
+            steps, -(-steps // 16) * 16, 16, True, cap)
+    grid = (mesh.skip_table, mesh.skip_meta)
+    ker, twin = march_intervals(*args, *grid), march_intervals_twin(*args, *grid)
+    err = _march_err(ker, twin, f"march with the {label} grid")
+    _check(err <= TOLERANCES["march"], f"march with the {label} grid: max abs err {err}")
+    march_entry["max_abs_err"] = max(march_entry["max_abs_err"], err)
+    plain = march_intervals(*args)
+    with_grid, without = _march_stats(ker), _march_stats(plain)
+    dropped = int((plain.hit & ~ker.hit).sum())
+    out = dict(ms=_time_ms(lambda: march_intervals(*args, *grid), 10),
+               ms_without_grid=_time_ms(lambda: march_intervals(*args), 10),
+               rays=o.shape[0], bound=steps, dropped_share=dropped / o.shape[0],
+               free_voxels=float((mesh.skip_table[..., 0] > 0).float().mean()),
+               with_grid=with_grid, without_grid=without, **_march_bound(ker))
+    print(f"skip: K1 with the {label} grid ({out['free_voxels']:.3f} of the voxels free) "
+          f"equal to its twin in every output (t, bary max abs err {err:.3g}); "
+          f"{o.shape[0]} rays at bound {steps}: K1 {out['ms']:.4f} ms with the grid, "
+          f"{out['ms_without_grid']:.4f} ms without (CUDA events), bound "
+          f"{out['bound_ms']:.4f} ms; the trace drops {dropped} rays "
+          f"({out['dropped_share']:.3f}); crossings a ray mean / max "
+          f"{with_grid['crossings_mean']:.1f} / {with_grid['crossings_max']} with, "
+          f"{without['crossings_mean']:.1f} / {without['crossings_max']} without")
+    return out
+
+
+def skip_phase(dev, march_entry, chase_ns):
+    """Phase 16: the empty-space skip grid on ``make_camera_scene(100_000)``
+    with ``tetranerf_preset(skip_grid_resolution=64)``. Returns the K9
+    entry and the launches of the run with the grid (the path
+    ``skip_train``); adds K1's times with and without the grid to
+    ``march_entry``."""
+    import torch
+    from tetranerf_torch.geometry import build_mesh, triangulate
+    from tetranerf_torch.models import tetranerf_preset
+    from tetranerf_torch.ops.skip_grid import build_skip_table, make_skip_setup
+    from tetranerf_torch.utils.synthetic import make_camera_scene
+
+    t_phase = time.perf_counter()
+    points, colors = make_camera_scene(NUM_POINTS, seed=0)
+    mesh_plain = build_mesh(points, triangulate(points), device="cpu")
+    mesh = mesh_plain.to(dev)
+    print(f"skip: camera scene, {NUM_POINTS} points, {mesh.num_cells} cells, "
+          f"{len(mesh.hull_eqs)} hull facets, built in {time.perf_counter() - t_phase:.1f} s")
+    entry = locate_checks(mesh, chase_ns)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    setup = make_skip_setup(mesh, SKIP_RESOLUTION)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    anchors = setup.anchors
+    print(f"skip: make_skip_setup at G={SKIP_RESOLUTION} in {setup_s:.3f} s (host kd-tree "
+          f"seeds, K9 over the centres); {int((anchors >= 0).sum())} of {anchors.numel()} "
+          f"centres inside the hull")
+    entry["make_skip_setup_s"] = setup_s
+
+    rng = np.random.default_rng(1)
+    batches = [_camera_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    runs = {}
+    for res_g in (SKIP_RESOLUTION, 0):
+        label = f"skip train (G={res_g})"
+        runs[res_g] = _skip_run(tetranerf_preset(skip_grid_resolution=res_g), colors,
+                                mesh_plain, dev, batches, label)
+        torch.cuda.empty_cache()
+    trainer, step_ms, launches, attach, versions = runs[SKIP_RESOLUTION]
+    refresh = trainer.model.config.occupancy_refresh_every
+    _check(attach == refresh, f"skip: the grid attached at step {attach}, not {refresh}")
+    bumps = [v[attach] - v[attach - 1] for v in (versions, runs[0][4])]
+    _check(bumps[0] == bumps[1] + 1,
+           f"skip: march_version moved by {bumps} at the attach (with, without the grid)")
+    _check(runs[0][3] is None, "skip: a grid attached with skip_grid_resolution=0")
+    for k in ("march", "locate"):
+        _check(launches[k] > 0, f"skip train: {k} did not launch: {launches}")
+    _check(launches["locate"] == 1, f"skip train: K9 launched {launches['locate']} times")
+
+    # The table on the card against the same ops on the CPU, from the EMA.
+    occ = trainer.occupancy
+    setup_run = trainer._skip_setup
+    table = build_skip_table(occ, setup_run)
+    table_cpu = build_skip_table(occ.cpu(), type(setup_run)(*(x.cpu() for x in setup_run)))
+    _check(torch.equal(table.cpu().view(torch.int32), table_cpu.view(torch.int32)),
+           "skip: build_skip_table on the card differs from the CPU")
+    _check(torch.equal(table.view(torch.int32), trainer.mesh.skip_table.view(torch.int32)),
+           "skip: the attached table is not the EMA's")
+    table_ms = _time_ms(lambda: build_skip_table(occ, setup_run), 10)
+    setup_cpu = type(setup_run)(*(x.cpu() for x in setup_run))
+    t = time.perf_counter()
+    build_skip_table(occ.cpu(), setup_cpu)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    bound = _skip_table_bound(occ, setup_run)
+    rho = table[..., 0]
+    print(f"skip: build_skip_table on the card equal to the CPU's bit for bit; "
+          f"{table_ms:.4f} ms by CUDA events (the same ops on the host CPU {cpu_ms:.1f} ms), "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+          f"{float((rho > 0).float().mean()):.3f} of the voxels free (rho > 0), rho max "
+          f"{float(rho.max()):.4f}")
+    entry["build_skip_table"] = dict(ms=table_ms, cpu_ms=cpu_ms, **bound)
+
+    # K1 with the grid on the last step's batch, against its twin and
+    # against K1 without the grid on the same batch: the trained grid, and
+    # one from an EMA that marks only the objects' shells (density 1e3 in
+    # cells within 0.05 of an object sphere's surface), as a converged
+    # field would.
+    b = batches[(SKIP_STEPS - 1) % len(batches)]
+    o = torch.as_tensor(b["origins"], device=dev)
+    d = torch.as_tensor(b["directions"], device=dev)
+    shell = _object_shell_occupancy(mesh)
+    grids = {
+        "trained": (trainer.mesh, float(trainer.occ_depth_cap)),
+        "object shells": (mesh.with_occupancy(shell).with_skip_grid(
+            build_skip_table(shell, setup), setup.meta), float(-np.log(1e-4))),
+    }
+    march_entry["with_grid"] = {
+        label: _k1_grid_check(grid_mesh, o, d, trainer.max_steps, cap, label, march_entry)
+        for label, (grid_mesh, cap) in grids.items()}
+
+    # Step times before and after the attach, beside the run without a grid.
+    windows = {"before": [s for s in range(1, attach)],
+               "after": [s for s in range(attach + 1, SKIP_STEPS) if s != 128]}
+    med = {g: {w: float(np.median([runs[g][1][s] for s in idx])) for w, idx in windows.items()}
+           for g in runs}
+    print(f"skip: median ms/step before the attach (steps 1-{attach - 1}) / after it "
+          f"(steps {attach + 1}-{SKIP_STEPS - 1} but 128): G={SKIP_RESOLUTION} "
+          f"{med[SKIP_RESOLUTION]['before']:.2f} / {med[SKIP_RESOLUTION]['after']:.2f}, "
+          f"G=0 {med[0]['before']:.2f} / {med[0]['after']:.2f}; rays/s after "
+          f"{TRAIN_RAYS / med[SKIP_RESOLUTION]['after'] * 1e3:.0f} / "
+          f"{TRAIN_RAYS / med[0]['after'] * 1e3:.0f}; ms of the attach step "
+          f"{runs[SKIP_RESOLUTION][1][attach]:.2f} (G=0: {runs[0][1][attach]:.2f})")
+    entry["train_median_ms"] = med
+    for g in runs:
+        _profile_steps(runs[g][0], batches[:2], med[g]["after"])
+
+    # Eval renders of both trainers on the same camera rays.
+    from tetranerf_torch.utils.synthetic import sample_camera_rays
+
+    ro, rd = sample_camera_rays(np.random.default_rng(0), REQUEST_RAYS)
+    rays_s = {}
+    for g in runs:
+        tr = runs[g][0]
+        tr.render_rays(ro[:CHUNK], rd[:CHUNK], chunk=CHUNK)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = tr.render_rays(ro, rd, chunk=CHUNK)
+        rays_s[g] = REQUEST_RAYS / (time.perf_counter() - t)
+        _check(np.isfinite(out["rgb"]).all(), f"skip render (G={g}): non-finite rgb")
+    print(f"skip: eval render {REQUEST_RAYS} camera rays at chunk {CHUNK}: "
+          f"{rays_s[SKIP_RESOLUTION]:.0f} rays/s with the grid, {rays_s[0]:.0f} without")
+    entry["render_rays_per_s"] = rays_s
+    print(f"skip: phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    del runs
+    return entry, launches
+
+
+def _mlp_calls(model):
+    """Count the model's MLP chains (its field and density MLP calls) in the
+    returned dict while the wrappers stay installed."""
+    calls = {"field_mlps": 0, "density_mlp": 0}
+    for name in calls:
+        fn = getattr(model, name)
+
+        def counted(*args, fn=fn, name=name):
+            calls[name] += 1
+            return fn(*args)
+
+        setattr(model, name, counted)
+    return calls
+
+
+def merged_phase(colors, mesh_plain, dev):
+    """Phase 17: the flagship on the sphere with ``bucket_merge_mlps`` against
+    the per-bucket shading from the same seeds: one step's loss and field
+    gradient, the MLP chains and GEMM launches a step, median ms/step and
+    the idle share. Returns the launches of the merged run."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)  # phase 7's five batches
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    runs = {}
+    for merge in (False, True):
+        cfg = tetranerf_preset(bucket_merge_mlps=merge)
+        model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                          generator=torch.Generator().manual_seed(0), device=dev)
+        trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        losses, step_ms = [], []
+        for step in range(MERGED_STEPS):
+            if step == MERGED_STEPS - 1:  # a steady step: no occupancy work
+                calls = _mlp_calls(model)
+            t = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                m = trainer.train_step(batches[step % TRAIN_BATCHES])
+            losses.append(float(m["loss"]))  # waits for the step
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        launches = dict(cuda.launch_counts)
+        step_calls = dict(calls)
+        del model.field_mlps, model.density_mlp
+        gemms = [e for e in _device_kernels(lambda: trainer.train_step(batches[0]))
+                 if _kernel_group(e.name) == "GEMM"]
+        med = float(np.median(step_ms[1:]))
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        label = "merged" if merge else "per-bucket"
+        print(f"merged MLPs ({label}): {MERGED_STEPS} steps, median {med:.2f} ms/step "
+              f"(steps 1-{MERGED_STEPS - 1}) = {TRAIN_RAYS / med * 1e3:.0f} rays/s; MLP "
+              f"chains a steady step {step_calls}; GEMM launches a step {len(gemms)}; "
+              f"loss first 5 mean {first:.5f}, last 5 mean {last:.5f}")
+        _check(all(np.isfinite(losses)) and last < first,
+               f"merged MLPs ({label}): loss did not fall ({first} -> {last})")
+        _profile_steps(trainer, batches[:2], med)
+        runs[merge] = dict(trainer=trainer, median_ms=med, calls=step_calls,
+                           gemm_launches=len(gemms), launches=launches)
+    k = tetranerf_preset().ray_buckets
+    _check(runs[True]["calls"] == {"field_mlps": 1, "density_mlp": 1},
+           f"merged MLPs: chains a step {runs[True]['calls']}, not 1 + 1")
+    _check(runs[False]["calls"] == {"field_mlps": k, "density_mlp": k},
+           f"per-bucket MLPs: chains a step {runs[False]['calls']}, not {k} + {k}")
+
+    # One step's loss and field gradient, merged against per-bucket, on the
+    # per-bucket trainer's state and bounds with the same random numbers.
+    trainer = runs[False]["trainer"]
+    merged = TetraNerf(tetranerf_preset(bucket_merge_mlps=True), mesh_plain.num_vertices,
+                       device=dev)
+    merged.load_state_dict(trainer.model.state_dict())
+    batch = _train_batch(rng, TRAIN_RAYS)
+    uniforms = _ref_uniforms(trainer.model, trainer, TRAIN_RAYS, 7)
+    loss_p, grad_p = _loss_and_field_grad(trainer.model, trainer.mesh, trainer, batch,
+                                          uniforms, dev)
+    loss_m, grad_m = _loss_and_field_grad(merged, trainer.mesh, trainer, batch, uniforms,
+                                          dev)
+    trainer.model.zero_grad(set_to_none=True)
+    loss_err = abs(loss_m - loss_p) / loss_p
+    grad_err = float((grad_m - grad_p).abs().max() / grad_p.abs().max())
+    print(f"merged MLPs: one {TRAIN_RAYS}-ray step against the per-bucket step: loss "
+          f"{loss_m:.6f} vs {loss_p:.6f} (rel {loss_err:.3g}), field gradient max abs "
+          f"diff / max {grad_err:.3g}; median ms/step {runs[True]['median_ms']:.2f} merged, "
+          f"{runs[False]['median_ms']:.2f} per-bucket; phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    _check(loss_err <= REF_LOSS_RTOL, f"merged MLPs: loss rel err {loss_err}")
+    _check(grad_err <= REF_GRAD_RTOL, f"merged MLPs: field grad rel err {grad_err}")
+    return runs[True]["launches"]
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -2394,16 +2793,27 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # The skip grid on a camera scene, then merged-MLP buckets.
+    march_entry = next(k for k in kernels if k["name"] == "march")
+    locate_entry, paths["skip_train"] = skip_phase(dev, march_entry, chase_ns[TRAIN_RAYS])
+    kernels.append(locate_entry)
+    torch.cuda.empty_cache()
+    paths["merged_train"] = merged_phase(colors, mesh_plain, dev)
+
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
+    render_of = {"flagship_train": "flagship_render", "train_fused": "render_fused",
+                 "skip_train": "flagship_render"}
+    step_of = {"flagship_train": flagship_step, "train_fused": step_launches}
     for k in kernels:
         name = k["name"]
         # The train run of the configuration whose path runs the kernel: the
-        # flagship (phase 12), else the fused-MLP run (phase 10).
-        flagship = paths["flagship_train"][name] > 0
-        k["launches"] = paths["flagship_train" if flagship else "train_fused"][name]
-        k["launches_per_step"] = (flagship_step if flagship else step_launches)[name]
-        k["launches_per_chunk"] = paths["flagship_render" if flagship
-                                        else "render_fused"][name] / chunks
+        # flagship (phase 12), else the fused-MLP run (phase 10), else the
+        # skip grid's run (phase 16; K9 runs once per mesh, in no steady step).
+        path = next((p for p in render_of if paths[p][name] > 0), "train_fused")
+        k["launches"] = paths[path][name]
+        k["launches_path"] = path
+        k["launches_per_step"] = step_of.get(path, {}).get(name, 0)
+        k["launches_per_chunk"] = paths[render_of[path]][name] / chunks
         k["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
         if name in flagship_ms:
             k["flagship_step_ms"] = flagship_ms[name]["ms"]

@@ -370,12 +370,15 @@ def test_bucketed_train_forward_loss_and_gradients_match_jax(setup, compute_dtyp
     """Per-bucket random numbers from JAX's bucket keys; adaptive budgets
     (32 samples per round scale down to 16 in shallow buckets) and one
     truncating bucket (inner bounds below the covering ones)."""
+    _check_train_forward_against_jax(setup, compute_dtype, fused_mlps=fused)
+
+
+def _check_train_forward_against_jax(setup, compute_dtype, **extra):
     import jax
     import jax.numpy as jnp
     from tetranerf_tpu.models.tetra_nerf import RayBundle
 
-    jcfg, cfg = _configs(compute_dtype, fused_mlps=fused, num_samples=32,
-                         num_fine_samples=32)
+    jcfg, cfg = _configs(compute_dtype, num_samples=32, num_fine_samples=32, **extra)
     jmodel = _jax_model(setup, jcfg)
     inner = (16,) + setup["covering"][1:]
     o, d = setup["origins"][:64], setup["directions"][:64]
@@ -411,6 +414,67 @@ def test_bucketed_train_forward_loss_and_gradients_match_jax(setup, compute_dtyp
         assert a.shape == r.shape, i
         assert np.abs(np.asarray(r)).max() > 0, i
         assert _rel_err(a, r) <= tol, (i, _rel_err(a, r))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_merged_train_forward_loss_and_gradients_match_jax(setup, compute_dtype):
+    """``bucket_merge_mlps`` on both sides (JAX ``_shade_buckets_merged``):
+    the per-bucket case's loss and gradients at its tolerances."""
+    _check_train_forward_against_jax(setup, compute_dtype, bucket_merge_mlps=True)
+
+
+def test_merged_eval_forward_matches_jax(setup):
+    """Four buckets merged at truncating inner bounds, adaptive budgets."""
+    jcfg, cfg = _configs(bucket_adaptive_samples=True, bucket_merge_mlps=True)
+    out, ref = _eval(setup, jcfg, cfg, (4, 8, 16))
+    _assert_close_to_jax(out, ref)
+    assert out["traversal_overflow"].sum() > 0
+
+
+def _count_mlp_calls(model, monkeypatch):
+    calls = {"field": 0, "density": 0}
+    for name, key in (("field_mlps", "field"), ("density_mlp", "density")):
+        fn = getattr(model, name)
+
+        def counted(*args, fn=fn, key=key):
+            calls[key] += 1
+            return fn(*args)
+
+        monkeypatch.setattr(model, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_merged_path_matches_the_per_bucket_path(setup, monkeypatch, fused):
+    """The port's merged path against its own per-bucket path on the same
+    weights and random numbers (f32, CPU): the eval rgb within 1e-5, the
+    train loss and field gradient within 1e-5 relative, with one call per
+    MLP round in place of one per bucket. With ``fused_mlps`` the flag is
+    ignored, as in JAX: the same calls as without it."""
+    out, calls = {}, {}
+    for merge in (False, True):
+        _, cfg = _configs(bucket_merge_mlps=merge, fused_mlps=fused)
+        model = _port_model(setup, cfg)
+        calls[merge] = _count_mlp_calls(model, monkeypatch)
+        o, d = (torch.from_numpy(x) for x in (setup["origins"], setup["directions"]))
+        with torch.inference_mode():
+            ev = model.get_outputs(o, d, setup["mesh"], occ_depth_cap=CAP,
+                                   bucket_steps=setup["covering"])
+        res = model.get_outputs(o, d, setup["mesh"], occ_depth_cap=CAP, train=True,
+                                generator=torch.Generator().manual_seed(9),
+                                bucket_steps=setup["covering"])
+        loss = res["rgb"].square().mean()
+        loss.backward()
+        out[merge] = (ev, float(loss.detach()), model.tetrahedra_field.grad.clone())
+    (ev0, loss0, g0), (ev1, loss1, g1) = out[False], out[True]
+    for key in ev0:
+        np.testing.assert_allclose(ev1[key].float().numpy(), ev0[key].float().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=key)
+    assert abs(loss1 - loss0) <= 1e-5 * abs(loss0)
+    assert float((g1 - g0).abs().max()) <= 1e-5 * float(g0.abs().max())
+    per_bucket = {"field": 2 * K, "density": 2 * K}  # an eval and a train forward
+    assert calls[False] == per_bucket
+    assert calls[True] == (per_bucket if fused else {"field": 2, "density": 2})
 
 
 def test_bucketed_train_forward_draws_per_bucket_from_the_generator(setup):

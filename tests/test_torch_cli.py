@@ -209,6 +209,16 @@ def test_missing_test_split(tiny_scene_dir, tmp_path, capsys):
     (["--model.skip-grid-resolution", "16"], "A8"),
 ])
 def test_unported_flags_are_refused(tmp_path, flags, item):
+    """A flag of code the port does not have exits naming its ROADMAP item;
+    the skip grid's flags (A8, now ported) train a few CPU steps, and the
+    grid attaches at the occupancy refresh of step 4."""
+    if item == "A8":
+        scene = _write_tiny_scene(tmp_path)
+        trainer = port_main(_flags(scene, tmp_path / "out", iterations=6) + flags + [
+            "--model.occupancy-refresh-every", "4", "--device", "cpu"])
+        assert trainer.step == 6 and trainer.model.config.skip_grid_resolution == 16
+        assert tuple(trainer.mesh.skip_table.shape) == (16, 16, 16, 8)
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         port_main(["--data", str(tmp_path), "--device", "cpu"] + flags)
 

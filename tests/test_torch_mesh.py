@@ -61,6 +61,9 @@ def test_with_occupancy_writes_column_24_only():
 
 
 def test_from_tables_wraps_jax_mesh_and_refuses_skip_grid():
+    """A JAX mesh wraps table for table, its skip grid as it is (zero-size
+    when off; the skip grid is ported, so a mesh carrying one is no longer
+    refused but wrapped bit for bit)."""
     points = _points("golden300")
     ref = jax_build_mesh(points)
     mesh = TorchMesh.from_tables(ref, device="cpu")
@@ -69,11 +72,19 @@ def test_from_tables_wraps_jax_mesh_and_refuses_skip_grid():
         np.asarray(ref.march_table).view(np.int32),
     )
     assert mesh.to("cpu").device == torch.device("cpu")
-    with_skip = ref.__class__(
-        **{**ref.__dict__, "skip_table": np.ones((2, 2, 2, 8), np.float32)}
-    )
-    with pytest.raises(NotImplementedError):
-        TorchMesh.from_tables(with_skip, device="cpu")
+    assert tuple(mesh.skip_table.shape) == (0, 0, 0, 8) and not mesh.has_skip_grid
+    table = np.random.default_rng(0).random((2, 2, 2, 8)).astype(np.float32)
+    table[..., 1] = np.arange(8, dtype=np.int32).reshape(2, 2, 2).view(np.float32)
+    meta = np.arange(8, dtype=np.float32)
+    with_skip = ref.__class__(**{**ref.__dict__, "skip_table": table, "skip_meta": meta})
+    wrapped = TorchMesh.from_tables(with_skip, device="cpu")
+    assert wrapped.has_skip_grid
+    np.testing.assert_array_equal(wrapped.skip_table.numpy().view(np.int32),
+                                  table.view(np.int32))
+    np.testing.assert_array_equal(wrapped.skip_meta.numpy(), meta)
+    kept = wrapped.with_occupancy(np.ones(wrapped.num_cells, np.float32))
+    assert kept.skip_table is wrapped.skip_table and mesh.with_skip_grid(
+        table, meta).has_skip_grid and not mesh.has_skip_grid
 
 
 def test_synthetic_scene_matches_jax():

@@ -197,14 +197,21 @@ def test_white_and_black_backgrounds(setup):
     )
 
 
-@pytest.mark.parametrize("override", [
-    dict(skip_grid_resolution=16),
-    dict(ray_buckets=8, bucket_merge_mlps=True),
-    dict(grad_stream_budget_per_ray=128),
-    dict(field_stream_dtype="bfloat16"),
-])
-def test_unported_settings_are_refused(override):
+@pytest.mark.parametrize("override, refused", [
+    (dict(skip_grid_resolution=16), False),
+    (dict(ray_buckets=8, bucket_merge_mlps=True), False),
+    (dict(grad_stream_budget_per_ray=128), True),
+    (dict(field_stream_dtype="bfloat16"), True),
+], ids=[f"override{i}" for i in range(4)])
+def test_unported_settings_are_refused(override, refused):
+    """Settings whose code the port does not have raise; the skip grid and
+    merged-MLP buckets, now ported, are accepted and build."""
     cfg = tetranerf_preset(**dict(SMALL, **override))
+    if not refused:
+        check_supported(cfg)
+        model = TetraNerf(cfg, 10, device="cpu")
+        assert dataclasses.asdict(model.config) == dataclasses.asdict(cfg)
+        return
     with pytest.raises(NotImplementedError):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):

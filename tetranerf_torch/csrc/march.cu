@@ -1,11 +1,14 @@
-// K1: entry walk + neighbour march, four lanes per ray, every output of
-// march() in its final layout in one launch.
+// K1: skip-grid sphere trace + entry walk + neighbour march, four lanes per
+// ray, every output of march() in its final layout in one launch. K9: the
+// point-location walk alone, over any points, on K1's walk code.
 //
 // Replaces: tetranerf_tpu/ops/fused.py `_walk_packed` (:87) and the
-// while_loop/scan march of `march_features` (:125-598: `crossings`,
-// `exit_face`, `hop`, `substep`) at hops=1 without the skip grid, with the
-// epilogue that assembles FusedMarch (valid, num_valid, hit, overflow and
-// the stream's vids/pos/bary). The TPU version steps every ray of a batch
+// while_loop/scan march of `march_features` (:125-598: the skip grid's
+// sphere trace :207-249, `crossings`, `exit_face`, `hop`, `substep`) at
+// hops=1, with the epilogue that assembles FusedMarch (valid, num_valid,
+// hit, overflow and the stream's vids/pos/bary); K9 replaces the
+// `_walk_packed` map of tetranerf_tpu/ops/skip_grid.py `make_skip_setup`
+// (:121-142). The TPU version steps every ray of a batch
 // in lock step, with a compaction cascade to shed finished rays; here each
 // ray stops at its own end, which gives the same outputs.
 //
@@ -35,6 +38,13 @@
 // warp's rays have ended, its 32 lanes write each ray's valid row and
 // padding tail with 16-byte stores, so no byte is written twice and no
 // fill kernel runs: march() is the hull slab and this one launch.
+//
+// The skip grid's prologue (G > 0; G == 0 is a uniform branch around it):
+// each quad's four lanes trace their ray redundantly, the loop warp-uniform
+// so the walk's shuffles that follow see a converged warp. A voxel index is
+// (int) of a float, which truncates toward zero as astype(int32) does, then
+// clamped into the grid, so a dropped ray holding t = inf or NaN still
+// reads inside it.
 //
 // Numerics: built with --fmad=false, and every expression keeps the order
 // of the PyTorch twin (tetranerf_torch/ops/march.py), so distances round
@@ -156,13 +166,62 @@ __device__ __forceinline__ float crossing(float4 p, float t, float ox, float oy,
   return t - b / dd;
 }
 
+// Point-location walk (fused.py `_walk_packed`) by a quad: from cell c step
+// toward the most negative barycentric of p until inside; -1 once it walks
+// out of the hull. Every lane of the warp calls it (the loop is uniform).
+__device__ __forceinline__ int walk(const float* table, int c, float px, float py,
+                                    float pz, int steps, int k) {
+  bool walk_done = c < 0;
+  for (int i = 0; i < steps && __any_sync(kFull, !walk_done); ++i) {
+    const float* row = row_of(table, walk_done ? 0 : c);
+    const float4 p = __ldg(reinterpret_cast<const float4*>(row) + k);
+    const int4 nb = __ldg(reinterpret_cast<const int4*>(row + 16));
+    float b_min;
+    int nxt;
+    first_min(gather4(plane_eval(p, px, py, pz)), nb, b_min, nxt);
+    if (!walk_done) {
+      if (b_min >= -kBaryEps) {
+        walk_done = true;
+      } else {
+        c = nxt;
+        walk_done = c < 0;
+      }
+    }
+  }
+  return c;
+}
+
+constexpr int kSkipTraceSteps = 64;
+
+// Flat index of the skip-grid voxel holding o + t d, clamped into the grid.
+__device__ __forceinline__ int voxel(const float* meta, int g, float ox, float oy,
+                                     float oz, float dx, float dy, float dz, float t) {
+  const int i = min(max(static_cast<int>(((ox + t * dx) - __ldg(meta)) * __ldg(meta + 3)), 0), g - 1);
+  const int j = min(max(static_cast<int>(((oy + t * dy) - __ldg(meta + 1)) * __ldg(meta + 4)), 0), g - 1);
+  const int l = min(max(static_cast<int>(((oz + t * dz) - __ldg(meta + 2)) * __ldg(meta + 5)), 0), g - 1);
+  return (i * g + j) * g + l;
+}
+
+__global__ void __launch_bounds__(kThreads) locate_kernel(
+    const float* __restrict__ table, const int* __restrict__ seeds,
+    const float* __restrict__ points, int num_points, int steps,
+    int* __restrict__ out) {
+  const int r_raw = (blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const bool live = r_raw < num_points;
+  const int r = live ? r_raw : 0;
+  const int c = walk(table, live ? seeds[r] : -1, points[3 * r], points[3 * r + 1],
+                     points[3 * r + 2], steps, threadIdx.x & 3);
+  if (live && (threadIdx.x & 3) == 0) out[r] = c;
+}
+
 __global__ void __launch_bounds__(kThreads) march_kernel(
     const float* __restrict__ table, const int* __restrict__ hull_cells,
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_in, const float* __restrict__ t_out,
     const int* __restrict__ entry_facet, const bool* __restrict__ hit_in,
     int num_rays, int max_steps, int num_steps, int walk_steps, int use_occ,
-    float depth_cap, int* __restrict__ cells, float* __restrict__ t0s,
+    float depth_cap, const float* __restrict__ skip_table,
+    const float* __restrict__ skip_meta, int grid, int* __restrict__ cells, float* __restrict__ t0s,
     float* __restrict__ t1s, bool* __restrict__ valid, int* __restrict__ vids,
     int* __restrict__ poss, float* __restrict__ barys,
     float* __restrict__ t_entry_out, int* __restrict__ num_valid_out,
@@ -184,32 +243,34 @@ __global__ void __launch_bounds__(kThreads) march_kernel(
   const float span = nan_max(tout - tin, 1e-30f);
   const float eps_t = 1e-3f * span + 1e-7f;
   const float cap = tout + eps_t;
-  const float tloc = tin + eps_t;
+  float tloc = tin + eps_t;
   int c = hit ? hull_cells[entry_facet[r]] : -1;
 
-  // Entry walk: move toward the most negative barycentric until inside.
-  {
-    const float px = ox + tloc * dx;
-    const float py = oy + tloc * dy;
-    const float pz = oz + tloc * dz;
-    bool walk_done = c < 0;
-    for (int i = 0; i < walk_steps && __any_sync(kFull, !walk_done); ++i) {
-      const float* row = row_of(table, walk_done ? 0 : c);
-      const float4 p = __ldg(reinterpret_cast<const float4*>(row) + k);
-      const int4 nb = __ldg(reinterpret_cast<const int4*>(row + 16));
-      float b_min;
-      int nxt;
-      first_min(gather4(plane_eval(p, px, py, pz)), nb, b_min, nxt);
-      if (!walk_done) {
-        if (b_min >= -kBaryEps) {
-          walk_done = true;
-        } else {
-          c = nxt;
-          walk_done = c < 0;
-        }
+  if (grid > 0) {
+    // Sphere trace: advance by the voxel's safe distance while it is
+    // positive and the ray is inside the hull.
+    float t = tloc;
+    bool moving = hit;
+    for (int it = 0; it < kSkipTraceSteps && __any_sync(kFull, moving); ++it) {
+      if (moving) {
+        const float rho = __ldg(skip_table + 8LL * voxel(skip_meta, grid, ox, oy, oz,
+                                                          dx, dy, dz, t));
+        moving = rho > 0.0f;
+        if (moving) t = t + rho;
+        moving = moving && t < cap;
       }
     }
+    hit = hit && t < cap;  // a ray that left the hull crossed only free space
+    const int anchor = __float_as_int(__ldg(
+        skip_table + 8LL * voxel(skip_meta, grid, ox, oy, oz, dx, dy, dz,
+                                 t < cap ? t : cap) + 1));
+    const bool skipped = t > tin + eps_t;
+    c = !hit ? -1 : (skipped && anchor >= 0 ? anchor : c);
+    tloc = t;
   }
+
+  // Entry walk: move toward the most negative barycentric until inside.
+  c = walk(table, c, ox + tloc * dx, oy + tloc * dy, oz + tloc * dz, walk_steps, k);
   hit = hit && c >= 0;
 
   // Entry distance and barycentrics from the entry cell's row (row 0 for
@@ -352,7 +413,8 @@ extern "C" int tetranerf_march(
     const float* table, const int* hull_cells, const float* origins,
     const float* dirs, const float* t_in, const float* t_out,
     const int* entry_facet, const bool* hit, int num_rays, int max_steps,
-    int num_steps, int walk_steps, int use_occ, float depth_cap, int* cells,
+    int num_steps, int walk_steps, int use_occ, float depth_cap,
+    const float* skip_table, const float* skip_meta, int grid, int* cells,
     float* t0s, float* t1s, bool* valid, int* vids, int* poss, float* barys,
     float* t_entry, int* num_valid, bool* hit_out, bool* overflow,
     cudaStream_t stream) {
@@ -360,9 +422,19 @@ extern "C" int tetranerf_march(
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   march_kernel<<<blocks, kThreads, 0, stream>>>(
       table, hull_cells, origins, dirs, t_in, t_out, entry_facet, hit,
-      num_rays, max_steps, num_steps, walk_steps, use_occ, depth_cap, cells,
-      t0s, t1s, valid, vids, poss, barys, t_entry, num_valid, hit_out,
-      overflow);
+      num_rays, max_steps, num_steps, walk_steps, use_occ, depth_cap,
+      skip_table, skip_meta, grid, cells, t0s, t1s, valid, vids, poss, barys,
+      t_entry, num_valid, hit_out, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tetranerf_locate(const float* table, const int* seeds,
+                                const float* points, int num_points, int steps,
+                                int* out, cudaStream_t stream) {
+  const long long threads = 4LL * num_points;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  locate_kernel<<<blocks, kThreads, 0, stream>>>(table, seeds, points, num_points,
+                                                 steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

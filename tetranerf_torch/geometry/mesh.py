@@ -17,6 +17,10 @@ The hot table is ``march_table f32[C, 64]``, one row per cell:
 - column 24: the per-cell occupancy density (:meth:`TorchMesh.with_occupancy`);
 - columns 25-63: zero padding (a row is 256 bytes).
 
+Beside it the empty-space skip grid ``skip_table f32[G, G, G, 8]`` and its
+geometry ``skip_meta f32[8]`` (:mod:`..ops.skip_grid`), zero-size while the
+grid is off.
+
 The bit-cast ids are float denormals: read them only through an int view
 (``Tensor.view(torch.int32)`` or ``__float_as_int``), never through float
 arithmetic, which may flush them to zero.
@@ -48,6 +52,11 @@ class TorchMesh:
         hull_cells: ``i32[H]`` a cell incident to each hull facet.
         vertex_cells: ``i32[V]`` some cell incident to each vertex.
         march_table: ``f32[C, 64]`` packed per-cell march row (module doc).
+        skip_table: ``f32[G, G, G, 8]`` empty-space skip grid: column 0 the
+            safe sphere-trace advance, column 1 the voxel's anchor cell
+            (int32 bit-cast); ``f32[0, 0, 0, 8]`` while the grid is off.
+        skip_meta: ``f32[8]`` the grid's geometry: ``lo`` (3) | ``1/h`` (3)
+            | ``h_min`` | 0.
     """
 
     vertices: torch.Tensor
@@ -58,6 +67,8 @@ class TorchMesh:
     hull_cells: torch.Tensor
     vertex_cells: torch.Tensor
     march_table: torch.Tensor
+    skip_table: torch.Tensor
+    skip_meta: torch.Tensor
 
     @property
     def num_vertices(self) -> int:
@@ -96,26 +107,41 @@ class TorchMesh:
         table[:, OCC_COLUMN] = occ.to(table.device)
         return dataclasses.replace(self, march_table=table)
 
+    @property
+    def has_skip_grid(self) -> bool:
+        return self.skip_table.numel() > 0
+
+    def with_skip_grid(self, table, meta) -> "TorchMesh":
+        """New mesh carrying the skip grid ``table f32[G, G, G, 8]`` and
+        ``meta f32[8]`` (:func:`..ops.skip_grid.build_skip_table`; JAX
+        ``attach_skip_grid``). The caller's mesh is left as it was."""
+        dev = self.device
+        return dataclasses.replace(
+            self,
+            skip_table=torch.as_tensor(table, dtype=torch.float32).to(dev).contiguous(),
+            skip_meta=torch.as_tensor(meta, dtype=torch.float32).to(dev).contiguous(),
+        )
+
     @classmethod
     def from_tables(cls, tables, device="cuda") -> "TorchMesh":
         """Wrap numpy tables with the attribute names above, e.g. a mesh
-        built by :func:`tetranerf_tpu.geometry.build_mesh`.
-
-        The empty-space skip grid is not ported: a source carrying a
-        non-empty ``skip_table`` is refused rather than marched without it."""
-        skip = getattr(tables, "skip_table", None)
-        if skip is not None and np.asarray(skip).size > 0:
-            raise NotImplementedError(
-                "the empty-space skip grid (skip_table) is not ported yet"
-            )
+        built by :func:`tetranerf_tpu.geometry.build_mesh`; its skip grid
+        is wrapped as it is (zero-size where the source has none)."""
+        off = _no_skip_grid()
         return cls(
             **{
-                f.name: torch.from_numpy(np.array(getattr(tables, f.name))).to(
-                    device
-                )
+                f.name: torch.from_numpy(np.array(
+                    getattr(tables, f.name, off.get(f.name))
+                )).to(device)
                 for f in dataclasses.fields(cls)
             }
         )
+
+
+def _no_skip_grid() -> dict:
+    """The zero-size skip grid of a mesh without one."""
+    return {"skip_table": np.zeros((0, 0, 0, 8), np.float32),
+            "skip_meta": np.zeros(8, np.float32)}
 
 
 def _face_key_sort(cells: np.ndarray) -> np.ndarray:
@@ -294,6 +320,7 @@ def build_mesh(
         hull_cells=hull_cells,
         vertex_cells=vertex_cells,
         march_table=march_table,
+        **_no_skip_grid(),
     )
     return TorchMesh(
         **{

@@ -31,16 +31,18 @@ twins run at either dtype).
 
 ``ray_buckets >= 2`` shades rays in quantile buckets of their crossing
 count, each at its own bound (``TetraNerf.get_outputs``); the buckets are
-cut from one march with the row-gather kernel K8. The JAX variant that
-merges the buckets' MLP calls (``bucket_merge_mlps``, which JAX runs only
-without ``fused_mlps``) is not ported.
+cut from one march with the row-gather kernel K8. ``bucket_merge_mlps``
+runs the MLPs of all buckets as one call per round (2 MLP chains a step in
+place of 2 per bucket), as JAX does; with ``fused_mlps`` it is ignored, as
+in JAX.
+
+``skip_grid_resolution > 0`` builds the empty-space skip grid at each
+occupancy refresh (``Trainer._rebuild_skip_grid``, ``ops/skip_grid.py``),
+and every march with occupancy termination sphere-traces through it first,
+as in JAX.
 
 Settings whose code is not ported yet are refused by
-:func:`check_supported` with ``NotImplementedError``. Among them is the
-empty-space skip grid (``skip_grid_resolution > 0``), which the JAX trainer
-builds at each occupancy refresh and the march then sphere-traces through:
-it changes where samples fall, so the port refuses it rather than train
-another function.
+:func:`check_supported` with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -115,9 +117,6 @@ class TetrahedraNerfConfig:
 def check_supported(config: TetrahedraNerfConfig) -> None:
     """Refuse settings whose code the port does not have yet."""
     refused = {
-        "skip_grid_resolution>0": config.skip_grid_resolution > 0,
-        "bucket_merge_mlps with ray_buckets>=2": config.ray_buckets >= 2
-        and config.bucket_merge_mlps and not config.fused_mlps,
         "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
         is not None,
         "field_stream_dtype='bfloat16'": config.field_stream_dtype

@@ -5,13 +5,15 @@ render (eval) forward and the train forward, whose backward runs through
 the kernels' autograd Functions (``ops.interp``, and with ``fused_mlps`` the
 fused MLP kernels of ``ops.mlp``), plain or in quantile buckets
 (``ray_buckets >= 2``, each bucket cut from one march by the row gather
-K8). The module holds
-the per-vertex feature field ``tetrahedra_field [V, F]`` (vertex-major, as
-in the JAX package) and the four MLP parts; the mesh is passed to each call.
+K8; ``bucket_merge_mlps`` runs each MLP round over all buckets at once).
+The module holds the per-vertex feature field ``tetrahedra_field [V, F]``
+(vertex-major, as in the JAX package) and the four MLP parts; the mesh is
+passed to each call.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -371,15 +373,16 @@ class TetraNerf(nn.Module):
         occ_depth_cap, train, generator, uniforms, camera_indices,
         cached_march,
     ):
-        """Quantile-bucketed shading (JAX ``_get_outputs_bucketed``, its
-        per-bucket path): one geometry-only march at the full bound (K1),
-        rays sorted by crossing count (stably, as ``jnp.argsort``) and cut
-        into equal quantile chunks; one K8 launch slices every chunk to its
-        own bound (geometry only: the slices take no gradient), one K2
-        launch computes every slice's endpoint features against the field
-        (so the field gradient is one ``[V, F]`` tensor, one K7 launch),
-        each slice is shaded by :meth:`_forward`, and the outputs go back
-        to ray order."""
+        """Quantile-bucketed shading (JAX ``_get_outputs_bucketed``): one
+        geometry-only march at the full bound (K1), rays sorted by crossing
+        count (stably, as ``jnp.argsort``) and cut into equal quantile
+        chunks; one K8 launch slices every chunk to its own bound (geometry
+        only: the slices take no gradient), one K2 launch computes every
+        slice's endpoint features against the field (so the field gradient
+        is one ``[V, F]`` tensor, one K7 launch), and the outputs go back
+        to ray order. Each slice is shaded by :meth:`_shade`, or with
+        ``bucket_merge_mlps`` (and not ``fused_mlps``, as in JAX) by
+        :meth:`_shade_buckets_merged`."""
         cfg = self.config
         res = cached_march
         if res is None:
@@ -395,28 +398,109 @@ class TetraNerf(nn.Module):
         slices = slice_march_buckets(res, order, plan, (origins, directions))
         feats = endpoint_features_batch(self.tetrahedra_field,
                                         [sliced.stream for sliced, _ in slices])
-        outs = []
-        for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)), feats_k in zip(
-                plan, slices, feats):
-            outs.append(self._forward(
-                o_k, d_k, mesh, t_k, ns_k, nf_k, None,
-                train, generator, None if uniforms is None else uniforms[k],
-                None if camera_indices is None else camera_indices[order[lo:hi]],
-                sliced, endpoint_feats=feats_k,
-            ))
+        jobs = [
+            (o_k, d_k, sliced._replace(feats=feats_k), ns_k, nf_k,
+             None if uniforms is None else uniforms[k],
+             None if camera_indices is None else camera_indices[order[lo:hi]])
+            for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)), feats_k
+            in zip(plan, slices, feats)
+        ]
+        if cfg.bucket_merge_mlps and not cfg.fused_mlps:
+            outs = self._shade_buckets_merged(jobs, train, generator)
+        else:
+            outs = [self._shade(o_k, d_k, res_k, ns_k, nf_k, train, generator, u_k, cams_k)
+                    for o_k, d_k, res_k, ns_k, nf_k, u_k, cams_k in jobs]
         return {key: torch.cat([o[key] for o in outs])[inv_order] for key in outs[0]}
+
+    def _shade_buckets_merged(self, jobs, train, generator):
+        """Bucketed shading with each MLP round merged across the buckets
+        (JAX ``_shade_buckets_merged``): the samples are pointwise for the
+        MLPs, so every bucket's ``[R_k, S_k, F]`` samples go through one
+        call as ``[sum R_k S_k, 1, F]``, directions and camera indices
+        repeated per sample: 2 MLP chains a step in place of 2 per bucket.
+        Sampling, the PDF round and rendering stay per bucket (their shapes
+        follow each bucket's bound). Buckets with no fine budget shade their
+        coarse samples and skip the coarse-density round."""
+        shade = [self._coarse_round(o_k, res_k, ns_k, nf_k, train, generator, u_k)
+                 for o_k, _, res_k, ns_k, nf_k, u_k, _ in jobs]
+        rays = [(d_k, cams_k) for _, d_k, _, _, _, _, cams_k in jobs]
+
+        def merged(mlp, members):
+            """``mlp`` over the members' samples as one call, each output
+            split back to ``[R_k, S_k, ...]``."""
+            fv = [shade[i]["fv"] for i in members]
+            sizes = [x.shape[1] for x in fv]
+            cams = [rays[i][1] for i in members]
+            outs = mlp(
+                torch.cat([x.reshape(-1, 1, x.shape[-1]) for x in fv]),
+                torch.cat([rays[i][0].repeat_interleave(n, dim=0)
+                           for i, n in zip(members, sizes)]),
+                None if cams[0] is None else torch.cat(
+                    [c.repeat_interleave(n, dim=0) for c, n in zip(cams, sizes)]),
+            )
+            splits = [x.shape[0] * x.shape[1] for x in fv]
+            return [
+                [part.reshape(*x.shape[:2], *part.shape[2:])
+                 for part, x in zip(torch.split(out, splits), fv)]
+                for out in outs
+            ]
+
+        fine = [i for i, b in enumerate(shade) if b["nf"] > 0]
+        if fine:
+            with torch.no_grad():
+                (dens,) = merged(lambda x, d, c: (self.density_mlp(x),), fine)
+            for i, d_c in zip(fine, dens):
+                self._fine_round(shade[i], d_c)
+        rgbs, denss = merged(self.field_mlps, range(len(shade)))
+        return [self._render(b, rgb, dens, train)
+                for b, rgb, dens in zip(shade, rgbs, denss)]
 
     def _forward(
         self, origins, directions, mesh, max_steps, n_coarse, n_fine,
         occ_depth_cap, train, generator, uniforms, camera_indices,
-        cached_march=None, endpoint_feats=None,
+        cached_march=None,
     ) -> Dict[str, torch.Tensor]:
         """The forward of one batch of rays at one bound (JAX ``_forward``);
-        a ``cached_march`` is re-shaded: its endpoint features are
-        ``endpoint_feats`` where the caller computed them against the
-        current field, else they are computed here (K2). The ``feats`` a
-        cached march carries are never used: they may be an older
-        field's."""
+        a ``cached_march`` is re-shaded, its endpoint features computed here
+        against the current field (K2): the ``feats`` a cached march carries
+        are never used, they may be an older field's."""
+        cfg = self.config
+        if cached_march is not None:
+            res = cached_march._replace(
+                feats=endpoint_features(self.tetrahedra_field, cached_march.stream))
+        else:
+            res = march_features(
+                mesh, self.tetrahedra_field, origins, directions, max_steps,
+                use_occupancy=cfg.use_occupancy_field,
+                occ_threshold=cfg.occupancy_threshold,
+                occ_depth_cap=occ_depth_cap,
+            )
+        return self._shade(origins, directions, res, n_coarse, n_fine, train,
+                           generator, uniforms, camera_indices)
+
+    def _shade(self, origins, directions, res, n_coarse, n_fine, train, generator,
+               uniforms, camera_indices) -> Dict[str, torch.Tensor]:
+        """Shade one batch of rays from its march ``res`` (with ``feats``):
+        the coarse round, the PDF round, the field MLPs and rendering."""
+        b = self._coarse_round(origins, res, n_coarse, n_fine, train, generator, uniforms)
+        if n_fine > 0:
+            with torch.no_grad():
+                density_c = self.density_mlp(b["fv"])
+            self._fine_round(b, density_c)
+        rgb, density = self.field_mlps(b["fv"], directions, camera_indices)
+        return self._render(b, rgb, density, train)
+
+    def _run_field(self, b, bins):
+        """Midpoint distances, deltas, per-sample features ``fv`` and
+        validity ``smask`` at bin edges ``bins`` into ``b`` (K3)."""
+        b["dist"] = (bins[:, 1:] + bins[:, :-1]) / 2.0
+        b["deltas"] = bins[:, 1:] - bins[:, :-1]
+        b["fv"], b["smask"] = sample_features(b["res"], b["dist"], b["ray_mask"])
+
+    def _coarse_round(self, origins, res, n_coarse, n_fine, train, generator, uniforms):
+        """The random numbers (``train``), ray bounds and coarse samples of
+        one batch; the coarse features run without autograd when a PDF round
+        follows, as the JAX model stops their gradients."""
         cfg = self.config
         num_rays = origins.shape[0]
         dev = origins.device
@@ -427,60 +511,48 @@ class TetraNerf(nn.Module):
             )
             u = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
                  for k, v in u.items()}
-
-        if cached_march is not None:
-            if endpoint_feats is None:
-                endpoint_feats = endpoint_features(self.tetrahedra_field,
-                                                   cached_march.stream)
-            res = cached_march._replace(feats=endpoint_feats)
-        else:
-            res = march_features(
-                mesh, self.tetrahedra_field, origins, directions, max_steps,
-                use_occupancy=cfg.use_occupancy_field,
-                occ_threshold=cfg.occupancy_threshold,
-                occ_depth_cap=occ_depth_cap,
-            )
         nears, fars, first_kept, num_kept, ray_mask = ray_bounds(res)
         span = (fars - nears)[:, None]
-
         bins01 = stratified_bins(num_rays, n_coarse, device=dev, u=u.get("coarse"))
         euclid = nears[:, None] + bins01 * span
         if cfg.use_biased_sampler:
             euclid = biased_warp_range(res, first_kept, num_kept, nears, fars, euclid)
-        spacing = (euclid - nears[:, None]) / span
+        b = dict(res=res, u=u, nears=nears, span=span, ray_mask=ray_mask, nf=n_fine,
+                 spacing=(euclid - nears[:, None]) / span)
+        with torch.no_grad() if n_fine > 0 else contextlib.nullcontext():
+            self._run_field(b, euclid)
+        return b
 
-        def run_field(bins):
-            distances = (bins[:, 1:] + bins[:, :-1]) / 2.0
-            deltas = bins[:, 1:] - bins[:, :-1]
-            field_values, smask = sample_features(res, distances, ray_mask)
-            return distances, deltas, smask, field_values
+    def _fine_round(self, b, density_c):
+        """The PDF round from the coarse density ``[R, S]``: resample the
+        spacing and take the fine samples' features."""
+        weights_c = render_weights(torch.where(b["smask"], density_c, 0.0), b["deltas"])
+        b["spacing"] = pdf_sample(b["spacing"], weights_c, b["nf"], include_original=True,
+                                  u=b["u"].get("fine"))
+        self._run_field(b, b["nears"][:, None] + b["spacing"] * b["span"])
 
-        if n_fine > 0:
-            with torch.no_grad():
-                _, deltas, smask, field_values = run_field(euclid)
-                density_c = torch.where(smask, self.density_mlp(field_values), 0.0)
-                weights_c = render_weights(density_c, deltas)
-            spacing = pdf_sample(spacing, weights_c, n_fine, include_original=True,
-                                 u=u.get("fine"))
-            euclid = nears[:, None] + spacing * span
-
-        distances, deltas, smask, field_values = run_field(euclid)
-        rgb, density = self.field_mlps(field_values, directions, camera_indices)
-        density = torch.where(smask, density, 0.0)
+    def _render(self, b, rgb, density, train) -> Dict[str, torch.Tensor]:
+        """Volume rendering of one batch from its samples' ``rgb [R, S, 3]``
+        and ``density [R, S]``, with the gradient scaler under autograd."""
+        cfg = self.config
+        ray_mask = b["ray_mask"]
+        num_rays, dev = ray_mask.shape[0], ray_mask.device
+        density = torch.where(b["smask"], density, 0.0)
         if cfg.use_gradient_scaling and torch.is_grad_enabled():
             # Spacing-domain distance doubles as distance-to-object-centre
             # (reference model.py:625-630); the identity in the forward.
+            spacing = b["spacing"]
             scaling = torch.square(spacing[:, 1:] + spacing[:, :-1]).clamp(0.0, 1.0)
             rgb, density = GradientScaler.apply(rgb, density, scaling)
-        weights = render_weights(density, deltas)
+        weights = render_weights(density, b["deltas"])
         if cfg.background_color == "last_sample":
             background = rgb[:, -1, :]
         elif train and cfg.background_color == "random":
-            background = u["background"]
+            background = b["u"]["background"]
         else:
             background = self.background(num_rays, dev)
         rgb_out, acc, depth = render_rgb_depth_acc(
-            weights, rgb, distances, background_rgb=background,
+            weights, rgb, b["dist"], background_rgb=background,
             depth_method=cfg.depth_method,
         )
         rgb_out = torch.where(ray_mask[:, None], rgb_out, background)
@@ -491,7 +563,7 @@ class TetraNerf(nn.Module):
             "accumulation": acc[:, None],
             "depth": depth[:, None],
             "ray_mask": ray_mask,
-            "traversal_overflow": res.overflow,
+            "traversal_overflow": b["res"].overflow,
         }
 
     # ------------------------------------------------------------------ loss

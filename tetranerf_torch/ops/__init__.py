@@ -1,5 +1,5 @@
-"""Ray ops and fused MLPs of the port; the kernels (K1-K8, ``csrc/``) have
-PyTorch twins."""
+"""Ray ops, fused MLPs and the skip grid of the port; the kernels (K1-K9,
+``csrc/``) have PyTorch twins."""
 
 from .fused import (
     biased_warp_range,
@@ -12,7 +12,7 @@ from .fused import (
     slice_march_buckets,
 )
 from .gather import row_gather, row_gather_batch
-from .march import FusedMarch, MarchStream, march
+from .march import FusedMarch, MarchStream, locate_points, march
 from .mlp import (
     FusedDensityMLP,
     FusedFieldMLPs,
@@ -23,6 +23,7 @@ from .mlp import (
 )
 from .rendering import render_rgb_depth_acc, render_weights
 from .sampling import pdf_sample, stratified_bins
+from .skip_grid import SkipSetup, build_skip_table, make_skip_setup
 from .traversal import hull_intersect
 
 __all__ = [
@@ -30,7 +31,9 @@ __all__ = [
     "FusedFieldMLPs",
     "FusedMarch",
     "MarchStream",
+    "SkipSetup",
     "biased_warp_range",
+    "build_skip_table",
     "endpoint_features",
     "endpoint_features_batch",
     "fused_density_mlp",
@@ -38,6 +41,8 @@ __all__ = [
     "fused_field_mlps",
     "fused_field_mlps_backward",
     "hull_intersect",
+    "locate_points",
+    "make_skip_setup",
     "march",
     "march_features",
     "pdf_sample",

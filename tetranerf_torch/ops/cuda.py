@@ -50,7 +50,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of each C entry point (the trailing pointer is the CUDA stream).
 _SIGNATURES = {
-    "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 11 + [_P],
+    "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P, _P, _I] + [_P] * 11 + [_P],
+    "tetranerf_locate": [_P] * 3 + [_I] * 2 + [_P] + [_P],
     "tetranerf_stream_blend_gather_batch": [_P, _P, _I, _I, _P],
     "tetranerf_stream_blend_max_jobs": [],
     "tetranerf_sample_interp": [_P] * 8 + [_I] * 4 + [_P],
@@ -65,7 +66,7 @@ _SIGNATURES = {
 }
 
 launch_counts = {
-    "march": 0, "stream_blend_gather": 0, "sample_interp": 0,
+    "march": 0, "locate": 0, "stream_blend_gather": 0, "sample_interp": 0,
     "stream_blend_backward": 0, "sample_interp_backward": 0,
     "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
     "fused_density_mlp": 0, "fused_density_mlp_backward": 0, "row_gather": 0,

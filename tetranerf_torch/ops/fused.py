@@ -60,12 +60,14 @@ def march_features(
     use_occupancy: bool = False,
     occ_threshold: float = 1e-3,
     occ_depth_cap=None,
+    use_skip: bool = True,
 ) -> FusedMarch:
     """March rays (K1) and, when ``field f32[V, F]`` is given, emit their
-    endpoint features (K2)."""
+    endpoint features (K2). With ``use_skip`` and ``use_occupancy`` the
+    rays sphere-trace the mesh's skip grid first, where it has one."""
     res = march(
         mesh, origins, directions, max_steps, entry_walk_steps,
-        use_occupancy, occ_threshold, occ_depth_cap,
+        use_occupancy, occ_threshold, occ_depth_cap, use_skip,
     )
     if field is None:
         return res

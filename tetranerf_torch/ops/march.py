@@ -1,8 +1,17 @@
-"""Entry walk and neighbour march: kernel K1 (``csrc/march.cu``) and its twin.
+"""Entry walk and neighbour march: kernel K1 (``csrc/march.cu``) and its
+twin; the point-location walk: kernel K9 (``csrc/march.cu``) and its twin.
 
-Counterpart of ``_walk_packed`` and ``march_features`` (``hops=1``, no skip
-grid) in :mod:`tetranerf_tpu.ops.fused`. The outputs keep that module's
-fields and layouts (:class:`FusedMarch`, :class:`MarchStream`).
+Counterpart of ``_walk_packed`` and ``march_features`` (``hops=1``) in
+:mod:`tetranerf_tpu.ops.fused`. The outputs keep that module's fields and
+layouts (:class:`FusedMarch`, :class:`MarchStream`).
+
+With the empty-space skip grid (a mesh carrying ``skip_table``, see
+:mod:`.skip_grid`, and occupancy termination on) a prologue sphere-traces
+each ray from its hull entry before the entry walk: up to 64 times it reads
+the safe advance ``rho`` of the voxel it is in and moves by it, until
+``rho`` is 0 or it leaves the hull. A ray that leaves the hull is dropped
+(``hit`` false); a ray that moved starts its entry walk from its voxel's
+anchor cell, at the point where it stopped.
 
 For each ray the march walks from the hull-entry seed to the cell holding
 the entry point, then steps cell to neighbour through the exit face. Each
@@ -89,6 +98,88 @@ def _fetch(table_i, c):
     return planes, row[:, 16:20], row[:, 20:24], row[:, 24].view(torch.float32)
 
 
+def locate_points_twin(table, seeds, points, steps: int, return_rows: bool = False):
+    """Plain PyTorch version of K9 (any device; JAX ``_walk_packed``): from
+    cell ``seeds i32[N]`` walk ``points f32[N, 3]`` toward the most negative
+    barycentric, for at most ``steps`` steps, until the cell holds the
+    point. Returns the cell where each walk stopped, -1 once it walked out
+    of the hull (a negative seed stays as it is). ``return_rows`` also
+    returns the rows each walk read before it stopped."""
+    table_i = table.view(torch.int32)
+    c = seeds
+    done = c < 0
+    rows = torch.zeros_like(c)
+    for _ in range(steps):
+        if not bool((~done).any()):
+            break
+        planes, nb, _, _ = _fetch(table_i, c)
+        b_min, k = _first_min(eval_planes(planes, points))
+        inside = b_min >= -BARY_EPS
+        nxt = nb.gather(1, k[:, None])[:, 0]
+        rows += (~done).to(rows.dtype)
+        c = torch.where(done | inside, c, nxt)
+        done = done | inside | (nxt < 0)
+    return (c, rows) if return_rows else c
+
+
+def _locate_cuda(table, seeds, points, steps):
+    cuda.check_cuda_inputs("locate", table=table, seeds=seeds, points=points)
+    n = seeds.shape[0]
+    if (table.dtype != torch.float32 or table.shape[1] != 64
+            or seeds.dtype != torch.int32 or points.shape != (n, 3)
+            or points.dtype != torch.float32):
+        raise ValueError("locate: unexpected input shapes or dtypes")
+    out = torch.empty(n, dtype=torch.int32, device=seeds.device)
+    if n:
+        cuda.launch("locate", "tetranerf_locate", seeds.device,
+                    cuda.ptr(table), cuda.ptr(seeds), cuda.ptr(points), n, int(steps),
+                    cuda.ptr(out))
+    return out
+
+
+def locate_points(table, seeds, points, steps: int):
+    """K9 on CUDA tensors, :func:`locate_points_twin` on CPU tensors."""
+    if points.is_cuda:
+        return _locate_cuda(table, seeds, points, steps)
+    if points.device.type == "cpu":
+        return locate_points_twin(table, seeds, points, steps)
+    raise ValueError(f"locate: unsupported device {points.device}")
+
+
+SKIP_TRACE_STEPS = 64
+
+
+def _voxel(skip_meta, grid: int, o, d, t):
+    """Flat index of the skip-grid voxel holding ``o + t d``, clamped into
+    the grid (``(int)`` truncates toward zero, as ``astype(int32)``)."""
+    p = o + t[:, None] * d
+    ij = ((p - skip_meta[None, :3]) * skip_meta[None, 3:6]).to(torch.int32)
+    ij = ij.clamp(0, grid - 1).long()
+    return (ij[:, 0] * grid + ij[:, 1]) * grid + ij[:, 2]
+
+
+def _skip_trace(skip_table, skip_meta, o, d, t_in, eps_t, t_cap, hit, seed):
+    """The sphere-trace prologue (JAX ``march_features``, ``use_skip``):
+    returns ``(t_loc, hit, seed)`` for the entry walk."""
+    grid = skip_table.shape[0]
+    rows = skip_table.reshape(-1, 8)
+    t = t_in + eps_t
+    moving = hit
+    for _ in range(SKIP_TRACE_STEPS):
+        if not bool(moving.any()):
+            break
+        rho = rows[_voxel(skip_meta, grid, o, d, t), 0]
+        adv = moving & (rho > 0.0)
+        t = torch.where(adv, t + rho, t)
+        moving = adv & (t < t_cap)
+    # A ray whose trace left the hull crossed only free space: dropped.
+    hit = hit & (t < t_cap)
+    anchor = rows.view(torch.int32)[_voxel(skip_meta, grid, o, d, torch.minimum(t, t_cap)), 1]
+    skipped = t > t_in + eps_t
+    seed = torch.where(~hit, -1, torch.where(skipped & (anchor >= 0), anchor, seed))
+    return t, hit, seed
+
+
 def _crossings(planes, t, o, d):
     p = o + t[:, None] * d
     b = eval_planes(planes, p)
@@ -103,10 +194,12 @@ def _crossings(planes, t, o, d):
 def march_intervals_twin(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps: int, num_steps: int, walk_steps: int,
-    use_occupancy: bool, depth_cap: float,
+    use_occupancy: bool, depth_cap: float, skip_table=None, skip_meta=None,
 ) -> FusedMarch:
     """Plain PyTorch version of K1 (any device): every ray steps in lock
-    step until all are done; :func:`march`'s outputs without ``feats``."""
+    step until all are done; :func:`march`'s outputs without ``feats``.
+    With ``skip_table`` (and ``skip_meta``) the sphere-trace prologue runs
+    before the entry walk."""
     dev = origins.device
     num_rays = origins.shape[0]
     inf = torch.tensor(float("inf"), device=dev)
@@ -118,18 +211,12 @@ def march_intervals_twin(
     t_cap = t_out + eps_t
     t_loc = t_in + eps_t
     seed = torch.where(hit, hull_cells[entry_facet.long()], -1)
+    if skip_table is not None:
+        t_loc, hit, seed = _skip_trace(skip_table, skip_meta, o, d, t_in, eps_t,
+                                       t_cap, hit, seed)
 
     # Entry walk: step toward the most negative barycentric until inside.
-    p_entry = o + t_loc[:, None] * d
-    c = seed
-    walk_done = c < 0
-    for _ in range(walk_steps):
-        planes, nb, _, _ = _fetch(table_i, c)
-        b_min, k = _first_min(eval_planes(planes, p_entry))
-        inside = b_min >= -BARY_EPS
-        nxt = nb.gather(1, k[:, None])[:, 0]
-        c = torch.where(walk_done | inside, c, nxt)
-        walk_done = walk_done | inside | (nxt < 0)
+    c = locate_points_twin(table, seed, o + t_loc[:, None] * d, walk_steps)
     hit = hit & (c >= 0)
 
     planes0, _, vids0, _ = _fetch(table_i, c)
@@ -204,12 +291,20 @@ def march_intervals_twin(
 def _march_cuda(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps, num_steps, walk_steps, use_occupancy, depth_cap,
+    skip_table=None, skip_meta=None,
 ) -> FusedMarch:
+    grid = {} if skip_table is None else dict(skip_table=skip_table, skip_meta=skip_meta)
     cuda.check_cuda_inputs(
         "march", table=table, hull_cells=hull_cells, origins=origins,
         directions=directions, t_in=t_in, t_out=t_out,
-        entry_facet=entry_facet, hit=hit,
+        entry_facet=entry_facet, hit=hit, **grid,
     )
+    if skip_table is not None and (
+        skip_table.dtype != torch.float32 or skip_table.dim() != 4
+        or len(set(skip_table.shape[:3])) != 1 or skip_table.shape[3] != 8
+        or skip_meta.shape != (8,) or skip_meta.dtype != torch.float32
+    ):
+        raise ValueError("march: unexpected skip grid shapes or dtypes")
     num_rays = origins.shape[0]
     if (
         table.dtype != torch.float32 or table.shape[1] != 64
@@ -239,6 +334,8 @@ def _march_cuda(
                             entry_facet, hit)),
             num_rays, T, num_steps, walk_steps, int(bool(use_occupancy)),
             float(depth_cap),
+            *((None, None, 0) if skip_table is None else
+              (cuda.ptr(skip_table), cuda.ptr(skip_meta), skip_table.shape[0])),
             *map(cuda.ptr, (cells, t0s, t1s, valid, *stream, t_entry, num_valid,
                             hit_out, overflow)),
         )
@@ -250,12 +347,12 @@ def _march_cuda(
 def march_intervals(
     table, hull_cells, origins, directions, t_in, t_out, entry_facet, hit,
     max_steps: int, num_steps: int, walk_steps: int,
-    use_occupancy: bool, depth_cap: float,
+    use_occupancy: bool, depth_cap: float, skip_table=None, skip_meta=None,
 ) -> FusedMarch:
     """K1 on CUDA tensors, :func:`march_intervals_twin` on CPU tensors."""
     args = (table, hull_cells, origins, directions, t_in, t_out,
             entry_facet, hit, max_steps, num_steps, walk_steps,
-            use_occupancy, depth_cap)
+            use_occupancy, depth_cap, skip_table, skip_meta)
     if origins.is_cuda:
         return _march_cuda(*args)
     if origins.device.type == "cpu":
@@ -272,9 +369,12 @@ def march(
     use_occupancy: bool = False,
     occ_threshold: float = 1e-3,
     occ_depth_cap=None,
+    use_skip: bool = True,
 ) -> FusedMarch:
     """March rays through ``mesh`` (a :class:`~..geometry.TorchMesh` on the
-    rays' device); ``feats`` is left None (see ``fused.march_features``)."""
+    rays' device); ``feats`` is left None (see ``fused.march_features``).
+    The rays sphere-trace the mesh's skip grid first when ``use_skip`` and
+    ``use_occupancy`` are set and the mesh carries one (JAX's condition)."""
     t_in, t_out, entry_facet, hit = hull_intersect(
         mesh.hull_eqs, origins, directions
     )
@@ -286,9 +386,11 @@ def march(
                      else float(occ_depth_cap))
     chunk = min(16, max_steps)
     num_steps = -(-max_steps // chunk) * chunk
+    skipping = use_skip and use_occupancy and mesh.has_skip_grid
     return march_intervals(
         mesh.march_table, mesh.hull_cells, origins.contiguous(),
         directions.contiguous(), t_in.contiguous(), t_out.contiguous(),
         entry_facet.contiguous(), hit.contiguous(), max_steps, num_steps,
         entry_walk_steps, use_occupancy, depth_cap,
+        *((mesh.skip_table, mesh.skip_meta) if skipping else ()),
     )

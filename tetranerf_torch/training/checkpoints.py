@@ -136,7 +136,8 @@ def restore_checkpoint(path, trainer) -> None:
     """Load the directory ``path`` into ``trainer``: the step (which the
     learning-rate schedule and the step's random stream read), the
     parameters, RAdam's state and, with ``use_occupancy_field``, the EMA,
-    written into column 24 of the march table."""
+    written into column 24 of the march table, and the skip grid rebuilt
+    from it (with ``skip_grid_resolution``)."""
     path = os.path.abspath(path)
     state = torch.load(os.path.join(path, STATE_FILE), map_location=trainer.device,
                        weights_only=True)
@@ -147,3 +148,4 @@ def restore_checkpoint(path, trainer) -> None:
     if trainer.model.config.use_occupancy_field and os.path.exists(occ):
         trainer.occupancy = torch.from_numpy(np.load(occ)).to(trainer.device)
         trainer._write_occupancy()
+        trainer._rebuild_skip_grid()

@@ -160,8 +160,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the occupancy field (the tetra-nerf preset "
                         "defaults it ON)")
     parser.add_argument("--skip-grid", type=int, default=None,
-                        help="empty-space skip grid resolution G; only 0 (off): "
-                        "the grid is not ported yet (ROADMAP A8)")
+                        help="empty-space skip grid resolution G (0 = off): the "
+                        "march sphere-traces a G^3 free-space distance grid "
+                        "rebuilt from the occupancy EMA at each refresh")
     parser.add_argument("--occupancy-threshold", type=float, default=None,
                         help="alias for --model.occupancy-threshold")
     parser.add_argument("--ray-buckets", type=int, default=None,
@@ -239,9 +240,6 @@ def _refuse_unported(args, config):
     from ..models.config import check_supported
     from .presets import check_single_device
 
-    if config.model.skip_grid_resolution > 0:
-        raise SystemExit("--skip-grid / skip_grid_resolution > 0: the empty-space "
-                         "skip grid is not ported to tetranerf_torch yet (ROADMAP A8)")
     try:
         check_single_device(config)
         check_supported(config.model)

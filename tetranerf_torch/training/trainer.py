@@ -12,7 +12,9 @@ the JAX trainer:
   of the per-cell density EMA (:meth:`Trainer.update_occupancy`);
 - every ``occupancy_refresh_every`` steps after step 0, a refresh at every
   cell centroid (:meth:`Trainer.refresh_occupancy`), each written into
-  column 24 of the march table;
+  column 24 of the march table, and with ``skip_grid_resolution > 0`` the
+  empty-space skip grid rebuilt from the EMA
+  (:meth:`Trainer._rebuild_skip_grid`);
 - every ``occupancy_retune_every`` steps after step 0, a retune of the
   bounds: from the model's own optical depth, which also calibrates the
   march's termination cap (:meth:`Trainer.retune_with_transmittance`), or
@@ -27,7 +29,7 @@ restored step: a trainer resumed at step 12 updates its occupancy at steps
 The trainer holds one termination cap, :attr:`Trainer.occ_depth_cap`: the
 train forward, the occupancy update, the probes and rendering all read it.
 :attr:`Trainer.march_version` counts the changes to what a march depends on
-(the bounds, the occupancy column, the cap), so that a march cached by
+(the bounds, the occupancy column, the skip grid, the cap), so that a march cached by
 :meth:`Trainer.cache_camera` and re-shaded by :meth:`Trainer.render_cached`
 (the viewer's refine) is not taken for a current one. :attr:`Trainer.lock`
 lets a viewer render while another thread trains: a step, and every render,
@@ -53,6 +55,7 @@ import torch
 from ..ops.fused import biased_warp_range, march_features, ray_bounds, sample_features
 from ..ops.march import march
 from ..ops.sampling import stratified_bins
+from ..ops.skip_grid import SkipSetup, build_skip_table, make_skip_setup
 from ..render import Renderer, chunks
 from ..utils.shapes import grid_ceil, inner_bound, rounded_bound
 from . import checkpoints
@@ -165,6 +168,7 @@ class Trainer:
         self.lock = threading.RLock()
         """Held by :meth:`train_step` and by every render, so that a viewer
         thread never reads the parameters while the optimizer writes them."""
+        self._skip_setup: Optional[SkipSetup] = None
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -421,6 +425,29 @@ class Trainer:
             self.occupancy * model.config.occupancy_decay, dens
         )
         self._write_occupancy()
+        self._rebuild_skip_grid()
+
+    @torch.no_grad()
+    def _rebuild_skip_grid(self) -> None:
+        """Build the empty-space skip grid from the occupancy EMA and attach
+        it to a new mesh (JAX ``Trainer._rebuild_skip_grid``), with
+        ``skip_grid_resolution > 0``. No grid while the EMA is at most
+        ``skip_grid_eps`` everywhere: an all-empty grid would skip every
+        ray's whole chord. The geometry part (:func:`make_skip_setup`) is
+        built once per mesh; each rebuild swaps the mesh, never writing the
+        one a cached march or a viewer holds."""
+        cfg = self.model.config
+        if not cfg.skip_grid_resolution or self.occupancy is None:
+            return
+        if float(self.occupancy.max()) <= cfg.skip_grid_eps:
+            return
+        with self.lock:
+            if self._skip_setup is None:
+                self._skip_setup = make_skip_setup(self.mesh, cfg.skip_grid_resolution)
+            table = build_skip_table(self.occupancy, self._skip_setup,
+                                     skip_eps=cfg.skip_grid_eps)
+            self.mesh = self.mesh.with_skip_grid(table, self._skip_setup.meta)
+            self.march_version += 1
 
     # -------------------------------------------------------------- step
     def _step_generator(self, step: int) -> torch.Generator:

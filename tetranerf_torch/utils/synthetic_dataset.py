@@ -1,13 +1,16 @@
-"""Write a Blender-format multi-view dataset of the analytic sphere.
+"""Write a Blender-format multi-view dataset of an analytic scene.
 
     python -m tetranerf_torch.utils.synthetic_dataset --out <dir> \
-        [--side 256] [--train 40] [--test 8] [--points 100000]
+        [--side 256] [--train 40] [--test 8] [--points 100000] \
+        [--scene {sphere,hard}]
 
 ``transforms_{train,test}.json``, PNG images rendered from the analytic
-ground truth (:func:`.synthetic.sphere_ray_targets`) and ``tetra.npz``
-from the matching point cloud (:func:`.synthetic.make_sphere_scene`): a
-self-contained scene for training from disk with
-``tetranerf_torch.training.cli``. The port's copy of the sphere scene of
+ground truth (:func:`.synthetic.sphere_ray_targets`, or with ``--scene
+hard`` :func:`.synthetic.hard_ray_targets`: textured spheres, a thin
+occluding plate and view-dependent shading) and ``tetra.npz`` from the
+matching point cloud (:func:`.synthetic.make_sphere_scene` /
+:func:`.synthetic.make_hard_scene`): a self-contained scene for training
+from disk with ``tetranerf_torch.training.cli``. The port's copy of
 ``benchmarks/make_synthetic_dataset.py``, with the same arguments and
 defaults, writing through :mod:`.png` (no Pillow).
 """
@@ -22,9 +25,18 @@ from typing import Optional
 import numpy as np
 
 from .png import write_png
-from .synthetic import make_sphere_scene, sphere_ray_targets
+from .synthetic import (
+    hard_ray_targets,
+    make_hard_scene,
+    make_sphere_scene,
+    sphere_ray_targets,
+)
 
 CAMERA_ANGLE_X = 0.8
+SCENES = {
+    "sphere": (make_sphere_scene, sphere_ray_targets),
+    "hard": (make_hard_scene, hard_ray_targets),
+}
 
 
 def look_at(pos: np.ndarray) -> np.ndarray:
@@ -55,12 +67,14 @@ def camera_rays(c2w: np.ndarray, side: int, camera_angle_x: float):
 
 def write_sphere_dataset(out, side: int = 256, train: int = 40, test: int = 8,
                          points: int = 100_000, radius: float = 2.5,
-                         scene: Optional[tuple] = None) -> dict:
-    """Write the dataset into ``out``. ``scene`` = ``(points, colors,
-    cells)`` reuses a triangulated ``make_sphere_scene(points, seed=0)``.
-    Returns ``{"points", "cells"}`` counts."""
+                         scene: Optional[tuple] = None, kind: str = "sphere") -> dict:
+    """Write the dataset of scene ``kind`` (a key of :data:`SCENES`) into
+    ``out``. ``scene`` = ``(points, colors, cells)`` reuses a triangulated
+    ``make_*_scene(points, seed=0)`` of that kind. Returns ``{"points",
+    "cells"}`` counts."""
     from ..geometry import save_tetrahedra, triangulate
 
+    make_scene, ray_targets = SCENES[kind]
     os.makedirs(out, exist_ok=True)
 
     def make_split(split, count, offset):
@@ -73,7 +87,7 @@ def write_sphere_dataset(out, side: int = 256, train: int = 40, test: int = 8,
             pos = radius * np.array([r * np.cos(phi), r * np.sin(phi), z * 0.8])
             c2w = look_at(pos)
             o, d = camera_rays(c2w, side, CAMERA_ANGLE_X)
-            rgb = sphere_ray_targets(o, d).reshape(side, side, 3)
+            rgb = ray_targets(o, d).reshape(side, side, 3)
             name = f"{split}_{k:03d}"
             write_png(os.path.join(out, f"{name}.png"),
                       (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
@@ -85,7 +99,7 @@ def write_sphere_dataset(out, side: int = 256, train: int = 40, test: int = 8,
     make_split("test", test, 0.37)
 
     if scene is None:
-        pts, colors = make_sphere_scene(points, seed=0)
+        pts, colors = make_scene(points, seed=0)
         cells = triangulate(pts)
     else:
         pts, colors, cells = scene
@@ -103,9 +117,12 @@ def main(argv=None):
     p.add_argument("--test", type=int, default=8)
     p.add_argument("--points", type=int, default=100_000)
     p.add_argument("--radius", type=float, default=2.5)
+    p.add_argument("--scene", default="sphere", choices=list(SCENES),
+                   help="'hard' = textured spheres + thin occluder + view-dependent "
+                   "shading")
     args = p.parse_args(argv)
     n = write_sphere_dataset(args.out, args.side, args.train, args.test, args.points,
-                             args.radius)
+                             args.radius, kind=args.scene)
     print(f"dataset at {args.out}: {args.train} train / {args.test} test @ "
           f"{args.side}^2, {n['points']} points / {n['cells']} cells")
 
