@@ -134,7 +134,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     one 4096-ray step's loss and field gradient against the per-bucket
     step at phase 12's tolerances, the MLP chains (1 + 1 against 8 + 8)
     and GEMM launches a step, median ms/step and the idle share (the path
-    ``merged_train``).
+    ``merged_train``);
+18. data shards: 16 steps of the flagship on 4096-ray global batches with
+    no group (twice: K7's atomic order makes the fields of two runs
+    differ in the last bits), then the same steps by ranks that this
+    script starts again with ``--shard-rank`` and torchrun's environment:
+    one rank over NCCL (its first loss bit-equal), two ranks on
+    ``cuda:0`` over gloo with 2048 rows each; each run's bounds, cap and
+    EMA equal to the no-group run's, losses within 1e-5 and the field
+    within 1e-4, the ranks bit-equal to each other, ms/step beside the
+    no-group run's and phase 12's (paths ``shards_nccl``,
+    ``shards_gloo``). ``--shard-ranks N`` runs this phase alone with N
+    ranks over NCCL, one a card;
+19. the stream levers: K2, K2b and K7's bf16 instances against their
+    plain versions on a cold step's 8 buckets, each timed beside its f32
+    instance with both bounds; then the flagship in f32, with
+    ``field_stream_dtype="bfloat16"`` (the path ``stream_lp_train``), with
+    ``grad_stream_budget_per_ray=200`` (``budget_train``) and in f32
+    again, 40 steps each from the same seeds: the first loss against
+    f32's (the budget's bit-equal), the rays dropped, ms/step, and the
+    bf16 instances' ms per steady step beside their bounds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -147,6 +166,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -389,9 +409,9 @@ def dependent_load_ns(chase_lib, table, hops=2000):
 
 def _blend_batch_bound(field, streams):
     """K2, one launch: per stream the output, pos + bary and the stream
-    ids; the field once."""
+    ids; the field once (f32 or bf16)."""
     num_feat = field.shape[1]
-    num_bytes, num_ops = field.numel() * 4, 0
+    num_bytes, num_ops = field.numel() * field.element_size(), 0
     for vids, pos, bary in streams:
         num_rays, num_end = pos.shape[:2]
         weighted = int((bary != 0).any(dim=-1).sum())
@@ -430,19 +450,23 @@ def _interp_bwd_bound(t0, t1, num_valid, ray_mask, distances, g):
                   + distances.numel() * 4 + num_rays * max_t * 8, kept * num_feat * 4)
 
 
-def _blend_bwd_bound(g, pos, bary, num_stream):
-    """K2b: the output, all bary rows, pos + g rows of the weighted
-    endpoints."""
+def _blend_bwd_bound(g, pos, bary, num_stream, out_dtype=None):
+    """K2b: the output (f32, or bf16 with ``out_dtype``), all bary rows,
+    pos + g rows of the weighted endpoints."""
+    import torch
+
     num_rays, num_end, num_feat = g.shape
     n_w = int((bary != 0).any(dim=-1).sum())
-    return _bound(num_rays * num_stream * num_feat * 4 + num_rays * num_end * 16
+    out_size = 2 if out_dtype == torch.bfloat16 else 4
+    return _bound(num_rays * num_stream * num_feat * out_size + num_rays * num_end * 16
                   + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
 
 
 def _scatter_batch_bound(jobs, num_rows):
     """K7, one launch: each job's indices and values, the table once; one
     add per nonzero element."""
-    return _bound(sum(idx.numel() * 4 + vals.numel() * 4 for idx, vals in jobs)
+    return _bound(sum(idx.numel() * 4 + vals.numel() * vals.element_size()
+                      for idx, vals in jobs)
                   + num_rows * jobs[0][1].shape[1] * 4,
                   sum(int((vals != 0).sum()) for _, vals in jobs))
 
@@ -1331,6 +1355,8 @@ def _profile_steps(trainer, batches, median_ms):
     for name, us in by_name.items():
         wrapper = _WRAPPER_OF.get(_port_kernel(name))
         if wrapper:
+            if wrapper in _BF16_INSTANCE and "bfloat16" in name:
+                wrapper += "_bf16"  # the bf16 stream's instance of K2, K2b or K7
             per_step[wrapper] = per_step.get(wrapper, 0.0) + us / 1e3 / len(batches)
     return per_step
 
@@ -1352,6 +1378,9 @@ _WRAPPER_OF = {"march_kernel": "march", "blend_kernel": "stream_blend_gather",
                "sum_rows_kernel": "fused_field_mlps_backward"}
 
 
+_BF16_INSTANCE = ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")
+
+
 def _port_kernel(name):
     """The function name of a port kernel in a profiler event, else None."""
     if "(anonymous namespace)::" not in name:
@@ -1370,6 +1399,7 @@ def _recording_bounds():
     block."""
     import importlib
 
+    import torch
     from tetranerf_torch.ops import fused, interp, mlp, scatter
 
     march_mod = importlib.import_module("tetranerf_torch.ops.march")
@@ -1393,11 +1423,19 @@ def _recording_bounds():
     counters = {"stream_blend_gather_batch": "stream_blend_gather",
                 "scatter_add_rows_batch": "scatter_add_rows",
                 "row_gather_batch": "row_gather"}
+    # The argument that names a bf16 instance: the field, K2b's output
+    # dtype, the first job's values.
+    lowp_arg = {"stream_blend_gather_batch": lambda a: a[0].dtype,
+                "stream_blend_backward": lambda a: a[4] if len(a) > 4 else None,
+                "scatter_add_rows_batch": lambda a: a[0][0][1].dtype}
 
     def record(fn, bound):
-        counter = counters.get(fn.__name__, fn.__name__)
+        name = fn.__name__
 
         def call(*args):
+            counter = counters.get(name, name)
+            if name in lowp_arg and lowp_arg[name](args) == torch.bfloat16:
+                counter += "_bf16"
             sums[counter] = sums.get(counter, 0.0) + bound(*args)["bound_ms"]
             return fn(*args)
         return call
@@ -1777,7 +1815,7 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms, march_kernels
           "profiler, bound ms from the step's own inputs, launches): " + "; ".join(
               f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} / "
               f"{v['bound_ms']:.4f} / {v['launches']}" for k, v in step_ms.items()))
-    return trainer, launches, per_step, step_ms
+    return trainer, launches, per_step, step_ms, cold
 
 
 def flagship_render_phase(trainer, dev):
@@ -2648,6 +2686,423 @@ def merged_phase(colors, mesh_plain, dev):
     return runs[True]["launches"]
 
 
+SHARD_STEPS = 16
+SHARD_TIMEOUT_S = 300
+# Phase 18's runs: (label, ranks, device, backend). Each rank is this
+# script started again with ``--shard-rank``.
+SHARD_RUNS = (("nccl", 1, "cuda", "nccl"), ("gloo", 2, "cuda:0", "gloo"))
+RANK_SCRIPT = Path(__file__).resolve()
+LEVER_STEPS = 40
+GRAD_BUDGET_PER_RAY = 200
+# Data shards against one process: a mean of local means against one mean,
+# gradients summed in another order (and K7's atomic order): losses to
+# 1e-5 of themselves, the field to 1e-4 of its largest entry.
+SHARD_LOSS_RTOL = 1e-5
+SHARD_FIELD_RTOL = 1e-4
+# The bf16 stream's kernels against their plain versions: K2's bf16 rows
+# widen exactly, so K2's f32 tolerance; K2b's f32 sums in another order
+# are each rounded to bf16 once (within 2^-8 of themselves); K7 adds the
+# widened rows in atomic order (its f32 tolerance).
+BF16_K2B_RTOL = 2.0 ** -8
+LEVER_KERNELS = ("stream_blend_gather_bf16", "stream_blend_backward_bf16",
+                 "scatter_add_rows_bf16")
+
+
+def _shard_trainer(dev, group=None, mesh_plain=None, colors=None, scene=None):
+    """The unmodified preset's trainer on the phase-1 sphere: from
+    ``mesh_plain`` and ``colors``, or built from the ``scene`` npz (a
+    rank's own copy of the same points and cells)."""
+    import torch
+    from tetranerf_torch.geometry import build_mesh
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    if scene is not None:
+        data = np.load(scene)
+        mesh_plain = build_mesh(data["points"], data["cells"], device="cpu")
+        colors = data["colors"]
+    model = TetraNerf(tetranerf_preset(), mesh_plain.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    return Trainer(TrainConfig(), model, mesh_plain, device=dev, group=group)
+
+
+def _shard_steps(trainer, rows=None):
+    """:data:`SHARD_STEPS` steps on phase 7's five batches (this rank's
+    ``rows`` of each): losses, ms per step, the bounds and cap, the EMA and
+    the parameters after the run, and the launches."""
+    import torch
+    from tetranerf_torch.ops import cuda
+
+    rng = np.random.default_rng(1)  # phase 7's five batches
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    if rows is not None:
+        batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    losses, step_ms = [], []
+    for step in range(SHARD_STEPS):
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            m = trainer.train_step(batches[step % TRAIN_BATCHES])
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    return dict(losses=losses, step_ms=step_ms, launches=dict(cuda.launch_counts),
+                bounds=(trainer.max_steps, trainer.tuned_bucket_steps, trainer.occ_depth_cap),
+                occupancy=trainer.occupancy.cpu(),
+                params={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
+
+
+def _shard_rank_main(run_dir) -> int:
+    """A rank of phase 18, started by :func:`_spawn_ranks` with torchrun's
+    environment: joins the group, trains its rows and saves the result."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tetranerf_torch.parallel import destroy, init_distributed
+
+    run_dir = Path(run_dir)
+    spec = json.loads((run_dir / "spec.json").read_text())
+    group = init_distributed(spec["device"], backend=spec["backend"])
+    try:
+        trainer = _shard_trainer(group.device, group, scene=run_dir.parent / "scene.npz")
+        out = _shard_steps(trainer, group.batch_slice(TRAIN_RAYS))
+        out.update(rank=group.rank, world=group.world, device=str(group.device),
+                   backend=torch.distributed.get_backend())
+        torch.save(out, run_dir / f"rank{group.rank}.pt")
+    finally:
+        destroy(group)
+    return 0
+
+
+def _spawn_ranks(tmp, label, world, device, backend):
+    """Start ``world`` ranks of this script on the card with torchrun's
+    environment set here, wait for all, and fail if any fails (the others
+    are killed then). Returns their results and the wall seconds."""
+    import socket
+
+    import torch
+
+    run_dir = tmp / label
+    run_dir.mkdir()
+    (run_dir / "spec.json").write_text(json.dumps({"device": device, "backend": backend}))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    t = time.perf_counter()
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+        log = open(run_dir / f"rank{rank}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(RANK_SCRIPT), "--shard-rank", str(run_dir)],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    try:
+        deadline = time.perf_counter() + SHARD_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a rank failed: the others may wait on it forever
+            _check(time.perf_counter() < deadline,
+                   f"shards ({label}): the ranks ran past {SHARD_TIMEOUT_S} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t
+    for rank, p in enumerate(procs):
+        text = (run_dir / f"rank{rank}.log").read_text()
+        _check(p.returncode == 0,
+               f"shards ({label}): rank {rank} of {world} exited {p.returncode}:\n{text[-4000:]}")
+    return [torch.load(run_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)], wall
+
+
+def _bit_equal(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _shard_compare(label, run, ref, exact):
+    """Hold ``run`` (a rank's result) to the one-process ``ref``: the bounds,
+    cap and EMA equal, and bit for bit where ``exact``, else losses to
+    :data:`SHARD_LOSS_RTOL` and the field to :data:`SHARD_FIELD_RTOL`.
+    Returns the largest relative loss difference and field difference."""
+    import torch
+
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    field, field_ref = run["params"]["tetrahedra_field"], ref["params"]["tetrahedra_field"]
+    field_err = float((field - field_ref).abs().max() / field_ref.abs().max())
+    _check(run["bounds"] == ref["bounds"],
+           f"shards ({label}): bounds and cap {run['bounds']} vs {ref['bounds']}")
+    _check(torch.equal(run["occupancy"], ref["occupancy"]),
+           f"shards ({label}): the occupancy EMA differs from one process")
+    if exact:
+        _check(run["losses"] == ref["losses"] and _bit_equal(run["params"], ref["params"]),
+               f"shards ({label}): not bit-equal to one process (losses rel {loss_err:.3g})")
+    else:
+        _check(loss_err <= SHARD_LOSS_RTOL, f"shards ({label}): loss rel err {loss_err}")
+        _check(field_err <= SHARD_FIELD_RTOL, f"shards ({label}): field rel err {field_err}")
+    return loss_err, field_err
+
+
+def shard_phase(points, colors, cells, mesh_plain, dev, tmp, phase12_ms=None,
+                runs=None):
+    """Phase 18: data shards on the card, the unmodified preset at full
+    width on phase 1's sphere, global batches of 4096 rays, each run of
+    ``runs`` (default :data:`SHARD_RUNS`: (a) one rank over NCCL, (b) two
+    ranks on ``cuda:0`` over gloo with 2048 rows each) against the same
+    steps in this process with no group. Returns each run's launches (its
+    rank 0's) and ms/step."""
+    import torch
+
+    t_phase = time.perf_counter()
+    np.savez(tmp / "scene.npz", points=points, colors=colors, cells=cells)
+    ref = _shard_steps(_shard_trainer(dev, mesh_plain=mesh_plain, colors=colors))
+    again = _shard_steps(_shard_trainer(dev, mesh_plain=mesh_plain, colors=colors))
+    torch.cuda.empty_cache()
+    repeatable = again["losses"] == ref["losses"] and _bit_equal(again["params"], ref["params"])
+    spread = max(abs(a - b) / abs(b) for a, b in zip(again["losses"], ref["losses"]))
+    field = ref["params"]["tetrahedra_field"]
+    field_spread = float((again["params"]["tetrahedra_field"] - field).abs().max()
+                         / field.abs().max())
+    print(f"shards: two no-group runs of {SHARD_STEPS} steps bit-equal: {repeatable} "
+          f"(losses {spread:.3g} relative apart, the field {field_spread:.3g} of its max"
+          + ("" if repeatable else ": K7 adds in atomic order") + ")")
+
+    def med(run):
+        return float(np.median(run["step_ms"][1:]))
+
+    out = {}
+    for label, world, device, backend in runs or SHARD_RUNS:
+        ranks, wall = _spawn_ranks(tmp, label, world, device, backend)
+        name = f"{backend}, {world} rank{'s' if world > 1 else ''} on {device}"
+        _check(all(r["backend"] == backend and r["world"] == world for r in ranks),
+               f"shards ({name}): backends {[r['backend'] for r in ranks]}")
+        for r in ranks[1:]:
+            _check(r["losses"] == ranks[0]["losses"] and _bit_equal(r["params"], ranks[0]["params"])
+                   and torch.equal(r["occupancy"], ranks[0]["occupancy"]),
+                   f"shards ({name}): rank {r['rank']}'s parameters differ from rank 0's")
+        if world == 1:
+            # One rank is the one-process step: its first loss, before K7's
+            # atomic order can move a parameter, bit for bit.
+            _check(ranks[0]["losses"][0] == ref["losses"][0],
+                   f"shards ({name}): step 0 loss {ranks[0]['losses'][0]} vs {ref['losses'][0]}")
+        loss_err, field_err = _shard_compare(name, ranks[0], ref, exact=repeatable and world == 1)
+        for r in ranks:
+            for k in ("march", "stream_blend_gather", "stream_blend_backward",
+                      "scatter_add_rows", "row_gather"):
+                _check(r["launches"][k] > 0, f"shards ({name}): rank {r['rank']}: {k} did "
+                       f"not launch: {r['launches']}")
+        devices = sorted({r["device"] for r in ranks})
+        shared = (" (ranks sharing a card: a measure of correctness, not of scaling)"
+                  if len(devices) < world else "")
+        print(f"shards: {name} ({', '.join(devices)}), {TRAIN_RAYS // world} rows each{shared}: "
+              f"the ranks bit-equal to each other; bounds, cap and occupancy equal to one "
+              f"process; losses within {loss_err:.3g} relative, the field within "
+              f"{field_err:.3g} of its max; median {[round(med(r), 2) for r in ranks]} "
+              f"ms/step against {med(ref):.2f} with no group in this process "
+              f"({wall:.1f} s for the ranks, start-up included)")
+        out[label] = dict(launches=ranks[0]["launches"], ms=[med(r) for r in ranks])
+    print(f"shards: {SHARD_STEPS} steps of the preset, {TRAIN_RAYS} rays a global batch, "
+          f"bounds and cap {ref['bounds']}; phase 12's cold median "
+          f"{'not run' if phase12_ms is None else f'{phase12_ms:.2f} ms/step'}; phase 18 "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _lever_kernel_checks(mesh, origins, directions):
+    """K2, K2b and K7's bf16 instances against their plain versions on all
+    8 buckets of a cold flagship step, each timed beside its f32 instance
+    (same inputs, same call) with both bounds."""
+    import torch
+    from tetranerf_torch.ops import fused, interp, scatter
+
+    dev = origins.device
+    num_v = mesh.num_vertices
+    gen = torch.Generator(device=dev).manual_seed(19)
+    field = torch.randn((num_v, 64), generator=gen, device=dev)
+    field_lp = field.to(torch.bfloat16)
+    res, order, plan = _cold_bucket_plan(mesh, origins, directions)
+    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
+               for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    entries = []
+
+    def entry(name, f32_name, replaces, source, err, kernel, plain, f32, bound, f32_bound):
+        e = _entry(name, source, replaces, err, _time_ms(kernel, 20), _time_ms(plain, 3),
+                   bound, device_ms=_device_ms(kernel), f32_instance=f32_name,
+                   f32_ms=_time_ms(f32, 20), f32_device_ms=_device_ms(f32),
+                   f32_bound_ms=f32_bound["bound_ms"], jobs=len(streams))
+        print(f"{name}: the {len(streams)} buckets of a cold flagship step: max abs err "
+              f"{err:.3g}; {e['ms']:.4f} ms by CUDA events, kernels {e['device_ms']} by the "
+              f"profiler, bound {e['bound_ms']:.4f} ({e['bound_by']}); f32 instance "
+              f"{e['f32_ms']:.4f} ms, kernels {e['f32_device_ms']}, bound "
+              f"{e['f32_bound_ms']:.4f}; plain version {e['plain_ms']:.3f} ms")
+        entries.append(e)
+
+    outs = interp.stream_blend_gather_batch(field_lp, streams)
+    twin = interp.stream_blend_gather_batch_twin(field_lp, streams)
+    err = max(_max_err(a, b) for a, b in zip(outs, twin))
+    _check(all(o.dtype == torch.float32 for o in outs), "stream_blend_gather_bf16: dtype")
+    _check(err <= TOLERANCES["stream_blend_gather"], f"stream_blend_gather_bf16: err {err}")
+    del twin
+    entry("stream_blend_gather_bf16", "stream_blend_gather",
+          "tetranerf_tpu/ops/pallas_interp.py:214", "tetranerf_torch/csrc/blend.cu", err,
+          lambda: interp.stream_blend_gather_batch(field_lp, streams),
+          lambda: interp.stream_blend_gather_batch_twin(field_lp, streams),
+          lambda: interp.stream_blend_gather_batch(field, streams),
+          _blend_batch_bound(field_lp, streams), _blend_batch_bound(field, streams))
+
+    gs = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    del outs
+    bwd = [(g, pos, bary, vids.shape[1]) for g, (vids, pos, bary) in zip(gs, streams)]
+    gsf = [interp.stream_blend_backward(*a, torch.bfloat16) for a in bwd]
+    err, rel = 0.0, 0.0
+    for out, a in zip(gsf, bwd):
+        ref = interp.stream_blend_backward_twin(*a)
+        diff = (out.float() - ref).abs()
+        err = max(err, float(diff.max()))
+        rel = max(rel, float((diff - BF16_K2B_RTOL * ref.abs()).max()))
+        _check(out.dtype == torch.bfloat16, "stream_blend_backward_bf16: dtype")
+    _check(rel <= 1e-6, f"stream_blend_backward_bf16: beyond one bf16 rounding ({rel})")
+
+    def bound_sum(fn, *extra):
+        total = [fn(*a, *extra) for a in bwd]
+        return dict(total[0], bound_ms=sum(b["bound_ms"] for b in total))
+
+    entry("stream_blend_backward_bf16", "stream_blend_backward",
+          "tetranerf_tpu/ops/pallas_interp.py:257", "tetranerf_torch/csrc/blend.cu", err,
+          lambda: [interp.stream_blend_backward(*a, torch.bfloat16) for a in bwd],
+          lambda: [interp.stream_blend_backward_twin(*a, torch.bfloat16) for a in bwd],
+          lambda: [interp.stream_blend_backward(*a) for a in bwd],
+          bound_sum(_blend_bwd_bound, torch.bfloat16), bound_sum(_blend_bwd_bound))
+
+    jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64))
+            for (vids, _, _), g in zip(streams, gsf)]
+    jobs_f32 = [(idx, vals.float()) for idx, vals in jobs]
+    got = scatter.scatter_add_rows_batch(jobs, num_v)
+    err = _max_err(got, scatter.scatter_add_rows_batch_twin(jobs, num_v))
+    _check(got.dtype == torch.float32, "scatter_add_rows_bf16: dtype")
+    _check(err <= TOLERANCES["scatter_add_rows"], f"scatter_add_rows_bf16: err {err}")
+    del got
+    entry("scatter_add_rows_bf16", "scatter_add_rows",
+          "tetranerf_tpu/ops/pallas_scatter.py:105", "tetranerf_torch/csrc/scatter.cu", err,
+          lambda: scatter.scatter_add_rows_batch(jobs, num_v),
+          lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v),
+          lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
+          _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+    return entries
+
+
+def lever_phase(colors, mesh_plain, dev):
+    """Phase 19: the stream levers. K2, K2b and K7's bf16 instances against
+    their plain versions (:func:`_lever_kernel_checks`); then the preset in
+    f32, with ``field_stream_dtype="bfloat16"`` and with
+    ``grad_stream_budget_per_ray`` from the same seeds: the first step's
+    loss against f32 (the budget's forward is f32's, bit for bit), the
+    rays the budget drops, ms/step and, for the bf16 stream, the instances'
+    ms per steady step beside their bounds and the f32 kernels'. Returns the
+    kernel entries, the bf16 stream run's launches (the path
+    ``stream_lp_train``), its launches in a steady step, and the budget
+    run's launches (``budget_train``)."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays
+
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
+        entries = _lever_kernel_checks(mesh_plain.to(dev), torch.from_numpy(o).to(dev),
+                                       torch.from_numpy(d).to(dev))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(1)  # phase 7's five batches
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    runs = {}
+    # In turns, the f32 run again last: medians on the host clock drift.
+    for label, extra in (("f32", {}), ("bf16 stream", {"field_stream_dtype": "bfloat16"}),
+                         ("budget", {"grad_stream_budget_per_ray": GRAD_BUDGET_PER_RAY}),
+                         ("f32 again", {})):
+        model = TetraNerf(tetranerf_preset(**extra), mesh_plain.num_vertices,
+                          point_colors=colors, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        losses, dropped, step_ms = [], [], []
+        for step in range(LEVER_STEPS):
+            before = dict(cuda.launch_counts)
+            t = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                m = trainer.train_step(batches[step % TRAIN_BATCHES])
+            losses.append(float(m["loss"]))  # waits for the step
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            dropped.append(int(m.get("grad_stream_dropped_rays", -1)))
+        per_step = {k: n - before[k] for k, n in cuda.launch_counts.items()}
+        launches = dict(cuda.launch_counts)
+        med = float(np.median(step_ms[1:]))
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        _check(all(np.isfinite(losses)) and last < first,
+               f"levers ({label}): loss did not fall ({first} -> {last})")
+        runs[label] = dict(trainer=trainer, losses=losses, dropped=dropped, median_ms=med,
+                           launches=launches, per_step=per_step)
+        print(f"levers ({label}): {LEVER_STEPS} steps, median {med:.2f} ms/step "
+              f"(steps 1-{LEVER_STEPS - 1}); loss first 5 mean {first:.5f}, last 5 mean "
+              f"{last:.5f}; launches in the last step "
+              f"{ {k: v for k, v in per_step.items() if v} }")
+    f32, lp, budget = runs["f32"], runs["bf16 stream"], runs["budget"]
+    lp_err = abs(lp["losses"][0] - f32["losses"][0]) / f32["losses"][0]
+    _check(budget["losses"][0] == f32["losses"][0],
+           f"levers: the budget's first loss {budget['losses'][0]} is not f32's "
+           f"{f32['losses'][0]} (its forward is the same)")
+    _check(lp_err <= 1e-2, f"levers: the bf16 stream's first loss rel err {lp_err}")
+    _check(0 < max(budget["dropped"]) < TRAIN_RAYS,
+           f"levers: the budget dropped {budget['dropped']} rays a step")
+    _check(all(n == -1 for n in f32["dropped"]), "levers: dropped rays without a budget")
+    for k in LEVER_KERNELS:
+        _check(lp["launches"][k] > 0, f"levers: {k} did not launch: {lp['launches']}")
+        _check(f32["launches"][k] == 0 and budget["launches"][k] == 0,
+               f"levers: {k} launched without the bf16 stream")
+    expected = {"stream_blend_gather_bf16": 1, "stream_blend_backward_bf16": 8,
+                "scatter_add_rows_bf16": 1, "stream_blend_gather": 0,
+                "stream_blend_backward": 0, "scatter_add_rows": 0}
+    for k, n in expected.items():
+        _check(lp["per_step"][k] == n,
+               f"levers: {k} launched {lp['per_step'][k]} times in a steady bf16 step, not {n}")
+    print(f"levers: first loss f32 {f32['losses'][0]:.6f}, bf16 stream "
+          f"{lp['losses'][0]:.6f} (rel {lp_err:.3g}), budget {budget['losses'][0]:.6f} "
+          f"(bit-equal); {GRAD_BUDGET_PER_RAY} slots a ray drop "
+          f"{budget['dropped'][::4]} rays (every 4th step, of {TRAIN_RAYS}); median ms/step "
+          f"f32 {f32['median_ms']:.2f}, bf16 stream {lp['median_ms']:.2f}, budget "
+          f"{budget['median_ms']:.2f}, f32 again {runs['f32 again']['median_ms']:.2f}")
+    step_ms = {}
+    for label in ("f32", "bf16 stream"):
+        trainer = runs[label]["trainer"]
+        print(f"levers ({label}):")
+        dev_ms = _profile_steps(trainer, batches[:2], runs[label]["median_ms"])
+        with _recording_bounds() as bounds:
+            trainer.train_step(batches[2])
+        step_ms[label] = {k: dict(ms=dev_ms.get(k), bound_ms=v) for k, v in bounds.items()}
+    for e in entries:
+        name, f32_name = e["name"], e["f32_instance"]
+        e["flagship_step_ms"] = step_ms["bf16 stream"].get(name, {}).get("ms")
+        e["flagship_step_bound_ms"] = step_ms["bf16 stream"].get(name, {}).get("bound_ms")
+        e["f32_flagship_step_ms"] = step_ms["f32"].get(f32_name, {}).get("ms")
+        e["f32_flagship_step_bound_ms"] = step_ms["f32"].get(f32_name, {}).get("bound_ms")
+        e["launches_per_step"] = lp["per_step"][name]
+        print(f"levers: {name} per steady flagship step {e['flagship_step_ms']} ms by the "
+              f"profiler, bound {e['flagship_step_bound_ms']}; f32 instance "
+              f"{e['f32_flagship_step_ms']} ms, bound {e['f32_flagship_step_bound_ms']}")
+    print(f"levers: phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return entries, lp["launches"], budget["launches"]
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -2678,9 +3133,21 @@ def _mlp_build_report(log):
               f"{bwd.smem_bytes} bytes, workspace row {bwd.ws_floats} floats")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--shard-rank"]:
+        return _shard_rank_main(argv[1])
+    # --only 18,19: the build, the scene and those phases alone (a shorter
+    # call while a phase is being brought up; the contract's run takes none).
+    # --shard-ranks N: phase 18 alone with N ranks over NCCL, one a card (a
+    # host with N cards).
+    only, runs = None, None
+    if argv[:1] == ["--only"]:
+        only = set(argv[1].split(","))
+    elif argv[:1] == ["--shard-ranks"]:
+        only, runs = {"18"}, ((f"nccl{argv[1]}", int(argv[1]), "cuda", "nccl"),)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2726,6 +3193,9 @@ def main() -> int:
     print(f"dependent loads over the {mesh.march_table.numel() * 4 / 1e6:.1f} MB march "
           f"table: {chase_ns[1]:.1f} ns a hop in 1 chain, {chase_ns[TRAIN_RAYS]:.1f} ns "
           f"in {TRAIN_RAYS} chains side by side (CUDA events, the hash included)")
+
+    if only is not None:
+        return _selected_phases(only, (points, colors, cells), mesh_plain, dev, runs)
 
     cfg = tetranerf_preset(ray_buckets=1)
     model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
@@ -2776,8 +3246,9 @@ def main() -> int:
         kernels.append(gather_checks(mesh_plain.to(dev), torch.from_numpy(o).to(dev),
                                      torch.from_numpy(d).to(dev)))
     march_kernels = next(k for k in kernels if k["name"] == "march")["march_kernels_per_call"]
-    trainer, paths["flagship_train"], flagship_step, flagship_ms = flagship_train_phase(
-        colors, mesh_plain, dev, plain_median, march_kernels)
+    (trainer, paths["flagship_train"], flagship_step, flagship_ms,
+     flagship_cold_ms) = flagship_train_phase(colors, mesh_plain, dev, plain_median,
+                                              march_kernels)
     paths["flagship_render"] = flagship_render_phase(trainer, dev)
     del trainer
     torch.cuda.empty_cache()
@@ -2799,6 +3270,19 @@ def main() -> int:
     kernels.append(locate_entry)
     torch.cuda.empty_cache()
     paths["merged_train"] = merged_phase(colors, mesh_plain, dev)
+    torch.cuda.empty_cache()
+
+    # Data shards over ranks, then the two stream levers.
+    tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
+    try:
+        shards = shard_phase(points, colors, cells, mesh_plain, dev, tmp, flagship_cold_ms)
+        for label, run in shards.items():
+            paths[f"shards_{label}"] = run["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    lever_entries, paths["stream_lp_train"], paths["budget_train"] = lever_phase(
+        colors, mesh_plain, dev)
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     render_of = {"flagship_train": "flagship_render", "train_fused": "render_fused",
@@ -2818,8 +3302,41 @@ def main() -> int:
         if name in flagship_ms:
             k["flagship_step_ms"] = flagship_ms[name]["ms"]
             k["flagship_step_bound_ms"] = flagship_ms[name]["bound_ms"]
+    for k in lever_entries:
+        # The bf16 stream's flagship run (phase 19) is their main path.
+        k["launches"] = paths["stream_lp_train"][k["name"]]
+        k["launches_path"] = "stream_lp_train"
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+    kernels += lever_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _selected_phases(only, scene, mesh_plain, dev, runs=None) -> int:
+    """``--only``: phases 18 and 19 without the earlier ones; ``runs``
+    replaces phase 18's (``--shard-ranks N``: N ranks over NCCL, one a
+    card)."""
+    import torch
+
+    points, colors, cells = scene
+    kernels = []
+    if "18" in only:
+        tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
+        try:
+            shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=runs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if "19" in only:
+        entries, launches, _ = lever_phase(colors, mesh_plain, dev)
+        for k in entries:
+            k["launches"] = launches[k["name"]]
+        kernels += entries
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "partial": sorted(only), "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

@@ -541,9 +541,9 @@ def test_bucketed_forward_blends_every_bucket_in_one_batch(setup, monkeypatch):
     calls = []
     batch = tetra_nerf.endpoint_features_batch
 
-    def counting(field, streams):
+    def counting(field, streams, *levers):
         calls.append(len(streams))
-        return batch(field, streams)
+        return batch(field, streams, *levers)
 
     def refuse(*args):
         raise AssertionError("a bucket recomputed its endpoint features alone")

@@ -204,7 +204,7 @@ def test_missing_test_split(tiny_scene_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--num-model-shards", "2"], "A9"),
+    (["--num-model-shards", "2"], "A9b"),
     (["--skip-grid", "16"], "A8"),
     (["--model.skip-grid-resolution", "16"], "A8"),
 ])

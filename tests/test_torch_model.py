@@ -200,12 +200,14 @@ def test_white_and_black_backgrounds(setup):
 @pytest.mark.parametrize("override, refused", [
     (dict(skip_grid_resolution=16), False),
     (dict(ray_buckets=8, bucket_merge_mlps=True), False),
-    (dict(grad_stream_budget_per_ray=128), True),
-    (dict(field_stream_dtype="bfloat16"), True),
-], ids=[f"override{i}" for i in range(4)])
+    (dict(grad_stream_budget_per_ray=128), False),
+    (dict(field_stream_dtype="bfloat16"), False),
+    (dict(field_stream_dtype="float16"), True),
+], ids=[f"override{i}" for i in range(5)])
 def test_unported_settings_are_refused(override, refused):
-    """Settings whose code the port does not have raise; the skip grid and
-    merged-MLP buckets, now ported, are accepted and build."""
+    """Settings whose code the port does not have raise (a stream dtype its
+    kernels lack); the skip grid, merged-MLP buckets and both stream
+    levers, now ported, are accepted and build."""
     cfg = tetranerf_preset(**dict(SMALL, **override))
     if not refused:
         check_supported(cfg)

@@ -45,6 +45,14 @@
 // so 256 bytes of output per warp) and one launch per bucket: 1.143-1.145
 // ms at the render shape, 0.296 ms for the 8 launches of a flagship step,
 // on an H100 80GB HBM3 at 700 W.
+//
+// The bf16-row instance, for `field_stream_dtype="bfloat16"` (replaces the
+// forward of tetranerf_tpu/ops/fused.py `gather_rows_lowp` :664 before the
+// same blend): the field is a bf16 [V, F] copy made once per forward; a
+// lane reads 8 (or 4) bytes of each row and widens them exactly, then
+// blends and writes f32 as above, as JAX's `_run_blend` writes f32. It
+// moves half the row bytes; the f32 output is the same, so its bound is
+// close to the f32 instance's.
 
 #include <stdint.h>
 
@@ -75,30 +83,26 @@ constexpr int kFwdThreads = 256;
 constexpr int kMaxTile = 128;
 constexpr int kEndInFlight = 2;  // endpoints a lane loads before it adds
 
+// The twin's blend order, ((w0 x0 + w1 x1) + w2 x2) + w3 x3, in f32.
+__device__ __forceinline__ float4 blend4(const float4& w, const float4* x) {
+  return make_float4(
+      ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
+      ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y,
+      ((w.x * x[0].z + w.y * x[1].z) + w.z * x[2].z) + w.w * x[3].z,
+      ((w.x * x[0].w + w.y * x[1].w) + w.z * x[2].w) + w.w * x[3].w);
+}
+__device__ __forceinline__ float2 blend4(const float4& w, const float2* x) {
+  return make_float2(
+      ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
+      ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y);
+}
+
 template <int kVec>
-struct Vec;
+__device__ __forceinline__ typename F32Vec<kVec>::T zero_vec();
 template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ static T blend(const float4& w, const T* x) {
-    return make_float4(
-        ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
-        ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y,
-        ((w.x * x[0].z + w.y * x[1].z) + w.z * x[2].z) + w.w * x[3].z,
-        ((w.x * x[0].w + w.y * x[1].w) + w.z * x[2].w) + w.w * x[3].w);
-  }
-};
+__device__ __forceinline__ float4 zero_vec<4>() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
 template <>
-struct Vec<2> {
-  using T = float2;
-  __device__ static T zero() { return make_float2(0.0f, 0.0f); }
-  __device__ static T blend(const float4& w, const T* x) {
-    return make_float2(
-        ((w.x * x[0].x + w.y * x[1].x) + w.z * x[2].x) + w.w * x[3].x,
-        ((w.x * x[0].y + w.y * x[1].y) + w.z * x[2].y) + w.w * x[3].y);
-  }
-};
+__device__ __forceinline__ float2 zero_vec<2>() { return make_float2(0.0f, 0.0f); }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -112,11 +116,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // At most 64 registers a thread, so 4 blocks share an SM: more row
 // gathers and output rows in flight than at 3 blocks (72 registers).
-template <int kVec>
+// `T` is the field's row type: float, or bf16 (the bf16 stream lever:
+// rows move at half the bytes and blend in f32 all the same).
+template <int kVec, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
-    const __grid_constant__ BlendBatch batch, const float* __restrict__ field,
+    const __grid_constant__ BlendBatch batch, const T* __restrict__ field,
     int num_feat, int group_log2) {
-  using V = typename Vec<kVec>::T;
+  using V = typename F32Vec<kVec>::T;
   __shared__ int4 s_pos[kMaxTile];
   __shared__ float4 s_w[kMaxTile];
   __shared__ int4 s_v[kMaxTile];
@@ -180,10 +186,10 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
       for (int q = 0; q < kEndInFlight; ++q) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          x[q][j] = Vec<kVec>::zero();
+          x[q][j] = zero_vec<kVec>();
           if (vs[q][j] >= 0) {
-            x[q][j] = __ldg(reinterpret_cast<const V*>(
-                                field + static_cast<long long>(vs[q][j]) * num_feat) + c);
+            x[q][j] = RowLoad<T, kVec>::load(
+                field + static_cast<long long>(vs[q][j]) * num_feat, c);
           }
         }
       }
@@ -192,11 +198,18 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
         const int i = i0 + q * groups;
         if (i < n) {
           reinterpret_cast<V*>(dst + static_cast<long long>(i) * num_feat)[c] =
-              Vec<kVec>::blend(ws[q], x[q]);
+              blend4(ws[q], x[q]);
         }
       }
     }
   }
+}
+
+template <int kVec, typename T>
+void launch_blend(unsigned grid, const BlendBatch& batch, const void* field,
+                  int num_feat, int group_log2, cudaStream_t stream) {
+  blend_kernel<kVec, T><<<grid, kFwdThreads, 0, stream>>>(
+      batch, static_cast<const T*>(field), num_feat, group_log2);
 }
 
 }  // namespace
@@ -204,28 +217,34 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
 extern "C" int tetranerf_stream_blend_max_jobs() { return kBlendMaxJobs; }
 
 // `jobs` is a host array of `num_jobs` x 7 int64: stream ids, positions,
-// weights and output addresses; rays, endpoints and stream slots. F must be
-// even, positions and weights 16-byte aligned. Jobs with no rays or
-// endpoints are skipped; one launch runs the rest (at most kBlendMaxJobs),
-// none if nothing is left.
+// weights and output addresses; rays, endpoints and stream slots. The
+// field is f32, or bf16 with `field_bf16` != 0; the outputs are f32. F
+// must be even, positions and weights 16-byte aligned. Jobs with no rays
+// or endpoints are skipped; one launch runs the rest (at most
+// kBlendMaxJobs), none if nothing is left.
 extern "C" int tetranerf_stream_blend_gather_batch(
-    const float* field, const long long* jobs, int num_jobs, int num_feat,
-    cudaStream_t stream) {
+    const void* field, const long long* jobs, int num_jobs, int num_feat,
+    int field_bf16, cudaStream_t stream) {
   if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // float4 columns where the row bytes, the field and every output allow.
-  uint64_t bits = reinterpret_cast<uintptr_t>(field) |
-                  static_cast<uint64_t>(num_feat) * sizeof(float);
+  // float4 columns where the rows, the field and every output allow: 4
+  // elements of the field's type, 16 bytes of f32 output.
+  const uint64_t esize = field_bf16 ? 2 : 4;
+  const uint64_t fbits = reinterpret_cast<uintptr_t>(field) |
+                         static_cast<uint64_t>(num_feat) * esize;
+  uint64_t obits = static_cast<uint64_t>(num_feat) * sizeof(float);
   for (int i = 0; i < num_jobs; ++i) {
     const long long* j = jobs + 7 * i;
     if ((static_cast<uint64_t>(j[1]) | static_cast<uint64_t>(j[2])) & 15) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    bits |= static_cast<uint64_t>(j[3]);
+    obits |= static_cast<uint64_t>(j[3]);
   }
-  if (bits & 7) return static_cast<int>(cudaErrorMisalignedAddress);
-  const int vec = (bits & 15) == 0 ? 4 : 2;
+  if ((obits & 7) || (fbits & (2 * esize - 1))) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const int vec = ((obits & 15) == 0 && (fbits & (4 * esize - 1)) == 0) ? 4 : 2;
   const int units = num_feat / vec;
   int group_log2 = 0;
   while (group_log2 < 4 && (1 << group_log2) < units) ++group_log2;
@@ -256,12 +275,16 @@ extern "C" int tetranerf_stream_blend_gather_batch(
   }
   if (blocks > 0) {
     const unsigned grid = static_cast<unsigned>(blocks);
-    if (vec == 4) {
-      blend_kernel<4><<<grid, kFwdThreads, 0, stream>>>(batch, field,
-                                                        num_feat, group_log2);
+    if (field_bf16) {
+      if (vec == 4) {
+        launch_blend<4, __nv_bfloat16>(grid, batch, field, num_feat, group_log2, stream);
+      } else {
+        launch_blend<2, __nv_bfloat16>(grid, batch, field, num_feat, group_log2, stream);
+      }
+    } else if (vec == 4) {
+      launch_blend<4, float>(grid, batch, field, num_feat, group_log2, stream);
     } else {
-      blend_kernel<2><<<grid, kFwdThreads, 0, stream>>>(batch, field,
-                                                        num_feat, group_log2);
+      launch_blend<2, float>(grid, batch, field, num_feat, group_log2, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -306,6 +329,13 @@ extern "C" int tetranerf_stream_blend_gather_batch(
 // each weighted endpoint with a chain of dependent load-add-stores in
 // device memory: 0.64-0.68 ms at the train shape and 1.98 ms for the 8
 // launches of a flagship step, on an H100 80GB HBM3 at 700 W.
+//
+// The bf16-out instance, for `field_stream_dtype="bfloat16"` (JAX's
+// `_blend_bwd` emits the cotangent in the primal's dtype,
+// pallas_interp.py:257-266): the same f32 sums, each output pair rounded
+// to bf16 as it is written, so the dense [R, U, F] output is half the
+// bytes; K7's bf16 instance then adds these rows into the f32 field
+// gradient.
 
 namespace {
 
@@ -315,9 +345,13 @@ constexpr int kBwdMaxTile = 128;   // stream slots a block owns, at most
 constexpr int kBwdCols = 64;       // feature columns a pass (a float2 a lane)
 constexpr int kBwdInFlight = 8;    // g rows a warp loads before adding them
 
+// `OutT` is the stream-row gradient's type: float, or bf16 for the bf16
+// stream lever (the primal's dtype, as JAX's `_blend_bwd` emits it): the
+// sums are f32 either way and rounded once, as they are written.
+template <typename OutT>
 __global__ void __launch_bounds__(kBwdThreads) blend_bwd_kernel(
     const float* __restrict__ g, const int* __restrict__ pos,
-    const float* __restrict__ bary, float* __restrict__ gsf, int num_end,
+    const float* __restrict__ bary, OutT* __restrict__ gsf, int num_end,
     int num_stream, int num_feat, int tile, int num_tiles) {
   extern __shared__ float4 smem4[];
   int4* s_pos = reinterpret_cast<int4*>(smem4);          // [E]
@@ -340,7 +374,7 @@ __global__ void __launch_bounds__(kBwdThreads) blend_bwd_kernel(
   __syncthreads();
 
   const float* gr = g + r * num_end * num_feat;
-  float* dst = gsf + r * num_stream * num_feat;
+  OutT* dst = gsf + r * num_stream * num_feat;
   // The lane's accumulator column in row 0 of the warp's range; rows are
   // `cols` floats apart. Only this lane ever touches these entries.
   float* acc = s_acc + (a - u0) * cols + 2 * lane;
@@ -405,20 +439,17 @@ __global__ void __launch_bounds__(kBwdThreads) blend_bwd_kernel(
     }
     if (active) {
       for (int j = 0; j < b - a; ++j) {
-        *reinterpret_cast<float2*>(dst + static_cast<long long>(a + j) * num_feat +
-                                   col) =
-            *reinterpret_cast<const float2*>(acc + j * cols);
+        store2(dst + static_cast<long long>(a + j) * num_feat + col,
+               *reinterpret_cast<const float2*>(acc + j * cols));
       }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int tetranerf_stream_blend_backward(
-    const float* g, const int* pos, const float* bary, float* gsf,
-    int num_rays, int num_end, int num_stream, int num_feat,
-    cudaStream_t stream) {
+template <typename OutT>
+int launch_blend_bwd(const float* g, const int* pos, const float* bary,
+                     void* gsf, int num_rays, int num_end, int num_stream,
+                     int num_feat, cudaStream_t stream) {
   constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
   const size_t cols = static_cast<size_t>(num_feat < kBwdCols ? num_feat : kBwdCols);
   // Fewest tiles of at most kBwdMaxTile slots whose plan fits: the staged
@@ -439,14 +470,30 @@ extern "C" int tetranerf_stream_blend_backward(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        blend_bwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (blocks > 0) {
-    blend_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem,
-                       stream>>>(g, pos, bary, gsf, num_end, num_stream,
-                                 num_feat, tile, num_tiles);
+    blend_bwd_kernel<OutT><<<static_cast<unsigned>(blocks), kBwdThreads, smem,
+                             stream>>>(g, pos, bary, static_cast<OutT*>(gsf),
+                                       num_end, num_stream, num_feat, tile,
+                                       num_tiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `gsf` is f32, or bf16 with `out_bf16` != 0.
+extern "C" int tetranerf_stream_blend_backward(
+    const float* g, const int* pos, const float* bary, void* gsf,
+    int num_rays, int num_end, int num_stream, int num_feat, int out_bf16,
+    cudaStream_t stream) {
+  if (out_bf16) {
+    return launch_blend_bwd<__nv_bfloat16>(g, pos, bary, gsf, num_rays, num_end,
+                                           num_stream, num_feat, stream);
+  }
+  return launch_blend_bwd<float>(g, pos, bary, gsf, num_rays, num_end,
+                                 num_stream, num_feat, stream);
 }

@@ -49,6 +49,15 @@
 //
 // The order of the float additions into a row varies from run to run, so
 // results agree with the plain version to rounding, not bit for bit.
+//
+// The bf16-row instance, for `field_stream_dtype="bfloat16"` (replaces the
+// backward of tetranerf_tpu/ops/fused.py `gather_rows_lowp` :680-689):
+// the values are K2b's bf16 stream-row gradients; a lane reads 8, 4 or 2
+// bytes of a row, widens them exactly and adds them into the f32 table
+// with the same vector atomics. The accumulation stays f32, which is the
+// lever's point: 10-200 rows sum into a vertex row, which bf16's 8
+// mantissa bits could not carry. Half the value bytes; the atomics are
+// the same.
 
 #include <stdint.h>
 
@@ -58,7 +67,7 @@ namespace {
 
 struct ScatterJob {
   const int* idx;
-  const float* values;
+  const void* values;  // float or bf16 rows
   int rows;
   int first_block;  // prefix over the jobs of their block counts
 };
@@ -77,30 +86,28 @@ template <int kVec>
 struct Vec;
 template <>
 struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ static bool nonzero(T v) {
+  __device__ static float4 zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static bool nonzero(float4 v) {
     return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
   }
 };
 template <>
 struct Vec<2> {
-  using T = float2;
-  __device__ static T zero() { return make_float2(0.0f, 0.0f); }
-  __device__ static bool nonzero(T v) { return v.x != 0.0f || v.y != 0.0f; }
+  __device__ static float2 zero() { return make_float2(0.0f, 0.0f); }
+  __device__ static bool nonzero(float2 v) { return v.x != 0.0f || v.y != 0.0f; }
 };
 template <>
 struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.0f; }
-  __device__ static bool nonzero(T v) { return v != 0.0f; }
+  __device__ static float zero() { return 0.0f; }
+  __device__ static bool nonzero(float v) { return v != 0.0f; }
 };
 
-template <int kVec>
+// `T` is the values' row type: float, or bf16 (added into the f32 table).
+template <int kVec, typename T>
 __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
     const __grid_constant__ ScatterBatch batch, float* __restrict__ out,
     int num_rows, int num_feat, int group_log2) {
-  using V = typename Vec<kVec>::T;
+  using V = typename F32Vec<kVec>::T;
   int lo = 0, hi = batch.num_jobs - 1;  // last job with first_block <= block
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -134,8 +141,8 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
     for (int k = 0; k < kRowsInFlight; ++k) {
       x[k] = Vec<kVec>::zero();
       if (v[k] >= 0) {
-        x[k] = __ldg(reinterpret_cast<const V*>(
-                         job.values + (base + k * groups) * num_feat) + c);
+        x[k] = RowLoad<T, kVec>::load(
+            static_cast<const T*>(job.values) + (base + k * groups) * num_feat, c);
       }
     }
 #pragma unroll
@@ -149,17 +156,39 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
   }
 }
 
+template <int kVec, typename T>
+void launch_scatter(unsigned grid, const ScatterBatch& batch, float* out,
+                    int num_rows, int num_feat, int group_log2,
+                    cudaStream_t stream) {
+  scatter_add_kernel<kVec, T><<<grid, kThreads, 0, stream>>>(
+      batch, out, num_rows, num_feat, group_log2);
+}
+
+template <typename T>
+void launch_scatter_vec(int vec, unsigned grid, const ScatterBatch& batch,
+                        float* out, int num_rows, int num_feat, int group_log2,
+                        cudaStream_t stream) {
+  if (vec == 4) {
+    launch_scatter<4, T>(grid, batch, out, num_rows, num_feat, group_log2, stream);
+  } else if (vec == 2) {
+    launch_scatter<2, T>(grid, batch, out, num_rows, num_feat, group_log2, stream);
+  } else {
+    launch_scatter<1, T>(grid, batch, out, num_rows, num_feat, group_log2, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" int tetranerf_scatter_add_max_jobs() { return kMaxJobs; }
 
 // `jobs` is a host array of `num_jobs` x 3 int64: index address, values
-// address, row count. `zero` != 0 zeroes the [num_rows, num_feat] table
+// address, row count. The values are f32, or bf16 with `values_bf16` != 0;
+// the table is f32. `zero` != 0 zeroes the [num_rows, num_feat] table
 // first. Jobs with no rows are skipped; one launch runs the rest (at most
 // kMaxJobs of them), none if nothing is left.
 extern "C" int tetranerf_scatter_add_rows_batch(
     const long long* jobs, int num_jobs, float* out, int num_rows,
-    int num_feat, int zero, cudaStream_t stream) {
+    int num_feat, int zero, int values_bf16, cudaStream_t stream) {
   if (num_jobs > kMaxJobs || num_feat <= 0 || num_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -169,11 +198,17 @@ extern "C" int tetranerf_scatter_add_rows_batch(
         stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // The widest vector that divides the row bytes and every address.
-  uint64_t bits = reinterpret_cast<uintptr_t>(out) |
-                  static_cast<uint64_t>(num_feat) * sizeof(float);
-  for (int i = 0; i < num_jobs; ++i) bits |= static_cast<uint64_t>(jobs[3 * i + 1]);
-  const int vec = (bits & 15) == 0 ? 4 : (bits & 7) == 0 ? 2 : 1;
+  // The widest vector that divides the table's row bytes and address (f32)
+  // and every values row and address (in the values' type).
+  const uint64_t esize = values_bf16 ? 2 : 4;
+  const uint64_t obits = reinterpret_cast<uintptr_t>(out) |
+                         static_cast<uint64_t>(num_feat) * sizeof(float);
+  uint64_t vbits = static_cast<uint64_t>(num_feat) * esize;
+  for (int i = 0; i < num_jobs; ++i) vbits |= static_cast<uint64_t>(jobs[3 * i + 1]);
+  if (vbits & (esize - 1)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int vec = ((obits & 15) == 0 && (vbits & (4 * esize - 1)) == 0)   ? 4
+                  : ((obits & 7) == 0 && (vbits & (2 * esize - 1)) == 0) ? 2
+                                                                         : 1;
   const int units = num_feat / vec;
   int group_log2 = 0;
   while (group_log2 < 4 && (1 << group_log2) < units) ++group_log2;
@@ -190,7 +225,7 @@ extern "C" int tetranerf_scatter_add_rows_batch(
     if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     ScatterJob& job = batch.jobs[batch.num_jobs++];
     job.idx = reinterpret_cast<const int*>(j[0]);
-    job.values = reinterpret_cast<const float*>(j[1]);
+    job.values = reinterpret_cast<const void*>(j[1]);
     job.rows = static_cast<int>(rows);
     job.first_block = static_cast<int>(blocks);
     blocks += (rows + rows_per_block - 1) / rows_per_block;
@@ -198,15 +233,12 @@ extern "C" int tetranerf_scatter_add_rows_batch(
   }
   if (blocks > 0) {
     const unsigned grid = static_cast<unsigned>(blocks);
-    if (vec == 4) {
-      scatter_add_kernel<4><<<grid, kThreads, 0, stream>>>(
-          batch, out, num_rows, num_feat, group_log2);
-    } else if (vec == 2) {
-      scatter_add_kernel<2><<<grid, kThreads, 0, stream>>>(
-          batch, out, num_rows, num_feat, group_log2);
+    if (values_bf16) {
+      launch_scatter_vec<__nv_bfloat16>(vec, grid, batch, out, num_rows, num_feat,
+                                        group_log2, stream);
     } else {
-      scatter_add_kernel<1><<<grid, kThreads, 0, stream>>>(
-          batch, out, num_rows, num_feat, group_log2);
+      launch_scatter_vec<float>(vec, grid, batch, out, num_rows, num_feat,
+                                group_log2, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());

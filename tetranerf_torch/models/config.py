@@ -115,18 +115,12 @@ class TetrahedraNerfConfig:
 
 
 def check_supported(config: TetrahedraNerfConfig) -> None:
-    """Refuse settings whose code the port does not have yet."""
-    refused = {
-        "grad_stream_budget_per_ray": config.grad_stream_budget_per_ray
-        is not None,
-        "field_stream_dtype='bfloat16'": config.field_stream_dtype
-        not in (None, "float32"),
-    }
-    missing = [name for name, hit in refused.items() if hit]
-    if missing:
+    """Refuse settings whose code the port does not have: a stream dtype
+    other than f32 or bf16 (the kernels' two instances)."""
+    if config.field_stream_dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(
-            "not ported to tetranerf_torch yet: " + ", ".join(missing)
-        )
+            "not ported to tetranerf_torch: field_stream_dtype="
+            f"{config.field_stream_dtype!r} (the stream kernels take float32 or bfloat16)")
     if config.traversal_hops not in (1, 2):
         raise ValueError(f"traversal_hops must be 1 or 2, got {config.traversal_hops!r}")
     if config.interp_mode not in ("matmul", "pallas", "gather"):

@@ -9,6 +9,12 @@ K8; ``bucket_merge_mlps`` runs each MLP round over all buckets at once).
 The module holds the per-vertex feature field ``tetrahedra_field [V, F]``
 (vertex-major, as in the JAX package) and the four MLP parts; the mesh is
 passed to each call.
+
+Data-parallel training passes a :class:`~..parallel.Group` to the train
+forward: each rank shades its own rays, and what is global over the batch
+stays global (the quantile buckets' sort, each bucket's random numbers,
+the gradient-stream budget), so that a D-rank step computes the one-rank
+step on the concatenation of the ranks' rows.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..ops.fused import (
     ray_bounds,
     sample_features,
     slice_march_buckets,
+    stream_budget_ids,
 )
 from ..ops.march import FusedMarch
 from ..ops.mlp import FusedDensityMLP, FusedFieldMLPs, as_operand
@@ -73,6 +80,35 @@ def draw_uniforms(num_rays, num_samples, num_fine_samples, generator=None,
         "fine": rand(num_rays, num_fine_samples + 1),
         "background": rand(num_rays, 3),
     }
+
+
+def split_buckets(num_valid: torch.Tensor, rank: int, num_local: int, plan):
+    """This rank's share of the quantile buckets of a global batch.
+
+    ``num_valid i32[R]`` holds every rank's crossing counts in rank order
+    (``R = world * num_local``); ``plan`` entries ``(k, lo, hi, ...)`` cut
+    the stable sort of ``num_valid`` into buckets at global positions
+    ``[lo, hi)`` (:meth:`TetraNerf.bucket_plan` of ``R`` rays). Rank
+    ``rank`` owns rays ``[rank * num_local, (rank + 1) * num_local)``.
+
+    Returns ``(order, local_plan, positions)``: ``order`` the rank's rays
+    (local indices) in global sort order; ``local_plan`` the entries with
+    ``lo, hi`` replaced by the rank's extents in ``order`` (possibly empty);
+    ``positions`` per entry, the global sort positions of those rays. The
+    extents are read with one device-to-host copy of ``K + 1`` integers."""
+    dev = num_valid.device
+    order_g = torch.argsort(num_valid, stable=True)
+    start = rank * num_local
+    mine = (order_g >= start) & (order_g < start + num_local)
+    # The positions of this rank's rays, ascending: a stable sort puts them
+    # (key 0) first. No host sync, unlike a boolean mask.
+    pos = torch.argsort((~mine).to(torch.uint8), stable=True)[:num_local]
+    order = order_g[pos] - start
+    edges = torch.tensor([e[1] for e in plan] + [plan[-1][2]], device=dev, dtype=pos.dtype)
+    ext = torch.searchsorted(pos, edges).tolist()
+    local_plan = [(e[0], ext[i], ext[i + 1]) + tuple(e[3:]) for i, e in enumerate(plan)]
+    positions = [pos[a:b] for _, a, b, *_ in local_plan]
+    return order, local_plan, positions
 
 
 class TetraNerf(nn.Module):
@@ -270,6 +306,7 @@ class TetraNerf(nn.Module):
         bucket_steps: Optional[Sequence[int]] = None,
         short_steps: Optional[int] = None,
         cached_march: Optional[FusedMarch] = None,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """Forward of rays ``[R, 3]`` through ``mesh`` (a
         :class:`~..geometry.TorchMesh` on the rays' device).
@@ -290,9 +327,19 @@ class TetraNerf(nn.Module):
         forward runs. ``cached_march`` re-shades a geometry-only march of
         the same rays against the current field.
 
+        ``group`` (a :class:`~..parallel.Group`) makes this one rank's share
+        of a data-parallel forward whose global batch is the ranks' rows in
+        rank order: the buckets cut the global sort (:func:`split_buckets`),
+        every bucket's random numbers are drawn (or given in ``uniforms``)
+        at the global bucket's shape and this rank keeps its own rows, and
+        the gradient-stream budget counts the global stream.
+
         Returns ``rgb [R, 3]``, ``accumulation [R, 1]``, ``depth [R, 1]``,
         ``ray_mask [R]`` and ``traversal_overflow [R]`` (rays whose march
-        reached its bound, or a bucket's bound, before ending)."""
+        reached its bound, or a bucket's bound, before ending); with
+        ``grad_stream_budget_per_ray`` in training also
+        ``grad_stream_dropped [R]`` (rays whose stream ends past the
+        budget: part or all of their field gradient is dropped)."""
         cfg = self.config
         max_steps = max_steps or cfg.max_intersected_triangles
         n_coarse = cfg.num_samples if num_samples is None else num_samples
@@ -309,13 +356,59 @@ class TetraNerf(nn.Module):
                 return self._get_outputs_bucketed(
                     origins, directions, mesh, bounds, n_coarse, n_fine,
                     occ_depth_cap, train, generator, uniforms, camera_indices,
-                    cached_march,
+                    cached_march, group,
                 )
         return self._forward(
             origins, directions, mesh, max_steps, n_coarse, n_fine,
             occ_depth_cap, train, generator, uniforms, camera_indices,
-            cached_march,
+            cached_march, group,
         )
+
+    def stream_levers(self, train: bool):
+        """``(budget_per_ray, stream_dtype)`` of a forward (JAX ``_forward``):
+        the gradient-stream budget in training only; the bf16 stream
+        whenever configured, except while the budget is on (JAX
+        ``endpoint_features`` takes the budget first)."""
+        cfg = self.config
+        per_ray = cfg.grad_stream_budget_per_ray if train else None
+        per_ray = per_ray or None
+        dtype = (None if cfg.field_stream_dtype in (None, "float32") or per_ray
+                 else getattr(torch, cfg.field_stream_dtype))
+        return per_ray, dtype
+
+    def merges_buckets(self, train: bool) -> bool:
+        """Whether bucketed shading merges its MLP rounds (JAX's condition,
+        ``tetranerf_tpu/models/tetra_nerf.py:546-551``): not with the
+        budget in training, a bf16 stream or ``fused_mlps``."""
+        cfg = self.config
+        return bool(
+            cfg.bucket_merge_mlps
+            and not (train and cfg.grad_stream_budget_per_ray)
+            and cfg.field_stream_dtype in (None, "float32")
+            and not cfg.fused_mlps
+        )
+
+    @staticmethod
+    def _budget_jobs(per_ray: int, num_valid: torch.Tensor, entries):
+        """The gradient-stream budget of each forward of ``entries``: per
+        entry ``(lo, hi, t, positions, vids)``, a forward over the rays at
+        positions ``[lo, hi)`` of ``num_valid`` (every rank's crossing
+        counts in the forward's ray order) marched to ``t`` intervals, of
+        which this rank holds those at ``positions`` with stream ids
+        ``vids``. Returns per entry ``(scatter ids, dropped bool[n])``: the
+        K7 ids of :func:`~..ops.fused.stream_budget_ids` and JAX's
+        ``cumsum(counts) > budget`` for this rank's rays."""
+        out = []
+        for lo, hi, t, positions, vids in entries:
+            counts = num_valid[lo:hi].to(torch.int64).clamp_max(t) + 4
+            ends = torch.cumsum(counts, 0)
+            sel = (positions - lo).long()
+            ends_l, counts_l = ends[sel], counts[sel]
+            budget = per_ray * (hi - lo)
+            ids = stream_budget_ids(vids, counts_l, ends_l - counts_l, budget,
+                                    sel == hi - lo - 1)
+            out.append((ids, ends_l > budget))
+        return out
 
     def bucket_bounds(self, max_steps: int, short_steps: Optional[int] = None,
                       bucket_steps: Optional[Sequence[int]] = None) -> tuple:
@@ -371,7 +464,7 @@ class TetraNerf(nn.Module):
     def _get_outputs_bucketed(
         self, origins, directions, mesh, bounds, n_coarse, n_fine,
         occ_depth_cap, train, generator, uniforms, camera_indices,
-        cached_march,
+        cached_march, group=None,
     ):
         """Quantile-bucketed shading (JAX ``_get_outputs_bucketed``): one
         geometry-only march at the full bound (K1), rays sorted by crossing
@@ -380,9 +473,12 @@ class TetraNerf(nn.Module):
         only: the slices take no gradient), one K2 launch computes every
         slice's endpoint features against the field (so the field gradient
         is one ``[V, F]`` tensor, one K7 launch), and the outputs go back
-        to ray order. Each slice is shaded by :meth:`_shade`, or with
-        ``bucket_merge_mlps`` (and not ``fused_mlps``, as in JAX) by
-        :meth:`_shade_buckets_merged`."""
+        to ray order. Each slice is shaded by :meth:`_shade`, or where
+        :meth:`merges_buckets` by :meth:`_shade_buckets_merged`.
+
+        With ``group`` the sort is over every rank's crossing counts and a
+        bucket's slice holds this rank's rays of it, possibly none (a
+        zero-row job in every batch of K8, K2 and K7)."""
         cfg = self.config
         res = cached_march
         if res is None:
@@ -392,12 +488,33 @@ class TetraNerf(nn.Module):
                 occ_threshold=cfg.occupancy_threshold,
                 occ_depth_cap=occ_depth_cap,
             )
-        order = torch.argsort(res.num_valid, stable=True)
+        num_rays = origins.shape[0]
+        per_ray, stream_dtype = self.stream_levers(train)
+        nv = res.num_valid
+        if group is None:
+            order = torch.argsort(nv, stable=True)
+            plan = self.bucket_plan(num_rays, bounds, n_coarse, n_fine)
+            global_plan, positions = plan, None
+        else:
+            nv = group.gather_rows(nv)
+            global_plan = self.bucket_plan(nv.shape[0], bounds, n_coarse, n_fine)
+            order, plan, positions = split_buckets(nv, group.rank, num_rays, global_plan)
+            if train:
+                uniforms = self._global_uniforms(global_plan, positions, generator,
+                                                 uniforms, origins.device)
         inv_order = torch.argsort(order)
-        plan = self.bucket_plan(origins.shape[0], bounds, n_coarse, n_fine)
         slices = slice_march_buckets(res, order, plan, (origins, directions))
-        feats = endpoint_features_batch(self.tetrahedra_field,
-                                        [sliced.stream for sliced, _ in slices])
+        streams = [sliced.stream for sliced, _ in slices]
+        budget = None
+        if per_ray:
+            if positions is None:
+                positions = [torch.arange(lo, hi, device=nv.device) for _, lo, hi, *_ in plan]
+            max_t = res.t1.shape[1]
+            budget = self._budget_jobs(per_ray, torch.sort(nv).values, [
+                (lo, hi, min(t, max_t), pos, s.vids)
+                for (_, lo, hi, t, *_), pos, s in zip(global_plan, positions, streams)])
+        feats = endpoint_features_batch(self.tetrahedra_field, streams, stream_dtype,
+                                        None if budget is None else [ids for ids, _ in budget])
         jobs = [
             (o_k, d_k, sliced._replace(feats=feats_k), ns_k, nf_k,
              None if uniforms is None else uniforms[k],
@@ -405,12 +522,30 @@ class TetraNerf(nn.Module):
             for (k, lo, hi, t_k, ns_k, nf_k), (sliced, (o_k, d_k)), feats_k
             in zip(plan, slices, feats)
         ]
-        if cfg.bucket_merge_mlps and not cfg.fused_mlps:
+        if self.merges_buckets(train):
             outs = self._shade_buckets_merged(jobs, train, generator)
         else:
             outs = [self._shade(o_k, d_k, res_k, ns_k, nf_k, train, generator, u_k, cams_k)
                     for o_k, d_k, res_k, ns_k, nf_k, u_k, cams_k in jobs]
+        if budget is not None:
+            for o, (_, dropped) in zip(outs, budget):
+                o["grad_stream_dropped"] = dropped
         return {key: torch.cat([o[key] for o in outs])[inv_order] for key in outs[0]}
+
+    @staticmethod
+    def _global_uniforms(global_plan, positions, generator, uniforms, device):
+        """Each bucket's random numbers at the global bucket's shape, then
+        this rank's rows of them (at its ``positions`` in the bucket): the
+        given ``uniforms`` (global layout, indexed by bucket), or drawn from
+        ``generator`` bucket by bucket, as the one-rank forward draws them."""
+        out = {}
+        for (k, lo, hi, _, ns_k, nf_k), pos in zip(global_plan, positions):
+            u = (draw_uniforms(hi - lo, ns_k, nf_k, generator, device)
+                 if uniforms is None else uniforms[k])
+            rows = (pos - lo).to(device)
+            out[k] = {key: torch.as_tensor(v, dtype=torch.float32, device=device)[rows]
+                      for key, v in u.items()}
+        return out
 
     def _shade_buckets_merged(self, jobs, train, generator):
         """Bucketed shading with each MLP round merged across the buckets
@@ -458,25 +593,49 @@ class TetraNerf(nn.Module):
     def _forward(
         self, origins, directions, mesh, max_steps, n_coarse, n_fine,
         occ_depth_cap, train, generator, uniforms, camera_indices,
-        cached_march=None,
+        cached_march=None, group=None,
     ) -> Dict[str, torch.Tensor]:
         """The forward of one batch of rays at one bound (JAX ``_forward``);
         a ``cached_march`` is re-shaded, its endpoint features computed here
         against the current field (K2): the ``feats`` a cached march carries
-        are never used, they may be an older field's."""
+        are never used, they may be an older field's. With ``group`` every
+        ray is local: the random numbers are the global batch's (drawn, or
+        given, for every rank's rays) at this rank's rows, and only the
+        gradient-stream budget reads the other ranks' crossing counts."""
         cfg = self.config
-        if cached_march is not None:
-            res = cached_march._replace(
-                feats=endpoint_features(self.tetrahedra_field, cached_march.stream))
-        else:
+        num_rays = origins.shape[0]
+        if group is not None and train:
+            start = group.rank * num_rays
+            plan = [(0, 0, group.world * num_rays, None, n_coarse, n_fine)]
+            rows = [torch.arange(start, start + num_rays, device=origins.device)]
+            uniforms = self._global_uniforms(
+                plan, rows, generator, None if uniforms is None else [uniforms],
+                origins.device)[0]
+        res = cached_march
+        if res is None:
             res = march_features(
-                mesh, self.tetrahedra_field, origins, directions, max_steps,
+                mesh, None, origins, directions, max_steps,
                 use_occupancy=cfg.use_occupancy_field,
                 occ_threshold=cfg.occupancy_threshold,
                 occ_depth_cap=occ_depth_cap,
             )
-        return self._shade(origins, directions, res, n_coarse, n_fine, train,
-                           generator, uniforms, camera_indices)
+        per_ray, stream_dtype = self.stream_levers(train)
+        budget = None
+        if per_ray:
+            nv, start = res.num_valid, 0
+            if group is not None:
+                nv, start = group.gather_rows(nv), group.rank * num_rays
+            positions = torch.arange(start, start + num_rays, device=nv.device)
+            (budget,) = self._budget_jobs(per_ray, nv, [
+                (0, nv.shape[0], res.t1.shape[1], positions, res.stream.vids)])
+        res = res._replace(feats=endpoint_features(
+            self.tetrahedra_field, res.stream, stream_dtype,
+            None if budget is None else budget[0]))
+        out = self._shade(origins, directions, res, n_coarse, n_fine, train,
+                          generator, uniforms, camera_indices)
+        if budget is not None:
+            out["grad_stream_dropped"] = budget[1]
+        return out
 
     def _shade(self, origins, directions, res, n_coarse, n_fine, train, generator,
                uniforms, camera_indices) -> Dict[str, torch.Tensor]:

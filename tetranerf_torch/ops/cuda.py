@@ -52,12 +52,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P, _P, _I] + [_P] * 11 + [_P],
     "tetranerf_locate": [_P] * 3 + [_I] * 2 + [_P] + [_P],
-    "tetranerf_stream_blend_gather_batch": [_P, _P, _I, _I, _P],
+    "tetranerf_stream_blend_gather_batch": [_P, _P, _I, _I, _I, _P],
     "tetranerf_stream_blend_max_jobs": [],
     "tetranerf_sample_interp": [_P] * 8 + [_I] * 4 + [_P],
-    "tetranerf_stream_blend_backward": [_P] * 4 + [_I] * 4 + [_P],
+    "tetranerf_stream_blend_backward": [_P] * 4 + [_I] * 5 + [_P],
     "tetranerf_sample_interp_backward": [_P] * 7 + [_I] * 4 + [_P],
-    "tetranerf_scatter_add_rows_batch": [_P, _I, _P, _I, _I, _I, _P],
+    "tetranerf_scatter_add_rows_batch": [_P, _I, _P, _I, _I, _I, _I, _P],
     "tetranerf_scatter_add_max_jobs": [],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 9 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 11 + [_I] * 10 + [_P],
@@ -70,6 +70,8 @@ launch_counts = {
     "stream_blend_backward": 0, "sample_interp_backward": 0,
     "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
     "fused_density_mlp": 0, "fused_density_mlp_backward": 0, "row_gather": 0,
+    "stream_blend_gather_bf16": 0, "stream_blend_backward_bf16": 0,
+    "scatter_add_rows_bf16": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 

@@ -12,17 +12,23 @@ every bucket's endpoint features with one launch of K2
 (:func:`endpoint_features_batch`).
 Where autograd records (grad enabled and a differentiable input), the two go
 through the autograd Functions whose backwards are K2b + K7 and K3b.
+
+The two stream levers of :func:`endpoint_features_batch` (JAX
+``endpoint_features(..., counts, grad_budget, stream_dtype)``): a bf16
+stream (K2, K2b and K7's bf16 instances, the field gradient still summed in
+f32) and the gradient-stream budget (:func:`stream_budget_ids`: the slots
+past the budget scatter no gradient).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from .interp import (
     SampleInterp,
-    StreamBlendGatherBatch,
+    StreamBlendGatherLevers,
     sample_interp,
     split_streams,
     stream_blend_gather_batch,
@@ -31,23 +37,61 @@ from .gather import row_gather_batch
 from .march import FusedMarch, MarchStream, march
 
 
-def endpoint_features_batch(field: torch.Tensor,
-                            streams: Sequence[MarchStream]) -> List[torch.Tensor]:
+def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
+                            stream_dtype: Optional[torch.dtype] = None,
+                            scatter_ids: Optional[Sequence[torch.Tensor]] = None,
+                            ) -> List[torch.Tensor]:
     """Interval-endpoint features ``f32[R_j, T_j+1, F]`` of each march
     stream, in one K2 launch; the only field-dependent part of the
     traversal. Where autograd records, the field gradient of all streams is
-    one ``[V, F]`` tensor (one K7 launch)."""
+    one ``[V, F]`` tensor (one K7 launch).
+
+    ``stream_dtype`` bf16 blends a bf16 copy of the field (cast once here)
+    and sends the gradient through bf16 stream rows into the f32 field
+    gradient; ``scatter_ids`` (:func:`stream_budget_ids`, one per stream)
+    drop the field gradient of the slots past the gradient-stream budget.
+    The forward is the same either way."""
     field = field.contiguous()
     flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
-        return list(StreamBlendGatherBatch.apply(field, *flat))
-    return stream_blend_gather_batch(field, split_streams(flat))
+        return list(StreamBlendGatherLevers.apply(field, stream_dtype, scatter_ids, *flat))
+    rows = field if stream_dtype is None else field.to(stream_dtype)
+    return stream_blend_gather_batch(rows, split_streams(flat))
 
 
-def endpoint_features(field: torch.Tensor, stream: MarchStream) -> torch.Tensor:
+def endpoint_features(field: torch.Tensor, stream: MarchStream,
+                      stream_dtype: Optional[torch.dtype] = None,
+                      scatter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2): the
     one-stream case of :func:`endpoint_features_batch`."""
-    return endpoint_features_batch(field, [stream])[0]
+    return endpoint_features_batch(
+        field, [stream], stream_dtype,
+        None if scatter_ids is None else [scatter_ids])[0]
+
+
+def stream_budget_ids(vids: torch.Tensor, counts: torch.Tensor, offs: torch.Tensor,
+                      budget: int, last: torch.Tensor) -> torch.Tensor:
+    """K7's scatter ids ``i32[R, U]`` of a march stream under the
+    gradient-stream budget (JAX ``_stream_gather``'s backward,
+    ``tetranerf_tpu/ops/fused.py:629-659``): ``max(vids, 0)`` where a slot
+    keeps its field gradient, ``-1`` where it is dropped.
+
+    Ray ``r`` uses its first ``counts[r]`` slots (``min(num_valid + 4, U)``)
+    and they lie at ``offs[r], offs[r] + 1, ...`` of the forward's flat
+    stream (``offs``: the exclusive sum of the counts of the rays before
+    it, in the forward's ray order and across ranks). A slot at position
+    ``p`` keeps its gradient when ``p < budget - 1``, so a ray that
+    straddles the budget keeps its first slots. Position ``budget - 1`` is
+    kept only by the forward's last ray (``last[r]``): JAX recovers each
+    slot's ray from marks at ``min(offs, budget - 1)``, so every ray that
+    starts at or past the budget marks that slot too, and it goes to the
+    last ray."""
+    width = vids.shape[1]
+    u = torch.arange(width, device=vids.device, dtype=torch.int64)[None, :]
+    pos = offs.to(torch.int64)[:, None] + u
+    keep = (u < counts[:, None]) & (
+        (pos < budget - 1) | ((pos == budget - 1) & last[:, None]))
+    return torch.where(keep, vids.clamp_min(0), -1).to(torch.int32).contiguous()
 
 
 def march_features(

@@ -5,7 +5,10 @@ its backward.
 
 Counterpart of :mod:`tetranerf_tpu.ops.pallas_interp`. All run in f32: the
 JAX kernels' bf16 contraction was the price of the TPU's matrix unit, not
-part of the function.
+part of the function. The bf16 stream lever (``field_stream_dtype=
+"bfloat16"``, JAX ``gather_rows_lowp``) has its own instances: K2 reads a
+bf16 field and blends in f32, K2b writes the stream-row gradient in bf16,
+and K7 adds bf16 rows into the f32 field gradient.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ stream (``MarchStream``'s fields) to blend against the field."""
 def stream_blend_gather_twin(field, vids, pos, bary):
     """``out[r, e] = sum_j bary[r, e, j] * field[vids[r, pos[r, e, j]]]``.
 
-    ``field f32[V, F]``, ``vids i32[R, U]``, ``pos i32[R, E, 4]`` in
-    ``[0, U)``, ``bary f32[R, E, 4]`` (zero at invalid endpoints) ->
-    ``f32[R, E, F]``."""
+    ``field f32[V, F]`` (or bf16: its rows widen exactly and blend in f32),
+    ``vids i32[R, U]``, ``pos i32[R, E, 4]`` in ``[0, U)``, ``bary f32[R,
+    E, 4]`` (zero at invalid endpoints) -> ``f32[R, E, F]``."""
     num_rays, num_end = pos.shape[:2]
-    vid_e = vids.gather(1, pos.reshape(num_rays, -1).long()).clamp_min(0)
-    rows = field[vid_e.long()].reshape(num_rays, num_end, 4, -1)
+    vid_e = vids.gather(1, pos.reshape(num_rays, num_end * 4).long()).clamp_min(0)
+    rows = field[vid_e.long()].reshape(num_rays, num_end, 4, field.shape[-1])
     w = bary[..., None]
     return (
         w[:, :, 0] * rows[:, :, 0] + w[:, :, 1] * rows[:, :, 1]
@@ -44,8 +47,9 @@ def stream_blend_gather_batch_twin(field, streams: Sequence[Stream]) -> List[tor
 
 def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
     num_feat = field.shape[-1]
-    if (field.dim() != 2 or field.dtype != torch.float32 or num_feat % 2
-            or field.data_ptr() % 8):
+    lowp = field.dtype == torch.bfloat16
+    if (field.dim() != 2 or field.dtype not in (torch.float32, torch.bfloat16)
+            or num_feat % 2 or field.data_ptr() % 8):
         raise ValueError("stream_blend_gather: unexpected field shape, dtype or alignment")
     outs, flat = [], []
     for vids, pos, bary in streams:
@@ -65,16 +69,18 @@ def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
         if out.numel():
             flat.append((vids.data_ptr(), pos.data_ptr(), bary.data_ptr(),
                          out.data_ptr(), num_rays, num_end, vids.shape[1]))
+    counter = "stream_blend_gather_bf16" if lowp else "stream_blend_gather"
     for jobs_arr, num in cuda.job_chunks(cuda.max_jobs("tetranerf_stream_blend_max_jobs"), flat):
-        cuda.launch("stream_blend_gather", "tetranerf_stream_blend_gather_batch",
-                    field.device, cuda.ptr(field), jobs_arr, num, num_feat)
+        cuda.launch(counter, "tetranerf_stream_blend_gather_batch",
+                    field.device, cuda.ptr(field), jobs_arr, num, num_feat, int(lowp))
     return outs
 
 
 def stream_blend_gather_batch(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
     """K2 on CUDA tensors, :func:`stream_blend_gather_batch_twin` on CPU
     tensors: the endpoint features ``f32[R_j, E_j, F]`` of each stream
-    against one ``field f32[V, F]`` (``F`` even). On the card one launch
+    against one ``field [V, F]`` (``F`` even), f32 or bf16 (K2's bf16-row
+    instance). On the card one launch
     blends every stream (more only past the kernel's job capacity, 64
     streams); the tensors must be contiguous, ``pos`` and ``bary``
     16-byte aligned."""
@@ -170,22 +176,25 @@ def sample_interp(t0, t1, num_valid, ray_mask, distances, feats):
 # ------------------------------------------------------------------ backward
 
 
-def stream_blend_backward_twin(g, pos, bary, num_stream: int):
+def stream_blend_backward_twin(g, pos, bary, num_stream: int, out_dtype=None):
     """The transpose of the stream blend onto the stream rows:
     ``gsf[r, u] = sum_{e, j: pos[r, e, j] = u} bary[r, e, j] * g[r, e]``.
 
     ``g f32[R, E, F]``, ``pos i32[R, E, 4]``, ``bary f32[R, E, 4]`` ->
-    ``f32[R, U, F]`` with ``U = num_stream``."""
+    ``[R, U, F]`` with ``U = num_stream``, summed in ``g``'s dtype and
+    rounded once to ``out_dtype`` (bf16 for the bf16 stream; None keeps
+    ``g``'s)."""
     num_rays, num_end, num_feat = g.shape
     contrib = (bary[..., None] * g[:, :, None, :]).reshape(
         num_rays, num_end * 4, num_feat
     )
     idx = pos.reshape(num_rays, num_end * 4, 1).long().expand(-1, -1, num_feat)
     out = g.new_zeros((num_rays, num_stream, num_feat))
-    return out.scatter_add_(1, idx, contrib)
+    out = out.scatter_add_(1, idx, contrib)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
-def _stream_blend_backward_cuda(g, pos, bary, num_stream: int):
+def _stream_blend_backward_cuda(g, pos, bary, num_stream: int, out_dtype):
     cuda.check_cuda_inputs("stream_blend_backward", g=g, pos=pos, bary=bary)
     num_rays, num_end, num_feat = g.shape
     if (
@@ -194,24 +203,29 @@ def _stream_blend_backward_cuda(g, pos, bary, num_stream: int):
         or bary.dtype != torch.float32 or bary.shape != pos.shape
     ):
         raise ValueError("stream_blend_backward: unexpected shapes or dtypes")
-    gsf = torch.empty(
-        (num_rays, num_stream, num_feat), dtype=torch.float32, device=g.device
-    )
+    out_dtype = out_dtype or torch.float32
+    lowp = out_dtype == torch.bfloat16
+    if not lowp and out_dtype != torch.float32:
+        raise ValueError(f"stream_blend_backward: unsupported output dtype {out_dtype}")
+    gsf = torch.empty((num_rays, num_stream, num_feat), dtype=out_dtype, device=g.device)
     if gsf.numel():
         cuda.launch(
-            "stream_blend_backward", "tetranerf_stream_blend_backward",
+            "stream_blend_backward_bf16" if lowp else "stream_blend_backward",
+            "tetranerf_stream_blend_backward",
             g.device, *map(cuda.ptr, (g, pos, bary, gsf)),
-            num_rays, num_end, num_stream, num_feat,
+            num_rays, num_end, num_stream, num_feat, int(lowp),
         )
     return gsf
 
 
-def stream_blend_backward(g, pos, bary, num_stream: int):
-    """K2b on CUDA tensors, :func:`stream_blend_backward_twin` on CPU tensors."""
+def stream_blend_backward(g, pos, bary, num_stream: int, out_dtype=None):
+    """K2b on CUDA tensors, :func:`stream_blend_backward_twin` on CPU tensors;
+    ``out_dtype`` bf16 is K2b's bf16-out instance (None: f32 on the card,
+    ``g``'s dtype in the twin)."""
     if g.is_cuda:
-        return _stream_blend_backward_cuda(g, pos, bary, num_stream)
+        return _stream_blend_backward_cuda(g, pos, bary, num_stream, out_dtype)
     if g.device.type == "cpu":
-        return stream_blend_backward_twin(g, pos, bary, num_stream)
+        return stream_blend_backward_twin(g, pos, bary, num_stream, out_dtype)
     raise ValueError(f"stream_blend_backward: unsupported device {g.device}")
 
 
@@ -265,6 +279,28 @@ def split_streams(flat) -> List[Stream]:
     return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
 
 
+def _blend_forward(ctx, field, stream_dtype, scatter_ids, flat):
+    ctx.save_for_backward(*flat)
+    ctx.num_rows = field.shape[0]
+    ctx.stream_dtype = stream_dtype
+    ctx.scatter_ids = scatter_ids
+    rows = field if stream_dtype is None else field.to(stream_dtype)
+    return tuple(stream_blend_gather_batch(rows, split_streams(flat)))
+
+
+def _blend_backward(ctx, grads):
+    """The field gradient: K2b per stream, one K7 over every stream."""
+    flat = ctx.saved_tensors
+    jobs = []
+    for i, ((vids, pos, bary), g) in enumerate(zip(split_streams(flat), grads)):
+        gsf = stream_blend_backward(g.contiguous(), pos, bary, vids.shape[1],
+                                    ctx.stream_dtype)
+        ids = (vids.clamp_min(0) if ctx.scatter_ids is None
+               else ctx.scatter_ids[i])
+        jobs.append((ids.reshape(-1), gsf.reshape(-1, gsf.shape[-1])))
+    return scatter_add_rows_batch(jobs, ctx.num_rows)
+
+
 class StreamBlendGatherBatch(torch.autograd.Function):
     """:func:`stream_blend_gather_batch` (one K2 launch) with the field
     gradient: K2b per stream onto its stream rows, then one K7 scatters all
@@ -278,18 +314,34 @@ class StreamBlendGatherBatch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, field, *flat):
-        ctx.save_for_backward(*flat)
-        ctx.num_rows = field.shape[0]
-        return tuple(stream_blend_gather_batch(field, split_streams(flat)))
+        return _blend_forward(ctx, field, None, None, flat)
 
     @staticmethod
     def backward(ctx, *grads):
-        flat = ctx.saved_tensors
-        jobs = []
-        for (vids, pos, bary), g in zip(split_streams(flat), grads):
-            gsf = stream_blend_backward(g.contiguous(), pos, bary, vids.shape[1])
-            jobs.append((vids.reshape(-1).clamp_min(0), gsf.reshape(-1, gsf.shape[-1])))
-        return (scatter_add_rows_batch(jobs, ctx.num_rows),) + (None,) * len(flat)
+        return (_blend_backward(ctx, grads),) + (None,) * len(ctx.saved_tensors)
+
+
+class StreamBlendGatherLevers(torch.autograd.Function):
+    """:class:`StreamBlendGatherBatch` with the two stream levers, called as
+    ``apply(field, stream_dtype, scatter_ids, vids_0, pos_0, bary_0, ...)``:
+
+    - ``stream_dtype`` bf16 (JAX ``gather_rows_lowp``): the field is cast
+      once to a bf16 ``[V, F]`` copy that K2's bf16-row instance blends in
+      f32; the backward runs K2b's bf16-out instance and K7's bf16-row
+      instance, which adds into the f32 field gradient. None: f32 rows.
+    - ``scatter_ids`` (the gradient-stream budget, JAX ``_stream_gather``):
+      one ``i32[R_j, U_j]`` per stream, the vertex row each stream slot's
+      gradient goes to, ``-1`` for a slot whose gradient is dropped (K7
+      drops negative ids). None: ``max(vids, 0)``, every slot kept."""
+
+    @staticmethod
+    def forward(ctx, field, stream_dtype, scatter_ids, *flat):
+        return _blend_forward(ctx, field, stream_dtype, scatter_ids, flat)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return ((_blend_backward(ctx, grads), None, None)
+                + (None,) * len(ctx.saved_tensors))
 
 
 class StreamBlendGather(torch.autograd.Function):
@@ -298,11 +350,11 @@ class StreamBlendGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, field, vids, pos, bary):
-        return StreamBlendGatherBatch.forward(ctx, field, vids, pos, bary)[0]
+        return _blend_forward(ctx, field, None, None, (vids, pos, bary))[0]
 
     @staticmethod
     def backward(ctx, g):
-        return StreamBlendGatherBatch.backward(ctx, g)
+        return (_blend_backward(ctx, (g,)), None, None, None)
 
 
 class SampleInterp(torch.autograd.Function):

@@ -134,7 +134,7 @@ def fused_field_mlps_backward_twin(x, head_dir, weights, g_rgb, g_dens,
     # First head layer: head_dir enters additively.
     g_pre = g * (head_acts[0] > 0.0)
     d_wbh = _dot(g_pre.T, base_acts[-1], dt)
-    dhd = g_pre.reshape(num_rays, num_samples, -1).sum(1)
+    dhd = g_pre.reshape(num_rays, num_samples, g_pre.shape[-1]).sum(1)
     g_base = _dot(g_pre, wbh, dt)
     # Density head.
     g_pre_d = g_dens * torch.sigmoid(pre_d)
@@ -337,6 +337,11 @@ def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
     cuda.check_cuda_inputs(counter, g_dens=g_dens,
                            **({"g_rgb": g_rgb} if n_head else {}))
     wpack, bpack = _pack(weights)
+    if not num_rays * num_samples:
+        # A data-parallel rank's empty bucket: nothing to launch, zero gradients.
+        zeros = torch.zeros(wpack.numel() + bpack.numel(), device=dev)
+        dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
+        return torch.empty_like(x), dhd, _unpack(zeros, weights)
     num_blocks = _num_blocks(dev)
     # Each block writes its rows' weight gradients once into a row of its own.
     ws = torch.empty((num_blocks, plan.ws_floats), device=dev)

@@ -6,7 +6,8 @@ Counterpart of :mod:`tetranerf_tpu.ops.pallas_scatter`. On the train path
 K7 is the second half of the stream blend's backward
 (:class:`~.interp.StreamBlendGatherBatch`): one launch scatters the
 stream-row gradients of every bucket of a step into the one ``[V, F]``
-field gradient.
+field gradient. With the bf16 stream lever the rows are bf16 and K7's
+bf16-row instance adds them into the f32 table.
 """
 
 from __future__ import annotations
@@ -18,17 +19,19 @@ import torch
 from . import cuda
 
 Job = Tuple[torch.Tensor, torch.Tensor]
-"""``(indices i32[N], values f32[N, F])``: rows to add into the table."""
+"""``(indices i32[N], values [N, F])``: rows to add into the table, f32
+or bf16."""
 
 
 def scatter_add_rows_twin(indices, values, num_rows: int):
     """``zeros[num_rows, F]`` with ``values[i]`` added into row
-    ``indices[i]``; rows whose index is ``< 0`` or ``>= num_rows`` are
-    dropped. ``indices i32[N]``, ``values f32[N, F]``."""
+    ``indices[i]``, in f32 for bf16 values; rows whose index is ``< 0`` or ``>= num_rows``
+    are dropped. ``indices i32[N]``, ``values f32[N, F]`` or bf16."""
     keep = (indices >= 0) & (indices < num_rows)
-    vals = values[keep]
+    dtype = torch.promote_types(values.dtype, torch.float32)
+    vals = values[keep].to(dtype)
     idx = indices[keep].long()[:, None].expand(-1, values.shape[1])
-    out = values.new_zeros((num_rows, values.shape[1]))
+    out = torch.zeros((num_rows, values.shape[1]), dtype=dtype, device=values.device)
     return out.scatter_add_(0, idx, vals)
 
 
@@ -42,12 +45,15 @@ def scatter_add_rows_batch_twin(jobs: Sequence[Job], num_rows: int):
 def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
     device = jobs[0][1].device
     num_feat = jobs[0][1].shape[-1]
+    dtype = jobs[0][1].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scatter_add_rows: unsupported values dtype {dtype}")
     flat: List[tuple] = []
     for idx, vals in jobs:
         cuda.check_cuda_inputs("scatter_add_rows", indices=idx, values=vals)
         if (
             vals.device != device or idx.dtype != torch.int32
-            or vals.dtype != torch.float32 or idx.dim() != 1 or vals.dim() != 2
+            or vals.dtype != dtype or idx.dim() != 1 or vals.dim() != 2
             or vals.shape != (idx.shape[0], num_feat)
         ):
             raise ValueError("scatter_add_rows: unexpected shapes or dtypes")
@@ -58,11 +64,14 @@ def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
         return out
     if not flat:
         return out.zero_()
+    lowp = dtype == torch.bfloat16
+    counter = "scatter_add_rows_bf16" if lowp else "scatter_add_rows"
     chunks = cuda.job_chunks(cuda.max_jobs("tetranerf_scatter_add_max_jobs"), flat)
     for i, (jobs_arr, num) in enumerate(chunks):
         # The first launch zeroes the table; later ones add into it.
-        cuda.launch("scatter_add_rows", "tetranerf_scatter_add_rows_batch", device,
-                    jobs_arr, num, cuda.ptr(out), num_rows, num_feat, int(i == 0))
+        cuda.launch(counter, "tetranerf_scatter_add_rows_batch", device,
+                    jobs_arr, num, cuda.ptr(out), num_rows, num_feat, int(i == 0),
+                    int(lowp))
     return out
 
 
@@ -70,9 +79,10 @@ def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int):
     """K7 on CUDA tensors, :func:`scatter_add_rows_batch_twin` on CPU
     tensors: ``zeros[num_rows, F]`` with every job's rows added in.
 
-    ``jobs`` is a non-empty list of ``(indices i32[N_j], values f32[N_j,
-    F])``, all contiguous, one device, one ``F``; rows whose index is
-    ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
+    ``jobs`` is a non-empty list of ``(indices i32[N_j], values [N_j,
+    F])``, all contiguous, one device, one ``F``, the values all f32 or all
+    bf16 (K7's bf16-row instance; the table is f32 either way); rows whose
+    index is ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
     every job (more only past the kernel's job capacity, 64 jobs)."""
     if not jobs:
         raise ValueError("scatter_add_rows: no jobs (the row width is unknown)")

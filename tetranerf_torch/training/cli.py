@@ -1,11 +1,17 @@
 """Training CLI of the port: the ``ns-train tetra-nerf`` equivalent on one
-CUDA device.
+CUDA device, or data-parallel over the ranks torchrun starts.
 
 Usage::
 
     tetranerf-torch-train --data <dir> [--tetrahedra-path tetra.npz] \
         [--output-dir out] [--method tetra-nerf] [--device cuda] [...]
     python -m tetranerf_torch.training.cli --data <dir> ...
+    torchrun --nproc-per-node=N -m tetranerf_torch.training.cli --data <dir> ...
+
+Under torchrun each rank trains on ``cuda:LOCAL_RANK`` (NCCL; gloo with
+``--device cpu``) on its rows of every global batch of ``--rays-per-batch``
+rays, which must divide by N; rank 0 logs, evaluates and writes the output
+directory.
 
 Counterpart of :mod:`tetranerf_tpu.training.cli`, with the same flags and
 output: dataset loading, the mesh from a tetrahedra file (with the
@@ -173,8 +179,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--retune-percentile", type=float, default=None,
                         help="alias for --model.occupancy-retune-percentile")
     parser.add_argument("--num-model-shards", type=int, default=None,
-                        help="feature-field shards; only 1: the port trains on "
-                        "one device (ROADMAP A9)")
+                        help="feature-field shards; only 1: the port shards the "
+                        "data over torchrun's ranks, not the field (ROADMAP A9b)")
     parser.add_argument("--allow-eval-on-train", action="store_true",
                         help="fall back to the train split when the test split "
                         "is missing (metrics are tagged eval_split='train'; "
@@ -235,15 +241,21 @@ def _config_from_args(args):
     return config
 
 
+def _world() -> int:
+    """The rank count torchrun's environment names, else 1."""
+    return int(os.environ["WORLD_SIZE"]) if "RANK" in os.environ else 1
+
+
 def _refuse_unported(args, config):
-    """Exit on settings whose code the port does not have yet."""
+    """Exit on settings whose code the port does not have yet, and on shard
+    counts the run does not have."""
     from ..models.config import check_supported
-    from .presets import check_single_device
+    from .presets import check_shards
 
     try:
-        check_single_device(config)
+        check_shards(config, _world())
         check_supported(config.model)
-    except NotImplementedError as exc:
+    except (NotImplementedError, ValueError) as exc:
         raise SystemExit(str(exc)) from None
 
 
@@ -263,6 +275,18 @@ def main(argv=None):
     _refuse_unported(args, config)
     device = check_device(args.device)
 
+    from ..parallel import destroy, init_distributed
+
+    group = init_distributed(device)
+    if group is not None:
+        device = group.device
+    try:
+        return _train(args, config, device, group)
+    finally:
+        destroy(group)
+
+
+def _train(args, config, device, group):
     import torch
 
     from ..models import TetraNerf
@@ -298,11 +322,13 @@ def main(argv=None):
     model = TetraNerf(config.model, mesh.num_vertices,
                       num_train_images=train_ds.num_images, point_colors=colors,
                       generator=torch.Generator().manual_seed(args.seed), device=device)
-    trainer = Trainer(config, model, mesh, device=device)
+    trainer = Trainer(config, model, mesh, device=device, group=group)
     if args.load_checkpoint:
         trainer.restore_checkpoint(args.load_checkpoint)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    main_rank = trainer.is_main
+    if main_rank:
+        os.makedirs(args.output_dir, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     batch_size = config.train_num_rays_per_batch
 
@@ -354,7 +380,7 @@ def main(argv=None):
             log_fn(f"eval-image step {step} (image {idx}): {fmt(eval_image(tr, idx))}")
 
     viewer = None
-    if args.viewer_port is not None:
+    if args.viewer_port is not None and main_rank:
         from ..viewer import ViewerServer
 
         viewer = ViewerServer(trainer, port=args.viewer_port).start()
@@ -366,12 +392,13 @@ def main(argv=None):
         if viewer is not None:
             viewer.stop()
 
-    # Final eval over the whole held-out split with every metric.
-    mean_metrics = eval_all(trainer)
-    mean_metrics["eval_split"] = eval_split
-    print(json.dumps(mean_metrics))
-    with open(os.path.join(args.output_dir, "eval_metrics.json"), "w") as f:
-        json.dump(mean_metrics, f, indent=2)
+    # Final eval over the whole held-out split with every metric, on rank 0.
+    if main_rank:
+        mean_metrics = eval_all(trainer)
+        mean_metrics["eval_split"] = eval_split
+        print(json.dumps(mean_metrics))
+        with open(os.path.join(args.output_dir, "eval_metrics.json"), "w") as f:
+            json.dump(mean_metrics, f, indent=2)
     trainer.save_checkpoint(os.path.join(args.output_dir, "final"))
     return trainer  # for tests / programmatic callers
 

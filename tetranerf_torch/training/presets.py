@@ -41,19 +41,25 @@ class TrainConfig:
     seed: int = 42
     output_dir: Optional[str] = None
     num_data_shards: Optional[int] = None
-    """Data-parallel shards; the port trains on one device, so only None
-    or 1 is accepted (``ROADMAP.md`` A9)."""
+    """Data-parallel shards: the ranks the run was started with (None: all
+    of them, as JAX's None takes every local device)."""
     num_model_shards: int = 1
-    """Shards of the feature field; only 1 is accepted (A9)."""
+    """Shards of the feature field; only 1 is accepted (``ROADMAP.md`` A9b)."""
 
 
-def check_single_device(config: TrainConfig) -> None:
-    """Refuse the shard counts of a device mesh, which the port lacks."""
-    if config.num_data_shards not in (None, 1) or config.num_model_shards not in (None, 1):
+def check_shards(config: TrainConfig, world: int = 1) -> None:
+    """Refuse feature-field shards, which the port lacks, and a data shard
+    count other than the ``world`` of ranks the run was started with."""
+    if config.num_model_shards not in (None, 1):
         raise NotImplementedError(
-            "not ported to tetranerf_torch yet (ROADMAP A9): num_data_shards="
-            f"{config.num_data_shards}, num_model_shards={config.num_model_shards}; "
-            "the port trains on one device"
+            "not ported to tetranerf_torch yet (ROADMAP A9b): num_model_shards="
+            f"{config.num_model_shards}; the port shards the data, not the field"
+        )
+    if config.num_data_shards not in (None, world):
+        raise ValueError(
+            f"num_data_shards={config.num_data_shards} but the run has {world} "
+            "rank(s): start one rank per data shard (torchrun --nproc-per-node), "
+            "or leave it None"
         )
 
 

@@ -2,8 +2,8 @@
 backward, RAdam.
 
 Counterpart of ``Trainer.train_step`` and ``make_train_step`` in
-:mod:`tetranerf_tpu.training.trainer`, on one device. Before a step, as in
-the JAX trainer:
+:mod:`tetranerf_tpu.training.trainer`, on one device or as one rank of
+many. Before a step, as in the JAX trainer:
 
 - on the first call, a geometry-only probe tightens the march bound to the
   scene and, with ``ray_buckets >= 2``, sizes the quantile-bucket bounds
@@ -38,6 +38,17 @@ holds it.
 :meth:`Trainer.fit` is the training loop (JAX ``Trainer.fit``): batches
 assembled on a producer thread, log lines, ``eval_fn`` and checkpoints
 (:mod:`.checkpoints`) on their cadences.
+
+Data parallel: with a :class:`~..parallel.Group` each rank feeds only its
+own rows of the global batch (``host_batch_slice``; :meth:`Trainer.fit`
+cuts them), and a step is the one-rank step on the ranks' rows in rank
+order, as JAX's GSPMD step is: the train forward buckets and budgets over
+the global batch, the gradients are averaged with one ``all_reduce`` before
+RAdam (every rank ends a step with the same parameters), the probes gather
+their per-ray statistics in rank order (the same bounds, cap and
+``# retune@`` lines on every rank), and the occupancy update maxes every
+rank's rays into one EMA. The refresh and the skip grid are computed alike
+on every rank. Rank 0 logs, evaluates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -58,9 +69,10 @@ from ..ops.sampling import stratified_bins
 from ..ops.skip_grid import SkipSetup, build_skip_table, make_skip_setup
 from ..render import Renderer, chunks
 from ..utils.shapes import grid_ceil, inner_bound, rounded_bound
+from ..parallel import table_checksum
 from . import checkpoints
 from .optim import make_optimizer, set_step
-from .presets import TrainConfig, check_single_device
+from .presets import TrainConfig, check_shards
 
 __all__ = ["TrainConfig", "Trainer"]
 
@@ -130,14 +142,20 @@ class Trainer:
 
     A batch holds ``origins [R, 3]``, ``directions [R, 3]``, ``rgb [R, 3]``
     and optionally ``camera_indices [R]`` (numpy arrays or tensors).
-    ``auto_tune_steps=False`` skips the first step's bound tune."""
+    ``auto_tune_steps=False`` skips the first step's bound tune.
+
+    ``group`` (:func:`~..parallel.init_distributed`) trains data-parallel
+    on the group's device: :meth:`train_step` then takes this rank's rows
+    of the global batch (equal counts on every rank). Every rank must build
+    the same mesh; the constructor checks it."""
 
     def __init__(self, config: TrainConfig, model, mesh, device="cuda",
-                 auto_tune_steps: bool = True):
-        check_single_device(config)
+                 auto_tune_steps: bool = True, group=None):
+        check_shards(config, 1 if group is None else group.world)
         self.config = config
+        self.group = group
         self._auto_tune_steps = auto_tune_steps
-        self.device = torch.device(device)
+        self.device = torch.device(device) if group is None else group.device
         self.model = model.to(self.device)
         self.mesh = mesh.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), config)
@@ -169,9 +187,24 @@ class Trainer:
         """Held by :meth:`train_step` and by every render, so that a viewer
         thread never reads the parameters while the optimizer writes them."""
         self._skip_setup: Optional[SkipSetup] = None
+        if group is not None:
+            group.check_same("the march table", table_checksum(self.mesh.march_table))
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, or the only process: the one that logs, evaluates and
+        writes."""
+        return self.group is None or self.group.rank == 0
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _global(self, x: torch.Tensor) -> np.ndarray:
+        """A per-ray statistic of this rank's probe rays, with every rank's
+        rows in rank order (one gather), as numpy."""
+        if self.group is not None:
+            x = self.group.gather_rows(x)
+        return x.cpu().numpy()
 
     @property
     def max_steps(self) -> int:
@@ -179,6 +212,8 @@ class Trainer:
 
     # ------------------------------------------------------------ bounds
     def _probe_rays(self, batch: Mapping):
+        """This rank's first 8192 rows (JAX ``_probe_arrays``: each process
+        contributes its own, and the statistics are gathered)."""
         return (self._tensor(batch["origins"][:_PROBE_RAYS]),
                 self._tensor(batch["directions"][:_PROBE_RAYS]))
 
@@ -193,8 +228,8 @@ class Trainer:
         cfg = self.model.config
         before = (self.tuned_max_steps, self.tuned_bucket_steps)
         o, d = self._probe_rays(batch)
-        num_valid = march(self.mesh, o, d, cfg.max_intersected_triangles).num_valid
-        num_valid = num_valid.cpu().numpy()
+        num_valid = self._global(
+            march(self.mesh, o, d, cfg.max_intersected_triangles).num_valid)
         tuned = min(cfg.max_intersected_triangles, rounded_bound(num_valid.max()))
         if tuned < cfg.max_intersected_triangles:
             self.tuned_max_steps = tuned
@@ -240,19 +275,19 @@ class Trainer:
         est_cum = torch.cumsum(sig_est * dt, dim=1)
         within = res.valid & (res.t1 <= d_star[:, None])
         est_at = torch.where(within, est_cum, 0.0).amax(dim=1)
-        return nv_eff.cpu().numpy(), est_at.cpu().numpy()
+        return self._global(nv_eff), self._global(est_at)
 
     @torch.no_grad()
     def _march_nv(self, o, d):
         """The march's emitted crossing counts at the configured bound under
         the current termination cap: the key bucketed shading sorts by."""
         cfg = self.model.config
-        return march(
+        return self._global(march(
             self.mesh, o, d, cfg.max_intersected_triangles,
             use_occupancy=cfg.use_occupancy_field,
             occ_threshold=cfg.occupancy_threshold,
             occ_depth_cap=self.occ_depth_cap,
-        ).num_valid.cpu().numpy()
+        ).num_valid)
 
     def retune_with_transmittance(self, batch: Mapping) -> int:
         """Size the bounds from the model's own optical depth and calibrate
@@ -348,8 +383,8 @@ class Trainer:
         cfg = self.model.config
         cur = self.max_steps
         o, d = self._probe_rays(batch)
-        nv = march(self.mesh, o, d, cur, use_occupancy=True,
-                   occ_depth_cap=self.occ_depth_cap).num_valid.cpu().numpy()
+        nv = self._global(march(self.mesh, o, d, cur, use_occupancy=True,
+                                occ_depth_cap=self.occ_depth_cap).num_valid)
         observed = int(np.percentile(nv, cfg.occupancy_retune_percentile))
         bound = min(cfg.max_intersected_triangles, rounded_bound(observed))
         if bound < cur - 16 or bound > cur:
@@ -375,7 +410,10 @@ class Trainer:
         """Ray-based EMA update: march the batch with occupancy termination,
         take each interval's mean sample density (deterministic coarse
         bins), and set ``occ = max(decay * occ, density)`` per crossed cell
-        (JAX ``Trainer._occupancy_update_fn``)."""
+        (JAX ``Trainer._occupancy_update_fn``). With a group each rank maxes
+        its own rays in and the ranks' EMAs are maxed together, which is the
+        update over the global batch: ``max(d o, a, b) = max(max(d o, a),
+        max(d o, b))``."""
         self._ensure_occupancy()
         model = self.model
         cfg = model.config
@@ -406,6 +444,8 @@ class Trainer:
         self.occupancy = (self.occupancy * cfg.occupancy_decay).scatter_reduce_(
             0, cells.clamp_min(0).long(), vals, "amax"
         )
+        if self.group is not None:
+            self.group.all_reduce_max(self.occupancy)
         self._write_occupancy()
 
     @torch.no_grad()
@@ -459,9 +499,13 @@ class Trainer:
     def train_step(self, batch: Mapping, uniforms=None) -> Dict[str, torch.Tensor]:
         """One optimisation step, under :attr:`lock`. ``uniforms`` (keys of
         :func:`~..models.tetra_nerf.draw_uniforms`, or with bucketed shading
-        a list of them, one per bucket) replace the step's own random
-        numbers. Returns ``loss``, ``psnr`` and ``overflow_rays`` (rays whose
-        march reached its bound) as device scalars."""
+        a list of them, one per bucket, in the global batch's layout with a
+        group) replace the step's own random numbers. Returns ``loss``,
+        ``psnr`` and ``overflow_rays`` (rays whose march reached its bound),
+        and with ``grad_stream_budget_per_ray`` ``grad_stream_dropped_rays``
+        (rays that lost field gradient to the budget), as device scalars;
+        with a group the loss is the mean over the ranks (the global
+        batch's) and the counts are sums."""
         with self.lock:
             return self._train_step(batch, uniforms)
 
@@ -497,20 +541,26 @@ class Trainer:
             bucket_steps=self.tuned_bucket_steps,
             occ_depth_cap=self.occ_depth_cap, train=True,
             generator=None if uniforms is not None else self._step_generator(step),
-            uniforms=uniforms, camera_indices=cams,
+            uniforms=uniforms, camera_indices=cams, group=self.group,
         )
         loss = model.loss(out, target)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        counts = {"overflow_rays": out["traversal_overflow"].sum()}
+        if "grad_stream_dropped" in out:
+            counts["grad_stream_dropped_rays"] = out["grad_stream_dropped"].sum()
+        loss = loss.detach()
+        if self.group is not None:
+            # Ranks hold equal row counts, so the mean of the local means is
+            # the global batch's loss and its gradient.
+            sums = self.group.reduce_grads(
+                model.parameters(), torch.stack([loss] + [c.float() for c in counts.values()]))
+            loss = sums[0] / self.group.world
+            counts = {k: sums[i + 1].round().long() for i, k in enumerate(counts)}
         set_step(self.optimizer, self.config, step)
         self.optimizer.step()
         self.step += 1
-        loss = loss.detach()
-        return {
-            "loss": loss,
-            "psnr": -10.0 * torch.log10(loss + 1e-12),
-            "overflow_rays": out["traversal_overflow"].sum(),
-        }
+        return {"loss": loss, "psnr": -10.0 * torch.log10(loss + 1e-12), **counts}
 
     # -------------------------------------------------------------- eval
     def renderer(self) -> Renderer:
@@ -652,8 +702,12 @@ class Trainer:
     # -------------------------------------------------------- checkpoint
     def save_checkpoint(self, path) -> None:
         """Write the step, parameters, optimizer state and occupancy EMA
-        into the directory ``path`` (:func:`.checkpoints.save_checkpoint`)."""
-        checkpoints.save_checkpoint(path, self)
+        into the directory ``path`` (:func:`.checkpoints.save_checkpoint`).
+        With a group rank 0 writes, and every rank waits for it."""
+        if self.is_main:
+            checkpoints.save_checkpoint(path, self)
+        if self.group is not None:
+            self.group.barrier()
 
     def restore_checkpoint(self, path) -> None:
         """Load a directory written by :meth:`save_checkpoint`. The bounds
@@ -680,7 +734,12 @@ class Trainer:
         and concurrently with ``eval_fn``, and its errors are re-raised
         here: ``next_batch`` must be a function of ``i`` and its own state
         (numpy only). One that reads the trainer or shares a generator with
-        ``eval_fn`` needs ``prefetch=0``."""
+        ``eval_fn`` needs ``prefetch=0``.
+
+        With a group ``next_batch(i)`` gives the global batch on every rank
+        and each rank trains on its ``host_batch_slice``; rank 0 logs (the
+        rays/s of the global batch), runs ``eval_fn`` while the other ranks
+        wait at a barrier, and writes the checkpoints."""
         num_iterations = num_iterations or self.config.max_num_iterations
         eval_every = eval_every or self.config.steps_per_eval_batch
         if not prefetch or num_iterations <= 1:
@@ -734,10 +793,14 @@ class Trainer:
         t0 = t_start = time.perf_counter()
         rays_per_batch = None
         steps_at_t0 = 0
+        group = self.group
         for i in range(num_iterations):
             batch = next_batch(i)
             if rays_per_batch is None:
                 rays_per_batch = len(batch["origins"])
+            if group is not None:
+                rows = group.batch_slice(len(batch["origins"]))
+                batch = {k: v[rows] for k, v in batch.items()}
             metrics = self.train_step(batch)
             if i == 0:
                 # Restart the rate clock after step 1, which pays for the
@@ -746,8 +809,11 @@ class Trainer:
                 t0 = time.perf_counter()
                 steps_at_t0 = 1
             if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
-                eval_fn(i + 1, self)
-            if log_every and (i + 1) % log_every == 0:
+                if self.is_main:
+                    eval_fn(i + 1, self)
+                if group is not None:
+                    group.barrier()
+            if log_every and (i + 1) % log_every == 0 and self.is_main:
                 # The only host syncs besides step 1's.
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
@@ -757,11 +823,14 @@ class Trainer:
                     steps_done, dt = 1, time.perf_counter() - t_start
                 rate = steps_done * rays_per_batch / max(dt, 1e-9)
                 ovf = int(metrics.get("overflow_rays", 0))
+                gsd = int(metrics.get("grad_stream_dropped_rays", 0))
                 log_fn(
                     f"step {i + 1}/{num_iterations} "
                     f"loss={metrics['loss']:.5f} psnr={metrics['psnr']:.2f} "
                     f"rays/s={rate:,.0f}"
                     + (f" OVERFLOW={ovf} rays truncated" if ovf else "")
+                    + (f" GRAD-DROPPED={gsd} rays (raise grad_stream_budget_per_ray)"
+                       if gsd else "")
                 )
             if (self.config.output_dir and self.config.steps_per_save
                     and (i + 1) % self.config.steps_per_save == 0):
