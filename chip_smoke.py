@@ -2699,6 +2699,11 @@ GRAD_BUDGET_PER_RAY = 200
 # 1e-5 of themselves, the field to 1e-4 of its largest entry.
 SHARD_LOSS_RTOL = 1e-5
 SHARD_FIELD_RTOL = 1e-4
+# One rank against one process differs only by K7's atomic order, when two
+# no-group runs differ at all: held to this multiple of the spread between
+# those two runs, and at least to the floor.
+SHARD_NOISE_FACTOR = 10
+SHARD_NOISE_FLOOR = 1e-6
 # The bf16 stream's kernels against their plain versions: K2's bf16 rows
 # widen exactly, so K2's f32 tolerance; K2b's f32 sums in another order
 # are each rounded to bf16 once (within 2^-8 of themselves); K7 adds the
@@ -2828,11 +2833,12 @@ def _bit_equal(a, b):
     return all(torch.equal(a[k], b[k]) for k in a)
 
 
-def _shard_compare(label, run, ref, exact):
+def _shard_compare(label, run, ref, tol):
     """Hold ``run`` (a rank's result) to the one-process ``ref``: the bounds,
-    cap and EMA equal, and bit for bit where ``exact``, else losses to
-    :data:`SHARD_LOSS_RTOL` and the field to :data:`SHARD_FIELD_RTOL`.
-    Returns the largest relative loss difference and field difference."""
+    cap and EMA equal, and bit for bit where ``tol`` is None, else losses
+    to ``tol[0]`` relative and the field to ``tol[1]`` of its largest
+    entry. Returns the largest relative loss difference and field
+    difference."""
     import torch
 
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
@@ -2842,12 +2848,12 @@ def _shard_compare(label, run, ref, exact):
            f"shards ({label}): bounds and cap {run['bounds']} vs {ref['bounds']}")
     _check(torch.equal(run["occupancy"], ref["occupancy"]),
            f"shards ({label}): the occupancy EMA differs from one process")
-    if exact:
+    if tol is None:
         _check(run["losses"] == ref["losses"] and _bit_equal(run["params"], ref["params"]),
                f"shards ({label}): not bit-equal to one process (losses rel {loss_err:.3g})")
     else:
-        _check(loss_err <= SHARD_LOSS_RTOL, f"shards ({label}): loss rel err {loss_err}")
-        _check(field_err <= SHARD_FIELD_RTOL, f"shards ({label}): field rel err {field_err}")
+        _check(loss_err <= tol[0], f"shards ({label}): loss rel err {loss_err} > {tol[0]}")
+        _check(field_err <= tol[1], f"shards ({label}): field rel err {field_err} > {tol[1]}")
     return loss_err, field_err
 
 
@@ -2890,10 +2896,15 @@ def shard_phase(points, colors, cells, mesh_plain, dev, tmp, phase12_ms=None,
                    f"shards ({name}): rank {r['rank']}'s parameters differ from rank 0's")
         if world == 1:
             # One rank is the one-process step: its first loss, before K7's
-            # atomic order can move a parameter, bit for bit.
+            # atomic order can move a parameter, bit for bit; after it, as
+            # far from one process as two no-group runs are from each other.
             _check(ranks[0]["losses"][0] == ref["losses"][0],
                    f"shards ({name}): step 0 loss {ranks[0]['losses'][0]} vs {ref['losses'][0]}")
-        loss_err, field_err = _shard_compare(name, ranks[0], ref, exact=repeatable and world == 1)
+            tol = None if repeatable else tuple(
+                max(SHARD_NOISE_FACTOR * x, SHARD_NOISE_FLOOR) for x in (spread, field_spread))
+        else:
+            tol = (SHARD_LOSS_RTOL, SHARD_FIELD_RTOL)
+        loss_err, field_err = _shard_compare(name, ranks[0], ref, tol)
         for r in ranks:
             for k in ("march", "stream_blend_gather", "stream_blend_backward",
                       "scatter_add_rows", "row_gather"):
@@ -2905,7 +2916,9 @@ def shard_phase(points, colors, cells, mesh_plain, dev, tmp, phase12_ms=None,
         print(f"shards: {name} ({', '.join(devices)}), {TRAIN_RAYS // world} rows each{shared}: "
               f"the ranks bit-equal to each other; bounds, cap and occupancy equal to one "
               f"process; losses within {loss_err:.3g} relative, the field within "
-              f"{field_err:.3g} of its max; median {[round(med(r), 2) for r in ranks]} "
+              f"{field_err:.3g} of its max ("
+              + ("bit-equal" if tol is None else f"held to {tol[0]:.3g} and {tol[1]:.3g}")
+              + f"); median {[round(med(r), 2) for r in ranks]} "
               f"ms/step against {med(ref):.2f} with no group in this process "
               f"({wall:.1f} s for the ranks, start-up included)")
         out[label] = dict(launches=ranks[0]["launches"], ms=[med(r) for r in ranks])
@@ -3139,15 +3152,11 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--shard-rank"]:
         return _shard_rank_main(argv[1])
-    # --only 18,19: the build, the scene and those phases alone (a shorter
-    # call while a phase is being brought up; the contract's run takes none).
     # --shard-ranks N: phase 18 alone with N ranks over NCCL, one a card (a
-    # host with N cards).
-    only, runs = None, None
-    if argv[:1] == ["--only"]:
-        only = set(argv[1].split(","))
-    elif argv[:1] == ["--shard-ranks"]:
-        only, runs = {"18"}, ((f"nccl{argv[1]}", int(argv[1]), "cuda", "nccl"),)
+    # host with N cards); it prints phase 18's lines and no result line.
+    shard_runs = None
+    if argv[:1] == ["--shard-ranks"]:
+        shard_runs = ((f"nccl{argv[1]}", int(argv[1]), "cuda", "nccl"),)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3194,8 +3203,14 @@ def main(argv=None) -> int:
           f"table: {chase_ns[1]:.1f} ns a hop in 1 chain, {chase_ns[TRAIN_RAYS]:.1f} ns "
           f"in {TRAIN_RAYS} chains side by side (CUDA events, the hash included)")
 
-    if only is not None:
-        return _selected_phases(only, (points, colors, cells), mesh_plain, dev, runs)
+    if shard_runs is not None:
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
+        try:
+            shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=shard_runs)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
 
     cfg = tetranerf_preset(ray_buckets=1)
     model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
@@ -3310,33 +3325,6 @@ def main(argv=None) -> int:
     kernels += lever_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
-
-
-def _selected_phases(only, scene, mesh_plain, dev, runs=None) -> int:
-    """``--only``: phases 18 and 19 without the earlier ones; ``runs``
-    replaces phase 18's (``--shard-ranks N``: N ranks over NCCL, one a
-    card)."""
-    import torch
-
-    points, colors, cells = scene
-    kernels = []
-    if "18" in only:
-        tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
-        try:
-            shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=runs)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        torch.cuda.empty_cache()
-    if "19" in only:
-        entries, launches, _ = lever_phase(colors, mesh_plain, dev)
-        for k in entries:
-            k["launches"] = launches[k["name"]]
-        kernels += entries
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "partial": sorted(only), "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

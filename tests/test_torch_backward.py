@@ -307,7 +307,7 @@ def test_gradcheck_stream_blend_gather_batch():
     flat = [x for s in _tiny_streams(rng, 12) for x in s]
     field = torch.from_numpy(rng.standard_normal((12, 4))).requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda f: StreamBlendGatherBatch.apply(f, *flat), (field,)
+        lambda f: StreamBlendGatherBatch.apply(f, None, None, *flat), (field,)
     )
 
 
@@ -326,7 +326,9 @@ def test_batch_field_gradient_is_the_per_stream_sum_and_jax(scene):
     gs = [torch.from_numpy(rng.standard_normal(pos.shape[:2] + (FIELD_DIM,)))
           for _, pos, _ in streams]
     field = torch.from_numpy(scene["field"]).double().requires_grad_()
-    outs = StreamBlendGatherBatch.apply(field, *(x for s in streams for x in s))
+    outs = StreamBlendGatherBatch.apply(
+        field, None, None, *(x for s in streams for x in s)
+    )
     assert len(outs) == 3 and len({o.grad_fn for o in outs}) == 1
     torch.autograd.backward(outs, gs)
     per_stream = torch.zeros_like(field)

@@ -247,13 +247,12 @@ def test_two_ranks_match_one_process_and_jax(reference, tmp_path):
 
 
 class _SplitGroup:
-    """Rank ``rank`` of two inside one process: its gather returns the
-    global crossing counts it was made with."""
+    """Rank ``rank`` of a group of ``world`` inside one process: its gather
+    returns the global vector of crossing counts it was made with (after
+    checking that this rank's share of it was passed)."""
 
-    world = 2
-
-    def __init__(self, rank, num_valid):
-        self.rank, self.full = rank, num_valid
+    def __init__(self, rank, world, num_valid):
+        self.rank, self.world, self.full = rank, world, num_valid
 
     def gather_rows(self, x):
         n = x.shape[0]
@@ -309,7 +308,7 @@ def test_a_rank_with_empty_buckets_trains(request, device, merge, fused):
     rgbs, grad_sum = [], torch.zeros_like(grad)
     for rank in range(2):
         rows = slice(16 * rank, 16 * (rank + 1))
-        rgb_r, grad_r = forward(o[rows], d[rows], _SplitGroup(rank, nv))
+        rgb_r, grad_r = forward(o[rows], d[rows], _SplitGroup(rank, 2, nv))
         rgbs.append(rgb_r)
         grad_sum += grad_r
     tol = 1e-6 if device == "cpu" else 1e-3  # bf16 MLPs over other row counts
@@ -343,3 +342,22 @@ def test_cli_refuses_data_shards_the_run_lacks(monkeypatch, tmp_path):
     monkeypatch.setattr(cli, "_config_from_args", lambda args: TrainConfig(num_data_shards=4))
     with pytest.raises(SystemExit, match="num_data_shards=4 but the run has 2"):
         cli.main(["--data", str(tmp_path), "--device", "cpu"])
+
+
+def test_collectives_wait_out_an_eval(monkeypatch):
+    """Rank 0 alone evaluates while the other ranks wait at a barrier, so
+    the group's collectives wait :data:`COLLECTIVE_TIMEOUT`, not the
+    backends' default of 10 (NCCL) or 30 (gloo) minutes."""
+    import datetime
+
+    from tetranerf_torch.parallel import distributed
+
+    seen = {}
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setattr(distributed.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(distributed.dist, "init_process_group",
+                        lambda backend, **kw: seen.update(kw, backend=backend))
+    group = distributed.init_distributed("cpu")
+    assert (group.rank, group.world, seen["backend"]) == (0, 1, "gloo")
+    assert seen["timeout"] == distributed.COLLECTIVE_TIMEOUT >= datetime.timedelta(hours=1)

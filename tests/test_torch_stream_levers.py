@@ -19,6 +19,7 @@ from tetranerf_torch.ops import interp, scatter
 from tetranerf_torch.ops.fused import endpoint_features, march_features, stream_budget_ids
 from tetranerf_torch.ops.march import MarchStream
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
+from test_torch_parallel import _SplitGroup
 
 FIELD_DIM = 16
 CAP = float(-np.log(1e-4))
@@ -254,20 +255,6 @@ def test_grad_stream_dropped_matches_jax_model(model_setup, bucket_steps):
     assert 0 < ref.sum() < ref.size
 
 
-class _RankOf:
-    """Rank ``rank`` of a group of ``world`` inside one process: its gather
-    returns the global vector of crossing counts it was made with (after
-    checking that this rank's share of it was passed)."""
-
-    def __init__(self, rank, world, num_valid):
-        self.rank, self.world, self.full = rank, world, num_valid
-
-    def gather_rows(self, x):
-        n = x.shape[0]
-        assert torch.equal(x, self.full[self.rank * n:(self.rank + 1) * n])
-        return self.full
-
-
 @pytest.mark.parametrize("bucket_steps", [BUCKETS, None], ids=["bucketed", "plain"])
 @pytest.mark.parametrize("lever", ["budget", "bf16"])
 def test_two_ranks_shade_as_one(model_setup, bucket_steps, lever):
@@ -296,7 +283,7 @@ def test_two_ranks_shade_as_one(model_setup, bucket_steps, lever):
     outs, grad_sum = [], torch.zeros_like(grad_one)
     for rank in range(2):
         rows = slice(32 * rank, 32 * (rank + 1))
-        out, grad = forward(o[rows], d[rows], _RankOf(rank, 2, nv))
+        out, grad = forward(o[rows], d[rows], _SplitGroup(rank, 2, nv))
         outs.append(out)
         grad_sum += grad
     for key in ("rgb", "traversal_overflow") + (("grad_stream_dropped",)

@@ -28,7 +28,7 @@ import torch
 
 from .interp import (
     SampleInterp,
-    StreamBlendGatherLevers,
+    StreamBlendGatherBatch,
     sample_interp,
     split_streams,
     stream_blend_gather_batch,
@@ -54,7 +54,7 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     field = field.contiguous()
     flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
-        return list(StreamBlendGatherLevers.apply(field, stream_dtype, scatter_ids, *flat))
+        return list(StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat))
     rows = field if stream_dtype is None else field.to(stream_dtype)
     return stream_blend_gather_batch(rows, split_streams(flat))
 

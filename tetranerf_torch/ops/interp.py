@@ -305,25 +305,9 @@ class StreamBlendGatherBatch(torch.autograd.Function):
     """:func:`stream_blend_gather_batch` (one K2 launch) with the field
     gradient: K2b per stream onto its stream rows, then one K7 scatters all
     of them into one ``[V, F]`` gradient by vertex id. Called as
-    ``apply(field, vids_0, pos_0, bary_0, vids_1, ...)``; returns one
-    ``f32[R_j, E_j, F]`` per stream. The forward reads row ``max(vid, 0)``,
-    so the backward scatters there too, as autodiff of the JAX
-    ``field[max(vids, 0)]`` does; a march emits no negative ids, and the
-    zero rows of unused slots issue no atomics. The streams take no
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, field, *flat):
-        return _blend_forward(ctx, field, None, None, flat)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (_blend_backward(ctx, grads),) + (None,) * len(ctx.saved_tensors)
-
-
-class StreamBlendGatherLevers(torch.autograd.Function):
-    """:class:`StreamBlendGatherBatch` with the two stream levers, called as
-    ``apply(field, stream_dtype, scatter_ids, vids_0, pos_0, bary_0, ...)``:
+    ``apply(field, stream_dtype, scatter_ids, vids_0, pos_0, bary_0,
+    vids_1, ...)``; returns one ``f32[R_j, E_j, F]`` per stream. The
+    streams take no gradient. The two stream levers:
 
     - ``stream_dtype`` bf16 (JAX ``gather_rows_lowp``): the field is cast
       once to a bf16 ``[V, F]`` copy that K2's bf16-row instance blends in
@@ -332,7 +316,10 @@ class StreamBlendGatherLevers(torch.autograd.Function):
     - ``scatter_ids`` (the gradient-stream budget, JAX ``_stream_gather``):
       one ``i32[R_j, U_j]`` per stream, the vertex row each stream slot's
       gradient goes to, ``-1`` for a slot whose gradient is dropped (K7
-      drops negative ids). None: ``max(vids, 0)``, every slot kept."""
+      drops negative ids). None: every slot kept. The forward reads row
+      ``max(vid, 0)``, so the backward scatters there too, as autodiff of
+      the JAX ``field[max(vids, 0)]`` does; a march emits no negative ids,
+      and the zero rows of unused slots issue no atomics."""
 
     @staticmethod
     def forward(ctx, field, stream_dtype, scatter_ids, *flat):

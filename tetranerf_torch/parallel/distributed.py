@@ -34,6 +34,7 @@ there is no group and every code path is the one-process path.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Iterable, Optional
 
@@ -129,6 +130,13 @@ def table_checksum(table: torch.Tensor) -> torch.Tensor:
     return torch.cat([shape, (bits * weights).sum().reshape(1)])
 
 
+# How long a collective may wait for every rank. Rank 0 alone evaluates
+# (each eval cadence, and the whole held-out split at the end) while the
+# others wait at a barrier: 200 views at 800^2 take about 10 minutes at
+# 250K rays/s, NCCL's default. Two hours leave a larger split room.
+COLLECTIVE_TIMEOUT = datetime.timedelta(hours=2)
+
+
 def init_distributed(device="cuda", backend: Optional[str] = None) -> Optional[Group]:
     """Join the ranks that torchrun (or a caller that sets its environment)
     started, or return None when ``RANK`` and ``WORLD_SIZE`` are not set.
@@ -149,7 +157,7 @@ def init_distributed(device="cuda", backend: Optional[str] = None) -> Optional[G
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://", rank=rank,
-                                world_size=world)
+                                world_size=world, timeout=COLLECTIVE_TIMEOUT)
     return Group(rank=rank, world=world, device=dev)
 
 
