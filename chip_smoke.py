@@ -145,7 +145,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     within 1e-4, the ranks bit-equal to each other, ms/step beside the
     no-group run's and phase 12's (paths ``shards_nccl``,
     ``shards_gloo``). ``--shard-ranks N`` runs this phase alone with N
-    ranks over NCCL, one a card;
+    ranks over NCCL, one a card, and ``--shard-ranks N --model-shards M``
+    phase 20's runs that way;
 19. the stream levers: K2, K2b and K7's bf16 instances against their
     plain versions on a cold step's 8 buckets, each timed beside its f32
     instance with both bounds; then the flagship in f32, with
@@ -153,7 +154,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``grad_stream_budget_per_ray=200`` (``budget_train``) and in f32
     again, 40 steps each from the same seeds: the first loss against
     f32's (the budget's bit-equal), the rays dropped, ms/step, and the
-    bf16 instances' ms per steady step beside their bounds.
+    bf16 instances' ms per steady step beside their bounds;
+20. model shards: the field over 2 shards of its feature axis, phase 18's
+    16 steps by 1 x 2 and 2 x 2 ranks on ``cuda:0`` over gloo, each held
+    to phase 18's no-group run at phase 18's tolerances (the field put
+    together from its column blocks; every rank's replicated parameters
+    and its data group's field block bit-equal); per rank the bytes of its
+    field block with gradient and moments, the peak memory and ms/step;
+    the column gathers of 2 more steps (count, bytes, ms) beside the bytes
+    a gather after K3 would move; K2, K2b and K7 at the shard's width (32)
+    on a cold step's 8 buckets against their plain versions, with ms and
+    bounds (the path ``model_shards``);
+21. the tracer: ``TetrahedraTracer`` on phase 1's sphere, ``trace_rays``
+    of 8192 rays at 512 and ``trace_rays_triangles`` (K1 launched twice),
+    ``find_tetrahedra`` of 65,536 points (K9 once), ``find_visited_cells``
+    of 64 samples a ray and ``interpolate_values`` of a 64-wide field
+    forward and backward, each against the CPU on its first rows and
+    timed (the path ``tracer``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -2688,9 +2705,15 @@ def merged_phase(colors, mesh_plain, dev):
 
 SHARD_STEPS = 16
 SHARD_TIMEOUT_S = 300
-# Phase 18's runs: (label, ranks, device, backend). Each rank is this
-# script started again with ``--shard-rank``.
-SHARD_RUNS = (("nccl", 1, "cuda", "nccl"), ("gloo", 2, "cuda:0", "gloo"))
+# Phase 18's runs: (label, ranks, device, backend, model shards). Each rank
+# is this script started again with ``--shard-rank``.
+SHARD_RUNS = (("nccl", 1, "cuda", "nccl", 1), ("gloo", 2, "cuda:0", "gloo", 1))
+# Phase 20's: the field over 2 model shards, 1 x 2 and 2 x 2 ranks sharing
+# the card over gloo (NCCL takes one rank a card).
+MODEL_SHARD_RUNS = (("gloo1x2", 2, "cuda:0", "gloo", 2), ("gloo2x2", 4, "cuda:0", "gloo", 2))
+# Steps taken after a model-shard run's compared ones, each gather timed
+# between two synchronisations.
+GATHER_TIMED_STEPS = 2
 RANK_SCRIPT = Path(__file__).resolve()
 LEVER_STEPS = 40
 GRAD_BUDGET_PER_RAY = 200
@@ -2728,21 +2751,30 @@ def _shard_trainer(dev, group=None, mesh_plain=None, colors=None, scene=None):
         colors = data["colors"]
     model = TetraNerf(tetranerf_preset(), mesh_plain.num_vertices, point_colors=colors,
                       generator=torch.Generator().manual_seed(0), device=dev)
-    return Trainer(TrainConfig(), model, mesh_plain, device=dev, group=group)
+    config = TrainConfig(num_model_shards=1 if group is None else group.model_count)
+    return Trainer(config, model, mesh_plain, device=dev, group=group)
+
+
+def _shard_batches(rows=None):
+    """Phase 7's five batches (this rank's ``rows`` of each)."""
+    rng = np.random.default_rng(1)
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    if rows is not None:
+        batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+    return batches
 
 
 def _shard_steps(trainer, rows=None):
     """:data:`SHARD_STEPS` steps on phase 7's five batches (this rank's
     ``rows`` of each): losses, ms per step, the bounds and cap, the EMA and
-    the parameters after the run, and the launches."""
+    the parameters after the run, the launches, the peak memory, and the
+    bytes of the field block with its gradient and RAdam moments."""
     import torch
     from tetranerf_torch.ops import cuda
 
-    rng = np.random.default_rng(1)  # phase 7's five batches
-    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
-    if rows is not None:
-        batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+    batches = _shard_batches(rows)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cuda.reset_launch_counts()
     losses, step_ms = [], []
     for step in range(SHARD_STEPS):
@@ -2751,10 +2783,54 @@ def _shard_steps(trainer, rows=None):
             m = trainer.train_step(batches[step % TRAIN_BATCHES])
         losses.append(float(m["loss"]))  # waits for the step
         step_ms.append((time.perf_counter() - t) * 1e3)
+    field = trainer.model.tetrahedra_field
     return dict(losses=losses, step_ms=step_ms, launches=dict(cuda.launch_counts),
                 bounds=(trainer.max_steps, trainer.tuned_bucket_steps, trainer.occ_depth_cap),
                 occupancy=trainer.occupancy.cpu(),
-                params={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
+                params={k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+                max_memory=torch.cuda.max_memory_allocated(),
+                field_bytes=field.numel() * field.element_size() * 4,
+                field_shape=tuple(field.shape))
+
+
+def _timed_gathers(trainer, rows):
+    """:data:`GATHER_TIMED_STEPS` more steps with every column gather timed
+    on the host clock between two synchronisations: per step the gathers'
+    count, their full-width bytes and ms; then the bytes a gather after the
+    sample lerp K3 would move at the run's bucket plan instead (both
+    rounds' samples at full width, ``Σ R_b (2 ns_b + nf_b) F 4``)."""
+    import torch
+    from tetranerf_torch.parallel import distributed
+
+    plain, calls = distributed.Group.gather_columns, []
+
+    def timed(self, xs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(self, xs)
+        torch.cuda.synchronize()
+        calls.append((sum(x.numel() for x in out) * 4, (time.perf_counter() - t) * 1e3))
+        return out
+
+    batches = _shard_batches(rows)
+    distributed.Group.gather_columns = timed
+    per_step = []
+    try:
+        for step in range(GATHER_TIMED_STEPS):
+            calls.clear()
+            with contextlib.redirect_stderr(io.StringIO()):
+                float(trainer.train_step(batches[step % TRAIN_BATCHES])["loss"])
+            per_step.append(dict(count=len(calls), bytes=sum(b for b, _ in calls),
+                                 ms=sum(m for _, m in calls),
+                                 largest=max(calls)[0] if calls else 0))
+    finally:
+        distributed.Group.gather_columns = plain
+    model = trainer.model
+    bounds = model.bucket_bounds(trainer.max_steps, None, trainer.tuned_bucket_steps)
+    num_feat = model.config.field_dim
+    after_k3 = sum((hi - lo) * (2 * ns + nf) * num_feat * 4
+                   for _, lo, hi, _, ns, nf in model.bucket_plan(TRAIN_RAYS, bounds))
+    return dict(per_step=per_step, after_k3_bytes=after_k3 // trainer.group.data_count)
 
 
 def _shard_rank_main(run_dir) -> int:
@@ -2767,29 +2843,35 @@ def _shard_rank_main(run_dir) -> int:
 
     run_dir = Path(run_dir)
     spec = json.loads((run_dir / "spec.json").read_text())
-    group = init_distributed(spec["device"], backend=spec["backend"])
+    group = init_distributed(spec["device"], backend=spec["backend"],
+                             model_shards=spec["model_shards"])
     try:
         trainer = _shard_trainer(group.device, group, scene=run_dir.parent / "scene.npz")
-        out = _shard_steps(trainer, group.batch_slice(TRAIN_RAYS))
+        rows = group.batch_slice(TRAIN_RAYS)
+        out = _shard_steps(trainer, rows)
+        if group.model_count > 1:
+            out["gathers"] = _timed_gathers(trainer, rows)
         out.update(rank=group.rank, world=group.world, device=str(group.device),
-                   backend=torch.distributed.get_backend())
+                   backend=torch.distributed.get_backend(), model_count=group.model_count)
         torch.save(out, run_dir / f"rank{group.rank}.pt")
     finally:
         destroy(group)
     return 0
 
 
-def _spawn_ranks(tmp, label, world, device, backend):
+def _spawn_ranks(tmp, label, world, device, backend, model_shards=1):
     """Start ``world`` ranks of this script on the card with torchrun's
-    environment set here, wait for all, and fail if any fails (the others
-    are killed then). Returns their results and the wall seconds."""
+    environment set here (``model_shards`` of the field), wait for all, and
+    fail if any fails (the others are killed then). Returns their results
+    and the wall seconds."""
     import socket
 
     import torch
 
     run_dir = tmp / label
     run_dir.mkdir()
-    (run_dir / "spec.json").write_text(json.dumps({"device": device, "backend": backend}))
+    (run_dir / "spec.json").write_text(json.dumps(
+        {"device": device, "backend": backend, "model_shards": model_shards}))
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -2857,14 +2939,84 @@ def _shard_compare(label, run, ref, tol):
     return loss_err, field_err
 
 
+def _full_params(ranks, model_count):
+    """Rank 0's parameters with the field put together from the model
+    ranks of data index 0 (ranks ``0 .. M-1``, columns in model order)."""
+    import torch
+
+    params = dict(ranks[0]["params"])
+    params["tetrahedra_field"] = torch.cat(
+        [ranks[m]["params"]["tetrahedra_field"] for m in range(model_count)], dim=1)
+    return params
+
+
+def _run_ranks(tmp, ref, noise_tol, label, world, device, backend, model_count=1):
+    """One run of ranks (:func:`_spawn_ranks`) held to the no-group ``ref``:
+    every rank the same losses, EMA and replicated parameters as rank 0 and
+    the same field block as the rank of its columns in data index 0; one
+    rank bit for bit to ``ref``'s first loss and to ``noise_tol`` (None:
+    bit-equal) after it, more ranks to :data:`SHARD_LOSS_RTOL` and
+    :data:`SHARD_FIELD_RTOL` with the field put together from its column
+    blocks. Returns the ranks' results, the run's name and its errors."""
+    import torch
+
+    ranks, wall = _spawn_ranks(tmp, label, world, device, backend, model_count)
+    grid = f" as {world // model_count} x {model_count}" if model_count > 1 else ""
+    name = f"{backend}, {world} rank{'s' if world > 1 else ''}{grid} on {device}"
+    _check(all(r["backend"] == backend and r["world"] == world
+               and r["model_count"] == model_count for r in ranks),
+           f"shards ({name}): backends {[r['backend'] for r in ranks]}")
+    for r in ranks[1:]:
+        same_cols = ranks[r["rank"] % model_count]["params"]["tetrahedra_field"]
+        _check(r["losses"] == ranks[0]["losses"]
+               and torch.equal(r["params"]["tetrahedra_field"], same_cols)
+               and all(torch.equal(v, ranks[0]["params"][k])
+                       for k, v in r["params"].items() if k != "tetrahedra_field")
+               and torch.equal(r["occupancy"], ranks[0]["occupancy"]),
+               f"shards ({name}): rank {r['rank']}'s parameters differ from rank 0's")
+    if world == 1:
+        # One rank is the one-process step: its first loss, before K7's
+        # atomic order can move a parameter, bit for bit; after it, as far
+        # from one process as two no-group runs are from each other.
+        _check(ranks[0]["losses"][0] == ref["losses"][0],
+               f"shards ({name}): step 0 loss {ranks[0]['losses'][0]} vs {ref['losses'][0]}")
+        tol = noise_tol
+    else:
+        tol = (SHARD_LOSS_RTOL, SHARD_FIELD_RTOL)
+    run = dict(ranks[0], params=_full_params(ranks, model_count))
+    loss_err, field_err = _shard_compare(name, run, ref, tol)
+    for r in ranks:
+        for k in ("march", "stream_blend_gather", "stream_blend_backward",
+                  "scatter_add_rows", "row_gather"):
+            _check(r["launches"][k] > 0, f"shards ({name}): rank {r['rank']}: {k} did "
+                   f"not launch: {r['launches']}")
+    devices = sorted({r["device"] for r in ranks})
+    shared = (" (ranks sharing a card: a measure of correctness, not of scaling)"
+              if len(devices) < world else "")
+    print(f"shards: {name} ({', '.join(devices)}), {TRAIN_RAYS // (world // model_count)} "
+          f"rows each{shared}: the ranks bit-equal to each other; bounds, cap and occupancy "
+          f"equal to one process; losses within {loss_err:.3g} relative, the field within "
+          f"{field_err:.3g} of its max ("
+          + ("bit-equal" if tol is None else f"held to {tol[0]:.3g} and {tol[1]:.3g}")
+          + f"); median {[round(_median_step(r), 2) for r in ranks]} "
+          f"ms/step against {_median_step(ref):.2f} with no group in this process "
+          f"({wall:.1f} s for the ranks, start-up included)")
+    return ranks, name
+
+
+def _median_step(run):
+    return float(np.median(run["step_ms"][1:]))
+
+
 def shard_phase(points, colors, cells, mesh_plain, dev, tmp, phase12_ms=None,
                 runs=None):
     """Phase 18: data shards on the card, the unmodified preset at full
     width on phase 1's sphere, global batches of 4096 rays, each run of
     ``runs`` (default :data:`SHARD_RUNS`: (a) one rank over NCCL, (b) two
     ranks on ``cuda:0`` over gloo with 2048 rows each) against the same
-    steps in this process with no group. Returns each run's launches (its
-    rank 0's) and ms/step."""
+    steps in this process with no group (:func:`_run_ranks`). Returns each
+    run's launches (its rank 0's) and ms/step, and the no-group run with
+    the tolerance of one rank (phase 20 holds its runs to the same)."""
     import torch
 
     t_phase = time.perf_counter()
@@ -2880,53 +3032,123 @@ def shard_phase(points, colors, cells, mesh_plain, dev, tmp, phase12_ms=None,
     print(f"shards: two no-group runs of {SHARD_STEPS} steps bit-equal: {repeatable} "
           f"(losses {spread:.3g} relative apart, the field {field_spread:.3g} of its max"
           + ("" if repeatable else ": K7 adds in atomic order") + ")")
-
-    def med(run):
-        return float(np.median(run["step_ms"][1:]))
-
+    noise_tol = None if repeatable else tuple(
+        max(SHARD_NOISE_FACTOR * x, SHARD_NOISE_FLOOR) for x in (spread, field_spread))
     out = {}
-    for label, world, device, backend in runs or SHARD_RUNS:
-        ranks, wall = _spawn_ranks(tmp, label, world, device, backend)
-        name = f"{backend}, {world} rank{'s' if world > 1 else ''} on {device}"
-        _check(all(r["backend"] == backend and r["world"] == world for r in ranks),
-               f"shards ({name}): backends {[r['backend'] for r in ranks]}")
-        for r in ranks[1:]:
-            _check(r["losses"] == ranks[0]["losses"] and _bit_equal(r["params"], ranks[0]["params"])
-                   and torch.equal(r["occupancy"], ranks[0]["occupancy"]),
-                   f"shards ({name}): rank {r['rank']}'s parameters differ from rank 0's")
-        if world == 1:
-            # One rank is the one-process step: its first loss, before K7's
-            # atomic order can move a parameter, bit for bit; after it, as
-            # far from one process as two no-group runs are from each other.
-            _check(ranks[0]["losses"][0] == ref["losses"][0],
-                   f"shards ({name}): step 0 loss {ranks[0]['losses'][0]} vs {ref['losses'][0]}")
-            tol = None if repeatable else tuple(
-                max(SHARD_NOISE_FACTOR * x, SHARD_NOISE_FLOOR) for x in (spread, field_spread))
-        else:
-            tol = (SHARD_LOSS_RTOL, SHARD_FIELD_RTOL)
-        loss_err, field_err = _shard_compare(name, ranks[0], ref, tol)
-        for r in ranks:
-            for k in ("march", "stream_blend_gather", "stream_blend_backward",
-                      "scatter_add_rows", "row_gather"):
-                _check(r["launches"][k] > 0, f"shards ({name}): rank {r['rank']}: {k} did "
-                       f"not launch: {r['launches']}")
-        devices = sorted({r["device"] for r in ranks})
-        shared = (" (ranks sharing a card: a measure of correctness, not of scaling)"
-                  if len(devices) < world else "")
-        print(f"shards: {name} ({', '.join(devices)}), {TRAIN_RAYS // world} rows each{shared}: "
-              f"the ranks bit-equal to each other; bounds, cap and occupancy equal to one "
-              f"process; losses within {loss_err:.3g} relative, the field within "
-              f"{field_err:.3g} of its max ("
-              + ("bit-equal" if tol is None else f"held to {tol[0]:.3g} and {tol[1]:.3g}")
-              + f"); median {[round(med(r), 2) for r in ranks]} "
-              f"ms/step against {med(ref):.2f} with no group in this process "
-              f"({wall:.1f} s for the ranks, start-up included)")
-        out[label] = dict(launches=ranks[0]["launches"], ms=[med(r) for r in ranks])
+    for label, *run in runs or SHARD_RUNS:
+        ranks, _ = _run_ranks(tmp, ref, noise_tol, label, *run)
+        out[label] = dict(launches=ranks[0]["launches"], ms=[_median_step(r) for r in ranks],
+                          max_memory=[r["max_memory"] for r in ranks])
     print(f"shards: {SHARD_STEPS} steps of the preset, {TRAIN_RAYS} rays a global batch, "
           f"bounds and cap {ref['bounds']}; phase 12's cold median "
           f"{'not run' if phase12_ms is None else f'{phase12_ms:.2f} ms/step'}; phase 18 "
           f"took {time.perf_counter() - t_phase:.1f} s")
+    return out, ref
+
+
+def _model_width_kernel_checks(mesh, origins, directions, num_feat):
+    """K2, K2b and K7 at a model shard's width ``num_feat`` (the flagship's
+    64 over the model shards) on all 8 buckets of a cold flagship step,
+    each against its plain version, timed by CUDA events beside it and
+    beside its bound. Returns one dict per kernel name."""
+    import torch
+    from tetranerf_torch.ops import fused, interp, scatter
+
+    dev = origins.device
+    num_v = mesh.num_vertices
+    gen = torch.Generator(device=dev).manual_seed(23)
+    field = torch.randn((num_v, num_feat), generator=gen, device=dev)
+    res, order, plan = _cold_bucket_plan(mesh, origins, directions)
+    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
+               for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    out = {}
+
+    def record(name, err, kernel, plain, bound):
+        _check(err <= TOLERANCES[name], f"{name} at width {num_feat}: err {err}")
+        out[name] = dict(width=num_feat, max_abs_err=err, ms=_time_ms(kernel, 20),
+                         plain_ms=_time_ms(plain, 3), **bound)
+        e = out[name]
+        print(f"model shards: {name} at F={num_feat} on the {len(streams)} buckets of a cold "
+              f"flagship step: max abs err {err:.3g}; {e['ms']:.4f} ms by CUDA events, bound "
+              f"{e['bound_ms']:.4f} ({e['bound_by']}); plain version {e['plain_ms']:.3f} ms")
+
+    feats = interp.stream_blend_gather_batch(field, streams)
+    err = max(_max_err(a, b) for a, b in zip(
+        feats, interp.stream_blend_gather_batch_twin(field, streams)))
+    record("stream_blend_gather", err,
+           lambda: interp.stream_blend_gather_batch(field, streams),
+           lambda: interp.stream_blend_gather_batch_twin(field, streams),
+           _blend_batch_bound(field, streams))
+    bwd = [(torch.randn(f.shape, generator=gen, device=dev), pos, bary, vids.shape[1])
+           for f, (vids, pos, bary) in zip(feats, streams)]
+    del feats
+    gsf = [interp.stream_blend_backward(*a) for a in bwd]
+    err = max(_max_err(g, interp.stream_blend_backward_twin(*a)) for g, a in zip(gsf, bwd))
+    bounds = [_blend_bwd_bound(*a) for a in bwd]
+    record("stream_blend_backward", err,
+           lambda: [interp.stream_blend_backward(*a) for a in bwd],
+           lambda: [interp.stream_blend_backward_twin(*a) for a in bwd],
+           dict(bounds[0], bound_ms=sum(b["bound_ms"] for b in bounds)))
+    jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, num_feat))
+            for (vids, _, _), g in zip(streams, gsf)]
+    err = _max_err(scatter.scatter_add_rows_batch(jobs, num_v),
+                   scatter.scatter_add_rows_batch_twin(jobs, num_v))
+    record("scatter_add_rows", err, lambda: scatter.scatter_add_rows_batch(jobs, num_v),
+           lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v),
+           _scatter_batch_bound(jobs, num_v))
     return out
+
+
+def model_shard_phase(mesh_plain, dev, tmp, ref, runs=MODEL_SHARD_RUNS,
+                      one_rank_memory=None):
+    """Phase 20: the field sharded over 2 model shards, ``runs`` of phase
+    18's 16 flagship steps (1 x 2 and 2 x 2 ranks on ``cuda:0`` over
+    gloo) each held to phase 18's no-group run ``ref`` at phase 18's
+    tolerances (:func:`_run_ranks`, the field put together from its column
+    blocks); per rank the bytes of its field block with gradient and
+    moments, the peak memory, ms/step, and the column gathers of
+    :data:`GATHER_TIMED_STEPS` more steps (count, bytes, ms) beside the
+    bytes a gather after K3 would move; then K2, K2b and K7 at the shard's
+    width against their plain versions (:func:`_model_width_kernel_checks`).
+    ``one_rank_memory`` is the peak memory of phase 18's one-rank run, a
+    process of its own like these ranks (this process's peak counts the
+    earlier phases' tensors).
+    Returns the launches of each run's rank 0 and the kernels' results."""
+    import torch
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays
+
+    t_phase = time.perf_counter()
+    out = {}
+    full_bytes = ref["field_bytes"]
+    for label, *run in runs:
+        ranks, name = _run_ranks(tmp, ref, None, label, *run)
+        for r in ranks:
+            gathers = r["gathers"]
+            steps = "; ".join(f"{g['count']} gathers, {g['bytes'] / 1e6:.1f} MB (largest "
+                              f"{g['largest'] / 1e6:.1f}), {g['ms']:.1f} ms"
+                              for g in gathers["per_step"])
+            print(f"model shards ({name}): rank {r['rank']}: field block {r['field_shape']}, "
+                  f"with its gradient and RAdam moments {r['field_bytes'] / 1e6:.1f} MB "
+                  f"(one process: {full_bytes / 1e6:.1f} MB); peak memory "
+                  f"{r['max_memory'] / 1e9:.2f} GB (one rank, no model shards: "
+                  + ("not measured" if one_rank_memory is None
+                     else f"{one_rank_memory / 1e9:.2f} GB")
+                  + f"); median {_median_step(r):.2f} ms/step; the column gathers of "
+                  f"{GATHER_TIMED_STEPS} more steps, each timed between two synchronisations: "
+                  f"{steps}; a gather after K3 instead would move "
+                  f"{gathers['after_k3_bytes'] / 1e6:.1f} MB a step's train forward")
+            _check(r["field_shape"][1] * r["model_count"] == ref["field_shape"][1],
+                   f"model shards ({name}): rank {r['rank']} holds {r['field_shape']}")
+        out[label] = dict(launches=ranks[0]["launches"], ms=[_median_step(r) for r in ranks],
+                          gathers=ranks[0]["gathers"])
+    with torch.inference_mode():
+        o, d = sample_sphere_rays(np.random.default_rng(2), TRAIN_RAYS)
+        kernels = _model_width_kernel_checks(
+            mesh_plain.to(dev), torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            ref["field_shape"][1] // runs[0][4])
+    torch.cuda.empty_cache()
+    print(f"model shards: phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out, kernels
 
 
 def _lever_kernel_checks(mesh, origins, directions):
@@ -3116,6 +3338,185 @@ def lever_phase(colors, mesh_plain, dev):
     return entries, lp["launches"], budget["launches"]
 
 
+TRACER_RAYS = 8192
+TRACER_STEPS = 512
+TRACER_POINTS = 65_536
+TRACER_SAMPLES = 64
+TRACER_FIELD_DIM = 64
+# Rows of each output also computed on the CPU, where the march and the
+# walk run as their twins.
+TRACER_CHECK_RAYS = 256
+TRACER_CHECK_POINTS = 4096
+# interpolate_values sums 4 products per output in another order on the
+# card (a batched product) than on the CPU; its field gradient adds ~16
+# rows of a vertex in atomic order.
+INTERP_TOL = 1e-5
+INTERP_GRAD_RTOL = 1e-5
+
+
+def _bary_bound(mesh, cells, dt):
+    """The barycentrics' tolerance where two marches' distances differ by
+    ``dt``: 1e-4 plus twice the cell's largest plane normal times ``|dt|``
+    (a plane ``n . p + d`` moves by ``|n| |dt|`` along a unit ray)."""
+    import torch
+
+    safe = cells.clamp(0, mesh.num_cells - 1).long()
+    norm = mesh.planes[safe][..., :3].norm(dim=-1).amax(dim=-1)
+    return 1e-4 + 2.0 * norm * dt.abs()
+
+
+def _tracer_check(label, ours, ref, mesh, cells=None, dist_key=None):
+    """Ids and masks exactly; distances to ``TOLERANCES["march"]``;
+    barycentrics to :func:`_bary_bound` of ``cells`` at the distances'
+    differences (to 1e-4 without ``dist_key``). Returns the largest
+    barycentric error."""
+    import torch
+
+    for k, v in ref.items():
+        x = ours[k].cpu()
+        if k == dist_key:
+            err = _max_err(x, v, finite_only=True)
+            _check(err <= TOLERANCES["march"], f"tracer: {label} {k} err {err}")
+        elif not v.is_floating_point():
+            _check(torch.equal(x, v), f"tracer: {label} {k} differs from the CPU")
+    bary = "barycentric_coordinates"
+    diff = (ours[bary].cpu() - ref[bary]).abs()
+    diff = diff.reshape(diff.shape[:2] + (-1,)).amax(-1) if diff.dim() > 2 else diff.amax(-1)
+    if dist_key is None:
+        bound = torch.full_like(diff, 1e-4)
+    else:
+        dt = ours[dist_key].cpu() - ref[dist_key]
+        dt = torch.where(torch.isfinite(dt), dt, 0.0)
+        dt = dt.abs().amax(-1) if dt.dim() > 2 else dt
+        bound = _bary_bound(mesh, cells, dt)
+    _check(bool((diff <= bound).all()), f"tracer: {label} barycentrics beyond "
+           f"{float((diff - bound).max())} of their bound")
+    return float(diff.max())
+
+
+def tracer_phase(points, cells, dev):
+    """Phase 21: ``TetrahedraTracer`` on phase 1's sphere (the device's mesh
+    built by ``load_tetrahedra``): ``trace_rays`` of 8192 rays at 512
+    (K1), ``trace_rays_triangles`` (K1), ``find_tetrahedra`` of 65,536
+    points (K9), ``find_visited_cells`` of 64 samples a ray and
+    ``interpolate_values`` of a 64-wide field forward and backward, each
+    launch counted on this path (the path ``tracer``), each output's first
+    rows against the same calls on the CPU, each call timed by CUDA events.
+    Returns the launches."""
+    import torch
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.ops.interpolation import interpolate_values
+    from tetranerf_torch.tracer import TetrahedraTracer
+    from tetranerf_torch.utils.synthetic import sample_sphere_rays
+
+    t_phase = time.perf_counter()
+    card, cpu = TetrahedraTracer(dev), TetrahedraTracer("cpu")
+    card.load_tetrahedra(points, cells)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_phase
+    cpu.mesh = card.mesh.to("cpu")
+    o, d = sample_sphere_rays(np.random.default_rng(3), TRACER_RAYS)
+    rng = np.random.default_rng(4)
+    lo, hi = points.min(axis=0), points.max(axis=0)
+    query = rng.uniform(lo, hi, (TRACER_POINTS, 3)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    keys = ("num_visited_cells", "visited_cells", "barycentric_coordinates", "hit_distances",
+            "vertex_indices")
+
+    def samples(traced):
+        hd, num = traced["hit_distances"], traced["num_visited_cells"].long()
+        near = hd[:, 0, 0]
+        far = hd[torch.arange(hd.shape[0], device=hd.device), (num - 1).clamp_min(0), 1]
+        u = torch.rand((hd.shape[0], TRACER_SAMPLES), generator=gen, device=dev)
+        return (near[:, None] + u.sort(dim=1).values * (far - near)[:, None]).contiguous()
+
+    def interp(matched, field):
+        return interpolate_values(matched["vertex_indices"],
+                                  matched["barycentric_coordinates"], field)
+
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    traced = card.trace_rays(o, d, TRACER_STEPS)
+    triangles = card.trace_rays_triangles(o, d, TRACER_STEPS)
+    found = card.find_tetrahedra(query)
+    dist = samples(traced)
+    matched = card.find_visited_cells(*(traced[k] for k in keys), dist)
+    field = torch.randn((TRACER_FIELD_DIM, card.mesh.num_vertices), generator=gen,
+                        device=dev).requires_grad_()
+    feats = interp(matched, field)
+    g = torch.randn(feats.shape, generator=gen, device=dev)
+    (feats * g).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(cuda.launch_counts)
+    _check(launches["march"] == 2 and launches["locate"] == 1,
+           f"tracer: K1 launched {launches['march']} times (2 expected), K9 "
+           f"{launches['locate']} (1 expected)")
+
+    n, m = TRACER_CHECK_RAYS, TRACER_CHECK_POINTS
+    errs = {}
+    ref = cpu.trace_rays(o[:n], d[:n], TRACER_STEPS)
+    errs["trace_rays"] = _tracer_check(
+        "trace_rays", {k: v[:n] for k, v in traced.items()}, ref, cpu.mesh,
+        ref["visited_cells"].clamp_max(cpu.mesh.num_cells), "hit_distances")
+    ref = cpu.trace_rays_triangles(o[:n], d[:n], TRACER_STEPS)
+    # Hit k + 1 leaves interval k, hit 0 enters interval 0.
+    visited = cpu.trace_rays(o[:n], d[:n], TRACER_STEPS - 1)["visited_cells"]
+    cells_hit = torch.cat([visited[:, :1], visited], dim=1).clamp_max(cpu.mesh.num_cells)
+    errs["trace_rays_triangles"] = _tracer_check(
+        "trace_rays_triangles", {k: v[:n] for k, v in triangles.items()}, ref, cpu.mesh,
+        cells_hit, "hit_distances")
+    ref = cpu.find_tetrahedra(query[:m])
+    errs["find_tetrahedra"] = _tracer_check(
+        "find_tetrahedra", {k: v[:m] for k, v in found.items()}, ref, cpu.mesh)
+    _check(0 < int(found["valid_mask"].sum()) < TRACER_POINTS,
+           "tracer: find_tetrahedra found every point or none")
+    # The matching and the interpolation on the card's own inputs, moved.
+    traced_rows = {k: traced[k][:n].cpu() for k in keys}
+    ref = cpu.find_visited_cells(*(traced_rows[k] for k in keys), dist[:n].cpu())
+    errs["find_visited_cells"] = _tracer_check(
+        "find_visited_cells", {k: v[:n] for k, v in matched.items()}, ref, cpu.mesh)
+    _check(bool(matched["mask"].any()), "tracer: no sample matched a cell")
+    field_cpu = field.detach().cpu().requires_grad_()
+    ref_feats = interp({k: v[:n].cpu() for k, v in matched.items()}, field_cpu)
+    (ref_feats * g[:n].cpu()).sum().backward()
+    err = _max_err(feats[:n].detach().cpu(), ref_feats.detach())
+    _check(err <= INTERP_TOL, f"tracer: interpolate_values err {err}")
+    # The card's gradient has every ray's samples; the CPU's the first n.
+    field_card = field.detach().clone().requires_grad_()
+    (interp({k: v[:n] for k, v in matched.items()}, field_card) * g[:n]).sum().backward()
+    grad_err = _max_err(field_card.grad.cpu(), field_cpu.grad)
+    scale = float(field_cpu.grad.abs().max())
+    _check(grad_err <= INTERP_GRAD_RTOL * scale,
+           f"tracer: interpolate_values field gradient err {grad_err} of {scale}")
+    errs["interpolate_values"] = err
+
+    def backward():
+        f = field.detach().requires_grad_()
+        (interp(matched, f) * g).sum().backward()
+
+    times = {
+        "trace_rays": _time_ms(lambda: card.trace_rays(o, d, TRACER_STEPS), 5),
+        "trace_rays_triangles": _time_ms(
+            lambda: card.trace_rays_triangles(o, d, TRACER_STEPS), 5),
+        "find_tetrahedra": _time_ms(lambda: card.find_tetrahedra(query), 5),
+        "find_visited_cells": _time_ms(
+            lambda: card.find_visited_cells(*(traced[k] for k in keys), dist), 5),
+        "interpolate_values": _time_ms(lambda: interp(matched, field.detach()), 5),
+        "interpolate_values forward and backward": _time_ms(backward, 5),
+    }
+    crossings = traced["num_visited_cells"].float()
+    print(f"tracer: load_tetrahedra of {len(points)} points on the card {load_s:.2f} s; "
+          f"{TRACER_RAYS} rays at {TRACER_STEPS}: crossings mean {float(crossings.mean()):.1f}, "
+          f"max {int(crossings.max())}; {int(found['valid_mask'].sum())} of {TRACER_POINTS} "
+          f"points inside; {int(matched['mask'].sum())} of {matched['mask'].numel()} samples "
+          f"matched; launches on the path {({k: v for k, v in launches.items() if v})}")
+    for k, ms in times.items():
+        print(f"tracer: {k} {ms:.3f} ms by CUDA events"
+              + (f"; first rows against the CPU: max err {errs[k]:.3g}" if k in errs else ""))
+    print(f"tracer: phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, times
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -3152,11 +3553,14 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--shard-rank"]:
         return _shard_rank_main(argv[1])
-    # --shard-ranks N: phase 18 alone with N ranks over NCCL, one a card (a
-    # host with N cards); it prints phase 18's lines and no result line.
+    # --shard-ranks N [--model-shards M]: phase 18 alone with N ranks over
+    # NCCL, one a card (a host with N cards), as N/M data shards by M model
+    # shards; it prints phase 18's lines (and phase 20's with M > 1) and no
+    # result line.
     shard_runs = None
     if argv[:1] == ["--shard-ranks"]:
-        shard_runs = ((f"nccl{argv[1]}", int(argv[1]), "cuda", "nccl"),)
+        model = int(argv[3]) if argv[2:3] == ["--model-shards"] else 1
+        shard_runs = ((f"nccl{argv[1]}x{model}", int(argv[1]), "cuda", "nccl", model),)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3207,7 +3611,11 @@ def main(argv=None) -> int:
         (ROOT / "build").mkdir(exist_ok=True)
         tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
         try:
-            shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=shard_runs)
+            if shard_runs[0][4] == 1:
+                shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=shard_runs)
+            else:
+                _, ref = shard_phase(points, colors, cells, mesh_plain, dev, tmp, runs=())
+                model_shard_phase(mesh_plain, dev, tmp, ref, runs=shard_runs)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return 0
@@ -3287,17 +3695,26 @@ def main(argv=None) -> int:
     paths["merged_train"] = merged_phase(colors, mesh_plain, dev)
     torch.cuda.empty_cache()
 
-    # Data shards over ranks, then the two stream levers.
+    # Data shards over ranks, then the two stream levers, then the field
+    # over model shards and the tracer.
     tmp = Path(tempfile.mkdtemp(prefix="shards_", dir=ROOT / "build"))
     try:
-        shards = shard_phase(points, colors, cells, mesh_plain, dev, tmp, flagship_cold_ms)
+        shards, shard_ref = shard_phase(points, colors, cells, mesh_plain, dev, tmp,
+                                        flagship_cold_ms)
         for label, run in shards.items():
             paths[f"shards_{label}"] = run["launches"]
+        torch.cuda.empty_cache()
+        lever_entries, paths["stream_lp_train"], paths["budget_train"] = lever_phase(
+            colors, mesh_plain, dev)
+        torch.cuda.empty_cache()
+        model_runs, model_width = model_shard_phase(
+            mesh_plain, dev, tmp, shard_ref,
+            one_rank_memory=shards[SHARD_RUNS[0][0]]["max_memory"][0])
+        paths["model_shards"] = model_runs[MODEL_SHARD_RUNS[0][0]]["launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    lever_entries, paths["stream_lp_train"], paths["budget_train"] = lever_phase(
-        colors, mesh_plain, dev)
+    paths["tracer"], tracer_ms = tracer_phase(points, cells, dev)
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     render_of = {"flagship_train": "flagship_render", "train_fused": "render_fused",
@@ -3317,6 +3734,12 @@ def main(argv=None) -> int:
         if name in flagship_ms:
             k["flagship_step_ms"] = flagship_ms[name]["ms"]
             k["flagship_step_bound_ms"] = flagship_ms[name]["bound_ms"]
+        if name in model_width:
+            k["model_shard_width"] = model_width[name]
+        if name == "march":
+            k["tracer_ms"] = {f: tracer_ms[f] for f in ("trace_rays", "trace_rays_triangles")}
+        if name == "locate":
+            k["tracer_ms"] = {"find_tetrahedra": tracer_ms["find_tetrahedra"]}
     for k in lever_entries:
         # The bf16 stream's flagship run (phase 19) is their main path.
         k["launches"] = paths["stream_lp_train"][k["name"]]

@@ -208,10 +208,32 @@ def test_missing_test_split(tiny_scene_dir, tmp_path, capsys):
     (["--skip-grid", "16"], "A8"),
     (["--model.skip-grid-resolution", "16"], "A8"),
 ])
-def test_unported_flags_are_refused(tmp_path, flags, item):
+def test_unported_flags_are_refused(tmp_path, monkeypatch, flags, item):
     """A flag of code the port does not have exits naming its ROADMAP item;
     the skip grid's flags (A8, now ported) train a few CPU steps, and the
-    grid attaches at the occupancy refresh of step 4."""
+    grid attaches at the occupancy refresh of step 4. Model shards (A9b,
+    now ported) pass the checks under a world of 4 ranks, exit where the
+    ranks or the field's width do not divide by them, and with the live
+    viewer exit naming A9c."""
+    if item == "A9b":
+        from tetranerf_torch.training import cli
+
+        def check(extra, world):
+            monkeypatch.setenv("RANK", "0")
+            monkeypatch.setenv("WORLD_SIZE", str(world))
+            args = build_parser().parse_args(["--data", str(tmp_path)] + flags + extra)
+            cli._refuse_unported(args, _config_from_args(args))
+
+        check(["--field-dim", "8"], 4)
+        assert _config_from_args(build_parser().parse_args(
+            ["--data", "d"] + flags)).num_model_shards == 2
+        with pytest.raises(SystemExit, match="3 ranks not divisible by model_shards=2"):
+            check([], 3)
+        with pytest.raises(SystemExit, match="field_dim=9 not divisible by model_shards=2"):
+            check(["--field-dim", "9"], 4)
+        with pytest.raises(SystemExit, match="ROADMAP A9c"):
+            check(["--viewer-port", "0"], 4)
+        return
     if item == "A8":
         scene = _write_tiny_scene(tmp_path)
         trainer = port_main(_flags(scene, tmp_path / "out", iterations=6) + flags + [

@@ -20,6 +20,10 @@ repository unchanged). The package mirrors its layout:
   weights to and from the JAX package and the reference's state-dict
   layout.
 - ``render``: :class:`Renderer`, chunked ray rendering (the serving path).
+- ``parallel``: training over ranks, data shards by feature-field shards.
+- ``tracer``: :class:`TetrahedraTracer`, the reference's tracer object
+  (``trace_rays``, ``find_visited_cells``, ``find_tetrahedra``,
+  ``trace_rays_triangles``) on the march K1 and the point walk K9.
 
 The package imports ``torch`` and never ``jax``.
 """
@@ -36,6 +40,7 @@ _EXPORTS = {
     "Renderer": "render",
     "Trainer": "training.trainer",
     "TrainConfig": "training.trainer",
+    "TetrahedraTracer": "tracer",
 }
 
 

@@ -14,7 +14,11 @@ Data-parallel training passes a :class:`~..parallel.Group` to the train
 forward: each rank shades its own rays, and what is global over the batch
 stays global (the quantile buckets' sort, each bucket's random numbers,
 the gradient-stream budget), so that a D-rank step computes the one-rank
-step on the concatenation of the ranks' rows.
+step on the concatenation of the data shards' rows. With model shards
+(:meth:`TetraNerf.shard_field`) the module holds this rank's columns of
+the field, and every forward, train or eval, gathers the endpoint features
+over its model group (:attr:`TetraNerf.field_group`), so the ranks of a
+model group run each forward together.
 """
 
 from __future__ import annotations
@@ -83,13 +87,14 @@ def draw_uniforms(num_rays, num_samples, num_fine_samples, generator=None,
 
 
 def split_buckets(num_valid: torch.Tensor, rank: int, num_local: int, plan):
-    """This rank's share of the quantile buckets of a global batch.
+    """This data shard's share of the quantile buckets of a global batch.
 
-    ``num_valid i32[R]`` holds every rank's crossing counts in rank order
-    (``R = world * num_local``); ``plan`` entries ``(k, lo, hi, ...)`` cut
-    the stable sort of ``num_valid`` into buckets at global positions
-    ``[lo, hi)`` (:meth:`TetraNerf.bucket_plan` of ``R`` rays). Rank
-    ``rank`` owns rays ``[rank * num_local, (rank + 1) * num_local)``.
+    ``num_valid i32[R]`` holds every data shard's crossing counts in data
+    order (``R = data_count * num_local``); ``plan`` entries ``(k, lo, hi,
+    ...)`` cut the stable sort of ``num_valid`` into buckets at global
+    positions ``[lo, hi)`` (:meth:`TetraNerf.bucket_plan` of ``R`` rays).
+    Data shard ``rank`` owns rays ``[rank * num_local, (rank + 1) *
+    num_local)``.
 
     Returns ``(order, local_plan, positions)``: ``order`` the rank's rays
     (local indices) in global sort order; ``local_plan`` the entries with
@@ -147,6 +152,10 @@ class TetraNerf(nn.Module):
             else:
                 field[:, 0] = 1.0
         self.tetrahedra_field = nn.Parameter(field)
+        self.field_group = None
+        """The :class:`~..parallel.Group` whose model group holds the other
+        columns of :attr:`tetrahedra_field` (:meth:`shard_field`); None
+        while the module holds the whole field."""
         mlp_in = nerf_encoding_dim(cfg.field_dim, cfg.input_fourier_frequencies)
         head_in = (
             cfg.hidden_size + nerf_encoding_dim(3, _DIR_FREQS)
@@ -165,6 +174,17 @@ class TetraNerf(nn.Module):
                 )
             )
         self.to(device)
+
+    @torch.no_grad()
+    def shard_field(self, group) -> None:
+        """Keep only ``group``'s columns of the field (JAX ``state_shardings``
+        on a ``data x model`` mesh): :attr:`tetrahedra_field` becomes the
+        ``[V, F/M]`` block of model index ``m``, a new parameter, so build
+        the optimizer after this. ``ValueError`` when ``F`` does not divide
+        by ``M``."""
+        cols = group.field_columns(self.tetrahedra_field.shape[1])
+        self.tetrahedra_field = nn.Parameter(self.tetrahedra_field[:, cols].contiguous())
+        self.field_group = group
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -327,9 +347,10 @@ class TetraNerf(nn.Module):
         forward runs. ``cached_march`` re-shades a geometry-only march of
         the same rays against the current field.
 
-        ``group`` (a :class:`~..parallel.Group`) makes this one rank's share
-        of a data-parallel forward whose global batch is the ranks' rows in
-        rank order: the buckets cut the global sort (:func:`split_buckets`),
+        ``group`` (a :class:`~..parallel.Group`) makes this one data shard's
+        share of a data-parallel forward whose global batch is the data
+        shards' rows in data order: the buckets cut the global sort
+        (:func:`split_buckets`),
         every bucket's random numbers are drawn (or given in ``uniforms``)
         at the global bucket's shape and this rank keeps its own rows, and
         the gradient-stream budget counts the global stream.
@@ -498,7 +519,8 @@ class TetraNerf(nn.Module):
         else:
             nv = group.gather_rows(nv)
             global_plan = self.bucket_plan(nv.shape[0], bounds, n_coarse, n_fine)
-            order, plan, positions = split_buckets(nv, group.rank, num_rays, global_plan)
+            order, plan, positions = split_buckets(nv, group.data_index, num_rays,
+                                                   global_plan)
             if train:
                 uniforms = self._global_uniforms(global_plan, positions, generator,
                                                  uniforms, origins.device)
@@ -514,7 +536,8 @@ class TetraNerf(nn.Module):
                 (lo, hi, min(t, max_t), pos, s.vids)
                 for (_, lo, hi, t, *_), pos, s in zip(global_plan, positions, streams)])
         feats = endpoint_features_batch(self.tetrahedra_field, streams, stream_dtype,
-                                        None if budget is None else [ids for ids, _ in budget])
+                                        None if budget is None else [ids for ids, _ in budget],
+                                        self.field_group)
         jobs = [
             (o_k, d_k, sliced._replace(feats=feats_k), ns_k, nf_k,
              None if uniforms is None else uniforms[k],
@@ -605,8 +628,8 @@ class TetraNerf(nn.Module):
         cfg = self.config
         num_rays = origins.shape[0]
         if group is not None and train:
-            start = group.rank * num_rays
-            plan = [(0, 0, group.world * num_rays, None, n_coarse, n_fine)]
+            start = group.data_index * num_rays
+            plan = [(0, 0, group.data_count * num_rays, None, n_coarse, n_fine)]
             rows = [torch.arange(start, start + num_rays, device=origins.device)]
             uniforms = self._global_uniforms(
                 plan, rows, generator, None if uniforms is None else [uniforms],
@@ -624,13 +647,13 @@ class TetraNerf(nn.Module):
         if per_ray:
             nv, start = res.num_valid, 0
             if group is not None:
-                nv, start = group.gather_rows(nv), group.rank * num_rays
+                nv, start = group.gather_rows(nv), group.data_index * num_rays
             positions = torch.arange(start, start + num_rays, device=nv.device)
             (budget,) = self._budget_jobs(per_ray, nv, [
                 (0, nv.shape[0], res.t1.shape[1], positions, res.stream.vids)])
         res = res._replace(feats=endpoint_features(
             self.tetrahedra_field, res.stream, stream_dtype,
-            None if budget is None else budget[0]))
+            None if budget is None else budget[0], self.field_group))
         out = self._shade(origins, directions, res, n_coarse, n_fine, train,
                           generator, uniforms, camera_indices)
         if budget is not None:

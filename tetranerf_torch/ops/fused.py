@@ -18,6 +18,12 @@ The two stream levers of :func:`endpoint_features_batch` (JAX
 stream (K2, K2b and K7's bf16 instances, the field gradient still summed in
 f32) and the gradient-stream budget (:func:`stream_budget_ids`: the slots
 past the budget scatter no gradient).
+
+With the field sharded over its feature axis (``columns``, a
+:class:`~..parallel.Group` of model shards), K2 blends this rank's ``F/M``
+columns and one gather over the model group puts every stream's endpoint
+features at full width; the backward runs K2b and K7 on this rank's columns
+of the gradient (:class:`~..parallel.GatherColumns`).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..parallel.distributed import gather_columns
 from .interp import (
     SampleInterp,
     StreamBlendGatherBatch,
@@ -40,7 +47,7 @@ from .march import FusedMarch, MarchStream, march
 def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
                             stream_dtype: Optional[torch.dtype] = None,
                             scatter_ids: Optional[Sequence[torch.Tensor]] = None,
-                            ) -> List[torch.Tensor]:
+                            columns=None) -> List[torch.Tensor]:
     """Interval-endpoint features ``f32[R_j, T_j+1, F]`` of each march
     stream, in one K2 launch; the only field-dependent part of the
     traversal. Where autograd records, the field gradient of all streams is
@@ -50,23 +57,30 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     and sends the gradient through bf16 stream rows into the f32 field
     gradient; ``scatter_ids`` (:func:`stream_budget_ids`, one per stream)
     drop the field gradient of the slots past the gradient-stream budget.
-    The forward is the same either way."""
+    The forward is the same either way.
+
+    ``columns`` (a :class:`~..parallel.Group` with model shards) says that
+    ``field`` is this rank's ``[V, F/M]`` column block: K2 runs at ``F/M``
+    and one gather over the model group returns every stream at ``F``."""
     field = field.contiguous()
     flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
-        return list(StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat))
-    rows = field if stream_dtype is None else field.to(stream_dtype)
-    return stream_blend_gather_batch(rows, split_streams(flat))
+        outs = StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat)
+    else:
+        rows = field if stream_dtype is None else field.to(stream_dtype)
+        outs = stream_blend_gather_batch(rows, split_streams(flat))
+    return gather_columns(columns, outs)
 
 
 def endpoint_features(field: torch.Tensor, stream: MarchStream,
                       stream_dtype: Optional[torch.dtype] = None,
-                      scatter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      scatter_ids: Optional[torch.Tensor] = None,
+                      columns=None) -> torch.Tensor:
     """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2): the
     one-stream case of :func:`endpoint_features_batch`."""
     return endpoint_features_batch(
         field, [stream], stream_dtype,
-        None if scatter_ids is None else [scatter_ids])[0]
+        None if scatter_ids is None else [scatter_ids], columns)[0]
 
 
 def stream_budget_ids(vids: torch.Tensor, counts: torch.Tensor, offs: torch.Tensor,
@@ -105,17 +119,19 @@ def march_features(
     occ_threshold: float = 1e-3,
     occ_depth_cap=None,
     use_skip: bool = True,
+    columns=None,
 ) -> FusedMarch:
     """March rays (K1) and, when ``field f32[V, F]`` is given, emit their
-    endpoint features (K2). With ``use_skip`` and ``use_occupancy`` the
-    rays sphere-trace the mesh's skip grid first, where it has one."""
+    endpoint features (K2; ``columns`` as in :func:`endpoint_features_batch`).
+    With ``use_skip`` and ``use_occupancy`` the rays sphere-trace the mesh's
+    skip grid first, where it has one."""
     res = march(
         mesh, origins, directions, max_steps, entry_walk_steps,
         use_occupancy, occ_threshold, occ_depth_cap, use_skip,
     )
     if field is None:
         return res
-    return res._replace(feats=endpoint_features(field, res.stream))
+    return res._replace(feats=endpoint_features(field, res.stream, columns=columns))
 
 
 def slice_march_jobs(res: FusedMarch, order: torch.Tensor, plan, rays=()):

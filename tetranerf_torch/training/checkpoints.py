@@ -16,6 +16,12 @@ saved: a trainer restored from a checkpoint tunes on its first step. Across
 packages the weights move through :func:`reference_state_dict` and
 :func:`params_from_jax`.
 
+A checkpoint always holds the whole field ``[V, F]`` and RAdam's whole
+moments of it, whatever the run's model shards: a trainer with model shards
+gathers them (:func:`trainer_state`) and keeps its own columns when it
+restores, so a checkpoint moves between one process and any ``D x M``
+grid.
+
 :func:`reference_state_dict` / :func:`load_reference_state_dict` are the
 counterparts of the JAX package's. The reference stores the field ``[F, V]``
 and torch-Linear weights ``[out, in]``
@@ -117,13 +123,44 @@ def _encode(o):
     return o
 
 
-def save_checkpoint(path, trainer) -> None:
-    """Write ``trainer``'s state into the directory ``path``."""
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _field_index(trainer) -> int:
+    """The field's index among the optimizer's parameters (it is built over
+    ``model.parameters()``, in that order)."""
+    field = trainer.model.tetrahedra_field
+    return next(i for i, p in enumerate(trainer.model.parameters()) if p is field)
+
+
+def trainer_state(trainer) -> dict:
+    """``{"model", "optimizer", "step"}``: the state dicts with the whole
+    field and whole moments. With model shards every rank of the model
+    group must call this (one gather of the field and its two moments)."""
+    model_sd = trainer.model.state_dict()
+    opt_sd = trainer.optimizer.state_dict()
+    group = trainer.model.field_group
+    if group is not None:
+        i = _field_index(trainer)
+        # A copy: the packed state shares its per-parameter dicts with the
+        # optimizer's own.
+        state = dict(opt_sd["state"].get(i, {}))
+        names = ["tetrahedra_field"] + [k for k in _MOMENTS if k in state]
+        full = group.gather_columns(
+            [model_sd["tetrahedra_field"]] + [state[k] for k in names[1:]])
+        model_sd["tetrahedra_field"] = full[0]
+        state.update(zip(names[1:], full[1:]))
+        if i in opt_sd["state"]:
+            opt_sd["state"][i] = state
+    return {"model": model_sd, "optimizer": opt_sd, "step": int(trainer.step)}
+
+
+def save_checkpoint(path, trainer, state=None) -> None:
+    """Write ``trainer``'s state (``state``: :func:`trainer_state`, taken
+    here when None) into the directory ``path``."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    torch.save({"model": trainer.model.state_dict(),
-                "optimizer": trainer.optimizer.state_dict(),
-                "step": int(trainer.step)}, os.path.join(path, STATE_FILE))
+    torch.save(state or trainer_state(trainer), os.path.join(path, STATE_FILE))
     with open(os.path.join(path, CONFIG_FILE), "w") as f:
         json.dump(_encode(trainer.config), f, indent=2, default=str)
     if trainer.occupancy is not None:
@@ -137,10 +174,19 @@ def restore_checkpoint(path, trainer) -> None:
     learning-rate schedule and the step's random stream read), the
     parameters, RAdam's state and, with ``use_occupancy_field``, the EMA,
     written into column 24 of the march table, and the skip grid rebuilt
-    from it (with ``skip_grid_resolution``)."""
+    from it (with ``skip_grid_resolution``). With model shards the
+    trainer keeps its columns of the field and its moments."""
     path = os.path.abspath(path)
     state = torch.load(os.path.join(path, STATE_FILE), map_location=trainer.device,
                        weights_only=True)
+    group = trainer.model.field_group
+    if group is not None:
+        cols = group.field_columns(state["model"]["tetrahedra_field"].shape[1])
+        state["model"]["tetrahedra_field"] = state["model"]["tetrahedra_field"][:, cols]
+        moments = state["optimizer"]["state"].get(_field_index(trainer), {})
+        for k in _MOMENTS:
+            if k in moments:
+                moments[k] = moments[k][:, cols].contiguous()
     trainer.model.load_state_dict(state["model"])
     trainer.optimizer.load_state_dict(state["optimizer"])
     trainer.step = int(state["step"])

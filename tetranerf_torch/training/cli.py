@@ -11,7 +11,11 @@ Usage::
 Under torchrun each rank trains on ``cuda:LOCAL_RANK`` (NCCL; gloo with
 ``--device cpu``) on its rows of every global batch of ``--rays-per-batch``
 rays, which must divide by N; rank 0 logs, evaluates and writes the output
-directory.
+directory. With ``--num-model-shards M`` the N ranks are N/M data shards by
+M shards of the feature field: the ranks of a data shard share its rows,
+each holds 1/M of the field's columns, and ranks 0 to M-1 evaluate
+together (the live viewer needs one process's whole field and is refused,
+``ROADMAP.md`` A9c).
 
 Counterpart of :mod:`tetranerf_tpu.training.cli`, with the same flags and
 output: dataset loading, the mesh from a tetrahedra file (with the
@@ -179,8 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--retune-percentile", type=float, default=None,
                         help="alias for --model.occupancy-retune-percentile")
     parser.add_argument("--num-model-shards", type=int, default=None,
-                        help="feature-field shards; only 1: the port shards the "
-                        "data over torchrun's ranks, not the field (ROADMAP A9b)")
+                        help="shards of the feature field over its feature axis: "
+                        "torchrun's ranks form (ranks / M) data shards by M model "
+                        "shards; M must divide the rank count and --field-dim")
     parser.add_argument("--allow-eval-on-train", action="store_true",
                         help="fall back to the train split when the test split "
                         "is missing (metrics are tagged eval_split='train'; "
@@ -257,6 +262,11 @@ def _refuse_unported(args, config):
         check_supported(config.model)
     except (NotImplementedError, ValueError) as exc:
         raise SystemExit(str(exc)) from None
+    if args.viewer_port is not None and (config.num_model_shards or 1) > 1:
+        raise SystemExit(
+            "not ported to tetranerf_torch yet (ROADMAP A9c): --viewer-port with "
+            f"num_model_shards={config.num_model_shards}; a frame needs every model "
+            "shard's columns of the field")
 
 
 def check_device(device: str):
@@ -277,7 +287,7 @@ def main(argv=None):
 
     from ..parallel import destroy, init_distributed
 
-    group = init_distributed(device)
+    group = init_distributed(device, model_shards=config.num_model_shards or 1)
     if group is not None:
         device = group.device
     try:
@@ -336,7 +346,8 @@ def _train(args, config, device, group):
         return train_ds.sample_ray_batch(rng, batch_size)
 
     def log_fn(msg):
-        print(msg, file=sys.stderr)
+        if main_rank:
+            print(msg, file=sys.stderr)
 
     # Eval on the reference's three cadences (registration.py:34-36,
     # model.py:676-713): ray-batch PSNR every steps_per_eval_batch; one
@@ -392,10 +403,13 @@ def _train(args, config, device, group):
         if viewer is not None:
             viewer.stop()
 
-    # Final eval over the whole held-out split with every metric, on rank 0.
-    if main_rank:
+    # Final eval over the whole held-out split with every metric, by the
+    # ranks of data index 0 (rank 0 alone without model shards); rank 0
+    # writes.
+    if trainer.evaluates:
         mean_metrics = eval_all(trainer)
         mean_metrics["eval_split"] = eval_split
+    if main_rank:
         print(json.dumps(mean_metrics))
         with open(os.path.join(args.output_dir, "eval_metrics.json"), "w") as f:
             json.dump(mean_metrics, f, indent=2)

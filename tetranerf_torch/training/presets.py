@@ -41,25 +41,30 @@ class TrainConfig:
     seed: int = 42
     output_dir: Optional[str] = None
     num_data_shards: Optional[int] = None
-    """Data-parallel shards: the ranks the run was started with (None: all
-    of them, as JAX's None takes every local device)."""
+    """Data shards: the ranks the run was started with over
+    ``num_model_shards`` (None: all of them, as JAX's None takes every
+    local device)."""
     num_model_shards: int = 1
-    """Shards of the feature field; only 1 is accepted (``ROADMAP.md`` A9b)."""
+    """Shards of the feature field over its feature axis (JAX's ``model``
+    mesh axis): the ranks form ``world / M`` data shards by ``M`` model
+    shards, and each holds ``field_dim / M`` columns of the field."""
 
 
 def check_shards(config: TrainConfig, world: int = 1) -> None:
-    """Refuse feature-field shards, which the port lacks, and a data shard
-    count other than the ``world`` of ranks the run was started with."""
-    if config.num_model_shards not in (None, 1):
-        raise NotImplementedError(
-            "not ported to tetranerf_torch yet (ROADMAP A9b): num_model_shards="
-            f"{config.num_model_shards}; the port shards the data, not the field"
-        )
-    if config.num_data_shards not in (None, world):
+    """Raise ``ValueError`` unless ``world`` ranks form the grid the config
+    asks for: ``world`` divisible by ``num_model_shards`` M, the field's
+    width divisible by M (JAX ``make_mesh`` and ``state_shardings``), and
+    ``num_data_shards`` None or ``world / M``."""
+    from ..parallel.distributed import check_model_shards, column_slice
+
+    model_shards = config.num_model_shards or 1
+    check_model_shards(world, model_shards)
+    column_slice(config.model.field_dim, 0, model_shards)
+    if config.num_data_shards not in (None, world // model_shards):
         raise ValueError(
             f"num_data_shards={config.num_data_shards} but the run has {world} "
-            "rank(s): start one rank per data shard (torchrun --nproc-per-node), "
-            "or leave it None"
+            f"rank(s) over {model_shards} model shard(s): start num_data_shards x "
+            "num_model_shards ranks (torchrun --nproc-per-node), or leave it None"
         )
 
 

@@ -40,15 +40,25 @@ assembled on a producer thread, log lines, ``eval_fn`` and checkpoints
 (:mod:`.checkpoints`) on their cadences.
 
 Data parallel: with a :class:`~..parallel.Group` each rank feeds only its
-own rows of the global batch (``host_batch_slice``; :meth:`Trainer.fit`
-cuts them), and a step is the one-rank step on the ranks' rows in rank
-order, as JAX's GSPMD step is: the train forward buckets and budgets over
-the global batch, the gradients are averaged with one ``all_reduce`` before
-RAdam (every rank ends a step with the same parameters), the probes gather
-their per-ray statistics in rank order (the same bounds, cap and
-``# retune@`` lines on every rank), and the occupancy update maxes every
-rank's rays into one EMA. The refresh and the skip grid are computed alike
-on every rank. Rank 0 logs, evaluates and writes checkpoints.
+data shard's rows of the global batch (``host_batch_slice``;
+:meth:`Trainer.fit` cuts them), and a step is the one-rank step on the
+data shards' rows in data order, as JAX's GSPMD step is: the train forward
+buckets and budgets over the global batch, the gradients are averaged over
+the data group with one ``all_reduce`` before RAdam (the ranks of a data
+group end a step with the same parameters), the probes gather their per-ray
+statistics in data order (the same bounds, cap and ``# retune@`` lines on
+every rank), and the occupancy update maxes every data shard's rays into
+one EMA. The refresh and the skip grid are computed alike on every rank.
+
+Model shards (``num_model_shards`` M > 1, JAX's ``data x model`` mesh):
+each rank holds its ``[V, F/M]`` columns of the field and RAdam's moments
+of them, and everything else replicated. Whatever reads the field (the
+train and eval forwards, the probes, the occupancy update and refresh)
+gathers full-width features over the rank's model group, so the ranks of a
+model group run these together; everything after a gather is replicated in
+the model group, bit for bit. The ranks of data index 0 evaluate together
+(:attr:`Trainer.evaluates`) and gather the full field for a checkpoint.
+Rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -69,7 +79,7 @@ from ..ops.sampling import stratified_bins
 from ..ops.skip_grid import SkipSetup, build_skip_table, make_skip_setup
 from ..render import Renderer, chunks
 from ..utils.shapes import grid_ceil, inner_bound, rounded_bound
-from ..parallel import table_checksum
+from ..parallel import gather_columns, table_checksum
 from . import checkpoints
 from .optim import make_optimizer, set_step
 from .presets import TrainConfig, check_shards
@@ -144,19 +154,29 @@ class Trainer:
     and optionally ``camera_indices [R]`` (numpy arrays or tensors).
     ``auto_tune_steps=False`` skips the first step's bound tune.
 
-    ``group`` (:func:`~..parallel.init_distributed`) trains data-parallel
-    on the group's device: :meth:`train_step` then takes this rank's rows
-    of the global batch (equal counts on every rank). Every rank must build
-    the same mesh; the constructor checks it."""
+    ``group`` (:func:`~..parallel.init_distributed`) trains on the group's
+    device: :meth:`train_step` then takes this rank's data shard's rows of
+    the global batch (equal counts on every data shard). With model shards
+    (the group's ``model_count``, which must be ``num_model_shards``) the
+    model, built with the whole seeded field, keeps this rank's columns of
+    it (:meth:`~..models.TetraNerf.shard_field`) before RAdam is built over
+    it. Every rank must build the same mesh; the constructor checks it."""
 
     def __init__(self, config: TrainConfig, model, mesh, device="cuda",
                  auto_tune_steps: bool = True, group=None):
         check_shards(config, 1 if group is None else group.world)
+        model_count = 1 if group is None else group.model_count
+        if model_count != (config.num_model_shards or 1):
+            raise ValueError(
+                f"num_model_shards={config.num_model_shards} but the group has "
+                f"{model_count} model shard(s): pass model_shards to init_distributed")
         self.config = config
         self.group = group
         self._auto_tune_steps = auto_tune_steps
         self.device = torch.device(device) if group is None else group.device
         self.model = model.to(self.device)
+        if model_count > 1:
+            self.model.shard_field(group)
         self.mesh = mesh.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), config)
         self.step = 0
@@ -192,16 +212,21 @@ class Trainer:
 
     @property
     def is_main(self) -> bool:
-        """Rank 0, or the only process: the one that logs, evaluates and
-        writes."""
+        """Rank 0, or the only process: the one that logs and writes."""
         return self.group is None or self.group.rank == 0
+
+    @property
+    def evaluates(self) -> bool:
+        """The ranks of data index 0, or the only process: the model group
+        that runs every eval forward (rank 0 alone without model shards)."""
+        return self.group is None or self.group.data_index == 0
 
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _global(self, x: torch.Tensor) -> np.ndarray:
-        """A per-ray statistic of this rank's probe rays, with every rank's
-        rows in rank order (one gather), as numpy."""
+        """A per-ray statistic of this rank's probe rays, with every data
+        shard's rows in data order (one gather), as numpy."""
         if self.group is not None:
             x = self.group.gather_rows(x)
         return x.cpu().numpy()
@@ -252,7 +277,7 @@ class Trainer:
         model = self.model
         cfg = model.config
         res = march_features(self.mesh, model.tetrahedra_field, o, d,
-                             cfg.max_intersected_triangles)
+                             cfg.max_intersected_triangles, columns=model.field_group)
         nears, fars, first, num_kept, mask = ray_bounds(res)
         bins01 = stratified_bins(o.shape[0], cfg.num_samples, device=self.device)
         euclid = nears[:, None] + bins01 * (fars - nears)[:, None]
@@ -411,9 +436,9 @@ class Trainer:
         take each interval's mean sample density (deterministic coarse
         bins), and set ``occ = max(decay * occ, density)`` per crossed cell
         (JAX ``Trainer._occupancy_update_fn``). With a group each rank maxes
-        its own rays in and the ranks' EMAs are maxed together, which is the
-        update over the global batch: ``max(d o, a, b) = max(max(d o, a),
-        max(d o, b))``."""
+        its own rays in and the data group's EMAs are maxed together, which
+        is the update over the global batch: ``max(d o, a, b) = max(max(d o,
+        a), max(d o, b))`` (a model group's ranks hold the same rays)."""
         self._ensure_occupancy()
         model = self.model
         cfg = model.config
@@ -422,6 +447,7 @@ class Trainer:
         res = march_features(
             self.mesh, model.tetrahedra_field, o, d, self.max_steps,
             use_occupancy=True, occ_depth_cap=self.occ_depth_cap,
+            columns=model.field_group,
         )
         nears, fars, first, num_kept, mask = ray_bounds(res)
         bins01 = stratified_bins(o.shape[0], cfg.num_samples, device=self.device)
@@ -452,13 +478,15 @@ class Trainer:
     def refresh_occupancy(self) -> None:
         """Full-coverage refresh: the density at every cell centroid (the
         mean of its four vertex features) maxed into the decayed EMA (JAX
-        ``Trainer.refresh_occupancy``)."""
+        ``Trainer.refresh_occupancy``). With model shards each chunk's means
+        are taken over this rank's columns and gathered, not the field."""
         self._ensure_occupancy()
         model = self.model
         field = model.tetrahedra_field
         cells = self.mesh.cells.long()
         dens = torch.cat([
-            model.density_at(field[cells[i : i + _REFRESH_CHUNK]].mean(dim=1))
+            model.density_at(gather_columns(
+                model.field_group, [field[cells[i : i + _REFRESH_CHUNK]].mean(dim=1)])[0])
             for i in range(0, cells.shape[0], _REFRESH_CHUNK)
         ])
         self.occupancy = torch.maximum(
@@ -504,8 +532,8 @@ class Trainer:
         ``psnr`` and ``overflow_rays`` (rays whose march reached its bound),
         and with ``grad_stream_budget_per_ray`` ``grad_stream_dropped_rays``
         (rays that lost field gradient to the budget), as device scalars;
-        with a group the loss is the mean over the ranks (the global
-        batch's) and the counts are sums."""
+        with a group the loss is the mean over the data shards (the global
+        batch's) and the counts are sums over them."""
         with self.lock:
             return self._train_step(batch, uniforms)
 
@@ -551,11 +579,11 @@ class Trainer:
             counts["grad_stream_dropped_rays"] = out["grad_stream_dropped"].sum()
         loss = loss.detach()
         if self.group is not None:
-            # Ranks hold equal row counts, so the mean of the local means is
-            # the global batch's loss and its gradient.
+            # Data shards hold equal row counts, so the mean of the local
+            # means is the global batch's loss and its gradient.
             sums = self.group.reduce_grads(
                 model.parameters(), torch.stack([loss] + [c.float() for c in counts.values()]))
-            loss = sums[0] / self.group.world
+            loss = sums[0] / self.group.data_count
             counts = {k: sums[i + 1].round().long() for i, k in enumerate(counts)}
         set_step(self.optimizer, self.config, step)
         self.optimizer.step()
@@ -703,9 +731,12 @@ class Trainer:
     def save_checkpoint(self, path) -> None:
         """Write the step, parameters, optimizer state and occupancy EMA
         into the directory ``path`` (:func:`.checkpoints.save_checkpoint`).
-        With a group rank 0 writes, and every rank waits for it."""
+        With a group rank 0 writes, and every rank waits for it; with model
+        shards the ranks of data index 0 first gather the full field and
+        moments (:func:`.checkpoints.trainer_state`)."""
+        state = checkpoints.trainer_state(self) if self.evaluates else None
         if self.is_main:
-            checkpoints.save_checkpoint(path, self)
+            checkpoints.save_checkpoint(path, self, state)
         if self.group is not None:
             self.group.barrier()
 
@@ -713,7 +744,8 @@ class Trainer:
         """Load a directory written by :meth:`save_checkpoint`. The bounds
         and the cap are not saved: the next step tunes them if this
         trainer has not yet. The count of steps taken, which times the
-        occupancy work, is not restored either."""
+        occupancy work, is not restored either. With model shards each
+        rank keeps its columns of the saved field and moments."""
         with self.lock:
             checkpoints.restore_checkpoint(path, self)
             self.march_version += 1
@@ -737,9 +769,12 @@ class Trainer:
         ``eval_fn`` needs ``prefetch=0``.
 
         With a group ``next_batch(i)`` gives the global batch on every rank
-        and each rank trains on its ``host_batch_slice``; rank 0 logs (the
-        rays/s of the global batch), runs ``eval_fn`` while the other ranks
-        wait at a barrier, and writes the checkpoints."""
+        and each rank trains on its data shard's ``host_batch_slice``; rank 0
+        logs (the rays/s of the global batch) and writes the checkpoints,
+        and the ranks of :attr:`evaluates` run ``eval_fn`` while the others
+        wait at a barrier (with model shards ``eval_fn`` runs on every rank
+        of data index 0, whose forwards gather over their model group: let
+        it write only on :attr:`is_main`)."""
         num_iterations = num_iterations or self.config.max_num_iterations
         eval_every = eval_every or self.config.steps_per_eval_batch
         if not prefetch or num_iterations <= 1:
@@ -809,7 +844,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 steps_at_t0 = 1
             if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
-                if self.is_main:
+                if self.evaluates:
                     eval_fn(i + 1, self)
                 if group is not None:
                     group.barrier()

@@ -191,6 +191,12 @@ class ViewerServer:
 
     def __init__(self, trainer, port: int = 7007, camera_angle_x: float = 0.8,
                  fast_samples: int = 32, chunk: int = 16384, host: str = "0.0.0.0"):
+        if trainer.model.field_group is not None:
+            # A frame needs every model shard's columns of the field; one
+            # rank alone would wait on the others' gathers.
+            raise NotImplementedError(
+                "not ported to tetranerf_torch yet (ROADMAP A9c): the viewer of a "
+                "trainer whose field is split over model shards")
         self.trainer = trainer
         self.port = port
         self.host = host
