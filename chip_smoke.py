@@ -170,7 +170,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``find_tetrahedra`` of 65,536 points (K9 once), ``find_visited_cells``
     of 64 samples a ray and ``interpolate_values`` of a 64-wide field
     forward and backward, each against the CPU on its first rows and
-    timed (the path ``tracer``).
+    timed (the path ``tracer``);
+22. the API surface (the path ``api``): phase 14's dataset's points
+    written as a PLY and made into a ``.th`` by ``tetranerf-torch-triangulate
+    --random-points-ratio 0.5`` (vertex and cell counts, seconds); the
+    unmodified preset trained on it for 32 steps through ``cli.main`` and
+    restored as ``scripts/render.py`` restores; ``TorchRenderAdapter`` on
+    the 8 test views' CUDA tensors bit-equal to ``Trainer.render_rays``
+    (rays/s of both; one view timed by ``utils.profiling.benchmark`` beside
+    CUDA events); ``TetraNerfAdapterModel.get_outputs_for_camera_ray_bundle``
+    at chunks 8192 and 4096, each bit-equal to ``render_rays`` at its
+    chunk, the two within 1e-5 with ``ray_buckets=1`` (with the preset's
+    quantile buckets a ray's budget follows its rank within its chunk: the
+    difference is printed); ``state_dict`` loaded into a freshly built
+    trainer rendering bit-equal; ``get_image_metrics_and_images``'s PSNR
+    against the render CLI's on view 0; K1, K2, K3 and K8 launched;
+23. the live viewer over model shards (the path ``viewer_shards``): 1 x 2
+    gloo ranks on ``cuda:0`` as in phase 20, every rank with a viewer and
+    rank 0 serving the socket; a fast 128^2 frame and rows 0-32 of a full
+    256^2 frame queued before ``fit`` and served after step 1, within 1e-5
+    (float outputs, both ranks) and 1 level of 255 (PNGs) of a no-group
+    trainer's frames after the same step; a frame queued during step 1's
+    eval answered, one after ``fit`` refused (503); ms/step of 8 steps
+    with the viewer attached and without, each frame's latency.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -190,6 +212,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -2834,8 +2857,9 @@ def _timed_gathers(trainer, rows):
 
 
 def _shard_rank_main(run_dir) -> int:
-    """A rank of phase 18, started by :func:`_spawn_ranks` with torchrun's
-    environment: joins the group, trains its rows and saves the result."""
+    """A rank of phase 18, 20 or 23, started by :func:`_spawn_ranks` with
+    torchrun's environment: joins the group, trains its rows (phase 23: runs
+    :func:`_viewer_rank_run`) and saves the result."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -2847,6 +2871,9 @@ def _shard_rank_main(run_dir) -> int:
                              model_shards=spec["model_shards"])
     try:
         trainer = _shard_trainer(group.device, group, scene=run_dir.parent / "scene.npz")
+        if spec.get("viewer"):
+            torch.save(_viewer_rank_run(trainer, group), run_dir / f"rank{group.rank}.pt")
+            return 0
         rows = group.batch_slice(TRAIN_RAYS)
         out = _shard_steps(trainer, rows)
         if group.model_count > 1:
@@ -2859,11 +2886,12 @@ def _shard_rank_main(run_dir) -> int:
     return 0
 
 
-def _spawn_ranks(tmp, label, world, device, backend, model_shards=1):
+def _spawn_ranks(tmp, label, world, device, backend, model_shards=1, viewer=False):
     """Start ``world`` ranks of this script on the card with torchrun's
-    environment set here (``model_shards`` of the field), wait for all, and
-    fail if any fails (the others are killed then). Returns their results
-    and the wall seconds."""
+    environment set here (``model_shards`` of the field; with ``viewer``
+    phase 23's run instead of phase 18's steps), wait for all, and fail if
+    any fails (the others are killed then). Returns their results and the
+    wall seconds."""
     import socket
 
     import torch
@@ -2871,7 +2899,8 @@ def _spawn_ranks(tmp, label, world, device, backend, model_shards=1):
     run_dir = tmp / label
     run_dir.mkdir()
     (run_dir / "spec.json").write_text(json.dumps(
-        {"device": device, "backend": backend, "model_shards": model_shards}))
+        {"device": device, "backend": backend, "model_shards": model_shards,
+         "viewer": viewer}))
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -3517,6 +3546,374 @@ def tracer_phase(points, cells, dev):
     return launches, times
 
 
+# Phase 22: the API surface on a tetrahedra file made by the port's CLI.
+API_STEPS = 32
+API_RANDOM_POINTS = 0.5
+API_CHUNKS = (8192, 4096)
+# The adapter model's image at two chunks, with one bound and one sample
+# budget for every ray (ray_buckets=1): only the GEMMs' row count differs.
+API_CHUNK_TOL = 1e-5
+# The render CLI's PSNR and the metric hook's on the same bits (float64 on
+# the card both).
+API_PSNR_TOL = 1e-6
+# Phase 23: the live viewer over 1 x 2 model shards (gloo ranks on one card):
+# a fast frame and a full frame's band, held to one process's frames.
+VIEWER_SHARD_FAST_SIDE = 128
+VIEWER_SHARD_FULL_SIDE = 256
+VIEWER_SHARD_BAND = (0, 32)
+VIEWER_SHARD_TIMED_STEPS = 8
+VIEWER_SHARD_TOL = 1e-5
+VIEWER_SHARD_PNG_LEVELS = 1
+# (label, ranks, device, backend, model shards), as phase 20's runs.
+VIEWER_SHARD_RUN = ("viewer1x2", 2, "cuda:0", "gloo", 2)
+VIEWER_SHARD_POSE = (0.6, 2.3, 0.7)
+VIEWER_SHARD_LATE_POSE = (-1.9, 1.3, 0.9)
+
+
+def _same_bits(got, want, label):
+    """``got`` (tensors) equal to ``want`` (numpy) key for key, bit for bit."""
+    _check(got.keys() == want.keys(), f"{label}: keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        _check(np.array_equal(got[k].cpu().numpy(), want[k]), f"{label}: {k} differs")
+
+
+def api_phase(data, dev, tmp):
+    """Phase 22 (path ``api``): phase 14's dataset's points through
+    ``tetranerf-torch-triangulate`` with random points, the unmodified
+    preset trained on that file for :data:`API_STEPS` steps through
+    ``cli.main``, restored as ``scripts/render.py`` restores, then the
+    serving API on the card: ``TorchRenderAdapter`` on the 8 test views'
+    CUDA tensors bit-equal to ``render_rays``; ``TetraNerfAdapterModel`` at
+    chunks 8192 and 4096 each bit-equal to ``render_rays`` at its chunk,
+    and the two chunks within :data:`API_CHUNK_TOL` with one bucket;
+    ``state_dict`` into a fresh trainer rendering bit-equal; the metric
+    hook's PSNR against the render CLI's on view 0. Returns the launches."""
+    import torch
+    from tetranerf_torch.geometry import load_tetrahedra, write_ply
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.nerfstudio_model import TetraNerfAdapterModel
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.scripts import render, triangulate
+    from tetranerf_torch.torch_adapter import TorchRenderAdapter
+    from tetranerf_torch.training import cli
+    from tetranerf_torch.training.trainer import Trainer
+    from tetranerf_torch.utils.profiling import benchmark
+
+    t_phase = time.perf_counter()
+    cloud = load_tetrahedra(data / "tetra.npz")
+    ply, th = tmp / "cloud.ply", tmp / "tetra.th"
+    write_ply(ply, cloud["vertices"], cloud["colors"][:, :3])
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        triangulate.main(["--pointcloud", str(ply), "--output", str(th),
+                          "--random-points-ratio", str(API_RANDOM_POINTS)])
+    tri_s = time.perf_counter() - t
+    tet = load_tetrahedra(th)
+    num_points = len(cloud["vertices"])
+    _check(len(tet["vertices"]) == num_points + int(num_points * API_RANDOM_POINTS)
+           and tet["cells"].max() == len(tet["vertices"]) - 1,
+           f"api: triangulate wrote {len(tet['vertices'])} vertices")
+    print(f"api: tetranerf-torch-triangulate of the dataset's {num_points} points with "
+          f"--random-points-ratio {API_RANDOM_POINTS}: {len(tet['vertices'])} vertices, "
+          f"{len(tet['cells'])} cells in {tri_s:.2f} s (host: KD-tree spacing, Qhull)")
+
+    never = str(10 * API_STEPS)  # no eval inside the run; the final eval runs
+    args = ["--data", str(data), "--tetrahedra-path", str(th), "--device", str(dev),
+            "--output-dir", str(tmp / "out"), "--max-num-iterations", str(API_STEPS),
+            "--log-every", str(API_STEPS), "--steps-per-eval-batch", never,
+            "--steps-per-eval-image", never, "--steps-per-eval-all-images", never]
+    t = time.perf_counter()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+        cli.main(args)
+    final = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    _check(np.isfinite(final["psnr"]), f"api: final metrics {final}")
+    print(f"api: cli.main, {API_STEPS} steps of the unmodified preset on that file with "
+          f"the final eval over the test views: {time.perf_counter() - t:.2f} s; final "
+          f"{final}")
+
+    t = time.perf_counter()
+    trainer, test = render.load_trainer(tmp / "out" / "final", data, "test", th, device=dev)
+    print(f"api: restored as scripts/render.py restores in {time.perf_counter() - t:.2f} s")
+    views = [test.camera_rays(i) for i in range(test.num_images)]
+    o = np.concatenate([v[0] for v in views])
+    d = np.concatenate([v[1] for v in views])
+    o_dev, d_dev = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    adapter = TorchRenderAdapter(trainer, chunk=API_CHUNKS[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = adapter.get_outputs(o_dev, d_dev)
+    torch.cuda.synchronize()
+    adapter_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = trainer.render_rays(o, d, chunk=API_CHUNKS[0])
+    render_s = time.perf_counter() - t
+    _check(all(v.device == dev for v in out.values()), "api: adapter outputs off the card")
+    _same_bits(out, want, "api: adapter vs render_rays")
+    print(f"api: TorchRenderAdapter.get_outputs on {len(o)} rays on {dev} (the "
+          f"{test.num_images} test views) at chunk {API_CHUNKS[0]}: bit-equal to "
+          f"Trainer.render_rays in keys "
+          f"{sorted(want)}; {len(o) / adapter_s:,.0f} rays/s (outputs stay on the card) "
+          f"against render_rays' {len(o) / render_s:,.0f} rays/s (numpy out)")
+    o0, d0 = o_dev[: len(views[0][0])], d_dev[: len(views[0][0])]
+    bench_s = benchmark(adapter.get_outputs, [(o0, d0)], warmup=1, repeats=2,
+                        min_dispatches=2)
+    event_ms = _time_ms(lambda: adapter.get_outputs(o0, d0), 2)
+    print(f"api: one view ({len(o0)} rays) through the adapter: utils.profiling.benchmark "
+          f"{bench_s * 1e3:.2f} ms a call (2 calls between two synchronisations, best of "
+          f"2), CUDA events {event_ms:.2f} ms (median of 2)")
+
+    h, w = test.height, test.width
+    bundle = types.SimpleNamespace(origins=o0.reshape(h, w, 3), directions=d0.reshape(h, w, 3))
+    images = {}
+    for chunk in API_CHUNKS:
+        img = TetraNerfAdapterModel(trainer, chunk=chunk).get_outputs_for_camera_ray_bundle(
+            bundle)
+        _check(img["rgb"].shape == (h, w, 3) and img["depth"].shape == (h, w, 1),
+               f"api: adapter model shapes {img['rgb'].shape}")
+        _same_bits({k: v.reshape(h * w, *v.shape[2:]) for k, v in img.items()},
+                   trainer.render_rays(views[0][0], views[0][1], chunk=chunk),
+                   f"api: TetraNerfAdapterModel at chunk {chunk}")
+        images[chunk] = img
+    bucketed = {k: _max_err(images[API_CHUNKS[0]][k], images[API_CHUNKS[1]][k])
+                for k in ("rgb", "depth", "accumulation")}
+    one_cfg = dataclasses.replace(trainer.config, model=dataclasses.replace(
+        trainer.model.config, ray_buckets=1))
+    one_bucket = Trainer(one_cfg, TetraNerf(one_cfg.model, trainer.mesh.num_vertices,
+                                            num_train_images=test.num_images, device=dev),
+                         trainer.mesh, device=dev, auto_tune_steps=False)
+    one_bucket.model.load_state_dict(trainer.model.state_dict())
+    plain = [TetraNerfAdapterModel(one_bucket, chunk=c).get_outputs_for_camera_ray_bundle(
+        bundle) for c in API_CHUNKS]
+    plain_err = {k: _max_err(plain[0][k], plain[1][k]) for k in ("rgb", "depth", "accumulation")}
+    _check(max(plain_err.values()) <= API_CHUNK_TOL,
+           f"api: ray_buckets=1 chunks {API_CHUNKS} differ by {plain_err}")
+    print(f"api: TetraNerfAdapterModel.get_outputs_for_camera_ray_bundle on view 0 "
+          f"({h}x{w}) at chunks {API_CHUNKS}: each bit-equal to render_rays at its chunk; "
+          f"the two chunks' max abs differences with ray_buckets=1 {plain_err} (tolerance "
+          f"{API_CHUNK_TOL}), with the preset's 8 quantile buckets {bucketed} (a ray's "
+          f"bucket, so its bound and adaptive sample budget, is its crossing-count rank "
+          f"within its chunk)")
+    del one_bucket, plain
+
+    state = adapter.state_dict()
+    fresh = Trainer(trainer.config, TetraNerf(trainer.model.config, trainer.mesh.num_vertices,
+                                              num_train_images=test.num_images, device=dev),
+                    trainer.mesh, device=dev, auto_tune_steps=False)
+    TorchRenderAdapter(fresh).load_state_dict(state)
+    again = TorchRenderAdapter(fresh, chunk=API_CHUNKS[0]).get_outputs(o0, d0)
+    _same_bits(again, trainer.render_rays(views[0][0], views[0][1], chunk=API_CHUNKS[0]),
+               "api: state_dict into a fresh trainer")
+    field = state["tetrahedra_field"]
+    print(f"api: state_dict ({len(state)} tensors, tetrahedra_field {tuple(field.shape)}) "
+          f"loaded into a freshly built trainer renders view 0 bit-equal")
+    del fresh
+
+    model = TetraNerfAdapterModel(trainer, chunk=16384)
+    img = model.get_outputs_for_camera_ray_bundle(bundle)
+    metrics, panels = model.get_image_metrics_and_images(
+        img, {"image": torch.from_numpy(test.images[0]).to(dev)})
+    with contextlib.redirect_stderr(io.StringIO()):  # the CLI's render of view 0
+        cli_metrics = render.render_split(trainer, test, tmp / "renders", chunk=16384,
+                                          max_images=1)
+    psnr_err = abs(metrics["psnr"] - cli_metrics["psnr"])
+    _check(psnr_err <= API_PSNR_TOL and metrics["nerfstudio_ssim"] == metrics["mipnerf_ssim"]
+           and panels["img"].shape == (h, 2 * w, 3),
+           f"api: metric hook {metrics} vs the render CLI {cli_metrics}")
+    launches = dict(cuda.launch_counts)
+    for k in ("march", "stream_blend_gather", "sample_interp", "row_gather"):
+        _check(launches[k] > 0, f"api: {k} did not launch: {launches}")
+    print(f"api: get_image_metrics_and_images on view 0: psnr {metrics['psnr']:.6f} against "
+          f"the render CLI's {cli_metrics['psnr']:.6f} on the same view (tolerance "
+          f"{API_PSNR_TOL}), mipnerf_ssim = nerfstudio_ssim {metrics['mipnerf_ssim']:.5f}")
+    print(f"api: launches over the phase: K1 {launches['march']}, K2 "
+          f"{launches['stream_blend_gather']}, K3 {launches['sample_interp']}, K8 "
+          f"{launches['row_gather']}; all {launches}")
+    del trainer, adapter, model
+    torch.cuda.empty_cache()
+    print(f"api: phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _viewer_frames():
+    """Phase 23's requests: ``(position, side, quality, rows)``."""
+    full = VIEWER_SHARD_FULL_SIDE
+    return {"fast": (VIEWER_SHARD_POSE, VIEWER_SHARD_FAST_SIDE, "fast",
+                     (0, VIEWER_SHARD_FAST_SIDE)),
+            "full": (VIEWER_SHARD_POSE, full, "full", VIEWER_SHARD_BAND),
+            "late": (VIEWER_SHARD_LATE_POSE, VIEWER_SHARD_FAST_SIDE, "fast",
+                     (0, VIEWER_SHARD_FAST_SIDE))}
+
+
+def _post_frame(port, frame, replies, key):
+    """POST ``frame`` to the viewer on ``port``; ``replies[key]`` becomes
+    ``(status, PNG bytes, seconds)``."""
+    import urllib.error
+    import urllib.request
+
+    position, side, quality, rows = frame
+    body = json.dumps({"position": list(position), "side": side, "quality": quality,
+                       "rows": list(rows)}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/render", method="POST", data=body)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SHARD_TIMEOUT_S) as r:
+            replies[key] = (r.status, r.read(), time.perf_counter() - t)
+    except urllib.error.HTTPError as exc:
+        replies[key] = (exc.code, b"", time.perf_counter() - t)
+
+
+def _queue_frame(viewer, frame, replies, key):
+    """A client thread posting ``frame``; returns once rank 0 has queued it."""
+    queued = len(viewer._queue)
+    thread = threading.Thread(target=_post_frame, args=(viewer.port, frame, replies, key),
+                              daemon=True)
+    thread.start()
+    deadline = time.perf_counter() + SHARD_TIMEOUT_S
+    while len(viewer._queue) == queued:
+        _check(thread.is_alive() and time.perf_counter() < deadline,
+               f"viewer shards: frame {key} was never queued")
+        time.sleep(0.005)
+    return thread
+
+
+def _viewer_rank_run(trainer, group):
+    """A rank of phase 23: every rank builds a viewer, rank 0 serves it.
+    The fast and full frames are queued before a 2-step ``fit``, a third
+    frame during its step 1's eval, all three served at step 1's boundary;
+    then :data:`VIEWER_SHARD_TIMED_STEPS` steps with the viewer attached
+    and idle, and as many without it. Every rank keeps its frames'
+    outputs; rank 0 the replies."""
+    import torch
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.viewer import ViewerServer
+
+    batches = _shard_batches()
+    frames = _viewer_frames()
+    viewer = ViewerServer(trainer, port=0, host="127.0.0.1")
+    outputs, plain = [], viewer._frame_outputs
+
+    def recording(*args):
+        out = plain(*args)
+        outputs.append({k: np.asarray(v) for k, v in out.items()})
+        return out
+
+    viewer._frame_outputs = recording
+    replies, threads, fit_s = {}, [], {}
+
+    def fit(label, steps, attached=True, eval_fn=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            trainer.fit(lambda i: batches[i % TRAIN_BATCHES], num_iterations=steps,
+                        log_every=0, eval_fn=eval_fn, eval_every=1,
+                        viewer=viewer if attached else None)
+        torch.cuda.synchronize()
+        fit_s[label] = time.perf_counter() - t
+
+    def mid_run(step, tr):
+        if tr.is_main and step == 1:  # queued while rank 0 evaluates
+            threads.append(_queue_frame(viewer, frames["late"], replies, "late"))
+
+    try:
+        cuda.reset_launch_counts()
+        if group.rank == 0:
+            viewer.start()
+            threads += [_queue_frame(viewer, frames[k], replies, k) for k in ("fast", "full")]
+        fit("first", 2, eval_fn=mid_run)
+        fit("attached", VIEWER_SHARD_TIMED_STEPS)
+        fit("detached", VIEWER_SHARD_TIMED_STEPS, attached=False)
+        launches = dict(cuda.launch_counts)
+        if group.rank == 0:
+            _post_frame(viewer.port, frames["fast"], replies, "after_fit")
+            for thread in threads:
+                thread.join(SHARD_TIMEOUT_S)
+            _check(not any(t.is_alive() for t in threads), "viewer shards: a client waits")
+    finally:
+        viewer.stop()
+    return dict(outputs=outputs, replies=replies, fit_s=fit_s, launches=launches,
+                rank=group.rank)
+
+
+def viewer_shard_phase(points, colors, cells, mesh_plain, dev, tmp):
+    """Phase 23 (path ``viewer_shards``): the live viewer over 1 x 2 model
+    shards, gloo ranks on ``cuda:0`` as in phase 20, rank 0 serving the
+    socket: a fast and a full frame queued before ``fit`` are served after
+    step 1, and equal a no-group trainer's frames after the same step
+    (float outputs to :data:`VIEWER_SHARD_TOL`, PNGs to
+    :data:`VIEWER_SHARD_PNG_LEVELS` of 255); a frame asked for mid-run is
+    answered; ms/step with the viewer attached and without; each frame's
+    latency. Returns rank 0's launches over the viewer's run."""
+    import torch
+    from tetranerf_torch.utils.png import read_png
+    from tetranerf_torch.viewer import ViewerServer, _colorize
+
+    t_phase = time.perf_counter()
+    np.savez(tmp / "scene.npz", points=points, colors=colors, cells=cells)
+    label, world, device, backend, model_shards = VIEWER_SHARD_RUN
+    ranks, wall = _spawn_ranks(tmp, label, world, device, backend, model_shards, viewer=True)
+    frames = _viewer_frames()
+    ref_trainer = _shard_trainer(dev, mesh_plain=mesh_plain, colors=colors)
+    ref_viewer = ViewerServer(ref_trainer, port=0)
+    batches = _shard_batches()
+    want = {}
+    with contextlib.redirect_stderr(io.StringIO()):
+        ref_trainer.train_step(batches[0])
+    for key in ("fast", "full"):
+        position, side, quality, rows = frames[key]
+        want[key] = ref_viewer._frame_outputs(position, side, quality, rows)
+    replies = ranks[0]["replies"]
+    errs, levels = {}, {}
+    for i, key in enumerate(("fast", "full")):
+        status, png, _ = replies[key]
+        _check(status == 200, f"viewer shards: {key} frame answered {status}")
+        ref = want[key]
+        for r in ranks:
+            got = r["outputs"][i]
+            _check(got.keys() == ref.keys(), f"viewer shards: {key} keys")
+            errs[(key, r["rank"])] = max(
+                float(np.abs(got[k].astype(np.float64) - ref[k].astype(np.float64)).max())
+                for k in ref)
+        path = tmp / f"{key}.png"
+        path.write_bytes(png)
+        rows = frames[key][3]
+        image = _colorize(ref, (rows[1] - rows[0], frames[key][1]), "rgb")
+        levels[key] = int(np.abs(read_png(path).astype(int) - image.astype(int)).max())
+    _check(max(errs.values()) <= VIEWER_SHARD_TOL, f"viewer shards: outputs off by {errs}")
+    _check(max(levels.values()) <= VIEWER_SHARD_PNG_LEVELS,
+           f"viewer shards: PNG levels apart {levels}")
+    _check(replies["late"][0] == 200 and len(replies["late"][1]) > 0,
+           f"viewer shards: the mid-run frame answered {replies['late'][0]}")
+    _check(replies["after_fit"][0] == 503,
+           f"viewer shards: a frame after fit answered {replies['after_fit'][0]}")
+    fit_s = ranks[0]["fit_s"]
+    per_step = {k: fit_s[k] / VIEWER_SHARD_TIMED_STEPS * 1e3 for k in ("attached", "detached")}
+    print(f"viewer shards: {world // model_shards} x {model_shards} {backend} ranks on {device} "
+          f"({wall:.1f} s with start-up); the fast "
+          f"{VIEWER_SHARD_FAST_SIDE}^2 frame and the full frame's rows {VIEWER_SHARD_BAND} of "
+          f"{VIEWER_SHARD_FULL_SIDE}^2 queued before fit, served after step 1: max abs "
+          f"differences from one process's frames after the same step {errs} (tolerance "
+          f"{VIEWER_SHARD_TOL}), PNGs {levels} levels of 255 apart; latencies (queued to "
+          f"PNG, step 1 and the frames) fast {replies['fast'][2]:.2f} s, full "
+          f"{replies['full'][2]:.2f} s; a fast frame queued during step 1's eval answered "
+          f"in {replies['late'][2]:.2f} s; a frame after fit refused (503) in "
+          f"{replies['after_fit'][2] * 1e3:.1f} ms")
+    print(f"viewer shards: {VIEWER_SHARD_TIMED_STEPS} steps with the viewer attached and "
+          f"idle {per_step['attached']:.2f} ms/step, without it {per_step['detached']:.2f} "
+          f"ms/step (rank 0, fit's wall time over the steps; the first fit of 2 steps "
+          f"{fit_s['first']:.2f} s with the three frames)")
+    del ref_trainer, ref_viewer
+    torch.cuda.empty_cache()
+    launches = ranks[0]["launches"]
+    for k in ("march", "stream_blend_gather", "sample_interp", "row_gather"):
+        _check(launches[k] > 0, f"viewer shards: {k} did not launch: {launches}")
+    print(f"viewer shards: launches of rank 0 {launches}; phase 23 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -3678,14 +4075,17 @@ def main(argv=None) -> int:
 
     # Training from disk through the port's CLI, then serving its checkpoint.
     (ROOT / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
+    cli_dir = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=ROOT / "build"))
     try:
-        paths["cli_train"], cli_final = cli_phase((points, colors, cells), dev, tmp)
+        paths["cli_train"], cli_final = cli_phase((points, colors, cells), dev, cli_dir)
         torch.cuda.empty_cache()
         paths["serve_render"], paths["serve_viewer"], paths["serve_viewer_cached"] = \
-            serve_phase(tmp, dev, cli_final)
+            serve_phase(cli_dir, dev, cli_final)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        # Phase 22 trains on phase 14's dataset again: it stays until then.
+        for sub in cli_dir.iterdir():
+            if sub.name != "sphere":
+                shutil.rmtree(sub, ignore_errors=True) if sub.is_dir() else sub.unlink()
 
     # The skip grid on a camera scene, then merged-MLP buckets.
     march_entry = next(k for k in kernels if k["name"] == "march")
@@ -3715,6 +4115,18 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     paths["tracer"], tracer_ms = tracer_phase(points, cells, dev)
+    torch.cuda.empty_cache()
+
+    # The serving API and the preprocessing CLI on phase 14's dataset, then
+    # the live viewer over model shards.
+    tmp = Path(tempfile.mkdtemp(prefix="api_", dir=ROOT / "build"))
+    try:
+        paths["api"] = api_phase(cli_dir / "sphere", dev, tmp)
+        paths["viewer_shards"] = viewer_shard_phase(points, colors, cells, mesh_plain, dev,
+                                                    tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(cli_dir, ignore_errors=True)
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     render_of = {"flagship_train": "flagship_render", "train_fused": "render_fused",

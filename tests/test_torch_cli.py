@@ -214,7 +214,7 @@ def test_unported_flags_are_refused(tmp_path, monkeypatch, flags, item):
     grid attaches at the occupancy refresh of step 4. Model shards (A9b,
     now ported) pass the checks under a world of 4 ranks, exit where the
     ranks or the field's width do not divide by them, and with the live
-    viewer exit naming A9c."""
+    viewer (A9c, now ported) pass them under a world of 2."""
     if item == "A9b":
         from tetranerf_torch.training import cli
 
@@ -222,7 +222,7 @@ def test_unported_flags_are_refused(tmp_path, monkeypatch, flags, item):
             monkeypatch.setenv("RANK", "0")
             monkeypatch.setenv("WORLD_SIZE", str(world))
             args = build_parser().parse_args(["--data", str(tmp_path)] + flags + extra)
-            cli._refuse_unported(args, _config_from_args(args))
+            cli._refuse_unported(_config_from_args(args))
 
         check(["--field-dim", "8"], 4)
         assert _config_from_args(build_parser().parse_args(
@@ -231,8 +231,8 @@ def test_unported_flags_are_refused(tmp_path, monkeypatch, flags, item):
             check([], 3)
         with pytest.raises(SystemExit, match="field_dim=9 not divisible by model_shards=2"):
             check(["--field-dim", "9"], 4)
-        with pytest.raises(SystemExit, match="ROADMAP A9c"):
-            check(["--viewer-port", "0"], 4)
+        check(["--viewer-port", "0", "--field-dim", "8"], 2)
+        check(["--viewer-port", "0", "--field-dim", "8"], 4)
         return
     if item == "A8":
         scene = _write_tiny_scene(tmp_path)

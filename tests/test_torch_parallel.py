@@ -587,14 +587,200 @@ def test_collectives_wait_out_an_eval(monkeypatch):
     assert seen["timeout"] == distributed.COLLECTIVE_TIMEOUT >= datetime.timedelta(hours=1)
 
 
-def test_viewer_refuses_a_sharded_field():
-    """A live viewer of a trainer whose field is split over model shards
-    would need every model rank for each frame (ROADMAP A9c): it is
-    refused, never served from one rank's columns."""
-    import types
+# ------------------------------------------- the live viewer over model shards
 
+VIEWER_SIDE = 12
+# (position, side, quality, rows): the fast and the full frame queued before
+# fit, served after step 1, then the fast frame queued during step 2's eval.
+VIEWER_FRAMES = (([0.3, 2.4, 0.6], VIEWER_SIDE, "fast", None),
+                 ([0.3, 2.4, 0.6], VIEWER_SIDE, "full", [0, VIEWER_SIDE // 2]),
+                 ([-1.8, 1.2, 1.0], VIEWER_SIDE, "fast", None))
+VIEWER_TIMEOUT_S = 120
+
+
+def _viewer_job():
+    """A 300-point sphere at JAX's model-parallel test's widths with the fine
+    round and 4 buckets, seeded weights, and two 64-ray batches."""
+    from tetranerf_torch.geometry import build_mesh
+    from tetranerf_torch.models import tetranerf_preset
+
+    points, colors = make_sphere_scene(300, seed=4)
+    cfg = tetranerf_preset(**dict(MODEL_SHARD_WIDTHS, num_fine_samples=8, ray_buckets=4))
+    mesh = build_mesh(points, device="cpu")
+    model = TetraNerf(cfg, mesh.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(17)
+    return dict(cfg=cfg, mesh=mesh, state=model.state_dict(),
+                batches=[_batch(rng) for _ in range(2)],
+                rays=sample_sphere_rays(np.random.default_rng(3), 40))
+
+
+def _post_frame(port, frame, replies, key):
+    """POST one frame to the viewer on ``port``; ``replies[key]`` becomes
+    ``(HTTP status, body)``."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    position, side, quality, rows = frame
+    body = {"position": position, "side": side, "quality": quality, "rows": rows}
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/render", method="POST",
+                                 data=json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=VIEWER_TIMEOUT_S) as r:
+            replies[key] = (r.status, r.read())
+    except urllib.error.HTTPError as exc:
+        replies[key] = (exc.code, b"")
+
+
+def _queue_frame(viewer, frame, replies, key):
+    """A client thread posting ``frame``, returned once rank 0 has queued it."""
+    import threading
+    import time
+
+    queued = len(viewer._queue)
+    thread = threading.Thread(target=_post_frame, args=(viewer.port, frame, replies, key))
+    thread.start()
+    deadline = time.monotonic() + VIEWER_TIMEOUT_S
+    while len(viewer._queue) == queued:
+        assert time.monotonic() < deadline, "the frame was never queued"
+        time.sleep(0.01)
+    return thread
+
+
+def _viewer_rank(job, group):
+    """One rank of a model-sharded run with the live viewer: every rank
+    builds a viewer, rank 0 serves the socket. Two frames queued before
+    ``fit``, one during step 2's eval on rank 0; after ``fit`` a late
+    request. Returns every rank's frame outputs and, on rank 0, the HTTP
+    replies, with the adapter's render and state dict (collective)."""
+    from tetranerf_torch.torch_adapter import TorchRenderAdapter
     from tetranerf_torch.viewer import ViewerServer
 
-    sharded = types.SimpleNamespace(model=types.SimpleNamespace(field_group=object()))
-    with pytest.raises(NotImplementedError, match="A9c"):
-        ViewerServer(sharded, port=0)
+    model = TetraNerf(job["cfg"], job["mesh"].num_vertices, device="cpu")
+    model.load_state_dict(job["state"])
+    trainer = Trainer(TrainConfig(num_model_shards=group.model_count), model, job["mesh"],
+                      device="cpu", group=group)
+    viewer = ViewerServer(trainer, port=0, host="127.0.0.1", chunk=64, fast_samples=8)
+    outputs, plain = [], viewer._frame_outputs
+
+    def recording(*args):
+        out = plain(*args)
+        outputs.append({k: np.asarray(v) for k, v in out.items()})
+        return out
+
+    viewer._frame_outputs = recording
+    replies, threads = {}, []
+    if group.rank == 0:
+        viewer.start()
+        threads = [_queue_frame(viewer, VIEWER_FRAMES[k], replies, k) for k in (0, 1)]
+
+    def eval_fn(step, tr):
+        if tr.is_main:  # queued while rank 0 evaluates: served at step 2's boundary
+            threads.append(_queue_frame(viewer, VIEWER_FRAMES[2], replies, 2))
+
+    try:
+        trainer.fit(lambda i: job["batches"][i], num_iterations=2, log_every=0,
+                    eval_fn=eval_fn, eval_every=2, viewer=viewer)
+        if group.rank == 0:
+            _post_frame(viewer.port, VIEWER_FRAMES[0], replies, "late")
+            for t in threads:
+                t.join(VIEWER_TIMEOUT_S)
+            assert not any(t.is_alive() for t in threads), "a client still waits"
+        adapter = TorchRenderAdapter(trainer, chunk=32)
+        rendered = {k: v.numpy() for k, v in adapter.get_outputs(*job["rays"]).items()}
+        state = {k: v.numpy() for k, v in adapter.state_dict().items()}
+    finally:
+        viewer.stop()
+    return dict(outputs=outputs, replies=replies, rendered=rendered, state=state,
+                field_shape=tuple(trainer.model.tetrahedra_field.shape))
+
+
+def _viewer_rank_main(rank, world, port, job_path, out_dir):
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      GLOO_SOCKET_IFNAME="lo")
+    from tetranerf_torch.parallel import destroy, init_distributed
+
+    job = torch.load(job_path, weights_only=False)
+    group = init_distributed("cpu", model_shards=world)
+    try:
+        torch.save(_viewer_rank(job, group), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        destroy(group)
+
+
+def test_viewer_refuses_a_sharded_field(tmp_path):
+    """The live viewer of a trainer whose field is split over 1 x 2 model
+    shards (A9c; this test once checked its refusal): rank 0 alone serves
+    the socket, and the frames queued before ``fit`` (a fast frame and a
+    full frame's band) and during step 2's eval come back at the step
+    boundaries, equal to one process's frames after the same steps (float
+    outputs to 1e-5, PNGs at most 1 level of 255 apart), rendered by both
+    model ranks alike. A request after ``fit`` is refused with 503, never
+    left waiting. The serving API on the grid: the adapter's render and
+    whole-field state dict, collective on both ranks, equal one process's.
+    The ranks run under a deadline, so a deadlock fails the test."""
+    import time
+
+    from tetranerf_torch.torch_adapter import TorchRenderAdapter
+    from tetranerf_torch.utils.png import read_png
+    from tetranerf_torch.viewer import ViewerServer, _colorize
+
+    job = _viewer_job()
+    job_path = tmp_path / "job.pt"
+    torch.save(job, job_path)
+    ctx = torch.multiprocessing.spawn(
+        _viewer_rank_main, args=(2, _free_port(), str(job_path), str(tmp_path)), nprocs=2,
+        join=False)
+    deadline = time.monotonic() + 2 * VIEWER_TIMEOUT_S
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the ranks ran past {2 * VIEWER_TIMEOUT_S} s")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    # One process: the same model and batches, each frame after its step.
+    model = TetraNerf(job["cfg"], job["mesh"].num_vertices, device="cpu")
+    model.load_state_dict(job["state"])
+    one = Trainer(TrainConfig(), model, job["mesh"], device="cpu")
+    viewer = ViewerServer(one, port=0, chunk=64, fast_samples=8)
+    want = []
+    for step, frames in ((0, (0, 1)), (1, (2,))):
+        one.train_step(job["batches"][step])
+        for k in frames:
+            position, side, quality, rows = VIEWER_FRAMES[k]
+            want.append(viewer._frame_outputs(position, side, quality,
+                                              tuple(rows or (0, side))))
+    replies = ranks[0]["replies"]
+    assert replies["late"][0] == 503 and not ranks[1]["replies"]
+    assert [r["field_shape"] for r in ranks] == [(job["mesh"].num_vertices, 4)] * 2
+    for k, ref in enumerate(want):
+        status, png = replies[k]
+        assert status == 200, (k, status)
+        for r in ranks:
+            got = r["outputs"][k]
+            assert got.keys() == ref.keys()
+            for name in ref:
+                np.testing.assert_allclose(got[name].astype(np.float64),
+                                           ref[name].astype(np.float64), atol=1e-5,
+                                           rtol=0, err_msg=f"frame {k} {name}")
+        (tmp_path / "frame.png").write_bytes(png)
+        rows = VIEWER_FRAMES[k][3] or (0, VIEWER_SIDE)
+        image = _colorize(ref, (rows[1] - rows[0], VIEWER_SIDE), "rgb")
+        diff = np.abs(read_png(tmp_path / "frame.png").astype(int) - image.astype(int))
+        assert diff.max() <= 1, f"frame {k}"
+    o, d = job["rays"]
+    rendered = one.render_rays(o, d, chunk=32)
+    state = TorchRenderAdapter(one).state_dict()
+    for r in ranks:
+        for name in rendered:
+            np.testing.assert_allclose(r["rendered"][name].astype(np.float64),
+                                       rendered[name].astype(np.float64), atol=1e-5,
+                                       rtol=0, err_msg=name)
+        assert r["state"].keys() == state.keys()
+        for name in state:
+            np.testing.assert_allclose(r["state"][name], state[name].numpy(), atol=1e-5,
+                                       rtol=0, err_msg=name)

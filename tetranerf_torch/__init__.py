@@ -19,7 +19,14 @@ repository unchanged). The package mirrors its layout:
   K3b and K7, RAdam, eval and rendering at the tuned bounds) and
   weights to and from the JAX package and the reference's state-dict
   layout.
-- ``render``: :class:`Renderer`, chunked ray rendering (the serving path).
+- ``render``: :class:`Renderer`, chunked ray rendering (the serving path);
+  ``viewer``: the live orbit viewer (with model shards, served at ``fit``'s
+  step boundaries).
+- ``torch_adapter``, ``nerfstudio_model``, ``nerfstudio_compat``: the torch
+  serving API (:class:`TorchRenderAdapter`, torch tensors in and out), the
+  nerfstudio ``Model`` over it and the ``tetra-nerf-torch`` entry points.
+- ``scripts``: the console scripts (train is ``training.cli``): render,
+  viewer, triangulate and the dataset converters.
 - ``parallel``: training over ranks, data shards by feature-field shards.
 - ``tracer``: :class:`TetrahedraTracer`, the reference's tracer object
   (``trace_rays``, ``find_visited_cells``, ``find_tetrahedra``,
@@ -41,6 +48,7 @@ _EXPORTS = {
     "Trainer": "training.trainer",
     "TrainConfig": "training.trainer",
     "TetrahedraTracer": "tracer",
+    "TorchRenderAdapter": "torch_adapter",
 }
 
 

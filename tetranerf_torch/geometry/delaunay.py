@@ -27,3 +27,20 @@ def triangulate(points: np.ndarray) -> np.ndarray:
     cells = tri.simplices.astype(np.int32)
     cells = cells[(cells < len(points)).all(axis=1)]
     return np.ascontiguousarray(cells)
+
+
+def find_average_spacing(points: np.ndarray, num_neighbors: int = 6) -> float:
+    """Mean distance from each point to its ``num_neighbors`` nearest other
+    points, averaged over the points (the contract of CGAL's
+    ``compute_average_spacing``, reference ``src/triangulation.cpp:121-134``).
+
+    The KD-tree path of :func:`tetranerf_tpu.geometry.delaunay.
+    find_average_spacing`; the JAX package's optional native library is not
+    used."""
+    from scipy.spatial import cKDTree
+
+    points = np.ascontiguousarray(points, dtype=np.float64)
+    tree = cKDTree(points)
+    k = min(num_neighbors + 1, len(points))
+    dists, _ = tree.query(points, k=k)
+    return float(dists[:, 1:].mean())

@@ -36,6 +36,8 @@ different rows).
   division by its size: the ranks of a data group get the same bits, so
   RAdam keeps their parameters bit-equal.
 - :meth:`Group.all_reduce_max`: the occupancy EMA update's combine.
+- :meth:`Group.broadcast_model`: model index 0's tensor on its model group
+  (the live viewer's queued frames, :mod:`..viewer`).
 
 The model is not wrapped in ``DistributedDataParallel``: the train forward
 is ``TetraNerf.get_outputs``, the appearance embedding is unused without
@@ -197,6 +199,12 @@ class Group:
         """``t`` replaced, in place, by its elementwise maximum over the
         ``axis`` group; returns it."""
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._axis(axis)[2])
+        return t
+
+    def broadcast_model(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` replaced, in place, by model index 0's ``t`` on every rank of
+        this rank's model group; returns it."""
+        dist.broadcast(t, src=self.data_index * self.model_count, group=self.model_pg)
         return t
 
     def barrier(self) -> None:

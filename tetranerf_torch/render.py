@@ -3,7 +3,9 @@
 Counterpart of ``Trainer.render_rays`` / ``_chunked`` / ``eval_batch`` in
 :mod:`tetranerf_tpu.training.trainer`, as ``scripts/render.py`` drives it:
 rays go through the model in fixed-size chunks, the tail chunk padded with
-dummy rays, and per-ray outputs come back as numpy arrays.
+dummy rays, and per-ray outputs come back as numpy arrays
+(:meth:`Renderer.render_rays`) or as tensors on the device
+(:meth:`Renderer.render_tensors`, the torch serving API's path).
 """
 
 from __future__ import annotations
@@ -69,16 +71,21 @@ class Renderer:
             bucket_steps=self.bucket_steps,
         )
 
-    def render_rays(self, origins, directions, chunk: int = 8192,
-                    num_samples: Optional[int] = None,
-                    num_fine_samples: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def render_tensors(self, origins, directions, chunk: int = 8192,
+                       num_samples: Optional[int] = None,
+                       num_fine_samples: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Render ``[N, 3]`` rays in chunks of ``chunk`` (the last one padded
         with rays from the origin along +z); returns the outputs of
-        :meth:`render_batch` for the ``N`` rays as numpy arrays."""
+        :meth:`render_batch` for the ``N`` rays as tensors on the device."""
         outs = []
         for o, d, num in chunks(origins, directions, chunk, self.device):
             out = self.render_batch(o, d, num_samples, num_fine_samples)
             outs.append({k: v[:num] for k, v in out.items()})
-        return {
-            k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]
-        }
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def render_rays(self, origins, directions, chunk: int = 8192,
+                    num_samples: Optional[int] = None,
+                    num_fine_samples: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """:meth:`render_tensors` as numpy arrays."""
+        out = self.render_tensors(origins, directions, chunk, num_samples, num_fine_samples)
+        return {k: v.cpu().numpy() for k, v in out.items()}

@@ -1,2 +1,3 @@
-"""Console scripts of the port that serve a trained scene: ``render`` and
-``viewer``."""
+"""Console scripts of the port: preprocessing (``triangulate`` and the four
+``process_*`` dataset converters, with :mod:`.common`) and serving a trained
+scene (``render`` and ``viewer``)."""

@@ -76,20 +76,33 @@ def main(argv=None):
                         "for with --device cpu)")
     args = parser.parse_args(argv)
 
-    import torch
-
     from ..training.cli import check_device
-    from ..training.metrics import compute_image_metrics
-    from ..utils.png import write_png
 
     device = check_device(args.device)
     trainer, dataset = load_trainer(args.checkpoint, args.data, args.split,
                                     args.tetrahedra_path, args.method, device)
-    out_dir = Path(args.output)
+    mean = render_split(trainer, dataset, args.output, args.split, args.chunk, args.fast,
+                        args.max_images)
+    print(json.dumps(mean))
+    return mean
+
+
+def render_split(trainer, dataset, output, split="test", chunk=16384, fast=False,
+                 max_images=None) -> dict:
+    """The CLI's work after the restore: each image of ``dataset`` (the
+    first ``max_images``) rendered by ``trainer`` into ``output`` as
+    ``{split}_{i:04d}.png`` and ``_depth.png``, and ``metrics.json``: the
+    mean of each image's metrics and ``render_rays_per_sec``, returned."""
+    import torch
+
+    from ..training.metrics import compute_image_metrics
+    from ..utils.png import write_png
+
+    out_dir = Path(output)
     out_dir.mkdir(parents=True, exist_ok=True)
     num = dataset.num_images
-    if args.max_images:
-        num = min(num, args.max_images)
+    if max_images:
+        num = min(num, max_images)
     metrics_all = []
     t_start = time.perf_counter()
     total_rays = 0
@@ -97,27 +110,26 @@ def main(argv=None):
         o, d = dataset.camera_rays(i)
         total_rays += len(o)
         out = trainer.render_rays(
-            o, d, chunk=args.chunk,
-            num_samples=64 if args.fast else None,
-            num_fine_samples=0 if args.fast else None,
+            o, d, chunk=chunk,
+            num_samples=64 if fast else None,
+            num_fine_samples=0 if fast else None,
         )
         h, w = dataset.height, dataset.width
         rgb = np.clip(out["rgb"].reshape(h, w, 3), 0, 1)
-        write_png(out_dir / f"{args.split}_{i:04d}.png", (rgb * 255).astype(np.uint8))
+        write_png(out_dir / f"{split}_{i:04d}.png", (rgb * 255).astype(np.uint8))
         depth = out["depth"].reshape(h, w)
         finite = depth[np.isfinite(depth)]
         dmax = finite.max() if len(finite) else 1.0
         depth_img = np.clip(depth / max(dmax, 1e-6), 0, 1)
-        write_png(out_dir / f"{args.split}_{i:04d}_depth.png",
+        write_png(out_dir / f"{split}_{i:04d}_depth.png",
                   (depth_img * 255).astype(np.uint8))
-        m = compute_image_metrics(torch.from_numpy(rgb).to(device),
-                                  torch.from_numpy(dataset.images[i]).to(device))
+        m = compute_image_metrics(torch.from_numpy(rgb).to(trainer.device),
+                                  torch.from_numpy(dataset.images[i]).to(trainer.device))
         metrics_all.append(m)
         print(f"image {i}: psnr={m['psnr']:.2f}", file=sys.stderr)
     dt = time.perf_counter() - t_start
     mean = {k: float(np.mean([m[k] for m in metrics_all])) for k in metrics_all[0]}
     mean["render_rays_per_sec"] = total_rays / dt
-    print(json.dumps(mean))
     with open(out_dir / "metrics.json", "w") as f:
         json.dump(mean, f, indent=2)
     return mean

@@ -14,8 +14,8 @@ rays, which must divide by N; rank 0 logs, evaluates and writes the output
 directory. With ``--num-model-shards M`` the N ranks are N/M data shards by
 M shards of the feature field: the ranks of a data shard share its rows,
 each holds 1/M of the field's columns, and ranks 0 to M-1 evaluate
-together (the live viewer needs one process's whole field and is refused,
-``ROADMAP.md`` A9c).
+together, and render the live viewer's frames together at the step
+boundaries (rank 0 serves the socket).
 
 Counterpart of :mod:`tetranerf_tpu.training.cli`, with the same flags and
 output: dataset loading, the mesh from a tetrahedra file (with the
@@ -251,7 +251,7 @@ def _world() -> int:
     return int(os.environ["WORLD_SIZE"]) if "RANK" in os.environ else 1
 
 
-def _refuse_unported(args, config):
+def _refuse_unported(config):
     """Exit on settings whose code the port does not have yet, and on shard
     counts the run does not have."""
     from ..models.config import check_supported
@@ -262,11 +262,6 @@ def _refuse_unported(args, config):
         check_supported(config.model)
     except (NotImplementedError, ValueError) as exc:
         raise SystemExit(str(exc)) from None
-    if args.viewer_port is not None and (config.num_model_shards or 1) > 1:
-        raise SystemExit(
-            "not ported to tetranerf_torch yet (ROADMAP A9c): --viewer-port with "
-            f"num_model_shards={config.num_model_shards}; a frame needs every model "
-            "shard's columns of the field")
 
 
 def check_device(device: str):
@@ -282,7 +277,7 @@ def check_device(device: str):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     config = _config_from_args(args)
-    _refuse_unported(args, config)
+    _refuse_unported(config)
     device = check_device(args.device)
 
     from ..parallel import destroy, init_distributed
@@ -390,15 +385,20 @@ def _train(args, config, device, group):
             idx = int(eval_rng.integers(eval_ds.num_images))
             log_fn(f"eval-image step {step} (image {idx}): {fmt(eval_image(tr, idx))}")
 
+    # The live viewer: rank 0 serves the socket. With model shards a frame
+    # needs every model rank, so every rank holds a viewer, whose queued
+    # frames fit serves at its step boundaries.
     viewer = None
-    if args.viewer_port is not None and main_rank:
+    if args.viewer_port is not None and (main_rank or trainer.model.field_group is not None):
         from ..viewer import ViewerServer
 
-        viewer = ViewerServer(trainer, port=args.viewer_port).start()
-        log_fn(f"live viewer at http://localhost:{viewer.port}")
+        viewer = ViewerServer(trainer, port=args.viewer_port)
+        if main_rank:
+            viewer.start()
+            log_fn(f"live viewer at http://localhost:{viewer.port}")
     try:
         trainer.fit(next_batch, log_every=args.log_every, log_fn=log_fn,
-                    eval_fn=eval_fn, eval_every=every_batch)
+                    eval_fn=eval_fn, eval_every=every_batch, viewer=viewer)
     finally:
         if viewer is not None:
             viewer.stop()

@@ -754,7 +754,8 @@ class Trainer:
     def fit(self, next_batch: Callable[[int], Dict[str, np.ndarray]],
             num_iterations: Optional[int] = None, log_every: int = 100, log_fn=print,
             eval_fn: Optional[Callable[[int, "Trainer"], None]] = None,
-            eval_every: Optional[int] = None, prefetch: int = 2) -> "Trainer":
+            eval_every: Optional[int] = None, prefetch: int = 2,
+            viewer=None) -> "Trainer":
         """The training loop (JAX ``Trainer.fit``). ``next_batch(i)`` gives
         step ``i``'s batch; ``eval_fn(step, trainer)`` runs every
         ``eval_every`` steps (default ``steps_per_eval_batch``); a log line
@@ -774,12 +775,19 @@ class Trainer:
         and the ranks of :attr:`evaluates` run ``eval_fn`` while the others
         wait at a barrier (with model shards ``eval_fn`` runs on every rank
         of data index 0, whose forwards gather over their model group: let
-        it write only on :attr:`is_main`)."""
+        it write only on :attr:`is_main`).
+
+        ``viewer``, a :class:`~..viewer.ViewerServer` of this trainer, has its
+        queue opened when the loop starts and its queued frames served at
+        every step boundary, the last one closing it
+        (:meth:`~..viewer.ViewerServer.serve_queued`): with model shards
+        every rank passes its own. A viewer without model shards renders on
+        its HTTP threads and needs no turn here."""
         num_iterations = num_iterations or self.config.max_num_iterations
         eval_every = eval_every or self.config.steps_per_eval_batch
         if not prefetch or num_iterations <= 1:
             self._fit_loop(next_batch, num_iterations, log_every, log_fn, eval_fn,
-                           eval_every)
+                           eval_every, viewer)
             return self
 
         q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -812,7 +820,7 @@ class Trainer:
         producer.start()
         try:
             self._fit_loop(get_batch, num_iterations, log_every, log_fn, eval_fn,
-                           eval_every)
+                           eval_every, viewer)
         finally:
             stop.set()
             while not q.empty():  # unblock a producer waiting on put
@@ -824,11 +832,13 @@ class Trainer:
         return self
 
     def _fit_loop(self, next_batch, num_iterations, log_every, log_fn, eval_fn,
-                  eval_every) -> None:
+                  eval_every, viewer=None) -> None:
         t0 = t_start = time.perf_counter()
         rays_per_batch = None
         steps_at_t0 = 0
         group = self.group
+        if viewer is not None:
+            viewer.open_queue()
         for i in range(num_iterations):
             batch = next_batch(i)
             if rays_per_batch is None:
@@ -848,6 +858,8 @@ class Trainer:
                     eval_fn(i + 1, self)
                 if group is not None:
                     group.barrier()
+            if viewer is not None:
+                viewer.serve_queued(last=i + 1 == num_iterations)
             if log_every and (i + 1) % log_every == 0 and self.is_main:
                 # The only host syncs besides step 1's.
                 metrics = {k: float(v) for k, v in metrics.items()}

@@ -9,6 +9,8 @@ way with and without Pillow.
   :func:`write_png` writes them to a path.
 - :func:`read_image`: PNG through :func:`read_png`, anything else (JPEG)
   through Pillow when it can be imported.
+- :func:`image_size`: a PNG's or JPEG's width and height from its header
+  (the preprocessing scripts' size read, without Pillow).
 
 Unfiltering: the none, sub and up filters are whole-row numpy operations
 (sub is a running sum modulo 256). Average and Paeth read the reconstructed
@@ -200,6 +202,47 @@ def write_png(path, image: np.ndarray, filter_type: int = 1) -> None:
         raise ValueError(f"{path}: {exc}") from None
     with open(path, "wb") as f:
         f.write(data)
+
+
+# JPEG start-of-frame markers (baseline, progressive, lossless, arithmetic):
+# every 0xC0-0xCF but DHT (C4), JPG (C8) and DAC (CC).
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def image_size(path) -> tuple:
+    """``(width, height)`` of a PNG (its IHDR chunk) or JPEG (its
+    start-of-frame marker) file, read from the header alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+        if head[:8] == _SIGNATURE:
+            if head[12:16] != b"IHDR":
+                raise ValueError(f"{path}: PNG without an IHDR chunk first")
+            return struct.unpack(">II", head[16:24])
+        if head[:2] != b"\xff\xd8":
+            raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+        f.seek(2)
+        while True:
+            byte = f.read(1)
+            if not byte:
+                break
+            if byte != b"\xff":
+                continue
+            marker = f.read(1)
+            while marker == b"\xff":  # fill bytes
+                marker = f.read(1)
+            if not marker:
+                break
+            code = marker[0]
+            if code in (0x01, 0xD8) or 0xD0 <= code <= 0xD7:  # no length field
+                continue
+            if code == 0xD9:  # end of image
+                break
+            length = struct.unpack(">H", f.read(2))[0]
+            if code in _JPEG_SOF:
+                height, width = struct.unpack(">xHH", f.read(5))
+                return width, height
+            f.seek(length - 2, 1)
+    raise ValueError(f"{path}: JPEG without a start-of-frame marker")
 
 
 def read_image(path) -> np.ndarray:

@@ -27,18 +27,64 @@ or during training (``tetranerf-torch-train --viewer-port 7007``)::
 Frames and train steps take turns on the trainer's lock, so a frame never
 reads the parameters while the optimizer writes them. A render error is
 answered with HTTP 500 and its message.
+
+A trainer whose field is split over model shards (``num_model_shards`` > 1)
+needs every rank of its model group for a frame, and a collective issued
+from an HTTP thread beside the training thread could deadlock the group. So
+its frames take turns with the steps on the ranks instead:
+
+- every rank builds a ``ViewerServer`` of its trainer (the ranks' march
+  versions are checked equal once, over the world), and rank 0 alone opens
+  the socket (:meth:`ViewerServer.start`). Its HTTP threads queue each
+  request and wait for the reply; they never touch the trainer;
+- ``Trainer.fit(..., viewer=...)`` calls :meth:`ViewerServer.serve_queued`
+  at every step boundary on every rank. The ranks of data index 0 take one
+  broadcast over their model group (rank 0's count of queued requests,
+  then each one's pose, side, quality and rows), render each frame together
+  with the same ``_render`` and march caches (geometry only, keyed by
+  ``march_version``, so they agree), and rank 0 encodes the PNG and
+  answers. The other data ranks go on to the next step's ``all_reduce``;
+- when ``fit`` ends the queue is served once more and closed until the
+  next ``fit`` starts: a request that comes in between, or that
+  :meth:`ViewerServer.stop` finds waiting, is refused with HTTP 503.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .utils.png import encode_png
+
+
+class FrameRefused(RuntimeError):
+    """A queued frame of a model-sharded trainer that no step boundary will
+    serve: ``fit`` has ended or the server stopped (HTTP 503)."""
+
+
+@dataclass
+class _Request:
+    """A frame queued on rank 0 by an HTTP thread, and its reply."""
+
+    position: tuple
+    side: int
+    quality: str
+    mode: str
+    rows: tuple
+    done: threading.Event = field(default_factory=threading.Event)
+    png: Optional[bytes] = None
+    error: Optional[BaseException] = None
+
+    def pack(self) -> list:
+        """The 7 numbers every model rank needs to render the frame."""
+        return [*map(float, self.position), float(self.side),
+                float(self.quality == "full"), *map(float, self.rows)]
 
 # The page and the numpy camera helpers are copies of the JAX package's.
 _PAGE = """<!DOCTYPE html>
@@ -187,16 +233,14 @@ class ViewerServer:
     ``fast`` frames render ``fast_samples`` coarse samples and no fine
     round; ``full`` frames re-shade a cached depth-sorted march of the
     pose's rays, marched again whenever the trainer's ``march_version``
-    moves. Rays go through the model in chunks of ``chunk``."""
+    moves. Rays go through the model in chunks of ``chunk``.
+
+    With model shards every rank builds one (a collective), rank 0 starts
+    it, and each rank passes its own to ``Trainer.fit(viewer=...)``, whose
+    step boundaries serve the queued frames (the module's docstring)."""
 
     def __init__(self, trainer, port: int = 7007, camera_angle_x: float = 0.8,
                  fast_samples: int = 32, chunk: int = 16384, host: str = "0.0.0.0"):
-        if trainer.model.field_group is not None:
-            # A frame needs every model shard's columns of the field; one
-            # rank alone would wait on the others' gathers.
-            raise NotImplementedError(
-                "not ported to tetranerf_torch yet (ROADMAP A9c): the viewer of a "
-                "trainer whose field is split over model shards")
         self.trainer = trainer
         self.port = port
         self.host = host
@@ -210,6 +254,20 @@ class ViewerServer:
         self._max_caches = 8
         self._lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
+        # Model shards: the frames queued on rank 0 for the next step
+        # boundary, and whether the queue is closed (fit has ended).
+        self._queue: list = []
+        self._queue_lock = threading.Lock()
+        self._closed = False
+        if self.sharded:
+            trainer.group.check_same("the march version", torch.tensor(
+                [trainer.march_version], device=trainer.group.device))
+
+    @property
+    def sharded(self) -> bool:
+        """The trainer's field is split over model shards: frames are served
+        at the step boundaries of ``fit`` (:meth:`serve_queued`)."""
+        return self.trainer.model.field_group is not None
 
     # ------------------------------------------------------------- render
     def render_frame(self, position, side: int, quality: str, mode: str = "rgb",
@@ -218,16 +276,89 @@ class ViewerServer:
         at the origin: ``mode`` ``"rgb"``, ``"depth"`` (normalised, gray) or
         ``"accumulation"`` (gray); ``rows=(y0, y1)`` renders only that band
         of rows, with its own cached march."""
-        c2w = _look_at(position)
-        o, d = _camera_rays(c2w, side, self.camera_angle_x)
         y0, y1 = (0, side) if rows is None else (int(rows[0]), int(rows[1]))
         if not 0 <= y0 < y1 <= side:
             raise ValueError(f"bad rows {rows} for side {side}")
+        if self.sharded:
+            position = tuple(float(x) for x in position)
+            _look_at(position)  # a bad pose fails here, not on the ranks
+            return self._queued_frame(_Request(position, side, quality, mode, (y0, y1)))
+        out = self._frame_outputs(position, side, quality, (y0, y1))
+        return encode_png(_colorize(out, (y1 - y0, side), mode))
+
+    def _frame_outputs(self, position, side: int, quality: str, rows: tuple):
+        """The render outputs of rows ``[y0, y1)`` of a frame."""
+        c2w = _look_at(position)
+        o, d = _camera_rays(c2w, side, self.camera_angle_x)
+        y0, y1 = rows
         o = o.reshape(side, side, 3)[y0:y1].reshape(-1, 3)
         d = d.reshape(side, side, 3)[y0:y1].reshape(-1, 3)
         with self._lock:
-            out = self._render(o, d, c2w, side, quality, y0, y1)
-        return encode_png(_colorize(out, (y1 - y0, side), mode))
+            return self._render(o, d, c2w, side, quality, y0, y1)
+
+    # ------------------------------------------------- model-shard frames
+    def _queued_frame(self, req: _Request) -> bytes:
+        """Queue ``req`` for the next step boundary and wait for its PNG."""
+        with self._queue_lock:
+            if self._closed:
+                raise FrameRefused("training has ended: no step will serve this frame")
+            self._queue.append(req)
+        req.done.wait()
+        if req.error is not None:
+            raise req.error
+        return req.png
+
+    def serve_queued(self, last: bool = False) -> int:
+        """Serve the frames queued on rank 0, on every rank of data index 0
+        together (a no-op on the other ranks and without model shards);
+        every rank of the world calls it at the same step boundary. With
+        ``last`` the queue closes with these frames: a later request is
+        refused until :meth:`open_queue`. Returns the frame count."""
+        trainer = self.trainer
+        if not self.sharded or not trainer.evaluates:
+            return 0
+        group = trainer.group
+        with self._queue_lock:
+            pending, self._queue = self._queue, []
+            self._closed = self._closed or last
+        count = torch.tensor([len(pending)], dtype=torch.int64, device=group.device)
+        group.broadcast_model(count)
+        count = int(count)
+        if count == 0:
+            return 0
+        params = torch.zeros((count, 7), dtype=torch.float64, device=group.device)
+        if pending:
+            params.copy_(torch.tensor([r.pack() for r in pending], dtype=torch.float64))
+        group.broadcast_model(params)
+        for i, row in enumerate(params.cpu().tolist()):
+            req = pending[i] if pending else None
+            try:
+                out = self._frame_outputs(tuple(row[:3]), int(row[3]),
+                                          "full" if row[4] else "fast",
+                                          (int(row[5]), int(row[6])))
+                if req is not None:
+                    req.png = encode_png(_colorize(out, (req.rows[1] - req.rows[0],
+                                                         req.side), req.mode))
+            except Exception as exc:  # a frame error: rank 0 answers HTTP 500
+                if req is not None:
+                    req.error = exc
+            if req is not None:
+                req.done.set()
+        return count
+
+    def open_queue(self) -> None:
+        """Accept requests again after a :meth:`serve_queued` that closed
+        the queue (``Trainer.fit`` calls it when it starts)."""
+        with self._queue_lock:
+            self._closed = False
+
+    def _refuse_queued(self) -> None:
+        with self._queue_lock:
+            pending, self._queue = self._queue, []
+            self._closed = True
+        for req in pending:
+            req.error = FrameRefused("the viewer stopped before a step served this frame")
+            req.done.set()
 
     def _render(self, o, d, c2w, side: int, quality: str, y0: int, y1: int):
         trainer = self.trainer
@@ -277,6 +408,9 @@ class ViewerServer:
                         str(req.get("quality", "fast")), str(req.get("mode", "rgb")),
                         req.get("rows"),
                     )
+                except FrameRefused as exc:
+                    self.send_error(503, str(exc))
+                    return
                 except Exception as exc:  # the page shows render errors
                     self.send_error(500, str(exc))
                     return
@@ -300,6 +434,8 @@ class ViewerServer:
         return self
 
     def stop(self) -> None:
+        """Close the socket; frames still queued are refused (HTTP 503)."""
+        self._refuse_queued()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
