@@ -192,7 +192,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     (float outputs, both ranks) and 1 level of 255 (PNGs) of a no-group
     trainer's frames after the same step; a frame queued during step 1's
     eval answered, one after ``fit`` refused (503); ms/step of 8 steps
-    with the viewer attached and without, each frame's latency.
+    with the viewer attached and without, each frame's latency;
+24. the fused MLPs' generic route (``ops/mlp.py`` ``launch_plan``: float32,
+    and bf16 at widths the wgmma instances lack): K4, K4b, K5 and K5b of
+    the preset's stack in float32 and of a field 32, hidden 64 stack in
+    bf16 against their twins (float32: 1e-4 of each output's largest
+    entry, the f32 twin's forward within 1e-5 of the float64 twin; bf16:
+    phase 8's tolerances) at the
+    train slice's shapes and a 512 x 33 bucket, each timed beside its
+    bound (f32 at 67, bf16 at 989 TFLOP/s), its twin and the un-fused stack
+    at its dtype; 24 steps of ``tetranerf_preset(fused_mlps=True,
+    compute_dtype="float32")`` (losses finite and falling, a 256-ray step
+    against the CPU twins) and 16 of the bf16 stack (paths
+    ``generic_f32_train``, ``generic_bf16_train``), every fused launch on
+    the generic route.
+
+Phase 1 also builds the native host geometry library (``g++``) and times
+its adjacency and spacing against the numpy sort and the KD-tree on the
+100K sphere (tables equal, spacing within 1e-6).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA GPU and nvcc.
@@ -1037,21 +1054,21 @@ def _rel_check(name, pairs):
     return err
 
 
-def _mlp_bounds(x, head_dir, weights):
+def _mlp_bounds(x, head_dir, weights, flops=BF16_TENSOR_FLOPS):
     """Bounds of K4 and K4b (``head_dir`` given) or K5 and K5b on these
     inputs: the bytes each must move (x, head_dir, the weights and the
     outputs once; the backward reads the cotangents and writes dx,
-    dhead_dir and the weight gradients) against the bf16 products (one
-    pass forward, three backward)."""
+    dhead_dir and the weight gradients) against the products (one pass
+    forward, three backward) at ``flops``: bf16 on the tensor cores, or
+    f32 for the generic route's float32."""
     rows = x.shape[0] * x.shape[1]
     macs = sum(w.numel() for w in weights if w.dim() == 2)  # per row
     param_bytes = sum(w.numel() for w in weights) * 4
     hd = 0 if head_dir is None else head_dir.numel() * 4
     out = rows * (16 if head_dir is not None else 4)
-    return (_bound(x.numel() * 4 + hd + param_bytes + out, 2 * macs * rows,
-                   BF16_TENSOR_FLOPS),
+    return (_bound(x.numel() * 4 + hd + param_bytes + out, 2 * macs * rows, flops),
             _bound(2 * x.numel() * 4 + 2 * hd + 2 * param_bytes + out,
-                   6 * macs * rows, BF16_TENSOR_FLOPS))
+                   6 * macs * rows, flops))
 
 
 def mlp_checks(model, dev):
@@ -3914,6 +3931,280 @@ def viewer_shard_phase(points, colors, cells, mesh_plain, dev, tmp):
     return launches
 
 
+# Phase 24: the fused MLPs' generic route (float32, and bf16 at widths the
+# wgmma instances lack). Kernel vs twin at the train slice's shapes and one
+# bucket shape; the float32 preset trained with fused MLPs; a bf16 run at
+# field 32, hidden 64.
+GENERIC_STEPS = 24
+GENERIC_BF16_STEPS = 16
+GENERIC_BF16_WIDTHS = {"field_dim": 32, "hidden_size": 64}
+# One bucket shape of the flagship's cold step: 512 rays x 33 fine / 16
+# coarse samples.
+GENERIC_BUCKET = (512, 16, 16)
+# float32 kernel vs twin (TF32 off): each output and gradient within 1e-4
+# of its largest entry. The twin's forward outputs within 1e-5 in relative
+# norm of the exact function (the twin on float64 tensors), which a TF32
+# product (a 10-bit mantissa, ~5e-4 relative a product) would miss by an
+# order. Not its gradients: where a pre-activation lies within f32
+# rounding of 0 the ReLU masks of f32 and f64 differ, and that moves a
+# row's cotangent by a whole term (dx: ~9e-4 in relative norm at the train
+# shape, for kernel and twin alike, while the two agree to ~3e-7).
+F32_MAX_RTOL = 1e-4
+F32_EXACT_RTOL = 1e-5
+_GENERIC_NAMES = ("fused_field_mlps", "fused_field_mlps_backward", "fused_density_mlp",
+                  "fused_density_mlp_backward")
+
+
+def _f32_check(name, triples, forward):
+    """Max abs error over ``(kernel, twin, exact)`` triples: the kernel to
+    F32_MAX_RTOL of the f32 twin and, for a ``forward``, the f32 twin to
+    F32_EXACT_RTOL of the float64 twin in relative norm."""
+    err = 0.0
+    for i, (k, t, x) in enumerate(triples):
+        e = _max_err(k, t)
+        scale = float(t.abs().max())
+        x = x.double()
+        k_exact = float((k.double() - x).norm() / x.norm().clamp_min(1e-30))
+        t_exact = float((t.double() - x).norm() / x.norm().clamp_min(1e-30))
+        print(f"  {name} output {i} {tuple(t.shape)}: max abs err {e:.3g} of largest "
+              f"{scale:.3g} ({e / max(scale, 1e-30):.3g}); relative norm to the f64 twin: "
+              f"kernel {k_exact:.3g}, f32 twin {t_exact:.3g}")
+        _check(e <= F32_MAX_RTOL * max(scale, 1e-30),
+               f"{name}: output {i}: max abs err {e} against largest entry {scale}")
+        _check(not forward or t_exact <= F32_EXACT_RTOL,
+               f"{name}: output {i}: the f32 twin is {t_exact} from the f64 twin (TF32?)")
+        err = max(err, e)
+    return err
+
+
+def _generic_kernel_checks(model, dev):
+    """K4, K4b, K5 and K5b of ``model``'s stack (which the plan routes to
+    the generic kernels) against their twins at the train slice's shapes
+    (4096 rays x 257 / 128 samples) and at GENERIC_BUCKET; at the train
+    shape each kernel's CUDA-event ms beside its bound, the twin's and the
+    un-fused stack's at the same dtype. Returns the entries ``{wrapper:
+    dict}``."""
+    import torch
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.ops import mlp
+
+    cfg = model.config
+    dt = model.compute_dtype
+    f32 = dt == torch.float32
+    flops = F32_FLOPS if f32 else BF16_TENSOR_FLOPS
+    n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
+    for backward in (False, True):
+        for heads in (n_head, 0):
+            plan = mlp.launch_plan(cfg.field_dim, cfg.hidden_size, n_base, heads, backward, dt)
+            _check(plan.route == "generic", f"generic: {plan} for {cfg.field_dim} x "
+                                            f"{cfg.hidden_size} at {dt}")
+    plain = TetraNerf(dataclasses.replace(cfg, fused_mlps=False),
+                      model.tetrahedra_field.shape[0], device=dev)
+    plain.load_state_dict(model.state_dict())
+    params = [p for n, p in plain.named_parameters() if n != "tetrahedra_field"]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    with torch.no_grad():
+        weights = [w.detach() for w in model.fused_field_inputs(
+            torch.zeros(1, 3, device=dev))[1]]
+        w_dens = [w.detach() for w in model.density_weights()]
+    label = f"{cfg.field_dim} x {cfg.hidden_size} {str(dt).split('.')[-1]}"
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check(name, kernel, twin, exact):
+        if f32:
+            return _f32_check(name, list(zip(kernel, twin, exact)), "backward" not in name)
+        return _rel_check(name, list(zip(kernel, twin)))
+
+    def exact_of(fn, *args):
+        """The twin on float64 tensors."""
+        cast = [a.double() if torch.is_tensor(a) else
+                [w.double() for w in a] if isinstance(a, list) else a for a in args]
+        return fn(*cast)
+
+    def flat(res):
+        if torch.is_tensor(res):
+            return [res]
+        return [t for r in res for t in (r if isinstance(r, list) else [r])]
+
+    shapes = [(TRAIN_RAYS, cfg.num_samples, cfg.num_fine_samples), GENERIC_BUCKET]
+    for rays, n_coarse, n_fine in shapes:
+        train_shape = rays == TRAIN_RAYS
+        num_fine = n_coarse + n_fine + 1
+        x = randn(rays, num_fine, cfg.field_dim)
+        d = torch.nn.functional.normalize(randn(rays, 3), dim=1)
+        g_rgb, g_dens = randn(rays, num_fine, 3), randn(rays, num_fine, 1)
+        x_c, g_c = randn(rays, n_coarse, cfg.field_dim), randn(rays, n_coarse, 1)
+        with torch.no_grad():
+            head_dir = model.fused_field_inputs(d)[0].detach()
+        at = f"{label} at {rays} rays x {num_fine} / {n_coarse} samples"
+        fwd = (x, head_dir, weights, n_base, n_head, dt)
+        bwd = (x, head_dir, weights, g_rgb, g_dens, n_base, n_head, dt)
+        fwd_c = (x_c, w_dens, n_base, dt)
+        bwd_c = (x_c, w_dens, g_c, n_base, dt)
+        cases = (
+            ("fused_field_mlps", "tetranerf_tpu/ops/pallas_mlp.py:244", mlp.fused_field_mlps,
+             mlp.fused_field_mlps_twin, fwd, (x, head_dir, weights)),
+            ("fused_field_mlps_backward", "tetranerf_tpu/ops/pallas_mlp.py:290",
+             mlp.fused_field_mlps_backward, mlp.fused_field_mlps_backward_twin, bwd,
+             (x, head_dir, weights)),
+            ("fused_density_mlp", "tetranerf_tpu/ops/pallas_mlp.py:415",
+             mlp.fused_density_mlp, mlp.fused_density_mlp_twin, fwd_c,
+             (x_c, None, w_dens)),
+            ("fused_density_mlp_backward", "tetranerf_tpu/ops/pallas_mlp.py:448",
+             mlp.fused_density_mlp_backward, mlp.fused_density_mlp_backward_twin, bwd_c,
+             (x_c, None, w_dens)),
+        )
+        for name, replaces, fn, twin_fn, args, bound_args in cases:
+            err = check(f"{name}_generic {at}", flat(fn(*args)), flat(twin_fn(*args)),
+                        flat(exact_of(twin_fn, *args)) if f32 else None)
+            torch.cuda.empty_cache()
+            if not train_shape:
+                continue
+            bound = _mlp_bounds(*bound_args, flops=flops)["backward" in name]
+            if name == "fused_field_mlps":
+                with torch.no_grad():
+                    library = _time_ms(lambda: plain.field_mlps(x, d), 5)
+            elif name == "fused_density_mlp":
+                with torch.no_grad():
+                    library = _time_ms(lambda: plain.density_at(x_c), 5)
+            else:
+                xin, fn_plain, gr = ((x, lambda xg: plain.field_mlps(xg, d),
+                                      (g_rgb, g_dens[..., 0]))
+                                     if name == "fused_field_mlps_backward"
+                                     else (x_c, plain.density_at, g_c[..., 0]))
+                xg = xin.clone().requires_grad_()
+                outs = fn_plain(xg)
+                library = _time_ms(lambda: torch.autograd.grad(
+                    outs, [xg, *params], gr, retain_graph=True, allow_unused=True), 5)
+                del outs, xg
+            ms = _time_ms(lambda: fn(*args), 5)
+            twin_ms = _time_ms(lambda: twin_fn(*args), 3)
+            print(f"{name}_generic {at}: max abs err {err:.3g}; {ms:.3f} ms, twin "
+                  f"{twin_ms:.3f} ms, un-fused stack {library:.3f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {bound['bound_peak']})")
+            # No one PyTorch call computes the stack: library_ms stays null and
+            # the un-fused stack's time goes beside it, as in phase 8.
+            out[name] = _entry(f"{name}_generic", "tetranerf_torch/csrc/mlp.cu", replaces,
+                               err, ms, twin_ms, bound, unfused_ms=library,
+                               compute_dtype=str(dt).split(".")[-1],
+                               widths=[cfg.field_dim, cfg.hidden_size])
+            torch.cuda.empty_cache()
+        print(f"generic fused MLP kernels {at}: within tolerance of their twins")
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _generic_train(cfg, colors, mesh_plain, dev, steps, label, ref):
+    """``steps`` train steps of ``cfg`` (fused MLPs on the generic route)
+    on phase 7's batches: losses finite, launches by route; with ``ref``
+    also the last 4 losses below the first 4 and one 256-ray step against
+    the CPU twins. Returns the run's launch counts and median ms a step."""
+    import torch
+    from tetranerf_torch.models import TetraNerf
+    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.training.trainer import TrainConfig, Trainer
+
+    model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    trainer = Trainer(TrainConfig(), model, mesh_plain, device=dev)
+    rng = np.random.default_rng(1)  # phase 7's five batches
+    batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    losses, step_ms = [], []
+    for step in range(steps):
+        t = time.perf_counter()
+        losses.append(float(trainer.train_step(batches[step % TRAIN_BATCHES])["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(cuda.launch_counts)
+    med = float(np.median(step_ms[1:]))
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    routes = {n: launches[n] for n in launches if "mlp" in n and launches[n]}
+    print(f"{label}: {steps} steps of {TRAIN_RAYS} rays, median step {med:.2f} ms "
+          f"(steps 1-{steps - 1}); loss first 4 mean {first:.5f}, last 4 mean "
+          f"{last:.5f}; losses {[round(v, 5) for v in losses]}; fused MLP launches by "
+          f"route {routes}")
+    _check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    for name in _GENERIC_NAMES[:3]:
+        _check(launches[f"{name}_generic"] > 0, f"{label}: {name}_generic did not launch")
+        _check(launches[name] == 0, f"{label}: {name} (wgmma) launched {launches[name]}")
+    if ref:
+        _check(last < first, f"{label}: loss did not fall ({first} -> {last})")
+        _ref_step(label, model, trainer, _train_batch(rng, REF_RAYS), dev)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def generic_phase(colors, mesh_plain, dev):
+    """Phase 24: the fused MLPs' generic route. Returns the kernels' entries
+    (float32 at the preset's widths, with the bf16 run at field 32, hidden
+    64 beside each) and the launch counts of the two train runs."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+
+    t_phase = time.perf_counter()
+    cfg32 = tetranerf_preset(fused_mlps=True, compute_dtype="float32")
+    cfg16 = tetranerf_preset(fused_mlps=True, **GENERIC_BF16_WIDTHS)
+    entries = {}
+    for cfg in (cfg32, cfg16):
+        model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                          generator=torch.Generator().manual_seed(0), device=dev)
+        entries[cfg.compute_dtype] = _generic_kernel_checks(model, dev)
+        del model
+        torch.cuda.empty_cache()
+    launches32, med32 = _generic_train(cfg32, colors, mesh_plain, dev, GENERIC_STEPS,
+                                       "generic float32 train", True)
+    launches16, med16 = _generic_train(cfg16, colors, mesh_plain, dev, GENERIC_BF16_STEPS,
+                                       "generic bf16 train (field 32, hidden 64)", False)
+    out = []
+    for name in _GENERIC_NAMES:
+        e = entries["float32"][name]
+        other = entries["bfloat16"][name]
+        e["bf16_other_widths"] = {k: other[k] for k in (
+            "widths", "max_abs_err", "ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by")}
+        e["train_median_step_ms"] = {"float32": med32, "bf16_other_widths": med16}
+        out.append(e)
+    print(f"generic: phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return out, launches32, launches16
+
+
+def native_geometry_check(points, cells, smi):
+    """Phase 1's host geometry: the native library's adjacency and spacing
+    against the numpy face-key sort and the KD-tree on this run's scene,
+    each timed on the host clock."""
+    from tetranerf_torch.geometry import delaunay, mesh, native
+
+    _check(native.available(), "native: no C++ compiler on PATH")
+    t = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t
+    times = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        times[label] = time.perf_counter() - t
+        return out
+
+    nb_native = timed("adjacency native", native.build_adjacency, cells)
+    nb_numpy = timed("adjacency numpy", mesh.build_adjacency_numpy, cells)
+    sp_native = timed("spacing native", native.average_spacing, points, 6)
+    sp_tree = timed("spacing KD-tree", delaunay.average_spacing_kdtree, points, 6)
+    _check(np.array_equal(nb_native, nb_numpy), "native: adjacency differs from numpy's")
+    rel = abs(sp_native - sp_tree) / sp_tree
+    _check(rel <= 1e-6, f"native: spacing {sp_native} vs KD-tree {sp_tree} (rel {rel})")
+    print(f"native geometry on {len(points)} points, {len(cells)} cells (host of {smi}): "
+          f"library built and loaded in {build_s:.2f} s; " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in times.items()) +
+          f"; tables equal, spacing {sp_native:.9g} vs {sp_tree:.9g} (rel {rel:.3g})")
+    return times
+
+
 def _mlp_build_report(log):
     """``mlp.cu``'s kernels as ``-Xptxas -v`` reports them (registers,
     spills, stack), with the dynamic shared memory of the preset's launch
@@ -3925,8 +4216,13 @@ def _mlp_build_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(mlp_fwd_kernel|mlp_aux_kernel|"
                       r"mlp_bwd_kernel|sum_rows_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+        g = re.search(r"Compiling entry function '\S*?gen\d+(fwd_kernel|bwd_kernel)ILb([01])E",
+                      line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
+            spill = ""
+        elif g:
+            name = f"gen::{g.group(1)}<{'bf16' if g.group(2) == '1' else 'f32'}>"
             spill = ""
         elif "Compiling entry function" in line:
             name = None
@@ -3942,6 +4238,10 @@ def _mlp_build_report(log):
               f"warpgroups, {fwd.smem_bytes} bytes of shared memory; backward "
               f"{bwd.warpgroups} warpgroups, x prefetch {bool(bwd.stages)}, "
               f"{bwd.smem_bytes} bytes, workspace row {bwd.ws_floats} floats")
+    fwd, bwd = (launch_plan(64, 128, 3, 1, b, "float32") for b in (False, True))
+    print(f"mlp.cu launch plan, preset widths, float32 (generic route): {fwd.rows_per_tile} "
+          f"rows a block, forward {fwd.smem_bytes} bytes of shared memory, backward "
+          f"{bwd.smem_bytes} bytes and {bwd.aux_tile_floats} floats of scratch a block")
 
 
 def main(argv=None) -> int:
@@ -3998,6 +4298,7 @@ def main(argv=None) -> int:
     print(f"scene: {NUM_POINTS} points, {mesh.num_cells} cells, "
           f"{len(mesh.hull_eqs)} hull facets, built in "
           f"{time.perf_counter() - t:.1f} s")
+    native_geometry_check(points, cells, smi)
 
     chase_ns = dependent_load_ns(chase_lib, mesh.march_table)
     print(f"dependent loads over the {mesh.march_table.numel() * 4 / 1e6:.1f} MB march "
@@ -4128,6 +4429,11 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(cli_dir, ignore_errors=True)
 
+    # The fused MLPs' generic route: float32, and bf16 at other widths.
+    generic_entries, paths["generic_f32_train"], paths["generic_bf16_train"] = \
+        generic_phase(colors, mesh_plain, dev)
+    torch.cuda.empty_cache()
+
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
     render_of = {"flagship_train": "flagship_render", "train_fused": "render_fused",
                  "skip_train": "flagship_render"}
@@ -4158,6 +4464,12 @@ def main(argv=None) -> int:
         k["launches_path"] = "stream_lp_train"
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
     kernels += lever_entries
+    for k in generic_entries:
+        # The float32 preset's fused run (phase 24) is their main path.
+        k["launches"] = paths["generic_f32_train"][k["name"]]
+        k["launches_path"] = "generic_f32_train"
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+    kernels += generic_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@ against the twins.
 
 JAX is imported inside tests only, so the CUDA cases also run where JAX is
 absent: ``python -m pytest --noconftest -m cuda tests/test_torch_mlp.py``.
+The card's cases cover both routes of :func:`launch_plan`: ``wgmma`` (bf16
+at widths (16, 32) and (64, 128)) and ``generic`` (float32, other widths).
 """
 
 import dataclasses
@@ -49,6 +51,10 @@ VARIANTS = {
     "deep-head": (16, 32, 3, 2, 8, 16),
     "shallow-base": (16, 32, 1, 1, 8, 16),
     "odd-shape": (16, 32, 3, 1, 7, 5),
+    # Widths JAX's kernels take and the wgmma route does not: the card runs
+    # them on the generic route.
+    "wide-odd": (24, 40, 3, 1, 5, 7),
+    "narrow-deep-head": (8, 24, 2, 2, 4, 9),
 }
 
 
@@ -147,11 +153,21 @@ def test_field_mlps_twin_matches_jax_kernel(variant, compute_dtype):
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_density_mlp_twin_matches_jax_kernel(compute_dtype):
+    _density_twin_vs_jax("default", compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["wide-odd", "narrow-deep-head"])
+def test_density_mlp_twin_matches_jax_kernel_at_other_widths(variant, compute_dtype):
+    _density_twin_vs_jax(variant, compute_dtype)
+
+
+def _density_twin_vs_jax(variant, compute_dtype):
     import jax
     import jax.numpy as jnp
     from tetranerf_tpu.ops.pallas_mlp import fused_density_mlp as jax_dens
 
-    inp = _inputs("default", seed=1)
+    inp = _inputs(variant, seed=1)
     n_base = inp["n_base"]
     weights_np = inp["weights"][: 2 * n_base + 2]
     static = (n_base, compute_dtype, True)
@@ -353,6 +369,9 @@ def test_fused_mlps_with_fourier_input_runs_the_plain_path():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused MLP kernels run only on the card")
+    # The twins' f32 products in full f32 (TF32 keeps ~3 digits).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -363,6 +382,14 @@ def cuda_device():
 # relative Frobenius norm and its max abs error to 0.1 of its largest entry
 # (the tolerances of chip_smoke.py).
 CUDA_NORM_RTOL, CUDA_MAX_RTOL = 1e-2, 0.1
+# In float32 (TF32 off) each output and gradient is held to 1e-4 of its
+# largest entry against the f32 twin, and the f32 twin's forward outputs
+# to 1e-5 in relative norm of the exact function (the twin on float64
+# tensors), which a TF32 product (~5e-4 relative) would miss by an order.
+# Not its gradients: where a pre-activation lies within f32 rounding of 0
+# the ReLU masks of f32 and f64 differ, and that moves a row's cotangent
+# by a whole term.
+F32_MAX_RTOL, F32_EXACT_RTOL = 1e-4, 1e-5
 # (d_in, hidden, n_base, n_head, rays, samples)
 CUDA_CASES = {
     "narrow": (16, 32, 3, 1, 64, 33),
@@ -375,7 +402,22 @@ CUDA_CASES = {
     # 1,591 rows: not a multiple of a 128-row tile pair, and 43 samples a
     # ray, so tiles and warps span ray boundaries.
     "preset-ragged": (64, 128, 3, 1, 37, 43),
+    # The generic route: float32 at the wgmma widths and others, the widest
+    # and the deepest stacks; bfloat16 at widths the wgmma route lacks.
+    "narrow-f32": (16, 32, 3, 1, 64, 33),
+    "preset-f32": (64, 128, 3, 1, 32, 257),
+    "ragged-f32": (16, 32, 3, 1, 7, 5),
+    "odd-f32": (24, 40, 3, 1, 37, 43),
+    "wide-f32": (256, 256, 2, 2, 8, 65),
+    "deep-f32": (8, 24, 4, 4, 16, 40),
+    "odd-bf16": (24, 40, 3, 1, 37, 43),
+    "deep-head-bf16": (8, 24, 2, 2, 16, 40),
+    "field32-hidden64-bf16": (32, 64, 3, 1, 64, 33),
+    "tiny-bf16": (5, 7, 1, 1, 9, 11),
+    "wide-bf16": (256, 256, 1, 1, 8, 65),
 }
+CUDA_DTYPES = {name: torch.float32 if name.endswith("-f32") else torch.bfloat16
+               for name in CUDA_CASES}
 # The preset's widths at two bucket shapes of the flagship's cold step
 # (512 rays x 33 and x 193 fine samples).
 BUCKET_SAMPLES = (33, 193)
@@ -407,42 +449,93 @@ def _close(a, b):
             and float((a - b).abs().max() / scale) <= CUDA_MAX_RTOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CUDA_CASES))
-def test_field_kernels_match_twin(cuda_device, case):
-    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs(case, cuda_device)
-    dt = torch.bfloat16
+def _close_f32(kernel, twin, exact=None):
+    """A float32 kernel's output or gradient against the f32 twin's
+    (``twin``), and a forward output of the f32 twin against its float64
+    run (``exact``)."""
+    k, t = (v.detach().double().cpu() for v in (kernel, twin))
+    if float((k - t).abs().max() / t.abs().max().clamp_min(1e-30)) > F32_MAX_RTOL:
+        return False
+    if exact is None:
+        return True
+    x = exact.detach().double().cpu()
+    return float((t - x).norm() / x.norm().clamp_min(1e-30)) <= F32_EXACT_RTOL
+
+
+def _route_counter(name, x, hidden, n_base, n_head, dt):
+    plan = launch_plan(x.shape[-1], hidden, n_base, n_head, "backward" in name, dt)
+    return name if plan.route == "wgmma" else f"{name}_generic"
+
+
+def _check_field(x, hd, weights, n_base, n_head, dt):
+    """K4 and K4b through their routes against the twins: one launch each
+    on the route the plan names, outputs and every gradient as the dtype's
+    tolerance says."""
+    hidden = weights[0].shape[0]
+    g = torch.Generator(device=x.device).manual_seed(3)
+    g_rgb = torch.randn(x.shape[:2] + (3,), generator=g, device=x.device)
+    g_dens = torch.randn(x.shape[:2] + (1,), generator=g, device=x.device)
+    names = [_route_counter(n, x, hidden, n_base, n_head, dt)
+             for n in ("fused_field_mlps", "fused_field_mlps_backward")]
     before = dict(cuda.launch_counts)
-    rgb, dens = fused_field_mlps(x, hd, weights, n_base, n_head, dt)
+    outs = fused_field_mlps(x, hd, weights, n_base, n_head, dt)
     dx, dhd, grads = fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens,
                                                n_base, n_head, dt)
     torch.cuda.synchronize()
-    assert cuda.launch_counts["fused_field_mlps"] == before["fused_field_mlps"] + 1
-    assert (cuda.launch_counts["fused_field_mlps_backward"]
-            == before["fused_field_mlps_backward"] + 1)
-    rgb_t, dens_t = fused_field_mlps_twin(x, hd, weights, n_base, n_head, dt)
-    assert _close(rgb, rgb_t) and _close(dens, dens_t)
+    assert {n: cuda.launch_counts[n] - before[n] for n in cuda.launch_counts
+            if cuda.launch_counts[n] != before[n]} == {n: 1 for n in names}
+    twin_outs = fused_field_mlps_twin(x, hd, weights, n_base, n_head, dt)
     dx_t, dhd_t, grads_t = fused_field_mlps_backward_twin(
         x, hd, weights, g_rgb, g_dens, n_base, n_head, dt)
-    assert _close(dx, dx_t) and _close(dhd, dhd_t)
-    for i, (a, b) in enumerate(zip(grads, grads_t)):
-        assert a.shape == b.shape and _close(a, b), i
+    if dt == torch.bfloat16:
+        assert all(_close(a, b) for a, b in zip(outs, twin_outs))
+        for i, (a, b) in enumerate(zip([dx, dhd, *grads], [dx_t, dhd_t, *grads_t])):
+            assert a.shape == b.shape and _close(a, b), i
+        return
+    d = [t.double() for t in (x, hd, *weights)]
+    exact_outs = fused_field_mlps_twin(d[0], d[1], d[2:], n_base, n_head, dt)
+    assert all(_close_f32(a, b, c) for a, b, c in zip(outs, twin_outs, exact_outs))
+    for i, (a, b) in enumerate(zip([dx, dhd, *grads], [dx_t, dhd_t, *grads_t])):
+        assert a.shape == b.shape and _close_f32(a, b), i
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["narrow", "preset", "ragged"])
-def test_density_kernels_match_twin(cuda_device, case):
-    n_base, _, x, _, weights, _, g_dens = _cuda_inputs(case, cuda_device, seed=1)
-    wd = weights[: 2 * n_base + 2]
-    dt = torch.bfloat16
+def _check_density(x, wd, n_base, dt):
+    """K5 and K5b through their routes against the twins, as _check_field."""
+    hidden = wd[0].shape[0]
+    g = torch.Generator(device=x.device).manual_seed(4)
+    g_dens = torch.randn(x.shape[:2] + (1,), generator=g, device=x.device)
+    names = [_route_counter(n, x, hidden, n_base, 0, dt)
+             for n in ("fused_density_mlp", "fused_density_mlp_backward")]
+    before = dict(cuda.launch_counts)
     dens = fused_density_mlp(x, wd, n_base, dt)
     dx, grads = fused_density_mlp_backward(x, wd, g_dens, n_base, dt)
     torch.cuda.synchronize()
-    assert _close(dens, fused_density_mlp_twin(x, wd, n_base, dt))
+    assert {n: cuda.launch_counts[n] - before[n] for n in cuda.launch_counts
+            if cuda.launch_counts[n] != before[n]} == {n: 1 for n in names}
+    dens_t = fused_density_mlp_twin(x, wd, n_base, dt)
     dx_t, grads_t = fused_density_mlp_backward_twin(x, wd, g_dens, n_base, dt)
-    assert _close(dx, dx_t)
-    for a, b in zip(grads, grads_t):
-        assert _close(a, b)
+    if dt == torch.bfloat16:
+        assert _close(dens, dens_t) and _close(dx, dx_t)
+        assert all(_close(a, b) for a, b in zip(grads, grads_t))
+        return
+    d = [t.double() for t in (x, *wd)]
+    assert _close_f32(dens, dens_t, fused_density_mlp_twin(d[0], d[1:], n_base, dt))
+    assert all(_close_f32(a, b) for a, b in zip([dx, *grads], [dx_t, *grads_t]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_field_kernels_match_twin(cuda_device, case):
+    n_base, n_head, x, hd, weights, _, _ = _cuda_inputs(case, cuda_device)
+    _check_field(x, hd, weights, n_base, n_head, CUDA_DTYPES[case])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow", "preset", "ragged", "preset-f32", "odd-f32",
+                                  "deep-f32", "odd-bf16", "tiny-bf16", "wide-bf16"])
+def test_density_kernels_match_twin(cuda_device, case):
+    n_base, _, x, _, weights, _, _ = _cuda_inputs(case, cuda_device, seed=1)
+    _check_density(x, weights[: 2 * n_base + 2], n_base, CUDA_DTYPES[case])
 
 
 @pytest.mark.cuda
@@ -465,8 +558,18 @@ def test_autograd_functions_launch_the_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_model_fused_appearance_on_card_matches_cpu(cuda_device):
+    _model_on_card_vs_cpu(cuda_device, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_model_fused_f32_appearance_on_card_matches_cpu(cuda_device):
+    _model_on_card_vs_cpu(cuda_device, "float32")
+
+
+def _model_on_card_vs_cpu(cuda_device, compute_dtype):
     cfg = tetranerf_preset(ray_buckets=1, field_dim=16, hidden_size=32,
-                           appearance_embed_dim=8, fused_mlps=True)
+                           appearance_embed_dim=8, fused_mlps=True,
+                           compute_dtype=compute_dtype)
     model = TetraNerf(cfg, 1, num_train_images=4,
                       generator=torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(7)
@@ -488,13 +591,22 @@ def test_model_fused_appearance_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_lack(cuda_device):
+    """What the wgmma route lacked, float32 and d_in = 8, runs on the
+    generic route within tolerance of the twins; what neither route takes
+    (float16, a width above 256) raises ValueError before any launch."""
     n_base, n_head, x, hd, weights, _, _ = _cuda_inputs("narrow", cuda_device)
-    with pytest.raises(NotImplementedError):
-        fused_field_mlps(x, hd, weights, n_base, n_head, torch.float32)
-    with pytest.raises(ValueError):  # d_in = 8, not a multiple of 16
-        fused_field_mlps(x[..., :8].contiguous(), hd,
-                         [weights[0][:, :8].contiguous()] + weights[1:],
+    _check_field(x, hd, weights, n_base, n_head, torch.float32)
+    _check_field(x[..., :8].contiguous(), hd,
+                 [weights[0][:, :8].contiguous()] + weights[1:], n_base, n_head,
+                 torch.bfloat16)
+    before = dict(cuda.launch_counts)
+    with pytest.raises(ValueError, match="float32 nor bfloat16"):
+        fused_field_mlps(x, hd, weights, n_base, n_head, torch.float16)
+    wide = torch.zeros(x.shape[:2] + (257,), device=cuda_device)
+    with pytest.raises(ValueError, match=r"\[1, 256\]"):
+        fused_field_mlps(wide, hd, [torch.zeros(32, 257, device=cuda_device)] + weights[1:],
                          n_base, n_head, torch.bfloat16)
+    assert cuda.launch_counts == before
 
 
 @pytest.mark.cuda
@@ -526,8 +638,22 @@ def test_kernels_match_twin_at_a_bucket_shape(cuda_device, samples):
 def test_backward_weight_gradients_are_bit_equal_over_two_launches(cuda_device, head):
     """K4b and K5b sum the weight gradients per block, then over blocks in
     block order: the same bits in every launch (no float atomics)."""
-    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs("preset", cuda_device)
-    dt = torch.bfloat16
+    _assert_bit_equal_twice("preset", head, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [True, False], ids=["field", "density"])
+@pytest.mark.parametrize("case", ["preset-f32", "odd-bf16"])
+def test_generic_weight_gradients_are_bit_equal_over_two_launches(cuda_device, case,
+                                                                   head):
+    """The generic route's K4b and K5b: each block adds its tiles' weight
+    gradients into its own row in tile order, then the rows are summed in
+    block order."""
+    _assert_bit_equal_twice(case, head, CUDA_DTYPES[case])
+
+
+def _assert_bit_equal_twice(case, head, dt):
+    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs(case, "cuda")
     if head:
         def run():
             return fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens,
@@ -544,36 +670,50 @@ def test_backward_weight_gradients_are_bit_equal_over_two_launches(cuda_device, 
 
 @pytest.mark.cuda
 def test_kernels_refuse_an_oversized_stack(cuda_device):
-    """Three base and three head layers at the preset's widths do not fit
-    the backward's shared memory: ValueError before any launch."""
-    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs(
-        (64, 128, 3, 3, 4, 16), cuda_device)
-    before = dict(cuda.launch_counts)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens, n_base, n_head,
-                                  torch.bfloat16)
-    assert cuda.launch_counts == before
+    """Three base and three head layers at the preset's widths: the forward
+    fits the wgmma route's shared memory, the backward does not and runs on
+    the generic route; both within tolerance of the twins."""
+    n_base, n_head, x, hd, weights, _, _ = _cuda_inputs((64, 128, 3, 3, 4, 16), cuda_device)
+    assert launch_plan(64, 128, 3, 3, False).route == "wgmma"
+    assert launch_plan(64, 128, 3, 3, True).route == "generic"
+    _check_field(x, hd, weights, n_base, n_head, torch.bfloat16)
 
 
 # ------------------------------------------------------- the launch plan
 
 
-PLAN_STACKS = {name: case[:4] for name, case in CUDA_CASES.items()}
-PLAN_STACKS.update({"preset-density": (64, 128, 3, 0), "narrow-density": (16, 32, 3, 0),
-                    "preset-head-3-forward": (64, 128, 3, 3)})
+# name: ((d_in, hidden, n_base, n_head), compute_dtype, (forward route,
+# backward route))
+PLAN_STACKS = {name: (case[:4], CUDA_DTYPES[name],
+                      ("wgmma", "wgmma") if CUDA_DTYPES[name] == torch.bfloat16
+                      and case[:2] in ((16, 32), (64, 128)) else ("generic", "generic"))
+               for name, case in CUDA_CASES.items()}
+PLAN_STACKS.update({
+    "preset-density": ((64, 128, 3, 0), torch.bfloat16, ("wgmma", "wgmma")),
+    "narrow-density": ((16, 32, 3, 0), torch.bfloat16, ("wgmma", "wgmma")),
+    "preset-head-3-forward": ((64, 128, 3, 3), torch.bfloat16, ("wgmma", "generic")),
+    "preset-density-f32": ((64, 128, 3, 0), torch.float32, ("generic", "generic")),
+    "hidden-256-density": ((64, 256, 3, 0), torch.bfloat16, ("generic", "generic")),
+    "preset-head-5": ((64, 128, 3, 5), torch.bfloat16, ("generic", "generic")),
+})
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 @pytest.mark.parametrize("stack", list(PLAN_STACKS))
 def test_launch_plan_takes_the_kernel_stacks(stack, backward):
-    d_in, hidden, n_base, n_head = PLAN_STACKS[stack]
-    if stack == "preset-head-3-forward" and backward:
-        with pytest.raises(ValueError, match="bytes of shared memory"):
-            launch_plan(d_in, hidden, n_base, n_head, backward)
-        return
-    plan = launch_plan(d_in, hidden, n_base, n_head, backward)
-    assert plan.rows_per_tile == 64 and 0 < plan.smem_bytes <= MAX_SMEM_BYTES
-    assert plan.warpgroups == 2 if backward else 1 <= plan.warpgroups <= 3
+    (d_in, hidden, n_base, n_head), dtype, routes = PLAN_STACKS[stack]
+    plan = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
+    assert plan.route == routes[backward]
+    assert 0 < plan.smem_bytes <= MAX_SMEM_BYTES
+    if plan.route == "wgmma":
+        assert plan.rows_per_tile == 64
+        assert plan.warpgroups == 2 if backward else 1 <= plan.warpgroups <= 3
+    else:
+        wp = max(-(-d_in // 16), -(-hidden // 16)) * 16
+        assert plan.warpgroups == 2 and plan.rows_per_tile % 32 == 0
+        assert (plan.rows_per_tile // 8) * (wp // 8) <= 256  # a block of C a thread
+        scratch = (-(-d_in // 16) * 16 + (n_base + n_head - 1) * -(-hidden // 16) * 16)
+        assert plan.aux_tile_floats == (scratch * plan.rows_per_tile if backward else 0)
     rng = np.random.default_rng(0)
     weights = [_port(w) for w in _jax_weights(rng, d_in, hidden, n_base, n_head)]
     size = sum(w.numel() for w in weights)
@@ -582,15 +722,46 @@ def test_launch_plan_takes_the_kernel_stacks(stack, backward):
 
 
 def test_launch_plan_stages_and_warpgroups_follow_shared_memory():
-    """Where shared memory is short the plan gives up the backward's x
-    prefetch, then the forward's third warpgroup, then refuses."""
+    """Where shared memory is short the wgmma plan gives up the backward's x
+    prefetch, then the forward's third warpgroup; past that, and at other
+    widths, the stack goes to the generic route."""
     assert launch_plan(64, 128, 3, 1, True).stages == 1
     assert launch_plan(64, 128, 3, 2, True).stages == 0
     assert launch_plan(64, 128, 3, 2, False).warpgroups == 3
     assert launch_plan(64, 128, 3, 3, False).warpgroups == 2
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        launch_plan(64, 128, 3, 5, False)
-    with pytest.raises(ValueError, match="not among the compiled"):
-        launch_plan(32, 64, 3, 1, False)
+    assert launch_plan(64, 128, 3, 5, False).route == "generic"
+    assert launch_plan(32, 64, 3, 1, False).route == "generic"
+    assert launch_plan(64, 128, 3, 1, False, torch.float32).route == "generic"
     with pytest.raises(ValueError):
         launch_plan(16, 32, 0, 1, True)
+
+
+def test_launch_plan_takes_every_stack_in_range():
+    """Every width in [1, 256] (a sample of them: the edges of each 16-wide
+    padding step), every depth up to 8 and both dtypes get a plan that fits
+    a block's shared memory."""
+    widths = (1, 15, 16, 17, 24, 40, 100, 240, 255, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d_in in widths:
+            for hidden in widths:
+                for n_base in range(1, 9):
+                    for n_head in range(0, 9 - n_base):
+                        for backward in (False, True):
+                            plan = launch_plan(d_in, hidden, n_base, n_head, backward,
+                                               dtype)
+                            assert plan.smem_bytes <= MAX_SMEM_BYTES
+                            assert plan.route in ("wgmma", "generic")
+
+
+@pytest.mark.parametrize("stack, dtype, match", [
+    ((64, 257, 3, 1), torch.float32, r"\[1, 256\]"),
+    ((257, 128, 3, 1), torch.bfloat16, r"\[1, 256\]"),
+    ((0, 128, 3, 1), torch.float32, r"\[1, 256\]"),
+    ((64, 128, 5, 4), torch.float32, "n_base \\+ n_head <= 8"),
+    ((64, 128, 0, 1), torch.bfloat16, "1 <= n_base"),
+    ((64, 128, 3, 1), torch.float16, "float32 nor bfloat16"),
+], ids=["hidden-257", "d_in-257", "d_in-0", "depth-9", "no-base", "float16"])
+def test_launch_plan_refuses_outside_the_range(stack, dtype, match):
+    for backward in (False, True):
+        with pytest.raises(ValueError, match=match):
+            launch_plan(*stack, backward, dtype)

@@ -53,7 +53,8 @@ def test_port_imports_and_renders_without_jax():
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np, torch
-from tetranerf_torch import Renderer, TetraNerf, build_mesh, tetranerf_preset
+from tetranerf_torch import Renderer, TetraNerf, build_mesh
+from tetranerf_torch.models import tetranerf_preset
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 points, colors = make_sphere_scene(300, seed=0)
 mesh = build_mesh(points, device="cpu")

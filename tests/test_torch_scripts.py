@@ -26,9 +26,11 @@ from tetranerf_torch.utils.png import image_size
 
 @pytest.fixture(autouse=True)
 def _kd_tree_spacing(monkeypatch):
-    """JAX's spacing takes its native library where it is built: hold the
-    port to its KD-tree path, which the port copies."""
+    """Both packages' spacing takes their native library where it is
+    available, whose f32 distances are not the KD-tree's bits: hold both
+    to their KD-tree paths, so the files compare bit for bit."""
     monkeypatch.setattr("tetranerf_tpu.geometry.native.available", lambda: False)
+    monkeypatch.setattr("tetranerf_torch.geometry.native.available", lambda: False)
 
 
 def _cloud(n=300, seed=5):

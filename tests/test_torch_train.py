@@ -346,7 +346,8 @@ for blocked in ("jax", "tetranerf_tpu", "PIL"):
     sys.modules[blocked] = None  # any import of it now raises ImportError
 import numpy as np, torch
 torch.set_num_threads(1)  # the suite's workers share few cores
-from tetranerf_torch import TetraNerf, TrainConfig, Trainer, build_mesh, tetranerf_preset
+from tetranerf_torch import TetraNerf, TrainConfig, Trainer, build_mesh
+from tetranerf_torch.models import tetranerf_preset
 from tetranerf_torch.utils.synthetic import (make_sphere_scene, sample_sphere_rays,
                                              sphere_ray_targets)
 points, colors = make_sphere_scene(300, seed=0)
@@ -395,3 +396,19 @@ def test_entry_points_default_to_the_card():
 
     for fn in (build_mesh, TorchMesh.from_tables, TetraNerf, Trainer):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("name", ["tetranerf_preset", "tetranerf_original_preset"])
+def test_top_level_presets_are_the_train_presets_of_jax(name):
+    """``tetranerf_torch.<name>`` is the train preset, a ``TrainConfig``
+    equal to ``tetranerf_tpu.<name>()`` field for field, its model config
+    included; the model preset stays at ``tetranerf_torch.models``."""
+    import tetranerf_torch
+    import tetranerf_tpu
+    from tetranerf_torch.models import TetrahedraNerfConfig
+
+    ours, ref = getattr(tetranerf_torch, name)(), getattr(tetranerf_tpu, name)()
+    assert isinstance(ours, tetranerf_torch.TrainConfig)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(ours.model) == dataclasses.asdict(ref.model)
+    assert isinstance(tetranerf_preset(), TetrahedraNerfConfig)

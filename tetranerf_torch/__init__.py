@@ -12,8 +12,11 @@ repository unchanged). The package mirrors its layout:
   buckets out of a march, samplers, encoding and volume rendering.
   Every kernel has a plain PyTorch twin; a wrapper runs the twin for CPU
   tensors and the kernel for CUDA tensors.
-- ``models``: the config dataclass, the MLP building blocks and the
-  :class:`TetraNerf` module.
+- ``models``: the config dataclass, its ``tetra-nerf`` preset
+  (``models.tetranerf_preset``), the MLP building blocks and the
+  :class:`TetraNerf` module. The top-level ``tetranerf_preset`` and
+  ``tetranerf_original_preset`` are the train presets (a ``TrainConfig``),
+  as in :mod:`tetranerf_tpu`.
 - ``training``: the train step (:class:`Trainer`: bound tune and
   retunes, occupancy upkeep, forward, backward through the kernels K2b,
   K3b and K7, RAdam, eval and rendering at the tuned bounds) and
@@ -43,7 +46,8 @@ _EXPORTS = {
     "TorchMesh": "geometry",
     "TetraNerf": "models",
     "TetrahedraNerfConfig": "models",
-    "tetranerf_preset": "models",
+    "tetranerf_preset": "training.presets",
+    "tetranerf_original_preset": "training.presets",
     "Renderer": "render",
     "Trainer": "training.trainer",
     "TrainConfig": "training.trainer",

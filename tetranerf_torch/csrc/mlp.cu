@@ -8,6 +8,13 @@
 //            a_{k+1} = relu(a_k W_k^T + b_k)                 nb < k < L
 //   colour:  rgb = sigmoid(a_L W_c^T + b_c)                        (L = n_base + n_head)
 //
+// Two routes, chosen on the host by ops/mlp.py `launch_plan` from the
+// stack's shape and dtype: the wgmma instances below (bfloat16 at widths
+// (d_in, hidden) = (16, 32) and (64, 128), where their shared memory holds
+// the stack), and the generic route at the end of this file (float32, and
+// bfloat16 at any other width up to 256 or any depth up to 8). The rest of
+// this comment describes the wgmma route.
+//
 // Every product takes bf16 operands and sums in f32; biases and head_dir
 // are added in f32; activations are rounded to bf16 only as the next
 // product's operand; the nonlinearities run in f32. The backward recomputes
@@ -128,6 +135,43 @@ struct Plan {
 
 int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
+// The packed weights' layout (ops/mlp.py `_pack`), into a plan of either
+// route: base (W, b) pairs, density (w_d, b_d), then W_bh, the other head
+// (W, b) pairs, colour (W_c, b_c); matrices first, then biases. Needs
+// d_in, hidden, n_base, n_head and n_layers set.
+template <class P>
+void pack_layout(P* p) {
+  const int hidden = p->hidden, n_base = p->n_base;
+  int w = 0, b = 0;
+  for (int k = 0; k < p->n_layers; ++k) {
+    if (k == n_base) {
+      p->wd_off = w;
+      w += hidden;
+      p->bd_off = b;
+      b += 1;
+    }
+    p->in_dim[k] = k == 0 ? p->d_in : hidden;
+    p->w_off[k] = w;
+    w += hidden * p->in_dim[k];
+    p->b_off[k] = k == n_base ? -1 : b;
+    if (k != n_base) b += hidden;
+  }
+  if (p->n_head == 0) {
+    p->wd_off = w;
+    w += hidden;
+    p->bd_off = b;
+    b += 1;
+    p->wc_off = p->bc_off = -1;
+  } else {
+    p->wc_off = w;
+    w += 3 * hidden;
+    p->bc_off = b;
+    b += 3;
+  }
+  p->n_w = w;
+  p->n_b = b;
+}
+
 bool make_plan(int d_in, int hidden, int n_base, int n_head, bool backward,
                int warpgroups, int prefetch, Plan* p) {
   const int n_layers = n_base + n_head;
@@ -144,36 +188,8 @@ bool make_plan(int d_in, int hidden, int n_base, int n_head, bool backward,
   p->n_layers = n_layers;
   p->warpgroups = warpgroups;
   p->prefetch = backward ? prefetch : 1;
-  // Packed order: base (W, b) pairs, density (w_d, b_d), then W_bh, the
-  // other head (W, b) pairs, colour (W_c, b_c); matrices first, then biases.
-  int w = 0, b = 0;
-  for (int k = 0; k < n_layers; ++k) {
-    if (k == n_base) {
-      p->wd_off = w;
-      w += hidden;
-      p->bd_off = b;
-      b += 1;
-    }
-    p->in_dim[k] = k == 0 ? d_in : hidden;
-    p->w_off[k] = w;
-    w += hidden * p->in_dim[k];
-    p->b_off[k] = k == n_base ? -1 : b;
-    if (k != n_base) b += hidden;
-  }
-  if (n_head == 0) {
-    p->wd_off = w;
-    w += hidden;
-    p->bd_off = b;
-    b += 1;
-    p->wc_off = p->bc_off = -1;
-  } else {
-    p->wc_off = w;
-    w += 3 * hidden;
-    p->bc_off = b;
-    b += 3;
-  }
-  p->n_w = w;
-  p->n_b = b;
+  pack_layout(p);
+  const int b = p->n_b;
   int off = 0;
   for (int k = 0; k < n_layers; ++k) {
     p->s_off[k] = off;
@@ -1170,6 +1186,615 @@ cudaError_t launch_backward(const Plan& plan, const float* x, const float* head_
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- the generic route
+//
+// K4, K4b, K5 and K5b for every stack the wgmma instances above do not take:
+// compute_dtype float32 (JAX's Precision.HIGHEST), or bfloat16 at widths
+// other than (16, 32) and (64, 128), or a stack too deep for their shared
+// memory. Widths 1 <= d_in, hidden <= 256 and depths up to kMaxLayers are
+// runtime values. ops/mlp.py `launch_plan` picks the route by shape.
+//
+// Precision. Every product is f32 FMA over operands that are exact in f32:
+// at float32 the operands themselves (no TF32, whose 10-bit mantissa would
+// put a layer ~1e-3 off), at bfloat16 operands rounded to bf16 first (the
+// wrapper rounds the packed weights; activations, x and cotangents are
+// rounded where they are stored as an operand). A product of two bf16
+// values is exact in f32, so this is the wgmma route's function (bf16
+// operands, f32 sums) up to the order of the sums. Biases, head_dir and
+// the bias and head_dir gradients stay f32 sums of unrounded values.
+//
+// What bounds it on the H100: f32 FMA outside the tensor cores, 67 TFLOP/s
+// (bf16 at these widths runs the same FMA, so its 989 TFLOP/s tensor bound
+// is out of reach by design). At the preset's widths in float32 the train
+// slice's forward is 121.8 GFLOP, 1.82 ms at that rate; the backward three
+// times that.
+//
+// Design. A block of 256 threads owns a tile of tm rows at a time
+// (persistent, tiles in block order). The tile's activations live in
+// shared memory feature-major ([width][tm], widths padded to 16 with
+// zeros), with each 4-row float4 of feature f at float4 index
+// (r / 4) ^ ((f / 8) % 8): the layer products read 8 rows of one feature
+// and the weight-gradient products 4 rows of 8 features a thread, and the
+// swizzle puts a quarter-warp's float4s in distinct banks for both. A
+// layer is C[tm, N] = A[tm, K] B[K, N], each thread an 8 x 8 block of C in
+// registers (tm is 16384 / the widest padded width, so one block a
+// thread); B, the weight matrix (W^T forward, W backward), streams through
+// shared memory in slices of 16 rows, two buffers filled by cp.async, the
+// next slice loading while this one is used; the epilogue adds the bias,
+// applies ReLU and writes the next activation. The density and colour
+// heads are per-row dot products.
+//
+// The backward keeps K4b's contract: per tile the forward chain is run
+// again (each layer's input image written to the block's scratch in global
+// memory, read back on the way down), the ReLU masks come from the
+// activations, each weight gradient dW_k += gz^T a_k is a product over
+// the tile's rows into the block's own workspace row (read-modify-write by
+// the thread that owns each element, tiles in block order), bias
+// gradients are per-thread column sums of the unrounded cotangent summed
+// in a fixed order, dhead_dir is added per ray with atomics (one per
+// column where 8 rows share a ray), and sum_rows_kernel adds the rows in
+// block order: two launches give the same weight-gradient bits.
+
+namespace gen {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kSlice = 16;     // rows of a weight slice; widths pad to it
+constexpr int kMaxWidth = 256;
+
+struct GPlan {
+  int d_in, hidden, n_base, n_head, n_layers, n_w, n_b;
+  int in_dim[kMaxLayers], w_off[kMaxLayers], b_off[kMaxLayers];
+  int wd_off, bd_off, wc_off, bc_off;
+  int hp, dp, wp, tm;  // hidden and d_in padded to 16, their max; rows a tile
+  int buf0, buf1, stage, rows, parts;  // shared memory, in floats
+  int act_off[kMaxLayers];  // backward: a_k's image in the block's scratch
+  int scratch_floats;       // backward: the block's scratch
+  int smem_bytes;
+};
+
+// The host's `launch_plan` for the generic route computes the same numbers.
+bool make_gplan(int d_in, int hidden, int n_base, int n_head, bool backward, GPlan* p) {
+  const int n_layers = n_base + n_head;
+  if (d_in < 1 || d_in > kMaxWidth || hidden < 1 || hidden > kMaxWidth || n_base < 1 ||
+      n_head < 0 || n_layers > kMaxLayers) {
+    return false;
+  }
+  *p = GPlan{};
+  p->d_in = d_in;
+  p->hidden = hidden;
+  p->n_base = n_base;
+  p->n_head = n_head;
+  p->n_layers = n_layers;
+  pack_layout(p);
+  p->hp = align_up(hidden, kSlice);
+  p->dp = align_up(d_in, kSlice);
+  p->wp = std::max(p->hp, p->dp);
+  p->tm = std::max(32, 16384 / p->wp / 32 * 32);
+  int off = 0;
+  p->buf0 = off;
+  off += p->wp * p->tm;
+  p->buf1 = off;
+  off += p->wp * p->tm;
+  p->stage = off;
+  off += 2 * kSlice * p->wp;
+  p->rows = off;  // pre_d (then its cotangent), rgb (then theirs): [4][tm]
+  off += 4 * p->tm;
+  if (backward) {
+    p->parts = off;  // the bias gradients' column sums: [tm / 8][hp]
+    off += p->tm / 8 * p->hp;
+    int s = 0;
+    for (int k = 0; k < n_layers; ++k) {
+      p->act_off[k] = s;
+      s += (k == 0 ? p->dp : p->hp) * p->tm;
+    }
+    p->scratch_floats = s;
+  }
+  p->smem_bytes = off * 4;
+  return p->smem_bytes <= kMaxSmem;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float op(float v) {
+  return kBf16 ? bfr(v) : v;
+}
+
+// Offset of element (feature f, row r) of a [width][tm] image.
+__device__ __forceinline__ int sw(int f, int r, int tm) {
+  return f * tm + ((((r >> 2) ^ (f >> 3)) & 7) | ((r >> 2) & ~7)) * 4 + (r & 3);
+}
+// The 4 rows [4q, 4q + 4) of feature f.
+__device__ __forceinline__ float4* sw4(float* img, int f, int q, int tm) {
+  return reinterpret_cast<float4*>(img + f * tm + ((q ^ ((f >> 3) & 7)) << 2));
+}
+__device__ __forceinline__ const float4* sw4(const float* img, int f, int q, int tm) {
+  return reinterpret_cast<const float4*>(img + f * tm + ((q ^ ((f >> 3) & 7)) << 2));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[i][j] = sum over k < kp of A[row 8 rb + i][k] * B[k][col 8 cb + j]:
+// A a [kp][tm] image in shared memory; B element (k, n) at g[k sk + n sn],
+// zero where k >= kv or n >= nv, staged [kSlice][np] per slice. `kfast`:
+// consecutive threads copy consecutive k (B is W^T: W's rows are
+// contiguous in k). Every thread of the block calls it; `active` ones own
+// a block of C.
+__device__ __forceinline__ void product(const GPlan& p, float* smem, const float* a, int kp,
+                        const float* g, int sk, int sn, int kv, int nv, int np, bool kfast,
+                        int rb, int cb, bool active, float (&acc)[8][8]) {
+  float* stage = smem + p.stage;
+  const int slice = kSlice * np, ns = kp / kSlice, tm = p.tm;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  const auto load_slice = [&](int s) {
+    float* dst = stage + (s & 1) * kSlice * p.wp;
+    for (int e = threadIdx.x; e < slice; e += kThreads) {
+      const int kk = kfast ? e % kSlice : e / np, n = kfast ? e / kSlice : e % np;
+      const int k = s * kSlice + kk;
+      const bool ok = k < kv && n < nv;
+      cp_async4(smem_u32(dst + kk * np + n),
+                ok ? g + static_cast<long long>(k) * sk + static_cast<long long>(n) * sn : g,
+                ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  load_slice(0);
+  for (int s = 0; s < ns; ++s) {
+    if (s + 1 < ns) {
+      load_slice(s + 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    if (active) {
+      const float* bs = stage + (s & 1) * kSlice * p.wp + 8 * cb;
+#pragma unroll 4
+      for (int kk = 0; kk < kSlice; ++kk) {
+        const int k = s * kSlice + kk;
+        const float4 a0 = *sw4(a, k, 2 * rb, tm), a1 = *sw4(a, k, 2 * rb + 1, tm);
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * np);
+        const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * np + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// A thread's 8 x 8 block of C, rows 8 rb + i and columns 8 cb + j, into a
+// [width][tm] image (4 rows a float4).
+__device__ __forceinline__ void store_block(float* img, int rb, int cb, int tm,
+                                            const float (&v)[8][8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *sw4(img, 8 * cb + j, 2 * rb, tm) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    *sw4(img, 8 * cb + j, 2 * rb + 1, tm) = make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
+  }
+}
+
+// x rows [row0, row0 + tm) into a [dp][tm] image, zero past d_in and past
+// the last row.
+template <bool kBf16>
+__device__ void load_x(const GPlan& p, float* img, const float* x, long long row0,
+                       long long num_rows) {
+  const int n = p.tm * p.dp;
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int r = e / p.dp, k = e % p.dp;
+    const long long row = row0 + r;
+    const float v = k < p.d_in && row < num_rows ? x[row * p.d_in + k] : 0.0f;
+    img[sw(k, r, p.tm)] = op<kBf16>(v);
+  }
+}
+
+__device__ __forceinline__ void copy_image(float* dst, const float* src, int floats) {
+  for (int e = threadIdx.x; e < floats / 4; e += kThreads) {
+    reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(src)[e];
+  }
+}
+
+// The forward chain of the tile whose x image is in buf0: a_L ends in
+// buf[L % 2], pre_d in rows[0, tm), with a head rgb in rows[tm, 4 tm).
+// With `scratch`, each layer's input image a_k (k < L) is written there.
+template <bool kBf16>
+__device__ void chain(const GPlan& p, float* smem, const float* w, const float* b,
+                      const float* head_dir, long long row0, long long num_rows,
+                      int num_samples, float* scratch) {
+  const int tm = p.tm, H = p.hidden, nt = p.hp / 8;
+  const int t = threadIdx.x, rb = t / nt, cb = t % nt;
+  const bool active = t < tm / 8 * nt;
+  float* rows = smem + p.rows;
+  for (int k = 0; k < p.n_layers; ++k) {
+    float* in = smem + (k & 1 ? p.buf1 : p.buf0);
+    float* out = smem + (k & 1 ? p.buf0 : p.buf1);
+    const int kp = k == 0 ? p.dp : p.hp;
+    if (scratch != nullptr) copy_image(scratch + p.act_off[k], in, kp * tm);
+    float acc[8][8];
+    product(p, smem, in, kp, w + p.w_off[k], 1, p.in_dim[k], p.in_dim[k], H, p.hp, true, rb,
+            cb, active, acc);
+    if (active) {
+      const bool hd = k == p.n_base;  // W_bh: head_dir[ray] in place of a bias
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long row = row0 + 8 * rb + i;
+        const long long ray = row < num_rows ? row / num_samples : -1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = 8 * cb + j;
+          float bias = 0.0f;
+          if (n < H) {
+            bias = !hd ? b[p.b_off[k] + n] : ray >= 0 ? head_dir[ray * H + n] : 0.0f;
+          }
+          acc[i][j] = op<kBf16>(nan_max(acc[i][j] + bias, 0.0f));
+        }
+      }
+      store_block(out, rb, cb, tm, acc);
+    }
+    __syncthreads();
+    if (k + 1 == p.n_base) {  // the density head on a_nb
+      for (int r = t; r < tm; r += kThreads) {
+        float s = 0.0f;
+        for (int h = 0; h < H; ++h) s = fmaf(out[sw(h, r, tm)], w[p.wd_off + h], s);
+        rows[r] = s + b[p.bd_off];
+      }
+    }
+  }
+  if (p.n_head > 0) {  // the colour head on a_L
+    const float* aL = smem + (p.n_layers & 1 ? p.buf1 : p.buf0);
+    for (int r = t; r < tm; r += kThreads) {
+      float c[3] = {0.0f, 0.0f, 0.0f};
+      for (int h = 0; h < H; ++h) {
+        const float a = aL[sw(h, r, tm)];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) c[q] = fmaf(a, w[p.wc_off + q * H + h], c[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) rows[(1 + q) * tm + r] = sigmoid(c[q] + b[p.bc_off + q]);
+    }
+  }
+  __syncthreads();
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
+    const __grid_constant__ GPlan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ rgb_out, float* __restrict__ dens_out,
+    long long num_rows, int num_samples) {
+  extern __shared__ __align__(128) float smem[];
+  const int tm = p.tm;
+  const float* rows = smem + p.rows;
+  const long long tiles = (num_rows + tm - 1) / tm;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * tm;
+    load_x<kBf16>(p, smem + p.buf0, x, row0, num_rows);
+    __syncthreads();
+    chain<kBf16>(p, smem, w, b, head_dir, row0, num_rows, num_samples, nullptr);
+    for (int r = threadIdx.x; r < tm; r += kThreads) {
+      const long long row = row0 + r;
+      if (row >= num_rows) continue;
+      const float pd = rows[r];
+      dens_out[row] = fmaxf(pd, 0.0f) + log1pf(expf(-fabsf(pd)));
+      if (p.n_head > 0) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) rgb_out[row * 3 + q] = rows[(1 + q) * tm + r];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The heads' weight and bias gradients of the tile: with `colour` W_c and
+// b_c from the rows' pre_c cotangents (rows[tm, 4 tm)) and a = a_L, else
+// w_d and b_d from pre_d's (rows[0, tm)) and a = a_nb. A warp per column,
+// lanes over rows, summed in a fixed order.
+template <bool kBf16>
+__device__ void head_grads(const GPlan& p, const float* rows, const float* a, bool colour,
+                           float* ws_row) {
+  const int tm = p.tm, H = p.hidden, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = colour ? 3 : 1;
+  const float* g = rows + (colour ? tm : 0);
+  for (int h = warp; h < H; h += kThreads / 32) {
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    for (int r = lane; r < tm; r += 32) {
+      const float av = a[sw(h, r, tm)];
+      for (int q = 0; q < nq; ++q) s[q] = fmaf(op<kBf16>(g[q * tm + r]), av, s[q]);
+    }
+    for (int q = 0; q < nq; ++q) {
+      const float v = warp_sum(s[q]);
+      if (lane == 0) ws_row[(colour ? p.wc_off + q * H : p.wd_off) + h] += v;
+    }
+  }
+  if (warp == 0) {
+    for (int q = 0; q < nq; ++q) {
+      float s = 0.0f;
+      for (int r = lane; r < tm; r += 32) s += g[q * tm + r];
+      s = warp_sum(s);
+      if (lane == 0) ws_row[p.n_w + (colour ? p.bc_off + q : p.bd_off)] += s;
+    }
+  }
+}
+
+// dW[n][c] += sum over the tile's rows of G[n][r] A[c][r], n < H, c < cv:
+// G the [hp][tm] cotangent image, A a [kp][tm] activation image; each
+// element added by the thread that owns its 8 x 8 block.
+__device__ void weight_grad(const GPlan& p, const float* gimg, const float* aimg, int kp,
+                            int cv, float* dst) {
+  const int tm = p.tm, H = p.hidden, cbn = kp / 8, nbn = p.hp / 8;
+  for (int t = threadIdx.x; t < nbn * cbn; t += kThreads) {
+    const int nb = t / cbn, cb = t % cbn;
+    if (8 * nb >= H || 8 * cb >= cv) continue;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+    for (int q = 0; q < tm / 4; ++q) {
+      float4 gv[8], av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gv[i] = *sw4(gimg, 8 * nb + i, q, tm);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) av[j] = *sw4(aimg, 8 * cb + j, q, tm);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(gv[i].x, av[j].x, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].y, av[j].y, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].z, av[j].z, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].w, av[j].w, acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = 8 * nb + i;
+      if (n >= H) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * cb + j;
+        if (c < cv) dst[n * cv + c] += acc[i][j];
+      }
+    }
+  }
+}
+
+// The cotangent of a_{lay+1} in a thread's block (unrounded f32) becomes
+// gz_{lay+1}: masked where a_{lay+1} (`mask`) is not > 0; its column sums
+// go to `parts` (the bias of layer `lay`), or for W_bh per ray into dhd
+// with atomics; then it is stored, rounded, into `dst`.
+template <bool kBf16>
+__device__ __forceinline__ void finish_gz(const GPlan& p, float* smem, int lay, const float* mask,
+                          float* dst, int rb, int cb, float (&acc)[8][8], long long row0,
+                          long long num_rows, int num_samples, float* dhd) {
+  const int tm = p.tm, H = p.hidden;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!(mask[sw(8 * cb + j, 8 * rb + i, tm)] > 0.0f)) acc[i][j] = 0.0f;
+    }
+  }
+  if (lay == p.n_base && p.n_head > 0) {
+    const long long first = row0 + 8 * rb, last = first + 7;
+    if (last < num_rows && first / num_samples == last / num_samples) {
+      float* d = dhd + (first / num_samples) * H;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = 8 * cb + j;
+        if (n >= H) continue;
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s += acc[i][j];
+        atomicAdd(d + n, s);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long row = first + i;
+        if (row >= num_rows) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = 8 * cb + j;
+          if (n < H) atomicAdd(dhd + (row / num_samples) * H + n, acc[i][j]);
+        }
+      }
+    }
+  } else {
+    float* parts = smem + p.parts + rb * p.hp + 8 * cb;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += acc[i][j];
+      parts[j] = s;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = op<kBf16>(acc[i][j]);
+  }
+  store_block(dst, rb, cb, tm, acc);
+}
+
+// After finish_gz and a barrier: the column sums of layer `lay`'s bias
+// gradient, over the tile's row blocks in order, into the workspace row.
+__device__ void bias_grad(const GPlan& p, const float* smem, int lay, float* ws_row) {
+  if (lay == p.n_base && p.n_head > 0) return;  // W_bh: dhead_dir instead
+  const float* parts = smem + p.parts;
+  for (int n = threadIdx.x; n < p.hidden; n += kThreads) {
+    float s = 0.0f;
+    for (int q = 0; q < p.tm / 8; ++q) s += parts[q * p.hp + n];
+    ws_row[p.n_w + p.b_off[lay] + n] += s;
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
+    const __grid_constant__ GPlan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ g_rgb,
+    const float* __restrict__ g_dens, float* __restrict__ dx, float* dhd, float* ws,
+    int ws_stride, float* scratch, long long num_rows, int num_samples) {
+  extern __shared__ __align__(128) float smem[];
+  const int tm = p.tm, H = p.hidden, L = p.n_layers, nb = p.n_base, nt = p.hp / 8;
+  const int t = threadIdx.x;
+  float* ws_row = ws + static_cast<long long>(blockIdx.x) * ws_stride;
+  float* scr = scratch + static_cast<long long>(blockIdx.x) * p.scratch_floats;
+  float* rows = smem + p.rows;
+  for (int e = t; e < p.n_w + p.n_b; e += kThreads) ws_row[e] = 0.0f;
+  __syncthreads();
+  const long long tiles = (num_rows + tm - 1) / tm;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * tm;
+    load_x<kBf16>(p, smem + p.buf0, x, row0, num_rows);
+    __syncthreads();
+    chain<kBf16>(p, smem, w, b, head_dir, row0, num_rows, num_samples, scr);
+    // The heads' cotangents, unrounded: pre_d's, then pre_c's.
+    for (int r = t; r < tm; r += kThreads) {
+      const long long row = row0 + r;
+      const bool valid = row < num_rows;
+      rows[r] = valid ? g_dens[row] * sigmoid(rows[r]) : 0.0f;
+      if (p.n_head > 0) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float y = rows[(1 + q) * tm + r];
+          rows[(1 + q) * tm + r] = valid ? g_rgb[row * 3 + q] * y * (1.0f - y) : 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+    float* abuf = smem + (L & 1 ? p.buf1 : p.buf0);  // a_L, then a_k going down
+    float* gbuf = smem + (L & 1 ? p.buf0 : p.buf1);  // gz_{k+1}
+    head_grads<kBf16>(p, rows, abuf, p.n_head > 0, ws_row);
+    // gz_L from the head on a_L: colour, or (no head) density.
+    const int rb = t / nt, cb = t % nt;
+    if (t < tm / 8 * nt) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * rb + i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = 8 * cb + j;
+          float v = 0.0f;
+          if (n < H) {
+            if (p.n_head > 0) {
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                v = fmaf(op<kBf16>(rows[(1 + q) * tm + r]), w[p.wc_off + q * H + n], v);
+              }
+            } else {
+              v = op<kBf16>(rows[r]) * w[p.wd_off + n];
+            }
+          }
+          acc[i][j] = v;
+        }
+      }
+      finish_gz<kBf16>(p, smem, L - 1, abuf, gbuf, rb, cb, acc, row0, num_rows,
+                       num_samples, dhd);
+    }
+    __syncthreads();
+    bias_grad(p, smem, L - 1, ws_row);
+    for (int k = L - 1; k >= 0; --k) {
+      __syncthreads();  // a_{k+1}'s mask read, the bias sums taken
+      const int kp = k == 0 ? p.dp : p.hp;
+      copy_image(abuf, scr + p.act_off[k], kp * tm);
+      __syncthreads();
+      weight_grad(p, gbuf, abuf, kp, p.in_dim[k], ws_row + p.w_off[k]);
+      if (p.n_head > 0 && k == nb) head_grads<kBf16>(p, rows, abuf, false, ws_row);
+      // g_{a_k} = gz_{k+1} W_k (N = in_k): W_k [H, in_k] is B as it is.
+      const int ntk = kp / 8, rbk = t / ntk, cbk = t % ntk;
+      const bool active = t < tm / 8 * ntk;
+      float acc[8][8];
+      product(p, smem, gbuf, p.hp, w + p.w_off[k], p.in_dim[k], 1, H, p.in_dim[k], kp, false,
+              rbk, cbk, active, acc);
+      if (k > 0) {
+        if (active) {
+          if (p.n_head > 0 && k == nb) {  // the density head's share of g_{a_nb}
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float gd = op<kBf16>(rows[8 * rbk + i]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int n = 8 * cbk + j;
+                if (n < H) acc[i][j] = fmaf(gd, w[p.wd_off + n], acc[i][j]);
+              }
+            }
+          }
+          finish_gz<kBf16>(p, smem, k - 1, abuf, gbuf, rbk, cbk, acc, row0, num_rows,
+                           num_samples, dhd);
+        }
+        __syncthreads();
+        bias_grad(p, smem, k - 1, ws_row);
+      } else if (active) {  // dx = gz_1 W_0
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const long long row = row0 + 8 * rbk + i;
+          if (row >= num_rows) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = 8 * cbk + j;
+            if (n < p.d_in) dx[row * p.d_in + n] = acc[i][j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_fwd(const GPlan& p, const float* x, const float* head_dir, const float* w,
+                       const float* b, float* rgb, float* dens, long long num_rows,
+                       int num_samples, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err != cudaSuccess) return err;
+  fwd_kernel<kBf16><<<grid, kThreads, p.smem_bytes, stream>>>(p, x, head_dir, w, b, rgb, dens,
+                                                              num_rows, num_samples);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t launch_bwd(const GPlan& p, const float* x, const float* head_dir, const float* w,
+                       const float* b, const float* g_rgb, const float* g_dens, float* dx,
+                       float* dhd, float* ws, int ws_stride, float* scratch,
+                       long long num_rows, int num_samples, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (err != cudaSuccess) return err;
+  bwd_kernel<kBf16><<<grid, kThreads, p.smem_bytes, stream>>>(
+      p, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws, ws_stride, scratch, num_rows,
+      num_samples);
+  return cudaGetLastError();
+}
+
+}  // namespace gen
+
 }  // namespace
 
 // Forward (K4 with n_head >= 1, K5 with n_head == 0). w, b: the packed
@@ -1231,6 +1856,62 @@ extern "C" int tetranerf_fused_mlp_backward(
                                      ws, ws_stride, aux, num_rows, num_samples, grid,
                                      stream);
     }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int n = plan.n_w + plan.n_b;
+  sum_rows_kernel<<<(n + 255) / 256, 256, 0, stream>>>(ws, grid, ws_stride, n, grads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The generic route's forward (K4, K5) and backward (K4b, K5b), arguments
+// as above plus `bf16` (round operands to bf16; `w` must hold the weights
+// rounded already) and the host plan's rows a tile, scratch floats a
+// block and shared memory, which must match this file's. The backward's
+// scratch is [num_blocks][scratch_floats]; it zeroes each launched
+// block's workspace row itself.
+extern "C" int tetranerf_fused_mlp_forward_generic(
+    const float* x, const float* head_dir, const float* w, const float* b, float* rgb,
+    float* dens, int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head,
+    int bf16, int num_blocks, int rows_per_tile, int smem_bytes, cudaStream_t stream) {
+  gen::GPlan plan;
+  if (!gen::make_gplan(d_in, hidden, n_base, n_head, false, &plan) ||
+      plan.tm != rows_per_tile || plan.smem_bytes != smem_bytes || num_blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long num_rows = static_cast<long long>(num_rays) * num_samples;
+  if (num_rows == 0) return 0;
+  const long long tiles = (num_rows + plan.tm - 1) / plan.tm;
+  const int grid = static_cast<int>(std::min<long long>(num_blocks, tiles));
+  const cudaError_t err =
+      bf16 ? gen::launch_fwd<true>(plan, x, head_dir, w, b, rgb, dens, num_rows, num_samples,
+                                   grid, stream)
+           : gen::launch_fwd<false>(plan, x, head_dir, w, b, rgb, dens, num_rows, num_samples,
+                                    grid, stream);
+  return static_cast<int>(err);
+}
+
+extern "C" int tetranerf_fused_mlp_backward_generic(
+    const float* x, const float* head_dir, const float* w, const float* b,
+    const float* g_rgb, const float* g_dens, float* dx, float* dhd, float* ws, float* grads,
+    float* scratch, int num_rays, int num_samples, int d_in, int hidden, int n_base,
+    int n_head, int bf16, int num_blocks, int ws_stride, int rows_per_tile,
+    int scratch_floats, int smem_bytes, cudaStream_t stream) {
+  gen::GPlan plan;
+  if (!gen::make_gplan(d_in, hidden, n_base, n_head, true, &plan) ||
+      plan.tm != rows_per_tile || plan.smem_bytes != smem_bytes ||
+      plan.scratch_floats != scratch_floats || num_blocks < 1 ||
+      ws_stride < plan.n_w + plan.n_b) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long num_rows = static_cast<long long>(num_rays) * num_samples;
+  const long long tiles = (num_rows + plan.tm - 1) / plan.tm;
+  const int grid = static_cast<int>(std::min<long long>(num_blocks, tiles));
+  if (grid > 0) {
+    const cudaError_t err =
+        bf16 ? gen::launch_bwd<true>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws,
+                                     ws_stride, scratch, num_rows, num_samples, grid, stream)
+             : gen::launch_bwd<false>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws,
+                                      ws_stride, scratch, num_rows, num_samples, grid, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int n = plan.n_w + plan.n_b;

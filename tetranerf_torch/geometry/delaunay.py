@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import native
+
 
 def triangulate(points: np.ndarray) -> np.ndarray:
     """``[V, 3]`` points -> ``[C, 4]`` int32 cells of every finite tetrahedron.
@@ -34,9 +36,16 @@ def find_average_spacing(points: np.ndarray, num_neighbors: int = 6) -> float:
     points, averaged over the points (the contract of CGAL's
     ``compute_average_spacing``, reference ``src/triangulation.cpp:121-134``).
 
-    The KD-tree path of :func:`tetranerf_tpu.geometry.delaunay.
-    find_average_spacing`; the JAX package's optional native library is not
-    used."""
+    The native library's grid k-NN where it is available, else
+    :func:`average_spacing_kdtree`, as
+    :func:`tetranerf_tpu.geometry.delaunay.find_average_spacing` chooses."""
+    if native.available():
+        return native.average_spacing(points, num_neighbors)
+    return average_spacing_kdtree(points, num_neighbors)
+
+
+def average_spacing_kdtree(points: np.ndarray, num_neighbors: int = 6) -> float:
+    """:func:`find_average_spacing` by a KD-tree over f64 points."""
     from scipy.spatial import cKDTree
 
     points = np.ascontiguousarray(points, dtype=np.float64)

@@ -1,9 +1,11 @@
 """Tetrahedral mesh tables: host-side builder and the device-side holder.
 
 Counterpart of :mod:`tetranerf_tpu.geometry.mesh` (``build_mesh``,
-``build_adjacency``, ``compute_planes``, ``_check_watertight``), numpy path
-only. The JAX module registers a pytree with ``jax.tree_util`` when it is
-imported, so it cannot be imported where JAX is absent; this copy keeps
+``build_adjacency``, ``compute_planes``, ``_check_watertight``); the
+adjacency takes the native library of :mod:`.native` where it is
+available, as JAX's does, else its numpy face-key sort. The JAX module
+registers a pytree with ``jax.tree_util`` when it is imported, so it
+cannot be imported where JAX is absent; this copy keeps
 the same arithmetic and a test pins its tables bit for bit to the JAX
 builder's.
 
@@ -33,6 +35,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import native
 
 MARCH_ROW = 64
 OCC_COLUMN = 24
@@ -153,9 +157,18 @@ def _face_key_sort(cells: np.ndarray) -> np.ndarray:
 
 
 def build_adjacency(cells: np.ndarray) -> np.ndarray:
-    """Face-adjacency table ``neighbors[C, 4]`` (-1 where no neighbour),
-    by sorting face keys. Raises if a face is shared by more than two
-    cells."""
+    """Face-adjacency table ``neighbors[C, 4]`` (-1 where no neighbour):
+    the native library's where it is available (as JAX
+    ``mesh.build_adjacency`` chooses), else :func:`build_adjacency_numpy`;
+    the table is unique, so both give the same bits. Raises if a face is
+    shared by more than two cells."""
+    if native.available():
+        return native.build_adjacency(cells)
+    return build_adjacency_numpy(cells)
+
+
+def build_adjacency_numpy(cells: np.ndarray) -> np.ndarray:
+    """:func:`build_adjacency` by sorting face keys, in numpy."""
     cells = np.asarray(cells, dtype=np.int64)
     num_cells = cells.shape[0]
     faces = _face_key_sort(cells)

@@ -22,10 +22,12 @@ Knobs of the JAX package that tune its TPU lowering are accepted here:
   kernels recompute them in their backward instead, as JAX's do.
 
 ``fused_mlps=True`` runs the MLP stack as the fused CUDA kernels of
-``ops/mlp.py`` (without a Fourier input encoding, as in JAX). On the card
-they compute in bfloat16 only: ``compute_dtype="float32"`` with
-``fused_mlps`` raises ``NotImplementedError`` for CUDA tensors (its CPU
-twins run at either dtype).
+``ops/mlp.py`` (without a Fourier input encoding, as in JAX), at either
+``compute_dtype``: bfloat16 at widths (16, 32) and (64, 128) on the
+``wgmma`` tensor-core route, float32 (f32 FMA, JAX's
+``Precision.HIGHEST``) and bfloat16 at any other width on the generic
+route. Widths above 256 or more than 8 hidden layers raise ``ValueError``
+for CUDA tensors (JAX's kernels take them); the CPU twins run any stack.
 - ``interp_mode``: no-op. ``"matmul"``, ``"pallas"`` and ``"gather"``
   compute one function; the port always runs the sample-interp kernel.
 

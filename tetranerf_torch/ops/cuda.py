@@ -61,6 +61,8 @@ _SIGNATURES = {
     "tetranerf_scatter_add_max_jobs": [],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 9 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 11 + [_I] * 10 + [_P],
+    "tetranerf_fused_mlp_forward_generic": [_P] * 6 + [_I] * 10 + [_P],
+    "tetranerf_fused_mlp_backward_generic": [_P] * 11 + [_I] * 12 + [_P],
     "tetranerf_row_gather_batch": [_P, _I, _P],
     "tetranerf_row_gather_max_jobs": [],
 }
@@ -71,7 +73,9 @@ launch_counts = {
     "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
     "fused_density_mlp": 0, "fused_density_mlp_backward": 0, "row_gather": 0,
     "stream_blend_gather_bf16": 0, "stream_blend_backward_bf16": 0,
-    "scatter_add_rows_bf16": 0,
+    "scatter_add_rows_bf16": 0, "fused_field_mlps_generic": 0,
+    "fused_field_mlps_backward_generic": 0, "fused_density_mlp_generic": 0,
+    "fused_density_mlp_backward_generic": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 

@@ -12,6 +12,15 @@ rounds every cotangent to ``compute_dtype`` at each product and keeps
 cotangents. The twins write that out step by step, so they are not autograd
 of the forward (which would keep the cotangents in f32).
 
+On the card each kernel has two routes, chosen by :func:`launch_plan` from
+the stack's shape and dtype, never by a failure: ``"wgmma"``, the bf16
+tensor-core instances at widths (16, 32) and (64, 128) where their shared
+memory holds the stack, and ``"generic"``, f32 FMA at any width up to
+:data:`MAX_WIDTH` and any depth up to :data:`MAX_LAYERS`, for float32
+(JAX's ``Precision.HIGHEST``) and for bfloat16 operands everywhere else.
+:data:`.cuda.launch_counts` counts each route under its own name
+(``fused_field_mlps`` and ``fused_field_mlps_generic``, ...).
+
 ``weights`` is a flat list in the JAX order, with the port's ``[out, in]``
 matrices: base ``(W, b)`` pairs, density ``(w_d [1, H], b_d)``, then for the
 field MLPs ``W_bh [H, H]`` (the first head layer's base-feature columns; its
@@ -31,10 +40,12 @@ from . import cuda
 
 
 def as_operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` rounded to ``dtype`` as a product's operand, back in f32: a
-    product of two such operands is exact in f32, so ``a @ b`` of them sums
-    exact products in f32."""
-    return t if dtype == torch.float32 else t.to(dtype).float()
+    """``t`` rounded to ``dtype`` as a product's operand, back in its own
+    dtype: a product of two bf16 operands is exact in f32, so ``a @ b`` of
+    them sums exact products in f32. At float32 ``t`` is used as it is, so
+    the twins given float64 tensors compute the f32 contract's function
+    without rounding (a reference for the float32 kernels)."""
+    return t if dtype in (torch.float32, t.dtype) else t.to(dtype).to(t.dtype)
 
 
 def _dot_t(a, w, dtype):
@@ -173,15 +184,18 @@ def fused_density_mlp_backward_twin(x, weights, g_dens, n_base: int,
 # ---------------------------------------------------------------- kernels
 
 
-# The kernels' widths (d_in, hidden): each pair is a template instance of
-# csrc/mlp.cu, whose wgmma shapes and register arrays are fixed at compile
-# time.
+# The wgmma route's widths (d_in, hidden): each pair is a template instance
+# of csrc/mlp.cu, whose wgmma shapes and register arrays are fixed at
+# compile time.
 KERNEL_WIDTHS = ((16, 32), (64, 128))
 MAX_SMEM_BYTES = 232448  # shared memory one block may use on the H100
 MAX_LAYERS = 8  # hidden matrices, n_base + n_head
+MAX_WIDTH = 256  # d_in and hidden of the generic route
 ROWS_PER_TILE = 64  # rows per warpgroup: wgmma's M
 _MAX_FWD_WARPGROUPS = 3
 _BWD_WARPGROUPS = 2
+_GENERIC_SLICE = 16  # rows of a weight slice; the generic route pads widths to it
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _align(n: int, a: int = 128) -> int:
@@ -191,40 +205,49 @@ def _align(n: int, a: int = 128) -> int:
 @dataclass(frozen=True)
 class LaunchPlan:
     """How K4/K5 (``backward=False``) or K4b/K5b lay a stack out on the
-    card, as ``csrc/mlp.cu``'s ``make_plan`` does: the kernel checks the
-    numbers it is given against its own and refuses a mismatch."""
+    card, as ``csrc/mlp.cu``'s ``make_plan`` (``route="wgmma"``) or
+    ``make_gplan`` (``"generic"``) does: the kernel checks the numbers it
+    is given against its own and refuses a mismatch."""
 
-    rows_per_tile: int  # rows of one warpgroup's tile
+    route: str  # "wgmma" or "generic"
+    rows_per_tile: int  # wgmma: rows of one warpgroup's tile; generic: a block's
     warpgroups: int  # per block (one block per SM)
-    stages: int  # x stages of a warpgroup with room of their own; 0: the
-    # stage shares the backward's cotangent staging (no prefetch)
+    stages: int  # wgmma: x stages of a warpgroup with room of their own (0:
+    # the stage shares the backward's cotangent staging, no prefetch);
+    # generic: the weight slices' buffers
     smem_bytes: int  # dynamic shared memory per block
     ws_floats: int  # one block's weight-gradient workspace row (backward)
-    aux_tile_floats: int  # the backward's cached masks and head cotangents
-    # of one 64-row tile
+    aux_tile_floats: int  # wgmma: the backward's cached masks and head
+    # cotangents of one 64-row tile; generic: a block's scratch of layer
+    # inputs (backward)
 
 
-def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int,
-                backward: bool) -> LaunchPlan:
-    """The launch plan of a fused-MLP kernel for this stack; raises
-    ``ValueError`` for a stack the kernels do not take or that does not fit
-    in a block's shared memory."""
-    if (d_in, hidden) not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"fused MLP kernels: widths (d_in, hidden) = {(d_in, hidden)} not "
-            f"among the compiled {KERNEL_WIDTHS}")
-    layers = n_base + n_head
-    if n_base < 1 or n_head < 0 or layers > MAX_LAYERS:
-        raise ValueError(f"fused MLP kernels: n_base={n_base}, n_head={n_head}: "
-                         f"1 <= n_base and n_base + n_head <= {MAX_LAYERS}")
+def _dtype(compute_dtype) -> torch.dtype:
+    dtype = _DTYPES.get(compute_dtype, compute_dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused MLP kernels: compute_dtype {compute_dtype} is neither "
+                         "float32 nor bfloat16")
+    return dtype
+
+
+def _workspace_floats(d_in, hidden, layers, n_head):
+    """One block's weight-gradient workspace row: every matrix and bias of
+    the stack, rounded up to 8 floats."""
     n_w = hidden * d_in + hidden * hidden * (layers - 1) + hidden
     n_w += 3 * hidden if n_head else 0
     n_b = hidden * (layers - (1 if n_head else 0)) + (4 if n_head else 1)
+    return n_b, _align(n_w + n_b, 8)
+
+
+def _wgmma_plan(d_in, hidden, n_base, n_head, backward):
+    """The wgmma route's plan, or None where its shared memory cannot hold
+    the stack."""
+    layers = n_base + n_head
+    n_b, ws_floats = _workspace_floats(d_in, hidden, layers, n_head)
     # bf16 weights as core matrices, then the f32 biases, w_d and W_c.
     fixed = sum(_align(hidden * (d_in if k == 0 else hidden) * 2) for k in range(layers))
     fixed += _align((n_b + 4 * hidden) * 4)
     x_stage = _align(ROWS_PER_TILE * d_in * 4)
-    ws_floats = _align(n_w + n_b, 8)
     # Per row: pre_d's and pre_c's cotangents; per thread: a bit per
     # element of each layer's ReLU mask.
     aux = ROWS_PER_TILE * 4 + layers * -(-(hidden // 2) // 32) * 128
@@ -232,32 +255,64 @@ def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int,
         for groups in range(_MAX_FWD_WARPGROUPS, 0, -1):
             smem = fixed + groups * x_stage
             if smem <= MAX_SMEM_BYTES:
-                return LaunchPlan(ROWS_PER_TILE, groups, 1, smem, 0, 0)
-        need = fixed + x_stage
-    else:
-        staging = _align(2 * ROWS_PER_TILE * hidden * 2 + 512)
-        staging += _align(2 * ROWS_PER_TILE * max(d_in, hidden) * 2)
-        staging += _BWD_WARPGROUPS * _align(aux * 4)
-        smem = fixed + staging + _BWD_WARPGROUPS * x_stage
-        if smem <= MAX_SMEM_BYTES:
-            return LaunchPlan(ROWS_PER_TILE, _BWD_WARPGROUPS, 1, smem, ws_floats, aux)
-        need = fixed + staging
-        if need <= MAX_SMEM_BYTES and ROWS_PER_TILE * d_in * 4 <= ROWS_PER_TILE * hidden * 2:
-            return LaunchPlan(ROWS_PER_TILE, _BWD_WARPGROUPS, 0, need, ws_floats, aux)
-    raise ValueError(
-        f"fused MLP kernels: a stack of d_in={d_in}, hidden={hidden}, "
-        f"n_base={n_base}, n_head={n_head} needs {need} bytes of shared memory "
-        f"per block for the {'backward' if backward else 'forward'}, more than "
-        f"the {MAX_SMEM_BYTES} a block can use")
+                return LaunchPlan("wgmma", ROWS_PER_TILE, groups, 1, smem, 0, 0)
+        return None
+    staging = _align(2 * ROWS_PER_TILE * hidden * 2 + 512)
+    staging += _align(2 * ROWS_PER_TILE * max(d_in, hidden) * 2)
+    staging += _BWD_WARPGROUPS * _align(aux * 4)
+    smem = fixed + staging + _BWD_WARPGROUPS * x_stage
+    if smem <= MAX_SMEM_BYTES:
+        return LaunchPlan("wgmma", ROWS_PER_TILE, _BWD_WARPGROUPS, 1, smem, ws_floats, aux)
+    if (fixed + staging <= MAX_SMEM_BYTES
+            and ROWS_PER_TILE * d_in * 4 <= ROWS_PER_TILE * hidden * 2):
+        return LaunchPlan("wgmma", ROWS_PER_TILE, _BWD_WARPGROUPS, 0, fixed + staging,
+                          ws_floats, aux)
+    return None
+
+
+def _generic_plan(d_in, hidden, n_base, n_head, backward):
+    """The generic route's plan: widths padded to 16, a block of 256 threads
+    on ``tm`` rows, each thread an 8 x 8 block of a layer's output."""
+    layers = n_base + n_head
+    hp, dp = _align(hidden, _GENERIC_SLICE), _align(d_in, _GENERIC_SLICE)
+    wp = max(hp, dp)
+    tm = max(32, 16384 // wp // 32 * 32)
+    # Two [wp][tm] activation images, two weight slices, the rows' heads.
+    floats = 2 * wp * tm + 2 * _GENERIC_SLICE * wp + 4 * tm
+    ws_floats = scratch = 0
+    if backward:
+        floats += tm // 8 * hp  # the bias gradients' column sums
+        ws_floats = _workspace_floats(d_in, hidden, layers, n_head)[1]
+        scratch = (dp + (layers - 1) * hp) * tm  # every layer's input image
+    # At most 2 * 16384 + 32 * 256 + 4 * 1024 + 2048 floats: it always fits.
+    return LaunchPlan("generic", tm, 2, 2, floats * 4, ws_floats, scratch)
+
+
+def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int, backward: bool,
+                compute_dtype=torch.bfloat16) -> LaunchPlan:
+    """The launch plan of a fused-MLP kernel for this stack: the wgmma route
+    for bfloat16 at its compiled widths where its shared memory holds the
+    stack, else the generic route. Raises ``ValueError`` outside the range
+    the kernels take: widths in ``[1, MAX_WIDTH]``, ``n_base >= 1``,
+    ``n_head >= 0``, ``n_base + n_head <= MAX_LAYERS``, float32 or bfloat16
+    (JAX's kernels take more: their VMEM holds any stack)."""
+    dtype = _dtype(compute_dtype)
+    if not (1 <= d_in <= MAX_WIDTH and 1 <= hidden <= MAX_WIDTH):
+        raise ValueError(
+            f"fused MLP kernels: widths (d_in, hidden) = {(d_in, hidden)}: each must be in "
+            f"[1, {MAX_WIDTH}]")
+    if n_base < 1 or n_head < 0 or n_base + n_head > MAX_LAYERS:
+        raise ValueError(f"fused MLP kernels: n_base={n_base}, n_head={n_head}: "
+                         f"1 <= n_base and n_base + n_head <= {MAX_LAYERS}")
+    if dtype == torch.bfloat16 and (d_in, hidden) in KERNEL_WIDTHS:
+        plan = _wgmma_plan(d_in, hidden, n_base, n_head, backward)
+        if plan is not None:
+            return plan
+    return _generic_plan(d_in, hidden, n_base, n_head, backward)
 
 
 def _check(name, x, head_dir, weights, n_base, n_head, compute_dtype):
-    """Refuse what K4/K4b/K5/K5b do not take."""
-    if compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel computes in bfloat16 only, not "
-            f"{compute_dtype}"
-        )
+    """Refuse what K4/K4b/K5/K5b do not take; the launch plan otherwise."""
     tensors = {"x": x, **{f"weights[{i}]": w for i, w in enumerate(weights)}}
     if head_dir is not None:
         tensors["head_dir"] = head_dir
@@ -280,7 +335,7 @@ def _check(name, x, head_dir, weights, n_base, n_head, compute_dtype):
                                       or head_dir.shape != (num_rays, hidden)))
     ):
         raise ValueError(f"{name}: unsupported shapes, widths or dtypes")
-    return launch_plan(d_in, hidden, n_base, n_head, "backward" in name)
+    return launch_plan(d_in, hidden, n_base, n_head, "backward" in name, compute_dtype)
 
 
 def _pack(weights):
@@ -307,26 +362,33 @@ def _num_blocks(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _forward_cuda(counter, plan, x, head_dir, weights, n_base, n_head):
+def _forward_cuda(counter, plan, x, head_dir, weights, n_base, n_head, dtype):
     num_rays, num_samples, d_in = x.shape
+    hidden = weights[0].shape[0]
     dev = x.device
     wpack, bpack = _pack(weights)
     dens = torch.empty((num_rays, num_samples, 1), device=dev)
     rgb = torch.empty((num_rays, num_samples, 3), device=dev) if n_head else None
     if dens.numel():
-        cuda.launch(
-            counter, "tetranerf_fused_mlp_forward", dev,
-            cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir),
-            cuda.ptr(wpack), cuda.ptr(bpack),
-            None if rgb is None else cuda.ptr(rgb), cuda.ptr(dens),
-            num_rays, num_samples, d_in, weights[0].shape[0], n_base, n_head,
-            _num_blocks(dev), plan.warpgroups, plan.smem_bytes,
-        )
+        args = (cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir))
+        outs = (None if rgb is None else cuda.ptr(rgb), cuda.ptr(dens))
+        shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
+        if plan.route == "wgmma":
+            cuda.launch(counter, "tetranerf_fused_mlp_forward", dev, *args,
+                        cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
+                        _num_blocks(dev), plan.warpgroups, plan.smem_bytes)
+        else:
+            # The generic route takes the matrices already rounded to operands.
+            wop = as_operand(wpack, dtype)
+            cuda.launch(f"{counter}_generic", "tetranerf_fused_mlp_forward_generic", dev,
+                        *args, cuda.ptr(wop), cuda.ptr(bpack), *outs, *shape,
+                        int(dtype == torch.bfloat16), _num_blocks(dev), plan.rows_per_tile,
+                        plan.smem_bytes)
     return rgb, dens
 
 
 def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
-                   n_head):
+                   n_head, dtype):
     num_rays, num_samples, d_in = x.shape
     hidden = weights[0].shape[0]
     dev = x.device
@@ -343,26 +405,41 @@ def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
         dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
         return torch.empty_like(x), dhd, _unpack(zeros, weights)
     num_blocks = _num_blocks(dev)
-    # Each block writes its rows' weight gradients once into a row of its own.
+    rows = num_rays * num_samples
+    # Each block writes its rows' weight gradients into a row of its own.
     ws = torch.empty((num_blocks, plan.ws_floats), device=dev)
     grads = torch.empty(wpack.numel() + bpack.numel(), device=dev)
-    tiles = 2 * -(-(num_rays * num_samples) // (2 * ROWS_PER_TILE))
-    # The tiles' cached masks and head cotangents, then per block each
-    # warp's column sums ([8][5H + 4]).
-    aux = torch.empty(tiles * plan.aux_tile_floats + num_blocks * 8 * (5 * hidden + 4),
-                      device=dev)
+    if plan.route == "wgmma":
+        tiles = 2 * -(-rows // (2 * ROWS_PER_TILE))
+        # The tiles' cached masks and head cotangents, then per block each
+        # warp's column sums ([8][5H + 4]).
+        aux = torch.empty(tiles * plan.aux_tile_floats + num_blocks * 8 * (5 * hidden + 4),
+                          device=dev)
+    else:
+        # Each launched block's layer inputs of its current tile.
+        grid = min(num_blocks, -(-rows // plan.rows_per_tile))
+        aux = torch.empty(grid * plan.aux_tile_floats, device=dev)
     dx = torch.empty_like(x)
     dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
-    cuda.launch(
-        counter, "tetranerf_fused_mlp_backward", dev,
-        cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir),
-        cuda.ptr(wpack), cuda.ptr(bpack),
-        cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens),
-        cuda.ptr(dx), None if dhd is None else cuda.ptr(dhd),
-        cuda.ptr(ws), cuda.ptr(grads), cuda.ptr(aux),
-        num_rays, num_samples, d_in, hidden, n_base, n_head, num_blocks,
-        plan.ws_floats, plan.stages, plan.smem_bytes,
-    )
+    args = (cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir))
+    cot = (cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens), cuda.ptr(dx),
+           None if dhd is None else cuda.ptr(dhd), cuda.ptr(ws), cuda.ptr(grads),
+           cuda.ptr(aux))
+    shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
+    if plan.route == "wgmma":
+        cuda.launch(
+            counter, "tetranerf_fused_mlp_backward", dev, *args,
+            cuda.ptr(wpack), cuda.ptr(bpack), *cot, *shape, num_blocks,
+            plan.ws_floats, plan.stages, plan.smem_bytes,
+        )
+    else:
+        wop = as_operand(wpack, dtype)
+        cuda.launch(
+            f"{counter}_generic", "tetranerf_fused_mlp_backward_generic", dev, *args,
+            cuda.ptr(wop), cuda.ptr(bpack), *cot, *shape,
+            int(dtype == torch.bfloat16), num_blocks, plan.ws_floats, plan.rows_per_tile,
+            plan.aux_tile_floats, plan.smem_bytes,
+        )
     return dx, dhd, _unpack(grads, weights)
 
 
@@ -375,12 +452,13 @@ def _on(name, x):
 
 
 def fused_field_mlps(x, head_dir, weights, n_base, n_head, compute_dtype):
-    """K4 on CUDA tensors, :func:`fused_field_mlps_twin` on CPU tensors."""
+    """K4 on CUDA tensors (the plan's route), :func:`fused_field_mlps_twin`
+    on CPU tensors."""
     if _on("fused_field_mlps", x):
         plan = _check("fused_field_mlps", x, head_dir, weights, n_base, n_head,
                       compute_dtype)
         return _forward_cuda("fused_field_mlps", plan, x, head_dir, weights,
-                             n_base, n_head)
+                             n_base, n_head, _dtype(compute_dtype))
     return fused_field_mlps_twin(x, head_dir, weights, n_base, n_head,
                                  compute_dtype)
 
@@ -393,7 +471,8 @@ def fused_field_mlps_backward(x, head_dir, weights, g_rgb, g_dens, n_base,
         plan = _check("fused_field_mlps_backward", x, head_dir, weights, n_base,
                       n_head, compute_dtype)
         return _backward_cuda("fused_field_mlps_backward", plan, x, head_dir,
-                              weights, g_rgb, g_dens, n_base, n_head)
+                              weights, g_rgb, g_dens, n_base, n_head,
+                              _dtype(compute_dtype))
     return fused_field_mlps_backward_twin(x, head_dir, weights, g_rgb, g_dens,
                                           n_base, n_head, compute_dtype)
 
@@ -404,7 +483,7 @@ def fused_density_mlp(x, weights, n_base, compute_dtype):
         plan = _check("fused_density_mlp", x, None, weights, n_base, 0,
                       compute_dtype)
         return _forward_cuda("fused_density_mlp", plan, x, None, weights, n_base,
-                             0)[1]
+                             0, _dtype(compute_dtype))[1]
     return fused_density_mlp_twin(x, weights, n_base, compute_dtype)
 
 
@@ -415,7 +494,8 @@ def fused_density_mlp_backward(x, weights, g_dens, n_base, compute_dtype):
         plan = _check("fused_density_mlp_backward", x, None, weights, n_base, 0,
                       compute_dtype)
         dx, _, grads = _backward_cuda("fused_density_mlp_backward", plan, x, None,
-                                      weights, None, g_dens, n_base, 0)
+                                      weights, None, g_dens, n_base, 0,
+                                      _dtype(compute_dtype))
         return dx, grads
     return fused_density_mlp_backward_twin(x, weights, g_dens, n_base,
                                            compute_dtype)
