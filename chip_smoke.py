@@ -286,12 +286,15 @@ REF_LOSS_RTOL = 1e-3
 REF_GRAD_RTOL = 5e-2
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, bf16 dense FLOP/s on the tensor cores (the
-# fused MLP kernels' products).
+# fused MLP kernels' products), and f32 products as 3xTF32 (three TF32
+# products each at the 495 TFLOP/s TF32 rate: the generic route's float32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+TF32X3_FLOPS = 495e12 / 3
 _PEAKS = {F32_FLOPS: "f32 outside the tensor cores, 67 TFLOP/s",
-          BF16_TENSOR_FLOPS: "bf16 dense on the tensor cores, 989 TFLOP/s"}
+          BF16_TENSOR_FLOPS: "bf16 dense on the tensor cores, 989 TFLOP/s",
+          TF32X3_FLOPS: "f32 as 3xTF32 on the tensor cores, 165 TFLOP/s effective"}
 
 
 def _time_ms(fn, reps):
@@ -1054,21 +1057,28 @@ def _rel_check(name, pairs):
     return err
 
 
-def _mlp_bounds(x, head_dir, weights, flops=BF16_TENSOR_FLOPS):
+def _mlp_bounds(x, head_dir, weights, flops=BF16_TENSOR_FLOPS, chain_flops=None):
     """Bounds of K4 and K4b (``head_dir`` given) or K5 and K5b on these
     inputs: the bytes each must move (x, head_dir, the weights and the
     outputs once; the backward reads the cotangents and writes dx,
     dhead_dir and the weight gradients) against the products (one pass
     forward, three backward) at ``flops``: bf16 on the tensor cores, or
-    f32 for the generic route's float32."""
+    the generic route's float32 (3xTF32). With ``chain_flops`` the
+    backward's forward chain (its first pass) runs at that rate instead
+    (the generic float32 backward's f32 FMAs), its time added to the
+    other products'."""
     rows = x.shape[0] * x.shape[1]
     macs = sum(w.numel() for w in weights if w.dim() == 2)  # per row
     param_bytes = sum(w.numel() for w in weights) * 4
     hd = 0 if head_dir is None else head_dir.numel() * 4
     out = rows * (16 if head_dir is not None else 4)
-    return (_bound(x.numel() * 4 + hd + param_bytes + out, 2 * macs * rows, flops),
-            _bound(2 * x.numel() * 4 + 2 * hd + 2 * param_bytes + out,
-                   6 * macs * rows, flops))
+    # The chain's products as the operations at `flops` that take as long.
+    chain = 2 * macs * rows * (1 if chain_flops is None else flops / chain_flops)
+    bwd = _bound(2 * x.numel() * 4 + 2 * hd + 2 * param_bytes + out,
+                 chain + 4 * macs * rows, flops)
+    if chain_flops is not None and bwd["bound_by"] == "operations":
+        bwd["bound_peak"] = f"forward chain at {_PEAKS[chain_flops]}, then {_PEAKS[flops]}"
+    return _bound(x.numel() * 4 + hd + param_bytes + out, 2 * macs * rows, flops), bwd
 
 
 def mlp_checks(model, dev):
@@ -3942,10 +3952,11 @@ GENERIC_BF16_WIDTHS = {"field_dim": 32, "hidden_size": 64}
 # coarse samples.
 GENERIC_BUCKET = (512, 16, 16)
 # float32 kernel vs twin (TF32 off): each output and gradient within 1e-4
-# of its largest entry. The twin's forward outputs within 1e-5 in relative
-# norm of the exact function (the twin on float64 tensors), which a TF32
-# product (a 10-bit mantissa, ~5e-4 relative a product) would miss by an
-# order. Not its gradients: where a pre-activation lies within f32
+# of its largest entry. The forward outputs of the twin and of the kernel
+# within 1e-5 in relative norm of the exact function (the twin on float64
+# tensors), which a TF32 product (a 10-bit mantissa, ~5e-4 relative a
+# product) would miss by an order: the kernel's 3xTF32 may not slip to
+# plain TF32. Not the gradients: where a pre-activation lies within f32
 # rounding of 0 the ReLU masks of f32 and f64 differ, and that moves a
 # row's cotangent by a whole term (dx: ~9e-4 in relative norm at the train
 # shape, for kernel and twin alike, while the two agree to ~3e-7).
@@ -3957,8 +3968,8 @@ _GENERIC_NAMES = ("fused_field_mlps", "fused_field_mlps_backward", "fused_densit
 
 def _f32_check(name, triples, forward):
     """Max abs error over ``(kernel, twin, exact)`` triples: the kernel to
-    F32_MAX_RTOL of the f32 twin and, for a ``forward``, the f32 twin to
-    F32_EXACT_RTOL of the float64 twin in relative norm."""
+    F32_MAX_RTOL of the f32 twin and, for a ``forward``, the f32 twin and
+    the kernel to F32_EXACT_RTOL of the float64 twin in relative norm."""
     err = 0.0
     for i, (k, t, x) in enumerate(triples):
         e = _max_err(k, t)
@@ -3973,6 +3984,8 @@ def _f32_check(name, triples, forward):
                f"{name}: output {i}: max abs err {e} against largest entry {scale}")
         _check(not forward or t_exact <= F32_EXACT_RTOL,
                f"{name}: output {i}: the f32 twin is {t_exact} from the f64 twin (TF32?)")
+        _check(not forward or k_exact <= F32_EXACT_RTOL,
+               f"{name}: output {i}: the kernel is {k_exact} from the f64 twin (TF32?)")
         err = max(err, e)
     return err
 
@@ -3991,13 +4004,32 @@ def _generic_kernel_checks(model, dev):
     cfg = model.config
     dt = model.compute_dtype
     f32 = dt == torch.float32
-    flops = F32_FLOPS if f32 else BF16_TENSOR_FLOPS
+    flops = TF32X3_FLOPS if f32 else BF16_TENSOR_FLOPS
     n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
+    design = {False: "3xTF32 on mma.sync m16n8k8 (f32 sums a k8 step)",
+              True: "forward chain as f32 FMAs in the twin's order (its ReLU masks), the "
+                    "rest 3xTF32 on mma.sync m16n8k8"} if f32 else {
+        False: "bf16 on mma.sync m16n8k16", True: "bf16 on mma.sync m16n8k16"}
+
+    def passes(plan):
+        if plan.phases == 1:
+            return "one kernel, every weight gradient summed in shared memory"
+        return ("the forward chain first, at the forward's warps, into a cache in global "
+                "memory (activations, ReLU bits, head cotangents), then a pass over the "
+                f"layers adding the cotangents to it, then {plan.phases - 1} weight-gradient "
+                "phases reading it back")
     for backward in (False, True):
         for heads in (n_head, 0):
             plan = mlp.launch_plan(cfg.field_dim, cfg.hidden_size, n_base, heads, backward, dt)
             _check(plan.route == "generic", f"generic: {plan} for {cfg.field_dim} x "
                                             f"{cfg.hidden_size} at {dt}")
+            print(f"generic route design, {cfg.field_dim} x {cfg.hidden_size} "
+                  f"{str(dt).split('.')[-1]}, {'K4b/K5b' if backward else 'K4/K5'} "
+                  f"{'field' if heads else 'density'}: {design[backward]}; weights "
+                  f"{'resident' if plan.resident else 'streamed in 64-column slabs'}; "
+                  f"{plan.warps} warps, {plan.rows_per_tile} rows a block, "
+                  f"{plan.smem_bytes} bytes of shared memory"
+                  + (f"; {passes(plan)}" if backward else ""))
     plain = TetraNerf(dataclasses.replace(cfg, fused_mlps=False),
                       model.tetrahedra_field.shape[0], device=dev)
     plain.load_state_dict(model.state_dict())
@@ -4063,7 +4095,12 @@ def _generic_kernel_checks(model, dev):
             torch.cuda.empty_cache()
             if not train_shape:
                 continue
-            bound = _mlp_bounds(*bound_args, flops=flops)["backward" in name]
+            # float32: K4/K5's products as 3xTF32, K4b/K5b's forward chain as
+            # f32 FMAs and the rest as 3xTF32; beside it every product as f32 FMAs.
+            bound = _mlp_bounds(*bound_args, flops=flops,
+                                chain_flops=F32_FLOPS if f32 else None)["backward" in name]
+            fma = (_mlp_bounds(*bound_args, flops=F32_FLOPS)["backward" in name]
+                   if f32 else None)
             if name == "fused_field_mlps":
                 with torch.no_grad():
                     library = _time_ms(lambda: plain.field_mlps(x, d), 5)
@@ -4084,13 +4121,15 @@ def _generic_kernel_checks(model, dev):
             twin_ms = _time_ms(lambda: twin_fn(*args), 3)
             print(f"{name}_generic {at}: max abs err {err:.3g}; {ms:.3f} ms, twin "
                   f"{twin_ms:.3f} ms, un-fused stack {library:.3f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {bound['bound_peak']})")
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {bound['bound_peak']})"
+                  + (f", f32 FMA bound {fma['bound_ms']:.4f} ms" if f32 else ""))
             # No one PyTorch call computes the stack: library_ms stays null and
             # the un-fused stack's time goes beside it, as in phase 8.
+            extra = {"bound_f32_fma_ms": fma["bound_ms"]} if f32 else {}
             out[name] = _entry(f"{name}_generic", "tetranerf_torch/csrc/mlp.cu", replaces,
                                err, ms, twin_ms, bound, unfused_ms=library,
                                compute_dtype=str(dt).split(".")[-1],
-                               widths=[cfg.field_dim, cfg.hidden_size])
+                               widths=[cfg.field_dim, cfg.hidden_size], **extra)
             torch.cuda.empty_cache()
         print(f"generic fused MLP kernels {at}: within tolerance of their twins")
     del plain
@@ -4239,9 +4278,10 @@ def _mlp_build_report(log):
               f"{bwd.warpgroups} warpgroups, x prefetch {bool(bwd.stages)}, "
               f"{bwd.smem_bytes} bytes, workspace row {bwd.ws_floats} floats")
     fwd, bwd = (launch_plan(64, 128, 3, 1, b, "float32") for b in (False, True))
-    print(f"mlp.cu launch plan, preset widths, float32 (generic route): {fwd.rows_per_tile} "
-          f"rows a block, forward {fwd.smem_bytes} bytes of shared memory, backward "
-          f"{bwd.smem_bytes} bytes and {bwd.aux_tile_floats} floats of scratch a block")
+    print(f"mlp.cu launch plan, preset widths, float32 (generic route): forward "
+          f"{fwd.warps} warps, {fwd.rows_per_tile} rows a block, weights "
+          f"{'resident' if fwd.resident else 'streamed'}, {fwd.smem_bytes} bytes of shared "
+          f"memory; backward {bwd.warps} warps, {bwd.phases} phases, {bwd.smem_bytes} bytes")
 
 
 def main(argv=None) -> int:

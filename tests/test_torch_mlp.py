@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from tetranerf_torch.models import TetraNerf, check_supported, tetranerf_preset
-from tetranerf_torch.ops import cuda
+from tetranerf_torch.ops import cuda, mlp
 from tetranerf_torch.ops.mlp import (
     MAX_SMEM_BYTES,
     FusedDensityMLP,
@@ -30,6 +30,7 @@ from tetranerf_torch.ops.mlp import (
     fused_field_mlps_backward,
     fused_field_mlps_backward_twin,
     fused_field_mlps_twin,
+    _generic_plan,
     launch_plan,
 )
 from tetranerf_torch.training.checkpoints import params_from_jax
@@ -415,6 +416,23 @@ CUDA_CASES = {
     "field32-hidden64-bf16": (32, 64, 3, 1, 64, 33),
     "tiny-bf16": (5, 7, 1, 1, 9, 11),
     "wide-bf16": (256, 256, 1, 1, 8, 65),
+    # The generic route's edges: 1,591 rows (no multiple of a block's rows)
+    # with rays across tiles and warps; then widths either side of where
+    # the forward's weights stop fitting shared memory beside the tiles
+    # (bf16 144 / 160, f32 96 / 112) and where the backward's weight
+    # gradients stop fitting beside eight warps' tiles, so that it caches
+    # the matrices' inputs and cotangents for phases after its pass (bf16
+    # 64 / 80, f32 32 / 48).
+    "preset-ragged-f32": (64, 128, 3, 1, 37, 43),
+    "field32-ragged-bf16": (32, 64, 3, 1, 37, 43),
+    "resident-144-bf16": (144, 144, 3, 1, 37, 43),
+    "streamed-160-bf16": (160, 160, 3, 1, 37, 43),
+    "resident-96-f32": (96, 96, 3, 1, 37, 43),
+    "streamed-112-f32": (112, 112, 3, 1, 37, 43),
+    "bwd-one-pass-64-bf16": (64, 64, 3, 1, 37, 43),
+    "bwd-cached-80-bf16": (80, 80, 3, 1, 37, 43),
+    "bwd-one-pass-32-f32": (32, 32, 3, 1, 37, 43),
+    "bwd-cached-48-f32": (48, 48, 3, 1, 37, 43),
 }
 CUDA_DTYPES = {name: torch.float32 if name.endswith("-f32") else torch.bfloat16
                for name in CUDA_CASES}
@@ -532,7 +550,9 @@ def test_field_kernels_match_twin(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["narrow", "preset", "ragged", "preset-f32", "odd-f32",
-                                  "deep-f32", "odd-bf16", "tiny-bf16", "wide-bf16"])
+                                  "deep-f32", "odd-bf16", "tiny-bf16", "wide-bf16",
+                                  "preset-ragged-f32", "field32-ragged-bf16",
+                                  "streamed-112-f32", "bwd-cached-80-bf16"])
 def test_density_kernels_match_twin(cuda_device, case):
     n_base, _, x, _, weights, _, _ = _cuda_inputs(case, cuda_device, seed=1)
     _check_density(x, weights[: 2 * n_base + 2], n_base, CUDA_DTYPES[case])
@@ -590,7 +610,7 @@ def _model_on_card_vs_cpu(cuda_device, compute_dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_what_they_lack(cuda_device):
+def test_generic_route_takes_what_wgmma_lacks_and_neither_takes_raises(cuda_device):
     """What the wgmma route lacked, float32 and d_in = 8, runs on the
     generic route within tolerance of the twins; what neither route takes
     (float16, a width above 256) raises ValueError before any launch."""
@@ -646,8 +666,9 @@ def test_backward_weight_gradients_are_bit_equal_over_two_launches(cuda_device, 
 @pytest.mark.parametrize("case", ["preset-f32", "odd-bf16"])
 def test_generic_weight_gradients_are_bit_equal_over_two_launches(cuda_device, case,
                                                                    head):
-    """The generic route's K4b and K5b: each block adds its tiles' weight
-    gradients into its own row in tile order, then the rows are summed in
+    """The generic route's K4b and K5b: each block sums its tiles' weight
+    gradients in shared memory in tile order (in its one pass, or a phase's
+    chunks from the cache), writes its row once, then the rows are summed in
     block order."""
     _assert_bit_equal_twice(case, head, CUDA_DTYPES[case])
 
@@ -669,7 +690,7 @@ def _assert_bit_equal_twice(case, head, dt):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_an_oversized_stack(cuda_device):
+def test_oversized_stack_runs_its_backward_on_the_generic_route(cuda_device):
     """Three base and three head layers at the preset's widths: the forward
     fits the wgmma route's shared memory, the backward does not and runs on
     the generic route; both within tolerance of the twins."""
@@ -677,6 +698,58 @@ def test_kernels_refuse_an_oversized_stack(cuda_device):
     assert launch_plan(64, 128, 3, 3, False).route == "wgmma"
     assert launch_plan(64, 128, 3, 3, True).route == "generic"
     _check_field(x, hd, weights, n_base, n_head, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_f32_backward_chain_is_the_twins_bit_for_bit(cuda_device, monkeypatch):
+    """The float32 backward runs its forward chain as f32 FMAs in a plain
+    GEMM's order, so that its ReLU masks are those of the f32 twin whose
+    gradients it is held to. At the preset's widths it caches that chain's
+    activations a_1 .. a_{L-1}: each is the twin's on the card, bit for
+    bit."""
+    n_base, n_head, x, hd, weights, g_rgb, g_dens = _cuda_inputs("preset-f32", cuda_device)
+    dt = torch.float32
+    plan = launch_plan(64, 128, n_base, n_head, True, dt)
+    assert plan.phases > 1
+    caches, make = [], mlp._generic_cache
+
+    def keep(*args):
+        caches.append(make(*args))
+        return caches[-1]
+
+    monkeypatch.setattr(mlp, "_generic_cache", keep)
+    fused_field_mlps_backward(x, hd, weights, g_rgb, g_dens, n_base, n_head, dt)
+    torch.cuda.synchronize()
+    rows = x.shape[0] * x.shape[1]
+    padded = -(-rows // plan.rows_per_tile) * plan.rows_per_tile
+    _, _, base_acts, head_acts, _ = mlp._chain(
+        x.reshape(rows, -1), mlp._per_row(hd, x.shape[1]), weights, n_base, n_head, dt)
+    acts = base_acts[1:] + head_acts
+    tile = plan.rows_per_tile
+    for k in range(1, n_base + n_head):  # plane k - 1: a_k, each tile's block [128][tile]
+        plane = caches[0][(k - 1) * padded * 128: k * padded * 128]
+        cached = plane.view(-1, 128, tile).transpose(1, 2).reshape(padded, 128)
+        assert torch.equal(cached[:rows], acts[k - 1]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_host_plan_is_the_kernels_plan(cuda_device, backward):
+    """The host's generic plan is the one the kernels compute for
+    themselves (``make_gplan``), at every stack of PLAN_STACKS and both
+    dtypes."""
+    import ctypes
+
+    query = cuda.entry("tetranerf_fused_mlp_generic_plan")
+    for (d_in, hidden, n_base, n_head), _, _ in PLAN_STACKS.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            host = _generic_plan(d_in, hidden, n_base, n_head, backward, dtype)
+            out = (ctypes.c_int * 6)()
+            assert query(d_in, hidden, n_base, n_head, int(dtype == torch.bfloat16),
+                         int(backward), out)
+            assert list(out) == [host.rows_per_tile, host.warps, int(host.resident),
+                                 host.phases, host.aux_tile_floats, host.smem_bytes], \
+                (d_in, hidden, n_base, n_head, dtype)
 
 
 # ------------------------------------------------------- the launch plan
@@ -709,16 +782,52 @@ def test_launch_plan_takes_the_kernel_stacks(stack, backward):
         assert plan.rows_per_tile == 64
         assert plan.warpgroups == 2 if backward else 1 <= plan.warpgroups <= 3
     else:
-        wp = max(-(-d_in // 16), -(-hidden // 16)) * 16
-        assert plan.warpgroups == 2 and plan.rows_per_tile % 32 == 0
-        assert (plan.rows_per_tile // 8) * (wp // 8) <= 256  # a block of C a thread
-        scratch = (-(-d_in // 16) * 16 + (n_base + n_head - 1) * -(-hidden // 16) * 16)
-        assert plan.aux_tile_floats == (scratch * plan.rows_per_tile if backward else 0)
+        # Warps of 16 rows, the MMA's M. Resident weights are in shared
+        # memory as operands. The backward's one pass sums every weight
+        # gradient (f32) in shared memory, at eight warps; past it, its cache
+        # holds each matrix's input but x and each cotangent, as operands,
+        # for every 16 rows.
+        layers = n_base + n_head
+        esz = 2 if dtype == torch.bfloat16 else 4
+        macs = hidden * d_in + (layers - 1) * hidden * hidden  # the matrices' entries
+        assert plan.rows_per_tile == 16 * plan.warps
+        assert 1 <= plan.warps <= (8 if backward else 16)
+        assert plan.warpgroups == 0 and plan.stages == 0
+        assert not plan.resident or plan.smem_bytes > macs * esz
+        if not backward:
+            assert plan.phases == 0 and plan.aux_tile_floats == 0
+        elif plan.phases == 1:
+            assert plan.warps == 8 and plan.aux_tile_floats == 0
+            assert plan.smem_bytes > macs * 4
+        else:
+            words = 16 * ((2 * layers - 1) * hidden + (1 if n_head else 0)) * esz / 4
+            assert plan.aux_tile_floats >= words
     rng = np.random.default_rng(0)
     weights = [_port(w) for w in _jax_weights(rng, d_in, hidden, n_base, n_head)]
     size = sum(w.numel() for w in weights)
     # The workspace row holds every gradient, rounded up to 8 floats.
     assert plan.ws_floats == (-(-size // 8) * 8 if backward else 0)
+
+
+def test_generic_plan_keeps_the_weights_resident_where_they_fit():
+    """bf16 at field 32, hidden 64 and at the preset's 64 / 128 keep the
+    forward's weights resident in shared memory; float32 at 64 / 128 (231 KB
+    of weights) streams them. The bf16 32 / 64 backward keeps them too and
+    sums every weight gradient in its one pass at eight warps; float32 at
+    64 / 128 (231 KB of weight gradients) streams the weights and caches
+    the matrices' inputs and cotangents for phases after its pass."""
+    for d_in, hidden, dtype, resident in ((32, 64, torch.bfloat16, True),
+                                          (64, 128, torch.bfloat16, True),
+                                          (64, 128, torch.float32, False)):
+        for n_head in (1, 0):
+            plan = _generic_plan(d_in, hidden, 3, n_head, False, dtype)
+            assert plan.resident is resident, (d_in, hidden, dtype, n_head)
+    for n_head in (1, 0):
+        bwd = _generic_plan(32, 64, 3, n_head, True, torch.bfloat16)
+        assert bwd.resident and bwd.phases == 1 and bwd.warps == 8
+        bwd = _generic_plan(64, 128, 3, n_head, True, torch.float32)
+        assert not bwd.resident and bwd.phases > 1 and bwd.aux_tile_floats > 0
+    assert launch_plan(32, 64, 3, 1, False, torch.bfloat16).resident
 
 
 def test_launch_plan_stages_and_warpgroups_follow_shared_memory():

@@ -1194,66 +1194,196 @@ cudaError_t launch_backward(const Plan& plan, const float* x, const float* head_
 // memory. Widths 1 <= d_in, hidden <= 256 and depths up to kMaxLayers are
 // runtime values. ops/mlp.py `launch_plan` picks the route by shape.
 //
-// Precision. Every product is f32 FMA over operands that are exact in f32:
-// at float32 the operands themselves (no TF32, whose 10-bit mantissa would
-// put a layer ~1e-3 off), at bfloat16 operands rounded to bf16 first (the
-// wrapper rounds the packed weights; activations, x and cotangents are
-// rounded where they are stored as an operand). A product of two bf16
-// values is exact in f32, so this is the wgmma route's function (bf16
-// operands, f32 sums) up to the order of the sums. Biases, head_dir and
-// the bias and head_dir gradients stay f32 sums of unrounded values.
+// Precision. bfloat16: every product on mma.sync m16n8k16 with bf16
+// operands and f32 accumulators, the wgmma route's function up to the order
+// of the sums. float32: products on the tensor cores as 3xTF32 (mma.sync
+// m16n8k8): each operand x splits into hi = tf32(x) and lo = tf32(x - hi),
+// and a k8 step sums lo*hi + hi*lo + hi*hi, which is then added to the f32
+// accumulator (the tensor cores' truncating sums stay 8 products long; over
+// a whole K they put a layer ~1e-5 off); the dropped lo*lo is below 2^-22
+// of a product. Plain TF32 (a 10-bit mantissa) would be ~5e-4 off. The
+// exception is the backward's forward chain in float32, which runs as f32
+// FMAs in a plain GEMM's order (fma_pass): its pre-activations are then the
+// f32 twin's bit for bit, and so are the ReLU masks that gate the
+// cotangents (a mask flipped at a pre-activation within rounding of 0
+// moves a row's cotangent by a whole term; in the forward it moves an
+// output by no more than that pre-activation). Activations, x and
+// cotangents are stored as operands (rounded to bf16 in bfloat16); biases,
+// head_dir and the bias and head_dir gradients stay f32 sums of unrounded
+// values.
 //
-// What bounds it on the H100: f32 FMA outside the tensor cores, 67 TFLOP/s
-// (bf16 at these widths runs the same FMA, so its 989 TFLOP/s tensor bound
-// is out of reach by design). At the preset's widths in float32 the train
-// slice's forward is 121.8 GFLOP, 1.82 ms at that rate; the backward three
-// times that.
+// What bounds it on the H100: the products. At the preset's widths the
+// train slice's forward is 121.8 GFLOP; in bfloat16 the tensor cores' 989
+// TFLOP/s make that 0.12 ms (mma.sync reaches part of that rate: only
+// wgmma reaches all of it), in float32 three TF32 products for each f32
+// one make it 165 TFLOP/s effective, 0.74 ms. The backward needs three
+// times the products, and in float32 its forward chain runs on the f32 FMA
+// units (67 TFLOP/s).
 //
-// Design. A block of 256 threads owns a tile of tm rows at a time
-// (persistent, tiles in block order). The tile's activations live in
-// shared memory feature-major ([width][tm], widths padded to 16 with
-// zeros), with each 4-row float4 of feature f at float4 index
-// (r / 4) ^ ((f / 8) % 8): the layer products read 8 rows of one feature
-// and the weight-gradient products 4 rows of 8 features a thread, and the
-// swizzle puts a quarter-warp's float4s in distinct banks for both. A
-// layer is C[tm, N] = A[tm, K] B[K, N], each thread an 8 x 8 block of C in
-// registers (tm is 16384 / the widest padded width, so one block a
-// thread); B, the weight matrix (W^T forward, W backward), streams through
-// shared memory in slices of 16 rows, two buffers filled by cp.async, the
-// next slice loading while this one is used; the epilogue adds the bias,
-// applies ReLU and writes the next activation. The density and colour
-// heads are per-row dot products.
+// Design. Rows (samples) are flattened; a block of `warps` warps takes
+// `rows` = 16 warps rows at a time (persistent, tiles in block order), each
+// warp 16 rows: one m16 tile of every product. Activations live in shared
+// memory row-major as operands ([rows][width + pad]; the 16-byte pad puts
+// ldmatrix's 8 row addresses in distinct banks). A layer is, per warp,
+// C[16][N] = A[16][K] B[K][N] in passes of kCols output columns (8 n8
+// tiles of f32 accumulators in registers), A by ldmatrix from the
+// activation, B by ldmatrix from the weight matrix in shared memory; the
+// epilogue adds the bias (head_dir for W_bh), applies ReLU and stores the
+// next activation. The block stages the packed f32 weights (ops/mlp.py
+// `_pack`) into shared memory as operands in that layout: each matrix
+// [hp][kp + pad], and the heads' [16][hp + pad] (row 0 w_d, rows 1-3 W_c).
+// Where the stack fits beside the tiles it stays resident for the launch,
+// staged once per block, and the forward's warps then share it with no
+// block barrier at all; otherwise each pass's slab of kCols columns is
+// staged (16-byte cp.async where the rows allow) between two block
+// barriers (the plan's `resident`). The density (1 output) and colour (3)
+// heads are one product each with the 16-row head matrix, on every warp.
 //
-// The backward keeps K4b's contract: per tile the forward chain is run
-// again (each layer's input image written to the block's scratch in global
-// memory, read back on the way down), the ReLU masks come from the
-// activations, each weight gradient dW_k += gz^T a_k is a product over
-// the tile's rows into the block's own workspace row (read-modify-write by
-// the thread that owns each element, tiles in block order), bias
-// gradients are per-thread column sums of the unrounded cotangent summed
-// in a fixed order, dhead_dir is added per ray with atomics (one per
-// column where 8 rows share a ray), and sum_rows_kernel adds the rows in
-// block order: two launches give the same weight-gradient bits.
+// The backward sums each block's weight gradients in shared memory over
+// all of its tiles and writes them into the block's workspace row once;
+// sum_rows_kernel adds the rows in block order, so the weight gradients
+// are the same bits in every launch. Per tile it runs the forward again
+// (every layer's ReLU mask kept as bits), the heads' cotangents, then goes
+// down the layers: at each, one block barrier; per warp the cotangent one
+// layer down (gz W, with ldmatrix.trans on W), masked, its column sums
+// kept (the bias gradients, added in warp order), stored rounded. The
+// heads' weight gradients are one product each over the tile's rows.
+// dhead_dir takes W_bh's cotangent per ray with atomics (one per column
+// where a warp's 16 rows share a ray). Where every matrix's dW and input
+// image fit shared memory beside eight warps' tiles (bf16 at field 32,
+// hidden 64), that pass also adds each matrix's dW += gz^T a (A = the
+// cotangent image, B = the input image, both by ldmatrix.trans; units of
+// 16 rows spread over the warps, each element added by one lane): one
+// kernel, nothing leaves the chip but dx, dhead_dir and the row. Otherwise
+// (float32 at the preset's widths: its dW alone is 231 KB) the work is
+// cached in global memory, each value written once and read back once or
+// twice: the forward kernel at the forward's warps (fwd_kernel<.., true>)
+// runs the chain first and writes a_1 .. a_L, the ReLU bits and the heads'
+// cotangents; the backward's pass over the layers starts from them and
+// writes each matrix's cotangent (its float32 slabs of g W from a
+// transposed copy of the weights); phases after it (each holding a set of
+// dW chunks, row ranges of the matrices, top first) read a matrix's
+// cotangents and inputs back tile by tile for the same dW products. Every
+// dW element is still summed over the block's tiles in shared memory and
+// written once; nothing is recomputed.
 
 namespace gen {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kSlice = 16;     // rows of a weight slice; widths pad to it
+constexpr int kMaxWarps = 16;    // warps of a forward block, at most
+constexpr int kCacheWarps = 12;  // of the cached backward's forward (170 registers a thread)
+constexpr int kMaxBwdWarps = 8;  // of a backward block
+constexpr int kCols = 64;        // output columns of a pass, and of a streamed slab
 constexpr int kMaxWidth = 256;
+constexpr int kMaxChunks = 64;  // the backward's weight-gradient chunks
+
+// A dW chunk's row stride in floats for `in` columns: 8 past a multiple of
+// 32, so that a warp's float2 adds (8 rows by 4 column pairs) take two
+// wavefronts, with no bank conflict.
+__host__ __device__ __forceinline__ int dw_stride(int in) { return (in + 31) / 32 * 32 + 8; }
 
 struct GPlan {
   int d_in, hidden, n_base, n_head, n_layers, n_w, n_b;
   int in_dim[kMaxLayers], w_off[kMaxLayers], b_off[kMaxLayers];
   int wd_off, bd_off, wc_off, bc_off;
-  int hp, dp, wp, tm;  // hidden and d_in padded to 16, their max; rows a tile
-  int buf0, buf1, stage, rows, parts;  // shared memory, in floats
-  int act_off[kMaxLayers];  // backward: a_k's image in the block's scratch
-  int scratch_floats;       // backward: the block's scratch
+  int esz, pad;    // operand bytes; a row's pad in elements (16 bytes)
+  int hp, dp, wp;  // hidden and d_in padded to 16, their max
+  int kp[kMaxLayers];                    // matrix k's input width, padded
+  int pw_off[kMaxLayers + 1], pw_bytes;  // the staged stack in shared memory, bytes
+  int resident, warps, rows;
+  int slab_bytes, heads_off;  // resident: the pack at 0; else a slab at 0, the heads after
+  int pp_off;                 // two activation images [rows][wp + pad]
+  // Backward: ReLU bits, the heads' cotangents [rows][4] and as operands
+  // [rows][16 + pad] (cols 0-3), per-warp column sums [2][warps][hp] and of
+  // the heads' cotangents [warps][4], bias and head-weight gradients, then
+  // (one pass) the matrices' input images and dW.
+  int bits_off, rows_off, hcot_off, part_off, hpart_off, bias_off, headg_off, phase_off;
+  // The dW chunks (matrix chunk_k, its rows [chunk_m0, chunk_m1); matrix
+  // n_layers: the density head's w_d) of phase ph: [phase_first[ph],
+  // phase_first[ph + 1]). Phase 0 is the pass over the layers; with more
+  // phases it holds no chunk and the later ones read the cache.
+  int n_chunks, chunk_k[kMaxChunks], chunk_m0[kMaxChunks], chunk_m1[kMaxChunks];
+  int n_phases, phase_first[kMaxChunks + 2];
+  // Words of the cache for 16 rows (0 with one phase): planes of hp
+  // operands a row for a_1 .. a_{L-1} and gz_1 .. gz_L, then with a head
+  // the density head's cotangent.
+  int cache_words;
   int smem_bytes;
 };
 
+// The backward's pass over the layers at `warps` warps, the weights
+// resident or streamed: its shared memory up to the dW (returned).
+int bwd_fixed(GPlan* p, int warps, bool resident) {
+  const int R = 16 * warps, L = p->n_layers, es = p->esz, pad = p->pad;
+  const int heads = p->pw_bytes - p->pw_off[L];
+  int off = resident ? p->pw_bytes : p->slab_bytes + heads;
+  p->resident = resident;
+  p->warps = warps;
+  p->rows = R;
+  p->heads_off = resident ? p->pw_off[L] : p->slab_bytes;
+  p->pp_off = off;
+  off += 2 * R * (p->wp + pad) * es;
+  p->bits_off = off;
+  off += L * R * p->hp / 8;
+  p->rows_off = off;
+  off += R * 16;
+  p->hcot_off = off;
+  off += R * (16 + pad) * es;
+  p->part_off = off;
+  off += 2 * warps * p->hp * 4;
+  p->hpart_off = off;
+  off += warps * 16;
+  p->bias_off = off;
+  off += align_up(p->n_b, 4) * 4;
+  p->headg_off = off;
+  off += 4 * p->hp * 4;
+  p->phase_off = off;
+  return off;
+}
+
+// The dW chunks from phase n_phases on, matrix by matrix from the top
+// (with `wd` first w_d, as matrix L: its input is a_nb), as many to a
+// phase as shared memory holds beside `base` bytes and (with `save`) the
+// input image of each of the phase's matrices; false where not even one
+// chunk fits. Raises smem_bytes to the largest phase.
+bool pack_chunks(GPlan* p, int base, bool save, bool wd) {
+  const int L = p->n_layers;
+  int used = base;
+  unsigned in_phase = 0;
+  p->phase_first[p->n_phases] = p->n_chunks;
+  for (int k = wd ? L : L - 1; k >= 0; --k) {
+    const int in = k == L ? p->hidden : p->in_dim[k], rows = k == L ? 1 : p->hidden;
+    const int img = save ? p->rows * (p->kp[k] + p->pad) * p->esz : 0;
+    const int group = 16 * dw_stride(in) * 4;
+    for (int m = 0; m < rows;) {
+      const int need = (in_phase >> k) & 1 ? 0 : img;
+      const int room = kMaxSmem - used - need;
+      const int groups = room >= group ? room / group : 0;
+      if (groups == 0) {
+        if (in_phase == 0) return false;
+        p->phase_first[++p->n_phases] = p->n_chunks;
+        used = base;
+        in_phase = 0;
+        continue;
+      }
+      if (p->n_chunks == kMaxChunks) return false;
+      const int m1 = std::min(rows, m + 16 * groups);
+      p->chunk_k[p->n_chunks] = k;
+      p->chunk_m0[p->n_chunks] = m;
+      p->chunk_m1[p->n_chunks] = m1;
+      ++p->n_chunks;
+      used += need + (m1 - m + 15) / 16 * group;
+      p->smem_bytes = std::max(p->smem_bytes, used);
+      in_phase |= 1u << k;
+      m = m1;
+    }
+  }
+  p->phase_first[++p->n_phases] = p->n_chunks;
+  return true;
+}
+
 // The host's `launch_plan` for the generic route computes the same numbers.
-bool make_gplan(int d_in, int hidden, int n_base, int n_head, bool backward, GPlan* p) {
+bool make_gplan(int d_in, int hidden, int n_base, int n_head, bool bf16, bool backward,
+                GPlan* p) {
   const int n_layers = n_base + n_head;
   if (d_in < 1 || d_in > kMaxWidth || hidden < 1 || hidden > kMaxWidth || n_base < 1 ||
       n_head < 0 || n_layers > kMaxLayers) {
@@ -1266,530 +1396,1241 @@ bool make_gplan(int d_in, int hidden, int n_base, int n_head, bool backward, GPl
   p->n_head = n_head;
   p->n_layers = n_layers;
   pack_layout(p);
-  p->hp = align_up(hidden, kSlice);
-  p->dp = align_up(d_in, kSlice);
+  p->esz = bf16 ? 2 : 4;
+  p->pad = 16 / p->esz;
+  const int es = p->esz, pad = p->pad;
+  p->hp = align_up(hidden, 16);
+  p->dp = align_up(d_in, 16);
   p->wp = std::max(p->hp, p->dp);
-  p->tm = std::max(32, 16384 / p->wp / 32 * 32);
-  int off = 0;
-  p->buf0 = off;
-  off += p->wp * p->tm;
-  p->buf1 = off;
-  off += p->wp * p->tm;
-  p->stage = off;
-  off += 2 * kSlice * p->wp;
-  p->rows = off;  // pre_d (then its cotangent), rgb (then theirs): [4][tm]
-  off += 4 * p->tm;
-  if (backward) {
-    p->parts = off;  // the bias gradients' column sums: [tm / 8][hp]
-    off += p->tm / 8 * p->hp;
-    int s = 0;
-    for (int k = 0; k < n_layers; ++k) {
-      p->act_off[k] = s;
-      s += (k == 0 ? p->dp : p->hp) * p->tm;
-    }
-    p->scratch_floats = s;
+  int off = 0, slab = 0;
+  for (int k = 0; k < n_layers; ++k) {
+    p->kp[k] = k == 0 ? p->dp : p->hp;
+    p->pw_off[k] = off;
+    off += p->hp * (p->kp[k] + pad) * es;
+    slab = std::max(slab, std::min(kCols, p->hp) * (p->kp[k] + pad) * es);
   }
-  p->smem_bytes = off * 4;
-  return p->smem_bytes <= kMaxSmem;
+  if (backward) slab = std::max(slab, p->hp * (kCols + pad) * es);
+  if (backward && !bf16) slab = std::max(slab, kCols * (p->hp + pad) * es);
+  p->pw_off[n_layers] = off;
+  const int heads = 16 * (p->hp + pad) * es;
+  p->pw_bytes = off + heads;
+  p->slab_bytes = slab;
+  if (!backward) {
+    const int img = 16 * (p->wp + pad) * es;  // a warp's rows of one image
+    p->resident = p->pw_bytes + 4 * 2 * img <= kMaxSmem;
+    const int w = p->resident ? p->pw_bytes : slab + heads;
+    p->warps = std::min(kMaxWarps, (kMaxSmem - w) / (2 * img));
+    if (p->warps < 1) return false;
+    p->rows = 16 * p->warps;
+    p->heads_off = p->resident ? p->pw_off[n_layers] : slab;
+    p->pp_off = w;
+    p->smem_bytes = w + 2 * p->warps * img;
+    return true;
+  }
+  // One pass where every dW fits beside eight warps' tiles, the weights
+  // resident if they fit too.
+  for (int resident = 1; resident >= 0; --resident) {
+    GPlan q = *p;
+    q.smem_bytes = bwd_fixed(&q, kMaxBwdWarps, resident);
+    if (pack_chunks(&q, q.smem_bytes, true, false) && q.n_phases == 1) {
+      *p = q;
+      return true;
+    }
+  }
+  // Else the pass over the layers at the most warps that fit, then the dW
+  // phases beside two images of the tile's rows (a cotangent and an input).
+  for (int warps = kMaxBwdWarps; warps >= 1; warps /= 2) {
+    for (int resident = 1; resident >= 0; --resident) {
+      GPlan q = *p;
+      q.smem_bytes = bwd_fixed(&q, warps, resident);
+      q.n_phases = 1;
+      // Two images of the tile's rows, transposed: a cotangent and an input.
+      const int images = (q.hp + q.wp) * (q.rows + pad) * es;
+      if (q.smem_bytes <= kMaxSmem && pack_chunks(&q, images, false, n_head > 0)) {
+        // Per 16 rows: the planes, the density head's cotangents and a_L as
+        // operands, the ReLU bits, the heads' cotangents.
+        q.cache_words = 4 * es * (2 * n_layers * q.hp + 1) + n_layers * q.hp / 2 + 64;
+        *p = q;
+        return true;
+      }
+    }
+  }
+  return false;
 }
 
+// An image in shared memory: element (r, c) at p + (r * st + c) * esz.
+struct Img {
+  char* p;
+  int st;
+};
+
+__device__ __forceinline__ void ldsm4(uint32_t a, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4t(uint32_t a, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ float lds(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x = hi + lo + (below 2^-22 |x|), hi and lo TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// One k16 step of mma_pass in bf16: every fragment of the step is loaded
+// before its products, so that the loads overlap and the products issue
+// back to back; kFull (nt == 8) drops the per-tile predicates.
+template <bool kAT, bool kBK, bool kFull>
+__device__ __forceinline__ void mma_step_bf16(uint32_t al, uint32_t bl, int sa, int sb, int k0,
+                                              int nt, float (&acc)[8][4]) {
+  uint32_t af[4], bf[4][4];
+  if (kAT) {
+    ldsm4t(al + k0 * sa * 2, af);
+  } else {
+    ldsm4(al + k0 * 2, af);
+  }
+  const uint32_t bk = kBK ? bl + k0 * sb * 2 : bl + k0 * 2;
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    if (kFull || 2 * jp < nt) {
+      if (kBK) {
+        ldsm4t(bk + jp * 32, bf[jp]);
+      } else {
+        ldsm4(bk + jp * 16 * sb * 2, bf[jp]);
+      }
+    }
+  }
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    if (kFull || 2 * jp < nt) {
+      mma_bf16(acc[2 * jp], af, bf[jp][0], bf[jp][1]);
+      mma_bf16(acc[2 * jp + 1], af, bf[jp][2], bf[jp][3]);
+    }
+  }
+}
+
+// acc[j] (n8 tiles j < nt, nt even, at most 8) += A[16][kdim] B[kdim][8 nt]
+// for the warp, kdim a multiple of 16. `a` and `b` are the shared-memory
+// addresses of A's and B's element (0, 0), `sa` and `sb` row strides in
+// elements. kAT: A[m][k] = a[k][m] (else a[m][k]); kBK: B[k][n] = b[k][n]
+// (else b[n][k]). Row-major sources load by ldmatrix, transposed bf16 ones
+// by ldmatrix.trans, transposed f32 ones element by element.
+template <bool kBf16, bool kAT, bool kBK>
+__device__ __forceinline__ void mma_pass(uint32_t a, int sa, uint32_t b, int sb, int kdim,
+                                         int nt, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kBf16) {
+    const uint32_t al = kAT ? a + (((lane & 7) + (lane >> 4) * 8) * sa + ((lane >> 3) & 1) * 8) * 2
+                            : a + ((lane & 15) * sa + (lane >> 4) * 8) * 2;
+    const uint32_t bl = kBK ? b + (((lane & 7) + ((lane >> 3) & 1) * 8) * sb + (lane >> 4) * 8) * 2
+                            : b + (((lane & 7) + (lane >> 4) * 8) * sb + ((lane >> 3) & 1) * 8) * 2;
+    if (nt == 8) {
+      for (int k0 = 0; k0 < kdim; k0 += 16) {
+        mma_step_bf16<kAT, kBK, true>(al, bl, sa, sb, k0, nt, acc);
+      }
+    } else {
+      for (int k0 = 0; k0 < kdim; k0 += 16) {
+        mma_step_bf16<kAT, kBK, false>(al, bl, sa, sb, k0, nt, acc);
+      }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t al = a + ((lane & 15) * sa + (lane >> 4) * 4) * 4;
+    const uint32_t bl = b + (((lane & 7) + (lane >> 4) * 8) * sb + ((lane >> 3) & 1) * 4) * 4;
+    for (int k0 = 0; k0 < kdim; k0 += 8) {
+      uint32_t ah[4], alo[4];
+      {
+        float av[4];
+        if (kAT) {
+          const uint32_t r0 = a + ((k0 + t) * sa + g) * 4, r1 = r0 + 4 * sa * 4;
+          av[0] = lds(r0);
+          av[1] = lds(r0 + 32);
+          av[2] = lds(r1);
+          av[3] = lds(r1 + 32);
+        } else {
+          uint32_t r[4];
+          ldsm4(al + k0 * 4, r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) av[i] = __uint_as_float(r[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], alo[i]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (2 * jp < nt) {
+          float bv[4];  // b0, b1 of tile 2 jp, then of tile 2 jp + 1
+          if (kBK) {
+            const uint32_t r0 = b + ((k0 + t) * sb + 16 * jp + g) * 4, r1 = r0 + 4 * sb * 4;
+            bv[0] = lds(r0);
+            bv[1] = lds(r1);
+            bv[2] = lds(r0 + 32);
+            bv[3] = lds(r1 + 32);
+          } else {
+            uint32_t r[4];
+            ldsm4(bl + (16 * jp * sb + k0) * 4, r);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) bv[i] = __uint_as_float(r[i]);
+          }
+          uint32_t bh[4], blo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(bv[i], bh[i], blo[i]);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            // The three products of this k8 step on the tensor cores, then
+            // one f32 add a sum: their truncating accumulation stays short.
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_tf32(c, alo, bh[2 * q], bh[2 * q + 1]);
+            mma_tf32(c, ah, blo[2 * q], blo[2 * q + 1]);
+            mma_tf32(c, ah, bh[2 * q], bh[2 * q + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[2 * jp + q][e] += c[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The backward's float32 forward layers for the warp's 16 rows: acc[i][j]
+// = sum over k of A[rh + 2i][k] W[c + 16j][k] (lane = 16 rh + c; j < nc /
+// 16), as f32 FMAs in the order k = 0, 1, ...: the order of a plain f32
+// GEMM's inner loop, so that the pre-activations are the f32 twin's bit for
+// bit and the ReLU masks with them. (Summed in another order, 3xTF32 on
+// the tensor cores is as close to the exact sum as the twin, but across
+// the ~5e8 pre-activations of a train step a few lie close enough to 0 to
+// change side, and a flipped mask moves a row's cotangent by a whole
+// term.) A lane's 8 rows and 4 columns take 12 float4 loads a 4-deep k step
+// for 128 FMAs; A (the image, a[r][k]) and W (b[n][k]) are row-major
+// with strides in floats.
+__device__ __forceinline__ void fma_pass(const float* a, int sa, const float* w, int sw,
+                                         int kdim, int nc, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, rh = lane >> 4, c = lane & 15;
+  const float* ar = a + rh * sa;
+  const float* wr = w + c * sw;
+#pragma unroll 2
+  for (int k = 0; k < kdim; k += 4) {
+    float4 x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = *reinterpret_cast<const float4*>(ar + 2 * i * sa + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (16 * j >= nc) continue;
+      const float4 v = *reinterpret_cast<const float4*>(wr + 16 * j * sw + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float& q = acc[i][j];
+        q = fmaf(x[i].x, v.x, q);
+        q = fmaf(x[i].y, v.y, q);
+        q = fmaf(x[i].z, v.z, q);
+        q = fmaf(x[i].w, v.w, q);
+      }
+    }
+  }
+}
+
+// row / num_samples, in 32 bits where the row fits them.
+__device__ __forceinline__ long long ray_of(long long row, int num_samples) {
+  return row < 0x7fffffff ? static_cast<long long>(static_cast<unsigned>(row) /
+                                                   static_cast<unsigned>(num_samples))
+                          : row / num_samples;
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+}
+
+// v rounded to the operand type.
 template <bool kBf16>
 __device__ __forceinline__ float op(float v) {
   return kBf16 ? bfr(v) : v;
 }
+template <bool kBf16>
+__device__ __forceinline__ float ld_op(const char* p) {
+  if constexpr (kBf16) {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  } else {
+    return *reinterpret_cast<const float*>(p);
+  }
+}
+template <bool kBf16>
+__device__ __forceinline__ void st_op(char* p, float v) {
+  if constexpr (kBf16) {
+    *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16(v);
+  } else {
+    *reinterpret_cast<float*>(p) = v;
+  }
+}
+// Two adjacent elements of a row, as operands.
+template <bool kBf16>
+__device__ __forceinline__ void st_pair(char* p, float v0, float v1) {
+  if constexpr (kBf16) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  }
+}
 
-// Offset of element (feature f, row r) of a [width][tm] image.
-__device__ __forceinline__ int sw(int f, int r, int tm) {
-  return f * tm + ((((r >> 2) ^ (f >> 3)) & 7) | ((r >> 2) & ~7)) * 4 + (r & 3);
-}
-// The 4 rows [4q, 4q + 4) of feature f.
-__device__ __forceinline__ float4* sw4(float* img, int f, int q, int tm) {
-  return reinterpret_cast<float4*>(img + f * tm + ((q ^ ((f >> 3) & 7)) << 2));
-}
-__device__ __forceinline__ const float4* sw4(const float* img, int f, int q, int tm) {
-  return reinterpret_cast<const float4*>(img + f * tm + ((q ^ ((f >> 3) & 7)) << 2));
+__device__ __forceinline__ uint32_t row_addr(const Img& img, int row, int es) {
+  return smem_u32(img.p + row * img.st * es);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i][j] = sum over k < kp of A[row 8 rb + i][k] * B[k][col 8 cb + j]:
-// A a [kp][tm] image in shared memory; B element (k, n) at g[k sk + n sn],
-// zero where k >= kv or n >= nv, staged [kSlice][np] per slice. `kfast`:
-// consecutive threads copy consecutive k (B is W^T: W's rows are
-// contiguous in k). Every thread of the block calls it; `active` ones own
-// a block of C.
-__device__ __forceinline__ void product(const GPlan& p, float* smem, const float* a, int kp,
-                        const float* g, int sk, int sn, int kv, int nv, int np, bool kfast,
-                        int rb, int cb, bool active, float (&acc)[8][8]) {
-  float* stage = smem + p.stage;
-  const int slice = kSlice * np, ns = kp / kSlice, tm = p.tm;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
-  const auto load_slice = [&](int s) {
-    float* dst = stage + (s & 1) * kSlice * p.wp;
-    for (int e = threadIdx.x; e < slice; e += kThreads) {
-      const int kk = kfast ? e % kSlice : e / np, n = kfast ? e / kSlice : e % np;
-      const int k = s * kSlice + kk;
-      const bool ok = k < kv && n < nv;
-      cp_async4(smem_u32(dst + kk * np + n),
-                ok ? g + static_cast<long long>(k) * sk + static_cast<long long>(n) * sn : g,
-                ok ? 4 : 0);
+// Rows [r0, r0 + nr) and columns [c0, c0 + nc) of a packed f32 matrix
+// (`src`, row stride src_st) into shared memory at `dst` (row stride `st`
+// elements) as operands, zero from row valid_r and column valid_c on, by
+// the block: cp.async in float32 (the caller waits), converted to bf16 by
+// the threads. Four columns at a time where the rows are 16-byte aligned.
+template <bool kBf16>
+__device__ void stage_block(char* dst, int st, const float* src, int src_st, int r0, int nr,
+                            int c0, int nc, int valid_r, int valid_c) {
+  if (((reinterpret_cast<uintptr_t>(src) | (src_st * 4) | (c0 * 4)) & 15) == 0 &&
+      (valid_c & 3) == 0) {
+    const int ng = nc / 4;
+    for (int e = threadIdx.x; e < nr * ng; e += blockDim.x) {
+      const int r = e / ng, c = 4 * (e % ng), gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < valid_r && gc < valid_c;
+      const float* s4 = ok ? src + gr * src_st + gc : src;
+      if constexpr (kBf16) {
+        const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(s4)) : make_float4(0, 0, 0, 0);
+        *reinterpret_cast<uint2*>(dst + (r * st + c) * 2) =
+            make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      } else {
+        cp_async16(smem_u32(dst + (r * st + c) * 4), s4, ok ? 16 : 0);
+      }
     }
-    cp_async_commit();
-  };
-  load_slice(0);
-  for (int s = 0; s < ns; ++s) {
-    if (s + 1 < ns) {
-      load_slice(s + 1);
-      cp_async_wait_one();
+    return;
+  }
+  for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
+    const int r = e / nc, c = e % nc, gr = r0 + r, gc = c0 + c;
+    const bool ok = gr < valid_r && gc < valid_c;
+    if constexpr (kBf16) {
+      reinterpret_cast<__nv_bfloat16*>(dst)[r * st + c] =
+          __float2bfloat16(ok ? __ldg(src + gr * src_st + gc) : 0.0f);
     } else {
-      cp_async_wait_all();
+      cp_async4(smem_u32(dst + (r * st + c) * 4), ok ? src + gr * src_st + gc : src, ok ? 4 : 0);
     }
-    __syncthreads();
-    if (active) {
-      const float* bs = stage + (s & 1) * kSlice * p.wp + 8 * cb;
-#pragma unroll 4
-      for (int kk = 0; kk < kSlice; ++kk) {
-        const int k = s * kSlice + kk;
-        const float4 a0 = *sw4(a, k, 2 * rb, tm), a1 = *sw4(a, k, 2 * rb + 1, tm);
-        const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * np);
-        const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * np + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
   }
 }
 
-// A thread's 8 x 8 block of C, rows 8 rb + i and columns 8 cb + j, into a
-// [width][tm] image (4 rows a float4).
-__device__ __forceinline__ void store_block(float* img, int rb, int cb, int tm,
-                                            const float (&v)[8][8]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *sw4(img, 8 * cb + j, 2 * rb, tm) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-    *sw4(img, 8 * cb + j, 2 * rb + 1, tm) = make_float4(v[4][j], v[5][j], v[6][j], v[7][j]);
-  }
-}
-
-// x rows [row0, row0 + tm) into a [dp][tm] image, zero past d_in and past
-// the last row.
+// At the block's start: every matrix (resident) and the heads' matrix (row
+// 0 w_d, rows 1-3 W_c) from the packed weights `w`.
 template <bool kBf16>
-__device__ void load_x(const GPlan& p, float* img, const float* x, long long row0,
-                       long long num_rows) {
-  const int n = p.tm * p.dp;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / p.dp, k = e % p.dp;
-    const long long row = row0 + r;
-    const float v = k < p.d_in && row < num_rows ? x[row * p.d_in + k] : 0.0f;
-    img[sw(k, r, p.tm)] = op<kBf16>(v);
+__device__ void stage_fixed(const GPlan& p, char* smem, const float* w) {
+  const int H = p.hidden;
+  for (int k = 0; p.resident && k < p.n_layers; ++k) {
+    stage_block<kBf16>(smem + p.pw_off[k], p.kp[k] + p.pad, w + p.w_off[k], p.in_dim[k], 0, p.hp,
+                       0, p.kp[k], H, p.in_dim[k]);
+  }
+  char* heads = smem + p.heads_off;
+  const int hst = p.hp + p.pad;
+  stage_block<kBf16>(heads, hst, w + p.wd_off, H, 0, 1, 0, p.hp, 1, H);
+  stage_block<kBf16>(heads + hst * p.esz, hst, w + max(p.wc_off, 0), H, 0, 15, 0, p.hp,
+                     p.n_head > 0 ? 3 : 0, H);
+  if (!kBf16) {
+    cp_async_commit();
+    cp_async_wait_all();
   }
 }
 
-__device__ __forceinline__ void copy_image(float* dst, const float* src, int floats) {
-  for (int e = threadIdx.x; e < floats / 4; e += kThreads) {
-    reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(src)[e];
-  }
-}
-
-// The forward chain of the tile whose x image is in buf0: a_L ends in
-// buf[L % 2], pre_d in rows[0, tm), with a head rgb in rows[tm, 4 tm).
-// With `scratch`, each layer's input image a_k (k < L) is written there.
+// B of pass c over matrix k: `kn`, B[i][n] = W[i][n], the pass's columns
+// are W's columns (the backward's g W); else B[i][n] = W[n][i], they are
+// W's rows (the forward's a W^T). Streamed, every thread of the block
+// calls it: the slab is staged between two barriers.
+struct View {
+  uint32_t a;     // shared-memory address
+  const char* p;  // the same, generic
+  int st;
+};
 template <bool kBf16>
-__device__ void chain(const GPlan& p, float* smem, const float* w, const float* b,
-                      const float* head_dir, long long row0, long long num_rows,
-                      int num_samples, float* scratch) {
-  const int tm = p.tm, H = p.hidden, nt = p.hp / 8;
-  const int t = threadIdx.x, rb = t / nt, cb = t % nt;
-  const bool active = t < tm / 8 * nt;
-  float* rows = smem + p.rows;
-  for (int k = 0; k < p.n_layers; ++k) {
-    float* in = smem + (k & 1 ? p.buf1 : p.buf0);
-    float* out = smem + (k & 1 ? p.buf0 : p.buf1);
-    const int kp = k == 0 ? p.dp : p.hp;
-    if (scratch != nullptr) copy_image(scratch + p.act_off[k], in, kp * tm);
-    float acc[8][8];
-    product(p, smem, in, kp, w + p.w_off[k], 1, p.in_dim[k], p.in_dim[k], H, p.hp, true, rb,
-            cb, active, acc);
-    if (active) {
-      const bool hd = k == p.n_base;  // W_bh: head_dir[ray] in place of a bias
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const long long row = row0 + 8 * rb + i;
-        const long long ray = row < num_rows ? row / num_samples : -1;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = 8 * cb + j;
-          float bias = 0.0f;
-          if (n < H) {
-            bias = !hd ? b[p.b_off[k] + n] : ray >= 0 ? head_dir[ray * H + n] : 0.0f;
-          }
-          acc[i][j] = op<kBf16>(nan_max(acc[i][j] + bias, 0.0f));
-        }
-      }
-      store_block(out, rb, cb, tm, acc);
-    }
-    __syncthreads();
-    if (k + 1 == p.n_base) {  // the density head on a_nb
-      for (int r = t; r < tm; r += kThreads) {
-        float s = 0.0f;
-        for (int h = 0; h < H; ++h) s = fmaf(out[sw(h, r, tm)], w[p.wd_off + h], s);
-        rows[r] = s + b[p.bd_off];
-      }
-    }
+__device__ View weights(const GPlan& p, char* smem, const float* w, int k, bool kn, int c,
+                        const float* wt = nullptr) {
+  const int st = p.kp[k] + p.pad, es = p.esz;
+  if (p.resident) {
+    const char* m = smem + p.pw_off[k] + (kn ? c * kCols * es : c * kCols * st * es);
+    return View{smem_u32(m), m, st};
   }
-  if (p.n_head > 0) {  // the colour head on a_L
-    const float* aL = smem + (p.n_layers & 1 ? p.buf1 : p.buf0);
-    for (int r = t; r < tm; r += kThreads) {
-      float c[3] = {0.0f, 0.0f, 0.0f};
-      for (int h = 0; h < H; ++h) {
-        const float a = aL[sw(h, r, tm)];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) c[q] = fmaf(a, w[p.wc_off + q * H + h], c[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < 3; ++q) rows[(1 + q) * tm + r] = sigmoid(c[q] + b[p.bc_off + q]);
-    }
+  const float* src = w + p.w_off[k];
+  const int in = p.in_dim[k], sst = !kn ? st : wt != nullptr ? p.hp + p.pad : kCols + p.pad;
+  __syncthreads();  // every warp is done with the last slab
+  if (kn && wt != nullptr) {  // rows of W^T: B[i][n] = W^T[n][i], as the forward's
+    stage_block<kBf16>(smem, sst, wt + p.w_off[k], p.hidden, c * kCols,
+                       min(kCols, p.kp[k] - c * kCols), 0, p.hp, in, p.hidden);
+  } else if (!kn) {
+    stage_block<kBf16>(smem, st, src, in, c * kCols, min(kCols, p.hp - c * kCols), 0, p.kp[k],
+                       p.hidden, in);
+  } else {
+    stage_block<kBf16>(smem, sst, src, in, 0, p.hp, c * kCols, min(kCols, p.kp[k] - c * kCols),
+                       p.hidden, in);
+  }
+  if (!kBf16) {
+    cp_async_commit();
+    cp_async_wait_all();
   }
   __syncthreads();
+  return View{smem_u32(smem), smem, sst};
 }
 
+// x rows [row0, row0 + 16) into the warp's rows of `img` as operands, zero
+// past d_in and past the last row.
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(
-    const __grid_constant__ GPlan p, const float* __restrict__ x,
-    const float* __restrict__ head_dir, const float* __restrict__ w,
-    const float* __restrict__ b, float* __restrict__ rgb_out, float* __restrict__ dens_out,
-    long long num_rows, int num_samples) {
-  extern __shared__ __align__(128) float smem[];
-  const int tm = p.tm;
-  const float* rows = smem + p.rows;
-  const long long tiles = (num_rows + tm - 1) / tm;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * tm;
-    load_x<kBf16>(p, smem + p.buf0, x, row0, num_rows);
-    __syncthreads();
-    chain<kBf16>(p, smem, w, b, head_dir, row0, num_rows, num_samples, nullptr);
-    for (int r = threadIdx.x; r < tm; r += kThreads) {
-      const long long row = row0 + r;
-      if (row >= num_rows) continue;
-      const float pd = rows[r];
-      dens_out[row] = fmaxf(pd, 0.0f) + log1pf(expf(-fabsf(pd)));
-      if (p.n_head > 0) {
+__device__ void load_x(const GPlan& p, const Img& img, int wrow, const float* x, long long row0,
+                       long long num_rows) {
+  const int lane = threadIdx.x & 31;
+  const float* xr = x + min(row0, num_rows - 1) * p.d_in;
+  const int nr = static_cast<int>(min(16LL, num_rows - row0));
+  for (int c = lane; c < p.dp; c += 32) {
+    float v[16];  // the 16 rows' loads first, then the stores
 #pragma unroll
-        for (int q = 0; q < 3; ++q) rgb_out[row * 3 + q] = rows[(1 + q) * tm + r];
+    for (int r = 0; r < 16; ++r) {
+      v[r] = c < p.d_in && r < nr ? __ldg(xr + r * p.d_in + c) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) st_op<kBf16>(img.p + ((wrow + r) * img.st + c) * p.esz, v[r]);
+  }
+}
+
+// The backward's cache, `rows` rows (the backward's tiles times `tr`, its
+// rows a tile). Planes of operands, each tile's block transposed ([hp][tr],
+// so that the dW products read both operands by ldmatrix): a_1 .. a_{L-1}
+// (a_k: plane k - 1), then matrix k's cotangent gz_{k+1} (L - 1 + k); then
+// the density head's cotangents ([rows] operands, plane 2L - 1), a_L
+// ([rows][hp] operands), each 16 rows' ReLU bits (L hp / 2 words, the mma
+// layout), each row's heads' cotangents ([4] f32, unrounded) and, for a
+// float32 backward with streamed weights, each matrix transposed ([in]
+// [hidden] f32 at its packed offset: the slabs of g W then load by
+// ldmatrix, as the forward's do).
+struct Cache {
+  char* p;  // nullptr: none
+  long long rows;
+  int tr;
+  // Plane j's block of the tile whose first row is `row`.
+  __host__ __device__ char* tile(const GPlan& g, int j, long long row) const {
+    return p + (rows * j + row) * g.hp * g.esz;
+  }
+  // Plane j's column of `row` in its tile's block.
+  __host__ __device__ char* col(const GPlan& g, int j, long long row) const {
+    return tile(g, j, row / tr * tr) + row % tr * g.esz;
+  }
+  __host__ __device__ char* a_last(const GPlan& g, long long row) const {
+    return p + (rows * (2 * g.n_layers - 1) * g.hp + rows + row * g.hp) * g.esz;
+  }
+  __host__ __device__ uint32_t* bits(const GPlan& g, long long row) const {
+    return reinterpret_cast<uint32_t*>(p + rows * (2 * g.n_layers * g.hp + 1) * g.esz) +
+           row / 16 * (g.n_layers * g.hp / 2);
+  }
+  __host__ __device__ float* cots(const GPlan& g, long long row) const {
+    return reinterpret_cast<float*>(p + rows * (2 * g.n_layers * g.hp + 1) * g.esz +
+                                    rows / 16 * g.n_layers * g.hp * 2) +
+           row * 4;
+  }
+  __host__ __device__ float* wt(const GPlan& g) const { return cots(g, rows); }
+};
+
+// The warp's 16 rows of `img` (hp columns), transposed into their columns
+// of a tile's block (`dst`: the first, a column `tr` long): a half-warp a
+// column, a lane a row.
+template <bool kBf16>
+__device__ void put_cols(const GPlan& p, const Img& img, int wrow, char* dst, int tr) {
+  const int lane = threadIdx.x & 31, r = lane & 15, es = p.esz;
+  for (int c = lane >> 4; c < p.hp; c += 2) {
+    st_op<kBf16>(dst + (c * tr + r) * es, ld_op<kBf16>(img.p + ((wrow + r) * img.st + c) * es));
+  }
+}
+
+// The warp's 16 rows of `img` (hp columns) to `dst` ([16][hp]).
+__device__ void put_rows(const GPlan& p, const Img& img, int wrow, char* dst) {
+  const int lane = threadIdx.x & 31, n = p.hp * p.esz / 16;  // 16-byte pieces a row
+  for (int i = lane; i < 16 * n; i += 32) {
+    const int r = i / n, c = i - r * n;
+    *reinterpret_cast<uint4*>(dst + i * 16) =
+        *reinterpret_cast<const uint4*>(img.p + (wrow + r) * img.st * p.esz + c * 16);
+  }
+}
+
+// A tile's block of a plane (`src`, [nr][rows]) into `img` ([nr][img.st]),
+// by the block with cp.async (the caller commits).
+__device__ void get_block(const GPlan& p, const Img& img, const char* src, int nr) {
+  const int n = p.rows * p.esz / 16;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
+    const int r = i / n, c = i - r * n;
+    cp_async16(smem_u32(img.p + r * img.st * p.esz + c * 16), src + i * 16, 16);
+  }
+}
+
+// x rows [row0, row0 + 16) transposed into the warp's columns of `img`
+// ([dp][img.st]) as operands, zero past d_in and past the last row.
+template <bool kBf16>
+__device__ void load_xt(const GPlan& p, const Img& img, int wrow, const float* x,
+                        long long row0, long long num_rows) {
+  const int lane = threadIdx.x & 31;
+  const float* xr = x + min(row0, num_rows - 1) * p.d_in;
+  const int nr = static_cast<int>(min(16LL, num_rows - row0));
+  for (int c = lane; c < p.dp; c += 32) {
+    float v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      v[r] = c < p.d_in && r < nr ? __ldg(xr + r * p.d_in + c) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) st_op<kBf16>(img.p + (c * img.st + wrow + r) * p.esz, v[r]);
+  }
+}
+
+// The head matrix on the warp's rows of `a`: lanes t == 0 get pre_d (col
+// 0) or, with `colour`, pre_c (cols 1-3) of rows g and g + 8, biases added.
+template <bool kBf16>
+__device__ void heads(const GPlan& p, char* smem, const float* b, const Img& a, int wrow,
+                      bool colour, float (&pre)[2][4]) {
+  float acc[8][4];
+  zero(acc);
+  mma_pass<kBf16, false, false>(row_addr(a, wrow, p.esz), a.st, smem_u32(smem + p.heads_off),
+                                p.hp + p.pad, p.hp, 2, acc);
+  if (!colour) {
+    pre[0][0] = acc[0][0] + b[p.bd_off];
+    pre[1][0] = acc[0][2] + b[p.bd_off];
+    return;
+  }
+  // Columns 2 and 3 sit in the next lane.
+  float up[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) up[e] = __shfl_down_sync(0xffffffffu, acc[0][e], 1);
+  const float* bc = b + p.bc_off;
+  pre[0][1] = acc[0][1] + bc[0];
+  pre[0][2] = up[0] + bc[1];
+  pre[0][3] = up[1] + bc[2];
+  pre[1][1] = acc[0][3] + bc[0];
+  pre[1][2] = up[2] + bc[1];
+  pre[1][3] = up[3] + bc[2];
+}
+
+// The forward of the warp's 16 rows (row0: the first; wrow: its row in the
+// images) through layers k < k_stop: a_{k+1} into act[k + 1]. With `bits`
+// (the warp's, hp / 2 words a layer), each layer's ReLU mask (the f32
+// pre-activation > 0) as the lanes' ballots of the mma layout. With
+// `with_heads` (k_stop = L), lanes t == 0 end with pre[h] = (pre_d, pre_c)
+// of rows g + 8h (pre_c with a head only). kExact (float32): the layers as
+// fma_pass, the twin's sums; else on the tensor cores (3xTF32 in float32).
+// With a `keep` cache, a_1 .. a_L of the warp's rows go to it.
+template <bool kBf16, bool kExact>
+__device__ void chain(const GPlan& p, char* smem, const float* wg, const float* b,
+                      const float* head_dir, const Img* act, int wrow, long long row0,
+                      long long num_rows, int num_samples, uint32_t* bits, int k_stop,
+                      bool with_heads, float (&pre)[2][4], const Cache& keep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int H = p.hidden, es = p.esz;
+  constexpr bool kFma = !kBf16 && kExact;
+  // A lane's rows: g + 8h on the tensor cores (the mma layout), rh + 2h in fma_pass.
+  long long ray[8];
+  const float* hdr[8];  // the rows' head_dir (W_bh's bias), a valid address either way
+#pragma unroll
+  for (int h = 0; h < 8; ++h) {
+    const long long row = row0 + (kFma ? (lane >> 4) + 2 * h : g + 8 * h);
+    ray[h] = (!kFma && h > 1) || p.n_head == 0 || row >= num_rows ? -1 : ray_of(row, num_samples);
+    hdr[h] = head_dir + (ray[h] >= 0 ? ray[h] * H : 0);
+  }
+  for (int k = 0; k < k_stop; ++k) {
+    const Img in = act[k], out = act[k + 1];
+    for (int c = 0; c * kCols < p.hp; ++c) {
+      const View w = weights<kBf16>(p, smem, wg, k, false, c);
+      const int nc = min(kCols, p.hp - c * kCols), nt = nc / 8;
+      float acc[8][4], add[8][4];
+      zero(acc);
+      if constexpr (!kFma) {
+        mma_pass<kBf16, false, false>(row_addr(in, wrow, es), in.st, w.a, w.st, p.kp[k], nt, acc);
+        // Biases (head_dir for W_bh), all loaded before the stores, from
+        // clamped columns so that no load needs a branch.
+        if (k != p.n_base) {
+          const float* bk = b + p.b_off[k];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = c * kCols + 8 * j + 2 * t + e;
+              const float v = __ldg(bk + min(col, H - 1));
+              add[j][e] = add[j][2 + e] = col < H ? v : 0.0f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = c * kCols + 8 * j + 2 * t + (e & 1), h = e >> 1;
+              const float v = __ldg(hdr[h] + min(col, H - 1));
+              add[j][e] = col < H && ray[h] >= 0 ? v : 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j >= nt) continue;
+          const int n = c * kCols + 8 * j + 2 * t;
+          const bool ok[2] = {n < H, n + 1 < H};  // past H the activation stays 0
+          float z[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) z[e] = ok[e & 1] ? acc[j][e] + add[j][e] : 0.0f;
+          if (bits != nullptr) {
+            uint32_t m[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) m[e] = __ballot_sync(0xffffffffu, z[e] > 0.0f);
+            if (lane < 4) bits[k * p.hp / 2 + (c * 8 + j) * 4 + lane] = m[lane];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            char* o = out.p + ((wrow + g + 8 * h) * out.st + n) * es;
+            if constexpr (kBf16) {  // ReLU after the rounding: the same bf16 values
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __hmax2_nan(__floats2bfloat162_rn(z[2 * h], z[2 * h + 1]),
+                              __float2bfloat162_rn(0.0f));
+            } else {
+              *reinterpret_cast<float2*>(o) =
+                  make_float2(nan_max(z[2 * h], 0.0f), nan_max(z[2 * h + 1], 0.0f));
+            }
+          }
+        }
+      } else {
+        fma_pass(reinterpret_cast<const float*>(in.p) + wrow * in.st, in.st,
+                 reinterpret_cast<const float*>(w.p), w.st, p.kp[k], nc, acc);
+        const int cl = lane & 15;
+        const bool hd = k == p.n_base;
+        const float* bk = b + (hd ? 0 : p.b_off[k]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c * kCols + 16 * j + cl, cc = min(col, H - 1);
+          const bool ok = 16 * j < nc && col < H;
+          const float bv = hd ? 0.0f : __ldg(bk + cc);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            add[i][j] = !ok ? 0.0f : !hd ? bv : ray[i] >= 0 ? __ldg(hdr[i] + cc) : 0.0f;
+          }
+        }
+        float* o = reinterpret_cast<float*>(out.p) + (wrow + (lane >> 4)) * out.st;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (16 * j >= nc) continue;
+          const int col = c * kCols + 16 * j + cl;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[2 * i * out.st + col] = col < H ? nan_max(acc[i][j] + add[i][j], 0.0f) : 0.0f;
+          }
+        }
+        if (bits != nullptr) {  // the masks in the mma layout, from the stored a (= z where > 0)
+          __syncwarp();
+          const float* a = reinterpret_cast<const float*>(out.p) + wrow * out.st;
+          for (int j = 0; j < nt; ++j) {
+            const int n = c * kCols + 8 * j + 2 * t;
+            uint32_t m[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = a[(g + 8 * (e >> 1)) * out.st + n + (e & 1)];
+              m[e] = __ballot_sync(0xffffffffu, v > 0.0f);
+            }
+            if (lane < 4) bits[k * p.hp / 2 + (c * 8 + j) * 4 + lane] = m[lane];
+          }
+        }
       }
     }
-    __syncthreads();
+    __syncwarp();
+    if (keep.p != nullptr && k + 1 < p.n_layers) {
+      put_cols<kBf16>(p, out, wrow, keep.col(p, k, row0), keep.tr);
+    } else if (keep.p != nullptr) {
+      put_rows(p, out, wrow, keep.a_last(p, row0));
+    }
+    if (with_heads && k + 1 == p.n_base) heads<kBf16>(p, smem, b, out, wrow, false, pre);
+  }
+  if (with_heads && p.n_head > 0) heads<kBf16>(p, smem, b, act[p.n_layers], wrow, true, pre);
+}
+
+// The heads' cotangents of the lane's rows row0 + g + 8h, unrounded: lane
+// t of a row's quad takes pre_d's (t = 0) or pre_c's channel t - 1, from
+// lane t == 0's pre-activations (the incoming cotangents loaded first).
+__device__ void head_cots(const GPlan& p, const float (&pre)[2][4], long long row0,
+                          long long num_rows, const float* g_rgb, const float* g_dens,
+                          float (&cot)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float pv[2], gi[2];
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + g + 8 * h;
+    valid[h] = row < num_rows && (t == 0 || p.n_head > 0);
+    gi[h] = !valid[h] ? 0.0f : t == 0 ? __ldg(g_dens + row) : __ldg(g_rgb + row * 3 + t - 1);
+    pv[h] = pre[h][0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const float u = __shfl_sync(0xffffffffu, pre[h][q], lane & ~3);
+      if (t == q) pv[h] = u;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float y = sigmoid(pv[h]);
+    cot[h] = !valid[h] ? 0.0f : t == 0 ? gi[h] * y : gi[h] * y * (1.0f - y);
+  }
+}
+
+// K4 and K5: the forward on the tensor cores (3xTF32 in float32: a flipped
+// ReLU mask there moves an output by no more than the pre-activation's
+// size, within f32 rounding of 0). kCache: the first kernel of a cached
+// backward (K4b, K5b), at the forward's warps: the chain as the backward
+// needs it (float32 as f32 FMAs, the twin's sums) over every row of
+// `keep`, writing its a_1 .. a_L, ReLU bits and the heads' cotangents
+// there in place of the outputs.
+template <bool kBf16, bool kCache>
+__global__ void __launch_bounds__((kCache ? kCacheWarps : kMaxWarps) * 32, 1) fwd_kernel(
+    const __grid_constant__ GPlan p, const float* __restrict__ x,
+    const float* __restrict__ head_dir, const float* __restrict__ wg,
+    const float* __restrict__ b, float* __restrict__ rgb_out, float* __restrict__ dens_out,
+    long long num_rows, int num_samples, const Cache keep, const float* __restrict__ g_rgb,
+    const float* __restrict__ g_dens) {
+  extern __shared__ __align__(128) char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int R = p.rows, st = p.wp + p.pad, L = p.n_layers;
+  stage_fixed<kBf16>(p, smem, wg);
+  __syncthreads();
+  Img act[kMaxLayers + 1];
+  for (int k = 0; k <= L; ++k) act[k] = Img{smem + p.pp_off + (k & 1) * R * st * p.esz, st};
+  const long long cover = kCache ? keep.rows : num_rows, tiles = (cover + R - 1) / R;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * R + 16 * warp;
+    if (p.resident && row0 >= cover) continue;  // no barriers to keep
+    load_x<kBf16>(p, act[0], 16 * warp, x, row0, num_rows);
+    __syncwarp();
+    float pre[2][4];
+    const bool mine = kCache && row0 < cover;
+    chain<kBf16, kCache>(p, smem, wg, b, head_dir, act, 16 * warp, row0, num_rows, num_samples,
+                         mine ? keep.bits(p, row0) : nullptr, L, true, pre,
+                         mine ? keep : Cache{nullptr, 0, 0});
+    if constexpr (kCache) {
+      float cot[2];
+      head_cots(p, pre, row0, num_rows, g_rgb, g_dens, cot);
+      if (mine) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) keep.cots(p, row0 + g + 8 * h)[t] = cot[h];
+      }
+      continue;
+    }
+    // Lane t of a row's quad writes output t: the density (t = 0, softplus)
+    // or colour channel t - 1 (sigmoid), from lane t == 0's pre-activations.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = pre[h][0];
+#pragma unroll
+      for (int q = 1; q < 4; ++q) {
+        const float u = __shfl_sync(0xffffffffu, pre[h][q], lane & ~3);
+        if (t == q) v = u;
+      }
+      const long long row = row0 + g + 8 * h;
+      if (row >= num_rows || (t > 0 && p.n_head == 0)) continue;
+      if (t == 0) {
+        dens_out[row] = fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
+      } else {
+        rgb_out[row * 3 + t - 1] = sigmoid(v);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A cotangent of a_l (l >= 1) in a pass's accumulators, unrounded (columns
+// c kCols + 8j + 2t (+1), rows g and g + 8 of the warp): masked by a_l's
+// ReLU bits; its column sums over the warp's rows go to the
+// warp's `part` row (the bias of matrix l - 1), or for W_bh (l - 1 ==
+// n_base with a head) into dhd per ray; then it is stored rounded.
+template <bool kBf16>
+__device__ void finish_gz(const GPlan& p, const uint32_t* bits, int l, int c, int nt,
+                          float (&acc)[8][4], const Img& out, int wrow, float* part,
+                          float* dhd, long long row0, long long num_rows, int num_samples) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  const int H = p.hidden, es = p.esz;
+  const bool hd = p.n_head > 0 && l - 1 == p.n_base;
+  const bool one_ray = hd && row0 + 15 < num_rows &&
+                       ray_of(row0, num_samples) == ray_of(row0 + 15, num_samples);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= nt) continue;
+    const int tile = c * 8 + j, n = 8 * tile + 2 * t;
+    const uint32_t* mb = bits + (l - 1) * p.hp / 2 + tile * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!((mb[e] >> lane) & 1u)) acc[j][e] = 0.0f;
+    }
+    {
+      if (!hd || one_ray) {
+        float s0 = acc[j][0] + acc[j][2], s1 = acc[j][1] + acc[j][3];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (g == 0) {
+          if (!hd) {
+            part[warp * p.hp + n] = s0;
+            part[warp * p.hp + n + 1] = s1;
+          } else {
+            float* d = dhd + ray_of(row0, num_samples) * H;
+            if (n < H) atomicAdd(d + n, s0);
+            if (n + 1 < H) atomicAdd(d + n + 1, s1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long row = row0 + g + 8 * h;
+          if (row >= num_rows) continue;
+          float* d = dhd + ray_of(row, num_samples) * H;
+          if (n < H) atomicAdd(d + n, acc[j][2 * h]);
+          if (n + 1 < H) atomicAdd(d + n + 1, acc[j][2 * h + 1]);
+        }
+      }
+    }
+    st_pair<kBf16>(out.p + ((wrow + g) * out.st + n) * es, acc[j][0], acc[j][1]);
+    st_pair<kBf16>(out.p + ((wrow + g + 8) * out.st + n) * es, acc[j][2], acc[j][3]);
   }
 }
 
 // The heads' weight and bias gradients of the tile: with `colour` W_c and
-// b_c from the rows' pre_c cotangents (rows[tm, 4 tm)) and a = a_L, else
-// w_d and b_d from pre_d's (rows[0, tm)) and a = a_nb. A warp per column,
-// lanes over rows, summed in a fixed order.
+// b_c from the rows' pre_c cotangents on a = a_L, else w_d and b_d from
+// pre_d's on a = a_nb. The weights' as one product C[q][h] = sum over rows
+// of hc[r][q] a[r][h] (hc: the cotangents as operands, q < 16) in units of
+// kCols columns over the warps, each element added by one lane (without
+// `with_w` none); the biases' from the warps' sums of the unrounded
+// cotangents, in warp order.
 template <bool kBf16>
-__device__ void head_grads(const GPlan& p, const float* rows, const float* a, bool colour,
-                           float* ws_row) {
-  const int tm = p.tm, H = p.hidden, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nq = colour ? 3 : 1;
-  const float* g = rows + (colour ? tm : 0);
-  for (int h = warp; h < H; h += kThreads / 32) {
-    float s[3] = {0.0f, 0.0f, 0.0f};
-    for (int r = lane; r < tm; r += 32) {
-      const float av = a[sw(h, r, tm)];
-      for (int q = 0; q < nq; ++q) s[q] = fmaf(op<kBf16>(g[q * tm + r]), av, s[q]);
-    }
-    for (int q = 0; q < nq; ++q) {
-      const float v = warp_sum(s[q]);
-      if (lane == 0) ws_row[(colour ? p.wc_off + q * H : p.wd_off) + h] += v;
-    }
-  }
-  if (warp == 0) {
-    for (int q = 0; q < nq; ++q) {
-      float s = 0.0f;
-      for (int r = lane; r < tm; r += 32) s += g[q * tm + r];
-      s = warp_sum(s);
-      if (lane == 0) ws_row[p.n_w + (colour ? p.bc_off + q : p.bd_off)] += s;
-    }
-  }
-}
-
-// dW[n][c] += sum over the tile's rows of G[n][r] A[c][r], n < H, c < cv:
-// G the [hp][tm] cotangent image, A a [kp][tm] activation image; each
-// element added by the thread that owns its 8 x 8 block.
-__device__ void weight_grad(const GPlan& p, const float* gimg, const float* aimg, int kp,
-                            int cv, float* dst) {
-  const int tm = p.tm, H = p.hidden, cbn = kp / 8, nbn = p.hp / 8;
-  for (int t = threadIdx.x; t < nbn * cbn; t += kThreads) {
-    const int nb = t / cbn, cb = t % cbn;
-    if (8 * nb >= H || 8 * cb >= cv) continue;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    }
-    for (int q = 0; q < tm / 4; ++q) {
-      float4 gv[8], av[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gv[i] = *sw4(gimg, 8 * nb + i, q, tm);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) av[j] = *sw4(aimg, 8 * cb + j, q, tm);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = fmaf(gv[i].x, av[j].x, acc[i][j]);
-          acc[i][j] = fmaf(gv[i].y, av[j].y, acc[i][j]);
-          acc[i][j] = fmaf(gv[i].z, av[j].z, acc[i][j]);
-          acc[i][j] = fmaf(gv[i].w, av[j].w, acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int n = 8 * nb + i;
-      if (n >= H) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * cb + j;
-        if (c < cv) dst[n * cv + c] += acc[i][j];
-      }
-    }
-  }
-}
-
-// The cotangent of a_{lay+1} in a thread's block (unrounded f32) becomes
-// gz_{lay+1}: masked where a_{lay+1} (`mask`) is not > 0; its column sums
-// go to `parts` (the bias of layer `lay`), or for W_bh per ray into dhd
-// with atomics; then it is stored, rounded, into `dst`.
-template <bool kBf16>
-__device__ __forceinline__ void finish_gz(const GPlan& p, float* smem, int lay, const float* mask,
-                          float* dst, int rb, int cb, float (&acc)[8][8], long long row0,
-                          long long num_rows, int num_samples, float* dhd) {
-  const int tm = p.tm, H = p.hidden;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
+__device__ void head_grads(const GPlan& p, const Img& hc, const float* hpart, const Img& a,
+                           bool colour, bool with_w, float* headg, float* biasg) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  const int H = p.hidden, es = p.esz;
+  for (int u = warp; with_w && u * kCols < p.hp; u += p.warps) {
+    const int ns = u * kCols, nt = min(kCols, p.hp - ns) / 8;
+    float acc[8][4];
+    zero(acc);
+    mma_pass<kBf16, true, true>(smem_u32(hc.p), hc.st, smem_u32(a.p + ns * es), a.st, p.rows,
+                                nt, acc);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (!(mask[sw(8 * cb + j, 8 * rb + i, tm)] > 0.0f)) acc[i][j] = 0.0f;
-    }
-  }
-  if (lay == p.n_base && p.n_head > 0) {
-    const long long first = row0 + 8 * rb, last = first + 7;
-    if (last < num_rows && first / num_samples == last / num_samples) {
-      float* d = dhd + (first / num_samples) * H;
+      if (j >= nt) continue;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = 8 * cb + j;
-        if (n >= H) continue;
-        float s = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s += acc[i][j];
-        atomicAdd(d + n, s);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const long long row = first + i;
-        if (row >= num_rows) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = 8 * cb + j;
-          if (n < H) atomicAdd(dhd + (row / num_samples) * H + n, acc[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int q = g + 8 * (e >> 1), col = ns + 8 * j + 2 * t + (e & 1);
+        if (col < H && (colour ? q >= 1 && q <= 3 : q == 0)) headg[q * p.hp + col] += acc[j][e];
       }
     }
-  } else {
-    float* parts = smem + p.parts + rb * p.hp + 8 * cb;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += acc[i][j];
-      parts[j] = s;
-    }
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = op<kBf16>(acc[i][j]);
-  }
-  store_block(dst, rb, cb, tm, acc);
-}
-
-// After finish_gz and a barrier: the column sums of layer `lay`'s bias
-// gradient, over the tile's row blocks in order, into the workspace row.
-__device__ void bias_grad(const GPlan& p, const float* smem, int lay, float* ws_row) {
-  if (lay == p.n_base && p.n_head > 0) return;  // W_bh: dhead_dir instead
-  const float* parts = smem + p.parts;
-  for (int n = threadIdx.x; n < p.hidden; n += kThreads) {
+  for (int q = threadIdx.x; q < (colour ? 3 : 1); q += blockDim.x) {
     float s = 0.0f;
-    for (int q = 0; q < p.tm / 8; ++q) s += parts[q * p.hp + n];
-    ws_row[p.n_w + p.b_off[lay] + n] += s;
+    for (int w = 0; w < p.warps; ++w) s += hpart[w * 4 + (colour ? 1 + q : 0)];
+    biasg[colour ? p.bc_off + q : p.bd_off] += s;
+  }
+}
+
+// dW rows [m0, m1) of a matrix with `in` inputs (`kp` padded) += gz^T a
+// over `rows` rows (gz: the cotangent image G, a: the input image A;
+// kT: both transposed, [column][row]), into its chunk `dw` ([m1 -
+// m0][dw_stride(in)]): units of 16 rows by up to kCols columns over the
+// warps, each element added by one lane.
+template <bool kBf16, bool kT>
+__device__ void dw_step(const GPlan& p, const Img& G, const Img& A, int in, int kp, int m0,
+                        int m1, int rows, float* dw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  const int es = p.esz, mb = (m1 - m0 + 15) / 16, ds = dw_stride(in);
+  // Units of 16 rows x uc columns, uc the widest of 64, 32 and 16 that
+  // still gives every warp one.
+  int uc = kCols;
+  while (uc > 16 && mb * ((kp + uc - 1) / uc) < p.warps) uc /= 2;
+  const int nch = (kp + uc - 1) / uc, units = mb * nch;
+  for (int u = warp; u < units; u += p.warps) {
+    const int ms = m0 + 16 * (u / nch), ns = uc * (u % nch);
+    const int nt = min(uc, kp - ns) / 8;
+    float acc[8][4];
+    zero(acc);
+    if constexpr (kT) {
+      mma_pass<kBf16, false, false>(smem_u32(G.p + ms * G.st * es), G.st,
+                                    smem_u32(A.p + ns * A.st * es), A.st, rows, nt, acc);
+    } else {
+      mma_pass<kBf16, true, true>(smem_u32(G.p + ms * es), G.st, smem_u32(A.p + ns * es), A.st,
+                                  rows, nt, acc);
+    }
+    // Column pairs as float2: a pair's second column past `in` lands in
+    // the row's pad.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= nt) continue;
+      const int col = ns + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = ms + g + 8 * h;
+        if (m >= m1 || col >= in) continue;
+        float2* d = reinterpret_cast<float2*>(dw + (m - m0) * ds + col);
+        float2 v = *d;
+        v.x += acc[j][2 * h];
+        v.y += acc[j][2 * h + 1];
+        *d = v;
+      }
+    }
   }
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1) bwd_kernel(
+__global__ void __launch_bounds__(kMaxBwdWarps * 32, 1) bwd_kernel(
     const __grid_constant__ GPlan p, const float* __restrict__ x,
-    const float* __restrict__ head_dir, const float* __restrict__ w,
+    const float* __restrict__ head_dir, const float* __restrict__ wg,
     const float* __restrict__ b, const float* __restrict__ g_rgb,
     const float* __restrict__ g_dens, float* __restrict__ dx, float* dhd, float* ws,
-    int ws_stride, float* scratch, long long num_rows, int num_samples) {
-  extern __shared__ __align__(128) float smem[];
-  const int tm = p.tm, H = p.hidden, L = p.n_layers, nb = p.n_base, nt = p.hp / 8;
-  const int t = threadIdx.x;
+    int ws_stride, char* cache, long long num_rows, int num_samples) {
+  extern __shared__ __align__(128) char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int H = p.hidden, L = p.n_layers, nb = p.n_base, R = p.rows, es = p.esz;
+  const int wrow = 16 * warp, pst = p.wp + p.pad;
+  // The warp's ReLU bits: hp / 2 words a layer.
+  uint32_t* wbits = reinterpret_cast<uint32_t*>(smem + p.bits_off) + warp * p.n_layers * p.hp / 2;
+  float* rowsv = reinterpret_cast<float*>(smem + p.rows_off);  // per row: g_pre_d, g_pre_c
+  const Img hcot{smem + p.hcot_off, 16 + p.pad};  // the same as operands, cols 0-3
+  float* hpart = reinterpret_cast<float*>(smem + p.hpart_off);
+  float* part = reinterpret_cast<float*>(smem + p.part_off);
+  float* biasg = reinterpret_cast<float*>(smem + p.bias_off);
+  float* headg = reinterpret_cast<float*>(smem + p.headg_off);  // [4][hp]: w_d, W_c
   float* ws_row = ws + static_cast<long long>(blockIdx.x) * ws_stride;
-  float* scr = scratch + static_cast<long long>(blockIdx.x) * p.scratch_floats;
-  float* rows = smem + p.rows;
-  for (int e = t; e < p.n_w + p.n_b; e += kThreads) ws_row[e] = 0.0f;
+  const Img pp[2] = {Img{smem + p.pp_off, pst}, Img{smem + p.pp_off + R * pst * es, pst}};
+  const long long tiles = (num_rows + R - 1) / R;
+  // One pass: every matrix's input image kept (act[k]) and its dW summed
+  // here. Else the cache takes the inputs and cotangents for the phases.
+  const bool fused = p.n_phases == 1;
+  const Cache keep{fused ? nullptr : cache, tiles * R, R};
+  // float32 W^T from the cache for the streamed slabs of g W (ldmatrix).
+  const float* wt = !kBf16 && !fused && !p.resident ? keep.wt(p) : nullptr;
+  stage_fixed<kBf16>(p, smem, wg);
+  for (int i = threadIdx.x; i < p.n_b; i += blockDim.x) biasg[i] = 0.0f;
+  for (int i = threadIdx.x; i < 4 * p.hp; i += blockDim.x) headg[i] = 0.0f;
+  for (int i = threadIdx.x; i < R * (16 + p.pad) * es / 4; i += blockDim.x) {
+    reinterpret_cast<float*>(hcot.p)[i] = 0.0f;
+  }
+  Img act[kMaxLayers + 1];
+  int dw_off[kMaxLayers];
+  {
+    int off = p.phase_off;
+    for (int k = 0; k <= L; ++k) {
+      act[k] = fused && k < L ? Img{smem + off, p.kp[k] + p.pad} : pp[k & 1];
+      if (fused && k < L) off += R * (p.kp[k] + p.pad) * es;
+    }
+    for (int k = 0; fused && k < L; ++k) {  // one chunk a matrix, in order
+      dw_off[k] = off;
+      off += (H + 15) / 16 * 16 * dw_stride(p.in_dim[k]) * 4;
+      float* dw = reinterpret_cast<float*>(smem + dw_off[k]);
+      for (int i = threadIdx.x; i < H * dw_stride(p.in_dim[k]); i += blockDim.x) dw[i] = 0.0f;
+    }
+  }
   __syncthreads();
-  const long long tiles = (num_rows + tm - 1) / tm;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * tm;
-    load_x<kBf16>(p, smem + p.buf0, x, row0, num_rows);
-    __syncthreads();
-    chain<kBf16>(p, smem, w, b, head_dir, row0, num_rows, num_samples, scr);
-    // The heads' cotangents, unrounded: pre_d's, then pre_c's.
-    for (int r = t; r < tm; r += kThreads) {
-      const long long row = row0 + r;
-      const bool valid = row < num_rows;
-      rows[r] = valid ? g_dens[row] * sigmoid(rows[r]) : 0.0f;
-      if (p.n_head > 0) {
+    const long long row0 = tile * R + wrow;
+    if (fused) {  // the forward again, its ReLU bits and the heads' cotangents
+      load_x<kBf16>(p, act[0], wrow, x, row0, num_rows);
+      __syncwarp();
+      float pre[2][4], cot[2];
+      chain<kBf16, true>(p, smem, wg, b, head_dir, act, wrow, row0, num_rows, num_samples,
+                         wbits, L, true, pre, Cache{nullptr, 0, 0});
+      head_cots(p, pre, row0, num_rows, g_rgb, g_dens, cot);
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const float y = rows[(1 + q) * tm + r];
-          rows[(1 + q) * tm + r] = valid ? g_rgb[row * 3 + q] * y * (1.0f - y) : 0.0f;
+      for (int h = 0; h < 2; ++h) rowsv[(wrow + g + 8 * h) * 4 + t] = cot[h];
+    } else {  // the same from the cache, with a_L for the head's gradients
+      const int n = p.hp * es / 16;
+      const char* src = keep.a_last(p, row0);
+      for (int i = lane; i < 16 * n; i += 32) {
+        cp_async16(smem_u32(act[L].p + ((wrow + i / n) * act[L].st) * es + i % n * 16),
+                   src + i * 16, 16);
+      }
+      cp_async_commit();
+      const uint32_t* cb = keep.bits(p, row0);
+      for (int i = lane; i < L * p.hp / 2; i += 32) wbits[i] = cb[i];
+      const float* cc = keep.cots(p, row0);
+      for (int i = lane; i < 64; i += 32) rowsv[wrow * 4 + i] = cc[i];
+      cp_async_wait_all();
+    }
+    __syncwarp();
+    // The rows' cotangents as operands (cols 0-3 of hcot; the density
+    // head's also to the cache), and the warp's sums of them over its rows
+    // (lanes 0-15 a row each).
+    {
+      float sum[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float u = lane < 16 ? rowsv[(wrow + lane) * 4 + q] : 0.0f;
+        if (lane < 16) st_op<kBf16>(hcot.p + ((wrow + lane) * hcot.st + q) * es, op<kBf16>(u));
+        if (q == 0 && lane < 16 && keep.p != nullptr && p.n_head > 0) {
+          st_op<kBf16>(keep.tile(p, 2 * L - 1, 0) + (row0 + lane) * es, op<kBf16>(u));
         }
+        sum[q] = u;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], o);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) hpart[warp * 4 + q] = sum[q];
       }
     }
-    __syncthreads();
-    float* abuf = smem + (L & 1 ? p.buf1 : p.buf0);  // a_L, then a_k going down
-    float* gbuf = smem + (L & 1 ? p.buf0 : p.buf1);  // gz_{k+1}
-    head_grads<kBf16>(p, rows, abuf, p.n_head > 0, ws_row);
-    // gz_L from the head on a_L: colour, or (no head) density.
-    const int rb = t / nt, cb = t % nt;
-    if (t < tm / 8 * nt) {
-      float acc[8][8];
+    // gz_L from the head on a_L (colour, or without a head density), into
+    // pp[(L + 1) & 1]; a_L stays in act[L] = pp[L & 1] for the head grads.
+    const char* hw = smem + p.heads_off;
+    const int hst = p.hp + p.pad;
+    // The heads' cotangents of the lane's rows g and g + 8, as operands:
+    // the colour head's (rows 1-3 of the head matrix), or the density's.
+    const int q0 = p.n_head > 0 ? 1 : 0, nq = p.n_head > 0 ? 3 : 1;
+    float gr[2][3];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * rb + i;
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int n = 8 * cb + j;
-          float v = 0.0f;
-          if (n < H) {
-            if (p.n_head > 0) {
+      for (int q = 0; q < 3; ++q) {
+        gr[h][q] = q < nq ? op<kBf16>(rowsv[(wrow + g + 8 * h) * 4 + q0 + q]) : 0.0f;
+      }
+    }
+    for (int c = 0; c * kCols < p.hp; ++c) {
+      const int nt = min(kCols, p.hp - c * kCols) / 8;
+      float acc[8][4];
 #pragma unroll
-              for (int q = 0; q < 3; ++q) {
-                v = fmaf(op<kBf16>(rows[(1 + q) * tm + r]), w[p.wc_off + q * H + n], v);
-              }
-            } else {
-              v = op<kBf16>(rows[r]) * w[p.wd_off + n];
-            }
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int col = c * kCols + 8 * j + 2 * t + e2;
+          float wq[3];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            wq[q] = q < nq ? ld_op<kBf16>(hw + ((q0 + q) * hst + col) * es) : 0.0f;
           }
-          acc[i][j] = v;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v = gr[h][0] * wq[0];
+            v = fmaf(gr[h][1], wq[1], v);
+            acc[j][2 * h + e2] = fmaf(gr[h][2], wq[2], v);
+          }
         }
       }
-      finish_gz<kBf16>(p, smem, L - 1, abuf, gbuf, rb, cb, acc, row0, num_rows,
-                       num_samples, dhd);
+      finish_gz<kBf16>(p, wbits, L, c, nt, acc, pp[(L + 1) & 1], wrow,
+                       part + (L & 1) * p.warps * p.hp, dhd, row0, num_rows, num_samples);
+    }
+    if (keep.p != nullptr) {
+      __syncwarp();
+      put_cols<kBf16>(p, pp[(L + 1) & 1], wrow, keep.col(p, 2 * L - 2, row0), R);
     }
     __syncthreads();
-    bias_grad(p, smem, L - 1, ws_row);
+    head_grads<kBf16>(p, hcot, hpart, act[L], p.n_head > 0, true, headg, biasg);
     for (int k = L - 1; k >= 0; --k) {
-      __syncthreads();  // a_{k+1}'s mask read, the bias sums taken
-      const int kp = k == 0 ? p.dp : p.hp;
-      copy_image(abuf, scr + p.act_off[k], kp * tm);
-      __syncthreads();
-      weight_grad(p, gbuf, abuf, kp, p.in_dim[k], ws_row + p.w_off[k]);
-      if (p.n_head > 0 && k == nb) head_grads<kBf16>(p, rows, abuf, false, ws_row);
-      // g_{a_k} = gz_{k+1} W_k (N = in_k): W_k [H, in_k] is B as it is.
-      const int ntk = kp / 8, rbk = t / ntk, cbk = t % ntk;
-      const bool active = t < tm / 8 * ntk;
-      float acc[8][8];
-      product(p, smem, gbuf, p.hp, w + p.w_off[k], p.in_dim[k], 1, H, p.in_dim[k], kp, false,
-              rbk, cbk, active, acc);
-      if (k > 0) {
-        if (active) {
-          if (p.n_head > 0 && k == nb) {  // the density head's share of g_{a_nb}
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float gd = op<kBf16>(rows[8 * rbk + i]);
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                const int n = 8 * cbk + j;
-                if (n < H) acc[i][j] = fmaf(gd, w[p.wd_off + n], acc[i][j]);
-              }
-            }
-          }
-          finish_gz<kBf16>(p, smem, k - 1, abuf, gbuf, rbk, cbk, acc, row0, num_rows,
-                           num_samples, dhd);
+      if (k < L - 1) __syncthreads();  // gz_{k+1} and its column sums are in
+      const Img& G = pp[k & 1];       // gz_{k+1}
+      if (fused) {
+        dw_step<kBf16, false>(p, G, act[k], p.in_dim[k], p.kp[k], 0, H, R,
+                              reinterpret_cast<float*>(smem + dw_off[k]));
+      }
+      if (p.n_head > 0 && k == nb) {  // w_d here, or in the phases from the cache
+        head_grads<kBf16>(p, hcot, hpart, act[nb], false, fused, headg, biasg);
+      } else {
+        const float* pk = part + ((k + 1) & 1) * p.warps * p.hp;
+        for (int n = threadIdx.x; n < H; n += blockDim.x) {
+          float s = 0.0f;
+          for (int w = 0; w < p.warps; ++w) s += pk[w * p.hp + n];
+          biasg[p.b_off[k] + n] += s;
         }
-        __syncthreads();
-        bias_grad(p, smem, k - 1, ws_row);
-      } else if (active) {  // dx = gz_1 W_0
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const long long row = row0 + 8 * rbk + i;
-          if (row >= num_rows) continue;
+      }
+      if (k == L - 1) __syncthreads();  // the head grads have read a_L
+      // g_{a_k} = gz_{k+1} W_k, then gz_k into pp[(k + 1) & 1], or dx.
+      for (int c = 0; c * kCols < p.kp[k]; ++c) {
+        const View w = weights<kBf16>(p, smem, wg, k, true, c, wt);
+        const int nt = min(kCols, p.kp[k] - c * kCols) / 8;
+        float acc[8][4];
+        zero(acc);
+        if (wt != nullptr) {
+          mma_pass<kBf16, false, false>(row_addr(G, wrow, es), G.st, w.a, w.st, p.hp, nt, acc);
+        } else {
+          mma_pass<kBf16, false, true>(row_addr(G, wrow, es), G.st, w.a, w.st, p.hp, nt, acc);
+        }
+        if (p.n_head > 0 && k == nb) {  // the density head's share of g_{a_nb}
+          const float gd[2] = {op<kBf16>(rowsv[(wrow + g) * 4]),
+                               op<kBf16>(rowsv[(wrow + g + 8) * 4])};
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const int n = 8 * cbk + j;
-            if (n < p.d_in) dx[row * p.d_in + n] = acc[i][j];
+            if (j >= nt) continue;
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const float wd = ld_op<kBf16>(hw + (c * kCols + 8 * j + 2 * t + e2) * es);
+              acc[j][e2] = fmaf(gd[0], wd, acc[j][e2]);
+              acc[j][2 + e2] = fmaf(gd[1], wd, acc[j][2 + e2]);
+            }
           }
         }
+        if (k == 0) {  // dx
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j >= nt) continue;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = c * kCols + 8 * j + 2 * t + (e & 1);
+              const long long row = row0 + g + 8 * (e >> 1);
+              if (row < num_rows && col < p.d_in) dx[row * p.d_in + col] = acc[j][e];
+            }
+          }
+        } else {
+          finish_gz<kBf16>(p, wbits, k, c, nt, acc, pp[(k + 1) & 1], wrow,
+                           part + (k & 1) * p.warps * p.hp, dhd, row0, num_rows, num_samples);
+        }
+      }
+      if (k > 0 && keep.p != nullptr) {
+        __syncwarp();
+        put_cols<kBf16>(p, pp[(k + 1) & 1], wrow, keep.col(p, L + k - 2, row0), R);
+      }
+    }
+    __syncthreads();  // before the next tile's images
+  }
+  for (int k = 0; fused && k < L; ++k) {
+    const float* dw = reinterpret_cast<const float*>(smem + dw_off[k]);
+    float* dst = ws_row + p.w_off[k];
+    const int in = p.in_dim[k], ds = dw_stride(in);
+    for (int i = threadIdx.x; i < H * in; i += blockDim.x) dst[i] = dw[i / in * ds + i % in];
+  }
+  for (int i = threadIdx.x; i < p.n_b; i += blockDim.x) ws_row[p.n_w + i] = biasg[i];
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    if (fused || p.n_head == 0) ws_row[p.wd_off + h] = headg[h];
+    if (p.n_head > 0) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ws_row[p.wc_off + q * H + h] = headg[(1 + q) * p.hp + h];
+    }
+  }
+  if (fused) return;
+  // The dW phases. A phase's chunks come in runs that share their sources:
+  // cotangents G^T (a plane's [hp] rows; for w_d the density head's
+  // cotangents in row 0) and inputs A^T ([kp] rows; x^T for matrix 0).
+  // Per tile and run the images load by cp.async, then dW += G^T A over
+  // the tile's rows for each chunk of the run. Each chunk's sums go to the
+  // block's row once, at the phase's end.
+  __syncthreads();  // the cache's rows and shared memory are free
+  const int tst = R + p.pad;
+  const Img G{smem, tst}, A{smem + p.hp * tst * es, tst};
+  const int base = (p.hp + p.wp) * tst * es;
+  for (int ph = 1; ph < p.n_phases; ++ph) {
+    const int c0 = p.phase_first[ph], n = p.phase_first[ph + 1] - c0;
+    int dwo[kMaxLayers + 1], run[kMaxLayers + 2], nruns = 0, off = base;
+    for (int i = 0; i < n; ++i) {
+      const int k = p.chunk_k[c0 + i], in = k == L ? H : p.in_dim[k];
+      dwo[i] = off;
+      off += (p.chunk_m1[c0 + i] - p.chunk_m0[c0 + i] + 15) / 16 * 16 * dw_stride(in) * 4;
+      if (i == 0 || k != p.chunk_k[c0 + i - 1]) run[nruns++] = i;
+    }
+    run[nruns] = n;
+    for (int i = base / 4 + threadIdx.x; i < off / 4; i += blockDim.x) {
+      reinterpret_cast<float*>(smem)[i] = 0.0f;
+    }
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const long long trow = tile * R;
+      for (int j = 0; j < nruns; ++j) {
+        const int k = p.chunk_k[c0 + run[j]], ak = k == L ? nb : k;
+        __syncthreads();  // the last products are done with the images
+        if (k == L) {
+          const char* dc = keep.tile(p, 2 * L - 1, 0) + trow * es;
+          for (int e = threadIdx.x; e < 16 * R; e += blockDim.x) {
+            const int q = e / R, r = e - q * R;
+            st_op<kBf16>(G.p + (q * tst + r) * es, q == 0 ? ld_op<kBf16>(dc + r * es) : 0.0f);
+          }
+        } else {
+          get_block(p, G, keep.tile(p, L - 1 + k, trow), p.hp);
+        }
+        if (ak == 0) {
+          load_xt<kBf16>(p, A, wrow, x, trow + wrow, num_rows);
+        } else {
+          get_block(p, A, keep.tile(p, ak - 1, trow), p.hp);
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        for (int i = run[j]; i < run[j + 1]; ++i) {
+          const int kc = p.chunk_k[c0 + i];
+          dw_step<kBf16, true>(p, G, A, kc == L ? H : p.in_dim[kc], kc == L ? p.hp : p.kp[kc],
+                               p.chunk_m0[c0 + i], p.chunk_m1[c0 + i], R,
+                               reinterpret_cast<float*>(smem + dwo[i]));
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const int k = p.chunk_k[c0 + i], in = k == L ? H : p.in_dim[k];
+      const int m0 = p.chunk_m0[c0 + i], m1 = p.chunk_m1[c0 + i];
+      const float* dw = reinterpret_cast<const float*>(smem + dwo[i]);
+      float* dst = ws_row + (k == L ? p.wd_off : p.w_off[k] + m0 * in);
+      const int ds = dw_stride(in);
+      for (int e = threadIdx.x; e < (m1 - m0) * in; e += blockDim.x) {
+        dst[e] = dw[e / in * ds + e % in];
       }
     }
     __syncthreads();
   }
 }
 
-template <bool kBf16>
+// Each matrix of `w` transposed into `wt` at its packed offset.
+__global__ void transpose_kernel(const __grid_constant__ GPlan p, const float* w, float* wt) {
+  for (int k = 0; k < p.n_layers; ++k) {
+    const int in = p.in_dim[k], n = p.hidden * in;
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
+      wt[p.w_off[k] + e % in * p.hidden + e / in] = w[p.w_off[k] + e];
+    }
+  }
+}
+
+template <bool kBf16, bool kCache = false>
 cudaError_t launch_fwd(const GPlan& p, const float* x, const float* head_dir, const float* w,
                        const float* b, float* rgb, float* dens, long long num_rows,
-                       int num_samples, int grid, cudaStream_t stream) {
+                       int num_samples, int grid, cudaStream_t stream,
+                       const Cache& keep = Cache{nullptr, 0, 0}, const float* g_rgb = nullptr,
+                       const float* g_dens = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+      fwd_kernel<kBf16, kCache>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
   if (err != cudaSuccess) return err;
-  fwd_kernel<kBf16><<<grid, kThreads, p.smem_bytes, stream>>>(p, x, head_dir, w, b, rgb, dens,
-                                                              num_rows, num_samples);
+  fwd_kernel<kBf16, kCache><<<grid, p.warps * 32, p.smem_bytes, stream>>>(
+      p, x, head_dir, w, b, rgb, dens, num_rows, num_samples, keep, g_rgb, g_dens);
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 cudaError_t launch_bwd(const GPlan& p, const float* x, const float* head_dir, const float* w,
                        const float* b, const float* g_rgb, const float* g_dens, float* dx,
-                       float* dhd, float* ws, int ws_stride, float* scratch,
-                       long long num_rows, int num_samples, int grid, cudaStream_t stream) {
+                       float* dhd, float* ws, int ws_stride, float* aux, long long num_rows,
+                       int num_samples, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       bwd_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
   if (err != cudaSuccess) return err;
-  bwd_kernel<kBf16><<<grid, kThreads, p.smem_bytes, stream>>>(
-      p, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws, ws_stride, scratch, num_rows,
-      num_samples);
+  bwd_kernel<kBf16><<<grid, p.warps * 32, p.smem_bytes, stream>>>(
+      p, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws, ws_stride,
+      reinterpret_cast<char*>(aux), num_rows, num_samples);
   return cudaGetLastError();
 }
 
@@ -1863,24 +2704,39 @@ extern "C" int tetranerf_fused_mlp_backward(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The generic plan of a stack, for the host's mirror to be held against:
+// out = {rows a tile, warps, resident, phases, cache words, shared memory};
+// returns 0 where the kernels take no such stack.
+extern "C" int tetranerf_fused_mlp_generic_plan(int d_in, int hidden, int n_base, int n_head,
+                                                int bf16, int backward, int* out) {
+  gen::GPlan plan;
+  if (!gen::make_gplan(d_in, hidden, n_base, n_head, bf16 != 0, backward != 0, &plan)) return 0;
+  const int v[6] = {plan.rows, plan.warps, plan.resident, backward ? plan.n_phases : 0,
+                    plan.cache_words, plan.smem_bytes};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 1;
+}
+
 // The generic route's forward (K4, K5) and backward (K4b, K5b), arguments
-// as above plus `bf16` (round operands to bf16; `w` must hold the weights
-// rounded already) and the host plan's rows a tile, scratch floats a
-// block and shared memory, which must match this file's. The backward's
-// scratch is [num_blocks][scratch_floats]; it zeroes each launched
-// block's workspace row itself.
+// as above plus `bf16` (bf16 operands, rounded from the f32 weights as the
+// kernel stages them) and the host plan's rows a tile, phases and cache
+// words (backward) and shared memory, which must match this file's. The
+// backward's `aux` is the cache (unused with one phase): [ceil(rows /
+// rows_per_tile) * rows_per_tile / 16][cache_words] words, then ws_stride
+// floats (the transposed weights); it writes every entry of each launched
+// block's workspace row once.
 extern "C" int tetranerf_fused_mlp_forward_generic(
     const float* x, const float* head_dir, const float* w, const float* b, float* rgb,
     float* dens, int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head,
     int bf16, int num_blocks, int rows_per_tile, int smem_bytes, cudaStream_t stream) {
   gen::GPlan plan;
-  if (!gen::make_gplan(d_in, hidden, n_base, n_head, false, &plan) ||
-      plan.tm != rows_per_tile || plan.smem_bytes != smem_bytes || num_blocks < 1) {
+  if (!gen::make_gplan(d_in, hidden, n_base, n_head, bf16 != 0, false, &plan) ||
+      plan.rows != rows_per_tile || plan.smem_bytes != smem_bytes || num_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long num_rows = static_cast<long long>(num_rays) * num_samples;
   if (num_rows == 0) return 0;
-  const long long tiles = (num_rows + plan.tm - 1) / plan.tm;
+  const long long tiles = (num_rows + plan.rows - 1) / plan.rows;
   const int grid = static_cast<int>(std::min<long long>(num_blocks, tiles));
   const cudaError_t err =
       bf16 ? gen::launch_fwd<true>(plan, x, head_dir, w, b, rgb, dens, num_rows, num_samples,
@@ -1893,25 +2749,47 @@ extern "C" int tetranerf_fused_mlp_forward_generic(
 extern "C" int tetranerf_fused_mlp_backward_generic(
     const float* x, const float* head_dir, const float* w, const float* b,
     const float* g_rgb, const float* g_dens, float* dx, float* dhd, float* ws, float* grads,
-    float* scratch, int num_rays, int num_samples, int d_in, int hidden, int n_base,
-    int n_head, int bf16, int num_blocks, int ws_stride, int rows_per_tile,
-    int scratch_floats, int smem_bytes, cudaStream_t stream) {
+    float* aux, int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head,
+    int bf16, int num_blocks, int ws_stride, int rows_per_tile, int phases, int cache_words,
+    int smem_bytes, cudaStream_t stream) {
   gen::GPlan plan;
-  if (!gen::make_gplan(d_in, hidden, n_base, n_head, true, &plan) ||
-      plan.tm != rows_per_tile || plan.smem_bytes != smem_bytes ||
-      plan.scratch_floats != scratch_floats || num_blocks < 1 ||
-      ws_stride < plan.n_w + plan.n_b) {
+  if (!gen::make_gplan(d_in, hidden, n_base, n_head, bf16 != 0, true, &plan) ||
+      plan.rows != rows_per_tile || plan.n_phases != phases ||
+      cache_words != plan.cache_words ||
+      plan.smem_bytes != smem_bytes || num_blocks < 1 || ws_stride < plan.n_w + plan.n_b) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long num_rows = static_cast<long long>(num_rays) * num_samples;
-  const long long tiles = (num_rows + plan.tm - 1) / plan.tm;
+  const long long tiles = (num_rows + plan.rows - 1) / plan.rows;
   const int grid = static_cast<int>(std::min<long long>(num_blocks, tiles));
+  if (grid > 0 && plan.n_phases > 1) {  // the chain into the cache, at the forward's warps
+    gen::GPlan fplan;
+    gen::make_gplan(d_in, hidden, n_base, n_head, bf16 != 0, false, &fplan);
+    if (fplan.warps > gen::kCacheWarps) {  // the forward's layout at fewer warps
+      fplan.smem_bytes -= (fplan.warps - gen::kCacheWarps) * (fplan.smem_bytes - fplan.pp_off) /
+                          fplan.warps;
+      fplan.warps = gen::kCacheWarps;
+      fplan.rows = 16 * gen::kCacheWarps;
+    }
+    const gen::Cache keep{reinterpret_cast<char*>(aux), tiles * plan.rows, plan.rows};
+    const long long ftiles = (keep.rows + fplan.rows - 1) / fplan.rows;
+    const int fgrid = static_cast<int>(std::min<long long>(num_blocks, ftiles));
+    const cudaError_t err =
+        bf16 ? gen::launch_fwd<true, true>(fplan, x, head_dir, w, b, nullptr, nullptr, num_rows,
+                                           num_samples, fgrid, stream, keep, g_rgb, g_dens)
+             : gen::launch_fwd<false, true>(fplan, x, head_dir, w, b, nullptr, nullptr, num_rows,
+                                            num_samples, fgrid, stream, keep, g_rgb, g_dens);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!bf16 && !plan.resident) {
+      gen::transpose_kernel<<<64, 256, 0, stream>>>(plan, w, keep.wt(plan));
+    }
+  }
   if (grid > 0) {
     const cudaError_t err =
         bf16 ? gen::launch_bwd<true>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws,
-                                     ws_stride, scratch, num_rows, num_samples, grid, stream)
+                                     ws_stride, aux, num_rows, num_samples, grid, stream)
              : gen::launch_bwd<false>(plan, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, ws,
-                                      ws_stride, scratch, num_rows, num_samples, grid, stream);
+                                      ws_stride, aux, num_rows, num_samples, grid, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int n = plan.n_w + plan.n_b;

@@ -62,7 +62,8 @@ _SIGNATURES = {
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 9 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 11 + [_I] * 10 + [_P],
     "tetranerf_fused_mlp_forward_generic": [_P] * 6 + [_I] * 10 + [_P],
-    "tetranerf_fused_mlp_backward_generic": [_P] * 11 + [_I] * 12 + [_P],
+    "tetranerf_fused_mlp_backward_generic": [_P] * 11 + [_I] * 13 + [_P],
+    "tetranerf_fused_mlp_generic_plan": [_I] * 6 + [_P],
     "tetranerf_row_gather_batch": [_P, _I, _P],
     "tetranerf_row_gather_max_jobs": [],
 }

@@ -15,9 +15,14 @@ of the forward (which would keep the cotangents in f32).
 On the card each kernel has two routes, chosen by :func:`launch_plan` from
 the stack's shape and dtype, never by a failure: ``"wgmma"``, the bf16
 tensor-core instances at widths (16, 32) and (64, 128) where their shared
-memory holds the stack, and ``"generic"``, f32 FMA at any width up to
-:data:`MAX_WIDTH` and any depth up to :data:`MAX_LAYERS`, for float32
-(JAX's ``Precision.HIGHEST``) and for bfloat16 operands everywhere else.
+memory holds the stack, and ``"generic"``, ``mma.sync`` on the tensor
+cores at any width up to :data:`MAX_WIDTH` and any depth up to
+:data:`MAX_LAYERS`: bf16 operands, or for float32 (JAX's
+``Precision.HIGHEST``) 3xTF32, each operand split into two TF32 parts,
+except the float32 backward's forward chain, f32 FMAs in a plain GEMM's
+order so that its ReLU masks are the f32 twin's (K4's 3xTF32 forward may
+differ from that chain by rounding, and so flip a mask where a
+pre-activation lies within rounding of 0; the backward follows the twin).
 :data:`.cuda.launch_counts` counts each route under its own name
 (``fused_field_mlps`` and ``fused_field_mlps_generic``, ...).
 
@@ -194,7 +199,10 @@ MAX_WIDTH = 256  # d_in and hidden of the generic route
 ROWS_PER_TILE = 64  # rows per warpgroup: wgmma's M
 _MAX_FWD_WARPGROUPS = 3
 _BWD_WARPGROUPS = 2
-_GENERIC_SLICE = 16  # rows of a weight slice; the generic route pads widths to it
+_GENERIC_COLS = 64  # output columns of a generic pass, and of a streamed weight slab
+_GENERIC_WARPS = 16  # warps of a generic forward block, at most
+_GENERIC_BWD_WARPS = 8  # of a backward block
+_GENERIC_CHUNKS = 64  # the generic backward's weight-gradient chunks, at most
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -211,15 +219,19 @@ class LaunchPlan:
 
     route: str  # "wgmma" or "generic"
     rows_per_tile: int  # wgmma: rows of one warpgroup's tile; generic: a block's
-    warpgroups: int  # per block (one block per SM)
+    warpgroups: int  # wgmma: per block (one block per SM); generic: 0
     stages: int  # wgmma: x stages of a warpgroup with room of their own (0:
-    # the stage shares the backward's cotangent staging, no prefetch);
-    # generic: the weight slices' buffers
+    # the stage shares the backward's cotangent staging, no prefetch); generic: 0
     smem_bytes: int  # dynamic shared memory per block
     ws_floats: int  # one block's weight-gradient workspace row (backward)
-    aux_tile_floats: int  # wgmma: the backward's cached masks and head
-    # cotangents of one 64-row tile; generic: a block's scratch of layer
-    # inputs (backward)
+    aux_tile_floats: int  # the backward's cache: wgmma: masks and head
+    # cotangents of a 64-row tile; generic: words a 16 rows (activations,
+    # cotangents, ReLU bits, head cotangents), 0 with one phase
+    warps: int = 0  # generic: warps a block, 16 rows each
+    resident: bool = False  # generic: the weights stay in shared memory for the launch
+    phases: int = 0  # generic backward: 1 (one kernel sums every weight
+    # gradient), or the pass over the layers then the phases of
+    # weight-gradient chunks that read the cache
 
 
 def _dtype(compute_dtype) -> torch.dtype:
@@ -270,22 +282,107 @@ def _wgmma_plan(d_in, hidden, n_base, n_head, backward):
     return None
 
 
-def _generic_plan(d_in, hidden, n_base, n_head, backward):
-    """The generic route's plan: widths padded to 16, a block of 256 threads
-    on ``tm`` rows, each thread an 8 x 8 block of a layer's output."""
+def _dw_stride(n_in):
+    """``dw_stride``: a dW chunk's row stride in floats, 8 past a multiple of
+    32 (float2 adds free of bank conflicts)."""
+    return _align(n_in, 32) + 8
+
+
+def _generic_chunks(base, rows, kp, in_dim, hidden, pad, esz, save, wd):
+    """``pack_chunks``: the dW chunks, the top matrix first (with ``wd`` the
+    density head's w_d before it), as many to a phase as shared memory holds
+    beside ``base`` bytes and (with ``save``) each of the phase's matrices'
+    input image: ``(phases, the largest phase's bytes)``, None where not
+    even one chunk fits."""
+    used = top = base
+    phase, phases, chunks = set(), 1, 0
+    mats = [(len(kp), hidden, 1, 0)] if wd else []
+    mats += [(k, in_dim[k], hidden, rows * (kp[k] + pad) * esz if save else 0)
+             for k in range(len(kp) - 1, -1, -1)]
+    for k, n_in, n_rows, image in mats:
+        m = 0
+        while m < n_rows:
+            need = 0 if k in phase else image
+            groups = max(MAX_SMEM_BYTES - used - need, 0) // (16 * _dw_stride(n_in) * 4)
+            if not groups:
+                if not phase:
+                    return None
+                phases, used, phase = phases + 1, base, set()
+                continue
+            if chunks == _GENERIC_CHUNKS:
+                return None
+            m1 = min(n_rows, m + 16 * groups)
+            used += need + -(-(m1 - m) // 16) * 16 * _dw_stride(n_in) * 4
+            top = max(top, used)
+            phase.add(k)
+            chunks, m = chunks + 1, m1
+    return phases, top
+
+
+def _generic_plan(d_in, hidden, n_base, n_head, backward, dtype):
+    """The generic route's plan (``make_gplan``): widths padded to 16,
+    operands of 2 (bf16) or 4 (f32) bytes with a 16-byte pad a row; warps of
+    16 rows; the weights resident in shared memory where they fit, else
+    streamed in slabs of 64 columns. The backward sums every weight
+    gradient in one pass where they fit beside eight warps' tiles; else the
+    forward chain (at the forward's warps) and its pass over the layers
+    write a cache (``aux_tile_floats`` words a 16 rows) that phases after
+    it read back for the weight gradients."""
     layers = n_base + n_head
-    hp, dp = _align(hidden, _GENERIC_SLICE), _align(d_in, _GENERIC_SLICE)
+    esz = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // esz
+    hp, dp = _align(hidden, 16), _align(d_in, 16)
     wp = max(hp, dp)
-    tm = max(32, 16384 // wp // 32 * 32)
-    # Two [wp][tm] activation images, two weight slices, the rows' heads.
-    floats = 2 * wp * tm + 2 * _GENERIC_SLICE * wp + 4 * tm
-    ws_floats = scratch = 0
-    if backward:
-        floats += tm // 8 * hp  # the bias gradients' column sums
-        ws_floats = _workspace_floats(d_in, hidden, layers, n_head)[1]
-        scratch = (dp + (layers - 1) * hp) * tm  # every layer's input image
-    # At most 2 * 16384 + 32 * 256 + 4 * 1024 + 2048 floats: it always fits.
-    return LaunchPlan("generic", tm, 2, 2, floats * 4, ws_floats, scratch)
+    kp = [dp] + [hp] * (layers - 1)
+    in_dim = [d_in] + [hidden] * (layers - 1)
+    heads = 16 * (hp + pad) * esz  # the heads' matrix
+    pack = sum(hp * (k + pad) * esz for k in kp) + heads
+    slab = max(min(_GENERIC_COLS, hp) * (k + pad) * esz for k in kp)
+    img = 16 * (wp + pad) * esz  # a warp's rows of one activation image
+    if not backward:
+        resident = pack + 4 * 2 * img <= MAX_SMEM_BYTES
+        w = pack if resident else slab + heads
+        warps = min(_GENERIC_WARPS, (MAX_SMEM_BYTES - w) // (2 * img))
+        return LaunchPlan("generic", 16 * warps, 0, 0, w + 2 * warps * img, 0, 0, warps,
+                          resident)
+    # The backward's slabs of W's columns: [hp][64 + pad], and in float32
+    # [64][hp + pad] from the transposed weights.
+    slab = max(slab, hp * (_GENERIC_COLS + pad) * esz)
+    if esz == 4:
+        slab = max(slab, _GENERIC_COLS * (hp + pad) * esz)
+    n_b, ws_floats = _workspace_floats(d_in, hidden, layers, n_head)
+
+    def fixed(warps, resident):
+        # Weights, two activation images, ReLU bits, the heads' cotangents
+        # (f32 and as operands), per-warp column sums (and of the heads'
+        # cotangents), bias and head gradients.
+        rows = 16 * warps
+        out = (pack if resident else slab + heads) + 2 * rows * (wp + pad) * esz
+        out += layers * rows * hp // 8 + rows * 16 + rows * (16 + pad) * esz
+        return out + 2 * warps * hp * 4 + warps * 16 + _align(n_b, 4) * 4 + 4 * hp * 4
+
+    for resident in (True, False):
+        base = fixed(_GENERIC_BWD_WARPS, resident)
+        packed = _generic_chunks(base, 16 * _GENERIC_BWD_WARPS, kp, in_dim, hidden, pad, esz,
+                                 True, False)
+        if packed is not None and packed[0] == 1:
+            return LaunchPlan("generic", 16 * _GENERIC_BWD_WARPS, 0, 0, packed[1], ws_floats, 0,
+                              _GENERIC_BWD_WARPS, resident, 1)
+    for warps in (8, 4, 2, 1):
+        for resident in (True, False):
+            base = fixed(warps, resident)
+            rows = 16 * warps
+            # Two images of the tile's rows, transposed: a cotangent and an input.
+            packed = _generic_chunks((hp + wp) * (rows + pad) * esz, rows, kp, in_dim, hidden,
+                                     pad, esz, False, n_head > 0)
+            if base <= MAX_SMEM_BYTES and packed is not None:
+                # Per 16 rows: the matrices' inputs and cotangents, the density
+                # head's cotangents and a_L as operands, the ReLU bits, the
+                # heads' cotangents.
+                cache = 4 * esz * (2 * layers * hp + 1) + layers * hp // 2 + 64
+                return LaunchPlan("generic", rows, 0, 0, max(base, packed[1]), ws_floats, cache,
+                                  warps, resident, 1 + packed[0])
+    return None
 
 
 def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int, backward: bool,
@@ -308,7 +405,7 @@ def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int, backward: bool
         plan = _wgmma_plan(d_in, hidden, n_base, n_head, backward)
         if plan is not None:
             return plan
-    return _generic_plan(d_in, hidden, n_base, n_head, backward)
+    return _generic_plan(d_in, hidden, n_base, n_head, backward, dtype)
 
 
 def _check(name, x, head_dir, weights, n_base, n_head, compute_dtype):
@@ -378,13 +475,21 @@ def _forward_cuda(counter, plan, x, head_dir, weights, n_base, n_head, dtype):
                         cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
                         _num_blocks(dev), plan.warpgroups, plan.smem_bytes)
         else:
-            # The generic route takes the matrices already rounded to operands.
-            wop = as_operand(wpack, dtype)
             cuda.launch(f"{counter}_generic", "tetranerf_fused_mlp_forward_generic", dev,
-                        *args, cuda.ptr(wop), cuda.ptr(bpack), *outs, *shape,
+                        *args, cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
                         int(dtype == torch.bfloat16), _num_blocks(dev), plan.rows_per_tile,
                         plan.smem_bytes)
     return rgb, dens
+
+
+def _generic_cache(plan, rows, dev):
+    """The generic backward's cache: ``plan.aux_tile_floats`` words for each
+    16 rows of the launch's tiles, then room for the weights transposed
+    (none with one phase)."""
+    if not plan.aux_tile_floats:
+        return torch.empty(0, device=dev)
+    groups = -(-rows // plan.rows_per_tile) * plan.rows_per_tile // 16
+    return torch.empty(groups * plan.aux_tile_floats + plan.ws_floats, device=dev)
 
 
 def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
@@ -409,36 +514,30 @@ def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
     # Each block writes its rows' weight gradients into a row of its own.
     ws = torch.empty((num_blocks, plan.ws_floats), device=dev)
     grads = torch.empty(wpack.numel() + bpack.numel(), device=dev)
+    dx = torch.empty_like(x)
+    dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
+    args = (cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir))
+    cot = (cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens), cuda.ptr(dx),
+           None if dhd is None else cuda.ptr(dhd), cuda.ptr(ws), cuda.ptr(grads))
+    shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
     if plan.route == "wgmma":
         tiles = 2 * -(-rows // (2 * ROWS_PER_TILE))
         # The tiles' cached masks and head cotangents, then per block each
         # warp's column sums ([8][5H + 4]).
         aux = torch.empty(tiles * plan.aux_tile_floats + num_blocks * 8 * (5 * hidden + 4),
                           device=dev)
-    else:
-        # Each launched block's layer inputs of its current tile.
-        grid = min(num_blocks, -(-rows // plan.rows_per_tile))
-        aux = torch.empty(grid * plan.aux_tile_floats, device=dev)
-    dx = torch.empty_like(x)
-    dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
-    args = (cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir))
-    cot = (cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens), cuda.ptr(dx),
-           None if dhd is None else cuda.ptr(dhd), cuda.ptr(ws), cuda.ptr(grads),
-           cuda.ptr(aux))
-    shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
-    if plan.route == "wgmma":
         cuda.launch(
             counter, "tetranerf_fused_mlp_backward", dev, *args,
-            cuda.ptr(wpack), cuda.ptr(bpack), *cot, *shape, num_blocks,
+            cuda.ptr(wpack), cuda.ptr(bpack), *cot, cuda.ptr(aux), *shape, num_blocks,
             plan.ws_floats, plan.stages, plan.smem_bytes,
         )
     else:
-        wop = as_operand(wpack, dtype)
+        aux = _generic_cache(plan, rows, dev)
         cuda.launch(
             f"{counter}_generic", "tetranerf_fused_mlp_backward_generic", dev, *args,
-            cuda.ptr(wop), cuda.ptr(bpack), *cot, *shape,
+            cuda.ptr(wpack), cuda.ptr(bpack), *cot, cuda.ptr(aux), *shape,
             int(dtype == torch.bfloat16), num_blocks, plan.ws_floats, plan.rows_per_tile,
-            plan.aux_tile_floats, plan.smem_bytes,
+            plan.phases, plan.aux_tile_floats, plan.smem_bytes,
         )
     return dx, dhd, _unpack(grads, weights)
 
