@@ -205,7 +205,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     compute_dtype="float32")`` (losses finite and falling, a 256-ray step
     against the CPU twins) and 16 of the bf16 stack (paths
     ``generic_f32_train``, ``generic_bf16_train``), every fused launch on
-    the generic route.
+    the generic route;
+25. the fused MLPs' layered route (widths above 256, more than 8 layers):
+    K4, K4b, K5 and K5b of a field 64, hidden 512 stack (3 + 1 layers) in
+    bf16 and float32 and of a 6 + 4-layer stack at the preset's widths in
+    bf16 against their twins (phase 24's tolerances; the float32 backward
+    against the f32 twin only) at the train slice's shapes and a 512 x 33
+    bucket, each timed beside its bound (operations and bytes apart), the
+    bytes of its own activation traffic, its twin and the un-fused stack;
+    16 steps of each stack in the preset's bf16 (losses finite; the wide
+    one's falling and a 256-ray step against the CPU twins; paths
+    ``layered_wide_train``, ``layered_deep_train``), every fused launch on
+    the layered route.
 
 Phase 1 also builds the native host geometry library (``g++``) and times
 its adjacency and spacing against the numpy sort and the KD-tree on the
@@ -1037,9 +1048,9 @@ def _cold_bucket_plan(mesh, origins, directions):
     return res, order, plan
 
 
-def _rel_check(name, pairs):
+def _rel_check(name, pairs, max_rtol=MLP_MAX_RTOL):
     """Max abs error over (kernel, twin) pairs, each held to MLP_NORM_RTOL
-    and MLP_MAX_RTOL."""
+    and to ``max_rtol`` (None: the max abs error reported, not held)."""
     err = 0.0
     for i, (k, t) in enumerate(pairs):
         e = _max_err(k, t)
@@ -1051,7 +1062,7 @@ def _rel_check(name, pairs):
               f"{scale:.3g}, relative norm err {norm_err:.3g}, {far} entries off "
               f"by more than 1% of the largest")
         _check(norm_err <= MLP_NORM_RTOL, f"{name}: output {i}: norm err {norm_err}")
-        _check(e <= MLP_MAX_RTOL * max(scale, 1e-30),
+        _check(max_rtol is None or e <= max_rtol * max(scale, 1e-30),
                f"{name}: output {i}: max abs err {e} against largest entry {scale}")
         err = max(err, e)
     return err
@@ -3969,11 +3980,19 @@ _GENERIC_NAMES = ("fused_field_mlps", "fused_field_mlps_backward", "fused_densit
 def _f32_check(name, triples, forward):
     """Max abs error over ``(kernel, twin, exact)`` triples: the kernel to
     F32_MAX_RTOL of the f32 twin and, for a ``forward``, the f32 twin and
-    the kernel to F32_EXACT_RTOL of the float64 twin in relative norm."""
+    the kernel to F32_EXACT_RTOL of the float64 twin in relative norm
+    (``exact`` None: the kernel to the f32 twin only)."""
     err = 0.0
     for i, (k, t, x) in enumerate(triples):
         e = _max_err(k, t)
         scale = float(t.abs().max())
+        if x is None:
+            print(f"  {name} output {i} {tuple(t.shape)}: max abs err {e:.3g} of largest "
+                  f"{scale:.3g} ({e / max(scale, 1e-30):.3g})")
+            _check(e <= F32_MAX_RTOL * max(scale, 1e-30),
+                   f"{name}: output {i}: max abs err {e} against largest entry {scale}")
+            err = max(err, e)
+            continue
         x = x.double()
         k_exact = float((k.double() - x).norm() / x.norm().clamp_min(1e-30))
         t_exact = float((t.double() - x).norm() / x.norm().clamp_min(1e-30))
@@ -3990,13 +4009,13 @@ def _f32_check(name, triples, forward):
     return err
 
 
-def _generic_kernel_checks(model, dev):
+def _generic_kernel_checks(model, dev, route="generic"):
     """K4, K4b, K5 and K5b of ``model``'s stack (which the plan routes to
-    the generic kernels) against their twins at the train slice's shapes
-    (4096 rays x 257 / 128 samples) and at GENERIC_BUCKET; at the train
-    shape each kernel's CUDA-event ms beside its bound, the twin's and the
-    un-fused stack's at the same dtype. Returns the entries ``{wrapper:
-    dict}``."""
+    ``route``'s kernels: the generic route, or phase 25's layered one)
+    against their twins at the train slice's shapes (4096 rays x 257 / 128
+    samples) and at GENERIC_BUCKET; at the train shape each kernel's
+    CUDA-event ms beside its bound, the twin's and the un-fused stack's at
+    the same dtype. Returns the entries ``{wrapper: dict}``."""
     import torch
     from tetranerf_torch.models import TetraNerf
     from tetranerf_torch.ops import mlp
@@ -4004,12 +4023,17 @@ def _generic_kernel_checks(model, dev):
     cfg = model.config
     dt = model.compute_dtype
     f32 = dt == torch.float32
+    layered = route == "layered"
     flops = TF32X3_FLOPS if f32 else BF16_TENSOR_FLOPS
+    # The layered float32 forward runs its products as f32 FMAs.
+    fwd_flops = F32_FLOPS if f32 and layered else flops
     n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
     design = {False: "3xTF32 on mma.sync m16n8k8 (f32 sums a k8 step)",
               True: "forward chain as f32 FMAs in the twin's order (its ReLU masks), the "
                     "rest 3xTF32 on mma.sync m16n8k8"} if f32 else {
         False: "bf16 on mma.sync m16n8k16", True: "bf16 on mma.sync m16n8k16"}
+    if f32 and layered:
+        design[False] = "f32 FMAs in the twin's order"
 
     def passes(plan):
         if plan.phases == 1:
@@ -4018,11 +4042,29 @@ def _generic_kernel_checks(model, dev):
                 "memory (activations, ReLU bits, head cotangents), then a pass over the "
                 f"layers adding the cotangents to it, then {plan.phases - 1} weight-gradient "
                 "phases reading it back")
+    # Phase 25's deep stack takes the layered route for its field MLPs only:
+    # its density MLP (6 layers) is on the wgmma route, which phase 8 checks.
+    skip = set()
     for backward in (False, True):
         for heads in (n_head, 0):
             plan = mlp.launch_plan(cfg.field_dim, cfg.hidden_size, n_base, heads, backward, dt)
-            _check(plan.route == "generic", f"generic: {plan} for {cfg.field_dim} x "
-                                            f"{cfg.hidden_size} at {dt}")
+            if layered and not heads and plan.route != route:
+                skip.add("fused_density_mlp_backward" if backward else "fused_density_mlp")
+                continue
+            _check(plan.route == route, f"{route}: {plan} for {cfg.field_dim} x "
+                                        f"{cfg.hidden_size} at {dt}")
+            if layered:
+                rays = mlp.layered_chunk_rays(plan, TRAIN_RAYS, cfg.num_samples + (
+                    cfg.num_fine_samples + 1 if heads else 0))
+                print(f"layered route design, {cfg.field_dim} x {cfg.hidden_size} x "
+                      f"{n_base} + {heads} {str(dt).split('.')[-1]}, "
+                      f"{'K4b/K5b' if backward else 'K4/K5'}: {design[backward]}; a product "
+                      f"kernel a layer, blocks of {plan.rows_per_tile} x 64 outputs, "
+                      f"{plan.smem_bytes} bytes of shared memory; {plan.aux_tile_floats * 4} "
+                      f"bytes of scratch a row, chunks of {rays} rays at the train shape"
+                      + (f"; weight-gradient workspace {plan.ws_floats * 4} bytes"
+                         if backward else ""))
+                continue
             print(f"generic route design, {cfg.field_dim} x {cfg.hidden_size} "
                   f"{str(dt).split('.')[-1]}, {'K4b/K5b' if backward else 'K4/K5'} "
                   f"{'field' if heads else 'density'}: {design[backward]}; weights "
@@ -4048,7 +4090,11 @@ def _generic_kernel_checks(model, dev):
     def check(name, kernel, twin, exact):
         if f32:
             return _f32_check(name, list(zip(kernel, twin, exact)), "backward" not in name)
-        return _rel_check(name, list(zip(kernel, twin)))
+        # Phase 25's bf16 stacks (up to 10 layers) are held to phase 8's
+        # relative-norm tolerance: their largest single-entry differences
+        # come from bf16 roundings on either side of a sum and ReLU masks
+        # flipped near 0, compounded over the layers.
+        return _rel_check(name, list(zip(kernel, twin)), None if layered else MLP_MAX_RTOL)
 
     def exact_of(fn, *args):
         """The twin on float64 tensors."""
@@ -4064,6 +4110,7 @@ def _generic_kernel_checks(model, dev):
     shapes = [(TRAIN_RAYS, cfg.num_samples, cfg.num_fine_samples), GENERIC_BUCKET]
     for rays, n_coarse, n_fine in shapes:
         train_shape = rays == TRAIN_RAYS
+        torch.cuda.reset_peak_memory_stats(dev)
         num_fine = n_coarse + n_fine + 1
         x = randn(rays, num_fine, cfg.field_dim)
         d = torch.nn.functional.normalize(randn(rays, 3), dim=1)
@@ -4090,15 +4137,22 @@ def _generic_kernel_checks(model, dev):
              (x_c, None, w_dens)),
         )
         for name, replaces, fn, twin_fn, args, bound_args in cases:
-            err = check(f"{name}_generic {at}", flat(fn(*args)), flat(twin_fn(*args)),
-                        flat(exact_of(twin_fn, *args)) if f32 else None)
+            if name in skip:
+                continue
+            backward = "backward" in name
+            twin_out = flat(twin_fn(*args))
+            exact = (flat(exact_of(twin_fn, *args)) if f32 and not (layered and backward)
+                     else [None] * len(twin_out))
+            err = check(f"{name}_{route} {at}", flat(fn(*args)), twin_out, exact)
+            del twin_out, exact
             torch.cuda.empty_cache()
             if not train_shape:
                 continue
-            # float32: K4/K5's products as 3xTF32, K4b/K5b's forward chain as
-            # f32 FMAs and the rest as 3xTF32; beside it every product as f32 FMAs.
-            bound = _mlp_bounds(*bound_args, flops=flops,
-                                chain_flops=F32_FLOPS if f32 else None)["backward" in name]
+            # float32: K4/K5's products as 3xTF32 (layered: f32 FMAs), K4b/K5b's
+            # forward chain as f32 FMAs and the rest as 3xTF32; beside it every
+            # product as f32 FMAs.
+            bound = _mlp_bounds(*bound_args, flops=fwd_flops if not backward else flops,
+                                chain_flops=F32_FLOPS if f32 else None)[backward]
             fma = (_mlp_bounds(*bound_args, flops=F32_FLOPS)["backward" in name]
                    if f32 else None)
             if name == "fused_field_mlps":
@@ -4117,34 +4171,42 @@ def _generic_kernel_checks(model, dev):
                 library = _time_ms(lambda: torch.autograd.grad(
                     outs, [xg, *params], gr, retain_graph=True, allow_unused=True), 5)
                 del outs, xg
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_bytes = torch.cuda.memory_allocated(dev)
             ms = _time_ms(lambda: fn(*args), 5)
+            call_bytes = torch.cuda.max_memory_allocated(dev) - base_bytes
             twin_ms = _time_ms(lambda: twin_fn(*args), 3)
-            print(f"{name}_generic {at}: max abs err {err:.3g}; {ms:.3f} ms, twin "
+            extra = {"bound_f32_fma_ms": fma["bound_ms"]} if f32 else {}
+            if layered:
+                extra.update(_layered_extra(name, bound_args, dt, fwd_flops if not backward
+                                            else flops, call_bytes, n_base, n_head))
+            print(f"{name}_{route} {at}: max abs err {err:.3g}; {ms:.3f} ms, twin "
                   f"{twin_ms:.3f} ms, un-fused stack {library:.3f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {bound['bound_peak']})"
-                  + (f", f32 FMA bound {fma['bound_ms']:.4f} ms" if f32 else ""))
+                  + (f", f32 FMA bound {fma['bound_ms']:.4f} ms" if f32 else "")
+                  + (f"; {extra}" if layered else ""))
             # No one PyTorch call computes the stack: library_ms stays null and
             # the un-fused stack's time goes beside it, as in phase 8.
-            extra = {"bound_f32_fma_ms": fma["bound_ms"]} if f32 else {}
-            out[name] = _entry(f"{name}_generic", "tetranerf_torch/csrc/mlp.cu", replaces,
+            out[name] = _entry(f"{name}_{route}", "tetranerf_torch/csrc/mlp.cu", replaces,
                                err, ms, twin_ms, bound, unfused_ms=library,
                                compute_dtype=str(dt).split(".")[-1],
                                widths=[cfg.field_dim, cfg.hidden_size], **extra)
             torch.cuda.empty_cache()
-        print(f"generic fused MLP kernels {at}: within tolerance of their twins")
+        print(f"{route} fused MLP kernels {at}: within tolerance of their twins")
     del plain
     torch.cuda.empty_cache()
     return out
 
 
-def _generic_train(cfg, colors, mesh_plain, dev, steps, label, ref):
-    """``steps`` train steps of ``cfg`` (fused MLPs on the generic route)
-    on phase 7's batches: losses finite, launches by route; with ``ref``
-    also the last 4 losses below the first 4 and one 256-ray step against
-    the CPU twins. Returns the run's launch counts and median ms a step."""
+def _generic_train(cfg, colors, mesh_plain, dev, steps, label, ref, route="generic"):
+    """``steps`` train steps of ``cfg`` (fused MLPs on ``route``) on phase
+    7's batches: losses finite, launches by route; with ``ref`` also the
+    last 4 losses below the first 4 and one 256-ray step against the CPU
+    twins. Returns the run's launch counts and median ms a step."""
     import torch
     from tetranerf_torch.models import TetraNerf
-    from tetranerf_torch.ops import cuda
+    from tetranerf_torch.ops import cuda, mlp
     from tetranerf_torch.training.trainer import TrainConfig, Trainer
 
     model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
@@ -4169,8 +4231,19 @@ def _generic_train(cfg, colors, mesh_plain, dev, steps, label, ref):
           f"route {routes}")
     _check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
     for name in _GENERIC_NAMES[:3]:
-        _check(launches[f"{name}_generic"] > 0, f"{label}: {name}_generic did not launch")
-        _check(launches[name] == 0, f"{label}: {name} (wgmma) launched {launches[name]}")
+        if route == "generic":
+            _check(launches[f"{name}_generic"] > 0, f"{label}: {name}_generic did not launch")
+            _check(launches[name] == 0, f"{label}: {name} (wgmma) launched {launches[name]}")
+            continue
+        # Each kernel on the route its plan names (phase 25's deep stack: its
+        # 6-layer density MLP on the wgmma route), none on another.
+        heads = cfg.num_color_layers if "field" in name else 0
+        plan = mlp.launch_plan(cfg.field_dim, cfg.hidden_size, cfg.num_density_layers, heads,
+                               "backward" in name, cfg.compute_dtype)
+        want = name if plan.route == "wgmma" else f"{name}_{plan.route}"
+        for counter in (name, f"{name}_generic", f"{name}_layered"):
+            _check((launches[counter] > 0) == (counter == want),
+                   f"{label}: {counter} launched {launches[counter]} (the plan's: {want})")
     if ref:
         _check(last < first, f"{label}: loss did not fall ({first} -> {last})")
         _ref_step(label, model, trainer, _train_batch(rng, REF_RAYS), dev)
@@ -4210,6 +4283,82 @@ def generic_phase(colors, mesh_plain, dev):
         out.append(e)
     print(f"generic: phase 24 took {time.perf_counter() - t_phase:.1f} s")
     return out, launches32, launches16
+
+
+# Phase 25: the fused MLPs' layered route (widths above 256, more than 8
+# layers). Kernel vs twin at the train slice's shapes and GENERIC_BUCKET for
+# a 512-wide stack in bf16 and float32 and a 6 + 4-layer stack in bf16
+# (phase 24's tolerances); 16 cold steps of each stack in the preset's bf16.
+LAYERED_STEPS = 16
+LAYERED_STACKS = {"wide": {"hidden_size": 512},
+                  "deep": {"num_density_layers": 6, "num_color_layers": 4}}
+LAYERED_CHECKS = (("wide", "bfloat16"), ("wide", "float32"), ("deep", "bfloat16"))
+
+
+def _layered_extra(name, bound_args, dt, flops, call_bytes, n_base, n_head):
+    """A layered kernel's entry beside its bound: the bound's operations and
+    bytes apart, and the bytes of the route's own activation traffic (each
+    layer boundary's activation written and read back once; the backward's
+    cotangents written and read by two products, its masks read), its time
+    at the HBM rate, and the device bytes the timed call allocated."""
+    import torch
+
+    x, head_dir, weights = bound_args
+    rows = x.shape[0] * x.shape[1]
+    hidden = weights[0].shape[0]
+    macs = sum(w.numel() for w in weights if w.dim() == 2)
+    layers = n_base + (n_head if head_dir is not None else 0)
+    esz = 2 if dt == torch.bfloat16 else 4
+    chain = layers * hidden * esz * 2
+    backward = "backward" in name
+    per_row = x.shape[-1] * 4 + chain
+    if backward:
+        per_row += layers * hidden * (3 * 4 + 2 * esz) + x.shape[-1] * 4
+    ops = 2 * macs * rows * (3 if backward else 1)
+    param_bytes = sum(w.numel() for w in weights) * 4
+    io_bytes = (x.numel() * 4 + (0 if head_dir is None else head_dir.numel() * 4)
+                + param_bytes) * (2 if backward else 1) + rows * (16 if head_dir is not None else 4)
+    return dict(bound_ops_ms=_bound(0, ops, flops)["bound_ms"],
+                bound_bytes_ms=_bound(io_bytes, 0)["bound_ms"],
+                route_bytes=rows * per_row, route_bytes_ms=_bound(rows * per_row, 0)["bound_ms"],
+                call_alloc_bytes=call_bytes)
+
+
+def layered_phase(colors, mesh_plain, dev):
+    """Phase 25: the fused MLPs' layered route. Returns the kernels' entries
+    (the 512-wide stack in bf16, with its float32 and the deep stack's
+    bf16 numbers beside each) and the launch counts of the two train runs."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+
+    t_phase = time.perf_counter()
+    entries = {}
+    for stack, dtype in LAYERED_CHECKS:
+        cfg = tetranerf_preset(fused_mlps=True, compute_dtype=dtype, **LAYERED_STACKS[stack])
+        model = TetraNerf(cfg, mesh_plain.num_vertices, point_colors=colors,
+                          generator=torch.Generator().manual_seed(0), device=dev)
+        entries[stack, dtype] = _generic_kernel_checks(model, dev, route="layered")
+        del model
+        torch.cuda.empty_cache()
+    runs = {}
+    for stack in LAYERED_STACKS:
+        cfg = tetranerf_preset(fused_mlps=True, **LAYERED_STACKS[stack])
+        runs[stack] = _generic_train(cfg, colors, mesh_plain, dev, LAYERED_STEPS,
+                                     f"layered bf16 train ({stack}: {LAYERED_STACKS[stack]})",
+                                     stack == "wide", route="layered")
+    out = []
+    keys = ("widths", "max_abs_err", "ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
+            "bound_ops_ms", "bound_bytes_ms", "route_bytes", "route_bytes_ms")
+    for name in _GENERIC_NAMES:
+        e = entries["wide", "bfloat16"][name]
+        e["float32"] = {k: entries["wide", "float32"][name][k] for k in keys}
+        deep = entries["deep", "bfloat16"].get(name)
+        e["deep_bf16"] = {k: deep[k] for k in keys} if deep else "wgmma route (6 layers)"
+        e["layers"] = {"wide": LAYERED_STACKS["wide"], "deep": LAYERED_STACKS["deep"]}
+        e["train_median_step_ms"] = {stack: runs[stack][1] for stack in runs}
+        out.append(e)
+    print(f"layered: phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return out, runs["wide"][0], runs["deep"][0]
 
 
 def native_geometry_check(points, cells, smi):
@@ -4257,7 +4406,15 @@ def _mlp_build_report(log):
                       r"mlp_bwd_kernel|sum_rows_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
         g = re.search(r"Compiling entry function '\S*?gen\d+(fwd_kernel|bwd_kernel)ILb([01])E",
                       line)
-        if m:
+        lay = re.search(r"Compiling entry function '\S*?lay\d+(\w+?_kernel)(?:ILb([01])E"
+                        r"(?:Li(\d)E)?)?", line)
+        if lay:
+            name = f"lay::{lay.group(1)}" + (
+                f"<{'bf16' if lay.group(2) == '1' else 'f32'}"
+                + (f", mode {lay.group(3)}" if lay.group(3) else "") + ">"
+                if lay.group(2) else "")
+            spill = ""
+        elif m:
             name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
             spill = ""
         elif g:
@@ -4469,9 +4626,13 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(cli_dir, ignore_errors=True)
 
-    # The fused MLPs' generic route: float32, and bf16 at other widths.
+    # The fused MLPs' generic route: float32, and bf16 at other widths; then
+    # the layered route: wider and deeper stacks.
     generic_entries, paths["generic_f32_train"], paths["generic_bf16_train"] = \
         generic_phase(colors, mesh_plain, dev)
+    torch.cuda.empty_cache()
+    layered_entries, paths["layered_wide_train"], paths["layered_deep_train"] = \
+        layered_phase(colors, mesh_plain, dev)
     torch.cuda.empty_cache()
 
     chunks = REQUESTS * REQUEST_RAYS // CHUNK
@@ -4510,6 +4671,12 @@ def main(argv=None) -> int:
         k["launches_path"] = "generic_f32_train"
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
     kernels += generic_entries
+    for k in layered_entries:
+        # The 512-wide stack's bf16 run (phase 25) is their main path.
+        k["launches"] = paths["layered_wide_train"][k["name"]]
+        k["launches_path"] = "layered_wide_train"
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
+    kernels += layered_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

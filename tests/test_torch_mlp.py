@@ -6,8 +6,9 @@ against the twins.
 
 JAX is imported inside tests only, so the CUDA cases also run where JAX is
 absent: ``python -m pytest --noconftest -m cuda tests/test_torch_mlp.py``.
-The card's cases cover both routes of :func:`launch_plan`: ``wgmma`` (bf16
-at widths (16, 32) and (64, 128)) and ``generic`` (float32, other widths).
+The card's cases cover the three routes of :func:`launch_plan`: ``wgmma``
+(bf16 at widths (16, 32) and (64, 128)), ``generic`` (float32, other widths
+up to 256 and depths up to 8) and ``layered`` (wider or deeper stacks).
 """
 
 import dataclasses
@@ -56,6 +57,9 @@ VARIANTS = {
     # them on the generic route.
     "wide-odd": (24, 40, 3, 1, 5, 7),
     "narrow-deep-head": (8, 24, 2, 2, 4, 9),
+    # Wider than 256 and deeper than 8 layers: the layered route on the card.
+    "wide": (24, 272, 2, 1, 3, 4),
+    "deep": (16, 32, 6, 4, 3, 4),
 }
 
 
@@ -287,12 +291,27 @@ def test_model_fused_field_mlps_match_jax(compute_dtype, appearance):
     direction and appearance columns, per-ray rows in train) against the
     JAX model's ``_field_mlps_remat`` with ``fused_mlps``: outputs and the
     gradient of every parameter and of the features."""
+    _model_fused_vs_jax(dict(field_dim=16, hidden_size=32, appearance_embed_dim=appearance,
+                             compute_dtype=compute_dtype, fused_mlps=True))
+
+
+@pytest.mark.parametrize("stack", [
+    dict(hidden_size=272, appearance_embed_dim=8),
+    dict(hidden_size=32, num_density_layers=6, num_color_layers=4),
+], ids=["wide", "deep"])
+def test_model_fused_wide_and_deep_stacks_match_jax(stack):
+    """As above for stacks the card runs on the layered route: hidden 272,
+    and 6 + 4 layers; the weights cross from JAX through ``params_from_jax``."""
+    _model_fused_vs_jax(dict(field_dim=16, fused_mlps=True, **stack))
+
+
+def _model_fused_vs_jax(kw):
     import jax
     import jax.numpy as jnp
     from tetranerf_tpu.models.config import TetrahedraNerfConfig as JaxConfig
 
-    kw = dict(field_dim=16, hidden_size=32, appearance_embed_dim=appearance,
-              compute_dtype=compute_dtype, fused_mlps=True)
+    compute_dtype = kw.get("compute_dtype", "bfloat16")
+    appearance = kw.get("appearance_embed_dim", 0)
     jmodel = _jax_shell(JaxConfig(num_tetrahedra_vertices=1, num_tetrahedra_cells=1, **kw))
     rng = np.random.default_rng(5)
     params = _model_params(rng, jmodel.config, jmodel._head_in_dim)
@@ -434,6 +453,20 @@ CUDA_CASES = {
     "bwd-one-pass-32-f32": (32, 32, 3, 1, 37, 43),
     "bwd-cached-48-f32": (48, 48, 3, 1, 37, 43),
 }
+# The layered route: widths above 256 or more than 8 layers, both dtypes;
+# 1,591 rows with rays across the product blocks' 128-row tiles; widths
+# that are no multiple of the tiles'; a 1024-wide and a 16-deep stack.
+LAYERED_CASES = {
+    "layered-wide-bf16": (64, 512, 3, 1, 37, 43),
+    "layered-wide-f32": (64, 512, 3, 1, 37, 43),
+    "layered-deep-bf16": (64, 128, 6, 4, 37, 43),
+    "layered-deep-f32": (16, 32, 5, 4, 16, 40),
+    "layered-odd-bf16": (300, 270, 2, 2, 9, 31),
+    "layered-odd-f32": (257, 33, 1, 1, 9, 31),
+    "layered-1024-bf16": (1024, 1024, 1, 1, 4, 65),
+    "layered-16-deep-bf16": (24, 40, 8, 8, 8, 33),
+}
+CUDA_CASES.update(LAYERED_CASES)
 CUDA_DTYPES = {name: torch.float32 if name.endswith("-f32") else torch.bfloat16
                for name in CUDA_CASES}
 # The preset's widths at two bucket shapes of the flagship's cold step
@@ -482,7 +515,7 @@ def _close_f32(kernel, twin, exact=None):
 
 def _route_counter(name, x, hidden, n_base, n_head, dt):
     plan = launch_plan(x.shape[-1], hidden, n_base, n_head, "backward" in name, dt)
-    return name if plan.route == "wgmma" else f"{name}_generic"
+    return name if plan.route == "wgmma" else f"{name}_{plan.route}"
 
 
 def _check_field(x, hd, weights, n_base, n_head, dt):
@@ -552,7 +585,8 @@ def test_field_kernels_match_twin(cuda_device, case):
 @pytest.mark.parametrize("case", ["narrow", "preset", "ragged", "preset-f32", "odd-f32",
                                   "deep-f32", "odd-bf16", "tiny-bf16", "wide-bf16",
                                   "preset-ragged-f32", "field32-ragged-bf16",
-                                  "streamed-112-f32", "bwd-cached-80-bf16"])
+                                  "streamed-112-f32", "bwd-cached-80-bf16",
+                                  *LAYERED_CASES])
 def test_density_kernels_match_twin(cuda_device, case):
     n_base, _, x, _, weights, _, _ = _cuda_inputs(case, cuda_device, seed=1)
     _check_density(x, weights[: 2 * n_base + 2], n_base, CUDA_DTYPES[case])
@@ -610,22 +644,24 @@ def _model_on_card_vs_cpu(cuda_device, compute_dtype):
 
 
 @pytest.mark.cuda
-def test_generic_route_takes_what_wgmma_lacks_and_neither_takes_raises(cuda_device):
-    """What the wgmma route lacked, float32 and d_in = 8, runs on the
-    generic route within tolerance of the twins; what neither route takes
-    (float16, a width above 256) raises ValueError before any launch."""
+def test_generic_and_layered_routes_take_what_wgmma_lacks_and_float16_raises(cuda_device):
+    """What the wgmma route lacks, float32 and d_in = 8, runs on the generic
+    route, and d_in = 257 on the layered route, within tolerance of the
+    twins; float16, which no route takes, raises ValueError before any
+    launch."""
     n_base, n_head, x, hd, weights, _, _ = _cuda_inputs("narrow", cuda_device)
     _check_field(x, hd, weights, n_base, n_head, torch.float32)
     _check_field(x[..., :8].contiguous(), hd,
                  [weights[0][:, :8].contiguous()] + weights[1:], n_base, n_head,
                  torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    wide = torch.randn(x.shape[:2] + (257,), generator=g, device=cuda_device)
+    w0 = torch.randn((32, 257), generator=g, device=cuda_device) / 16.0
+    assert launch_plan(257, 32, n_base, n_head, False).route == "layered"
+    _check_field(wide, hd, [w0] + weights[1:], n_base, n_head, torch.bfloat16)
     before = dict(cuda.launch_counts)
     with pytest.raises(ValueError, match="float32 nor bfloat16"):
         fused_field_mlps(x, hd, weights, n_base, n_head, torch.float16)
-    wide = torch.zeros(x.shape[:2] + (257,), device=cuda_device)
-    with pytest.raises(ValueError, match=r"\[1, 256\]"):
-        fused_field_mlps(wide, hd, [torch.zeros(32, 257, device=cuda_device)] + weights[1:],
-                         n_base, n_head, torch.bfloat16)
     assert cuda.launch_counts == before
 
 
@@ -752,6 +788,48 @@ def test_host_plan_is_the_kernels_plan(cuda_device, backward):
                 (d_in, hidden, n_base, n_head, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [True, False], ids=["field", "density"])
+@pytest.mark.parametrize("case", ["layered-wide-bf16", "layered-deep-f32"])
+def test_layered_weight_gradients_are_bit_equal_over_two_launches(cuda_device, case, head):
+    """The layered route's K4b and K5b: each weight gradient is summed per
+    row split in row order, the splits in split order and the chunks in
+    chunk order: the same bits in every launch (no float atomics)."""
+    _assert_bit_equal_twice(case, head, CUDA_DTYPES[case])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["layered-wide-bf16", "layered-deep-f32"])
+def test_layered_route_runs_rows_in_chunks(cuda_device, monkeypatch, case):
+    """With room for 5 rays a chunk, K4/K4b/K5/K5b of 37 (16) rays run in 8
+    (4) chunks, the gradients summed over them in chunk order, and stay
+    within tolerance of the twins."""
+    n_base, n_head, x, hd, weights, _, _ = _cuda_inputs(case, cuda_device)
+    plan = launch_plan(x.shape[-1], weights[0].shape[0], n_base, n_head, True,
+                       CUDA_DTYPES[case])
+    monkeypatch.setattr(mlp, "LAYERED_SCRATCH_BYTES", 5 * x.shape[1] * plan.aux_tile_floats * 4)
+    assert mlp.layered_chunk_rays(plan, x.shape[0], x.shape[1]) == (5 if x.shape[0] == 37 else 4)
+    _check_field(x, hd, weights, n_base, n_head, CUDA_DTYPES[case])
+    _check_density(x, weights[: 2 * n_base + 2], n_base, CUDA_DTYPES[case])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_host_layered_plan_is_the_kernels_plan(cuda_device, backward):
+    """The host's layered plan (scratch floats a row, workspace floats,
+    shared memory) is the one the kernels check the scratch against."""
+    import ctypes
+
+    query = cuda.entry("tetranerf_fused_mlp_layered_plan")
+    for d_in, hidden, n_base, n_head, _, _ in LAYERED_CASES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            host = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
+            out = (ctypes.c_longlong * 3)()
+            assert query(d_in, hidden, n_base, n_head, int(dtype == torch.bfloat16),
+                         int(backward), out)
+            assert list(out) == [host.aux_tile_floats, host.ws_floats, host.smem_bytes]
+
+
 # ------------------------------------------------------- the launch plan
 
 
@@ -760,7 +838,7 @@ def test_host_plan_is_the_kernels_plan(cuda_device, backward):
 PLAN_STACKS = {name: (case[:4], CUDA_DTYPES[name],
                       ("wgmma", "wgmma") if CUDA_DTYPES[name] == torch.bfloat16
                       and case[:2] in ((16, 32), (64, 128)) else ("generic", "generic"))
-               for name, case in CUDA_CASES.items()}
+               for name, case in CUDA_CASES.items() if name not in LAYERED_CASES}
 PLAN_STACKS.update({
     "preset-density": ((64, 128, 3, 0), torch.bfloat16, ("wgmma", "wgmma")),
     "narrow-density": ((16, 32, 3, 0), torch.bfloat16, ("wgmma", "wgmma")),
@@ -863,14 +941,61 @@ def test_launch_plan_takes_every_stack_in_range():
 
 
 @pytest.mark.parametrize("stack, dtype, match", [
-    ((64, 257, 3, 1), torch.float32, r"\[1, 256\]"),
-    ((257, 128, 3, 1), torch.bfloat16, r"\[1, 256\]"),
     ((0, 128, 3, 1), torch.float32, r"\[1, 256\]"),
-    ((64, 128, 5, 4), torch.float32, "n_base \\+ n_head <= 8"),
     ((64, 128, 0, 1), torch.bfloat16, "1 <= n_base"),
     ((64, 128, 3, 1), torch.float16, "float32 nor bfloat16"),
-], ids=["hidden-257", "d_in-257", "d_in-0", "depth-9", "no-base", "float16"])
+], ids=["d_in-0", "no-base", "float16"])
 def test_launch_plan_refuses_outside_the_range(stack, dtype, match):
     for backward in (False, True):
         with pytest.raises(ValueError, match=match):
             launch_plan(*stack, backward, dtype)
+
+
+@pytest.mark.parametrize("stack, dtype", [
+    ((64, 257, 3, 1), torch.float32),
+    ((257, 128, 3, 1), torch.bfloat16),
+    ((64, 128, 5, 4), torch.float32),
+    ((1024, 1024, 3, 1), torch.bfloat16),
+    ((64, 128, 8, 8), torch.bfloat16),
+    ((24, 40, 16, 0), torch.float32),
+], ids=["hidden-257", "d_in-257", "depth-9", "1024-wide", "16-deep", "16-deep-density"])
+def test_launch_plan_takes_wide_and_deep_stacks_on_the_layered_route(stack, dtype):
+    """Past the generic route's widths and depths, the layered route: 8
+    warps of 16 rows a product block, its static shared memory, a row of a
+    chunk holding a_1 .. a_L as operands (and in the backward two f32
+    cotangents and the heads' four), the backward's workspace 2^24 floats or
+    one row of the largest weight gradient and its bias."""
+    d_in, hidden, n_base, n_head = stack
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldh = -(-hidden // 8) * 8
+    for backward in (False, True):
+        plan = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
+        assert plan.route == "layered"
+        assert plan.rows_per_tile == 128 and plan.warps == 8
+        assert plan.warpgroups == plan.stages == plan.phases == 0 and not plan.resident
+        assert 0 < plan.smem_bytes <= 48 * 1024  # static shared memory
+        row = (n_base + n_head) * ldh * esz // 4 + (2 * ldh + 4 if backward else 0)
+        assert plan.aux_tile_floats == row
+        ws = max(1 << 24, hidden * max(d_in, hidden, 4) + hidden)
+        assert plan.ws_floats == (ws if backward else 0)
+        # One chunk holds at least one ray and at most LAYERED_SCRATCH_BYTES.
+        for rays, samples in ((4096, 257), (3, 1), (1, 10**7)):
+            chunk = mlp.layered_chunk_rays(plan, rays, samples)
+            assert 1 <= chunk <= rays
+            assert chunk == 1 or chunk * samples * row * 4 <= mlp.LAYERED_SCRATCH_BYTES
+
+
+def test_launch_plan_takes_every_stack_up_to_1024_wide_and_16_deep():
+    """Widths 1-1024 (a sample: each side of 256 and of the tiles' 64 and
+    128) and depths 1-16 in both dtypes get a plan; the layered route takes
+    exactly the stacks past the generic route's widths or depths."""
+    widths = (1, 16, 255, 256, 257, 300, 511, 512, 513, 1023, 1024)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d_in in widths:
+            for hidden in widths:
+                for n_base in range(1, 17):
+                    for n_head in range(0, 17 - n_base):
+                        past = max(d_in, hidden) > 256 or n_base + n_head > 8
+                        for backward in (False, True):
+                            plan = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
+                            assert (plan.route == "layered") == past

@@ -8,12 +8,13 @@
 //            a_{k+1} = relu(a_k W_k^T + b_k)                 nb < k < L
 //   colour:  rgb = sigmoid(a_L W_c^T + b_c)                        (L = n_base + n_head)
 //
-// Two routes, chosen on the host by ops/mlp.py `launch_plan` from the
+// Three routes, chosen on the host by ops/mlp.py `launch_plan` from the
 // stack's shape and dtype: the wgmma instances below (bfloat16 at widths
 // (d_in, hidden) = (16, 32) and (64, 128), where their shared memory holds
-// the stack), and the generic route at the end of this file (float32, and
-// bfloat16 at any other width up to 256 or any depth up to 8). The rest of
-// this comment describes the wgmma route.
+// the stack), the generic route after them (float32, and bfloat16 at any
+// other width up to 256 or any depth up to 8), and the layered route at the
+// end of this file (any wider or deeper stack: one product kernel a layer).
+// The rest of this comment describes the wgmma route.
 //
 // Every product takes bf16 operands and sums in f32; biases and head_dir
 // are added in f32; activations are rounded to bf16 only as the next
@@ -2636,6 +2637,582 @@ cudaError_t launch_bwd(const GPlan& p, const float* x, const float* head_dir, co
 
 }  // namespace gen
 
+// ---------------------------------------------------------------- the layered route
+//
+// K4, K4b, K5 and K5b for every stack neither route above takes: d_in or
+// hidden above 256, or more than 8 hidden matrices, in float32 and bfloat16
+// alike (ops/mlp.py `launch_plan`). Width and depth are runtime values with
+// no cap: nothing of the stack has to fit shared memory at once.
+//
+// Precision, as the generic route's. bfloat16: every product on mma.sync
+// m16n8k16, bf16 operands and f32 sums. float32 (JAX's Precision.HIGHEST):
+// the layer chain, the forward's and the backward's recomputed one, as f32
+// FMAs in a plain GEMM's order (gen::fma_pass), so that the pre-activations
+// and the ReLU masks that gate the cotangents are the f32 twin's; the
+// backward's other products (g W and g^T a) as 3xTF32 (gen::mma_pass).
+// Activations are stored as operands (bf16-rounded in bfloat16); cotangents
+// stay f32 in memory and round only as they are staged for a product, so
+// the bias, head and head_dir gradients are f32 sums of unrounded values.
+//
+// What bounds it on the H100: at (d_in, hidden) = (64, 512) with 3 + 1
+// layers a row is 821,248 MACs, and the train slice (4096 x 257 rows) 1.73
+// TFLOP forward: 1.75 ms at the 989 TFLOP/s bf16 tensor peak, 25.8 ms at
+// the 67 TFLOP/s f32 FMA peak; the backward has three times the products.
+// The layer boundaries weigh more than those operations in bf16: each one
+// writes an activation ([rows, 512] bf16, 1.08 GB at the train slice) and
+// reads it back, ~0.65 ms of HBM traffic a layer and more in the backward.
+//
+// Design. One tiled product kernel a layer (`prod_kernel`), the activations
+// crossing global memory between layers, rows in chunks of whole rays
+// (the host's `rays_per_chunk`) so that the scratch stays bounded and a
+// ray's sums close in its chunk. A block computes a 128 x 64 tile of the
+// output, eight warps of 16 rows, stepping the reduction 32 deep: both
+// operands staged into shared memory as operands (zero past the edges), in
+// the layout they have in global memory, and multiplied from there
+// (ldmatrix.trans reads the transposed ones). Three modes:
+//   0, a layer: a_{k+1}[n][j] = relu(sum_i a_k[n][i] W_k[j][i] + b_k[j]),
+//      head_dir[ray(n)][j] in place of b_k at W_bh;
+//   1, a cotangent one layer down: g[n][i] = sum_j gz_k[n][j] W_k[j][i],
+//      plus the density head's gz_d[n] w_d[i] into a_nb, zero where a_k <= 0
+//      (dx: no mask);
+//   2, a weight gradient over a split of the rows: dW[j][i] = sum_n gz[n][j]
+//      a[n][i] into the split's row of a workspace, with the bias gradient
+//      (the column sums of the unrounded gz) beside it; `reduce_kernel` adds
+//      the rows in split order, and the chunks in chunk order: the same bits
+//      in every launch, no float atomics.
+// The heads (density: 1 output, softplus; colour: 3, sigmoid) are a warp a
+// row (`heads_kernel`), their cotangents into a_L one elementwise kernel
+// (`top_kernel`), dhead_dir a thread per ray and column (`raysum_kernel`).
+// The backward recomputes the chain, as JAX's does, then goes down the
+// layers: dW_k and db_k (mode 2), the cotangent one layer down (mode 1).
+
+namespace lay {
+
+constexpr int kWarps = 8;
+constexpr int kTM = 16 * kWarps;  // output rows of a block's tile
+constexpr int kTN = 64;           // output columns of a block's tile
+constexpr int kTK = 32;           // reduction depth of a stage
+constexpr long long kWsFloats = 1 << 24;  // the weight-gradient workspace, at least
+
+// The packed weights' offsets (ops/mlp.py `_pack`, as pack_layout) computed
+// per matrix, with no arrays: any depth.
+struct Stack {
+  int d_in, hidden, n_base, n_head, n_layers;
+  int in_dim(int k) const { return k == 0 ? d_in : hidden; }
+  long long mats(int k) const {  // floats of matrices 0 .. k-1
+    return k == 0 ? 0 : static_cast<long long>(hidden) * (d_in + static_cast<long long>(hidden) * (k - 1));
+  }
+  long long w_off(int k) const { return mats(k) + (n_head > 0 && k >= n_base ? hidden : 0); }
+  long long wd_off() const { return mats(n_base); }
+  long long wc_off() const { return mats(n_layers) + hidden; }
+  long long n_w() const { return mats(n_layers) + hidden + (n_head > 0 ? 3LL * hidden : 0); }
+  int b_off(int k) const { return k < n_base ? k * hidden : (k - 1) * hidden + 1; }
+  int bd_off() const { return n_base * hidden; }
+  int bc_off() const { return (n_layers - 1) * hidden + 1; }
+  int ldh() const { return align_up(hidden, 8); }  // an activation's row stride
+  // Scratch floats a row: a_1 .. a_L as operands; backward: two cotangents
+  // (f32) and the heads' cotangents [4].
+  long long row_floats(bool bf16, bool backward) const {
+    return static_cast<long long>(n_layers) * ldh() * (bf16 ? 2 : 4) / 4 +
+           (backward ? 2LL * ldh() + 4 : 0);
+  }
+  // The weight-gradient workspace: kWsFloats, and at least one row of the
+  // largest dW and its bias; as many row splits of a dW as it holds.
+  long long ws_floats() const {
+    return std::max(kWsFloats, static_cast<long long>(hidden) *
+                                       std::max(std::max(d_in, hidden), 4) + hidden);
+  }
+};
+
+// One product and its epilogue (see the modes above). Element (n, c) of a
+// row-major source is at p + n * ld + c, float where its `_f32` flag is
+// set, else bf16.
+struct Prod {
+  const void* a;     // 0: the layer's input; 1, 2: the cotangent gz (f32)
+  const void* b;     // 2: the layer's input
+  const float* w;    // 0, 1: the weight matrix [m][k] (f32, row stride k)
+  const float* bias;  // 0: the bias (or null)
+  const float* hd;    // 0: head_dir, a row a ray (or null)
+  const void* mask;   // 1: the layer input whose ReLU gates the cotangent (null: none)
+  const float* gd;    // 1: the heads' cotangents [rows][4], gz_d at column 0 (null: none)
+  const float* wd;    // 1: w_d
+  void* out;          // 0: a_{k+1} (operands); 1: the f32 cotangent; 2: the workspace
+  long long rows;     // 0, 1: output rows; 2: reduction rows
+  long long lda, ldb, ldo, ldm;
+  int a_f32, b_f32;
+  int m, k;  // 0: out m, reduction k; 1: reduction m, out k; 2: out [m][k], columns sums of m
+  int num_samples;
+  int col_tiles;            // tiles along the output's columns (the 1-D grid's fast index)
+  long long split_rows;     // 2: rows a split (a multiple of kTK)
+  long long split_stride;   // 2: floats of a workspace row ([m][k] then [m])
+};
+
+__device__ __forceinline__ float ld_any(const void* p, bool f32, long long i) {
+  return f32 ? __ldg(static_cast<const float*>(p) + i)
+             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major source into
+// shared memory (row stride st) as operands, zero from row r_end and column
+// c_end on, by the block; four columns a thread, vector loads where aligned.
+template <bool kBf16, int R, int C>
+__device__ __forceinline__ void stage(char* dst, int st, const void* src, bool f32, long long ld,
+                                      long long r0, long long r_end, int c0, int c_end) {
+  constexpr int G = C / 4, es = kBf16 ? 2 : 4;
+  const bool vec = (ld & 3) == 0 && (c0 & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(src) & (f32 ? 15 : 7)) == 0;
+  for (int e = threadIdx.x; e < R * G; e += blockDim.x) {
+    const int r = e / G, c = 4 * (e % G), gc = c0 + c;
+    const long long gr = r0 + r, i = gr * ld + gc;
+    float v[4];
+    if (gr < r_end && vec && gc + 4 <= c_end) {
+      if (f32) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(src) + i));
+        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+      } else {
+        const uint2 q =
+            __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(src) + i));
+        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+        v[0] = __low2float(lo), v[1] = __high2float(lo), v[2] = __low2float(hi),
+        v[3] = __high2float(hi);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = gr < r_end && gc + q < c_end ? ld_any(src, f32, i + q) : 0.0f;
+    }
+    char* d = dst + (r * st + c) * es;
+    if constexpr (kBf16) {
+      *reinterpret_cast<uint2*>(d) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+template <bool kBf16, int kMode>
+__global__ void __launch_bounds__(kWarps * 32) prod_kernel(const __grid_constant__ Prod p) {
+  constexpr int es = kBf16 ? 2 : 4, pad = 16 / es;
+  // A: [kTM][kTK] (modes 0, 1) or [kTK][kTM] (2, gz^T); B: W's [kTN][kTK]
+  // (0), W's [kTK][kTN] (1) or the input's [kTK][kTN] (2); padded rows.
+  constexpr int sa = kMode == 2 ? kTM + pad : kTK + pad;
+  constexpr int sb = kMode == 0 ? kTK + pad : kTN + pad;
+  constexpr int a_elems = kMode == 2 ? kTK * sa : kTM * sa;
+  constexpr int b_elems = kMode == 0 ? kTN * sb : kTK * sb;
+  __shared__ __align__(128) char smem[(a_elems + b_elems) * es];
+  char* const As = smem;
+  char* const Bs = smem + a_elems * es;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tile = blockIdx.x;
+  const int col0 = static_cast<int>(tile % p.col_tiles) * kTN;
+  const long long row0 = tile / p.col_tiles * kTM;  // modes 0, 1: rows; 2: rows of dW (j)
+  // Exact f32 chain: fma_pass's layout (rows rh + 2i, columns c + 16j); else
+  // the mma layout (rows g + 8 (e >> 1), columns 8j + 2t + (e & 1)).
+  constexpr bool kFma = !kBf16 && kMode == 0;
+  float acc[8][4];
+  gen::zero(acc);
+  if constexpr (kMode == 2) {
+    const long long r_begin = blockIdx.y * p.split_rows;
+    const long long r_end = min(p.rows, r_begin + p.split_rows);
+    // The bias gradient: the first column tile's threads t < kTM sum the
+    // unrounded gz of column row0 + t over the split's rows, in row order.
+    const bool sums = col0 == 0 && threadIdx.x < kTM && row0 + threadIdx.x < p.m;
+    float cs = 0.0f;
+    for (long long r = r_begin; r < r_end; r += kTK) {
+      stage<kBf16, kTK, kTM>(As, sa, p.a, p.a_f32, p.lda, r, r_end, static_cast<int>(row0), p.m);
+      stage<kBf16, kTK, kTN>(Bs, sb, p.b, p.b_f32, p.ldb, r, r_end, col0, p.k);
+      if (sums) {
+        const float* g = static_cast<const float*>(p.a) + row0 + threadIdx.x;
+        const long long r1 = min(r_end, r + kTK);
+        for (long long n = r; n < r1; ++n) cs += __ldg(g + n * p.lda);
+      }
+      __syncthreads();
+      gen::mma_pass<kBf16, true, true>(smem_u32(As + warp * 16 * es), sa, smem_u32(Bs), sb, kTK, 8,
+                                       acc);
+      __syncthreads();
+    }
+    float* ws = static_cast<float*>(p.out) + blockIdx.y * p.split_stride;
+    if (sums) ws[static_cast<long long>(p.m) * p.k + row0 + threadIdx.x] = cs;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long r = row0 + warp * 16 + g + 8 * (e >> 1);
+        const int c = col0 + 8 * j + 2 * t + (e & 1);
+        if (r < p.m && c < p.k) ws[r * p.k + c] = acc[j][e];
+      }
+    }
+    return;
+  } else {
+    const int red = kMode == 0 ? p.k : p.m;
+    for (int k0 = 0; k0 < red; k0 += kTK) {
+      stage<kBf16, kTM, kTK>(As, sa, p.a, p.a_f32, p.lda, row0, p.rows, k0, red);
+      if constexpr (kMode == 0) {
+        stage<kBf16, kTN, kTK>(Bs, sb, p.w, true, p.k, col0, p.m, k0, p.k);
+      } else {
+        stage<kBf16, kTK, kTN>(Bs, sb, p.w, true, p.k, k0, p.m, col0, p.k);
+      }
+      __syncthreads();
+      if constexpr (kFma) {
+        gen::fma_pass(reinterpret_cast<const float*>(As) + warp * 16 * sa, sa,
+                      reinterpret_cast<const float*>(Bs), sb, kTK, kTN, acc);
+      } else {
+        gen::mma_pass<kBf16, false, kMode == 1>(smem_u32(As + warp * 16 * sa * es), sa,
+                                                smem_u32(Bs), sb, kTK, 8, acc);
+      }
+      __syncthreads();
+    }
+  }
+  const int out_cols = kMode == 0 ? p.m : p.k;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = kFma ? (lane >> 4) + 2 * j : (lane >> 2) + 8 * (e >> 1);
+      const int c = col0 + (kFma ? (lane & 15) + 16 * e : 8 * j + 2 * (lane & 3) + (e & 1));
+      const long long n = row0 + warp * 16 + r;
+      if (n >= p.rows || c >= out_cols) continue;
+      const float v = acc[j][e];
+      if constexpr (kMode == 0) {
+        const float add = p.hd != nullptr ? p.hd[gen::ray_of(n, p.num_samples) * p.m + c] : p.bias[c];
+        gen::st_op<kBf16>(static_cast<char*>(p.out) + (n * p.ldo + c) * es, fmaxf(v + add, 0.0f));
+      } else {
+        float g = v;
+        if (p.gd != nullptr) g += gen::op<kBf16>(p.gd[n * 4]) * gen::op<kBf16>(p.wd[c]);
+        if (p.mask != nullptr &&
+            !(gen::ld_op<kBf16>(static_cast<const char*>(p.mask) + (n * p.ldm + c) * es) > 0.0f)) {
+          g = 0.0f;
+        }
+        static_cast<float*>(p.out)[n * p.ldo + c] = g;
+      }
+    }
+  }
+}
+
+// The heads on a warp a row. Forward: density (softplus of pre_d) and, with
+// the colour head, rgb (sigmoid of pre_c). Backward: their cotangents g
+// [rows][4]: gz_d = g_dens sigmoid(pre_d), gz_c = g_rgb rgb (1 - rgb).
+struct Heads {
+  const char* a_nb;   // a_nb rows (operands)
+  const char* a_top;  // a_L rows (the colour head's input)
+  long long ld, rows;
+  int hidden;
+  const float *wd, *bd, *wc, *bc;  // wc null: no colour head
+  float *rgb, *dens;               // forward (null in the backward)
+  const float *g_rgb, *g_dens;     // backward
+  float* g;
+};
+
+template <bool kBf16>
+__global__ void __launch_bounds__(256) heads_kernel(const __grid_constant__ Heads h) {
+  constexpr int es = kBf16 ? 2 : 4;
+  const long long n = blockIdx.x * 8LL + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, H = h.hidden;
+  if (n >= h.rows) return;
+  const char* an = h.a_nb + n * h.ld * es;
+  const char* at = h.a_top + n * h.ld * es;
+  float pd = 0.0f, pc[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = lane; j < H; j += 32) {
+    pd = fmaf(gen::ld_op<kBf16>(an + j * es), gen::op<kBf16>(__ldg(h.wd + j)), pd);
+    if (h.wc != nullptr) {
+      const float a = gen::ld_op<kBf16>(at + j * es);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) pc[c] = fmaf(a, gen::op<kBf16>(__ldg(h.wc + c * H + j)), pc[c]);
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    pd += __shfl_xor_sync(0xffffffffu, pd, s);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pc[c] += __shfl_xor_sync(0xffffffffu, pc[c], s);
+  }
+  if (lane != 0) return;
+  const float pre_d = pd + h.bd[0];
+  if (h.dens != nullptr) {
+    h.dens[n] = fmaxf(pre_d, 0.0f) + log1pf(expf(-fabsf(pre_d)));
+  } else {
+    h.g[n * 4] = h.g_dens[n] * sigmoid(pre_d);
+  }
+  if (h.wc == nullptr) return;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float rgb = sigmoid(pc[c] + h.bc[c]);
+    if (h.rgb != nullptr) {
+      h.rgb[n * 3 + c] = rgb;
+    } else {
+      h.g[n * 4 + 1 + c] = h.g_rgb[n * 3 + c] * rgb * (1.0f - rgb);
+    }
+  }
+}
+
+// The heads' cotangent into a_L, masked where a_L <= 0: the colour head's
+// sum_c gz_c[n][c] W_c[c][j], or (no colour head: a_L is a_nb) the density
+// head's gz_d[n] w_d[j]. A thread an element.
+template <bool kBf16>
+__global__ void __launch_bounds__(256) top_kernel(const float* g, const float* w, int colour,
+                                                  const char* a_top, long long ld, int hidden,
+                                                  long long rows, float* dz) {
+  constexpr int es = kBf16 ? 2 : 4;
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= rows * hidden) return;
+  const long long n = e / hidden;
+  const int j = static_cast<int>(e - n * hidden);
+  float v;
+  if (colour) {
+    v = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      v = fmaf(gen::op<kBf16>(g[n * 4 + 1 + c]), gen::op<kBf16>(__ldg(w + c * hidden + j)), v);
+    }
+  } else {
+    v = gen::op<kBf16>(g[n * 4]) * gen::op<kBf16>(__ldg(w + j));
+  }
+  dz[n * ld + j] = gen::ld_op<kBf16>(a_top + (n * ld + j) * es) > 0.0f ? v : 0.0f;
+}
+
+// dhead_dir[r][j] = sum over ray r's samples of gz_bh[n][j], in sample order.
+__global__ void __launch_bounds__(256) raysum_kernel(const float* dz, long long ld, int hidden,
+                                                     int rays, int num_samples, float* out) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= static_cast<long long>(rays) * hidden) return;
+  const long long r = e / hidden;
+  const int j = static_cast<int>(e - r * hidden);
+  const float* src = dz + r * num_samples * ld + j;
+  float s = 0.0f;
+  for (int i = 0; i < num_samples; ++i) s += __ldg(src + i * ld);
+  out[e] = s;
+}
+
+// out[i] (+)= sum over splits z of ws[z * stride + i], in split order.
+__global__ void __launch_bounds__(256) reduce_kernel(const float* ws, int splits, long long stride,
+                                                     long long n, float* out, int accumulate) {
+  const long long i = blockIdx.x * 256LL + threadIdx.x;
+  if (i >= n) return;
+  float s = accumulate ? out[i] : 0.0f;
+  for (int z = 0; z < splits; ++z) s += ws[z * stride + i];
+  out[i] = s;
+}
+
+// Shared memory of prod_kernel (static), the most of its three modes: mode 0's.
+constexpr int smem_bytes(bool bf16) {
+  return (kTM + kTN) * (kTK + (bf16 ? 8 : 4)) * (bf16 ? 2 : 4);
+}
+
+int blocks_of(long long n) { return static_cast<int>((n + 255) / 256); }
+
+template <bool kBf16, int kMode>
+cudaError_t run(Prod p, long long out_rows, int out_cols, int splits, cudaStream_t stream) {
+  p.col_tiles = (out_cols + kTN - 1) / kTN;
+  const long long tiles = (out_rows + kTM - 1) / kTM * p.col_tiles;
+  if (tiles == 0) return cudaSuccess;
+  prod_kernel<kBf16, kMode><<<dim3(static_cast<unsigned>(tiles), splits), kWarps * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// One call of the route: the stack, the row chunks and the scratch.
+struct Call {
+  Stack s;
+  bool bf16;
+  int num_samples, num_blocks;
+  long long chunk_rows;  // rows_per_chunk x num_samples
+  char* scratch;
+  float* ws;
+  cudaStream_t stream;
+  int es() const { return bf16 ? 2 : 4; }
+  // a_k (1 <= k <= L) of the chunk, operands [chunk_rows][ldh].
+  char* act(int k) const { return scratch + (k - 1) * chunk_rows * s.ldh() * es(); }
+  float* dz(int i) const {
+    return reinterpret_cast<float*>(act(s.n_layers + 1)) + i * chunk_rows * s.ldh();
+  }
+  float* heads_g() const { return dz(2); }
+};
+
+// The chain of the chunk's rows: a_1 .. a_L.
+template <bool kBf16>
+cudaError_t chain(const Call& c, const float* x, const float* hd, const float* w, const float* b,
+                  long long rows) {
+  const Stack& s = c.s;
+  for (int k = 0; k < s.n_layers; ++k) {
+    Prod p{};
+    p.a = k == 0 ? static_cast<const void*>(x) : c.act(k);
+    p.a_f32 = k == 0 || !kBf16;
+    p.lda = k == 0 ? s.d_in : s.ldh();
+    p.w = w + s.w_off(k);
+    const bool bh = s.n_head > 0 && k == s.n_base;
+    p.bias = bh ? nullptr : b + s.b_off(k);
+    p.hd = bh ? hd : nullptr;
+    p.out = c.act(k + 1);
+    p.ldo = s.ldh();
+    p.rows = rows;
+    p.m = s.hidden;
+    p.k = s.in_dim(k);
+    p.num_samples = c.num_samples;
+    const cudaError_t err = run<kBf16, 0>(p, rows, s.hidden, 1, c.stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <bool kBf16>
+Heads heads_of(const Call& c, const float* w, const float* b, long long rows) {
+  const Stack& s = c.s;
+  Heads h{};
+  h.a_nb = c.act(s.n_base);
+  h.a_top = c.act(s.n_layers);
+  h.ld = s.ldh();
+  h.rows = rows;
+  h.hidden = s.hidden;
+  h.wd = w + s.wd_off();
+  h.bd = b + s.bd_off();
+  h.wc = s.n_head > 0 ? w + s.wc_off() : nullptr;
+  h.bc = s.n_head > 0 ? b + s.bc_off() : nullptr;
+  return h;
+}
+
+template <bool kBf16>
+cudaError_t forward(const Call& c, const float* x, const float* head_dir, const float* w,
+                    const float* b, float* rgb, float* dens, int num_rays) {
+  const Stack& s = c.s;
+  const int rays_per_chunk = static_cast<int>(c.chunk_rows / c.num_samples);
+  for (int r0 = 0; r0 < num_rays; r0 += rays_per_chunk) {
+    const long long first = static_cast<long long>(r0) * c.num_samples;
+    const long long rows = static_cast<long long>(std::min(rays_per_chunk, num_rays - r0)) *
+                           c.num_samples;
+    cudaError_t err = chain<kBf16>(c, x + first * s.d_in,
+                                   head_dir ? head_dir + static_cast<long long>(r0) * s.hidden
+                                            : nullptr,
+                                   w, b, rows);
+    if (err != cudaSuccess) return err;
+    Heads h = heads_of<kBf16>(c, w, b, rows);
+    h.dens = dens + first;
+    h.rgb = s.n_head > 0 ? rgb + first * 3 : nullptr;
+    heads_kernel<kBf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, c.stream>>>(h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// dW (+)= gz^T a over the chunk's rows into grads at w_out, and the column
+// sums of gz into b_out (null: none): mode 2, then the sums over splits.
+template <bool kBf16>
+cudaError_t weight_grad(const Call& c, const float* gz, long long ldg, int m, const void* a,
+                        bool a_f32, long long lda, int k, long long rows, float* w_out,
+                        float* b_out, bool accumulate) {
+  const long long tiles = (m + kTM - 1) / kTM * ((k + kTN - 1) / kTN);
+  const long long want = std::max(1LL, (2LL * c.num_blocks + tiles - 1) / tiles);
+  const long long stride = static_cast<long long>(m) * k + m;
+  const long long most = std::min(c.s.ws_floats() / stride, (rows + kTK - 1) / kTK);
+  const long long per = (rows + std::min(want, most) - 1) / std::min(want, most);
+  Prod p{};
+  p.a = gz;
+  p.a_f32 = 1;
+  p.lda = ldg;
+  p.b = a;
+  p.b_f32 = a_f32;
+  p.ldb = lda;
+  p.out = c.ws;
+  p.rows = rows;
+  p.m = m;
+  p.k = k;
+  p.split_rows = (per + kTK - 1) / kTK * kTK;
+  p.split_stride = stride;
+  const int splits = static_cast<int>((rows + p.split_rows - 1) / p.split_rows);
+  cudaError_t err = run<kBf16, 2>(p, m, k, splits, c.stream);
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(m) * k;
+  reduce_kernel<<<blocks_of(n), 256, 0, c.stream>>>(c.ws, splits, p.split_stride, n, w_out,
+                                                    accumulate);
+  if (b_out != nullptr) {
+    reduce_kernel<<<blocks_of(m), 256, 0, c.stream>>>(c.ws + n, splits, p.split_stride, m, b_out,
+                                                      accumulate);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t backward(const Call& c, const float* x, const float* head_dir, const float* w,
+                     const float* b, const float* g_rgb, const float* g_dens, float* dx,
+                     float* dhd, float* grads, int num_rays) {
+  const Stack& s = c.s;
+  const int L = s.n_layers, nb = s.n_base, H = s.hidden, ldh = s.ldh();
+  float* const gw = grads;             // matrices
+  float* const gb = grads + s.n_w();   // biases
+  const int rays_per_chunk = static_cast<int>(c.chunk_rows / c.num_samples);
+  for (int r0 = 0; r0 < num_rays; r0 += rays_per_chunk) {
+    const bool acc = r0 > 0;
+    const int nr = std::min(rays_per_chunk, num_rays - r0);
+    const long long first = static_cast<long long>(r0) * c.num_samples;
+    const long long rows = static_cast<long long>(nr) * c.num_samples;
+    const float* xc = x + first * s.d_in;
+    cudaError_t err = chain<kBf16>(
+        c, xc, head_dir ? head_dir + static_cast<long long>(r0) * H : nullptr, w, b, rows);
+    if (err != cudaSuccess) return err;
+    Heads h = heads_of<kBf16>(c, w, b, rows);
+    h.g_dens = g_dens + first;
+    h.g_rgb = s.n_head > 0 ? g_rgb + first * 3 : nullptr;
+    h.g = c.heads_g();
+    heads_kernel<kBf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, c.stream>>>(h);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // The heads' weight and bias gradients.
+    if (s.n_head > 0) {
+      err = weight_grad<kBf16>(c, h.g + 1, 4, 3, c.act(L), !kBf16, ldh, H, rows,
+                               gw + s.wc_off(), gb + s.bc_off(), acc);
+      if (err != cudaSuccess) return err;
+    }
+    err = weight_grad<kBf16>(c, h.g, 4, 1, c.act(nb), !kBf16, ldh, H, rows, gw + s.wd_off(),
+                             gb + s.bd_off(), acc);
+    if (err != cudaSuccess) return err;
+    // Their cotangent into a_L, then down the layers.
+    top_kernel<kBf16><<<blocks_of(rows * H), 256, 0, c.stream>>>(
+        h.g, s.n_head > 0 ? w + s.wc_off() : w + s.wd_off(), s.n_head > 0, c.act(L), ldh, H,
+        rows, c.dz(0));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    int cur = 0;
+    for (int k = L - 1; k >= 0; --k) {
+      const bool bh = s.n_head > 0 && k == nb;
+      const float* gz = c.dz(cur);
+      err = weight_grad<kBf16>(c, gz, ldh, H, k == 0 ? static_cast<const void*>(xc) : c.act(k),
+                               k == 0 || !kBf16, k == 0 ? s.d_in : ldh, s.in_dim(k), rows,
+                               gw + s.w_off(k), bh ? nullptr : gb + s.b_off(k), acc);
+      if (err != cudaSuccess) return err;
+      if (bh) {
+        raysum_kernel<<<blocks_of(static_cast<long long>(nr) * H), 256, 0, c.stream>>>(
+            gz, ldh, H, nr, c.num_samples, dhd + static_cast<long long>(r0) * H);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      Prod p{};
+      p.a = gz;
+      p.a_f32 = 1;
+      p.lda = ldh;
+      p.w = w + s.w_off(k);
+      p.rows = rows;
+      p.m = H;
+      p.k = s.in_dim(k);
+      if (k > 0) {
+        p.mask = c.act(k);
+        p.ldm = ldh;
+        p.out = c.dz(1 - cur);
+        p.ldo = ldh;
+        if (bh) {  // the density head's cotangent joins a_nb's
+          p.gd = h.g;
+          p.wd = w + s.wd_off();
+        }
+      } else {
+        p.out = dx + first * s.d_in;
+        p.ldo = s.d_in;
+      }
+      err = run<kBf16, 1>(p, rows, p.k, 1, c.stream);
+      if (err != cudaSuccess) return err;
+      cur = 1 - cur;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace lay
+
 }  // namespace
 
 // Forward (K4 with n_head >= 1, K5 with n_head == 0). w, b: the packed
@@ -2795,4 +3372,64 @@ extern "C" int tetranerf_fused_mlp_backward_generic(
   const int n = plan.n_w + plan.n_b;
   sum_rows_kernel<<<(n + 255) / 256, 256, 0, stream>>>(ws, grid, ws_stride, n, grads);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layered route's plan of a stack: out = {scratch floats a row of a
+// chunk, workspace floats (backward; 0 forward), shared memory of a product
+// block}; returns 0 where no such stack exists.
+extern "C" int tetranerf_fused_mlp_layered_plan(int d_in, int hidden, int n_base, int n_head,
+                                                int bf16, int backward, long long* out) {
+  if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0) return 0;
+  const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
+  out[0] = s.row_floats(bf16 != 0, backward != 0);
+  out[1] = backward ? s.ws_floats() : 0;
+  out[2] = lay::smem_bytes(bf16 != 0);
+  return 1;
+}
+
+// The layered route's forward (K4, K5) and backward (K4b, K5b), arguments
+// as the generic route's, plus the rays of a chunk (the host's, from its
+// scratch budget) and the scratch: rays_per_chunk x num_samples rows of the
+// plan's floats a row, then (backward) its workspace. The backward writes
+// every entry of grads and of dhd.
+extern "C" int tetranerf_fused_mlp_forward_layered(
+    const float* x, const float* head_dir, const float* w, const float* b, float* rgb,
+    float* dens, int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head,
+    int bf16, int num_blocks, int rays_per_chunk, float* scratch, long long scratch_floats,
+    cudaStream_t stream) {
+  const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
+  const long long chunk_rows = static_cast<long long>(rays_per_chunk) * num_samples;
+  if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0 || num_blocks < 1 ||
+      rays_per_chunk < 1 || scratch_floats < chunk_rows * s.row_floats(bf16 != 0, false)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<long long>(num_rays) * num_samples == 0) return 0;
+  const lay::Call c{s, bf16 != 0, num_samples, num_blocks, chunk_rows,
+                    reinterpret_cast<char*>(scratch), nullptr, stream};
+  const cudaError_t err =
+      bf16 ? lay::forward<true>(c, x, head_dir, w, b, rgb, dens, num_rays)
+           : lay::forward<false>(c, x, head_dir, w, b, rgb, dens, num_rays);
+  return static_cast<int>(err);
+}
+
+extern "C" int tetranerf_fused_mlp_backward_layered(
+    const float* x, const float* head_dir, const float* w, const float* b,
+    const float* g_rgb, const float* g_dens, float* dx, float* dhd, float* grads,
+    int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head, int bf16,
+    int num_blocks, int rays_per_chunk, float* scratch, long long scratch_floats,
+    cudaStream_t stream) {
+  const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
+  const long long chunk_rows = static_cast<long long>(rays_per_chunk) * num_samples;
+  const long long act_floats = chunk_rows * s.row_floats(bf16 != 0, true);
+  if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0 || num_blocks < 1 ||
+      rays_per_chunk < 1 || scratch_floats < act_floats + s.ws_floats()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<long long>(num_rays) * num_samples == 0) return 0;
+  const lay::Call c{s, bf16 != 0, num_samples, num_blocks, chunk_rows,
+                    reinterpret_cast<char*>(scratch), scratch + act_floats, stream};
+  const cudaError_t err =
+      bf16 ? lay::backward<true>(c, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, grads, num_rays)
+           : lay::backward<false>(c, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, grads, num_rays);
+  return static_cast<int>(err);
 }

@@ -23,11 +23,12 @@ Knobs of the JAX package that tune its TPU lowering are accepted here:
 
 ``fused_mlps=True`` runs the MLP stack as the fused CUDA kernels of
 ``ops/mlp.py`` (without a Fourier input encoding, as in JAX), at either
-``compute_dtype``: bfloat16 at widths (16, 32) and (64, 128) on the
-``wgmma`` tensor-core route, float32 (f32 FMA, JAX's
-``Precision.HIGHEST``) and bfloat16 at any other width on the generic
-route. Widths above 256 or more than 8 hidden layers raise ``ValueError``
-for CUDA tensors (JAX's kernels take them); the CPU twins run any stack.
+``compute_dtype`` and any width and depth, as JAX's kernels do: bfloat16
+at widths (16, 32) and (64, 128) on the ``wgmma`` tensor-core route;
+float32 (JAX's ``Precision.HIGHEST``) and bfloat16 at any other width up
+to 256 and depth up to 8 on the generic route; wider or deeper stacks on
+the layered route (one product kernel a layer). The CPU twins run any
+stack.
 - ``interp_mode``: no-op. ``"matmul"``, ``"pallas"`` and ``"gather"``
   compute one function; the port always runs the sample-interp kernel.
 
@@ -114,6 +115,20 @@ class TetrahedraNerfConfig:
     far_plane: float = 1e3
     """Depth reported for rays that hit nothing."""
     depth_method: Literal["median", "expected"] = "median"
+
+    def __post_init__(self):
+        """Given only ``tetrahedra_path``, fill the vertex and cell counts
+        from the file, as JAX's config does; a missing file raises
+        ``RuntimeError``."""
+        if self.tetrahedra_path is not None and self.num_tetrahedra_vertices is None:
+            from ..geometry.io import load_tetrahedra
+
+            path = Path(self.tetrahedra_path)
+            if not path.exists():
+                raise RuntimeError(f"Tetrahedra path {path} does not exist")
+            data = load_tetrahedra(path)
+            self.num_tetrahedra_vertices = len(data["vertices"])
+            self.num_tetrahedra_cells = len(data["cells"])
 
 
 def check_supported(config: TetrahedraNerfConfig) -> None:

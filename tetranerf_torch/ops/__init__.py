@@ -29,8 +29,8 @@ from .mlp import (
     fused_field_mlps_backward,
 )
 from .parity import find_tetrahedra, trace_rays_triangles, update_occupancy
-from .rendering import render_rgb_depth_acc, render_weights
-from .sampling import pdf_sample, stratified_bins
+from .rendering import accumulate_along_rays, render_rgb_depth_acc, render_weights
+from .sampling import biased_warp, pdf_sample, stratified_bins, uniform_sample
 from .skip_grid import SkipSetup, build_skip_table, make_skip_setup
 from .traversal import UINT_MAX, MarchResult, hull_intersect, trace_rays
 
@@ -42,8 +42,10 @@ __all__ = [
     "MarchStream",
     "SkipSetup",
     "UINT_MAX",
+    "accumulate_along_rays",
     "add_barycentrics_grad",
     "barycentric_coordinates",
+    "biased_warp",
     "biased_warp_range",
     "build_skip_table",
     "endpoint_features",
@@ -75,5 +77,6 @@ __all__ = [
     "stratified_bins",
     "trace_rays",
     "trace_rays_triangles",
+    "uniform_sample",
     "update_occupancy",
 ]

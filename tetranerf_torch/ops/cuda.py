@@ -48,6 +48,7 @@ _SOURCES = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each C entry point (the trailing pointer is the CUDA stream).
 _SIGNATURES = {
     "tetranerf_march": [_P] * 8 + [_I] * 5 + [_F] + [_P, _P, _I] + [_P] * 11 + [_P],
@@ -64,6 +65,9 @@ _SIGNATURES = {
     "tetranerf_fused_mlp_forward_generic": [_P] * 6 + [_I] * 10 + [_P],
     "tetranerf_fused_mlp_backward_generic": [_P] * 11 + [_I] * 13 + [_P],
     "tetranerf_fused_mlp_generic_plan": [_I] * 6 + [_P],
+    "tetranerf_fused_mlp_forward_layered": [_P] * 6 + [_I] * 9 + [_P, _L] + [_P],
+    "tetranerf_fused_mlp_backward_layered": [_P] * 9 + [_I] * 9 + [_P, _L] + [_P],
+    "tetranerf_fused_mlp_layered_plan": [_I] * 6 + [_P],
     "tetranerf_row_gather_batch": [_P, _I, _P],
     "tetranerf_row_gather_max_jobs": [],
 }
@@ -76,7 +80,9 @@ launch_counts = {
     "stream_blend_gather_bf16": 0, "stream_blend_backward_bf16": 0,
     "scatter_add_rows_bf16": 0, "fused_field_mlps_generic": 0,
     "fused_field_mlps_backward_generic": 0, "fused_density_mlp_generic": 0,
-    "fused_density_mlp_backward_generic": 0,
+    "fused_density_mlp_backward_generic": 0, "fused_field_mlps_layered": 0,
+    "fused_field_mlps_backward_layered": 0, "fused_density_mlp_layered": 0,
+    "fused_density_mlp_backward_layered": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 

@@ -12,19 +12,25 @@ rounds every cotangent to ``compute_dtype`` at each product and keeps
 cotangents. The twins write that out step by step, so they are not autograd
 of the forward (which would keep the cotangents in f32).
 
-On the card each kernel has two routes, chosen by :func:`launch_plan` from
-the stack's shape and dtype, never by a failure: ``"wgmma"``, the bf16
-tensor-core instances at widths (16, 32) and (64, 128) where their shared
-memory holds the stack, and ``"generic"``, ``mma.sync`` on the tensor
+On the card each kernel has three routes, chosen by :func:`launch_plan`
+from the stack's shape and dtype, never by a failure: ``"wgmma"``, the
+bf16 tensor-core instances at widths (16, 32) and (64, 128) where their
+shared memory holds the stack; ``"generic"``, ``mma.sync`` on the tensor
 cores at any width up to :data:`MAX_WIDTH` and any depth up to
 :data:`MAX_LAYERS`: bf16 operands, or for float32 (JAX's
 ``Precision.HIGHEST``) 3xTF32, each operand split into two TF32 parts,
 except the float32 backward's forward chain, f32 FMAs in a plain GEMM's
 order so that its ReLU masks are the f32 twin's (K4's 3xTF32 forward may
 differ from that chain by rounding, and so flip a mask where a
-pre-activation lies within rounding of 0; the backward follows the twin).
-:data:`.cuda.launch_counts` counts each route under its own name
-(``fused_field_mlps`` and ``fused_field_mlps_generic``, ...).
+pre-activation lies within rounding of 0; the backward follows the twin);
+and ``"layered"`` for every wider or deeper stack, as JAX's kernels take
+any: one product kernel a layer with the activations in global memory,
+rows in chunks that bound the scratch (:data:`LAYERED_SCRATCH_BYTES`),
+bf16 on ``mma.sync``, float32 with the chain (forward and the backward's)
+as f32 FMAs in a plain GEMM's order and the backward's other products as
+3xTF32. :data:`.cuda.launch_counts` counts each route under its own name
+(``fused_field_mlps``, ``fused_field_mlps_generic``,
+``fused_field_mlps_layered``, ...).
 
 ``weights`` is a flat list in the JAX order, with the port's ``[out, in]``
 matrices: base ``(W, b)`` pairs, density ``(w_d [1, H], b_d)``, then for the
@@ -203,6 +209,10 @@ _GENERIC_COLS = 64  # output columns of a generic pass, and of a streamed weight
 _GENERIC_WARPS = 16  # warps of a generic forward block, at most
 _GENERIC_BWD_WARPS = 8  # of a backward block
 _GENERIC_CHUNKS = 64  # the generic backward's weight-gradient chunks, at most
+_LAYERED_ROWS = 128  # output rows of a layered product block: 8 warps of 16
+# The layered route's scratch for a call's activations and cotangents: rows
+# run in chunks of whole rays that fit it (at least one ray a chunk).
+LAYERED_SCRATCH_BYTES = 1 << 30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -213,21 +223,26 @@ def _align(n: int, a: int = 128) -> int:
 @dataclass(frozen=True)
 class LaunchPlan:
     """How K4/K5 (``backward=False``) or K4b/K5b lay a stack out on the
-    card, as ``csrc/mlp.cu``'s ``make_plan`` (``route="wgmma"``) or
-    ``make_gplan`` (``"generic"``) does: the kernel checks the numbers it
-    is given against its own and refuses a mismatch."""
+    card, as ``csrc/mlp.cu``'s ``make_plan`` (``route="wgmma"``),
+    ``make_gplan`` (``"generic"``) or ``lay::Stack`` (``"layered"``) does:
+    the kernel checks the numbers it is given against its own and refuses a
+    mismatch."""
 
-    route: str  # "wgmma" or "generic"
-    rows_per_tile: int  # wgmma: rows of one warpgroup's tile; generic: a block's
-    warpgroups: int  # wgmma: per block (one block per SM); generic: 0
+    route: str  # "wgmma", "generic" or "layered"
+    rows_per_tile: int  # wgmma: rows of one warpgroup's tile; generic: a
+    # block's; layered: a product block's output rows
+    warpgroups: int  # wgmma: per block (one block per SM); else 0
     stages: int  # wgmma: x stages of a warpgroup with room of their own (0:
-    # the stage shares the backward's cotangent staging, no prefetch); generic: 0
-    smem_bytes: int  # dynamic shared memory per block
-    ws_floats: int  # one block's weight-gradient workspace row (backward)
+    # the stage shares the backward's cotangent staging, no prefetch); else 0
+    smem_bytes: int  # dynamic shared memory per block (layered: a product
+    # block's static shared memory)
+    ws_floats: int  # one block's weight-gradient workspace row (backward);
+    # layered: the whole weight-gradient workspace (row splits of a dW)
     aux_tile_floats: int  # the backward's cache: wgmma: masks and head
     # cotangents of a 64-row tile; generic: words a 16 rows (activations,
-    # cotangents, ReLU bits, head cotangents), 0 with one phase
-    warps: int = 0  # generic: warps a block, 16 rows each
+    # cotangents, ReLU bits, head cotangents), 0 with one phase; layered:
+    # scratch floats a row of a chunk (activations, and backward cotangents)
+    warps: int = 0  # generic, layered: warps a block, 16 rows each
     resident: bool = False  # generic: the weights stay in shared memory for the launch
     phases: int = 0  # generic backward: 1 (one kernel sums every weight
     # gradient), or the pass over the layers then the phases of
@@ -385,22 +400,42 @@ def _generic_plan(d_in, hidden, n_base, n_head, backward, dtype):
     return None
 
 
+def _layered_plan(d_in, hidden, n_base, n_head, backward, dtype):
+    """The layered route's plan (``tetranerf_fused_mlp_layered_plan``): a
+    row of a chunk holds a_1 .. a_L as operands in rows of ``hidden``
+    padded to 8, and in the backward two f32 cotangents and the heads' four;
+    the backward's workspace is 2^24 floats, or one row of the largest
+    weight gradient and its bias where that is more: a weight gradient's
+    rows split in as many parts as it holds (and as fill the card)."""
+    layers = n_base + n_head
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldh = _align(hidden, 8)
+    row = layers * ldh * esz // 4 + (2 * ldh + 4 if backward else 0)
+    ws = max(1 << 24, hidden * max(d_in, hidden, 4) + hidden) if backward else 0
+    # A [128][32] and B [64][32] operands, rows padded by 16 bytes.
+    smem = (_LAYERED_ROWS + 64) * (32 + 16 // esz) * esz
+    return LaunchPlan("layered", _LAYERED_ROWS, 0, 0, smem, ws, row, _LAYERED_ROWS // 16)
+
+
 def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int, backward: bool,
                 compute_dtype=torch.bfloat16) -> LaunchPlan:
     """The launch plan of a fused-MLP kernel for this stack: the wgmma route
     for bfloat16 at its compiled widths where its shared memory holds the
-    stack, else the generic route. Raises ``ValueError`` outside the range
-    the kernels take: widths in ``[1, MAX_WIDTH]``, ``n_base >= 1``,
-    ``n_head >= 0``, ``n_base + n_head <= MAX_LAYERS``, float32 or bfloat16
-    (JAX's kernels take more: their VMEM holds any stack)."""
+    stack, else the generic route for widths in ``[1, MAX_WIDTH]`` and
+    ``n_base + n_head <= MAX_LAYERS``, else the layered route, which takes
+    any width and depth, as JAX's kernels do. Raises ``ValueError`` only
+    where JAX's kernels cannot run either: a dtype other than float32 or
+    bfloat16, a width below 1, ``n_base < 1`` or ``n_head < 0``."""
     dtype = _dtype(compute_dtype)
-    if not (1 <= d_in <= MAX_WIDTH and 1 <= hidden <= MAX_WIDTH):
+    if d_in < 1 or hidden < 1:
         raise ValueError(
-            f"fused MLP kernels: widths (d_in, hidden) = {(d_in, hidden)}: each must be in "
-            f"[1, {MAX_WIDTH}]")
-    if n_base < 1 or n_head < 0 or n_base + n_head > MAX_LAYERS:
+            f"fused MLP kernels: widths (d_in, hidden) = {(d_in, hidden)}: each must be at "
+            f"least 1 (the generic route takes [1, {MAX_WIDTH}], the layered route any wider)")
+    if n_base < 1 or n_head < 0:
         raise ValueError(f"fused MLP kernels: n_base={n_base}, n_head={n_head}: "
-                         f"1 <= n_base and n_base + n_head <= {MAX_LAYERS}")
+                         "1 <= n_base and 0 <= n_head")
+    if d_in > MAX_WIDTH or hidden > MAX_WIDTH or n_base + n_head > MAX_LAYERS:
+        return _layered_plan(d_in, hidden, n_base, n_head, backward, dtype)
     if dtype == torch.bfloat16 and (d_in, hidden) in KERNEL_WIDTHS:
         plan = _wgmma_plan(d_in, hidden, n_base, n_head, backward)
         if plan is not None:
@@ -474,12 +509,36 @@ def _forward_cuda(counter, plan, x, head_dir, weights, n_base, n_head, dtype):
             cuda.launch(counter, "tetranerf_fused_mlp_forward", dev, *args,
                         cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
                         _num_blocks(dev), plan.warpgroups, plan.smem_bytes)
+        elif plan.route == "layered":
+            chunk, scratch = _layered_scratch(plan, num_rays, num_samples, dev)
+            cuda.launch(f"{counter}_layered", "tetranerf_fused_mlp_forward_layered", dev,
+                        *args, cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
+                        int(dtype == torch.bfloat16), _num_blocks(dev), chunk,
+                        cuda.ptr(scratch), scratch.numel())
         else:
             cuda.launch(f"{counter}_generic", "tetranerf_fused_mlp_forward_generic", dev,
                         *args, cuda.ptr(wpack), cuda.ptr(bpack), *outs, *shape,
                         int(dtype == torch.bfloat16), _num_blocks(dev), plan.rows_per_tile,
                         plan.smem_bytes)
     return rgb, dens
+
+
+def layered_chunk_rays(plan, num_rays, num_samples):
+    """Rays a chunk of the layered route: whole rays, at least one, as few
+    chunks as :data:`LAYERED_SCRATCH_BYTES` allows, of equal size but the
+    last."""
+    per_ray = max(num_samples * plan.aux_tile_floats * 4, 1)
+    most = max(1, min(num_rays, LAYERED_SCRATCH_BYTES // per_ray))
+    chunks = -(-num_rays // most)
+    return max(1, -(-num_rays // chunks))
+
+
+def _layered_scratch(plan, num_rays, num_samples, dev):
+    """``(rays a chunk, the scratch)``: the chunk's rows of
+    ``plan.aux_tile_floats`` floats, then the workspace (backward)."""
+    chunk = layered_chunk_rays(plan, num_rays, num_samples)
+    floats = chunk * num_samples * plan.aux_tile_floats + plan.ws_floats
+    return chunk, torch.empty(floats, device=dev)
 
 
 def _generic_cache(plan, rows, dev):
@@ -511,15 +570,25 @@ def _backward_cuda(counter, plan, x, head_dir, weights, g_rgb, g_dens, n_base,
         return torch.empty_like(x), dhd, _unpack(zeros, weights)
     num_blocks = _num_blocks(dev)
     rows = num_rays * num_samples
-    # Each block writes its rows' weight gradients into a row of its own.
-    ws = torch.empty((num_blocks, plan.ws_floats), device=dev)
     grads = torch.empty(wpack.numel() + bpack.numel(), device=dev)
     dx = torch.empty_like(x)
     dhd = torch.zeros((num_rays, hidden), device=dev) if n_head else None
     args = (cuda.ptr(x), None if head_dir is None else cuda.ptr(head_dir))
+    shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
+    if plan.route == "layered":
+        chunk, scratch = _layered_scratch(plan, num_rays, num_samples, dev)
+        cuda.launch(
+            f"{counter}_layered", "tetranerf_fused_mlp_backward_layered", dev, *args,
+            cuda.ptr(wpack), cuda.ptr(bpack), cuda.ptr(g_rgb) if n_head else None,
+            cuda.ptr(g_dens), cuda.ptr(dx), None if dhd is None else cuda.ptr(dhd),
+            cuda.ptr(grads), *shape, int(dtype == torch.bfloat16), num_blocks, chunk,
+            cuda.ptr(scratch), scratch.numel(),
+        )
+        return dx, dhd, _unpack(grads, weights)
+    # Each block writes its rows' weight gradients into a row of its own.
+    ws = torch.empty((num_blocks, plan.ws_floats), device=dev)
     cot = (cuda.ptr(g_rgb) if n_head else None, cuda.ptr(g_dens), cuda.ptr(dx),
            None if dhd is None else cuda.ptr(dhd), cuda.ptr(ws), cuda.ptr(grads))
-    shape = (num_rays, num_samples, d_in, hidden, n_base, n_head)
     if plan.route == "wgmma":
         tiles = 2 * -(-rows // (2 * ROWS_PER_TILE))
         # The tiles' cached masks and head cotangents, then per block each

@@ -22,6 +22,14 @@ def render_weights(densities, deltas):
     return alphas * torch.exp(-torch.cumsum(shifted, dim=-1))
 
 
+def accumulate_along_rays(weights, values=None):
+    """Per-ray sums over samples: ``weights [..., S]`` alone gives
+    ``[...]``; with ``values [..., S, C]`` the weighted sums ``[..., C]``."""
+    if values is None:
+        return weights.sum(dim=-1)
+    return torch.einsum("...s,...sc->...c", weights, values)
+
+
 def render_rgb_depth_acc(
     weights,
     rgb,
@@ -33,8 +41,8 @@ def render_rgb_depth_acc(
     accumulation ``[R]`` and depth ``[R]``. ``"median"`` depth is the
     distance where the accumulated weight crosses 0.5; ``"expected"`` the
     weighted mean."""
-    acc = weights.sum(dim=-1)
-    out_rgb = torch.einsum("rs,rsc->rc", weights, rgb)
+    acc = accumulate_along_rays(weights)
+    out_rgb = accumulate_along_rays(weights, rgb)
     if background_rgb is not None:
         out_rgb = out_rgb + (1.0 - acc[..., None]) * background_rgb
     if depth_method == "median":

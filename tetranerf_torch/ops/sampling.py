@@ -1,7 +1,8 @@
-"""Ray samplers: stratified bins and PDF resampling.
+"""Ray samplers: stratified and uniform bins, the interval-biased warp and
+PDF resampling.
 
-Counterpart of ``stratified_bins`` and ``pdf_sample`` in
-:mod:`tetranerf_tpu.ops.sampling`. Randomness enters only as explicit
+Counterpart of ``stratified_bins``, ``uniform_sample``, ``biased_warp``
+and ``pdf_sample`` in :mod:`tetranerf_tpu.ops.sampling`. Randomness enters only as explicit
 uniforms (``u``): the render path passes none and both samplers are then
 deterministic, as in the JAX package at eval.
 
@@ -34,6 +35,44 @@ def stratified_bins(
     upper = torch.cat([centers, bins[..., -1:]], dim=-1)
     lower = torch.cat([bins[..., :1], centers], dim=-1)
     return lower + (upper - lower) * u
+
+
+def uniform_sample(
+    nears: torch.Tensor,
+    fars: torch.Tensor,
+    num_samples: int,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Uniform bin edges ``[R, S+1]`` in euclidean distance between
+    ``nears [R]`` and ``fars [R]``, stratified by uniforms ``u [R, S+1]``
+    when given (:func:`stratified_bins`)."""
+    bins = stratified_bins(nears.shape[0], num_samples, nears.device, u).to(nears.dtype)
+    return nears[:, None] + bins * (fars - nears)[:, None]
+
+
+def biased_warp(
+    num_bounds: torch.Tensor, bounds: torch.Tensor, samples: torch.Tensor
+) -> torch.Tensor:
+    """Warp euclidean bin edges ``samples [R, S+1]`` (within [first entry,
+    last exit]) so that each of a ray's ``num_bounds [R]`` valid traversal
+    intervals ``bounds [R, T, 2]`` ([entry, exit] distances) gets an equal
+    share of them: the reference's
+    ``map_from_real_distances_to_biased_with_bounds``."""
+    num_bounds = num_bounds.to(torch.int64)
+    valid = torch.arange(bounds.shape[1], device=bounds.device)[None, :] < num_bounds[:, None]
+    zero = bounds.new_zeros(())
+    lengths = torch.clamp_min(torch.where(valid, bounds[..., 1], zero)
+                              - torch.where(valid, bounds[..., 0], zero), 0.0)
+    start = bounds[:, 0, 0]
+    last = torch.clamp_min(num_bounds - 1, 0)[:, None]
+    span = bounds[..., 1].gather(1, last)[:, 0] - start
+    uni = (samples - start[:, None]) / torch.where(span == 0, 1.0, span)[:, None]
+    rest = uni * num_bounds[:, None]
+    intervals = torch.minimum(torch.clamp_min(torch.floor(rest), 0.0), last.to(rest.dtype))
+    rest = rest - intervals
+    intervals = intervals.to(torch.int64)
+    cum = torch.cumsum(torch.cat([start[:, None], lengths], dim=1), dim=1)
+    return cum.gather(1, intervals) + lengths.gather(1, intervals) * rest
 
 
 def pdf_sample(
