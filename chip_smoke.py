@@ -212,11 +212,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     bf16 against their twins (phase 24's tolerances; the float32 backward
     against the f32 twin only) at the train slice's shapes and a 512 x 33
     bucket, each timed beside its bound (operations and bytes apart), the
-    bytes of its own activation traffic, its twin and the un-fused stack;
-    16 steps of each stack in the preset's bf16 (losses finite; the wide
-    one's falling and a 256-ray step against the CPU twins; paths
-    ``layered_wide_train``, ``layered_deep_train``), every fused launch on
-    the layered route.
+    bytes of its own activation traffic, its twin and the un-fused stack,
+    each backward's launches split by kernel, mode and matrix (profiler ms,
+    bytes moved); 16 steps of each stack in the preset's bf16 (losses
+    finite; the wide one's falling and a 256-ray step against the CPU twins;
+    paths ``layered_wide_train``, ``layered_deep_train``), every fused
+    launch on the layered route.
+
+``python3 chip_smoke.py --layered-split`` builds the kernels and runs only
+the layered kernels at phase 25's shapes (and the preset's wgmma and
+generic ones at the same shapes), each timed by CUDA events, the bf16
+backwards split by launch, then phase 25's two train runs; it prints no
+result line, so that two trees of the port can be timed in turns on one
+card.
 
 Phase 1 also builds the native host geometry library (``g++``) and times
 its adjacency and spacing against the numpy sort and the KD-tree on the
@@ -4034,6 +4042,13 @@ def _generic_kernel_checks(model, dev, route="generic"):
         False: "bf16 on mma.sync m16n8k16", True: "bf16 on mma.sync m16n8k16"}
     if f32 and layered:
         design[False] = "f32 FMAs in the twin's order"
+    elif layered:
+        design = {b: "bf16 on wgmma m64n128k16, two warpgroups a 128 x 128 tile, operands "
+                     "(weights, x, activations, cotangents as bf16 copies) by cp.async into a "
+                     "ring of 64-deep stages in the 128-byte swizzle; epilogues staged in "
+                     "shared memory, a cotangent's bias and ray sums per tile" +
+                     ("; the heads' gradients one pass over a_nb and a_L" if b else "")
+                  for b in (False, True)}
 
     def passes(plan):
         if plan.phases == 1:
@@ -4059,11 +4074,12 @@ def _generic_kernel_checks(model, dev, route="generic"):
                 print(f"layered route design, {cfg.field_dim} x {cfg.hidden_size} x "
                       f"{n_base} + {heads} {str(dt).split('.')[-1]}, "
                       f"{'K4b/K5b' if backward else 'K4/K5'}: {design[backward]}; a product "
-                      f"kernel a layer, blocks of {plan.rows_per_tile} x 64 outputs, "
+                      f"kernel a layer, blocks of {plan.rows_per_tile} x "
+                      f"{64 if f32 else 128} outputs, a ring of {plan.stages} stages in "
                       f"{plan.smem_bytes} bytes of shared memory; {plan.aux_tile_floats * 4} "
-                      f"bytes of scratch a row, chunks of {rays} rays at the train shape"
-                      + (f"; weight-gradient workspace {plan.ws_floats * 4} bytes"
-                         if backward else ""))
+                      f"bytes of scratch a row, chunks of {rays} rays at the train shape; "
+                      f"{plan.ws_floats * 4} bytes beside the rows (the backward's "
+                      f"workspace, the weights' bf16 copies)")
                 continue
             print(f"generic route design, {cfg.field_dim} x {cfg.hidden_size} "
                   f"{str(dt).split('.')[-1]}, {'K4b/K5b' if backward else 'K4/K5'} "
@@ -4181,6 +4197,18 @@ def _generic_kernel_checks(model, dev, route="generic"):
             if layered:
                 extra.update(_layered_extra(name, bound_args, dt, fwd_flops if not backward
                                             else flops, call_bytes, n_base, n_head))
+                if backward:
+                    # The backward's launches by kernel, and by mode and matrix.
+                    heads = n_head if "field" in name else 0
+                    rows = bound_args[0].shape[0] * bound_args[0].shape[1]
+                    esz = 4 if f32 else 2
+                    parts = _layered_launch_split(lambda: fn(*args), n_base + heads, rows,
+                                                  (cfg.field_dim, cfg.hidden_size), esz, esz)
+                    extra["launch_split"] = [dict(p, ms=round(p["ms"], 4)) for p in parts
+                                             if "lay::" in p["kernel"]
+                                             or p["kernel"].startswith("mode")]
+                    print(f"{name}_{route} {at}: launches by kernel (profiler ms, bytes "
+                          f"moved): " + json.dumps(extra["launch_split"]))
             print(f"{name}_{route} {at}: max abs err {err:.3g}; {ms:.3f} ms, twin "
                   f"{twin_ms:.3f} ms, un-fused stack {library:.3f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {bound['bound_peak']})"
@@ -4299,8 +4327,10 @@ def _layered_extra(name, bound_args, dt, flops, call_bytes, n_base, n_head):
     """A layered kernel's entry beside its bound: the bound's operations and
     bytes apart, and the bytes of the route's own activation traffic (each
     layer boundary's activation written and read back once; the backward's
-    cotangents written and read by two products, its masks read), its time
-    at the HBM rate, and the device bytes the timed call allocated."""
+    cotangents, operands of the dtype, written once and read by two
+    products, its activations read again as masks and by the weight
+    gradients), its time at the HBM rate, and the device bytes the timed
+    call allocated."""
     import torch
 
     x, head_dir, weights = bound_args
@@ -4313,7 +4343,7 @@ def _layered_extra(name, bound_args, dt, flops, call_bytes, n_base, n_head):
     backward = "backward" in name
     per_row = x.shape[-1] * 4 + chain
     if backward:
-        per_row += layers * hidden * (3 * 4 + 2 * esz) + x.shape[-1] * 4
+        per_row += layers * hidden * (3 * esz + 2 * esz) + x.shape[-1] * 4
     ops = 2 * macs * rows * (3 if backward else 1)
     param_bytes = sum(w.numel() for w in weights) * 4
     io_bytes = (x.numel() * 4 + (0 if head_dir is None else head_dir.numel() * 4)
@@ -4348,17 +4378,202 @@ def layered_phase(colors, mesh_plain, dev):
                                      stack == "wide", route="layered")
     out = []
     keys = ("widths", "max_abs_err", "ms", "plain_ms", "unfused_ms", "bound_ms", "bound_by",
-            "bound_ops_ms", "bound_bytes_ms", "route_bytes", "route_bytes_ms")
+            "bound_ops_ms", "bound_bytes_ms", "route_bytes", "route_bytes_ms", "launch_split")
     for name in _GENERIC_NAMES:
         e = entries["wide", "bfloat16"][name]
-        e["float32"] = {k: entries["wide", "float32"][name][k] for k in keys}
+        f32 = entries["wide", "float32"][name]
+        e["float32"] = {k: f32[k] for k in keys if k in f32}
         deep = entries["deep", "bfloat16"].get(name)
-        e["deep_bf16"] = {k: deep[k] for k in keys} if deep else "wgmma route (6 layers)"
+        e["deep_bf16"] = ({k: deep[k] for k in keys if k in deep} if deep
+                          else "wgmma route (6 layers)")
         e["layers"] = {"wide": LAYERED_STACKS["wide"], "deep": LAYERED_STACKS["deep"]}
         e["train_median_step_ms"] = {stack: runs[stack][1] for stack in runs}
         out.append(e)
     print(f"layered: phase 25 took {time.perf_counter() - t_phase:.1f} s")
     return out, runs["wide"][0], runs["deep"][0]
+
+
+def _kernel_label(name):
+    """A device kernel's short name from the profiler's demangled one:
+    ``lay::wg_kernel<2>`` from ``void (anonymous namespace)::lay::wg_kernel<2>
+    ((anonymous namespace)::lay::Prod)``."""
+    import re
+
+    m = re.search(r"(\w+::)?(\w+)(<[^()]*>)?\(", name)
+    return (m.group(1) or "") + m.group(2) + (m.group(3) or "") if m else name[:60]
+
+
+def _layered_launch_split(fn, n_layers, rows, widths, cot_bytes, act_bytes):
+    """One call of ``fn`` (a layered kernel's wrapper) under torch.profiler:
+    its device launches grouped by kernel and, for the products, by mode
+    and matrix (the heads' products apart), each group's count, ms (the
+    profiler's sum) and the activation, cotangent and input bytes its
+    launches must move at this design's dtypes (``cot_bytes`` a cotangent
+    element, ``act_bytes`` an activation's; the weights, workspaces and
+    partial sums left out). ``widths`` = (d_in, hidden)."""
+    events = _device_kernels(fn)
+    d_in, hidden = widths
+    in_dim = [d_in] + [hidden] * (n_layers - 1)
+    groups, order = {}, []
+    mat = {0: 0, 1: n_layers, 2: n_layers}
+    after_top = False
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        short = _kernel_label(e.name)
+        mode = None
+        for key in ("prod_kernel<true, ", "prod_kernel<false, ", "wg_kernel<", "prod_kernel<"):
+            if key in short:
+                mode = int(short.split(key)[1][0])
+                break
+        nbytes = 0
+        if mode is None:
+            label = short
+            if "heads_" in short:  # heads_kernel, heads_bwd_kernel: a chunk's start
+                after_top, mat[0], mat[1], mat[2] = False, 0, n_layers, n_layers
+                nbytes = rows * (2 * hidden * act_bytes + 32)
+            elif "top_" in short:
+                after_top = True
+                nbytes = rows * (16 + hidden * act_bytes + hidden * cot_bytes)
+            elif "raysum" in short or "colsum" in short:
+                nbytes = rows * hidden * cot_bytes
+            elif "head_grad" in short:
+                nbytes = rows * (16 + 2 * hidden * act_bytes)
+        elif mode == 0:
+            k = mat[0] % n_layers
+            mat[0] += 1
+            label = f"mode 0 (a layer), W_{k}"
+            nbytes = rows * (in_dim[k] * (4 if k == 0 else act_bytes) + hidden * act_bytes)
+        elif not after_top:
+            label = "mode 2, the heads' dW"
+            nbytes = rows * (16 + hidden * act_bytes)
+        else:
+            mat[mode] -= 1
+            k = mat[mode]
+            label = f"mode {mode}, W_{k}"
+            if mode == 2:
+                nbytes = rows * (hidden * cot_bytes + in_dim[k] * (4 if k == 0 else act_bytes))
+            else:
+                nbytes = rows * (hidden * cot_bytes + (in_dim[k] * (act_bytes + cot_bytes)
+                                                       if k else d_in * 4))
+        if label not in groups:
+            groups[label] = {"launches": 0, "ms": 0.0, "bytes": 0}
+            order.append(label)
+        g = groups[label]
+        g["launches"] += 1
+        g["ms"] += e.time_range.elapsed_us() / 1e3
+        g["bytes"] += nbytes  # the call's rows, once for each launch of a chunk
+    chunks = max(groups.get("mode 0 (a layer), W_0", {"launches": 1})["launches"], 1)
+    return [dict(kernel=label, **dict(groups[label], bytes=groups[label]["bytes"] // chunks))
+            for label in order]
+
+
+# --layered-split: the layered route's kernels alone at phase 25's shapes
+# (and the wgmma and generic routes' at phase 8's and 24's), each timed by
+# CUDA events, the backward's launches split by kernel; the same lines for
+# any tree of the port, so that two trees are compared in turns on one card.
+SPLIT_STACKS = (("wide", "bfloat16"), ("wide", "float32"), ("deep", "bfloat16"))
+
+
+def layered_split(dev):
+    """Each layered kernel of SPLIT_STACKS at phase 25's train shapes (4096
+    rays x 257 samples; the density MLP's x 128) by CUDA events (median of
+    5), and the bf16 backward's launches by kernel; then the
+    preset's wgmma kernels (bf16) and generic ones (float32) at the same
+    shapes. Returns ``{label: ms}``."""
+    import torch
+    from tetranerf_torch.models import TetraNerf, tetranerf_preset
+    from tetranerf_torch.ops import mlp
+
+    out = {}
+    stacks = [(s, d, LAYERED_STACKS[s]) for s, d in SPLIT_STACKS]
+    stacks += [("preset", "bfloat16", {}), ("preset", "float32", {})]
+    for stack, dtype, extra in stacks:
+        cfg = tetranerf_preset(fused_mlps=True, compute_dtype=dtype, **extra)
+        dt = getattr(torch, dtype)
+        model = TetraNerf(cfg, 8, generator=torch.Generator().manual_seed(0), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        n_base, n_head = len(model.mlp_base.layers), len(model.mlp_head.layers)
+        n_fine = cfg.num_samples + cfg.num_fine_samples + 1
+        with torch.no_grad():
+            d = torch.nn.functional.normalize(
+                torch.randn((TRAIN_RAYS, 3), generator=gen, device=dev), dim=1)
+            head_dir, weights = (v.detach() if torch.is_tensor(v) else [w.detach() for w in v]
+                                 for v in model.fused_field_inputs(d))
+            w_dens = [w.detach() for w in model.density_weights()]
+        x = torch.randn((TRAIN_RAYS, n_fine, cfg.field_dim), generator=gen, device=dev)
+        g_rgb = torch.randn((TRAIN_RAYS, n_fine, 3), generator=gen, device=dev)
+        g_dens = torch.randn((TRAIN_RAYS, n_fine, 1), generator=gen, device=dev)
+        x_c = torch.randn((TRAIN_RAYS, cfg.num_samples, cfg.field_dim), generator=gen,
+                          device=dev)
+        g_c = torch.randn((TRAIN_RAYS, cfg.num_samples, 1), generator=gen, device=dev)
+        calls = {
+            "K4": (lambda: mlp.fused_field_mlps(x, head_dir, weights, n_base, n_head, dt),
+                   n_head),
+            "K4b": (lambda: mlp.fused_field_mlps_backward(x, head_dir, weights, g_rgb, g_dens,
+                                                          n_base, n_head, dt), n_head),
+            "K5": (lambda: mlp.fused_density_mlp(x_c, w_dens, n_base, dt), 0),
+            "K5b": (lambda: mlp.fused_density_mlp_backward(x_c, w_dens, g_c, n_base, dt), 0),
+        }
+        for kernel, (fn, heads) in calls.items():
+            plan = mlp.launch_plan(cfg.field_dim, cfg.hidden_size, n_base, heads,
+                                   kernel.endswith("b"), dt)
+            if stack != "preset" and plan.route != "layered":
+                continue
+            label = f"{stack} {dtype} {kernel} ({plan.route})"
+            out[label] = _time_ms(fn, 5)
+            torch.cuda.empty_cache()
+            print(f"split: {label}: {out[label]:.3f} ms")
+            if kernel.endswith("b") and stack != "preset" and dtype == "bfloat16":
+                rows = TRAIN_RAYS * (n_fine if heads else cfg.num_samples)
+                # PR 18's design keeps its cotangents f32; since PR 19 they
+                # are bf16 operands (the plan's stages say which design runs).
+                cot = 2 if plan.stages else 4
+                parts = _layered_launch_split(fn, n_base + heads, rows,
+                                              (cfg.field_dim, cfg.hidden_size), cot, 2)
+                total = sum(p["ms"] for p in parts)
+                print(f"split: {label} launches (profiler, {total:.3f} ms of device time): "
+                      + json.dumps([dict(p, ms=round(p["ms"], 4)) for p in parts]))
+                torch.cuda.empty_cache()
+        del model, x, x_c, g_rgb, g_dens, g_c
+        torch.cuda.empty_cache()
+    return out
+
+
+def _layered_split_main():
+    """``chip_smoke.py --layered-split``: the build and layered_split alone;
+    no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from tetranerf_torch.ops import cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0])
+    t = time.perf_counter()
+    cuda.load()
+    print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    _mlp_build_report(cuda.build_log)
+    dev = torch.device("cuda", 0)
+    out = layered_split(dev)
+    # Phase 25's train runs: 16 cold bf16 steps of each stack.
+    from tetranerf_torch.geometry import build_mesh, triangulate
+    from tetranerf_torch.models import tetranerf_preset
+    from tetranerf_torch.utils.synthetic import make_sphere_scene
+
+    points, colors = make_sphere_scene(NUM_POINTS, seed=0)
+    mesh_plain = build_mesh(points, triangulate(points), device="cpu")
+    for stack in LAYERED_STACKS:
+        cfg = tetranerf_preset(fused_mlps=True, **LAYERED_STACKS[stack])
+        out[f"{stack} bfloat16 train step"] = _generic_train(
+            cfg, colors, mesh_plain, dev, LAYERED_STEPS, f"split: {stack} bfloat16 train", False,
+            route="layered")[1]
+    print("split: " + json.dumps(out))
+    return 0
 
 
 def native_geometry_check(points, cells, smi):
@@ -4406,13 +4621,12 @@ def _mlp_build_report(log):
                       r"mlp_bwd_kernel|sum_rows_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
         g = re.search(r"Compiling entry function '\S*?gen\d+(fwd_kernel|bwd_kernel)ILb([01])E",
                       line)
-        lay = re.search(r"Compiling entry function '\S*?lay\d+(\w+?_kernel)(?:ILb([01])E"
-                        r"(?:Li(\d)E)?)?", line)
+        lay = re.search(r"Compiling entry function '\S*?lay\d+(\w+?_kernel)I?(?:Lb([01])E)?"
+                        r"(?:Li(\d)E)?", line)
         if lay:
-            name = f"lay::{lay.group(1)}" + (
-                f"<{'bf16' if lay.group(2) == '1' else 'f32'}"
-                + (f", mode {lay.group(3)}" if lay.group(3) else "") + ">"
-                if lay.group(2) else "")
+            args = ([("bf16" if lay.group(2) == "1" else "f32")] if lay.group(2) else []) + (
+                [f"mode {lay.group(3)}"] if lay.group(3) else [])
+            name = f"lay::{lay.group(1)}" + (f"<{', '.join(args)}>" if args else "")
             spill = ""
         elif m:
             name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
@@ -4447,6 +4661,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--shard-rank"]:
         return _shard_rank_main(argv[1])
+    if argv[:1] == ["--layered-split"]:
+        return _layered_split_main()
     # --shard-ranks N [--model-shards M]: phase 18 alone with N ranks over
     # NCCL, one a card (a host with N cards), as N/M data shards by M model
     # shards; it prints phase 18's lines (and phase 20's with M > 1) and no

@@ -456,6 +456,11 @@ CUDA_CASES = {
 # The layered route: widths above 256 or more than 8 layers, both dtypes;
 # 1,591 rows with rays across the product blocks' 128-row tiles; widths
 # that are no multiple of the tiles'; a 1024-wide and a 16-deep stack.
+# Then the edges of the 128 x 128 tiles: widths between 257 and 384 that
+# are no multiple of 128 with a d_in of 300 (1,591 rows, rays across
+# tiles); dhead_dir's ray sums made by a product (two head layers) over
+# rays of 7 samples, many to a tile; rays of one sample; and rays of 300
+# samples, each over three or four tiles.
 LAYERED_CASES = {
     "layered-wide-bf16": (64, 512, 3, 1, 37, 43),
     "layered-wide-f32": (64, 512, 3, 1, 37, 43),
@@ -465,6 +470,11 @@ LAYERED_CASES = {
     "layered-odd-f32": (257, 33, 1, 1, 9, 31),
     "layered-1024-bf16": (1024, 1024, 1, 1, 4, 65),
     "layered-16-deep-bf16": (24, 40, 8, 8, 8, 33),
+    "layered-edge-bf16": (300, 320, 3, 1, 37, 43),
+    "layered-edge-f32": (300, 330, 2, 1, 37, 43),
+    "layered-short-rays-bf16": (64, 264, 2, 2, 61, 7),
+    "layered-one-sample-bf16": (16, 272, 1, 1, 300, 1),
+    "layered-long-rays-bf16": (64, 288, 2, 1, 3, 300),
 }
 CUDA_CASES.update(LAYERED_CASES)
 CUDA_DTYPES = {name: torch.float32 if name.endswith("-f32") else torch.bfloat16
@@ -790,11 +800,14 @@ def test_host_plan_is_the_kernels_plan(cuda_device, backward):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("head", [True, False], ids=["field", "density"])
-@pytest.mark.parametrize("case", ["layered-wide-bf16", "layered-deep-f32"])
+@pytest.mark.parametrize("case", ["layered-wide-bf16", "layered-deep-f32", "layered-deep-bf16",
+                                  "layered-wide-f32"])
 def test_layered_weight_gradients_are_bit_equal_over_two_launches(cuda_device, case, head):
     """The layered route's K4b and K5b: each weight gradient is summed per
     row split in row order, the splits in split order and the chunks in
-    chunk order: the same bits in every launch (no float atomics)."""
+    chunk order; each bias gradient and dhead_dir per tile, then over the
+    tiles in tile order: the same bits in every launch (no float
+    atomics)."""
     _assert_bit_equal_twice(case, head, CUDA_DTYPES[case])
 
 
@@ -816,18 +829,20 @@ def test_layered_route_runs_rows_in_chunks(cuda_device, monkeypatch, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_host_layered_plan_is_the_kernels_plan(cuda_device, backward):
-    """The host's layered plan (scratch floats a row, workspace floats,
-    shared memory) is the one the kernels check the scratch against."""
+    """The host's layered plan (scratch floats a row, scratch floats beside
+    the rows, a product block's shared memory and stages) is the one the
+    kernels check the scratch against and launch with."""
     import ctypes
 
     query = cuda.entry("tetranerf_fused_mlp_layered_plan")
     for d_in, hidden, n_base, n_head, _, _ in LAYERED_CASES.values():
         for dtype in (torch.float32, torch.bfloat16):
             host = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
-            out = (ctypes.c_longlong * 3)()
+            out = (ctypes.c_longlong * 4)()
             assert query(d_in, hidden, n_base, n_head, int(dtype == torch.bfloat16),
                          int(backward), out)
-            assert list(out) == [host.aux_tile_floats, host.ws_floats, host.smem_bytes]
+            assert list(out) == [host.aux_tile_floats, host.ws_floats, host.smem_bytes,
+                                 host.stages]
 
 
 # ------------------------------------------------------- the launch plan
@@ -961,23 +976,38 @@ def test_launch_plan_refuses_outside_the_range(stack, dtype, match):
 ], ids=["hidden-257", "d_in-257", "depth-9", "1024-wide", "16-deep", "16-deep-density"])
 def test_launch_plan_takes_wide_and_deep_stacks_on_the_layered_route(stack, dtype):
     """Past the generic route's widths and depths, the layered route: 8
-    warps of 16 rows a product block, its static shared memory, a row of a
-    chunk holding a_1 .. a_L as operands (and in the backward two f32
-    cotangents and the heads' four), the backward's workspace 2^24 floats or
-    one row of the largest weight gradient and its bias."""
+    warps of 16 rows a product block (bf16: two wgmma warpgroups), a ring
+    of three stages in its dynamic shared memory, a row of a chunk holding
+    a_1 .. a_L as operands (bf16: beside x's bf16 copy; in the backward two
+    cotangents as operands and the heads' four f32), the backward's
+    workspace 2^24 floats or one row of the largest weight gradient and its
+    bias, and in bf16 the weights' bf16 copies (W_k; the backward's W_k^T
+    too) beside it."""
     d_in, hidden, n_base, n_head = stack
-    esz = 2 if dtype == torch.bfloat16 else 4
-    ldh = -(-hidden // 8) * 8
+    bf16 = dtype == torch.bfloat16
+    esz = 2 if bf16 else 4
+    ldh, ldx = -(-hidden // 8) * 8, -(-d_in // 8) * 8
+    layers = n_base + n_head
     for backward in (False, True):
         plan = launch_plan(d_in, hidden, n_base, n_head, backward, dtype)
         assert plan.route == "layered"
         assert plan.rows_per_tile == 128 and plan.warps == 8
-        assert plan.warpgroups == plan.stages == plan.phases == 0 and not plan.resident
-        assert 0 < plan.smem_bytes <= 48 * 1024  # static shared memory
-        row = (n_base + n_head) * ldh * esz // 4 + (2 * ldh + 4 if backward else 0)
+        assert plan.warpgroups == (2 if bf16 else 0) and plan.stages == 3
+        assert plan.phases == 0 and not plan.resident
+        # Three stages of a 128 x 64 and a 128 x 64 bf16 operand (and the
+        # column sums' partials of 8 warps by 128 columns), or of a 128 x 32
+        # and a 64 x 32 f32 operand (rows padded by 16 bytes).
+        assert plan.smem_bytes == (3 * 256 * 64 * 2 + 8 * 128 * 4 if bf16 else 3 * 192 * 36 * 4)
+        assert plan.smem_bytes <= MAX_SMEM_BYTES
+        cot = 2 * ldh + 4 * 4 // esz if backward else 0  # in elements of esz bytes
+        row = (layers * ldh + (ldx if bf16 else 0) + cot) * esz // 4
         assert plan.aux_tile_floats == row
-        ws = max(1 << 24, hidden * max(d_in, hidden, 4) + hidden)
-        assert plan.ws_floats == (ws if backward else 0)
+        ws = max(1 << 24, hidden * max(d_in, hidden, 4) + hidden) if backward else 0
+        ins = [ldx] + [ldh] * (layers - 1)
+        copies = hidden * sum(ins) * 2 // 4 if bf16 else 0
+        if bf16 and backward:
+            copies += (d_in + hidden * (layers - 1)) * ldh * 2 // 4
+        assert plan.ws_floats == ws + copies
         # One chunk holds at least one ray and at most LAYERED_SCRATCH_BYTES.
         for rays, samples in ((4096, 257), (3, 1), (1, 10**7)):
             chunk = mlp.layered_chunk_rays(plan, rays, samples)

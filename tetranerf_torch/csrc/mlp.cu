@@ -2644,55 +2644,83 @@ cudaError_t launch_bwd(const GPlan& p, const float* x, const float* head_dir, co
 // alike (ops/mlp.py `launch_plan`). Width and depth are runtime values with
 // no cap: nothing of the stack has to fit shared memory at once.
 //
-// Precision, as the generic route's. bfloat16: every product on mma.sync
-// m16n8k16, bf16 operands and f32 sums. float32 (JAX's Precision.HIGHEST):
-// the layer chain, the forward's and the backward's recomputed one, as f32
-// FMAs in a plain GEMM's order (gen::fma_pass), so that the pre-activations
-// and the ReLU masks that gate the cotangents are the f32 twin's; the
-// backward's other products (g W and g^T a) as 3xTF32 (gen::mma_pass).
-// Activations are stored as operands (bf16-rounded in bfloat16); cotangents
-// stay f32 in memory and round only as they are staged for a product, so
-// the bias, head and head_dir gradients are f32 sums of unrounded values.
+// Precision, as the generic route's. bfloat16: every product takes bf16
+// operands and sums in f32. float32 (JAX's Precision.HIGHEST): the layer
+// chain, the forward's and the backward's recomputed one, as f32 FMAs in a
+// plain GEMM's order (gen::fma_pass), so that the pre-activations and the
+// ReLU masks that gate the cotangents are the f32 twin's; the backward's
+// other products (g W and g^T a) as 3xTF32 (gen::mma_pass). Activations are
+// stored as operands. A cotangent is stored as an operand too (rounded to
+// bf16 in bfloat16, the value every product that reads it rounds it to);
+// the bias, head and head_dir gradients are f32 sums of the unrounded
+// values, taken where a cotangent is made, before it is rounded.
 //
 // What bounds it on the H100: at (d_in, hidden) = (64, 512) with 3 + 1
 // layers a row is 821,248 MACs, and the train slice (4096 x 257 rows) 1.73
 // TFLOP forward: 1.75 ms at the 989 TFLOP/s bf16 tensor peak, 25.8 ms at
 // the 67 TFLOP/s f32 FMA peak; the backward has three times the products.
-// The layer boundaries weigh more than those operations in bf16: each one
-// writes an activation ([rows, 512] bf16, 1.08 GB at the train slice) and
-// reads it back, ~0.65 ms of HBM traffic a layer and more in the backward.
+// The layer boundaries add HBM traffic: each writes an activation ([rows,
+// 512] bf16, 1.08 GB at the train slice) and reads it back.
 //
-// Design. One tiled product kernel a layer (`prod_kernel`), the activations
-// crossing global memory between layers, rows in chunks of whole rays
-// (the host's `rays_per_chunk`) so that the scratch stays bounded and a
-// ray's sums close in its chunk. A block computes a 128 x 64 tile of the
-// output, eight warps of 16 rows, stepping the reduction 32 deep: both
-// operands staged into shared memory as operands (zero past the edges), in
-// the layout they have in global memory, and multiplied from there
-// (ldmatrix.trans reads the transposed ones). Three modes:
+// Design. One tiled product kernel a layer, the activations crossing global
+// memory between layers, rows in chunks of whole rays (the host's
+// `rays_per_chunk`) so that the scratch stays bounded and a ray's sums close
+// in its chunk. Three products:
 //   0, a layer: a_{k+1}[n][j] = relu(sum_i a_k[n][i] W_k[j][i] + b_k[j]),
 //      head_dir[ray(n)][j] in place of b_k at W_bh;
 //   1, a cotangent one layer down: g[n][i] = sum_j gz_k[n][j] W_k[j][i],
 //      plus the density head's gz_d[n] w_d[i] into a_nb, zero where a_k <= 0
 //      (dx: no mask);
 //   2, a weight gradient over a split of the rows: dW[j][i] = sum_n gz[n][j]
-//      a[n][i] into the split's row of a workspace, with the bias gradient
-//      (the column sums of the unrounded gz) beside it; `reduce_kernel` adds
-//      the rows in split order, and the chunks in chunk order: the same bits
-//      in every launch, no float atomics.
-// The heads (density: 1 output, softplus; colour: 3, sigmoid) are a warp a
-// row (`heads_kernel`), their cotangents into a_L one elementwise kernel
-// (`top_kernel`), dhead_dir a thread per ray and column (`raysum_kernel`).
+//      a[n][i], the block's tile in registers for its whole split, written
+//      once into the split's row of a workspace; `reduce_kernel` adds the
+//      rows in split order, and the chunks in chunk order: the same bits in
+//      every launch, no float atomics.
+// bfloat16 (`wg_kernel`): the call first casts the weights once to bf16
+// copies in the scratch (W_k, and for the backward W_k^T, so that modes 0
+// and 1 read both operands K-major), and each chunk's x to bf16. A block
+// computes 128 x 128 tiles of the output with two warpgroups of `wgmma`
+// m64n128k16, both operands from shared memory: a ring of three 64-deep
+// stages filled by cp.async (16 bytes a thread) while the earlier stages'
+// products run, in wgmma's 128-byte swizzle (the unswizzled core-matrix
+// layout ran the same products at half the rate); mode 2 reads gz^T and a
+// as MN-major operands through the descriptors, with no transposed copy.
+// Two blocks an SM; in modes 0 and 1 each walks several tiles as one
+// stream of stages, so that a tile's epilogue runs while the next tile's
+// first stages load. Epilogues stage their 128 x 128 tiles (a ReLU mask,
+// the output) in shared memory so that global memory is read and written
+// 16 bytes a thread. The epilogue that makes a cotangent (mode 1, and
+// `top_tile_kernel` for the first) stores it as bf16 operands and writes
+// the tile's column sums of its unrounded values (the bias gradient) or
+// its rays' sums (dhead_dir) as per-tile partials, summed in tile order
+// after it (`reduce_kernel`, `ray_fix_kernel`). float32 (`prod_kernel`): a block
+// computes a 128 x 64 tile, eight warps of 16 rows, a ring of three 32-deep
+// stages by cp.async, f32 operands as they are in memory; the cotangents'
+// column sums and ray sums are kernels of their own (`colsum_kernel`,
+// `raysum_kernel`). The heads (density: 1 output, softplus; colour: 3,
+// sigmoid) are a warp a row (`heads_kernel`); their weight and bias
+// gradients one pass over a_nb and a_L in row splits (`head_grad_kernel`).
 // The backward recomputes the chain, as JAX's does, then goes down the
-// layers: dW_k and db_k (mode 2), the cotangent one layer down (mode 1).
+// layers: dW_k (mode 2), the cotangent one layer down (mode 1).
 
 namespace lay {
 
+constexpr long long kWsFloats = 1 << 24;  // the backward's workspace, at least
+constexpr int kStages = 3;                // the float32 products' ring of stages
+// bfloat16 (wg_kernel): 128 x 128 outputs a block, a ring of three
+// 64-deep stages of both operands, two blocks an SM.
+constexpr int kWgStages = 3;
+constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kStageBytes = (kBM + kBN) * kBK * 2;
+constexpr int kWgSmem = kWgStages * kStageBytes;
+constexpr int kRedBytes = 8 * kBN * 4;  // the column sums' warp partials, past the ring
+constexpr int kTileStride = kBN + 4;  // the epilogue's f32 tile for ray sums
+static_assert((kBM * kTileStride + kBN) * 4 <= kWgSmem, "the ray sums' tile fits the ring");
+// float32 (prod_kernel): 128 x 64 outputs a block, eight warps, 32-deep stages.
 constexpr int kWarps = 8;
-constexpr int kTM = 16 * kWarps;  // output rows of a block's tile
-constexpr int kTN = 64;           // output columns of a block's tile
-constexpr int kTK = 32;           // reduction depth of a stage
-constexpr long long kWsFloats = 1 << 24;  // the weight-gradient workspace, at least
+constexpr int kTM = 16 * kWarps, kTN = 64, kTK = 32;
+constexpr int kF32StageBytes = (kTM + kTN) * (kTK + 4) * 4;  // mode 0's, the largest
+constexpr int kF32Smem = kStages * kF32StageBytes;
 
 // The packed weights' offsets (ops/mlp.py `_pack`, as pack_layout) computed
 // per matrix, with no arrays: any depth.
@@ -2710,129 +2738,692 @@ struct Stack {
   int bd_off() const { return n_base * hidden; }
   int bc_off() const { return (n_layers - 1) * hidden + 1; }
   int ldh() const { return align_up(hidden, 8); }  // an activation's row stride
-  // Scratch floats a row: a_1 .. a_L as operands; backward: two cotangents
-  // (f32) and the heads' cotangents [4].
+  int ldx() const { return align_up(d_in, 8); }    // x's bf16 copy's
+  int ld_in(int k) const { return k == 0 ? ldx() : ldh(); }
+  // Scratch floats a row of a chunk. bfloat16: a_1 .. a_L and x as bf16
+  // operands; backward: two bf16 cotangents and the heads' four (f32).
+  // float32: a_1 .. a_L; backward: two f32 cotangents and the heads' four.
   long long row_floats(bool bf16, bool backward) const {
-    return static_cast<long long>(n_layers) * ldh() * (bf16 ? 2 : 4) / 4 +
-           (backward ? 2LL * ldh() + 4 : 0);
+    if (bf16) {
+      return (static_cast<long long>(n_layers) * ldh() + ldx() + (backward ? 2LL * ldh() : 0)) / 2 +
+             (backward ? 4 : 0);
+    }
+    return static_cast<long long>(n_layers) * ldh() + (backward ? 2LL * ldh() + 4 : 0);
   }
-  // The weight-gradient workspace: kWsFloats, and at least one row of the
-  // largest dW and its bias; as many row splits of a dW as it holds.
-  long long ws_floats() const {
-    return std::max(kWsFloats, static_cast<long long>(hidden) *
-                                       std::max(std::max(d_in, hidden), 4) + hidden);
+  // The backward's workspace: kWsFloats, and at least one row of the
+  // largest dW; as many row splits of a dW as it holds. It also holds the
+  // heads' gradients' splits and a cotangent's per-tile partial sums.
+  long long ws_floats(bool backward) const {
+    if (!backward) return 0;
+    return std::max(kWsFloats, static_cast<long long>(hidden) * std::max(std::max(d_in, hidden), 4) +
+                                   hidden);
+  }
+  // bfloat16: the weights' bf16 copies, W_k [hidden][ld_in(k)] and for the
+  // backward W_k^T [in_dim(k)][ldh] (floats; each a multiple of 4).
+  long long wb_floats(int k) const { return static_cast<long long>(hidden) * ld_in(k) / 2; }
+  long long wt_floats(int k) const { return static_cast<long long>(in_dim(k)) * ldh() / 2; }
+  long long copy_floats(bool bf16, bool backward) const {
+    long long n = 0;
+    for (int k = 0; bf16 && k < n_layers; ++k) n += wb_floats(k) + (backward ? wt_floats(k) : 0);
+    return n;
+  }
+  // Scratch floats beside the rows: the workspace, then the copies.
+  long long fixed_floats(bool bf16, bool backward) const {
+    return ws_floats(backward) + copy_floats(bf16, backward);
   }
 };
 
-// One product and its epilogue (see the modes above). Element (n, c) of a
-// row-major source is at p + n * ld + c, float where its `_f32` flag is
-// set, else bf16.
+// Dynamic shared memory of a product block.
+int smem_bytes(bool bf16) { return bf16 ? kWgSmem + kRedBytes : kF32Smem; }
+
+// ------------------------------------------------ bfloat16: wg_kernel
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64] += A x B over k16, m64n128, A and B in shared memory: both K-major
+// (kT = 0) or both MN-major (kT = 1).
+template <int kT>
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %66, %66;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "n"(kT), "r"(1));
+}
+
+// The operands' shared-memory layout: wgmma's 128-byte swizzle, in 1024-byte
+// atoms of 8 rows of 128 bytes whose 16-byte chunks sit at chunk ^ (row &
+// 7) (the address's bits 4-6 XOR its bits 7-9; stages are 1024-aligned).
+constexpr uint64_t kSwizzle128 = 1ULL << 62;
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// A K-major stage: rows [r0, r0 + 128) by depth [k0, k0 + 64) of a
+// row-major bf16 source (row stride ld), zero from row r_end and depth
+// k_end (a multiple of 8) on, by cp.async: row r's 8 chunks of 8 elements
+// in its 128-byte row of the swizzled layout. Eight neighbouring threads
+// copy one row: 128 bytes read together, and no bank conflict.
+__device__ __forceinline__ void load_kmajor(uint32_t dst, const __nv_bfloat16* src, long long ld,
+                                            long long r0, long long r_end, long long k0,
+                                            long long k_end) {
+#pragma unroll
+  for (int q = 0; q < kBM * kBK / 8 / 256; ++q) {
+    const int e = threadIdx.x + 256 * q, r = e >> 3, c = e & 7;
+    const long long gr = r0 + r, k = k0 + 8 * c;
+    const bool ok = gr < r_end && k < k_end;
+    cp_async16(dst + sw128(r, c), ok ? src + gr * ld + k : src, ok ? 16 : 0);
+  }
+}
+
+// An MN-major stage: depth rows [k0, k0 + 64) by columns [c0, c0 + 128) of
+// a row-major bf16 source, zero from row k_end and column c_end (a multiple
+// of 8) on: two atom columns of 64 columns (8192 bytes apart), depth row k
+// of each the 128-byte row k of the swizzled layout.
+__device__ __forceinline__ void load_mnmajor(uint32_t dst, const __nv_bfloat16* src, long long ld,
+                                             long long k0, long long k_end, long long c0,
+                                             long long c_end) {
+#pragma unroll
+  for (int q = 0; q < kBK * kBN / 8 / 256; ++q) {
+    const int e = threadIdx.x + 256 * q, half = e >> 9, k = (e >> 3) & 63, c = e & 7;
+    const long long gk = k0 + k, col = c0 + 64 * half + 8 * c;
+    const bool ok = gk < k_end && col < c_end;
+    cp_async16(dst + half * 8192 + sw128(k, c), ok ? src + gk * ld + col : src, ok ? 16 : 0);
+  }
+}
+
+// Where element i of a thread's m64n128 accumulator sits in the block's
+// 128 x 128 tile: warpgroup w has rows 64 w .. 64 w + 63.
+__device__ __forceinline__ int acc_row(int i) {
+  return (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1); }
+
+// One bf16 product (see the modes above): C[M][N] = sum over K of A B.
+// Modes 0, 1: A = a[row][k] (the layer's input or gz), B[k][n] = b[n][k]
+// (W_k or W_k^T), both K-major, K = `depth`; mode 2: A[j][n] = a[n][j] (gz),
+// B[n][i] = b[n][i] (the layer's input), both MN-major, K = the split's rows.
+struct WgProd {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  long long lda, ldb;
+  long long m;  // rows of C (0, 1: the chunk's rows; 2: hidden)
+  int n;        // columns of C with values (0: hidden; 1: the layer's input width; 2: its dW's)
+  long long depth;  // 0, 1: the reduction depth (a multiple of 8, zero past the widths)
+  int a_cols, b_cols;  // 2: the sources' padded widths (multiples of 8)
+  long long rows, split_rows, split_stride;  // 2: reduction rows, rows a split, workspace row floats
+  int col_tiles;     // tiles along C's columns (the fast index of a tile's number)
+  long long tiles;   // tiles of C
+  // Epilogues. 0: out = a_{k+1} as operands, [m][ldo], zero from column n
+  // to ldo; 1: out = the masked cotangent (as 0), or dx (f32, [m][n]); 2:
+  // ws, the workspace rows.
+  void* out;
+  long long ldo;
+  const float* bias;   // 0: the bias (or null)
+  const float* hd;     // 0: head_dir, a row a ray (or null)
+  const __nv_bfloat16* mask;  // 1: the layer input whose ReLU gates the cotangent (null: dx)
+  const float* gd;     // 1: the heads' cotangents [rows][4], gz_d at column 0 (null: none)
+  const float* wd;     // 1: w_d
+  float* part;         // 1: the cotangent's per-tile partial sums (see cot_epilogue)
+  float* dhd;          // 1: the chunk's dhead_dir rows (ray sums)
+  int num_samples;
+};
+
+// A 128 x 128 bf16 tile through shared memory, so that global memory is
+// read and written 16 bytes a thread, a row's 256 bytes by 16 neighbouring
+// threads: rows of 256 bytes whose 16-byte chunks sit at chunk ^ (row & 7),
+// where neither those copies nor the accumulator layout's element pairs
+// meet a bank conflict; 32 KB, one stage of the ring. tile_in: rows [row0,
+// row0 + 128) and columns [col0, col0 + 128) of src (row stride ld), zero
+// past m rows and ld columns; tile_out: the tile into dst's rows below m
+// and columns below ld.
+__device__ __forceinline__ int tile_off(int r, int chunk) { return r * 256 + ((chunk ^ (r & 7)) << 4); }
+__device__ __forceinline__ void tile_in(char* t, const __nv_bfloat16* src, long long ld,
+                                        long long m, long long row0, int col0) {
+#pragma unroll
+  for (int q = 0; q < kBM * kBN / 8 / 256; ++q) {
+    const int e = threadIdx.x + 256 * q, r = e >> 4, ch = e & 15;
+    const long long gr = row0 + r, gc = col0 + 8 * ch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gr < m && gc < ld) v = *reinterpret_cast<const uint4*>(src + gr * ld + gc);
+    *reinterpret_cast<uint4*>(t + tile_off(r, ch)) = v;
+  }
+}
+__device__ __forceinline__ void tile_out(const char* t, __nv_bfloat16* dst, long long ld,
+                                         long long m, long long row0, int col0) {
+#pragma unroll
+  for (int q = 0; q < kBM * kBN / 8 / 256; ++q) {
+    const int e = threadIdx.x + 256 * q, r = e >> 4, ch = e & 15;
+    const long long gr = row0 + r, gc = col0 + 8 * ch;
+    if (gr < m && gc < ld) {
+      *reinterpret_cast<uint4*>(dst + gr * ld + gc) = *reinterpret_cast<const uint4*>(t + tile_off(r, ch));
+    }
+  }
+}
+// Accumulator element i's pair (i even) in the tile.
+__device__ __forceinline__ int pair_off(int i) {
+  const int r = acc_row(i), c = acc_col(i);
+  return tile_off(r, c >> 3) + (c & 7) * 2;
+}
+__device__ __forceinline__ float2 tile_pair(const char* t, int i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t + pair_off(i)));
+}
+
+// A cotangent tile g (in the accumulator layout, 0 at rows past m and
+// columns past n) into `out` as bf16 operands (row stride ldo), staged in
+// shared memory at `t`, with (kSums 1) the tile's column sums of the
+// unrounded values into row `tile` of part [tiles][ldo], summed over 16-row
+// warps by shuffles, then over the 8 warps in order (in `red`); or (kSums 2)
+// each ray's sum over the tile's rows in row order (an f32 tile at `t`,
+// 66 KB, first): into dhd for a ray inside the tile, else into part
+// [tiles][2][ldo], slot 0 for the ray of the tile's first row and 1 for
+// that of its last (`ray_fix_kernel` adds a ray's slots in tile order).
+// The block's threads are done with `t` and `red`.
+template <int kSums>
+__device__ __forceinline__ void cot_epilogue(float (&g)[64], __nv_bfloat16* out, long long ldo,
+                                             long long m, int n, long long row0, int col0,
+                                             float* part, float* dhd, int num_samples, char* t,
+                                             float* red) {
+  const long long tile = row0 / kBM;
+  if constexpr (kSums == 2) {
+    // Each half of the threads sums a column over one 64-row half of the
+    // tile; the ray with rows in both halves (if any) is half 0's sum plus
+    // half 1's, after a barrier.
+    float* const ft = reinterpret_cast<float*>(t);
+    float* const mid = ft + kBM * kTileStride;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) ft[acc_row(i) * kTileStride + acc_col(i)] = g[i];
+    __syncthreads();
+    const int th = threadIdx.x & (kBN - 1), half = threadIdx.x / kBN, c = col0 + th;
+    const long long end = min(m, row0 + kBM), S = num_samples, first = row0 / S;
+    const long long h0 = row0 + 64 * half, h1 = min(end, h0 + 64);
+    const long long both = row0 + 64 < end && (row0 + 63) / S == (row0 + 64) / S
+                               ? (row0 + 64) / S : -1;
+    auto put = [&](long long ray, float s) {
+      if (ray * S >= row0 && (ray + 1) * S <= end) {
+        dhd[ray * n + c] = s;
+      } else {
+        part[(tile * 2 + (ray == first ? 0 : 1)) * ldo + c] = s;
+      }
+    };
+    float held = 0.0f;
+    if (c < n && h0 < h1) {
+      long long r = h0;
+      for (long long ray = h0 / S; ray <= (h1 - 1) / S; ++ray) {
+        const long long stop = min(h1, (ray + 1) * S);
+        float s = 0.0f;
+        for (; r < stop; ++r) s += ft[(r - row0) * kTileStride + th];
+        if (ray != both) {
+          put(ray, s);
+        } else if (half == 0) {
+          mid[th] = s;
+        } else {
+          held = s;
+        }
+      }
+    }
+    __syncthreads();
+    if (half == 1 && both >= 0 && c < n) put(both, mid[th] + held);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    *reinterpret_cast<uint32_t*>(t + pair_off(i)) = pack_bf16(g[i], g[i + 1]);
+  }
+  if constexpr (kSums == 1) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = g[4 * q + e] + g[4 * q + 2 + e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (lane < 4) red[warp * kBN + 8 * q + 2 * lane + e] = s;
+      }
+    }
+  }
+  __syncthreads();
+  tile_out(t, out, ldo, m, row0, col0);
+  if constexpr (kSums == 1) {
+    const int th = threadIdx.x;
+    if (th < kBN && col0 + th < ldo) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * kBN + th];
+      part[tile * ldo + col0 + th] = s;
+    }
+  }
+}
+
+// 128 x 128 tiles of one product (kMode; kSums: mode 1's sums, as
+// cot_epilogue's, 0 for dx). Two warpgroups, each a 64-row half of a tile
+// on wgmma m64n128k16; the 256 threads fill a ring of kWgStages stages by
+// cp.async, two ahead of the products. Modes 0 and 1 (but for the ray sums)
+// walk tiles blockIdx.x, + gridDim.x, ... as one stream of stages, so that
+// the next tile's first stages load while a tile's last products and its
+// epilogue run, the epilogue staging its tiles in the ring's stage that its
+// last products freed; mode 2 (a split of the rows a block) and the ray
+// sums (whose f32 tile takes the whole ring) take one tile a block.
+template <int kMode, int kSums>
+__global__ void __launch_bounds__(256, 2) wg_kernel(const __grid_constant__ WgProd p) {
+  extern __shared__ __align__(1024) char lay_smem[];
+  const uint32_t s0 = smem_u32(lay_smem);
+  const int wg = threadIdx.x >> 7;
+  long long k_begin = 0, k_end = p.depth;
+  if constexpr (kMode == 2) {
+    k_begin = blockIdx.y * p.split_rows;
+    k_end = min(p.rows, k_begin + p.split_rows);
+  }
+  const int nk = static_cast<int>((k_end - k_begin + kBK - 1) / kBK);
+  const long long total =
+      (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * static_cast<long long>(nk);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  // The block's stream of stages: tile blockIdx.x, + gridDim.x, ..., nk
+  // depth steps each, in ring slots 0, 1, 2, 0, ...; the loads' position in
+  // it and the products' (counters, no division).
+  long long ld_tile = blockIdx.x, tile = blockIdx.x;
+  int ld_kt = 0, ld_slot = 0, kt = 0, slot = 0;
+  auto load_next = [&]() {
+    const int col0 = static_cast<int>(ld_tile % p.col_tiles) * kBN;
+    const long long row0 = ld_tile / p.col_tiles * kBM;
+    const uint32_t sa = s0 + ld_slot * kStageBytes, sb = sa + kBM * kBK * 2;
+    const long long k0 = k_begin + static_cast<long long>(ld_kt) * kBK;
+    if constexpr (kMode == 2) {
+      load_mnmajor(sa, p.a, p.lda, k0, k_end, row0, p.a_cols);
+      load_mnmajor(sb, p.b, p.ldb, k0, k_end, col0, p.b_cols);
+    } else {
+      load_kmajor(sa, p.a, p.lda, row0, p.m, k0, k_end);
+      load_kmajor(sb, p.b, p.ldb, col0, p.n, k0, k_end);
+    }
+    ld_slot = ld_slot + 1 == kWgStages ? 0 : ld_slot + 1;
+    if (++ld_kt == nk) {
+      ld_kt = 0;
+      ld_tile += gridDim.x;
+    }
+  };
+  constexpr int kAhead = kWgStages - 1;
+#pragma unroll
+  for (int t = 0; t < kAhead; ++t) {
+    if (t < total) load_next();
+    cp_async_commit();
+  }
+  fence_regs<64>(acc);
+  for (long long q = 0; q < total; ++q) {
+    cp_async_wait_n<kAhead - 1>();
+    fence_async_smem();  // the copies, visible to wgmma's reads
+    __syncthreads();     // every thread's copies of stage q; stage q - 1's products done
+    if (q + kAhead < total) load_next();
+    cp_async_commit();
+    const uint32_t sa = s0 + slot * kStageBytes, sb = sa + kBM * kBK * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      if constexpr (kMode == 2) {
+        // MN-major atoms: 64 columns (8192 bytes apart) by 8 depth rows
+        // (1024 bytes apart); a k16 step is two atoms down.
+        wgmma128<1>(acc, make_desc(sa + wg * 8192 + kc * 2048, 8192, 1024) | kSwizzle128,
+                    make_desc(sb + kc * 2048, 8192, 1024) | kSwizzle128);
+      } else {
+        // K-major atoms: 8 rows (1024 bytes apart) by the stage's 64 depth; a
+        // k16 step is 32 bytes along the rows.
+        wgmma128<0>(acc, make_desc(sa + wg * 8192 + kc * 32, 16, 1024) | kSwizzle128,
+                    make_desc(sb + kc * 32, 16, 1024) | kSwizzle128);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<64>(acc);
+    const int done_slot = slot;
+    slot = slot + 1 == kWgStages ? 0 : slot + 1;
+    if (++kt != nk) continue;
+    kt = 0;
+    // The tile's epilogue, in the stage its last products read (the next
+    // stage to load into it is q + kWgStages, after the next barrier).
+    const int col0 = static_cast<int>(tile % p.col_tiles) * kBN;
+    const long long row0 = tile / p.col_tiles * kBM;
+    tile += gridDim.x;
+    char* const t = lay_smem + done_slot * kStageBytes;
+    if constexpr (kMode == 2) {
+      float* ws = static_cast<float*>(p.out) + blockIdx.y * p.split_stride;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const long long j = row0 + acc_row(i);
+        const int c = col0 + acc_col(i);
+        if (j < p.m && c < p.n) ws[j * p.n + c] = acc[i];
+      }
+    } else if constexpr (kMode == 0) {
+      // The tile's bias in shared memory (past the ring), or head_dir's row
+      // of the ray of each of the thread's two rows.
+      float* const sb = reinterpret_cast<float*>(lay_smem + kWgSmem);
+      const float* hd_row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = min(row0 + acc_row(2 * h), p.m - 1);
+        hd_row[h] = p.hd != nullptr ? p.hd + gen::ray_of(r, p.num_samples) * p.n : nullptr;
+      }
+      if (p.hd == nullptr && threadIdx.x < kBN) {
+        sb[threadIdx.x] = col0 + threadIdx.x < p.n ? __ldg(p.bias + col0 + threadIdx.x) : 0.0f;
+      }
+      __syncthreads();  // the bias in; both warpgroups' products done with the stage
+      const bool one_ray = hd_row[0] == hd_row[1];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        // Columns c, c + 1 of the thread's two rows: elements 4q + 2h + e.
+        const int c = col0 + acc_col(4 * q);
+        float add[2][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ce = c + e;
+          if (p.hd == nullptr) {
+            add[0][e] = add[1][e] = sb[ce - col0];
+          } else {
+            add[0][e] = ce < p.n ? __ldg(hd_row[0] + ce) : 0.0f;
+            add[1][e] = one_ray ? add[0][e] : ce < p.n ? __ldg(hd_row[1] + ce) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * q + 2 * h;
+          const long long r = row0 + acc_row(i);
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = r < p.m && c + e < p.n ? fmaxf(acc[i + e] + add[h][e], 0.0f) : 0.0f;
+          }
+          *reinterpret_cast<uint32_t*>(t + pair_off(i)) = pack_bf16(v[0], v[1]);
+        }
+      }
+      __syncthreads();
+      tile_out(t, static_cast<__nv_bfloat16*>(p.out), p.ldo, p.m, row0, col0);
+    } else {
+      char* const ring_t = kSums == 2 ? lay_smem : t;
+      if constexpr (kSums == 2) cp_async_wait_n<0>();  // one tile a block: the ring is free
+      __syncthreads();
+      // The density head's cotangent of the thread's two rows, and the
+      // tile's w_d (past the ring), where it joins a_nb's.
+      float gd[2] = {0.0f, 0.0f};
+      float* const swd = reinterpret_cast<float*>(lay_smem + kWgSmem);
+      if (p.gd != nullptr) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = row0 + acc_row(2 * h);
+          gd[h] = r < p.m ? bfr(p.gd[r * 4]) : 0.0f;
+        }
+        if (threadIdx.x < kBN) {
+          swd[threadIdx.x] = col0 + threadIdx.x < p.n ? bfr(__ldg(p.wd + col0 + threadIdx.x)) : 0.0f;
+        }
+      }
+      if (p.mask != nullptr) tile_in(ring_t, p.mask, p.ldo, p.m, row0, col0);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const long long r = row0 + acc_row(i);
+        const int c = col0 + acc_col(i);
+        const float2 mk = p.mask != nullptr ? tile_pair(ring_t, i) : make_float2(1.0f, 1.0f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[i + e];
+          if (r >= p.m || c + e >= p.n) {
+            v = 0.0f;
+          } else {
+            if (p.gd != nullptr) v += gd[(i >> 1) & 1] * swd[c + e - col0];
+            if (!((e ? mk.y : mk.x) > 0.0f)) v = 0.0f;
+          }
+          acc[i + e] = v;
+        }
+      }
+      if constexpr (kSums == 0) {  // dx, f32
+        float* dx = static_cast<float*>(p.out);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const long long r = row0 + acc_row(i);
+          const int c = col0 + acc_col(i);
+          if (r < p.m && c < p.n) dx[r * p.n + c] = acc[i];
+        }
+      } else {
+        __syncthreads();  // done with the mask's tile
+        cot_epilogue<kSums>(acc, static_cast<__nv_bfloat16*>(p.out), p.ldo, p.m, p.n, row0, col0,
+                            p.part, p.dhd, p.num_samples, ring_t,
+                            reinterpret_cast<float*>(lay_smem + kWgSmem));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    fence_regs<64>(acc);
+  }
+}
+
+// The heads' cotangent into a_L as a bf16 cotangent, masked where a_L <=
+// 0: the colour head's sum_c gz_c[n][c] W_c[c][j], or (no colour head: a_L
+// is a_nb) the density head's gz_d[n] w_d[j]; a block a 128 x 128 tile in
+// wg_kernel's accumulator layout (a_L's tile staged in shared memory),
+// then cot_epilogue's sums.
+template <int kSums>
+__global__ void __launch_bounds__(256) top_tile_kernel(const float* g, const float* w, int colour,
+                                                       const __nv_bfloat16* a_top, long long ld,
+                                                       int hidden, long long rows, int col_tiles,
+                                                       __nv_bfloat16* dz, float* part, float* dhd,
+                                                       int num_samples) {
+  extern __shared__ __align__(1024) char lay_smem[];
+  const int col0 = static_cast<int>(blockIdx.x % col_tiles) * kBN;
+  const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * kBM;
+  char* const mt = lay_smem;
+  tile_in(mt, a_top, ld, rows, row0, col0);
+  // The tile's columns of W_c (or w_d) as operands, past the ring.
+  float* const sw = reinterpret_cast<float*>(lay_smem + kWgSmem);
+  if (threadIdx.x < kBN) {
+    const int j = col0 + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      sw[c * kBN + threadIdx.x] = j < hidden && (colour || c == 0) ? bfr(__ldg(w + c * hidden + j)) : 0.0f;
+    }
+  }
+  // The thread's two rows (acc_row's two) and their heads' cotangents.
+  long long n[2];
+  float4 q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    n[h] = row0 + acc_row(2 * h);
+    q[h] = n[h] < rows ? *reinterpret_cast<const float4*>(g + n[h] * 4)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    q[h] = make_float4(bfr(q[h].x), bfr(q[h].y), bfr(q[h].z), bfr(q[h].w));
+  }
+  __syncthreads();
+  float v[64];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const int jt = acc_col(4 * t);  // the tile's column, even
+    float wj[2][3];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) wj[e][c] = sw[c * kBN + jt + e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 a = tile_pair(mt, 4 * t + 2 * h);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = colour ? fmaf(q[h].w, wj[e][2], fmaf(q[h].z, wj[e][1], q[h].y * wj[e][0]))
+                         : q[h].x * wj[e][0];
+        if (n[h] >= rows || !((e ? a.y : a.x) > 0.0f)) s = 0.0f;
+        v[4 * t + 2 * h + e] = s;
+      }
+    }
+  }
+  __syncthreads();  // done with a_L's tile
+  cot_epilogue<kSums>(v, dz, ld, rows, hidden, row0, col0, part, dhd, num_samples, lay_smem,
+                      reinterpret_cast<float*>(lay_smem + kWgSmem));
+}
+
+// dhead_dir of the rays that no one tile holds whole: the sum of each of
+// their tiles' slots (cot_epilogue), in tile order.
+__global__ void __launch_bounds__(256) ray_fix_kernel(const float* part, long long ldp, int hidden,
+                                                      int rays, int num_samples, float* dhd) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= static_cast<long long>(rays) * hidden) return;
+  const long long r = e / hidden;
+  const int j = static_cast<int>(e - r * hidden);
+  const long long S = num_samples, t0 = r * S / kBM, t1 = ((r + 1) * S - 1) / kBM;
+  if (t0 == t1) return;
+  float s = 0.0f;
+  for (long long t = t0; t <= t1; ++t) s += part[(t * 2 + (t * kBM / S == r ? 0 : 1)) * ldp + j];
+  dhd[e] = s;
+}
+
+// dst[r][c] = src[r][c] as bf16 for c < cols, 0 for cols <= c < ldd.
+__global__ void __launch_bounds__(256) cast_kernel(const float* src, long long lds, int cols,
+                                                   long long rows, int ldd, __nv_bfloat16* dst) {
+  const long long n = rows * ldd;
+  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < n; e += 256LL * gridDim.x) {
+    const long long r = e / ldd;
+    const int c = static_cast<int>(e - r * ldd);
+    dst[e] = __float2bfloat16(c < cols ? __ldg(src + r * lds + c) : 0.0f);
+  }
+}
+
+// dst[c][r] = src[r][c] as bf16: a [rows][cols] f32 matrix into [cols][ldd]
+// (0 for rows <= r < ldd).
+__global__ void __launch_bounds__(256) transpose_cast_kernel(const float* src, int rows, int cols,
+                                                             int ldd, __nv_bfloat16* dst) {
+  const long long n = static_cast<long long>(cols) * ldd;
+  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < n; e += 256LL * gridDim.x) {
+    const long long c = e / ldd;
+    const int r = static_cast<int>(e - c * ldd);
+    dst[e] = __float2bfloat16(r < rows ? __ldg(src + r * static_cast<long long>(cols) + c) : 0.0f);
+  }
+}
+
+// ------------------------------------------------ float32: prod_kernel
+
+// One f32 product and its epilogue (see the modes above). Element (n, c) of
+// a row-major source is at p + n * ld + c.
 struct Prod {
-  const void* a;     // 0: the layer's input; 1, 2: the cotangent gz (f32)
-  const void* b;     // 2: the layer's input
-  const float* w;    // 0, 1: the weight matrix [m][k] (f32, row stride k)
+  const float* a;     // 0: the layer's input; 1, 2: the cotangent gz
+  const float* b;     // 2: the layer's input
+  const float* w;     // 0, 1: the weight matrix [m][k] (row stride k)
   const float* bias;  // 0: the bias (or null)
   const float* hd;    // 0: head_dir, a row a ray (or null)
-  const void* mask;   // 1: the layer input whose ReLU gates the cotangent (null: none)
+  const float* mask;  // 1: the layer input whose ReLU gates the cotangent (null: none)
   const float* gd;    // 1: the heads' cotangents [rows][4], gz_d at column 0 (null: none)
   const float* wd;    // 1: w_d
-  void* out;          // 0: a_{k+1} (operands); 1: the f32 cotangent; 2: the workspace
+  float* out;         // 0: a_{k+1}; 1: the cotangent (or dx); 2: the workspace
   long long rows;     // 0, 1: output rows; 2: reduction rows
   long long lda, ldb, ldo, ldm;
-  int a_f32, b_f32;
-  int m, k;  // 0: out m, reduction k; 1: reduction m, out k; 2: out [m][k], columns sums of m
+  int m, k;  // 0: out m, reduction k; 1: reduction m, out k; 2: out [m][k]
   int num_samples;
   int col_tiles;            // tiles along the output's columns (the 1-D grid's fast index)
   long long split_rows;     // 2: rows a split (a multiple of kTK)
-  long long split_stride;   // 2: floats of a workspace row ([m][k] then [m])
+  long long split_stride;   // 2: floats of a workspace row
 };
 
-__device__ __forceinline__ float ld_any(const void* p, bool f32, long long i) {
-  return f32 ? __ldg(static_cast<const float*>(p) + i)
-             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-// Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major source into
-// shared memory (row stride st) as operands, zero from row r_end and column
-// c_end on, by the block; four columns a thread, vector loads where aligned.
-template <bool kBf16, int R, int C>
-__device__ __forceinline__ void stage(char* dst, int st, const void* src, bool f32, long long ld,
-                                      long long r0, long long r_end, int c0, int c_end) {
-  constexpr int G = C / 4, es = kBf16 ? 2 : 4;
-  const bool vec = (ld & 3) == 0 && (c0 & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(src) & (f32 ? 15 : 7)) == 0;
-  for (int e = threadIdx.x; e < R * G; e += blockDim.x) {
-    const int r = e / G, c = 4 * (e % G), gc = c0 + c;
-    const long long gr = r0 + r, i = gr * ld + gc;
-    float v[4];
-    if (gr < r_end && vec && gc + 4 <= c_end) {
-      if (f32) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(src) + i));
-        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-      } else {
-        const uint2 q =
-            __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(src) + i));
-        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-        v[0] = __low2float(lo), v[1] = __high2float(lo), v[2] = __low2float(hi),
-        v[3] = __high2float(hi);
-      }
+// Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major f32 source
+// into shared memory (row stride st floats) by cp.async, zero from row
+// r_end and column c_end on: 16 bytes a copy where the source's rows are
+// 16-byte aligned (`vec`) and the copy lies wholly inside or outside the
+// columns, else 4.
+template <int R, int C>
+__device__ __forceinline__ void stage_f32(uint32_t dst, int st, const float* src, long long ld,
+                                          long long r0, long long r_end, long long c0,
+                                          long long c_end, bool vec) {
+  constexpr int G = C / 4;
+#pragma unroll
+  for (int q = 0; q < R * G / (kWarps * 32); ++q) {
+    const int e = threadIdx.x + kWarps * 32 * q;
+    const int r = e / G, c = 4 * (e % G);
+    const long long gr = r0 + r, gc = c0 + c;
+    const uint32_t d = dst + (r * st + c) * 4;
+    if (gr >= r_end || gc >= c_end || (vec && gc + 4 <= c_end)) {
+      const bool ok = gr < r_end && gc < c_end;
+      cp_async16(d, ok ? src + gr * ld + gc : src, ok ? 16 : 0);
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = gr < r_end && gc + q < c_end ? ld_any(src, f32, i + q) : 0.0f;
-    }
-    char* d = dst + (r * st + c) * es;
-    if constexpr (kBf16) {
-      *reinterpret_cast<uint2*>(d) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-    } else {
-      *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = gc + q < c_end;
+        gen::cp_async4(d + 4 * q, ok ? src + gr * ld + gc + q : src, ok ? 4 : 0);
+      }
     }
   }
 }
 
-template <bool kBf16, int kMode>
-__global__ void __launch_bounds__(kWarps * 32) prod_kernel(const __grid_constant__ Prod p) {
-  constexpr int es = kBf16 ? 2 : 4, pad = 16 / es;
+template <int kMode>
+__global__ void __launch_bounds__(kWarps * 32, 2) prod_kernel(const __grid_constant__ Prod p) {
   // A: [kTM][kTK] (modes 0, 1) or [kTK][kTM] (2, gz^T); B: W's [kTN][kTK]
-  // (0), W's [kTK][kTN] (1) or the input's [kTK][kTN] (2); padded rows.
-  constexpr int sa = kMode == 2 ? kTM + pad : kTK + pad;
-  constexpr int sb = kMode == 0 ? kTK + pad : kTN + pad;
-  constexpr int a_elems = kMode == 2 ? kTK * sa : kTM * sa;
-  constexpr int b_elems = kMode == 0 ? kTN * sb : kTK * sb;
-  __shared__ __align__(128) char smem[(a_elems + b_elems) * es];
-  char* const As = smem;
-  char* const Bs = smem + a_elems * es;
+  // (0), W's [kTK][kTN] (1) or the input's [kTK][kTN] (2); rows padded by
+  // 16 bytes.
+  constexpr int sa = kMode == 2 ? kTM + 4 : kTK + 4;
+  constexpr int sb = kMode == 0 ? kTK + 4 : kTN + 4;
+  constexpr int a_bytes = (kMode == 2 ? kTK * sa : kTM * sa) * 4;
+  constexpr int stage_bytes = a_bytes + (kMode == 0 ? kTN * sb : kTK * sb) * 4;
+  static_assert(stage_bytes <= kF32StageBytes, "a stage fits the ring");
+  extern __shared__ __align__(1024) char lay_smem[];
+  const uint32_t s0 = smem_u32(lay_smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long tile = blockIdx.x;
   const int col0 = static_cast<int>(tile % p.col_tiles) * kTN;
   const long long row0 = tile / p.col_tiles * kTM;  // modes 0, 1: rows; 2: rows of dW (j)
+  const bool va = (p.lda & 3) == 0 && (reinterpret_cast<uintptr_t>(p.a) & 15) == 0;
+  const bool vb = kMode == 2 ? (p.ldb & 3) == 0 && (reinterpret_cast<uintptr_t>(p.b) & 15) == 0
+                             : (p.k & 3) == 0 && (reinterpret_cast<uintptr_t>(p.w) & 15) == 0;
+  long long k_begin = 0, k_end = kMode == 0 ? p.k : p.m;
+  if constexpr (kMode == 2) {
+    k_begin = blockIdx.y * p.split_rows;
+    k_end = min(p.rows, k_begin + p.split_rows);
+  }
+  const int nk = static_cast<int>((k_end - k_begin + kTK - 1) / kTK);
+  auto load = [&](int t) {
+    const uint32_t as = s0 + (t % kStages) * kF32StageBytes, bs = as + a_bytes;
+    const long long k0 = k_begin + static_cast<long long>(t) * kTK;
+    if constexpr (kMode == 2) {
+      stage_f32<kTK, kTM>(as, sa, p.a, p.lda, k0, k_end, row0, p.m, va);
+      stage_f32<kTK, kTN>(bs, sb, p.b, p.ldb, k0, k_end, col0, p.k, vb);
+    } else {
+      stage_f32<kTM, kTK>(as, sa, p.a, p.lda, row0, p.rows, k0, k_end, va);
+      if constexpr (kMode == 0) {
+        stage_f32<kTN, kTK>(bs, sb, p.w, p.k, col0, p.m, k0, k_end, vb);
+      } else {
+        stage_f32<kTK, kTN>(bs, sb, p.w, p.k, k0, k_end, col0, p.k, vb);
+      }
+    }
+  };
   // Exact f32 chain: fma_pass's layout (rows rh + 2i, columns c + 16j); else
   // the mma layout (rows g + 8 (e >> 1), columns 8j + 2t + (e & 1)).
-  constexpr bool kFma = !kBf16 && kMode == 0;
+  constexpr bool kFma = kMode == 0;
   float acc[8][4];
   gen::zero(acc);
-  if constexpr (kMode == 2) {
-    const long long r_begin = blockIdx.y * p.split_rows;
-    const long long r_end = min(p.rows, r_begin + p.split_rows);
-    // The bias gradient: the first column tile's threads t < kTM sum the
-    // unrounded gz of column row0 + t over the split's rows, in row order.
-    const bool sums = col0 == 0 && threadIdx.x < kTM && row0 + threadIdx.x < p.m;
-    float cs = 0.0f;
-    for (long long r = r_begin; r < r_end; r += kTK) {
-      stage<kBf16, kTK, kTM>(As, sa, p.a, p.a_f32, p.lda, r, r_end, static_cast<int>(row0), p.m);
-      stage<kBf16, kTK, kTN>(Bs, sb, p.b, p.b_f32, p.ldb, r, r_end, col0, p.k);
-      if (sums) {
-        const float* g = static_cast<const float*>(p.a) + row0 + threadIdx.x;
-        const long long r1 = min(r_end, r + kTK);
-        for (long long n = r; n < r1; ++n) cs += __ldg(g + n * p.lda);
-      }
-      __syncthreads();
-      gen::mma_pass<kBf16, true, true>(smem_u32(As + warp * 16 * es), sa, smem_u32(Bs), sb, kTK, 8,
-                                       acc);
-      __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_n<kStages - 2>();
+    __syncthreads();
+    if (t + kStages - 1 < nk) load(t + kStages - 1);
+    cp_async_commit();
+    const uint32_t as = s0 + (t % kStages) * kF32StageBytes, bs = as + a_bytes;
+    if constexpr (kMode == 2) {
+      gen::mma_pass<false, true, true>(as + warp * 16 * 4, sa, bs, sb, kTK, 8, acc);
+    } else if constexpr (kFma) {
+      gen::fma_pass(reinterpret_cast<const float*>(lay_smem + (as - s0)) + warp * 16 * sa, sa,
+                    reinterpret_cast<const float*>(lay_smem + (bs - s0)), sb, kTK, kTN, acc);
+    } else {
+      gen::mma_pass<false, false, true>(as + warp * 16 * sa * 4, sa, bs, sb, kTK, 8, acc);
     }
-    float* ws = static_cast<float*>(p.out) + blockIdx.y * p.split_stride;
-    if (sums) ws[static_cast<long long>(p.m) * p.k + row0 + threadIdx.x] = cs;
+  }
+  cp_async_wait_n<0>();
+  if constexpr (kMode == 2) {
+    float* ws = p.out + blockIdx.y * p.split_stride;
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -2844,25 +3435,6 @@ __global__ void __launch_bounds__(kWarps * 32) prod_kernel(const __grid_constant
       }
     }
     return;
-  } else {
-    const int red = kMode == 0 ? p.k : p.m;
-    for (int k0 = 0; k0 < red; k0 += kTK) {
-      stage<kBf16, kTM, kTK>(As, sa, p.a, p.a_f32, p.lda, row0, p.rows, k0, red);
-      if constexpr (kMode == 0) {
-        stage<kBf16, kTN, kTK>(Bs, sb, p.w, true, p.k, col0, p.m, k0, p.k);
-      } else {
-        stage<kBf16, kTK, kTN>(Bs, sb, p.w, true, p.k, k0, p.m, col0, p.k);
-      }
-      __syncthreads();
-      if constexpr (kFma) {
-        gen::fma_pass(reinterpret_cast<const float*>(As) + warp * 16 * sa, sa,
-                      reinterpret_cast<const float*>(Bs), sb, kTK, kTN, acc);
-      } else {
-        gen::mma_pass<kBf16, false, kMode == 1>(smem_u32(As + warp * 16 * sa * es), sa,
-                                                smem_u32(Bs), sb, kTK, 8, acc);
-      }
-      __syncthreads();
-    }
   }
   const int out_cols = kMode == 0 ? p.m : p.k;
 #pragma unroll
@@ -2876,19 +3448,67 @@ __global__ void __launch_bounds__(kWarps * 32) prod_kernel(const __grid_constant
       const float v = acc[j][e];
       if constexpr (kMode == 0) {
         const float add = p.hd != nullptr ? p.hd[gen::ray_of(n, p.num_samples) * p.m + c] : p.bias[c];
-        gen::st_op<kBf16>(static_cast<char*>(p.out) + (n * p.ldo + c) * es, fmaxf(v + add, 0.0f));
+        p.out[n * p.ldo + c] = fmaxf(v + add, 0.0f);
       } else {
         float g = v;
-        if (p.gd != nullptr) g += gen::op<kBf16>(p.gd[n * 4]) * gen::op<kBf16>(p.wd[c]);
-        if (p.mask != nullptr &&
-            !(gen::ld_op<kBf16>(static_cast<const char*>(p.mask) + (n * p.ldm + c) * es) > 0.0f)) {
-          g = 0.0f;
-        }
-        static_cast<float*>(p.out)[n * p.ldo + c] = g;
+        if (p.gd != nullptr) g += p.gd[n * 4] * p.wd[c];
+        if (p.mask != nullptr && !(p.mask[n * p.ldm + c] > 0.0f)) g = 0.0f;
+        p.out[n * p.ldo + c] = g;
       }
     }
   }
 }
+
+// The heads' cotangent into a_L (float32), masked where a_L <= 0: the
+// colour head's sum_c gz_c[n][c] W_c[c][j], or (no colour head: a_L is
+// a_nb) the density head's gz_d[n] w_d[j]. A thread an element.
+__global__ void __launch_bounds__(256) top_kernel(const float* g, const float* w, int colour,
+                                                  const float* a_top, long long ld, int hidden,
+                                                  long long rows, float* dz) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= rows * hidden) return;
+  const long long n = e / hidden;
+  const int j = static_cast<int>(e - n * hidden);
+  float v;
+  if (colour) {
+    v = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v = fmaf(g[n * 4 + 1 + c], __ldg(w + c * hidden + j), v);
+  } else {
+    v = g[n * 4] * __ldg(w + j);
+  }
+  dz[n * ld + j] = a_top[n * ld + j] > 0.0f ? v : 0.0f;
+}
+
+// out[z][j] = sum over split z's rows of g[n][j], in row order: a float32
+// cotangent's column sums (its bias gradient), a thread a column.
+__global__ void __launch_bounds__(256) colsum_kernel(const float* g, long long ld, int cols,
+                                                     long long rows, long long split_rows,
+                                                     float* out) {
+  const int j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= cols) return;
+  const long long r0 = blockIdx.y * split_rows, r1 = min(rows, r0 + split_rows);
+  float s = 0.0f;
+#pragma unroll 4
+  for (long long n = r0; n < r1; ++n) s += __ldg(g + n * ld + j);
+  out[blockIdx.y * static_cast<long long>(cols) + j] = s;
+}
+
+// dhead_dir[r][j] = sum over ray r's samples of gz_bh[n][j], in sample
+// order (float32).
+__global__ void __launch_bounds__(256) raysum_kernel(const float* dz, long long ld, int hidden,
+                                                     int rays, int num_samples, float* out) {
+  const long long e = blockIdx.x * 256LL + threadIdx.x;
+  if (e >= static_cast<long long>(rays) * hidden) return;
+  const long long r = e / hidden;
+  const int j = static_cast<int>(e - r * hidden);
+  const float* src = dz + r * num_samples * ld + j;
+  float s = 0.0f;
+  for (int i = 0; i < num_samples; ++i) s += __ldg(src + i * ld);
+  out[e] = s;
+}
+
+// ------------------------------------------------ both dtypes
 
 // The heads on a warp a row. Forward: density (softplus of pre_d) and, with
 // the colour head, rgb (sigmoid of pre_c). Backward: their cotangents g
@@ -2904,6 +3524,18 @@ struct Heads {
   float* g;
 };
 
+// Two neighbouring operands of a row (p 4- or 8-byte aligned).
+template <bool kBf16>
+__device__ __forceinline__ void ld_pair(const char* p, float (&v)[2]) {
+  if constexpr (kBf16) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  }
+}
+
 template <bool kBf16>
 __global__ void __launch_bounds__(256) heads_kernel(const __grid_constant__ Heads h) {
   constexpr int es = kBf16 ? 2 : 4;
@@ -2912,13 +3544,25 @@ __global__ void __launch_bounds__(256) heads_kernel(const __grid_constant__ Head
   if (n >= h.rows) return;
   const char* an = h.a_nb + n * h.ld * es;
   const char* at = h.a_top + n * h.ld * es;
+  // Two columns a lane (j + 1 < ld: ld is a multiple of 8; past H, 0).
   float pd = 0.0f, pc[3] = {0.0f, 0.0f, 0.0f};
-  for (int j = lane; j < H; j += 32) {
-    pd = fmaf(gen::ld_op<kBf16>(an + j * es), gen::op<kBf16>(__ldg(h.wd + j)), pd);
+  for (int j = 2 * lane; j < H; j += 64) {
+    float an2[2], wd2[2];
+    ld_pair<kBf16>(an + j * es, an2);
+    if (j + 1 >= H) an2[1] = 0.0f;
+    wd2[0] = gen::op<kBf16>(__ldg(h.wd + j));
+    wd2[1] = j + 1 < H ? gen::op<kBf16>(__ldg(h.wd + j + 1)) : 0.0f;
+    pd = fmaf(an2[1], wd2[1], fmaf(an2[0], wd2[0], pd));
     if (h.wc != nullptr) {
-      const float a = gen::ld_op<kBf16>(at + j * es);
+      float at2[2];
+      ld_pair<kBf16>(at + j * es, at2);
+      if (j + 1 >= H) at2[1] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) pc[c] = fmaf(a, gen::op<kBf16>(__ldg(h.wc + c * H + j)), pc[c]);
+      for (int c = 0; c < 3; ++c) {
+        const float w0 = gen::op<kBf16>(__ldg(h.wc + c * H + j));
+        const float w1 = j + 1 < H ? gen::op<kBf16>(__ldg(h.wc + c * H + j + 1)) : 0.0f;
+        pc[c] = fmaf(at2[1], w1, fmaf(at2[0], w0, pc[c]));
+      }
     }
   }
 #pragma unroll
@@ -2946,67 +3590,101 @@ __global__ void __launch_bounds__(256) heads_kernel(const __grid_constant__ Head
   }
 }
 
-// The heads' cotangent into a_L, masked where a_L <= 0: the colour head's
-// sum_c gz_c[n][c] W_c[c][j], or (no colour head: a_L is a_nb) the density
-// head's gz_d[n] w_d[j]. A thread an element.
+// The heads' weight and bias gradients over split z of the chunk's rows:
+// ws[z] = {dW_d [H], dW_c [3][H], db_d, db_c [3]} (no colour head: dW_d and
+// db_d), dW = sum_n gz[n] a[n][j] with gz as an operand, db = sum_n gz[n]
+// unrounded, in row order. A thread two columns of a_nb and a_L, each row
+// read once over the grid.
 template <bool kBf16>
-__global__ void __launch_bounds__(256) top_kernel(const float* g, const float* w, int colour,
-                                                  const char* a_top, long long ld, int hidden,
-                                                  long long rows, float* dz) {
+__global__ void __launch_bounds__(128) head_grad_kernel(const float* g, const char* a_nb,
+                                                        const char* a_top, long long ld,
+                                                        int hidden, int colour, long long rows,
+                                                        long long split_rows, float* ws,
+                                                        long long stride) {
   constexpr int es = kBf16 ? 2 : 4;
-  const long long e = blockIdx.x * 256LL + threadIdx.x;
-  if (e >= rows * hidden) return;
-  const long long n = e / hidden;
-  const int j = static_cast<int>(e - n * hidden);
-  float v;
-  if (colour) {
-    v = 0.0f;
+  const long long r0 = blockIdx.y * split_rows, r1 = min(rows, r0 + split_rows);
+  float* out = ws + blockIdx.y * stride;
+  const int j = (blockIdx.x * 128 + threadIdx.x) * 2;  // j + 1 < ld: ld is a multiple of 8
+  if (j < hidden) {
+    float sd[2] = {0.0f, 0.0f}, sc[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll 4
+    for (long long n = r0; n < r1; ++n) {
+      const float4 q = *reinterpret_cast<const float4*>(g + n * 4);
+      const char* an = a_nb + (n * ld + j) * es;
+      const float d = gen::op<kBf16>(q.x);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      v = fmaf(gen::op<kBf16>(g[n * 4 + 1 + c]), gen::op<kBf16>(__ldg(w + c * hidden + j)), v);
+      for (int e = 0; e < 2; ++e) sd[e] = fmaf(d, gen::ld_op<kBf16>(an + e * es), sd[e]);
+      if (colour) {
+        const char* at = a_top + (n * ld + j) * es;
+        const float a0 = gen::ld_op<kBf16>(at), a1 = gen::ld_op<kBf16>(at + es);
+        const float gc[3] = {gen::op<kBf16>(q.y), gen::op<kBf16>(q.z), gen::op<kBf16>(q.w)};
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sc[c][0] = fmaf(gc[c], a0, sc[c][0]);
+          sc[c][1] = fmaf(gc[c], a1, sc[c][1]);
+        }
+      }
     }
-  } else {
-    v = gen::op<kBf16>(g[n * 4]) * gen::op<kBf16>(__ldg(w + j));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (j + e >= hidden) continue;
+      out[j + e] = sd[e];
+      if (colour) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out[(1 + c) * hidden + j + e] = sc[c][e];
+      }
+    }
   }
-  dz[n * ld + j] = gen::ld_op<kBf16>(a_top + (n * ld + j) * es) > 0.0f ? v : 0.0f;
+  if (blockIdx.x == 0 && threadIdx.x < (colour ? 4 : 1)) {
+    float s = 0.0f;
+    for (long long n = r0; n < r1; ++n) s += g[n * 4 + threadIdx.x];
+    out[4 * hidden + threadIdx.x] = s;
+  }
 }
 
-// dhead_dir[r][j] = sum over ray r's samples of gz_bh[n][j], in sample order.
-__global__ void __launch_bounds__(256) raysum_kernel(const float* dz, long long ld, int hidden,
-                                                     int rays, int num_samples, float* out) {
-  const long long e = blockIdx.x * 256LL + threadIdx.x;
-  if (e >= static_cast<long long>(rays) * hidden) return;
-  const long long r = e / hidden;
-  const int j = static_cast<int>(e - r * hidden);
-  const float* src = dz + r * num_samples * ld + j;
+// out[i] (+)= sum over splits z of ws[z * stride + i]: a block 32 entries,
+// its warp w the splits w, w + 8, w + 16, ... in order, then the 8 warps'
+// sums in warp order: the same bits in every launch. Block row y sums the
+// splits [y group, (y + 1) group) into out + y n.
+__global__ void __launch_bounds__(256) reduce_kernel(const float* ws, long long splits,
+                                                     long long stride, long long n, float* out,
+                                                     int accumulate, long long group) {
+  __shared__ float part[8][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long i = blockIdx.x * 32LL + lane;
+  const long long z0 = blockIdx.y * group, z1 = min(splits, z0 + group);
   float s = 0.0f;
-  for (int i = 0; i < num_samples; ++i) s += __ldg(src + i * ld);
-  out[e] = s;
-}
-
-// out[i] (+)= sum over splits z of ws[z * stride + i], in split order.
-__global__ void __launch_bounds__(256) reduce_kernel(const float* ws, int splits, long long stride,
-                                                     long long n, float* out, int accumulate) {
-  const long long i = blockIdx.x * 256LL + threadIdx.x;
-  if (i >= n) return;
-  float s = accumulate ? out[i] : 0.0f;
-  for (int z = 0; z < splits; ++z) s += ws[z * stride + i];
-  out[i] = s;
-}
-
-// Shared memory of prod_kernel (static), the most of its three modes: mode 0's.
-constexpr int smem_bytes(bool bf16) {
-  return (kTM + kTN) * (kTK + (bf16 ? 8 : 4)) * (bf16 ? 2 : 4);
+  if (i < n) {
+#pragma unroll 4
+    for (long long z = z0 + w; z < z1; z += 8) s += __ldg(ws + z * stride + i);
+  }
+  part[w][lane] = s;
+  __syncthreads();
+  out += blockIdx.y * n;
+  if (w == 0 && i < n) {
+    float t = accumulate ? out[i] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t += part[q][lane];
+    out[i] = t;
+  }
 }
 
 int blocks_of(long long n) { return static_cast<int>((n + 255) / 256); }
 
-template <bool kBf16, int kMode>
-cudaError_t run(Prod p, long long out_rows, int out_cols, int splits, cudaStream_t stream) {
-  p.col_tiles = (out_cols + kTN - 1) / kTN;
-  const long long tiles = (out_rows + kTM - 1) / kTM * p.col_tiles;
-  if (tiles == 0) return cudaSuccess;
-  prod_kernel<kBf16, kMode><<<dim3(static_cast<unsigned>(tiles), splits), kWarps * 32, 0, stream>>>(p);
+// More than kGroup splits: first each kGroup of them into a row of tmp
+// ([groups][n]), then the rows, each pass in a fixed order.
+constexpr long long kGroup = 64;
+cudaError_t reduce(const float* ws, long long splits, long long stride, long long n, float* out,
+                   bool accumulate, cudaStream_t stream, float* tmp) {
+  if (n == 0) return cudaSuccess;
+  const unsigned cols = static_cast<unsigned>((n + 31) / 32);
+  if (splits > kGroup) {
+    const long long groups = (splits + kGroup - 1) / kGroup;
+    reduce_kernel<<<dim3(cols, static_cast<unsigned>(groups)), 256, 0, stream>>>(
+        ws, splits, stride, n, tmp, 0, kGroup);
+    ws = tmp, splits = groups, stride = n;
+  }
+  reduce_kernel<<<cols, 256, 0, stream>>>(ws, splits, stride, n, out, accumulate, splits);
   return cudaGetLastError();
 }
 
@@ -3016,39 +3694,129 @@ struct Call {
   bool bf16;
   int num_samples, num_blocks;
   long long chunk_rows;  // rows_per_chunk x num_samples
-  char* scratch;
+  char* scratch;         // the chunk's rows, then the workspace, then the copies
   float* ws;
+  __nv_bfloat16* copies;
   cudaStream_t stream;
   int es() const { return bf16 ? 2 : 4; }
   // a_k (1 <= k <= L) of the chunk, operands [chunk_rows][ldh].
   char* act(int k) const { return scratch + (k - 1) * chunk_rows * s.ldh() * es(); }
-  float* dz(int i) const {
-    return reinterpret_cast<float*>(act(s.n_layers + 1)) + i * chunk_rows * s.ldh();
+  // bfloat16: x as operands [chunk_rows][ldx].
+  __nv_bfloat16* xb() const { return reinterpret_cast<__nv_bfloat16*>(act(s.n_layers + 1)); }
+  // The backward's two cotangents, operands [chunk_rows][ldh].
+  char* dz(int i) const {
+    char* base = bf16 ? reinterpret_cast<char*>(xb()) + chunk_rows * s.ldx() * 2 : act(s.n_layers + 1);
+    return base + i * chunk_rows * s.ldh() * es();
   }
-  float* heads_g() const { return dz(2); }
+  float* heads_g() const { return reinterpret_cast<float*>(dz(2)); }
+  // bfloat16: W_k [hidden][ld_in(k)] and (backward) W_k^T [in_dim(k)][ldh].
+  __nv_bfloat16* wb(int k) const {
+    long long off = 0;
+    for (int i = 0; i < k; ++i) off += s.wb_floats(i);
+    return copies + 2 * off;
+  }
+  __nv_bfloat16* wt(int k) const {
+    long long off = 0;
+    for (int i = 0; i < s.n_layers; ++i) off += s.wb_floats(i);
+    for (int i = 0; i < k; ++i) off += s.wt_floats(i);
+    return copies + 2 * off;
+  }
 };
 
-// The chain of the chunk's rows: a_1 .. a_L.
+// Modes 0 and 1 but the ray sums: two blocks an SM, each walking its
+// tiles; else a block a tile (and split).
+template <int kMode, int kSums>
+cudaError_t run_wg(const Call& c, WgProd p, long long out_rows, int out_cols, long long splits) {
+  p.col_tiles = (out_cols + kBN - 1) / kBN;
+  p.tiles = (out_rows + kBM - 1) / kBM * p.col_tiles;
+  if (p.tiles == 0 || splits == 0) return cudaSuccess;
+  const bool walk = kMode != 2 && kSums != 2;
+  const long long grid = walk ? std::min(p.tiles, 2LL * c.num_blocks) : p.tiles;
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg_kernel<kMode, kSums>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem + kRedBytes);
+  if (err != cudaSuccess) return err;
+  wg_kernel<kMode, kSums><<<dim3(static_cast<unsigned>(grid), static_cast<unsigned>(splits)), 256,
+                            kWgSmem + kRedBytes, c.stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t run_f32(Prod p, long long out_rows, int out_cols, long long splits,
+                    cudaStream_t stream) {
+  p.col_tiles = (out_cols + kTN - 1) / kTN;
+  const long long tiles = (out_rows + kTM - 1) / kTM * p.col_tiles;
+  if (tiles == 0 || splits == 0) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      prod_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (err != cudaSuccess) return err;
+  prod_kernel<kMode><<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(splits)),
+                       kWarps * 32, kF32Smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The weights' bf16 copies, once a call.
+cudaError_t cast_weights(const Call& c, const float* w, bool transposed) {
+  const Stack& s = c.s;
+  for (int k = 0; k < s.n_layers; ++k) {
+    const long long n = static_cast<long long>(s.hidden) * s.ld_in(k);
+    cast_kernel<<<static_cast<unsigned>(std::min<long long>(blocks_of(n), 4096)), 256, 0,
+                  c.stream>>>(w + s.w_off(k), s.in_dim(k), s.in_dim(k), s.hidden, s.ld_in(k),
+                              c.wb(k));
+    if (transposed) {
+      const long long nt = static_cast<long long>(s.in_dim(k)) * s.ldh();
+      transpose_cast_kernel<<<static_cast<unsigned>(std::min<long long>(blocks_of(nt), 4096)), 256,
+                              0, c.stream>>>(w + s.w_off(k), s.hidden, s.in_dim(k), s.ldh(),
+                                             c.wt(k));
+    }
+  }
+  return cudaGetLastError();
+}
+
+// The chain of the chunk's rows: a_1 .. a_L (bfloat16: x cast first).
 template <bool kBf16>
 cudaError_t chain(const Call& c, const float* x, const float* hd, const float* w, const float* b,
                   long long rows) {
   const Stack& s = c.s;
+  if constexpr (kBf16) {
+    const long long n = rows * s.ldx();
+    cast_kernel<<<static_cast<unsigned>(std::min<long long>(blocks_of(n), 65536)), 256, 0,
+                  c.stream>>>(x, s.d_in, s.d_in, rows, s.ldx(), c.xb());
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   for (int k = 0; k < s.n_layers; ++k) {
-    Prod p{};
-    p.a = k == 0 ? static_cast<const void*>(x) : c.act(k);
-    p.a_f32 = k == 0 || !kBf16;
-    p.lda = k == 0 ? s.d_in : s.ldh();
-    p.w = w + s.w_off(k);
     const bool bh = s.n_head > 0 && k == s.n_base;
-    p.bias = bh ? nullptr : b + s.b_off(k);
-    p.hd = bh ? hd : nullptr;
-    p.out = c.act(k + 1);
-    p.ldo = s.ldh();
-    p.rows = rows;
-    p.m = s.hidden;
-    p.k = s.in_dim(k);
-    p.num_samples = c.num_samples;
-    const cudaError_t err = run<kBf16, 0>(p, rows, s.hidden, 1, c.stream);
+    cudaError_t err;
+    if constexpr (kBf16) {
+      WgProd p{};
+      p.a = k == 0 ? c.xb() : reinterpret_cast<const __nv_bfloat16*>(c.act(k));
+      p.lda = s.ld_in(k);
+      p.b = c.wb(k);
+      p.ldb = s.ld_in(k);
+      p.m = rows;
+      p.n = s.hidden;
+      p.depth = s.ld_in(k);
+      p.bias = bh ? nullptr : b + s.b_off(k);
+      p.hd = bh ? hd : nullptr;
+      p.out = c.act(k + 1);
+      p.ldo = s.ldh();
+      p.num_samples = c.num_samples;
+      err = run_wg<0, 0>(c, p, rows, s.ldh(), 1);
+    } else {
+      Prod p{};
+      p.a = k == 0 ? x : reinterpret_cast<const float*>(c.act(k));
+      p.lda = k == 0 ? s.d_in : s.ldh();
+      p.w = w + s.w_off(k);
+      p.bias = bh ? nullptr : b + s.b_off(k);
+      p.hd = bh ? hd : nullptr;
+      p.out = reinterpret_cast<float*>(c.act(k + 1));
+      p.ldo = s.ldh();
+      p.rows = rows;
+      p.m = s.hidden;
+      p.k = s.in_dim(k);
+      p.num_samples = c.num_samples;
+      err = run_f32<0>(p, rows, s.hidden, 1, c.stream);
+    }
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -3074,6 +3842,10 @@ template <bool kBf16>
 cudaError_t forward(const Call& c, const float* x, const float* head_dir, const float* w,
                     const float* b, float* rgb, float* dens, int num_rays) {
   const Stack& s = c.s;
+  if (kBf16) {
+    const cudaError_t err = cast_weights(c, w, false);
+    if (err != cudaSuccess) return err;
+  }
   const int rays_per_chunk = static_cast<int>(c.chunk_rows / c.num_samples);
   for (int r0 = 0; r0 < num_rays; r0 += rays_per_chunk) {
     const long long first = static_cast<long long>(r0) * c.num_samples;
@@ -3094,41 +3866,99 @@ cudaError_t forward(const Call& c, const float* x, const float* head_dir, const 
   return cudaSuccess;
 }
 
-// dW (+)= gz^T a over the chunk's rows into grads at w_out, and the column
-// sums of gz into b_out (null: none): mode 2, then the sums over splits.
-template <bool kBf16>
-cudaError_t weight_grad(const Call& c, const float* gz, long long ldg, int m, const void* a,
-                        bool a_f32, long long lda, int k, long long rows, float* w_out,
-                        float* b_out, bool accumulate) {
-  const long long tiles = (m + kTM - 1) / kTM * ((k + kTN - 1) / kTN);
-  const long long want = std::max(1LL, (2LL * c.num_blocks + tiles - 1) / tiles);
-  const long long stride = static_cast<long long>(m) * k + m;
-  const long long most = std::min(c.s.ws_floats() / stride, (rows + kTK - 1) / kTK);
+// The splits of a reduction over `rows` for `tiles` output tiles: as many
+// blocks as `waves` a multiprocessor hold at once, and no more (a block
+// past them would run in a wave of its own), as many as `stride`-float
+// rows of the workspace hold, each a multiple of `align` rows.
+long long split_rows_of(const Call& c, long long tiles, long long stride, long long rows,
+                        int align, int waves = 2) {
+  const long long want = std::max(1LL, static_cast<long long>(waves) * c.num_blocks / tiles);
+  // Room for the splits and for reduce's rows of kGroup of them.
+  const long long room = c.s.ws_floats(true) / stride * kGroup / (kGroup + 2);
+  const long long most = std::max(1LL, std::min(room, (rows + align - 1) / align));
   const long long per = (rows + std::min(want, most) - 1) / std::min(want, most);
-  Prod p{};
-  p.a = gz;
-  p.a_f32 = 1;
-  p.lda = ldg;
-  p.b = a;
-  p.b_f32 = a_f32;
-  p.ldb = lda;
-  p.out = c.ws;
-  p.rows = rows;
-  p.m = m;
-  p.k = k;
-  p.split_rows = (per + kTK - 1) / kTK * kTK;
-  p.split_stride = stride;
-  const int splits = static_cast<int>((rows + p.split_rows - 1) / p.split_rows);
-  cudaError_t err = run<kBf16, 2>(p, m, k, splits, c.stream);
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(m) * k;
-  reduce_kernel<<<blocks_of(n), 256, 0, c.stream>>>(c.ws, splits, p.split_stride, n, w_out,
-                                                    accumulate);
-  if (b_out != nullptr) {
-    reduce_kernel<<<blocks_of(m), 256, 0, c.stream>>>(c.ws + n, splits, p.split_stride, m, b_out,
-                                                      accumulate);
+  return (per + align - 1) / align * align;
+}
+
+// dW_k (+)= gz^T a over the chunk's rows into grads at w_out: mode 2 over
+// row splits into the workspace, then the sum over splits.
+template <bool kBf16>
+cudaError_t weight_grad(const Call& c, const char* gz, const char* a, long long lda, int a_cols,
+                        int k, long long rows, float* w_out, bool accumulate) {
+  const Stack& s = c.s;
+  const int H = s.hidden, in = s.in_dim(k);
+  const long long stride = static_cast<long long>(H) * in;
+  long long splits;
+  cudaError_t err;
+  if constexpr (kBf16) {
+    const long long tiles = (H + kBM - 1) / kBM * ((in + kBN - 1) / kBN);
+    WgProd p{};
+    p.a = reinterpret_cast<const __nv_bfloat16*>(gz);
+    p.lda = s.ldh();
+    p.a_cols = s.ldh();
+    p.b = reinterpret_cast<const __nv_bfloat16*>(a);
+    p.ldb = lda;
+    p.b_cols = a_cols;
+    p.m = H;
+    p.n = in;
+    p.rows = rows;
+    p.split_rows = split_rows_of(c, tiles, stride, rows, kBK);
+    p.split_stride = stride;
+    p.out = c.ws;
+    splits = (rows + p.split_rows - 1) / p.split_rows;
+    err = run_wg<2, 0>(c, p, H, in, splits);
+  } else {
+    const long long tiles = (H + kTM - 1) / kTM * ((in + kTN - 1) / kTN);
+    Prod p{};
+    p.a = reinterpret_cast<const float*>(gz);
+    p.lda = s.ldh();
+    p.b = reinterpret_cast<const float*>(a);
+    p.ldb = lda;
+    p.out = c.ws;
+    p.rows = rows;
+    p.m = H;
+    p.k = in;
+    p.split_rows = split_rows_of(c, tiles, stride, rows, kTK);
+    p.split_stride = stride;
+    splits = (rows + p.split_rows - 1) / p.split_rows;
+    err = run_f32<2>(p, H, in, splits, c.stream);
   }
-  return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce(c.ws, splits, stride, stride, w_out, accumulate, c.stream, c.ws + splits * stride);
+}
+
+// float32: the bias gradient (column sums) or dhead_dir (ray sums) of the
+// cotangent gz over the chunk's rows.
+cudaError_t f32_sums(const Call& c, const float* gz, long long rows, int nr, float* b_out,
+                     float* dhd, bool accumulate) {
+  const int H = c.s.hidden;
+  if (dhd != nullptr) {
+    raysum_kernel<<<blocks_of(static_cast<long long>(nr) * H), 256, 0, c.stream>>>(
+        gz, c.s.ldh(), H, nr, c.num_samples, dhd);
+    return cudaGetLastError();
+  }
+  const long long col_blocks = (H + 255) / 256;
+  const long long split = split_rows_of(c, col_blocks, H, rows, 1, 8);
+  const long long splits = (rows + split - 1) / split;
+  colsum_kernel<<<dim3(static_cast<unsigned>(col_blocks), static_cast<unsigned>(splits)), 256, 0,
+                  c.stream>>>(gz, c.s.ldh(), H, rows, split, c.ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce(c.ws, splits, H, H, b_out, accumulate, c.stream, c.ws + splits * H);
+}
+
+// bfloat16: a cotangent's per-tile partial sums into the bias gradient, or
+// the rays no one tile holds into dhead_dir.
+cudaError_t bf16_sums(const Call& c, long long rows, int nr, float* b_out, float* dhd,
+                      bool accumulate) {
+  if (dhd != nullptr) {
+    ray_fix_kernel<<<blocks_of(static_cast<long long>(nr) * c.s.hidden), 256, 0, c.stream>>>(
+        c.ws, c.s.ldh(), c.s.hidden, nr, c.num_samples, dhd);
+    return cudaGetLastError();
+  }
+  const long long tiles = (rows + kBM - 1) / kBM;
+  return reduce(c.ws, tiles, c.s.ldh(), c.s.hidden, b_out, accumulate, c.stream,
+                c.ws + 2 * tiles * c.s.ldh());
 }
 
 template <bool kBf16>
@@ -3137,73 +3967,167 @@ cudaError_t backward(const Call& c, const float* x, const float* head_dir, const
                      float* dhd, float* grads, int num_rays) {
   const Stack& s = c.s;
   const int L = s.n_layers, nb = s.n_base, H = s.hidden, ldh = s.ldh();
+  const bool heads = s.n_head > 0;
   float* const gw = grads;             // matrices
   float* const gb = grads + s.n_w();   // biases
   const int rays_per_chunk = static_cast<int>(c.chunk_rows / c.num_samples);
+  // The largest per-tile partial sums (and reduce's rows of them), which
+  // share the workspace.
+  const long long tiles = (c.chunk_rows + kBM - 1) / kBM;
+  if (kBf16 && (2 * tiles + tiles / kGroup + 1) * ldh > s.ws_floats(true)) {
+    return cudaErrorInvalidValue;
+  }
+  if (kBf16) {
+    const cudaError_t err = cast_weights(c, w, true);
+    if (err != cudaSuccess) return err;
+  }
   for (int r0 = 0; r0 < num_rays; r0 += rays_per_chunk) {
     const bool acc = r0 > 0;
     const int nr = std::min(rays_per_chunk, num_rays - r0);
     const long long first = static_cast<long long>(r0) * c.num_samples;
     const long long rows = static_cast<long long>(nr) * c.num_samples;
     const float* xc = x + first * s.d_in;
-    cudaError_t err = chain<kBf16>(
-        c, xc, head_dir ? head_dir + static_cast<long long>(r0) * H : nullptr, w, b, rows);
+    float* const dhd_c = heads ? dhd + static_cast<long long>(r0) * H : nullptr;
+    cudaError_t err = chain<kBf16>(c, xc, heads ? head_dir + static_cast<long long>(r0) * H : nullptr,
+                                   w, b, rows);
     if (err != cudaSuccess) return err;
     Heads h = heads_of<kBf16>(c, w, b, rows);
     h.g_dens = g_dens + first;
-    h.g_rgb = s.n_head > 0 ? g_rgb + first * 3 : nullptr;
+    h.g_rgb = heads ? g_rgb + first * 3 : nullptr;
     h.g = c.heads_g();
     heads_kernel<kBf16><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, c.stream>>>(h);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    // The heads' weight and bias gradients.
-    if (s.n_head > 0) {
-      err = weight_grad<kBf16>(c, h.g + 1, 4, 3, c.act(L), !kBf16, ldh, H, rows,
-                               gw + s.wc_off(), gb + s.bc_off(), acc);
-      if (err != cudaSuccess) return err;
+    // The heads' weight and bias gradients: one pass over a_nb and a_L.
+    {
+      const long long col_blocks = (H + 255) / 256, stride = 4LL * H + 4;
+      const long long split = split_rows_of(c, col_blocks, stride, rows, 1, 8);
+      const long long splits = (rows + split - 1) / split;
+      head_grad_kernel<kBf16><<<dim3(static_cast<unsigned>(col_blocks),
+                                     static_cast<unsigned>(splits)), 128, 0, c.stream>>>(
+          h.g, c.act(nb), c.act(L), ldh, H, heads, rows, split, c.ws, stride);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      float* const tmp = c.ws + splits * stride;
+      if ((err = reduce(c.ws, splits, stride, H, gw + s.wd_off(), acc, c.stream, tmp)) !=
+              cudaSuccess ||
+          (err = reduce(c.ws + 4LL * H, splits, stride, 1, gb + s.bd_off(), acc, c.stream,
+                        tmp)) != cudaSuccess) {
+        return err;
+      }
+      if (heads &&
+          ((err = reduce(c.ws + H, splits, stride, 3LL * H, gw + s.wc_off(), acc, c.stream,
+                         tmp)) != cudaSuccess ||
+           (err = reduce(c.ws + 4LL * H + 1, splits, stride, 3, gb + s.bc_off(), acc, c.stream,
+                         tmp)) != cudaSuccess)) {
+        return err;
+      }
     }
-    err = weight_grad<kBf16>(c, h.g, 4, 1, c.act(nb), !kBf16, ldh, H, rows, gw + s.wd_off(),
-                             gb + s.bd_off(), acc);
+    // Their cotangent into a_L, with its bias gradient (or, where a_L's
+    // layer is W_bh, dhead_dir).
+    const float* wtop = heads ? w + s.wc_off() : w + s.wd_off();
+    const bool top_bh = heads && L - 1 == nb;
+    if constexpr (kBf16) {
+      const int col_tiles = (ldh + kBN - 1) / kBN;
+      const unsigned grid = static_cast<unsigned>((rows + kBM - 1) / kBM * col_tiles);
+      const auto* a_top = reinterpret_cast<const __nv_bfloat16*>(c.act(L));
+      auto* dz0 = reinterpret_cast<__nv_bfloat16*>(c.dz(0));
+      if (top_bh) {
+        err = cudaFuncSetAttribute(top_tile_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kWgSmem + kRedBytes);
+        if (err != cudaSuccess) return err;
+        top_tile_kernel<2><<<grid, 256, kWgSmem + kRedBytes, c.stream>>>(h.g, wtop, heads, a_top, ldh, H, rows,
+                                                             col_tiles, dz0, c.ws, dhd_c,
+                                                             c.num_samples);
+      } else {
+        err = cudaFuncSetAttribute(top_tile_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kWgSmem + kRedBytes);
+        if (err != cudaSuccess) return err;
+        top_tile_kernel<1><<<grid, 256, kWgSmem + kRedBytes, c.stream>>>(h.g, wtop, heads, a_top, ldh, H, rows,
+                                                             col_tiles, dz0, c.ws, nullptr,
+                                                             c.num_samples);
+      }
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      err = bf16_sums(c, rows, nr, gb + s.b_off(L - 1), top_bh ? dhd_c : nullptr, acc);
+    } else {
+      top_kernel<<<blocks_of(rows * H), 256, 0, c.stream>>>(
+          h.g, wtop, heads, reinterpret_cast<const float*>(c.act(L)), ldh, H, rows,
+          reinterpret_cast<float*>(c.dz(0)));
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      err = f32_sums(c, reinterpret_cast<const float*>(c.dz(0)), rows, nr, gb + s.b_off(L - 1),
+                     top_bh ? dhd_c : nullptr, acc);
+    }
     if (err != cudaSuccess) return err;
-    // Their cotangent into a_L, then down the layers.
-    top_kernel<kBf16><<<blocks_of(rows * H), 256, 0, c.stream>>>(
-        h.g, s.n_head > 0 ? w + s.wc_off() : w + s.wd_off(), s.n_head > 0, c.act(L), ldh, H,
-        rows, c.dz(0));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // Down the layers: dW_k, then the cotangent one layer down with its sums.
     int cur = 0;
     for (int k = L - 1; k >= 0; --k) {
-      const bool bh = s.n_head > 0 && k == nb;
-      const float* gz = c.dz(cur);
-      err = weight_grad<kBf16>(c, gz, ldh, H, k == 0 ? static_cast<const void*>(xc) : c.act(k),
-                               k == 0 || !kBf16, k == 0 ? s.d_in : ldh, s.in_dim(k), rows,
-                               gw + s.w_off(k), bh ? nullptr : gb + s.b_off(k), acc);
+      const bool bh = heads && k == nb;         // W_bh: the density head joins a_nb's cotangent
+      const bool below_bh = heads && k - 1 == nb;  // the cotangent made is W_bh's: dhead_dir
+      const char* gz = c.dz(cur);
+      const char* a_in = k == 0 ? (kBf16 ? reinterpret_cast<const char*>(c.xb())
+                                         : reinterpret_cast<const char*>(xc))
+                                : c.act(k);
+      const long long lda = k == 0 ? (kBf16 ? s.ldx() : s.d_in) : ldh;
+      err = weight_grad<kBf16>(c, gz, a_in, lda, kBf16 ? s.ld_in(k) : s.in_dim(k), k, rows,
+                               gw + s.w_off(k), acc);
       if (err != cudaSuccess) return err;
-      if (bh) {
-        raysum_kernel<<<blocks_of(static_cast<long long>(nr) * H), 256, 0, c.stream>>>(
-            gz, ldh, H, nr, c.num_samples, dhd + static_cast<long long>(r0) * H);
-        if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      }
-      Prod p{};
-      p.a = gz;
-      p.a_f32 = 1;
-      p.lda = ldh;
-      p.w = w + s.w_off(k);
-      p.rows = rows;
-      p.m = H;
-      p.k = s.in_dim(k);
-      if (k > 0) {
-        p.mask = c.act(k);
-        p.ldm = ldh;
-        p.out = c.dz(1 - cur);
-        p.ldo = ldh;
-        if (bh) {  // the density head's cotangent joins a_nb's
-          p.gd = h.g;
-          p.wd = w + s.wd_off();
+      if constexpr (kBf16) {
+        WgProd p{};
+        p.a = reinterpret_cast<const __nv_bfloat16*>(gz);
+        p.lda = ldh;
+        p.b = c.wt(k);
+        p.ldb = ldh;
+        p.m = rows;
+        p.n = s.in_dim(k);
+        p.depth = ldh;
+        p.num_samples = c.num_samples;
+        if (k == 0) {
+          p.out = dx + first * s.d_in;
+          err = run_wg<1, 0>(c, p, rows, s.d_in, 1);
+        } else {
+          p.mask = reinterpret_cast<const __nv_bfloat16*>(c.act(k));
+          p.out = c.dz(1 - cur);
+          p.ldo = ldh;
+          p.part = c.ws;
+          if (bh) {
+            p.gd = h.g;
+            p.wd = w + s.wd_off();
+          }
+          if (below_bh) {
+            p.dhd = dhd_c;
+            err = run_wg<1, 2>(c, p, rows, ldh, 1);
+          } else {
+            err = run_wg<1, 1>(c, p, rows, ldh, 1);
+          }
+          if (err == cudaSuccess) {
+            err = bf16_sums(c, rows, nr, gb + s.b_off(k - 1), below_bh ? dhd_c : nullptr, acc);
+          }
         }
       } else {
-        p.out = dx + first * s.d_in;
-        p.ldo = s.d_in;
+        Prod p{};
+        p.a = reinterpret_cast<const float*>(gz);
+        p.lda = ldh;
+        p.w = w + s.w_off(k);
+        p.rows = rows;
+        p.m = H;
+        p.k = s.in_dim(k);
+        if (k > 0) {
+          p.mask = reinterpret_cast<const float*>(c.act(k));
+          p.ldm = ldh;
+          p.out = reinterpret_cast<float*>(c.dz(1 - cur));
+          p.ldo = ldh;
+          if (bh) {
+            p.gd = h.g;
+            p.wd = w + s.wd_off();
+          }
+        } else {
+          p.out = dx + first * s.d_in;
+          p.ldo = s.d_in;
+        }
+        err = run_f32<1>(p, rows, p.k, 1, c.stream);
+        if (err == cudaSuccess && k > 0) {
+          err = f32_sums(c, reinterpret_cast<const float*>(c.dz(1 - cur)), rows, nr,
+                         gb + s.b_off(k - 1), below_bh ? dhd_c : nullptr, acc);
+        }
       }
-      err = run<kBf16, 1>(p, rows, p.k, 1, c.stream);
       if (err != cudaSuccess) return err;
       cur = 1 - cur;
     }
@@ -3375,23 +4299,25 @@ extern "C" int tetranerf_fused_mlp_backward_generic(
 }
 
 // The layered route's plan of a stack: out = {scratch floats a row of a
-// chunk, workspace floats (backward; 0 forward), shared memory of a product
-// block}; returns 0 where no such stack exists.
+// chunk, scratch floats beside the rows (the backward's workspace, then in
+// bfloat16 the weights' bf16 copies), dynamic shared memory of a product
+// block, stages of its ring}; returns 0 where no such stack exists.
 extern "C" int tetranerf_fused_mlp_layered_plan(int d_in, int hidden, int n_base, int n_head,
                                                 int bf16, int backward, long long* out) {
   if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0) return 0;
   const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
   out[0] = s.row_floats(bf16 != 0, backward != 0);
-  out[1] = backward ? s.ws_floats() : 0;
+  out[1] = s.fixed_floats(bf16 != 0, backward != 0);
   out[2] = lay::smem_bytes(bf16 != 0);
+  out[3] = bf16 ? lay::kWgStages : lay::kStages;
   return 1;
 }
 
 // The layered route's forward (K4, K5) and backward (K4b, K5b), arguments
 // as the generic route's, plus the rays of a chunk (the host's, from its
 // scratch budget) and the scratch: rays_per_chunk x num_samples rows of the
-// plan's floats a row, then (backward) its workspace. The backward writes
-// every entry of grads and of dhd.
+// plan's floats a row, then the plan's floats beside them. The backward
+// writes every entry of grads and of dhd.
 extern "C" int tetranerf_fused_mlp_forward_layered(
     const float* x, const float* head_dir, const float* w, const float* b, float* rgb,
     float* dens, int num_rays, int num_samples, int d_in, int hidden, int n_base, int n_head,
@@ -3399,13 +4325,15 @@ extern "C" int tetranerf_fused_mlp_forward_layered(
     cudaStream_t stream) {
   const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
   const long long chunk_rows = static_cast<long long>(rays_per_chunk) * num_samples;
+  const long long row_floats = chunk_rows * s.row_floats(bf16 != 0, false);
   if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0 || num_blocks < 1 ||
-      rays_per_chunk < 1 || scratch_floats < chunk_rows * s.row_floats(bf16 != 0, false)) {
+      rays_per_chunk < 1 || scratch_floats < row_floats + s.fixed_floats(bf16 != 0, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (static_cast<long long>(num_rays) * num_samples == 0) return 0;
   const lay::Call c{s, bf16 != 0, num_samples, num_blocks, chunk_rows,
-                    reinterpret_cast<char*>(scratch), nullptr, stream};
+                    reinterpret_cast<char*>(scratch), nullptr,
+                    reinterpret_cast<__nv_bfloat16*>(scratch + row_floats), stream};
   const cudaError_t err =
       bf16 ? lay::forward<true>(c, x, head_dir, w, b, rgb, dens, num_rays)
            : lay::forward<false>(c, x, head_dir, w, b, rgb, dens, num_rays);
@@ -3420,14 +4348,16 @@ extern "C" int tetranerf_fused_mlp_backward_layered(
     cudaStream_t stream) {
   const lay::Stack s{d_in, hidden, n_base, n_head, n_base + n_head};
   const long long chunk_rows = static_cast<long long>(rays_per_chunk) * num_samples;
-  const long long act_floats = chunk_rows * s.row_floats(bf16 != 0, true);
+  const long long row_floats = chunk_rows * s.row_floats(bf16 != 0, true);
   if (d_in < 1 || hidden < 1 || n_base < 1 || n_head < 0 || num_blocks < 1 ||
-      rays_per_chunk < 1 || scratch_floats < act_floats + s.ws_floats()) {
+      rays_per_chunk < 1 || scratch_floats < row_floats + s.fixed_floats(bf16 != 0, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (static_cast<long long>(num_rays) * num_samples == 0) return 0;
   const lay::Call c{s, bf16 != 0, num_samples, num_blocks, chunk_rows,
-                    reinterpret_cast<char*>(scratch), scratch + act_floats, stream};
+                    reinterpret_cast<char*>(scratch), scratch + row_floats,
+                    reinterpret_cast<__nv_bfloat16*>(scratch + row_floats + s.ws_floats(true)),
+                    stream};
   const cudaError_t err =
       bf16 ? lay::backward<true>(c, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, grads, num_rays)
            : lay::backward<false>(c, x, head_dir, w, b, g_rgb, g_dens, dx, dhd, grads, num_rays);

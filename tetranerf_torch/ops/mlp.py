@@ -25,10 +25,14 @@ differ from that chain by rounding, and so flip a mask where a
 pre-activation lies within rounding of 0; the backward follows the twin);
 and ``"layered"`` for every wider or deeper stack, as JAX's kernels take
 any: one product kernel a layer with the activations in global memory,
-rows in chunks that bound the scratch (:data:`LAYERED_SCRATCH_BYTES`),
-bf16 on ``mma.sync``, float32 with the chain (forward and the backward's)
-as f32 FMAs in a plain GEMM's order and the backward's other products as
-3xTF32. :data:`.cuda.launch_counts` counts each route under its own name
+rows in chunks that bound the scratch (:data:`LAYERED_SCRATCH_BYTES`);
+bf16 on ``wgmma`` (128 x 128 tiles, operands by ``cp.async`` into a ring
+of stages; the weights, x and the backward's cotangents as bf16 copies in
+the scratch, the bias and ``dhead_dir`` gradients summed from the
+unrounded cotangents where they are made), float32 with the chain
+(forward and the backward's) as f32 FMAs in a plain GEMM's order and the
+backward's other products as 3xTF32 on ``mma.sync``, both from a ring of
+stages. :data:`.cuda.launch_counts` counts each route under its own name
 (``fused_field_mlps``, ``fused_field_mlps_generic``,
 ``fused_field_mlps_layered``, ...).
 
@@ -210,6 +214,7 @@ _GENERIC_WARPS = 16  # warps of a generic forward block, at most
 _GENERIC_BWD_WARPS = 8  # of a backward block
 _GENERIC_CHUNKS = 64  # the generic backward's weight-gradient chunks, at most
 _LAYERED_ROWS = 128  # output rows of a layered product block: 8 warps of 16
+_LAYERED_STAGES = 3  # the layered product blocks' ring of operand stages
 # The layered route's scratch for a call's activations and cotangents: rows
 # run in chunks of whole rays that fit it (at least one ray a chunk).
 LAYERED_SCRATCH_BYTES = 1 << 30
@@ -231,13 +236,16 @@ class LaunchPlan:
     route: str  # "wgmma", "generic" or "layered"
     rows_per_tile: int  # wgmma: rows of one warpgroup's tile; generic: a
     # block's; layered: a product block's output rows
-    warpgroups: int  # wgmma: per block (one block per SM); else 0
+    warpgroups: int  # wgmma: per block (one block per SM); layered: a bf16
+    # product block's wgmma warpgroups (0 in float32); else 0
     stages: int  # wgmma: x stages of a warpgroup with room of their own (0:
-    # the stage shares the backward's cotangent staging, no prefetch); else 0
+    # the stage shares the backward's cotangent staging, no prefetch);
+    # layered: a product block's ring of operand stages; else 0
     smem_bytes: int  # dynamic shared memory per block (layered: a product
-    # block's static shared memory)
+    # block's)
     ws_floats: int  # one block's weight-gradient workspace row (backward);
-    # layered: the whole weight-gradient workspace (row splits of a dW)
+    # layered: the scratch beside the chunk's rows (the backward's
+    # workspace, then in bfloat16 the weights' bf16 copies)
     aux_tile_floats: int  # the backward's cache: wgmma: masks and head
     # cotangents of a 64-row tile; generic: words a 16 rows (activations,
     # cotangents, ReLU bits, head cotangents), 0 with one phase; layered:
@@ -401,20 +409,36 @@ def _generic_plan(d_in, hidden, n_base, n_head, backward, dtype):
 
 
 def _layered_plan(d_in, hidden, n_base, n_head, backward, dtype):
-    """The layered route's plan (``tetranerf_fused_mlp_layered_plan``): a
-    row of a chunk holds a_1 .. a_L as operands in rows of ``hidden``
-    padded to 8, and in the backward two f32 cotangents and the heads' four;
-    the backward's workspace is 2^24 floats, or one row of the largest
-    weight gradient and its bias where that is more: a weight gradient's
-    rows split in as many parts as it holds (and as fill the card)."""
+    """The layered route's plan (``tetranerf_fused_mlp_layered_plan``). A
+    row of a chunk holds a_1 .. a_L in rows of ``hidden`` padded to 8: in
+    bfloat16 as bf16 operands beside x's bf16 copy (d_in padded to 8) and,
+    in the backward, two bf16 cotangents and the heads' four f32
+    cotangents; in float32 as f32, with two f32 cotangents and the heads'
+    four. Beside the rows (``ws_floats``): the backward's workspace, 2^24
+    floats or one row of the largest weight gradient and its bias where
+    that is more (a weight gradient's rows split in as many parts as it
+    holds and as fill the card); then in bfloat16 the weights' bf16 copies
+    (each W_k, and for the backward each W_k^T). A product block: bfloat16,
+    two warpgroups on a 128 x 128 tile with a ring of three 64-deep stages
+    of both operands; float32, eight warps on 128 x 64 with three 32-deep
+    stages."""
     layers = n_base + n_head
-    esz = 2 if dtype == torch.bfloat16 else 4
-    ldh = _align(hidden, 8)
-    row = layers * ldh * esz // 4 + (2 * ldh + 4 if backward else 0)
+    ldh, ldx = _align(hidden, 8), _align(d_in, 8)
+    ins = [d_in] + [hidden] * (layers - 1)
     ws = max(1 << 24, hidden * max(d_in, hidden, 4) + hidden) if backward else 0
-    # A [128][32] and B [64][32] operands, rows padded by 16 bytes.
-    smem = (_LAYERED_ROWS + 64) * (32 + 16 // esz) * esz
-    return LaunchPlan("layered", _LAYERED_ROWS, 0, 0, smem, ws, row, _LAYERED_ROWS // 16)
+    if dtype == torch.bfloat16:
+        row = (layers * ldh + ldx + (2 * ldh if backward else 0)) // 2 + (4 if backward else 0)
+        ws += sum(hidden * (ldx if k == 0 else ldh) // 2 + (n * ldh // 2 if backward else 0)
+                  for k, n in enumerate(ins))
+        # The ring, then the column sums' partials of a cotangent's tile.
+        smem = _LAYERED_STAGES * (_LAYERED_ROWS + 128) * 64 * 2 + 8 * 128 * 4
+        groups = 2
+    else:
+        row = layers * ldh + (2 * ldh + 4 if backward else 0)
+        smem = _LAYERED_STAGES * (_LAYERED_ROWS + 64) * (32 + 4) * 4
+        groups = 0
+    return LaunchPlan("layered", _LAYERED_ROWS, groups, _LAYERED_STAGES, smem, ws, row,
+                      _LAYERED_ROWS // 16)
 
 
 def launch_plan(d_in: int, hidden: int, n_base: int, n_head: int, backward: bool,
@@ -535,7 +559,8 @@ def layered_chunk_rays(plan, num_rays, num_samples):
 
 def _layered_scratch(plan, num_rays, num_samples, dev):
     """``(rays a chunk, the scratch)``: the chunk's rows of
-    ``plan.aux_tile_floats`` floats, then the workspace (backward)."""
+    ``plan.aux_tile_floats`` floats, then ``plan.ws_floats`` (the
+    backward's workspace, the bf16 weight copies)."""
     chunk = layered_chunk_rays(plan, num_rays, num_samples)
     floats = chunk * num_samples * plan.aux_tile_floats + plan.ws_floats
     return chunk, torch.empty(floats, device=dev)
