@@ -147,14 +147,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``shards_gloo``). ``--shard-ranks N`` runs this phase alone with N
     ranks over NCCL, one a card, and ``--shard-ranks N --model-shards M``
     phase 20's runs that way;
-19. the stream levers: K2, K2b and K7's bf16 instances against their
-    plain versions on a cold step's 8 buckets, each timed beside its f32
-    instance with both bounds; then the flagship in f32, with
-    ``field_stream_dtype="bfloat16"`` (the path ``stream_lp_train``), with
+19. the stream levers: K2, K2b and K7's instances for each low-precision
+    row type (bf16, f16, float8_e4m3fn, float8_e5m2) against their plain
+    versions on a cold step's 8 buckets, each timed beside its f32
+    instance with both bounds, K2b's rounding of boundary values bit-equal
+    to ``jnp.astype``'s codes; then the flagship in f32, with
+    ``field_stream_dtype`` "bfloat16", "float16", "float8_e4m3fn" and
+    "float8_e5m2" (the paths ``stream_lp_train``, ``stream_f16_train``,
+    ``stream_e4m3fn_train``, ``stream_e5m2_train``), with
     ``grad_stream_budget_per_ray=200`` (``budget_train``) and in f32
     again, 40 steps each from the same seeds: the first loss against
-    f32's (the budget's bit-equal), the rays dropped, ms/step, and the
-    bf16 instances' ms per steady step beside their bounds;
+    f32's (the budget's bit-equal), the rays dropped, ms/step, each
+    instance launched in its own type's run only, and the instances' ms
+    per steady step beside their bounds;
 20. model shards: the field over 2 shards of its feature axis, phase 18's
     16 steps by 1 x 2 and 2 x 2 ranks on ``cuda:0`` over gloo, each held
     to phase 18's no-group run at phase 18's tolerances (the field put
@@ -530,13 +535,13 @@ def _interp_bwd_bound(t0, t1, num_valid, ray_mask, distances, g):
 
 
 def _blend_bwd_bound(g, pos, bary, num_stream, out_dtype=None):
-    """K2b: the output (f32, or bf16 with ``out_dtype``), all bary rows,
-    pos + g rows of the weighted endpoints."""
+    """K2b: the output (f32, or ``out_dtype``, a stream row type), all bary
+    rows, pos + g rows of the weighted endpoints."""
     import torch
 
     num_rays, num_end, num_feat = g.shape
     n_w = int((bary != 0).any(dim=-1).sum())
-    out_size = 2 if out_dtype == torch.bfloat16 else 4
+    out_size = torch.empty((), dtype=out_dtype or torch.float32).element_size()
     return _bound(num_rays * num_stream * num_feat * out_size + num_rays * num_end * 16
                   + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
 
@@ -1400,6 +1405,7 @@ def _profile_steps(trainer, batches, median_ms):
     (the profiler's own host work slows the launches there) and against
     the unprofiled median step ``median_ms``."""
     import torch
+    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX, ROW_TYPES
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1441,8 +1447,11 @@ def _profile_steps(trainer, batches, median_ms):
     for name, us in by_name.items():
         wrapper = _WRAPPER_OF.get(_port_kernel(name))
         if wrapper:
-            if wrapper in _BF16_INSTANCE and "bfloat16" in name:
-                wrapper += "_bf16"  # the bf16 stream's instance of K2, K2b or K7
+            if wrapper in _LOWP_INSTANCE:
+                # A low-precision stream's instance of K2, K2b or K7, by the
+                # row type in its template arguments.
+                wrapper += next((COUNTER_SUFFIX[dtype] for dtype, row in ROW_TYPES.items()
+                                 if row.cuda_type in name), "")
             per_step[wrapper] = per_step.get(wrapper, 0.0) + us / 1e3 / len(batches)
     return per_step
 
@@ -1464,7 +1473,7 @@ _WRAPPER_OF = {"march_kernel": "march", "blend_kernel": "stream_blend_gather",
                "sum_rows_kernel": "fused_field_mlps_backward"}
 
 
-_BF16_INSTANCE = ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")
+_LOWP_INSTANCE = ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")
 
 
 def _port_kernel(name):
@@ -1487,6 +1496,7 @@ def _recording_bounds():
 
     import torch
     from tetranerf_torch.ops import fused, interp, mlp, scatter
+    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX
 
     march_mod = importlib.import_module("tetranerf_torch.ops.march")
 
@@ -1509,8 +1519,8 @@ def _recording_bounds():
     counters = {"stream_blend_gather_batch": "stream_blend_gather",
                 "scatter_add_rows_batch": "scatter_add_rows",
                 "row_gather_batch": "row_gather"}
-    # The argument that names a bf16 instance: the field, K2b's output
-    # dtype, the first job's values.
+    # The argument that names a low-precision instance: the field, K2b's
+    # output dtype, the first job's values.
     lowp_arg = {"stream_blend_gather_batch": lambda a: a[0].dtype,
                 "stream_blend_backward": lambda a: a[4] if len(a) > 4 else None,
                 "scatter_add_rows_batch": lambda a: a[0][0][1].dtype}
@@ -1520,8 +1530,8 @@ def _recording_bounds():
 
         def call(*args):
             counter = counters.get(name, name)
-            if name in lowp_arg and lowp_arg[name](args) == torch.bfloat16:
-                counter += "_bf16"
+            if name in lowp_arg:
+                counter += COUNTER_SUFFIX.get(lowp_arg[name](args) or torch.float32, "")
             sums[counter] = sums.get(counter, 0.0) + bound(*args)["bound_ms"]
             return fn(*args)
         return call
@@ -2796,14 +2806,23 @@ SHARD_FIELD_RTOL = 1e-4
 # those two runs, and at least to the floor.
 SHARD_NOISE_FACTOR = 10
 SHARD_NOISE_FLOOR = 1e-6
-# The bf16 stream's kernels against their plain versions: K2's bf16 rows
-# widen exactly, so K2's f32 tolerance; K2b's f32 sums in another order
-# are each rounded to bf16 once (within 2^-8 of themselves); K7 adds the
-# widened rows in atomic order (its f32 tolerance).
-BF16_K2B_RTOL = 2.0 ** -8
-LEVER_KERNELS = ("stream_blend_gather_bf16", "stream_blend_backward_bf16",
-                 "scatter_add_rows_bf16")
-
+# The low-precision streams' kernels against their plain versions: K2's
+# rows widen exactly, so K2's f32 tolerance; K2b's f32 sums in another
+# order are each rounded to the type once: within one rounding of the
+# twin's f32 sum (stream_dtypes.one_rounding_bound) plus LOWP_SUM_ATOL for
+# the order of the f32 sums (of unit-scale terms, whose sum may cancel to
+# near zero); K7 adds the widened rows in atomic order (its f32 tolerance).
+LOWP_STREAMS = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
+LOWP_SUM_ATOL = 1e-6
+# The first loss of a low-precision stream's run against f32's: the f32
+# stream's features move by a rounding of the field to the type. Measured
+# on the H100 at 4.7e-7 (bf16), 0 (f16), 7.0e-7 (e4m3fn) and 1.0e-6
+# (e5m2); each limit is 10-100 times that.
+LOWP_LOSS_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 1e-4,
+                  "float8_e5m2": 1e-4}
+# The path of each low-precision stream's flagship run.
+LOWP_PATHS = {"bfloat16": "stream_lp_train", "float16": "stream_f16_train",
+              "float8_e4m3fn": "stream_e4m3fn_train", "float8_e5m2": "stream_e5m2_train"}
 
 def _shard_trainer(dev, group=None, mesh_plain=None, colors=None, scene=None):
     """The unmodified preset's trainer on the phase-1 sphere: from
@@ -3226,28 +3245,69 @@ def model_shard_phase(mesh_plain, dev, tmp, ref, runs=MODEL_SHARD_RUNS,
     return out, kernels
 
 
+def _rounding_check(name, dev):
+    """K2b's instance for ``name``: each boundary value of
+    ``stream_dtypes.BOUNDARY_VALUES`` (and +NaN; the card's arithmetic makes every
+    NaN positive) the f32 sum of one endpoint of weight 1, rounded to the
+    codes ``jnp.astype`` gives; and the field's cast (``round_to``) on the
+    card, -NaN included. Returns the number of codes checked."""
+    import torch
+    from tetranerf_torch.ops import interp
+    from tetranerf_torch.ops.stream_dtypes import BOUNDARY_CODES, BOUNDARY_VALUES, round_to
+
+    dtype = getattr(torch, name)
+    codes, sign, nan = BOUNDARY_CODES[dtype]
+    x = torch.tensor(BOUNDARY_VALUES + tuple(-v for v in BOUNDARY_VALUES) + (float("nan"),))
+    want = list(codes) + [c | sign for c in codes] + [nan]
+    code_type = torch.int16 if dtype == torch.float16 else torch.uint8
+
+    def bits(t):
+        return [int(c) & 0xFFFF for c in t.view(code_type).cpu()]
+
+    n = x.numel()
+    g = x[None, :, None].expand(1, n, 2).contiguous().to(dev)
+    pos = torch.full((1, n, 4), n, dtype=torch.int32)  # zero weights: the spare slot n
+    pos[0, :, 0] = torch.arange(n, dtype=torch.int32)
+    bary = torch.zeros((1, n, 4))
+    bary[..., 0] = 1.0
+    gsf = interp.stream_blend_backward(g, pos.to(dev), bary.to(dev), n + 1, dtype)
+    _check(bits(gsf[0, :n, 0]) == want and bits(gsf[0, :n, 1]) == want,
+           f"stream_blend_backward ({name}): rounding {bits(gsf[0, :n, 0])}, not {want}")
+    neg_nan = -torch.tensor([float("nan")])
+    cast = round_to(torch.cat([x, neg_nan]).to(dev), dtype)
+    _check(bits(cast) == want + [nan | sign],
+           f"round_to ({name}) on the card: {bits(cast)}, not {want + [nan | sign]}")
+    return len(want) + 1
+
+
 def _lever_kernel_checks(mesh, origins, directions):
-    """K2, K2b and K7's bf16 instances against their plain versions on all
-    8 buckets of a cold flagship step, each timed beside its f32 instance
-    (same inputs, same call) with both bounds."""
+    """K2, K2b and K7's instance for each low-precision row type against
+    their plain versions on all 8 buckets of a cold flagship step, each
+    timed beside its f32 instance (same inputs, same call) with both
+    bounds; K2b's and the field cast's rounding of the boundary values."""
     import torch
     from tetranerf_torch.ops import fused, interp, scatter
+    from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, COUNTER_SUFFIX,
+                                                   one_rounding_bound, round_to)
 
     dev = origins.device
     num_v = mesh.num_vertices
     gen = torch.Generator(device=dev).manual_seed(19)
     field = torch.randn((num_v, 64), generator=gen, device=dev)
-    field_lp = field.to(torch.bfloat16)
     res, order, plan = _cold_bucket_plan(mesh, origins, directions)
     streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
                for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    gs = [torch.randn((pos.shape[0], pos.shape[1], 64), generator=gen, device=dev)
+          for _, pos, _ in streams]
+    bwd = [(g, pos, bary, vids.shape[1]) for g, (vids, pos, bary) in zip(gs, streams)]
     entries = []
 
-    def entry(name, f32_name, replaces, source, err, kernel, plain, f32, bound, f32_bound):
+    def entry(name, f32_name, replaces, source, err, kernel, plain, f32, bound, f32_bound,
+              **extra):
         e = _entry(name, source, replaces, err, _time_ms(kernel, 20), _time_ms(plain, 3),
                    bound, device_ms=_device_ms(kernel), f32_instance=f32_name,
                    f32_ms=_time_ms(f32, 20), f32_device_ms=_device_ms(f32),
-                   f32_bound_ms=f32_bound["bound_ms"], jobs=len(streams))
+                   f32_bound_ms=f32_bound["bound_ms"], jobs=len(streams), **extra)
         print(f"{name}: the {len(streams)} buckets of a cold flagship step: max abs err "
               f"{err:.3g}; {e['ms']:.4f} ms by CUDA events, kernels {e['device_ms']} by the "
               f"profiler, bound {e['bound_ms']:.4f} ({e['bound_by']}); f32 instance "
@@ -3255,74 +3315,79 @@ def _lever_kernel_checks(mesh, origins, directions):
               f"{e['f32_bound_ms']:.4f}; plain version {e['plain_ms']:.3f} ms")
         entries.append(e)
 
-    outs = interp.stream_blend_gather_batch(field_lp, streams)
-    twin = interp.stream_blend_gather_batch_twin(field_lp, streams)
-    err = max(_max_err(a, b) for a, b in zip(outs, twin))
-    _check(all(o.dtype == torch.float32 for o in outs), "stream_blend_gather_bf16: dtype")
-    _check(err <= TOLERANCES["stream_blend_gather"], f"stream_blend_gather_bf16: err {err}")
-    del twin
-    entry("stream_blend_gather_bf16", "stream_blend_gather",
-          "tetranerf_tpu/ops/pallas_interp.py:214", "tetranerf_torch/csrc/blend.cu", err,
-          lambda: interp.stream_blend_gather_batch(field_lp, streams),
-          lambda: interp.stream_blend_gather_batch_twin(field_lp, streams),
-          lambda: interp.stream_blend_gather_batch(field, streams),
-          _blend_batch_bound(field_lp, streams), _blend_batch_bound(field, streams))
-
-    gs = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
-    del outs
-    bwd = [(g, pos, bary, vids.shape[1]) for g, (vids, pos, bary) in zip(gs, streams)]
-    gsf = [interp.stream_blend_backward(*a, torch.bfloat16) for a in bwd]
-    err, rel = 0.0, 0.0
-    for out, a in zip(gsf, bwd):
-        ref = interp.stream_blend_backward_twin(*a)
-        diff = (out.float() - ref).abs()
-        err = max(err, float(diff.max()))
-        rel = max(rel, float((diff - BF16_K2B_RTOL * ref.abs()).max()))
-        _check(out.dtype == torch.bfloat16, "stream_blend_backward_bf16: dtype")
-    _check(rel <= 1e-6, f"stream_blend_backward_bf16: beyond one bf16 rounding ({rel})")
-
     def bound_sum(fn, *extra):
         total = [fn(*a, *extra) for a in bwd]
         return dict(total[0], bound_ms=sum(b["bound_ms"] for b in total))
 
-    entry("stream_blend_backward_bf16", "stream_blend_backward",
-          "tetranerf_tpu/ops/pallas_interp.py:257", "tetranerf_torch/csrc/blend.cu", err,
-          lambda: [interp.stream_blend_backward(*a, torch.bfloat16) for a in bwd],
-          lambda: [interp.stream_blend_backward_twin(*a, torch.bfloat16) for a in bwd],
-          lambda: [interp.stream_blend_backward(*a) for a in bwd],
-          bound_sum(_blend_bwd_bound, torch.bfloat16), bound_sum(_blend_bwd_bound))
+    for name in LOWP_STREAMS:
+        dtype = getattr(torch, name)
+        sfx = COUNTER_SUFFIX[dtype]
+        field_lp = round_to(field, dtype)
+        outs = interp.stream_blend_gather_batch(field_lp, streams)
+        twin = interp.stream_blend_gather_batch_twin(field_lp, streams)
+        err = max(_max_err(a, b) for a, b in zip(outs, twin))
+        _check(all(o.dtype == torch.float32 for o in outs), f"stream_blend_gather{sfx}: dtype")
+        _check(err <= TOLERANCES["stream_blend_gather"], f"stream_blend_gather{sfx}: err {err}")
+        del outs, twin
+        entry(f"stream_blend_gather{sfx}", "stream_blend_gather",
+              "tetranerf_tpu/ops/pallas_interp.py:214", "tetranerf_torch/csrc/blend.cu", err,
+              lambda: interp.stream_blend_gather_batch(field_lp, streams),
+              lambda: interp.stream_blend_gather_batch_twin(field_lp, streams),
+              lambda: interp.stream_blend_gather_batch(field, streams),
+              _blend_batch_bound(field_lp, streams), _blend_batch_bound(field, streams))
 
-    jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64))
-            for (vids, _, _), g in zip(streams, gsf)]
-    jobs_f32 = [(idx, vals.float()) for idx, vals in jobs]
-    got = scatter.scatter_add_rows_batch(jobs, num_v)
-    err = _max_err(got, scatter.scatter_add_rows_batch_twin(jobs, num_v))
-    _check(got.dtype == torch.float32, "scatter_add_rows_bf16: dtype")
-    _check(err <= TOLERANCES["scatter_add_rows"], f"scatter_add_rows_bf16: err {err}")
-    del got
-    entry("scatter_add_rows_bf16", "scatter_add_rows",
-          "tetranerf_tpu/ops/pallas_scatter.py:105", "tetranerf_torch/csrc/scatter.cu", err,
-          lambda: scatter.scatter_add_rows_batch(jobs, num_v),
-          lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v),
-          lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
-          _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+        gsf = [interp.stream_blend_backward(*a, dtype) for a in bwd]
+        err, over = 0.0, 0.0
+        for out, a in zip(gsf, bwd):
+            ref = interp.stream_blend_backward_twin(*a)
+            diff = (out.float() - ref).abs()
+            err = max(err, float(diff.max()))
+            bound = one_rounding_bound(ref, dtype, LOWP_SUM_ATOL)
+            over = max(over, float((diff - bound).max()))
+            _check(out.dtype == dtype, f"stream_blend_backward{sfx}: dtype")
+        _check(over <= 0, f"stream_blend_backward{sfx}: beyond one rounding ({over})")
+        checked = _rounding_check(name, dev) if dtype in BOUNDARY_CODES else 0
+        entry(f"stream_blend_backward{sfx}", "stream_blend_backward",
+              "tetranerf_tpu/ops/pallas_interp.py:257", "tetranerf_torch/csrc/blend.cu", err,
+              lambda: [interp.stream_blend_backward(*a, dtype) for a in bwd],
+              lambda: [interp.stream_blend_backward_twin(*a, dtype) for a in bwd],
+              lambda: [interp.stream_blend_backward(*a) for a in bwd],
+              bound_sum(_blend_bwd_bound, dtype), bound_sum(_blend_bwd_bound),
+              rounding_codes_checked=checked)
+
+        jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64))
+                for (vids, _, _), g in zip(streams, gsf)]
+        jobs_f32 = [(idx, vals.float()) for idx, vals in jobs]
+        got = scatter.scatter_add_rows_batch(jobs, num_v)
+        err = _max_err(got, scatter.scatter_add_rows_batch_twin(jobs, num_v))
+        _check(got.dtype == torch.float32, f"scatter_add_rows{sfx}: dtype")
+        _check(err <= TOLERANCES["scatter_add_rows"], f"scatter_add_rows{sfx}: err {err}")
+        del got
+        entry(f"scatter_add_rows{sfx}", "scatter_add_rows",
+              "tetranerf_tpu/ops/pallas_scatter.py:105", "tetranerf_torch/csrc/scatter.cu", err,
+              lambda: scatter.scatter_add_rows_batch(jobs, num_v),
+              lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v),
+              lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
+              _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+        del gsf, jobs, jobs_f32
     return entries
 
 
 def lever_phase(colors, mesh_plain, dev):
-    """Phase 19: the stream levers. K2, K2b and K7's bf16 instances against
-    their plain versions (:func:`_lever_kernel_checks`); then the preset in
-    f32, with ``field_stream_dtype="bfloat16"`` and with
+    """Phase 19: the stream levers. K2, K2b and K7's low-precision instances
+    against their plain versions (:func:`_lever_kernel_checks`); then the
+    preset in f32, with each low-precision ``field_stream_dtype`` and with
     ``grad_stream_budget_per_ray`` from the same seeds: the first step's
     loss against f32 (the budget's forward is f32's, bit for bit), the
-    rays the budget drops, ms/step and, for the bf16 stream, the instances'
-    ms per steady step beside their bounds and the f32 kernels'. Returns the
-    kernel entries, the bf16 stream run's launches (the path
-    ``stream_lp_train``), its launches in a steady step, and the budget
-    run's launches (``budget_train``)."""
+    rays the budget drops, ms/step and, for each low-precision stream, its
+    instances' ms per steady step beside their bounds and the f32
+    kernels'. Returns the kernel entries, each low-precision stream run's
+    launches by its path (:data:`LOWP_PATHS`), and the budget run's
+    launches (``budget_train``)."""
     import torch
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
+    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX
     from tetranerf_torch.training.trainer import TrainConfig, Trainer
     from tetranerf_torch.utils.synthetic import sample_sphere_rays
 
@@ -3336,7 +3401,8 @@ def lever_phase(colors, mesh_plain, dev):
     batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
     runs = {}
     # In turns, the f32 run again last: medians on the host clock drift.
-    for label, extra in (("f32", {}), ("bf16 stream", {"field_stream_dtype": "bfloat16"}),
+    for label, extra in (("f32", {}),
+                         *((name, {"field_stream_dtype": name}) for name in LOWP_STREAMS),
                          ("budget", {"grad_stream_budget_per_ray": GRAD_BUDGET_PER_RAY}),
                          ("f32 again", {})):
         model = TetraNerf(tetranerf_preset(**extra), mesh_plain.num_vertices,
@@ -3366,33 +3432,40 @@ def lever_phase(colors, mesh_plain, dev):
               f"(steps 1-{LEVER_STEPS - 1}); loss first 5 mean {first:.5f}, last 5 mean "
               f"{last:.5f}; launches in the last step "
               f"{ {k: v for k, v in per_step.items() if v} }")
-    f32, lp, budget = runs["f32"], runs["bf16 stream"], runs["budget"]
-    lp_err = abs(lp["losses"][0] - f32["losses"][0]) / f32["losses"][0]
+    f32, budget = runs["f32"], runs["budget"]
     _check(budget["losses"][0] == f32["losses"][0],
            f"levers: the budget's first loss {budget['losses'][0]} is not f32's "
            f"{f32['losses'][0]} (its forward is the same)")
-    _check(lp_err <= 1e-2, f"levers: the bf16 stream's first loss rel err {lp_err}")
     _check(0 < max(budget["dropped"]) < TRAIN_RAYS,
            f"levers: the budget dropped {budget['dropped']} rays a step")
     _check(all(n == -1 for n in f32["dropped"]), "levers: dropped rays without a budget")
-    for k in LEVER_KERNELS:
-        _check(lp["launches"][k] > 0, f"levers: {k} did not launch: {lp['launches']}")
-        _check(f32["launches"][k] == 0 and budget["launches"][k] == 0,
-               f"levers: {k} launched without the bf16 stream")
-    expected = {"stream_blend_gather_bf16": 1, "stream_blend_backward_bf16": 8,
-                "scatter_add_rows_bf16": 1, "stream_blend_gather": 0,
-                "stream_blend_backward": 0, "scatter_add_rows": 0}
-    for k, n in expected.items():
-        _check(lp["per_step"][k] == n,
-               f"levers: {k} launched {lp['per_step'][k]} times in a steady bf16 step, not {n}")
-    print(f"levers: first loss f32 {f32['losses'][0]:.6f}, bf16 stream "
-          f"{lp['losses'][0]:.6f} (rel {lp_err:.3g}), budget {budget['losses'][0]:.6f} "
-          f"(bit-equal); {GRAD_BUDGET_PER_RAY} slots a ray drop "
-          f"{budget['dropped'][::4]} rays (every 4th step, of {TRAIN_RAYS}); median ms/step "
-          f"f32 {f32['median_ms']:.2f}, bf16 stream {lp['median_ms']:.2f}, budget "
-          f"{budget['median_ms']:.2f}, f32 again {runs['f32 again']['median_ms']:.2f}")
+    kernels = ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")
+    first_rel = {}
+    for name in LOWP_STREAMS:
+        lp, sfx = runs[name], COUNTER_SUFFIX[getattr(torch, name)]
+        first_rel[name] = abs(lp["losses"][0] - f32["losses"][0]) / f32["losses"][0]
+        _check(first_rel[name] <= LOWP_LOSS_RTOL[name],
+               f"levers: the {name} stream's first loss rel err {first_rel[name]}")
+        # Each instance runs in its own type's run and in no other.
+        for label, run in runs.items():
+            for k in kernels:
+                n = run["launches"][k + sfx]
+                _check(n > 0 if label == name else n == 0,
+                       f"levers ({label}): {k + sfx} launched {n} times")
+        expected = {k + sfx: n for k, n in zip(kernels, (1, 8, 1))}
+        expected.update({k: 0 for k in kernels})
+        for k, n in expected.items():
+            _check(lp["per_step"][k] == n,
+                   f"levers: {k} launched {lp['per_step'][k]} times in a steady {name} step, "
+                   f"not {n}")
+    print(f"levers: first loss f32 {f32['losses'][0]:.6f}, "
+          + ", ".join(f"{name} stream {runs[name]['losses'][0]:.6f} (rel {first_rel[name]:.3g})"
+                      for name in LOWP_STREAMS)
+          + f", budget {budget['losses'][0]:.6f} (bit-equal); {GRAD_BUDGET_PER_RAY} slots a "
+          f"ray drop {budget['dropped'][::4]} rays (every 4th step, of {TRAIN_RAYS}); median "
+          f"ms/step " + ", ".join(f"{label} {run['median_ms']:.2f}" for label, run in runs.items()))
     step_ms = {}
-    for label in ("f32", "bf16 stream"):
+    for label in ("f32", *LOWP_STREAMS):
         trainer = runs[label]["trainer"]
         print(f"levers ({label}):")
         dev_ms = _profile_steps(trainer, batches[:2], runs[label]["median_ms"])
@@ -3401,16 +3474,20 @@ def lever_phase(colors, mesh_plain, dev):
         step_ms[label] = {k: dict(ms=dev_ms.get(k), bound_ms=v) for k, v in bounds.items()}
     for e in entries:
         name, f32_name = e["name"], e["f32_instance"]
-        e["flagship_step_ms"] = step_ms["bf16 stream"].get(name, {}).get("ms")
-        e["flagship_step_bound_ms"] = step_ms["bf16 stream"].get(name, {}).get("bound_ms")
+        stream = next(n for n in LOWP_STREAMS
+                      if name.endswith(COUNTER_SUFFIX[getattr(torch, n)]))
+        e["flagship_step_ms"] = step_ms[stream].get(name, {}).get("ms")
+        e["flagship_step_bound_ms"] = step_ms[stream].get(name, {}).get("bound_ms")
         e["f32_flagship_step_ms"] = step_ms["f32"].get(f32_name, {}).get("ms")
         e["f32_flagship_step_bound_ms"] = step_ms["f32"].get(f32_name, {}).get("bound_ms")
-        e["launches_per_step"] = lp["per_step"][name]
+        e["launches_per_step"] = runs[stream]["per_step"][name]
+        e["launches_path"] = LOWP_PATHS[stream]
         print(f"levers: {name} per steady flagship step {e['flagship_step_ms']} ms by the "
               f"profiler, bound {e['flagship_step_bound_ms']}; f32 instance "
               f"{e['f32_flagship_step_ms']} ms, bound {e['f32_flagship_step_bound_ms']}")
     print(f"levers: phase 19 took {time.perf_counter() - t_phase:.1f} s")
-    return entries, lp["launches"], budget["launches"]
+    return (entries, {LOWP_PATHS[name]: runs[name]["launches"] for name in LOWP_STREAMS},
+            budget["launches"])
 
 
 TRACER_RAYS = 8192
@@ -4818,8 +4895,9 @@ def main(argv=None) -> int:
         for label, run in shards.items():
             paths[f"shards_{label}"] = run["launches"]
         torch.cuda.empty_cache()
-        lever_entries, paths["stream_lp_train"], paths["budget_train"] = lever_phase(
+        lever_entries, lowp_paths, paths["budget_train"] = lever_phase(
             colors, mesh_plain, dev)
+        paths.update(lowp_paths)
         torch.cuda.empty_cache()
         model_runs, model_width = model_shard_phase(
             mesh_plain, dev, tmp, shard_ref,
@@ -4876,9 +4954,8 @@ def main(argv=None) -> int:
         if name == "locate":
             k["tracer_ms"] = {"find_tetrahedra": tracer_ms["find_tetrahedra"]}
     for k in lever_entries:
-        # The bf16 stream's flagship run (phase 19) is their main path.
-        k["launches"] = paths["stream_lp_train"][k["name"]]
-        k["launches_path"] = "stream_lp_train"
+        # Their own row type's flagship run (phase 19) is their main path.
+        k["launches"] = paths[k["launches_path"]][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in paths.items()}
     kernels += lever_entries
     for k in generic_entries:

@@ -295,10 +295,12 @@ def _eval(setup, jcfg, cfg, bucket_steps):
 def _assert_close_to_jax(out, ref):
     np.testing.assert_array_equal(out["ray_mask"], ref["ray_mask"])
     np.testing.assert_array_equal(out["traversal_overflow"], ref["traversal_overflow"])
-    # As in test_torch_model.py: JAX blends endpoint features with a bf16
-    # contraction even at float32 compute; the port computes in f32.
-    np.testing.assert_allclose(out["rgb"], ref["rgb"], atol=2e-2, rtol=0)
-    np.testing.assert_allclose(out["accumulation"], ref["accumulation"], atol=2e-2, rtol=0)
+    # As in test_torch_model.py: JAX's stream blend rounds the field rows
+    # and weights to bf16 (in its model on the CPU as in the eager op), the
+    # port blends in f32: rgb at most 5.7e-6 and accumulation 1.1e-5 apart
+    # in these float32 cases, so gates of 4.6-8.8x.
+    np.testing.assert_allclose(out["rgb"], ref["rgb"], atol=5e-5, rtol=0)
+    np.testing.assert_allclose(out["accumulation"], ref["accumulation"], atol=5e-5, rtol=0)
 
 
 def test_covering_buckets_match_jax_and_the_unbucketed_forward(setup):

@@ -395,7 +395,7 @@ class _ColumnGroup:
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
-@pytest.mark.parametrize("lever", ["f32", "bf16", "budget"])
+@pytest.mark.parametrize("lever", ["f32", "bf16", "budget", "f16", "e4m3fn", "e5m2"])
 def test_column_gather_backward_is_this_ranks_slice(request, device, lever):
     """Endpoint features of three bucket streams from a field sharded in 4
     column blocks, each model rank in turn: the forward is the whole
@@ -403,8 +403,9 @@ def test_column_gather_backward_is_this_ranks_slice(request, device, lever):
     the whole field's gradient, neither summed over the model group nor
     scaled by it (the gather's backward is a slice): exactly on the CPU,
     to K7's atomic order (1e-6 of the largest entry) on the card, where
-    K2, K2b and K7 run at ``F/M`` = 4. Also with the bf16 stream, and with
-    a gradient-stream budget's dropped slots (every third, id -1)."""
+    K2, K2b and K7 run at ``F/M`` = 4. Also with the bf16, f16 and fp8
+    streams (the fp8 column blocks' rows are 4 bytes), and with a
+    gradient-stream budget's dropped slots (every third, id -1)."""
     from tetranerf_torch.geometry import build_mesh
     from tetranerf_torch.ops.fused import endpoint_features_batch, march_features
     from tetranerf_torch.utils.synthetic import sample_sphere_rays as rays
@@ -418,7 +419,8 @@ def test_column_gather_backward_is_this_ranks_slice(request, device, lever):
     gen = torch.Generator().manual_seed(0)
     field = torch.randn(mesh.num_vertices, 16, generator=gen).to(dev).requires_grad_()
     weights = [torch.randn(s.pos.shape[:2] + (16,), generator=gen).to(dev) for s in streams]
-    stream_dtype = torch.bfloat16 if lever == "bf16" else None
+    stream_dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
+                    "e4m3fn": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}.get(lever)
     ids = None
     if lever == "budget":
         ids = [torch.where(torch.arange(s.vids.numel(), device=dev).view_as(s.vids) % 3 == 0,

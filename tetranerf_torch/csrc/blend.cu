@@ -46,13 +46,18 @@
 // ms at the render shape, 0.296 ms for the 8 launches of a flagship step,
 // on an H100 80GB HBM3 at 700 W.
 //
-// The bf16-row instance, for `field_stream_dtype="bfloat16"` (replaces the
-// forward of tetranerf_tpu/ops/fused.py `gather_rows_lowp` :664 before the
-// same blend): the field is a bf16 [V, F] copy made once per forward; a
-// lane reads 8 (or 4) bytes of each row and widens them exactly, then
-// blends and writes f32 as above, as JAX's `_run_blend` writes f32. It
-// moves half the row bytes; the f32 output is the same, so its bound is
-// close to the f32 instance's.
+// The low-precision row instances, for `field_stream_dtype` "bfloat16",
+// "float16", "float8_e4m3fn" and "float8_e5m2" (replace the forward of
+// tetranerf_tpu/ops/fused.py `gather_rows_lowp` :665-695 before the same
+// blend): the field is a [V, F] copy in that type, made once per forward
+// (ops/stream_dtypes.py `round_to`, ml_dtypes' rounding); a lane reads 8,
+// 4 or 2 bytes of each row (4 or 2 elements) and widens them exactly
+// (common.cuh `Row`), then blends and writes f32 as above, as JAX's
+// `_run_blend` writes f32. The row bytes shrink by 2x or 4x; the f32
+// output is the same, so the bound is close to the f32 instance's. JAX's
+// kernel casts the rows to bf16 for the MXU; this one blends them in f32,
+// so the two agree where the rows are bf16-exact (every e4m3fn and e5m2
+// value is, and an f16 value with at most 8 significant bits).
 
 #include <stdint.h>
 
@@ -116,8 +121,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // At most 64 registers a thread, so 4 blocks share an SM: more row
 // gathers and output rows in flight than at 3 blocks (72 registers).
-// `T` is the field's row type: float, or bf16 (the bf16 stream lever:
-// rows move at half the bytes and blend in f32 all the same).
+// `T` is the field's row type: float, or a stream row type of common.cuh
+// (bf16, f16, e4m3fn, e5m2: rows move at fewer bytes and blend in f32 all
+// the same).
 template <int kVec, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
     const __grid_constant__ BlendBatch batch, const T* __restrict__ field,
@@ -218,19 +224,20 @@ extern "C" int tetranerf_stream_blend_max_jobs() { return kBlendMaxJobs; }
 
 // `jobs` is a host array of `num_jobs` x 7 int64: stream ids, positions,
 // weights and output addresses; rays, endpoints and stream slots. The
-// field is f32, or bf16 with `field_bf16` != 0; the outputs are f32. F
-// must be even, positions and weights 16-byte aligned. Jobs with no rays
+// field's row type is `field_type` (a RowType); the outputs are f32. F
+// must be even, the field and its rows aligned to 2 elements, positions
+// and weights to 16 bytes. Jobs with no rays
 // or endpoints are skipped; one launch runs the rest (at most
 // kBlendMaxJobs), none if nothing is left.
 extern "C" int tetranerf_stream_blend_gather_batch(
     const void* field, const long long* jobs, int num_jobs, int num_feat,
-    int field_bf16, cudaStream_t stream) {
-  if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2) {
+    int field_type, cudaStream_t stream) {
+  const uint64_t esize = row_type_size(field_type);
+  if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2 || esize == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // float4 columns where the rows, the field and every output allow: 4
   // elements of the field's type, 16 bytes of f32 output.
-  const uint64_t esize = field_bf16 ? 2 : 4;
   const uint64_t fbits = reinterpret_cast<uintptr_t>(field) |
                          static_cast<uint64_t>(num_feat) * esize;
   uint64_t obits = static_cast<uint64_t>(num_feat) * sizeof(float);
@@ -273,21 +280,17 @@ extern "C" int tetranerf_stream_blend_gather_batch(
     blocks += rays * num_tiles;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (blocks > 0) {
-    const unsigned grid = static_cast<unsigned>(blocks);
-    if (field_bf16) {
-      if (vec == 4) {
-        launch_blend<4, __nv_bfloat16>(grid, batch, field, num_feat, group_log2, stream);
-      } else {
-        launch_blend<2, __nv_bfloat16>(grid, batch, field, num_feat, group_log2, stream);
-      }
-    } else if (vec == 4) {
-      launch_blend<4, float>(grid, batch, field, num_feat, group_log2, stream);
+  if (blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned grid = static_cast<unsigned>(blocks);
+  return with_row_type(field_type, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if (vec == 4) {
+      launch_blend<4, T>(grid, batch, field, num_feat, group_log2, stream);
     } else {
-      launch_blend<2, float>(grid, batch, field, num_feat, group_log2, stream);
+      launch_blend<2, T>(grid, batch, field, num_feat, group_log2, stream);
     }
-  }
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // K2b: the transpose of the stream blend, onto the per-ray stream rows.
@@ -330,11 +333,15 @@ extern "C" int tetranerf_stream_blend_gather_batch(
 // device memory: 0.64-0.68 ms at the train shape and 1.98 ms for the 8
 // launches of a flagship step, on an H100 80GB HBM3 at 700 W.
 //
-// The bf16-out instance, for `field_stream_dtype="bfloat16"` (JAX's
-// `_blend_bwd` emits the cotangent in the primal's dtype,
-// pallas_interp.py:257-266): the same f32 sums, each output pair rounded
-// to bf16 as it is written, so the dense [R, U, F] output is half the
-// bytes; K7's bf16 instance then adds these rows into the f32 field
+// The low-precision out instances, for `field_stream_dtype` "bfloat16",
+// "float16", "float8_e4m3fn" and "float8_e5m2" (JAX's `_blend_bwd` emits
+// the cotangent in the primal's dtype, pallas_interp.py:257-268): the same
+// f32 sums, each output pair rounded once to the stream's type as it is
+// written (common.cuh `Row<T>::round2`, ml_dtypes' rounding: an e4m3fn
+// sum past 464 is NaN, an f16 or e5m2 one past the range infinity, and an
+// e4m3fn sum of at most 2^-10 rounds to zero, as in the reference), so the
+// dense [R, U, F] output is a half or a quarter of the bytes; K7's
+// instance of the same type then adds these rows into the f32 field
 // gradient.
 
 namespace {
@@ -345,9 +352,9 @@ constexpr int kBwdMaxTile = 128;   // stream slots a block owns, at most
 constexpr int kBwdCols = 64;       // feature columns a pass (a float2 a lane)
 constexpr int kBwdInFlight = 8;    // g rows a warp loads before adding them
 
-// `OutT` is the stream-row gradient's type: float, or bf16 for the bf16
-// stream lever (the primal's dtype, as JAX's `_blend_bwd` emits it): the
-// sums are f32 either way and rounded once, as they are written.
+// `OutT` is the stream-row gradient's type: float, or the stream's row
+// type (the primal's dtype, as JAX's `_blend_bwd` emits it): the sums are
+// f32 either way and rounded once, as they are written.
 template <typename OutT>
 __global__ void __launch_bounds__(kBwdThreads) blend_bwd_kernel(
     const float* __restrict__ g, const int* __restrict__ pos,
@@ -485,15 +492,15 @@ int launch_blend_bwd(const float* g, const int* pos, const float* bary,
 
 }  // namespace
 
-// `gsf` is f32, or bf16 with `out_bf16` != 0.
+// `gsf`'s row type is `out_type` (a RowType). F must be even.
 extern "C" int tetranerf_stream_blend_backward(
     const float* g, const int* pos, const float* bary, void* gsf,
-    int num_rays, int num_end, int num_stream, int num_feat, int out_bf16,
+    int num_rays, int num_end, int num_stream, int num_feat, int out_type,
     cudaStream_t stream) {
-  if (out_bf16) {
-    return launch_blend_bwd<__nv_bfloat16>(g, pos, bary, gsf, num_rays, num_end,
-                                           num_stream, num_feat, stream);
-  }
-  return launch_blend_bwd<float>(g, pos, bary, gsf, num_rays, num_end,
-                                 num_stream, num_feat, stream);
+  if (num_feat <= 0 || num_feat % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return with_row_type(out_type, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return launch_blend_bwd<T>(g, pos, bary, gsf, num_rays, num_end, num_stream,
+                               num_feat, stream);
+  });
 }

@@ -50,14 +50,15 @@
 // The order of the float additions into a row varies from run to run, so
 // results agree with the plain version to rounding, not bit for bit.
 //
-// The bf16-row instance, for `field_stream_dtype="bfloat16"` (replaces the
-// backward of tetranerf_tpu/ops/fused.py `gather_rows_lowp` :680-689):
-// the values are K2b's bf16 stream-row gradients; a lane reads 8, 4 or 2
-// bytes of a row, widens them exactly and adds them into the f32 table
-// with the same vector atomics. The accumulation stays f32, which is the
-// lever's point: 10-200 rows sum into a vertex row, which bf16's 8
-// mantissa bits could not carry. Half the value bytes; the atomics are
-// the same.
+// The low-precision row instances, for `field_stream_dtype` "bfloat16",
+// "float16", "float8_e4m3fn" and "float8_e5m2" (replace the backward of
+// tetranerf_tpu/ops/fused.py `gather_rows_lowp` :680-692): the values are
+// K2b's stream-row gradients in that type; a lane reads 8, 4, 2 or 1 bytes
+// of a row, widens them exactly (common.cuh `Row`) and adds them into the
+// f32 table with the same vector atomics. The accumulation stays f32,
+// which is the lever's point: 10-200 rows sum into a vertex row, which
+// bf16's 8 significant bits (f16's 11, fp8's 3 or 4) could not carry. A
+// half or a quarter of the value bytes; the atomics are the same.
 
 #include <stdint.h>
 
@@ -67,7 +68,7 @@ namespace {
 
 struct ScatterJob {
   const int* idx;
-  const void* values;  // float or bf16 rows
+  const void* values;  // rows of the launch's row type
   int rows;
   int first_block;  // prefix over the jobs of their block counts
 };
@@ -102,7 +103,8 @@ struct Vec<1> {
   __device__ static bool nonzero(float v) { return v != 0.0f; }
 };
 
-// `T` is the values' row type: float, or bf16 (added into the f32 table).
+// `T` is the values' row type: float, or a stream row type of common.cuh
+// (widened, then added into the f32 table).
 template <int kVec, typename T>
 __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
     const __grid_constant__ ScatterBatch batch, float* __restrict__ out,
@@ -182,14 +184,15 @@ void launch_scatter_vec(int vec, unsigned grid, const ScatterBatch& batch,
 extern "C" int tetranerf_scatter_add_max_jobs() { return kMaxJobs; }
 
 // `jobs` is a host array of `num_jobs` x 3 int64: index address, values
-// address, row count. The values are f32, or bf16 with `values_bf16` != 0;
+// address, row count. The values' row type is `values_type` (a RowType);
 // the table is f32. `zero` != 0 zeroes the [num_rows, num_feat] table
 // first. Jobs with no rows are skipped; one launch runs the rest (at most
 // kMaxJobs of them), none if nothing is left.
 extern "C" int tetranerf_scatter_add_rows_batch(
     const long long* jobs, int num_jobs, float* out, int num_rows,
-    int num_feat, int zero, int values_bf16, cudaStream_t stream) {
-  if (num_jobs > kMaxJobs || num_feat <= 0 || num_rows < 0) {
+    int num_feat, int zero, int values_type, cudaStream_t stream) {
+  const uint64_t esize = row_type_size(values_type);
+  if (num_jobs > kMaxJobs || num_feat <= 0 || num_rows < 0 || esize == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (zero) {
@@ -200,7 +203,6 @@ extern "C" int tetranerf_scatter_add_rows_batch(
   }
   // The widest vector that divides the table's row bytes and address (f32)
   // and every values row and address (in the values' type).
-  const uint64_t esize = values_bf16 ? 2 : 4;
   const uint64_t obits = reinterpret_cast<uintptr_t>(out) |
                          static_cast<uint64_t>(num_feat) * sizeof(float);
   uint64_t vbits = static_cast<uint64_t>(num_feat) * esize;
@@ -231,15 +233,11 @@ extern "C" int tetranerf_scatter_add_rows_batch(
     blocks += (rows + rows_per_block - 1) / rows_per_block;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (blocks > 0) {
-    const unsigned grid = static_cast<unsigned>(blocks);
-    if (values_bf16) {
-      launch_scatter_vec<__nv_bfloat16>(vec, grid, batch, out, num_rows, num_feat,
-                                        group_log2, stream);
-    } else {
-      launch_scatter_vec<float>(vec, grid, batch, out, num_rows, num_feat,
-                                group_log2, stream);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned grid = static_cast<unsigned>(blocks);
+  return with_row_type(values_type, [&](auto tag) {
+    launch_scatter_vec<typename decltype(tag)::type>(vec, grid, batch, out, num_rows,
+                                                     num_feat, group_log2, stream);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -44,8 +44,14 @@ occupancy refresh (``Trainer._rebuild_skip_grid``, ``ops/skip_grid.py``),
 and every march with occupancy termination sphere-traces through it first,
 as in JAX.
 
-Settings whose code is not ported yet are refused by
-:func:`check_supported` with ``NotImplementedError``.
+``field_stream_dtype`` takes every name JAX's model runs: ``"float32"``
+and ``"float64"`` (the f32 stream, as JAX computes it with 64-bit types
+off), ``"bfloat16"``, ``"float16"``, ``"float8_e4m3fn"`` and
+``"float8_e5m2"`` (each a row type of the stream kernels), and their numpy
+aliases. :func:`check_supported` refuses what JAX refuses with JAX's
+exception type, and the other 8- and 4-bit types of ``ml_dtypes``, which
+JAX runs and the stream kernels have no instance for, with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 from typing import Literal, Optional, Union
+
+from ..ops.stream_dtypes import stream_dtype
 
 
 @dataclasses.dataclass
@@ -132,12 +140,11 @@ class TetrahedraNerfConfig:
 
 
 def check_supported(config: TetrahedraNerfConfig) -> None:
-    """Refuse settings whose code the port does not have: a stream dtype
-    other than f32 or bf16 (the kernels' two instances)."""
-    if config.field_stream_dtype not in (None, "float32", "bfloat16"):
-        raise NotImplementedError(
-            "not ported to tetranerf_torch: field_stream_dtype="
-            f"{config.field_stream_dtype!r} (the stream kernels take float32 or bfloat16)")
+    """Refuse settings the model cannot run: a ``field_stream_dtype`` that
+    JAX refuses, with JAX's exception type, or one of the 8- and 4-bit
+    types JAX runs and the stream kernels have no instance for
+    (``NotImplementedError``; :func:`~..ops.stream_dtypes.stream_dtype`)."""
+    stream_dtype(config.field_stream_dtype)
     if config.traversal_hops not in (1, 2):
         raise ValueError(f"traversal_hops must be 1 or 2, got {config.traversal_hops!r}")
     if config.interp_mode not in ("matmul", "pallas", "gather"):

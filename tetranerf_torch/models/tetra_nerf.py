@@ -45,6 +45,7 @@ from ..ops.march import FusedMarch
 from ..ops.mlp import FusedDensityMLP, FusedFieldMLPs, as_operand
 from ..ops.rendering import render_rgb_depth_acc, render_weights
 from ..ops.sampling import pdf_sample, stratified_bins
+from ..ops import stream_dtypes
 from ..utils.shapes import scaled_budget
 from .config import TetrahedraNerfConfig, check_supported
 from .nn import MLP, Linear
@@ -387,20 +388,23 @@ class TetraNerf(nn.Module):
 
     def stream_levers(self, train: bool):
         """``(budget_per_ray, stream_dtype)`` of a forward (JAX ``_forward``):
-        the gradient-stream budget in training only; the bf16 stream
-        whenever configured, except while the budget is on (JAX
-        ``endpoint_features`` takes the budget first)."""
+        the gradient-stream budget in training only; the low-precision
+        stream (bf16, f16, float8_e4m3fn, float8_e5m2) whenever configured,
+        except while the budget is on (JAX ``endpoint_features`` takes the
+        budget first). ``"float64"`` is the f32 stream, as JAX computes it
+        with 64-bit types off (:func:`~..ops.stream_dtypes.stream_dtype`)."""
         cfg = self.config
         per_ray = cfg.grad_stream_budget_per_ray if train else None
         per_ray = per_ray or None
-        dtype = (None if cfg.field_stream_dtype in (None, "float32") or per_ray
-                 else getattr(torch, cfg.field_stream_dtype))
+        dtype = None if per_ray else stream_dtypes.stream_dtype(cfg.field_stream_dtype)
         return per_ray, dtype
 
     def merges_buckets(self, train: bool) -> bool:
         """Whether bucketed shading merges its MLP rounds (JAX's condition,
         ``tetranerf_tpu/models/tetra_nerf.py:546-551``): not with the
-        budget in training, a bf16 stream or ``fused_mlps``."""
+        budget in training, a stream dtype other than ``"float32"`` (also
+        ``"float64"``, whose stream is f32's: JAX compares the name) or
+        ``fused_mlps``."""
         cfg = self.config
         return bool(
             cfg.bucket_merge_mlps

@@ -78,7 +78,12 @@ launch_counts = {
     "scatter_add_rows": 0, "fused_field_mlps": 0, "fused_field_mlps_backward": 0,
     "fused_density_mlp": 0, "fused_density_mlp_backward": 0, "row_gather": 0,
     "stream_blend_gather_bf16": 0, "stream_blend_backward_bf16": 0,
-    "scatter_add_rows_bf16": 0, "fused_field_mlps_generic": 0,
+    "scatter_add_rows_bf16": 0, "stream_blend_gather_f16": 0,
+    "stream_blend_backward_f16": 0, "scatter_add_rows_f16": 0,
+    "stream_blend_gather_e4m3fn": 0, "stream_blend_backward_e4m3fn": 0,
+    "scatter_add_rows_e4m3fn": 0, "stream_blend_gather_e5m2": 0,
+    "stream_blend_backward_e5m2": 0, "scatter_add_rows_e5m2": 0,
+    "fused_field_mlps_generic": 0,
     "fused_field_mlps_backward_generic": 0, "fused_density_mlp_generic": 0,
     "fused_density_mlp_backward_generic": 0, "fused_field_mlps_layered": 0,
     "fused_field_mlps_backward_layered": 0, "fused_density_mlp_layered": 0,

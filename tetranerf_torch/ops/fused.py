@@ -14,10 +14,11 @@ Where autograd records (grad enabled and a differentiable input), the two go
 through the autograd Functions whose backwards are K2b + K7 and K3b.
 
 The two stream levers of :func:`endpoint_features_batch` (JAX
-``endpoint_features(..., counts, grad_budget, stream_dtype)``): a bf16
-stream (K2, K2b and K7's bf16 instances, the field gradient still summed in
-f32) and the gradient-stream budget (:func:`stream_budget_ids`: the slots
-past the budget scatter no gradient).
+``endpoint_features(..., counts, grad_budget, stream_dtype)``): a
+low-precision stream, bf16, f16, float8_e4m3fn or float8_e5m2 (K2, K2b and
+K7's instances for that row type, the field gradient still summed in f32),
+and the gradient-stream budget (:func:`stream_budget_ids`: the slots past
+the budget scatter no gradient).
 
 With the field sharded over its feature axis (``columns``, a
 :class:`~..parallel.Group` of model shards), K2 blends this rank's ``F/M``
@@ -42,6 +43,7 @@ from .interp import (
 )
 from .gather import row_gather_batch
 from .march import FusedMarch, MarchStream, march
+from .stream_dtypes import round_to
 
 
 def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
@@ -53,10 +55,15 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     traversal. Where autograd records, the field gradient of all streams is
     one ``[V, F]`` tensor (one K7 launch).
 
-    ``stream_dtype`` bf16 blends a bf16 copy of the field (cast once here)
-    and sends the gradient through bf16 stream rows into the f32 field
-    gradient; ``scatter_ids`` (:func:`stream_budget_ids`, one per stream)
-    drop the field gradient of the slots past the gradient-stream budget.
+    ``stream_dtype`` (bf16, f16, float8_e4m3fn or float8_e5m2; JAX
+    ``gather_rows_lowp``) blends a copy of the field in that type, rounded
+    once here as ``jnp.astype`` rounds (:func:`~.stream_dtypes.round_to`:
+    plain torch ops, as JAX leaves the cast to XLA; torch's own cast would
+    saturate float8_e4m3fn where JAX gives NaN), in K2's instance for the
+    type, and sends the gradient through stream rows in that type (K2b's
+    and K7's instances) into the f32 field gradient; ``scatter_ids``
+    (:func:`stream_budget_ids`, one per stream) drop the field gradient of
+    the slots past the gradient-stream budget.
     The forward is the same either way.
 
     ``columns`` (a :class:`~..parallel.Group` with model shards) says that
@@ -67,8 +74,7 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     if torch.is_grad_enabled() and field.requires_grad:
         outs = StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat)
     else:
-        rows = field if stream_dtype is None else field.to(stream_dtype)
-        outs = stream_blend_gather_batch(rows, split_streams(flat))
+        outs = stream_blend_gather_batch(round_to(field, stream_dtype), split_streams(flat))
     return gather_columns(columns, outs)
 
 

@@ -5,10 +5,13 @@ its backward.
 
 Counterpart of :mod:`tetranerf_tpu.ops.pallas_interp`. All run in f32: the
 JAX kernels' bf16 contraction was the price of the TPU's matrix unit, not
-part of the function. The bf16 stream lever (``field_stream_dtype=
-"bfloat16"``, JAX ``gather_rows_lowp``) has its own instances: K2 reads a
-bf16 field and blends in f32, K2b writes the stream-row gradient in bf16,
-and K7 adds bf16 rows into the f32 field gradient.
+part of the function. The low-precision streams (``field_stream_dtype``
+"bfloat16", "float16", "float8_e4m3fn" or "float8_e5m2", JAX
+``gather_rows_lowp``) have their own instances, one for each row type: K2
+reads the field in that type and blends in f32, K2b writes the stream-row
+gradient in that type (rounded once, as ``jnp.astype`` rounds:
+:func:`~.stream_dtypes.round_to`), and K7 adds those rows into the f32
+field gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from . import cuda
 from .scatter import scatter_add_rows_batch
+from .stream_dtypes import COUNTER_SUFFIX, KERNEL_CODES, round_to
 
 Stream = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 """``(vids i32[R, U], pos i32[R, E, 4], bary f32[R, E, 4])``: one march
@@ -28,12 +32,15 @@ stream (``MarchStream``'s fields) to blend against the field."""
 def stream_blend_gather_twin(field, vids, pos, bary):
     """``out[r, e] = sum_j bary[r, e, j] * field[vids[r, pos[r, e, j]]]``.
 
-    ``field f32[V, F]`` (or bf16: its rows widen exactly and blend in f32),
-    ``vids i32[R, U]``, ``pos i32[R, E, 4]`` in ``[0, U)``, ``bary f32[R,
-    E, 4]`` (zero at invalid endpoints) -> ``f32[R, E, F]``."""
+    ``field f32[V, F]`` (or a stream row type, bf16, f16, float8_e4m3fn or
+    float8_e5m2: its rows widen exactly and blend in f32), ``vids i32[R,
+    U]``, ``pos i32[R, E, 4]`` in ``[0, U)``, ``bary f32[R, E, 4]`` (zero
+    at invalid endpoints) -> ``f32[R, E, F]``."""
     num_rays, num_end = pos.shape[:2]
     vid_e = vids.gather(1, pos.reshape(num_rays, num_end * 4).long()).clamp_min(0)
     rows = field[vid_e.long()].reshape(num_rays, num_end, 4, field.shape[-1])
+    if rows.element_size() < 4:  # a stream row type; f64 stays f64
+        rows = rows.float()
     w = bary[..., None]
     return (
         w[:, :, 0] * rows[:, :, 0] + w[:, :, 1] * rows[:, :, 1]
@@ -47,9 +54,8 @@ def stream_blend_gather_batch_twin(field, streams: Sequence[Stream]) -> List[tor
 
 def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
     num_feat = field.shape[-1]
-    lowp = field.dtype == torch.bfloat16
-    if (field.dim() != 2 or field.dtype not in (torch.float32, torch.bfloat16)
-            or num_feat % 2 or field.data_ptr() % 8):
+    if (field.dim() != 2 or field.dtype not in KERNEL_CODES or num_feat % 2
+            or field.data_ptr() % (2 * field.element_size())):
         raise ValueError("stream_blend_gather: unexpected field shape, dtype or alignment")
     outs, flat = [], []
     for vids, pos, bary in streams:
@@ -69,18 +75,20 @@ def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
         if out.numel():
             flat.append((vids.data_ptr(), pos.data_ptr(), bary.data_ptr(),
                          out.data_ptr(), num_rays, num_end, vids.shape[1]))
-    counter = "stream_blend_gather_bf16" if lowp else "stream_blend_gather"
+    counter = "stream_blend_gather" + COUNTER_SUFFIX[field.dtype]
     for jobs_arr, num in cuda.job_chunks(cuda.max_jobs("tetranerf_stream_blend_max_jobs"), flat):
         cuda.launch(counter, "tetranerf_stream_blend_gather_batch",
-                    field.device, cuda.ptr(field), jobs_arr, num, num_feat, int(lowp))
+                    field.device, cuda.ptr(field), jobs_arr, num, num_feat,
+                    KERNEL_CODES[field.dtype])
     return outs
 
 
 def stream_blend_gather_batch(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
     """K2 on CUDA tensors, :func:`stream_blend_gather_batch_twin` on CPU
     tensors: the endpoint features ``f32[R_j, E_j, F]`` of each stream
-    against one ``field [V, F]`` (``F`` even), f32 or bf16 (K2's bf16-row
-    instance). On the card one launch
+    against one ``field [V, F]`` (``F`` even), f32 or a stream row type
+    (bf16, f16, float8_e4m3fn, float8_e5m2: K2's instance for that type). On
+    the card one launch
     blends every stream (more only past the kernel's job capacity, 64
     streams); the tensors must be contiguous, ``pos`` and ``bary``
     16-byte aligned."""
@@ -182,8 +190,8 @@ def stream_blend_backward_twin(g, pos, bary, num_stream: int, out_dtype=None):
 
     ``g f32[R, E, F]``, ``pos i32[R, E, 4]``, ``bary f32[R, E, 4]`` ->
     ``[R, U, F]`` with ``U = num_stream``, summed in ``g``'s dtype and
-    rounded once to ``out_dtype`` (bf16 for the bf16 stream; None keeps
-    ``g``'s)."""
+    rounded once to ``out_dtype`` (the stream's row type, as ``jnp.astype``
+    rounds: :func:`~.stream_dtypes.round_to`; None keeps ``g``'s)."""
     num_rays, num_end, num_feat = g.shape
     contrib = (bary[..., None] * g[:, :, None, :]).reshape(
         num_rays, num_end * 4, num_feat
@@ -191,7 +199,7 @@ def stream_blend_backward_twin(g, pos, bary, num_stream: int, out_dtype=None):
     idx = pos.reshape(num_rays, num_end * 4, 1).long().expand(-1, -1, num_feat)
     out = g.new_zeros((num_rays, num_stream, num_feat))
     out = out.scatter_add_(1, idx, contrib)
-    return out if out_dtype is None else out.to(out_dtype)
+    return round_to(out, out_dtype)
 
 
 def _stream_blend_backward_cuda(g, pos, bary, num_stream: int, out_dtype):
@@ -204,24 +212,24 @@ def _stream_blend_backward_cuda(g, pos, bary, num_stream: int, out_dtype):
     ):
         raise ValueError("stream_blend_backward: unexpected shapes or dtypes")
     out_dtype = out_dtype or torch.float32
-    lowp = out_dtype == torch.bfloat16
-    if not lowp and out_dtype != torch.float32:
+    if out_dtype not in KERNEL_CODES:
         raise ValueError(f"stream_blend_backward: unsupported output dtype {out_dtype}")
     gsf = torch.empty((num_rays, num_stream, num_feat), dtype=out_dtype, device=g.device)
     if gsf.numel():
         cuda.launch(
-            "stream_blend_backward_bf16" if lowp else "stream_blend_backward",
+            "stream_blend_backward" + COUNTER_SUFFIX[out_dtype],
             "tetranerf_stream_blend_backward",
             g.device, *map(cuda.ptr, (g, pos, bary, gsf)),
-            num_rays, num_end, num_stream, num_feat, int(lowp),
+            num_rays, num_end, num_stream, num_feat, KERNEL_CODES[out_dtype],
         )
     return gsf
 
 
 def stream_blend_backward(g, pos, bary, num_stream: int, out_dtype=None):
     """K2b on CUDA tensors, :func:`stream_blend_backward_twin` on CPU tensors;
-    ``out_dtype`` bf16 is K2b's bf16-out instance (None: f32 on the card,
-    ``g``'s dtype in the twin)."""
+    ``out_dtype`` a stream row type (bf16, f16, float8_e4m3fn, float8_e5m2)
+    is K2b's instance for that type (None: f32 on the card, ``g``'s dtype
+    in the twin)."""
     if g.is_cuda:
         return _stream_blend_backward_cuda(g, pos, bary, num_stream, out_dtype)
     if g.device.type == "cpu":
@@ -284,7 +292,7 @@ def _blend_forward(ctx, field, stream_dtype, scatter_ids, flat):
     ctx.num_rows = field.shape[0]
     ctx.stream_dtype = stream_dtype
     ctx.scatter_ids = scatter_ids
-    rows = field if stream_dtype is None else field.to(stream_dtype)
+    rows = round_to(field, stream_dtype)
     return tuple(stream_blend_gather_batch(rows, split_streams(flat)))
 
 
@@ -309,10 +317,12 @@ class StreamBlendGatherBatch(torch.autograd.Function):
     vids_1, ...)``; returns one ``f32[R_j, E_j, F]`` per stream. The
     streams take no gradient. The two stream levers:
 
-    - ``stream_dtype`` bf16 (JAX ``gather_rows_lowp``): the field is cast
-      once to a bf16 ``[V, F]`` copy that K2's bf16-row instance blends in
-      f32; the backward runs K2b's bf16-out instance and K7's bf16-row
-      instance, which adds into the f32 field gradient. None: f32 rows.
+    - ``stream_dtype`` a stream row type, bf16, f16, float8_e4m3fn or
+      float8_e5m2 (JAX ``gather_rows_lowp``): the field is rounded once to
+      a ``[V, F]`` copy in that type (:func:`~.stream_dtypes.round_to`)
+      that K2's instance for the type blends in f32; the backward runs
+      K2b's and K7's instances for the type, and K7 adds into the f32
+      field gradient. None: f32 rows.
     - ``scatter_ids`` (the gradient-stream budget, JAX ``_stream_gather``):
       one ``i32[R_j, U_j]`` per stream, the vertex row each stream slot's
       gradient goes to, ``-1`` for a slot whose gradient is dropped (K7

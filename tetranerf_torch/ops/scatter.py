@@ -6,8 +6,9 @@ Counterpart of :mod:`tetranerf_tpu.ops.pallas_scatter`. On the train path
 K7 is the second half of the stream blend's backward
 (:class:`~.interp.StreamBlendGatherBatch`): one launch scatters the
 stream-row gradients of every bucket of a step into the one ``[V, F]``
-field gradient. With the bf16 stream lever the rows are bf16 and K7's
-bf16-row instance adds them into the f32 table.
+field gradient. With a low-precision stream the rows are in the stream's
+type (bf16, f16, float8_e4m3fn or float8_e5m2) and K7's instance for that
+type adds them into the f32 table.
 """
 
 from __future__ import annotations
@@ -17,18 +18,21 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import cuda
+from .stream_dtypes import COUNTER_SUFFIX, KERNEL_CODES
 
 Job = Tuple[torch.Tensor, torch.Tensor]
 """``(indices i32[N], values [N, F])``: rows to add into the table, f32
-or bf16."""
+or a stream row type."""
 
 
 def scatter_add_rows_twin(indices, values, num_rows: int):
     """``zeros[num_rows, F]`` with ``values[i]`` added into row
-    ``indices[i]``, in f32 for bf16 values; rows whose index is ``< 0`` or ``>= num_rows``
-    are dropped. ``indices i32[N]``, ``values f32[N, F]`` or bf16."""
+    ``indices[i]``, in f32 for values in a stream row type (widened
+    exactly; f64 values sum in f64); rows whose index is ``< 0`` or ``>=
+    num_rows`` are dropped. ``indices i32[N]``, ``values f32[N, F]``, bf16,
+    f16, float8_e4m3fn or float8_e5m2."""
     keep = (indices >= 0) & (indices < num_rows)
-    dtype = torch.promote_types(values.dtype, torch.float32)
+    dtype = torch.float64 if values.dtype == torch.float64 else torch.float32
     vals = values[keep].to(dtype)
     idx = indices[keep].long()[:, None].expand(-1, values.shape[1])
     out = torch.zeros((num_rows, values.shape[1]), dtype=dtype, device=values.device)
@@ -46,7 +50,7 @@ def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
     device = jobs[0][1].device
     num_feat = jobs[0][1].shape[-1]
     dtype = jobs[0][1].dtype
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in KERNEL_CODES:
         raise ValueError(f"scatter_add_rows: unsupported values dtype {dtype}")
     flat: List[tuple] = []
     for idx, vals in jobs:
@@ -64,14 +68,13 @@ def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
         return out
     if not flat:
         return out.zero_()
-    lowp = dtype == torch.bfloat16
-    counter = "scatter_add_rows_bf16" if lowp else "scatter_add_rows"
+    counter = "scatter_add_rows" + COUNTER_SUFFIX[dtype]
     chunks = cuda.job_chunks(cuda.max_jobs("tetranerf_scatter_add_max_jobs"), flat)
     for i, (jobs_arr, num) in enumerate(chunks):
         # The first launch zeroes the table; later ones add into it.
         cuda.launch(counter, "tetranerf_scatter_add_rows_batch", device,
                     jobs_arr, num, cuda.ptr(out), num_rows, num_feat, int(i == 0),
-                    int(lowp))
+                    KERNEL_CODES[dtype])
     return out
 
 
@@ -81,7 +84,8 @@ def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int):
 
     ``jobs`` is a non-empty list of ``(indices i32[N_j], values [N_j,
     F])``, all contiguous, one device, one ``F``, the values all f32 or all
-    bf16 (K7's bf16-row instance; the table is f32 either way); rows whose
+    of one stream row type (bf16, f16, float8_e4m3fn, float8_e5m2: K7's
+    instance for that type; the table is f32 either way); rows whose
     index is ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
     every job (more only past the kernel's job capacity, 64 jobs)."""
     if not jobs:

@@ -260,7 +260,7 @@ def _refuse_unported(config):
     try:
         check_shards(config, _world())
         check_supported(config.model)
-    except (NotImplementedError, ValueError) as exc:
+    except (NotImplementedError, ValueError, TypeError) as exc:
         raise SystemExit(str(exc)) from None
 
 
