@@ -148,16 +148,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ranks over NCCL, one a card, and ``--shard-ranks N --model-shards M``
     phase 20's runs that way;
 19. the stream levers: K2, K2b and K7's instances for each low-precision
-    row type (bf16, f16, float8_e4m3fn, float8_e5m2) against their plain
-    versions on a cold step's 8 buckets, each timed beside its f32
-    instance with both bounds, K2b's rounding of boundary values bit-equal
-    to ``jnp.astype``'s codes; then the flagship in f32, with
+    row type (bf16, f16, float8_e4m3fn, float8_e5m2 and the seven software
+    types, float8_e4m3fnuz, _e5m2fnuz, _e4m3b11fnuz, _e3m4, _e4m3,
+    _e8m0fnu and float4_e2m1fn) against their plain versions on a cold
+    step's 8 buckets, each timed beside its f32 instance with both bounds,
+    K2b's rounding of boundary values and the field's cast on the card
+    bit-equal to ``jnp.astype``'s codes; then the flagship in f32, with
     ``field_stream_dtype`` "bfloat16", "float16", "float8_e4m3fn" and
     "float8_e5m2" (the paths ``stream_lp_train``, ``stream_f16_train``,
     ``stream_e4m3fn_train``, ``stream_e5m2_train``), with
     ``grad_stream_budget_per_ray=200`` (``budget_train``) and in f32
     again, 40 steps each from the same seeds: the first loss against
-    f32's (the budget's bit-equal), the rays dropped, ms/step, each
+    f32's (the budget's bit-equal), the rays dropped, ms/step; then 16
+    steps with each software type (paths ``stream_e4m3fnuz_train`` ...
+    ``stream_e2m1fn_train``): the first loss against f32's and every loss
+    finite, and with float8_e8m0fnu every loss NaN, as JAX's model gives
+    it (the field has entries <= 0, which that type cannot hold); each
     instance launched in its own type's run only, and the instances' ms
     per steady step beside their bounds;
 20. model shards: the field over 2 shards of its feature axis, phase 18's
@@ -247,6 +253,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -493,7 +500,7 @@ def dependent_load_ns(chase_lib, table, hops=2000):
 
 def _blend_batch_bound(field, streams):
     """K2, one launch: per stream the output, pos + bary and the stream
-    ids; the field once (f32 or bf16)."""
+    ids; the field once (f32 or a stream row type)."""
     num_feat = field.shape[1]
     num_bytes, num_ops = field.numel() * field.element_size(), 0
     for vids, pos, bary in streams:
@@ -539,9 +546,12 @@ def _blend_bwd_bound(g, pos, bary, num_stream, out_dtype=None):
     rows, pos + g rows of the weighted endpoints."""
     import torch
 
+    from tetranerf_torch.ops.stream_dtypes import F32, row_type
+
     num_rays, num_end, num_feat = g.shape
     n_w = int((bary != 0).any(dim=-1).sum())
-    out_size = torch.empty((), dtype=out_dtype or torch.float32).element_size()
+    storage = (row_type(out_dtype) or F32).storage
+    out_size = torch.empty((), dtype=storage).element_size()
     return _bound(num_rays * num_stream * num_feat * out_size + num_rays * num_end * 16
                   + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
 
@@ -1405,7 +1415,7 @@ def _profile_steps(trainer, batches, median_ms):
     (the profiler's own host work slows the launches there) and against
     the unprofiled median step ``median_ms``."""
     import torch
-    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX, ROW_TYPES
+    from tetranerf_torch.ops.stream_dtypes import STREAM_TYPES
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1450,8 +1460,8 @@ def _profile_steps(trainer, batches, median_ms):
             if wrapper in _LOWP_INSTANCE:
                 # A low-precision stream's instance of K2, K2b or K7, by the
                 # row type in its template arguments.
-                wrapper += next((COUNTER_SUFFIX[dtype] for dtype, row in ROW_TYPES.items()
-                                 if row.cuda_type in name), "")
+                wrapper += next((t.suffix for t in STREAM_TYPES.values() if t.suffix
+                                 and re.search(rf"\b{t.cuda_type}\b", name)), "")
             per_step[wrapper] = per_step.get(wrapper, 0.0) + us / 1e3 / len(batches)
     return per_step
 
@@ -1496,7 +1506,7 @@ def _recording_bounds():
 
     import torch
     from tetranerf_torch.ops import fused, interp, mlp, scatter
-    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX
+    from tetranerf_torch.ops.stream_dtypes import F32, row_type, rows_type
 
     march_mod = importlib.import_module("tetranerf_torch.ops.march")
 
@@ -1519,11 +1529,16 @@ def _recording_bounds():
     counters = {"stream_blend_gather_batch": "stream_blend_gather",
                 "scatter_add_rows_batch": "scatter_add_rows",
                 "row_gather_batch": "row_gather"}
-    # The argument that names a low-precision instance: the field, K2b's
-    # output dtype, the first job's values.
-    lowp_arg = {"stream_blend_gather_batch": lambda a: a[0].dtype,
-                "stream_blend_backward": lambda a: a[4] if len(a) > 4 else None,
-                "scatter_add_rows_batch": lambda a: a[0][0][1].dtype}
+    # The row type of a low-precision instance: the field's, K2b's output
+    # type, the first job's values'.
+    lowp_arg = {"stream_blend_gather_batch": lambda a: rows_type(a[0], a[2]),
+                "stream_blend_backward": lambda a: row_type(a[4]) or F32,
+                "scatter_add_rows_batch": lambda a: rows_type(a[0][0][1], a[2])}
+    arity = {"stream_blend_gather_batch": 3, "stream_blend_backward": 5,
+             "scatter_add_rows_batch": 3}
+    # The arguments a bound reads: K2's and K7's not their row type (the
+    # rows' bytes give it).
+    bound_args = {"stream_blend_gather_batch": 2, "scatter_add_rows_batch": 2}
 
     def record(fn, bound):
         name = fn.__name__
@@ -1531,8 +1546,10 @@ def _recording_bounds():
         def call(*args):
             counter = counters.get(name, name)
             if name in lowp_arg:
-                counter += COUNTER_SUFFIX.get(lowp_arg[name](args) or torch.float32, "")
-            sums[counter] = sums.get(counter, 0.0) + bound(*args)["bound_ms"]
+                full = args + (None,) * (arity[name] - len(args))
+                counter += lowp_arg[name](full).suffix
+            cost = bound(*args[:bound_args.get(name, len(args))])
+            sums[counter] = sums.get(counter, 0.0) + cost["bound_ms"]
             return fn(*args)
         return call
 
@@ -2813,16 +2830,27 @@ SHARD_NOISE_FLOOR = 1e-6
 # the order of the f32 sums (of unit-scale terms, whose sum may cancel to
 # near zero); K7 adds the widened rows in atomic order (its f32 tolerance).
 LOWP_STREAMS = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
+# The seven software row types (uint8 codes, stream_dtypes.py), each run
+# MINI_STEPS flagship steps.
+MINI_STREAMS = ("float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz", "float8_e3m4",
+                "float8_e4m3", "float8_e8m0fnu", "float4_e2m1fn")
+MINI_STEPS = 16
 LOWP_SUM_ATOL = 1e-6
 # The first loss of a low-precision stream's run against f32's: the f32
 # stream's features move by a rounding of the field to the type. Measured
 # on the H100 at 4.7e-7 (bf16), 0 (f16), 7.0e-7 (e4m3fn) and 1.0e-6
 # (e5m2); each limit is 10-100 times that.
+# The software types: 1.4e-6 to 7.9e-6 on the CPU at field 16, hidden 32
+# and 256 rays (e4m3fn there 3.2e-6), so the fp8 limit; float4_e2m1fn,
+# whose rounding is 4 times as coarse as e4m3's, 1.3e-4 at field 8 and 64
+# rays: 1e-3. float8_e8m0fnu's losses are NaN.
 LOWP_LOSS_RTOL = {"bfloat16": 1e-5, "float16": 1e-5, "float8_e4m3fn": 1e-4,
-                  "float8_e5m2": 1e-4}
+                  "float8_e5m2": 1e-4, **dict.fromkeys(MINI_STREAMS, 1e-4),
+                  "float4_e2m1fn": 1e-3}
 # The path of each low-precision stream's flagship run.
 LOWP_PATHS = {"bfloat16": "stream_lp_train", "float16": "stream_f16_train",
-              "float8_e4m3fn": "stream_e4m3fn_train", "float8_e5m2": "stream_e5m2_train"}
+              "float8_e4m3fn": "stream_e4m3fn_train", "float8_e5m2": "stream_e5m2_train",
+              **{name: f"stream_{name.split('_', 1)[1]}_train" for name in MINI_STREAMS}}
 
 def _shard_trainer(dev, group=None, mesh_plain=None, colors=None, scene=None):
     """The unmodified preset's trainer on the phase-1 sphere: from
@@ -3247,48 +3275,66 @@ def model_shard_phase(mesh_plain, dev, tmp, ref, runs=MODEL_SHARD_RUNS,
 
 def _rounding_check(name, dev):
     """K2b's instance for ``name``: each boundary value of
-    ``stream_dtypes.BOUNDARY_VALUES`` (and +NaN; the card's arithmetic makes every
-    NaN positive) the f32 sum of one endpoint of weight 1, rounded to the
-    codes ``jnp.astype`` gives; and the field's cast (``round_to``) on the
-    card, -NaN included. Returns the number of codes checked."""
+    ``stream_dtypes.boundary_values(name)`` but -NaN and -0 (the card's
+    arithmetic makes every NaN positive, and a sum 0 + -0 is +0) the f32
+    sum of one endpoint of weight 1, rounded to the codes ``jnp.astype``
+    gives (``BOUNDARY_CODES``); and the field's cast (``round_to``) on the
+    card, -NaN and -0 included. Returns the number of codes checked."""
     import torch
     from tetranerf_torch.ops import interp
-    from tetranerf_torch.ops.stream_dtypes import BOUNDARY_CODES, BOUNDARY_VALUES, round_to
+    from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, STREAM_TYPES,
+                                                   boundary_values, round_to)
 
-    dtype = getattr(torch, name)
-    codes, sign, nan = BOUNDARY_CODES[dtype]
-    x = torch.tensor(BOUNDARY_VALUES + tuple(-v for v in BOUNDARY_VALUES) + (float("nan"),))
-    want = list(codes) + [c | sign for c in codes] + [nan]
-    code_type = torch.int16 if dtype == torch.float16 else torch.uint8
+    t = STREAM_TYPES[name]
+    x = torch.tensor(boundary_values(name))
+    want = list(BOUNDARY_CODES[name])
+    code_type = {2: torch.int16, 1: torch.uint8}[torch.empty((), dtype=t.storage).element_size()]
 
-    def bits(t):
-        return [int(c) & 0xFFFF for c in t.view(code_type).cpu()]
+    def bits(v):
+        return [int(c) & 0xFFFF for c in v.view(code_type).cpu()]
 
-    n = x.numel()
-    g = x[None, :, None].expand(1, n, 2).contiguous().to(dev)
+    sums = ~(torch.signbit(x) & ((x == 0) | x.isnan()))
+    n = int(sums.sum())
+    g = x[sums][None, :, None].expand(1, n, 2).contiguous().to(dev)
     pos = torch.full((1, n, 4), n, dtype=torch.int32)  # zero weights: the spare slot n
     pos[0, :, 0] = torch.arange(n, dtype=torch.int32)
     bary = torch.zeros((1, n, 4))
     bary[..., 0] = 1.0
-    gsf = interp.stream_blend_backward(g, pos.to(dev), bary.to(dev), n + 1, dtype)
-    _check(bits(gsf[0, :n, 0]) == want and bits(gsf[0, :n, 1]) == want,
-           f"stream_blend_backward ({name}): rounding {bits(gsf[0, :n, 0])}, not {want}")
-    neg_nan = -torch.tensor([float("nan")])
-    cast = round_to(torch.cat([x, neg_nan]).to(dev), dtype)
-    _check(bits(cast) == want + [nan | sign],
-           f"round_to ({name}) on the card: {bits(cast)}, not {want + [nan | sign]}")
-    return len(want) + 1
+    gsf = interp.stream_blend_backward(g, pos.to(dev), bary.to(dev), n + 1, t)
+    want_sums = [c for c, keep in zip(want, sums.tolist()) if keep]
+    _check(bits(gsf[0, :n, 0]) == want_sums and bits(gsf[0, :n, 1]) == want_sums,
+           f"stream_blend_backward ({name}): rounding {bits(gsf[0, :n, 0])}, not {want_sums}")
+    cast = round_to(x.to(dev), t)
+    _check(bits(cast) == want, f"round_to ({name}) on the card: {bits(cast)}, not {want}")
+    return 2 * n + len(want)
+
+
+def _nan_aware_err(a, b, what):
+    """The largest difference of ``a`` and ``b`` where both are finite, after
+    checking that their NaNs and infinities lie at the same places."""
+    import torch
+
+    a, b = a.double(), b.double()
+    _check(torch.equal(a.isnan(), b.isnan()), f"{what}: NaN at other places than the twin's")
+    inf = b.isinf()
+    _check(torch.equal(a.isinf(), inf) and torch.equal(a[inf], b[inf]),
+           f"{what}: infinities other than the twin's")
+    keep = b.isfinite()
+    return float((a[keep] - b[keep]).abs().max()) if bool(keep.any()) else 0.0
 
 
 def _lever_kernel_checks(mesh, origins, directions):
     """K2, K2b and K7's instance for each low-precision row type against
     their plain versions on all 8 buckets of a cold flagship step, each
     timed beside its f32 instance (same inputs, same call) with both
-    bounds; K2b's and the field cast's rounding of the boundary values."""
+    bounds; K2b's and the field cast's rounding of the boundary values.
+    The software types (:data:`MINI_STREAMS`): K2 and K7 with their NaNs
+    at the twin's places, K2b's codes bit-equal to the f32 instance's sums
+    rounded by ``round_to``."""
     import torch
     from tetranerf_torch.ops import fused, interp, scatter
-    from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, COUNTER_SUFFIX,
-                                                   one_rounding_bound, round_to)
+    from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, STREAM_TYPES,
+                                                   one_rounding_bound, round_to, widen)
 
     dev = origins.device
     num_v = mesh.num_vertices
@@ -3300,6 +3346,7 @@ def _lever_kernel_checks(mesh, origins, directions):
     gs = [torch.randn((pos.shape[0], pos.shape[1], 64), generator=gen, device=dev)
           for _, pos, _ in streams]
     bwd = [(g, pos, bary, vids.shape[1]) for g, (vids, pos, bary) in zip(gs, streams)]
+    gsf_f32 = [interp.stream_blend_backward(*a) for a in bwd]
     entries = []
 
     def entry(name, f32_name, replaces, source, err, kernel, plain, f32, bound, f32_bound,
@@ -3319,56 +3366,72 @@ def _lever_kernel_checks(mesh, origins, directions):
         total = [fn(*a, *extra) for a in bwd]
         return dict(total[0], bound_ms=sum(b["bound_ms"] for b in total))
 
-    for name in LOWP_STREAMS:
-        dtype = getattr(torch, name)
-        sfx = COUNTER_SUFFIX[dtype]
-        field_lp = round_to(field, dtype)
-        outs = interp.stream_blend_gather_batch(field_lp, streams)
-        twin = interp.stream_blend_gather_batch_twin(field_lp, streams)
-        err = max(_max_err(a, b) for a, b in zip(outs, twin))
+    for name in LOWP_STREAMS + MINI_STREAMS:
+        t = STREAM_TYPES[name]
+        sfx, mini = t.suffix, t.minifloat
+        field_lp = round_to(field, t)
+        outs = interp.stream_blend_gather_batch(field_lp, streams, t)
+        twin = interp.stream_blend_gather_batch_twin(field_lp, streams, t)
         _check(all(o.dtype == torch.float32 for o in outs), f"stream_blend_gather{sfx}: dtype")
+        if mini:
+            err = max(_nan_aware_err(a, b, f"stream_blend_gather{sfx}")
+                      for a, b in zip(outs, twin))
+        else:
+            err = max(_max_err(a, b) for a, b in zip(outs, twin))
         _check(err <= TOLERANCES["stream_blend_gather"], f"stream_blend_gather{sfx}: err {err}")
         del outs, twin
         entry(f"stream_blend_gather{sfx}", "stream_blend_gather",
               "tetranerf_tpu/ops/pallas_interp.py:214", "tetranerf_torch/csrc/blend.cu", err,
-              lambda: interp.stream_blend_gather_batch(field_lp, streams),
-              lambda: interp.stream_blend_gather_batch_twin(field_lp, streams),
+              lambda: interp.stream_blend_gather_batch(field_lp, streams, t),
+              lambda: interp.stream_blend_gather_batch_twin(field_lp, streams, t),
               lambda: interp.stream_blend_gather_batch(field, streams),
               _blend_batch_bound(field_lp, streams), _blend_batch_bound(field, streams))
 
-        gsf = [interp.stream_blend_backward(*a, dtype) for a in bwd]
+        gsf = [interp.stream_blend_backward(*a, t) for a in bwd]
         err, over = 0.0, 0.0
-        for out, a in zip(gsf, bwd):
+        for out, a, f32 in zip(gsf, bwd, gsf_f32):
             ref = interp.stream_blend_backward_twin(*a)
-            diff = (out.float() - ref).abs()
-            err = max(err, float(diff.max()))
-            bound = one_rounding_bound(ref, dtype, LOWP_SUM_ATOL)
-            over = max(over, float((diff - bound).max()))
-            _check(out.dtype == dtype, f"stream_blend_backward{sfx}: dtype")
+            _check(out.dtype == t.storage, f"stream_blend_backward{sfx}: dtype")
+            value = widen(out, t)
+            bound = one_rounding_bound(ref, t, LOWP_SUM_ATOL)
+            if mini:
+                # The f32 instance's sums, rounded as round_to rounds.
+                _check(torch.equal(out, round_to(f32, t)),
+                       f"stream_blend_backward{sfx}: codes other than the rounded f32 sums")
+                top = widen(torch.tensor([t.max_code], dtype=torch.uint8, device=dev), t)
+                keep = widen(round_to(ref, t), t).isfinite() & (ref.abs() <= top)
+                value, ref, bound = value[keep], ref[keep], bound[keep]
+            diff = (value - ref).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            over = max(over, float((diff - bound).max()) if diff.numel() else 0.0)
         _check(over <= 0, f"stream_blend_backward{sfx}: beyond one rounding ({over})")
-        checked = _rounding_check(name, dev) if dtype in BOUNDARY_CODES else 0
+        checked = _rounding_check(name, dev) if name in BOUNDARY_CODES else 0
         entry(f"stream_blend_backward{sfx}", "stream_blend_backward",
               "tetranerf_tpu/ops/pallas_interp.py:257", "tetranerf_torch/csrc/blend.cu", err,
-              lambda: [interp.stream_blend_backward(*a, dtype) for a in bwd],
-              lambda: [interp.stream_blend_backward_twin(*a, dtype) for a in bwd],
+              lambda: [interp.stream_blend_backward(*a, t) for a in bwd],
+              lambda: [interp.stream_blend_backward_twin(*a, t) for a in bwd],
               lambda: [interp.stream_blend_backward(*a) for a in bwd],
-              bound_sum(_blend_bwd_bound, dtype), bound_sum(_blend_bwd_bound),
+              bound_sum(_blend_bwd_bound, t), bound_sum(_blend_bwd_bound),
               rounding_codes_checked=checked)
 
         jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64))
                 for (vids, _, _), g in zip(streams, gsf)]
-        jobs_f32 = [(idx, vals.float()) for idx, vals in jobs]
-        got = scatter.scatter_add_rows_batch(jobs, num_v)
-        err = _max_err(got, scatter.scatter_add_rows_batch_twin(jobs, num_v))
+        jobs_f32 = [(idx, widen(vals, t)) for idx, vals in jobs]
+        got = scatter.scatter_add_rows_batch(jobs, num_v, t)
+        want = scatter.scatter_add_rows_batch_twin(jobs, num_v, t)
+        err = (_nan_aware_err(got, want, f"scatter_add_rows{sfx}") if mini
+               else _max_err(got, want))
         _check(got.dtype == torch.float32, f"scatter_add_rows{sfx}: dtype")
         _check(err <= TOLERANCES["scatter_add_rows"], f"scatter_add_rows{sfx}: err {err}")
-        del got
+        del got, want
         entry(f"scatter_add_rows{sfx}", "scatter_add_rows",
               "tetranerf_tpu/ops/pallas_scatter.py:105", "tetranerf_torch/csrc/scatter.cu", err,
-              lambda: scatter.scatter_add_rows_batch(jobs, num_v),
-              lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v),
+              lambda: scatter.scatter_add_rows_batch(jobs, num_v, t),
+              lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v, t),
               lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
               _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+        for e in entries[-3:]:
+            e["stream"] = name
         del gsf, jobs, jobs_f32
     return entries
 
@@ -3378,16 +3441,17 @@ def lever_phase(colors, mesh_plain, dev):
     against their plain versions (:func:`_lever_kernel_checks`); then the
     preset in f32, with each low-precision ``field_stream_dtype`` and with
     ``grad_stream_budget_per_ray`` from the same seeds: the first step's
-    loss against f32 (the budget's forward is f32's, bit for bit), the
-    rays the budget drops, ms/step and, for each low-precision stream, its
-    instances' ms per steady step beside their bounds and the f32
-    kernels'. Returns the kernel entries, each low-precision stream run's
-    launches by its path (:data:`LOWP_PATHS`), and the budget run's
-    launches (``budget_train``)."""
+    loss against f32 (the budget's forward is f32's, bit for bit; a
+    float8_e8m0fnu stream's losses are NaN, as JAX's), the rays the budget
+    drops, ms/step and, for each low-precision stream, its instances' ms per
+    steady step beside their bounds and the f32 kernels'. Returns the
+    kernel entries, each low-precision stream run's launches by its path
+    (:data:`LOWP_PATHS`), and the budget run's launches
+    (``budget_train``)."""
     import torch
     from tetranerf_torch.models import TetraNerf, tetranerf_preset
     from tetranerf_torch.ops import cuda
-    from tetranerf_torch.ops.stream_dtypes import COUNTER_SUFFIX
+    from tetranerf_torch.ops.stream_dtypes import STREAM_TYPES
     from tetranerf_torch.training.trainer import TrainConfig, Trainer
     from tetranerf_torch.utils.synthetic import sample_sphere_rays
 
@@ -3401,10 +3465,12 @@ def lever_phase(colors, mesh_plain, dev):
     batches = [_train_batch(rng, TRAIN_RAYS) for _ in range(TRAIN_BATCHES)]
     runs = {}
     # In turns, the f32 run again last: medians on the host clock drift.
-    for label, extra in (("f32", {}),
-                         *((name, {"field_stream_dtype": name}) for name in LOWP_STREAMS),
-                         ("budget", {"grad_stream_budget_per_ray": GRAD_BUDGET_PER_RAY}),
-                         ("f32 again", {})):
+    for label, extra, steps in (
+            ("f32", {}, LEVER_STEPS),
+            *((name, {"field_stream_dtype": name}, LEVER_STEPS) for name in LOWP_STREAMS),
+            ("budget", {"grad_stream_budget_per_ray": GRAD_BUDGET_PER_RAY}, LEVER_STEPS),
+            *((name, {"field_stream_dtype": name}, MINI_STEPS) for name in MINI_STREAMS),
+            ("f32 again", {}, LEVER_STEPS)):
         model = TetraNerf(tetranerf_preset(**extra), mesh_plain.num_vertices,
                           point_colors=colors, generator=torch.Generator().manual_seed(0),
                           device=dev)
@@ -3412,7 +3478,7 @@ def lever_phase(colors, mesh_plain, dev):
         torch.cuda.synchronize()
         cuda.reset_launch_counts()
         losses, dropped, step_ms = [], [], []
-        for step in range(LEVER_STEPS):
+        for step in range(steps):
             before = dict(cuda.launch_counts)
             t = time.perf_counter()
             with contextlib.redirect_stderr(io.StringIO()):
@@ -3424,12 +3490,17 @@ def lever_phase(colors, mesh_plain, dev):
         launches = dict(cuda.launch_counts)
         med = float(np.median(step_ms[1:]))
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        _check(all(np.isfinite(losses)) and last < first,
-               f"levers ({label}): loss did not fall ({first} -> {last})")
+        if label == "float8_e8m0fnu":  # no zero, no sign: NaN in JAX's model too
+            _check(all(np.isnan(losses)), f"levers ({label}): losses {losses}, not NaN")
+        elif label in MINI_STREAMS:
+            _check(all(np.isfinite(losses)), f"levers ({label}): losses {losses}")
+        else:
+            _check(all(np.isfinite(losses)) and last < first,
+                   f"levers ({label}): loss did not fall ({first} -> {last})")
         runs[label] = dict(trainer=trainer, losses=losses, dropped=dropped, median_ms=med,
                            launches=launches, per_step=per_step)
-        print(f"levers ({label}): {LEVER_STEPS} steps, median {med:.2f} ms/step "
-              f"(steps 1-{LEVER_STEPS - 1}); loss first 5 mean {first:.5f}, last 5 mean "
+        print(f"levers ({label}): {steps} steps, median {med:.2f} ms/step "
+              f"(steps 1-{steps - 1}); loss first 5 mean {first:.5f}, last 5 mean "
               f"{last:.5f}; launches in the last step "
               f"{ {k: v for k, v in per_step.items() if v} }")
     f32, budget = runs["f32"], runs["budget"]
@@ -3441,10 +3512,10 @@ def lever_phase(colors, mesh_plain, dev):
     _check(all(n == -1 for n in f32["dropped"]), "levers: dropped rays without a budget")
     kernels = ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")
     first_rel = {}
-    for name in LOWP_STREAMS:
-        lp, sfx = runs[name], COUNTER_SUFFIX[getattr(torch, name)]
+    for name in LOWP_STREAMS + MINI_STREAMS:
+        lp, sfx = runs[name], STREAM_TYPES[name].suffix
         first_rel[name] = abs(lp["losses"][0] - f32["losses"][0]) / f32["losses"][0]
-        _check(first_rel[name] <= LOWP_LOSS_RTOL[name],
+        _check(first_rel[name] <= LOWP_LOSS_RTOL[name] or name == "float8_e8m0fnu",
                f"levers: the {name} stream's first loss rel err {first_rel[name]}")
         # Each instance runs in its own type's run and in no other.
         for label, run in runs.items():
@@ -3460,12 +3531,12 @@ def lever_phase(colors, mesh_plain, dev):
                    f"not {n}")
     print(f"levers: first loss f32 {f32['losses'][0]:.6f}, "
           + ", ".join(f"{name} stream {runs[name]['losses'][0]:.6f} (rel {first_rel[name]:.3g})"
-                      for name in LOWP_STREAMS)
+                      for name in LOWP_STREAMS + MINI_STREAMS)
           + f", budget {budget['losses'][0]:.6f} (bit-equal); {GRAD_BUDGET_PER_RAY} slots a "
           f"ray drop {budget['dropped'][::4]} rays (every 4th step, of {TRAIN_RAYS}); median "
           f"ms/step " + ", ".join(f"{label} {run['median_ms']:.2f}" for label, run in runs.items()))
     step_ms = {}
-    for label in ("f32", *LOWP_STREAMS):
+    for label in ("f32", *LOWP_STREAMS, *MINI_STREAMS):
         trainer = runs[label]["trainer"]
         print(f"levers ({label}):")
         dev_ms = _profile_steps(trainer, batches[:2], runs[label]["median_ms"])
@@ -3473,9 +3544,7 @@ def lever_phase(colors, mesh_plain, dev):
             trainer.train_step(batches[2])
         step_ms[label] = {k: dict(ms=dev_ms.get(k), bound_ms=v) for k, v in bounds.items()}
     for e in entries:
-        name, f32_name = e["name"], e["f32_instance"]
-        stream = next(n for n in LOWP_STREAMS
-                      if name.endswith(COUNTER_SUFFIX[getattr(torch, n)]))
+        name, f32_name, stream = e["name"], e["f32_instance"], e["stream"]
         e["flagship_step_ms"] = step_ms[stream].get(name, {}).get("ms")
         e["flagship_step_bound_ms"] = step_ms[stream].get(name, {}).get("bound_ms")
         e["f32_flagship_step_ms"] = step_ms["f32"].get(f32_name, {}).get("ms")
@@ -3486,8 +3555,8 @@ def lever_phase(colors, mesh_plain, dev):
               f"profiler, bound {e['flagship_step_bound_ms']}; f32 instance "
               f"{e['f32_flagship_step_ms']} ms, bound {e['f32_flagship_step_bound_ms']}")
     print(f"levers: phase 19 took {time.perf_counter() - t_phase:.1f} s")
-    return (entries, {LOWP_PATHS[name]: runs[name]["launches"] for name in LOWP_STREAMS},
-            budget["launches"])
+    return (entries, {LOWP_PATHS[name]: runs[name]["launches"]
+                      for name in LOWP_STREAMS + MINI_STREAMS}, budget["launches"])
 
 
 TRACER_RAYS = 8192

@@ -208,13 +208,14 @@ def test_white_and_black_backgrounds(setup):
     (dict(grad_stream_budget_per_ray=128), False),
     (dict(field_stream_dtype="bfloat16"), False),
     (dict(field_stream_dtype="float16"), False),
-    (dict(field_stream_dtype="float8_e4m3fnuz"), True),
-], ids=[f"override{i}" for i in range(6)])
+    (dict(field_stream_dtype="float8_e4m3fnuz"), False),
+    (dict(field_stream_dtype="complex64"), True),
+], ids=[f"override{i}" for i in range(7)])
 def test_unported_settings_are_refused(override, refused):
-    """Settings whose code the port does not have raise (a stream dtype its
-    kernels lack: JAX runs float8_e4m3fnuz); the skip grid, merged-MLP
-    buckets and both stream levers, the f16 stream among them, now ported,
-    are accepted and build."""
+    """The skip grid, merged-MLP buckets and both stream levers, the f16
+    and float8_e4m3fnuz streams among them, are accepted and build; a
+    stream dtype that JAX refuses too (complex64) raises
+    ``NotImplementedError`` as JAX does."""
     cfg = tetranerf_preset(**dict(SMALL, **override))
     if not refused:
         check_supported(cfg)

@@ -20,8 +20,8 @@ from tetranerf_torch.models import TetraNerf, tetranerf_preset
 from tetranerf_torch.ops import interp, scatter
 from tetranerf_torch.ops.fused import endpoint_features, march_features, stream_budget_ids
 from tetranerf_torch.ops.march import MarchStream
-from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, BOUNDARY_VALUES,
-                                               one_rounding_bound, round_to)
+from tetranerf_torch.ops.stream_dtypes import (BOUNDARY_CODES, boundary_values,
+                                               one_rounding_bound, round_to, row_type)
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 from test_torch_parallel import _SplitGroup
 
@@ -201,12 +201,7 @@ LOWP = ["float16", "float8_e4m3fn", "float8_e5m2"]
 def _boundary(name):
     """``(f32 values, their codes)``: ``BOUNDARY_VALUES``, their negatives,
     NaN and -NaN, and the codes ``BOUNDARY_CODES`` gives them."""
-    codes, sign, nan = BOUNDARY_CODES[getattr(torch, name)]
-    values = np.float32(BOUNDARY_VALUES)
-    nans = np.float32([np.nan, np.nan])
-    nans[1] = -nans[1]
-    x = np.concatenate([values, -values, nans])
-    return x, np.array(list(codes) + [c | sign for c in codes] + [nan, nan | sign])
+    return np.float32(boundary_values(name)), np.array(BOUNDARY_CODES[name])
 
 
 def _codes(t):
@@ -353,10 +348,9 @@ def test_lowp_stream_twins_keep_f32_where_jax_does(scene, name):
 # reads them: run, or refused with an exception type.
 STREAM_NAMES = ["float32", "bfloat16", "float16", "float8_e4m3fn", "float8_e5m2",
                 "float64", "half", "double", "float8_e4m3fnuz", "float6_e2m3fn", "int8",
-                "uint4", "complex64", "float128", "bogus"]
-# Types JAX runs that the stream kernels have no instance for: refused by
-# the port with NotImplementedError (ROADMAP A19).
-UNPORTED = ("float8_e4m3fnuz",)
+                "uint4", "complex64", "float128", "bogus", "float8_e5m2fnuz",
+                "float8_e4m3b11fnuz", "float8_e3m4", "float8_e4m3", "float8_e8m0fnu",
+                "float4_e2m1fn"]
 
 
 @pytest.mark.parametrize("name", STREAM_NAMES)
@@ -386,10 +380,7 @@ def test_check_supported_takes_the_names_jax_takes(name):
     except Exception as exc:  # noqa: BLE001 - the type is what is compared
         ref = type(exc)
     cfg = tetranerf_preset(field_stream_dtype=name)
-    if ref is None and name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            check_supported(cfg)
-    elif ref is None:
+    if ref is None:
         check_supported(cfg)
     else:
         with pytest.raises(ref):
@@ -748,7 +739,7 @@ def test_stream_rounding_on_the_card_matches_jnp_astype(cuda_device, name):
     gsf, launched = _launched(lambda: interp.stream_blend_backward(
         g.to(cuda_device), pos.to(cuda_device), bary.to(cuda_device), n + 1, dtype).cpu())
     assert gsf.dtype == dtype and launched == {
-        "stream_blend_backward" + interp.COUNTER_SUFFIX[dtype]: 1}
+        "stream_blend_backward" + row_type(dtype).suffix: 1}
     np.testing.assert_array_equal(_codes(gsf[0, :n]).numpy(),
                                   np.repeat(codes[:, None], 2, axis=1))
 
@@ -778,7 +769,7 @@ def test_lowp_blend_kernel_matches_twin(scene, cuda_device, name):
     the type, each the one weighted row of an endpoint, widens exactly."""
     s = scene["stream"]
     dtype = getattr(torch, name)
-    counter = "stream_blend_gather" + interp.COUNTER_SUFFIX[dtype]
+    counter = "stream_blend_gather" + row_type(dtype).suffix
     args = [x.to(cuda_device) for x in (s.vids, s.pos, s.bary)]
     for feat in (16, 64, 6):
         field = round_to(torch.randn(scene["mesh"].num_vertices, feat), dtype)
@@ -808,7 +799,7 @@ def test_lowp_blend_backward_kernel_matches_twin(scene, cuda_device, name):
     (run with ``-s`` to read the room the bound leaves)."""
     s = scene["stream"]
     dtype = getattr(torch, name)
-    counter = "stream_blend_backward" + interp.COUNTER_SUFFIX[dtype]
+    counter = "stream_blend_backward" + row_type(dtype).suffix
     for feat in (16, 64):
         for seed in range(4):
             g = torch.randn(s.pos.shape[:2] + (feat,),
@@ -835,7 +826,7 @@ def test_lowp_scatter_kernel_matches_twin(cuda_device, name):
     row of its table row, widens exactly."""
     s = _crowded_stream()
     dtype = getattr(torch, name)
-    counter = "scatter_add_rows" + interp.COUNTER_SUFFIX[dtype]
+    counter = "scatter_add_rows" + row_type(dtype).suffix
     idx = s.vids.reshape(-1).clone()
     idx[::7] = -1
     idx[::11] = 99

@@ -56,6 +56,31 @@ _EXPORTS = {
 }
 
 
+KEPT_DIFFERENCES = {
+    "": {
+        "RayBundle": "the port's models take plain origin and direction tensors",
+        "TetrahedraMesh": "the mesh is TorchMesh in the port",
+    },
+    "models": {
+        "RayBundle": "the port's models take plain origin and direction tensors",
+    },
+    "geometry": {
+        "TetrahedraMesh": "the mesh is TorchMesh in the port",
+    },
+    "training": {
+        "TrainState": "the Trainer holds the state",
+        "make_train_step": "Trainer.train_step is the step",
+    },
+    "parallel": dict.fromkeys(
+        ("make_mesh", "state_shardings", "batch_sharding", "put_replicated", "replicate",
+         "shard_batch", "make_global_batch", "initialize_multihost"),
+        "the JAX package's sharding helpers are init_distributed and Group in the port"),
+}
+"""The public names of the JAX package that the port does not have, by
+subpackage ("" for the top level), each with its reason; every other
+public name of the JAX package resolves here under the same name."""
+
+
 def __getattr__(name):
     """Lazy top-level re-exports (keeps ``import tetranerf_torch`` light)."""
     module = _EXPORTS.get(name)

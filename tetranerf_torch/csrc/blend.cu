@@ -47,7 +47,7 @@
 // on an H100 80GB HBM3 at 700 W.
 //
 // The low-precision row instances, for `field_stream_dtype` "bfloat16",
-// "float16", "float8_e4m3fn" and "float8_e5m2" (replace the forward of
+// "float16" and the 8- and 4-bit floats (replace the forward of
 // tetranerf_tpu/ops/fused.py `gather_rows_lowp` :665-695 before the same
 // blend): the field is a [V, F] copy in that type, made once per forward
 // (ops/stream_dtypes.py `round_to`, ml_dtypes' rounding); a lane reads 8,
@@ -56,8 +56,20 @@
 // `_run_blend` writes f32. The row bytes shrink by 2x or 4x; the f32
 // output is the same, so the bound is close to the f32 instance's. JAX's
 // kernel casts the rows to bf16 for the MXU; this one blends them in f32,
-// so the two agree where the rows are bf16-exact (every e4m3fn and e5m2
-// value is, and an f16 value with at most 8 significant bits).
+// so the two agree where the rows are bf16-exact (every value of an 8-
+// or 4-bit type is, and an f16 value with at most 8 significant bits).
+//
+// The seven software row types (common.cuh `MiniRow`: float8_e4m3fnuz,
+// _e5m2fnuz, _e4m3b11fnuz, _e3m4, _e4m3, _e8m0fnu and float4_e2m1fn, one
+// code a byte) widen by bit arithmetic in registers; those with NaN or
+// infinity codes also take JAX's NaNs (kDenseNan; ops/interp.py
+// `dense_nan`): JAX blends a ray's slot rows with a dense matrix, so a
+// non-finite slot value reaches every endpoint that does not weight it as
+// 0 * x = NaN. The block first counts, per column, the ray's slot rows
+// (all U, read once more: U F bytes) that hold one, in shared memory; an
+// endpoint's column is NaN where that count exceeds the distinct slots it
+// weights that hold one. float8_e8m0fnu has no zero and no sign, so any
+// field entry <= 0 is NaN and the forward is NaN where JAX's is.
 
 #include <stdint.h>
 
@@ -87,6 +99,9 @@ struct BlendBatch {
 constexpr int kFwdThreads = 256;
 constexpr int kMaxTile = 128;
 constexpr int kEndInFlight = 2;  // endpoints a lane loads before it adds
+// The widest row of a kDenseNan instance: its per-column counts fill the
+// 48 KB of dynamic shared memory a launch gets without opting in.
+constexpr int kMaxDenseNanCols = 12288;
 
 // The twin's blend order, ((w0 x0 + w1 x1) + w2 x2) + w3 x3, in f32.
 __device__ __forceinline__ float4 blend4(const float4& w, const float4* x) {
@@ -122,8 +137,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // At most 64 registers a thread, so 4 blocks share an SM: more row
 // gathers and output rows in flight than at 3 blocks (72 registers).
 // `T` is the field's row type: float, or a stream row type of common.cuh
-// (bf16, f16, e4m3fn, e5m2: rows move at fewer bytes and blend in f32 all
-// the same).
+// (bf16, f16, an 8- or 4-bit type: rows move at fewer bytes and blend in
+// f32 all the same).
 template <int kVec, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
     const __grid_constant__ BlendBatch batch, const T* __restrict__ field,
@@ -132,6 +147,8 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
   __shared__ int4 s_pos[kMaxTile];
   __shared__ float4 s_w[kMaxTile];
   __shared__ int4 s_v[kMaxTile];
+  __shared__ unsigned char s_first[kMaxTile];  // kDenseNan instances
+  extern __shared__ int s_bad[];               // [F], kDenseNan instances
   int lo = 0, hi = batch.num_jobs - 1;  // last job with first_block <= block
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -161,6 +178,21 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
     v.z = w.z != 0.0f ? max(__ldg(vr + p.z), 0) : -1;
     v.w = w.w != 0.0f ? max(__ldg(vr + p.w), 0) : -1;
     s_v[threadIdx.x] = v;
+    if constexpr (kDenseNan<T>) {
+      // The distinct slots the endpoint weights: bit j unless an earlier
+      // weighted j' names the same slot.
+      const int pj[4] = {p.x, p.y, p.z, p.w};
+      const float wj[4] = {w.x, w.y, w.z, w.w};
+      unsigned first = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bool seen = false;
+#pragma unroll
+        for (int k = 0; k < j; ++k) seen |= wj[k] != 0.0f && pj[k] == pj[j];
+        if (wj[j] != 0.0f && !seen) first |= 1u << j;
+      }
+      s_first[threadIdx.x] = static_cast<unsigned char>(first);
+    }
   }
   __syncthreads();
 
@@ -168,6 +200,22 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
   const int groups = kFwdThreads >> group_log2;
   const int lane = threadIdx.x & (group - 1);
   const int units = num_feat / kVec;
+  if constexpr (kDenseNan<T>) {
+    // Per column, the ray's slot rows that hold a NaN or an infinity.
+    for (int f = threadIdx.x; f < num_feat; f += kFwdThreads) s_bad[f] = 0;
+    __syncthreads();
+    const int* vr = job.vids + r * job.num_stream;
+    for (int k = threadIdx.x; k < job.num_stream * units; k += kFwdThreads) {
+      const int u = k / units, c = k - u * units;
+      const V x = RowLoad<T, kVec>::load(
+          field + static_cast<long long>(max(__ldg(vr + u), 0)) * num_feat, c);
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        if (!isfinite(reinterpret_cast<const float*>(&x)[q])) atomicAdd(s_bad + c * kVec + q, 1);
+      }
+    }
+    __syncthreads();
+  }
   float* dst = job.out + (r * job.num_end + e0) * num_feat;
   for (int i0 = threadIdx.x >> group_log2; i0 < n; i0 += groups * kEndInFlight) {
     int vs[kEndInFlight][4];
@@ -203,8 +251,25 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
       for (int q = 0; q < kEndInFlight; ++q) {
         const int i = i0 + q * groups;
         if (i < n) {
-          reinterpret_cast<V*>(dst + static_cast<long long>(i) * num_feat)[c] =
-              blend4(ws[q], x[q]);
+          V out = blend4(ws[q], x[q]);
+          if constexpr (kDenseNan<T>) {
+            // NaN where a non-finite slot row of the column is one this
+            // endpoint does not weight (JAX: 0 * x).
+            const unsigned first = s_first[i];
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) {
+              int reached = 0;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                reached += ((first >> j) & 1u) &&
+                           !isfinite(reinterpret_cast<const float*>(&x[q][j])[k]);
+              }
+              if (s_bad[c * kVec + k] > reached) {
+                reinterpret_cast<float*>(&out)[k] = CUDART_NAN_F;
+              }
+            }
+          }
+          reinterpret_cast<V*>(dst + static_cast<long long>(i) * num_feat)[c] = out;
         }
       }
     }
@@ -214,7 +279,8 @@ __global__ void __launch_bounds__(kFwdThreads, 4) blend_kernel(
 template <int kVec, typename T>
 void launch_blend(unsigned grid, const BlendBatch& batch, const void* field,
                   int num_feat, int group_log2, cudaStream_t stream) {
-  blend_kernel<kVec, T><<<grid, kFwdThreads, 0, stream>>>(
+  const size_t smem = kDenseNan<T> ? static_cast<size_t>(num_feat) * sizeof(int) : 0;
+  blend_kernel<kVec, T><<<grid, kFwdThreads, smem, stream>>>(
       batch, static_cast<const T*>(field), num_feat, group_log2);
 }
 
@@ -233,7 +299,8 @@ extern "C" int tetranerf_stream_blend_gather_batch(
     const void* field, const long long* jobs, int num_jobs, int num_feat,
     int field_type, cudaStream_t stream) {
   const uint64_t esize = row_type_size(field_type);
-  if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2 || esize == 0) {
+  if (num_jobs > kBlendMaxJobs || num_feat <= 0 || num_feat % 2 || esize == 0 ||
+      (field_type >= kRowE4M3FNUZ && num_feat > kMaxDenseNanCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // float4 columns where the rows, the field and every output allow: 4
@@ -334,12 +401,13 @@ extern "C" int tetranerf_stream_blend_gather_batch(
 // launches of a flagship step, on an H100 80GB HBM3 at 700 W.
 //
 // The low-precision out instances, for `field_stream_dtype` "bfloat16",
-// "float16", "float8_e4m3fn" and "float8_e5m2" (JAX's `_blend_bwd` emits
+// "float16" and the 8- and 4-bit floats (JAX's `_blend_bwd` emits
 // the cotangent in the primal's dtype, pallas_interp.py:257-268): the same
 // f32 sums, each output pair rounded once to the stream's type as it is
 // written (common.cuh `Row<T>::round2`, ml_dtypes' rounding: an e4m3fn
 // sum past 464 is NaN, an f16 or e5m2 one past the range infinity, and an
-// e4m3fn sum of at most 2^-10 rounds to zero, as in the reference), so the
+// e4m3fn sum of at most 2^-10 rounds to zero, as in the reference; the
+// software types round in integer arithmetic, `MiniRow::round1`), so the
 // dense [R, U, F] output is a half or a quarter of the bytes; K7's
 // instance of the same type then adds these rows into the f32 field
 // gradient.

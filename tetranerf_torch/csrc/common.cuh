@@ -16,13 +16,22 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 // The row types of the field stream (`field_stream_dtype`): the code that
 // the stream kernels' C entry points take (tetranerf_torch/ops/
-// stream_dtypes.py `KERNEL_CODES`).
+// stream_dtypes.py `StreamType.code`).
 enum RowType : int {
   kRowF32 = 0,
   kRowBF16 = 1,
   kRowF16 = 2,
   kRowE4M3 = 3,  // float8_e4m3fn
   kRowE5M2 = 4,  // float8_e5m2
+  // The 8- and 4-bit types without a CUDA type, one code a byte (ml_dtypes'
+  // layout), decoded and rounded in software (MiniRow below).
+  kRowE4M3FNUZ = 5,     // float8_e4m3fnuz
+  kRowE5M2FNUZ = 6,     // float8_e5m2fnuz
+  kRowE4M3B11FNUZ = 7,  // float8_e4m3b11fnuz
+  kRowE3M4 = 8,         // float8_e3m4
+  kRowE4M3IEEE = 9,     // float8_e4m3
+  kRowE8M0FNU = 10,     // float8_e8m0fnu
+  kRowE2M1FN = 11,      // float4_e2m1fn
 };
 
 // Bytes of one element of a row type, 0 for an unknown code.
@@ -31,11 +40,20 @@ inline int row_type_size(int code) {
     case kRowF32: return 4;
     case kRowBF16:
     case kRowF16: return 2;
-    case kRowE4M3:
-    case kRowE5M2: return 1;
   }
-  return 0;
+  return code >= kRowE4M3 && code <= kRowE2M1FN ? 1 : 0;
 }
+
+// The element types of the software row types: one code a byte. Their
+// names are what a profiler shows in the kernels' template arguments
+// (stream_dtypes.py `StreamType.cuda_type`).
+struct row_e4m3fnuz { unsigned char code; };
+struct row_e5m2fnuz { unsigned char code; };
+struct row_e4m3b11fnuz { unsigned char code; };
+struct row_e3m4 { unsigned char code; };
+struct row_e4m3 { unsigned char code; };
+struct row_e8m0fnu { unsigned char code; };
+struct row_e2m1fn { unsigned char code; };
 
 template <typename T>
 struct RowTag {
@@ -52,6 +70,13 @@ int with_row_type(int code, F&& f) {
     case kRowF16: return f(RowTag<__half>{});
     case kRowE4M3: return f(RowTag<__nv_fp8_e4m3>{});
     case kRowE5M2: return f(RowTag<__nv_fp8_e5m2>{});
+    case kRowE4M3FNUZ: return f(RowTag<row_e4m3fnuz>{});
+    case kRowE5M2FNUZ: return f(RowTag<row_e5m2fnuz>{});
+    case kRowE4M3B11FNUZ: return f(RowTag<row_e4m3b11fnuz>{});
+    case kRowE3M4: return f(RowTag<row_e3m4>{});
+    case kRowE4M3IEEE: return f(RowTag<row_e4m3>{});
+    case kRowE8M0FNU: return f(RowTag<row_e8m0fnu>{});
+    case kRowE2M1FN: return f(RowTag<row_e2m1fn>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -149,6 +174,134 @@ template <>
 struct Row<__nv_fp8_e4m3> : Fp8Row<__NV_E4M3> {};
 template <>
 struct Row<__nv_fp8_e5m2> : Fp8Row<__NV_E5M2> {};
+
+// The software row types: no card converts them in hardware (Hopper's
+// conversions are e4m3fn's and e5m2's; e2m1 and ue8m0 come with sm_100),
+// so a code is decoded by bit arithmetic into the f32 bits (a subnormal
+// as its significand times the smallest step, exact) and an f32 value
+// rounded in integer arithmetic on its bits, bit for bit as jnp.astype
+// (XLA and ml_dtypes) rounds it (stream_dtypes.py `round_to`, the same
+// steps in torch ops):
+// - kFnuz (float8_e4m3fnuz, _e5m2fnuz, _e4m3b11fnuz): no infinity and no
+//   -0; 0x80 is the one NaN, and overflow, infinity and NaN round to it.
+// - kIeee (float8_e3m4, float8_e4m3): the top exponent holds the
+//   infinities and NaNs; overflow rounds to infinity, NaN keeps its sign.
+// - kSat (float4_e2m1fn, in the low 4 bits): no infinity and no NaN;
+//   overflow and infinity saturate at +-6, NaN rounds to 0x8 (-0).
+// - kPow2 (float8_e8m0fnu): 2^(c - 127), no sign and no zero, 0xFF NaN;
+//   zero, negatives, overflow, infinity and NaN round to 0xFF; a value
+//   rounds half up to a power of two (a subnormal f32 from just above
+//   half, ml_dtypes' rule).
+// Finite values round to nearest, ties to even (kPow2: up).
+enum MiniKind { kFnuz, kIeee, kSat, kPow2 };
+
+template <int kE, int kM, int kBias, MiniKind kKind>
+struct MiniRow {
+  using Raw = unsigned char;
+  using Pair = unsigned short;
+  using Quad = unsigned;
+  static constexpr unsigned kSign = kKind == kPow2 ? 0u : 1u << (kE + kM);
+  static constexpr unsigned kInf = ((1u << kE) - 1u) << kM;  // kIeee's +infinity
+  static constexpr unsigned kMax = kKind == kIeee   ? kInf - 1u
+                                   : kKind == kPow2 ? 0xFEu
+                                                    : kSign - 1u;
+  static constexpr unsigned kNan = kKind == kIeee   ? kInf | (1u << (kM - 1))
+                                   : kKind == kPow2 ? 0xFFu
+                                                    : kSign;  // kSat: -0
+
+  __device__ static float widen(unsigned c) {
+    if constexpr (kKind == kPow2) {
+      if (c == kNan) return CUDART_NAN_F;
+      return __uint_as_float(c == 0u ? 0x400000u : c << 23);  // 2^-127: an f32 subnormal
+    } else {
+      const unsigned ex = (c >> kM) & ((1u << kE) - 1u);
+      const unsigned sig = c & ((1u << kM) - 1u);
+      float v = ex == 0u
+                    ? static_cast<float>(sig) * __uint_as_float((128u - kBias - kM) << 23)
+                    : __uint_as_float(((ex + 127u - kBias) << 23) | (sig << (23 - kM)));
+      if constexpr (kKind == kIeee) {
+        if (ex == (1u << kE) - 1u) v = sig ? CUDART_NAN_F : CUDART_INF_F;
+      }
+      if constexpr (kKind == kFnuz) {
+        if (c == kSign) return CUDART_NAN_F;
+      }
+      return (c & kSign) ? -v : v;
+    }
+  }
+  __device__ static float2 widen2(Pair p) {
+    return make_float2(widen(p & 0xFFu), widen(static_cast<unsigned>(p) >> 8));
+  }
+
+  __device__ static unsigned round1(float x) {
+    const unsigned bits = __float_as_uint(x);
+    const unsigned a = bits & 0x7FFFFFFFu;
+    const unsigned ex = a >> 23;
+    if constexpr (kKind == kPow2) {
+      if (a == 0u || (bits >> 31) || a >= 0x7F800000u) return kNan;
+      const unsigned mag = (a + (ex ? 0x400000u : 0x3FFFFFu)) >> 23;
+      return mag > kMax ? kNan : mag;
+    } else {
+      const unsigned sign = (bits >> 31) ? kSign : 0u;
+      if (a > 0x7F800000u) return kKind == kIeee ? (sign | kNan) : kNan;
+      constexpr int kShift = 23 - kM;
+      unsigned mag;
+      if (static_cast<int>(ex) >= 128 - kBias) {  // a normal of the type
+        mag = ((a + (1u << (kShift - 1)) - 1u + ((a >> kShift) & 1u)) >> kShift) -
+              ((127u - kBias) << kM);
+      } else {  // below: the significand shifted to the smallest step
+        const unsigned sig = (a & 0x7FFFFFu) | (ex ? 0x800000u : 0u);
+        const int sh = min(151 - kBias - kM - max(static_cast<int>(ex), 1), 25);
+        const unsigned q = sig >> sh;
+        const unsigned rem = sig & ((1u << sh) - 1u);
+        const unsigned half = 1u << (sh - 1);
+        mag = q + ((rem > half || (rem == half && (q & 1u))) ? 1u : 0u);
+      }
+      if (mag > kMax || a == 0x7F800000u) {
+        if constexpr (kKind == kFnuz) return kNan;
+        if constexpr (kKind == kIeee) return sign | kInf;
+        return sign | kMax;
+      }
+      if constexpr (kKind == kFnuz) {
+        if (mag == 0u) return 0u;
+      }
+      return sign | mag;
+    }
+  }
+  __device__ static Pair round2(float2 v) {
+    return static_cast<Pair>(round1(v.x) | (round1(v.y) << 8));
+  }
+};
+template <>
+struct Row<row_e4m3fnuz> : MiniRow<4, 3, 8, kFnuz> {};
+template <>
+struct Row<row_e5m2fnuz> : MiniRow<5, 2, 16, kFnuz> {};
+template <>
+struct Row<row_e4m3b11fnuz> : MiniRow<4, 3, 11, kFnuz> {};
+template <>
+struct Row<row_e3m4> : MiniRow<3, 4, 3, kIeee> {};
+template <>
+struct Row<row_e4m3> : MiniRow<4, 3, 7, kIeee> {};
+template <>
+struct Row<row_e8m0fnu> : MiniRow<8, 0, 127, kPow2> {};
+template <>
+struct Row<row_e2m1fn> : MiniRow<2, 1, 1, kSat> {};
+
+// Whether K2 gives a row type JAX's NaNs (ops/interp.py `dense_nan`): the
+// software types with a NaN or an infinity among their codes.
+template <typename T>
+constexpr bool kDenseNan = false;
+template <>
+constexpr bool kDenseNan<row_e4m3fnuz> = true;
+template <>
+constexpr bool kDenseNan<row_e5m2fnuz> = true;
+template <>
+constexpr bool kDenseNan<row_e4m3b11fnuz> = true;
+template <>
+constexpr bool kDenseNan<row_e3m4> = true;
+template <>
+constexpr bool kDenseNan<row_e4m3> = true;
+template <>
+constexpr bool kDenseNan<row_e8m0fnu> = true;
 
 // Columns [kVec c, kVec c + kVec) of a row of `T` (any row type), read
 // through the read-only path and widened to f32: a narrow row moves fewer

@@ -51,16 +51,21 @@
 // results agree with the plain version to rounding, not bit for bit.
 //
 // The low-precision row instances, for `field_stream_dtype` "bfloat16",
-// "float16", "float8_e4m3fn" and "float8_e5m2" (replace the backward of
+// "float16" and the 8- and 4-bit floats (replace the backward of
 // tetranerf_tpu/ops/fused.py `gather_rows_lowp` :680-692): the values are
 // K2b's stream-row gradients in that type; a lane reads 8, 4, 2 or 1 bytes
 // of a row, widens them exactly (common.cuh `Row`) and adds them into the
 // f32 table with the same vector atomics. The accumulation stays f32,
 // which is the lever's point: 10-200 rows sum into a vertex row, which
-// bf16's 8 significant bits (f16's 11, fp8's 3 or 4) could not carry. A
-// half or a quarter of the value bytes; the atomics are the same.
+// bf16's 8 significant bits (f16's 11, fp8's 1 to 5) could not carry. A
+// half or a quarter of the value bytes; the atomics are the same. The
+// seven software row types widen by bit arithmetic (common.cuh
+// `MiniRow`).
 
+#include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -102,6 +107,43 @@ struct Vec<1> {
   __device__ static float zero() { return 0.0f; }
   __device__ static bool nonzero(float v) { return v != 0.0f; }
 };
+
+// `v` added into `*p` in the ordinary f32 add, which keeps a subnormal
+// (the card's float atomics flush subnormal inputs and results to zero).
+__device__ __forceinline__ void add_keeping_subnormals(float* p, float v) {
+  unsigned* u = reinterpret_cast<unsigned*>(p);
+  unsigned old = *u, assumed;
+  do {
+    assumed = old;
+    old = atomicCAS(u, assumed, __float_as_uint(__uint_as_float(assumed) + v));
+  } while (old != assumed);
+}
+
+// One widened row unit `x` added into the table at `dst`. float8_e8m0fnu's
+// code 0 is 2^-127, an f32 subnormal, which a float atomic would add as 0:
+// its components go through the ordinary add, the rest as before.
+template <typename T, int kVec>
+__device__ __forceinline__ void add_row(float* dst, const typename F32Vec<kVec>::T& x) {
+  if constexpr (std::is_same<T, row_e8m0fnu>::value) {
+    const float* xs = reinterpret_cast<const float*>(&x);
+    bool subnormal = false;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) subnormal |= xs[k] != 0.0f && fabsf(xs[k]) < FLT_MIN;
+    if (subnormal) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if (xs[k] == 0.0f) continue;
+        if (fabsf(xs[k]) < FLT_MIN) {
+          add_keeping_subnormals(dst + k, xs[k]);
+        } else {
+          atomicAdd(dst + k, xs[k]);
+        }
+      }
+      return;
+    }
+  }
+  atomicAdd(reinterpret_cast<typename F32Vec<kVec>::T*>(dst), x);
+}
 
 // `T` is the values' row type: float, or a stream row type of common.cuh
 // (widened, then added into the f32 table).
@@ -150,9 +192,7 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
 #pragma unroll
     for (int k = 0; k < kRowsInFlight; ++k) {
       if (v[k] >= 0 && Vec<kVec>::nonzero(x[k])) {
-        atomicAdd(reinterpret_cast<V*>(
-                      out + static_cast<long long>(v[k]) * num_feat) + c,
-                  x[k]);
+        add_row<T, kVec>(out + static_cast<long long>(v[k]) * num_feat + c * kVec, x[k]);
       }
     }
   }

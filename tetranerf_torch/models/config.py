@@ -46,12 +46,13 @@ as in JAX.
 
 ``field_stream_dtype`` takes every name JAX's model runs: ``"float32"``
 and ``"float64"`` (the f32 stream, as JAX computes it with 64-bit types
-off), ``"bfloat16"``, ``"float16"``, ``"float8_e4m3fn"`` and
-``"float8_e5m2"`` (each a row type of the stream kernels), and their numpy
-aliases. :func:`check_supported` refuses what JAX refuses with JAX's
-exception type, and the other 8- and 4-bit types of ``ml_dtypes``, which
-JAX runs and the stream kernels have no instance for, with
-``NotImplementedError``.
+off), ``"bfloat16"``, ``"float16"``, and the 8- and 4-bit floats of
+``ml_dtypes`` that JAX casts to (``"float8_e4m3fn"``, ``"float8_e5m2"``,
+``"float8_e4m3fnuz"``, ``"float8_e5m2fnuz"``, ``"float8_e4m3b11fnuz"``,
+``"float8_e3m4"``, ``"float8_e4m3"``, ``"float8_e8m0fnu"`` and
+``"float4_e2m1fn"``; each a row type of the stream kernels), and their
+numpy aliases. :func:`check_supported` refuses what JAX refuses with
+JAX's exception type.
 """
 
 from __future__ import annotations
@@ -141,9 +142,8 @@ class TetrahedraNerfConfig:
 
 def check_supported(config: TetrahedraNerfConfig) -> None:
     """Refuse settings the model cannot run: a ``field_stream_dtype`` that
-    JAX refuses, with JAX's exception type, or one of the 8- and 4-bit
-    types JAX runs and the stream kernels have no instance for
-    (``NotImplementedError``; :func:`~..ops.stream_dtypes.stream_dtype`)."""
+    JAX refuses, with JAX's exception type
+    (:func:`~..ops.stream_dtypes.stream_dtype`)."""
     stream_dtype(config.field_stream_dtype)
     if config.traversal_hops not in (1, 2):
         raise ValueError(f"traversal_hops must be 1 or 2, got {config.traversal_hops!r}")

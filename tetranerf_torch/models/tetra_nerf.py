@@ -389,7 +389,7 @@ class TetraNerf(nn.Module):
     def stream_levers(self, train: bool):
         """``(budget_per_ray, stream_dtype)`` of a forward (JAX ``_forward``):
         the gradient-stream budget in training only; the low-precision
-        stream (bf16, f16, float8_e4m3fn, float8_e5m2) whenever configured,
+        stream (a :class:`~..ops.stream_dtypes.StreamType`) whenever configured,
         except while the budget is on (JAX ``endpoint_features`` takes the
         budget first). ``"float64"`` is the f32 stream, as JAX computes it
         with 64-bit types off (:func:`~..ops.stream_dtypes.stream_dtype`)."""

@@ -16,6 +16,7 @@ from .fused import (
     slice_march_buckets,
 )
 from .barycentric import add_barycentrics_grad, barycentric_coordinates
+from .encoding import nerf_encoding
 from .gather import row_gather, row_gather_batch
 from .interpolation import gather_uint32, interpolate_values, scatter_ema_uint32
 from .march import FusedMarch, MarchStream, locate_points, march
@@ -64,6 +65,7 @@ __all__ = [
     "march",
     "march_features",
     "match_samples",
+    "nerf_encoding",
     "pdf_sample",
     "ray_bounds",
     "render_rgb_depth_acc",

@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from .stream_dtypes import STREAM_TYPES
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tetranerf_torch"
 
@@ -88,6 +90,9 @@ launch_counts = {
     "fused_density_mlp_backward_generic": 0, "fused_field_mlps_layered": 0,
     "fused_field_mlps_backward_layered": 0, "fused_density_mlp_layered": 0,
     "fused_density_mlp_backward_layered": 0,
+    # K2, K2b and K7's instances for the seven software row types.
+    **{kernel + t.suffix: 0 for t in STREAM_TYPES.values() if t.minifloat
+       for kernel in ("stream_blend_gather", "stream_blend_backward", "scatter_add_rows")},
 }
 """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
 

@@ -15,8 +15,9 @@ through the autograd Functions whose backwards are K2b + K7 and K3b.
 
 The two stream levers of :func:`endpoint_features_batch` (JAX
 ``endpoint_features(..., counts, grad_budget, stream_dtype)``): a
-low-precision stream, bf16, f16, float8_e4m3fn or float8_e5m2 (K2, K2b and
-K7's instances for that row type, the field gradient still summed in f32),
+low-precision stream, bf16, f16 or an 8- or 4-bit float (K2, K2b and K7's
+instances for that row type, :mod:`.stream_dtypes`; the field gradient
+still summed in f32),
 and the gradient-stream budget (:func:`stream_budget_ids`: the slots past
 the budget scatter no gradient).
 
@@ -43,11 +44,11 @@ from .interp import (
 )
 from .gather import row_gather_batch
 from .march import FusedMarch, MarchStream, march
-from .stream_dtypes import round_to
+from .stream_dtypes import RowTypeLike, round_to, row_type
 
 
 def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
-                            stream_dtype: Optional[torch.dtype] = None,
+                            stream_dtype: RowTypeLike = None,
                             scatter_ids: Optional[Sequence[torch.Tensor]] = None,
                             columns=None) -> List[torch.Tensor]:
     """Interval-endpoint features ``f32[R_j, T_j+1, F]`` of each march
@@ -55,8 +56,9 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     traversal. Where autograd records, the field gradient of all streams is
     one ``[V, F]`` tensor (one K7 launch).
 
-    ``stream_dtype`` (bf16, f16, float8_e4m3fn or float8_e5m2; JAX
-    ``gather_rows_lowp``) blends a copy of the field in that type, rounded
+    ``stream_dtype`` (a :class:`~.stream_dtypes.StreamType` of bf16, f16
+    or an 8- or 4-bit float, its name, or its torch dtype where torch has
+    one; JAX ``gather_rows_lowp``) blends a copy of the field in that type, rounded
     once here as ``jnp.astype`` rounds (:func:`~.stream_dtypes.round_to`:
     plain torch ops, as JAX leaves the cast to XLA; torch's own cast would
     saturate float8_e4m3fn where JAX gives NaN), in K2's instance for the
@@ -70,16 +72,18 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
     ``field`` is this rank's ``[V, F/M]`` column block: K2 runs at ``F/M``
     and one gather over the model group returns every stream at ``F``."""
     field = field.contiguous()
+    stream_dtype = row_type(stream_dtype)
     flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
         outs = StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat)
     else:
-        outs = stream_blend_gather_batch(round_to(field, stream_dtype), split_streams(flat))
+        outs = stream_blend_gather_batch(round_to(field, stream_dtype), split_streams(flat),
+                                         stream_dtype)
     return gather_columns(columns, outs)
 
 
 def endpoint_features(field: torch.Tensor, stream: MarchStream,
-                      stream_dtype: Optional[torch.dtype] = None,
+                      stream_dtype: RowTypeLike = None,
                       scatter_ids: Optional[torch.Tensor] = None,
                       columns=None) -> torch.Tensor:
     """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2): the

@@ -6,12 +6,21 @@ its backward.
 Counterpart of :mod:`tetranerf_tpu.ops.pallas_interp`. All run in f32: the
 JAX kernels' bf16 contraction was the price of the TPU's matrix unit, not
 part of the function. The low-precision streams (``field_stream_dtype``
-"bfloat16", "float16", "float8_e4m3fn" or "float8_e5m2", JAX
-``gather_rows_lowp``) have their own instances, one for each row type: K2
-reads the field in that type and blends in f32, K2b writes the stream-row
+bf16, f16 or an 8- or 4-bit float, JAX ``gather_rows_lowp``) have their
+own instances, one for each row type (:mod:`.stream_dtypes`): K2 reads
+the field in that type and blends in f32, K2b writes the stream-row
 gradient in that type (rounded once, as ``jnp.astype`` rounds:
 :func:`~.stream_dtypes.round_to`), and K7 adds those rows into the f32
-field gradient.
+field gradient. Rows of the seven types torch lacks are ``uint8`` codes;
+the calls then name their row type (``row_type``).
+
+JAX's blend is a dense contraction over a ray's stream slots, so a NaN or
+an infinity in any slot row reaches every endpoint of the ray in its
+column (``0 * x`` is NaN). For the seven software row types, the only
+ones whose rounding of finite values gives NaN in ordinary use
+(float8_e8m0fnu has no zero and no sign), K2 and its twin follow it
+(:func:`dense_nan`); the f32, bf16, f16 and fp8 instances blend the rows
+an endpoint weights and nothing else.
 """
 
 from __future__ import annotations
@@ -22,22 +31,34 @@ import torch
 
 from . import cuda
 from .scatter import scatter_add_rows_batch
-from .stream_dtypes import COUNTER_SUFFIX, KERNEL_CODES, round_to
+from . import stream_dtypes
+from .stream_dtypes import F32, RowTypeLike, round_to, rows_type, widen
 
 Stream = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 """``(vids i32[R, U], pos i32[R, E, 4], bary f32[R, E, 4])``: one march
 stream (``MarchStream``'s fields) to blend against the field."""
 
 
-def stream_blend_gather_twin(field, vids, pos, bary):
+def stream_blend_gather_twin(field, vids, pos, bary, row_type: RowTypeLike = None):
     """``out[r, e] = sum_j bary[r, e, j] * field[vids[r, pos[r, e, j]]]``.
 
-    ``field f32[V, F]`` (or a stream row type, bf16, f16, float8_e4m3fn or
-    float8_e5m2: its rows widen exactly and blend in f32), ``vids i32[R,
-    U]``, ``pos i32[R, E, 4]`` in ``[0, U)``, ``bary f32[R, E, 4]`` (zero
-    at invalid endpoints) -> ``f32[R, E, F]``."""
+    ``field f32[V, F]`` or rows of a stream row type (``row_type``; where
+    None, ``field``'s dtype's: its rows widen exactly and blend in f32),
+    ``vids i32[R, U]``, ``pos i32[R, E, 4]`` in ``[0, U)``, ``bary f32[R,
+    E, 4]`` (zero at invalid endpoints) -> ``f32[R, E, F]``. The seven
+    software row types blend the rows an endpoint weights, then take
+    JAX's NaNs (:func:`dense_nan`)."""
     num_rays, num_end = pos.shape[:2]
     vid_e = vids.gather(1, pos.reshape(num_rays, num_end * 4).long()).clamp_min(0)
+    t = None if field.dtype == torch.float64 else rows_type(field, row_type)
+    if t is not None and t.minifloat:
+        values = widen(field, t)
+        rows = values[vid_e.long()].reshape(num_rays, num_end, 4, field.shape[-1])
+        w = bary[..., None]
+        terms = [torch.where(w[:, :, j] != 0, w[:, :, j] * rows[:, :, j], 0.0)
+                 for j in range(4)]
+        out = ((terms[0] + terms[1]) + terms[2]) + terms[3]
+        return dense_nan(out, values, vids, pos, bary)
     rows = field[vid_e.long()].reshape(num_rays, num_end, 4, field.shape[-1])
     if rows.element_size() < 4:  # a stream row type; f64 stays f64
         rows = rows.float()
@@ -47,14 +68,42 @@ def stream_blend_gather_twin(field, vids, pos, bary):
     ) + w[:, :, 2] * rows[:, :, 2] + w[:, :, 3] * rows[:, :, 3]
 
 
-def stream_blend_gather_batch_twin(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
+def dense_nan(out, values, vids, pos, bary):
+    """``out [R, E, F]`` with JAX's NaNs: NaN where a slot row of the ray
+    (``values f32[V, F]`` at ``max(vids, 0)``) holds a NaN or an infinity
+    in the column and the endpoint's nonzero weights do not reach that
+    slot. JAX blends the ``[U, F]`` slot rows of a ray with a dense
+    ``[E, U]`` matrix, whose zeros make ``0 * x`` of such a value, NaN; the
+    slots an endpoint weights add ``w * x`` as the blend does. So a column
+    is NaN where its count of non-finite slots exceeds that of the
+    distinct slots the endpoint weights."""
+    bad = ~values.isfinite()
+    if not bad.any():
+        return out
+    num_rays, num_end = pos.shape[:2]
+    slot_bad = bad[vids.clamp_min(0).long()]  # [R, U, F]
+    count = slot_bad.sum(1, dtype=torch.int32)[:, None]
+    p = pos.long()
+    first = bary != 0  # the weighted slots, each counted once
+    for j in range(1, 4):
+        for k in range(j):
+            first[..., j] &= ~(first[..., k] & (p[..., k] == p[..., j]))
+    hit = slot_bad.gather(1, p.reshape(num_rays, -1, 1).expand(-1, -1, bad.shape[1]))
+    reached = (hit.reshape(num_rays, num_end, 4, -1) & first[..., None]).sum(
+        2, dtype=torch.int32)
+    return torch.where(count > reached, float("nan"), out)
+
+
+def stream_blend_gather_batch_twin(field, streams: Sequence[Stream],
+                                   row_type: RowTypeLike = None) -> List[torch.Tensor]:
     """:func:`stream_blend_gather_twin` of each stream."""
-    return [stream_blend_gather_twin(field, *s) for s in streams]
+    return [stream_blend_gather_twin(field, *s, row_type) for s in streams]
 
 
-def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
+def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream], row_type: RowTypeLike):
     num_feat = field.shape[-1]
-    if (field.dim() != 2 or field.dtype not in KERNEL_CODES or num_feat % 2
+    rows = rows_type(field, row_type)
+    if (field.dim() != 2 or num_feat % 2
             or field.data_ptr() % (2 * field.element_size())):
         raise ValueError("stream_blend_gather: unexpected field shape, dtype or alignment")
     outs, flat = [], []
@@ -75,34 +124,34 @@ def _stream_blend_gather_batch_cuda(field, streams: Sequence[Stream]):
         if out.numel():
             flat.append((vids.data_ptr(), pos.data_ptr(), bary.data_ptr(),
                          out.data_ptr(), num_rays, num_end, vids.shape[1]))
-    counter = "stream_blend_gather" + COUNTER_SUFFIX[field.dtype]
+    counter = "stream_blend_gather" + rows.suffix
     for jobs_arr, num in cuda.job_chunks(cuda.max_jobs("tetranerf_stream_blend_max_jobs"), flat):
         cuda.launch(counter, "tetranerf_stream_blend_gather_batch",
                     field.device, cuda.ptr(field), jobs_arr, num, num_feat,
-                    KERNEL_CODES[field.dtype])
+                    rows.code)
     return outs
 
 
-def stream_blend_gather_batch(field, streams: Sequence[Stream]) -> List[torch.Tensor]:
+def stream_blend_gather_batch(field, streams: Sequence[Stream],
+                              row_type: RowTypeLike = None) -> List[torch.Tensor]:
     """K2 on CUDA tensors, :func:`stream_blend_gather_batch_twin` on CPU
     tensors: the endpoint features ``f32[R_j, E_j, F]`` of each stream
-    against one ``field [V, F]`` (``F`` even), f32 or a stream row type
-    (bf16, f16, float8_e4m3fn, float8_e5m2: K2's instance for that type). On
-    the card one launch
-    blends every stream (more only past the kernel's job capacity, 64
-    streams); the tensors must be contiguous, ``pos`` and ``bary``
-    16-byte aligned."""
+    against one ``field [V, F]`` (``F`` even), f32 or rows of a stream row
+    type (``row_type``, where None ``field``'s dtype's: K2's instance for
+    that type). On the card one launch blends every stream (more only past
+    the kernel's job capacity, 64 streams); the tensors must be
+    contiguous, ``pos`` and ``bary`` 16-byte aligned."""
     if field.is_cuda:
-        return _stream_blend_gather_batch_cuda(field, streams)
+        return _stream_blend_gather_batch_cuda(field, streams, row_type)
     if field.device.type == "cpu":
-        return stream_blend_gather_batch_twin(field, streams)
+        return stream_blend_gather_batch_twin(field, streams, row_type)
     raise ValueError(f"stream_blend_gather: unsupported device {field.device}")
 
 
-def stream_blend_gather(field, vids, pos, bary):
+def stream_blend_gather(field, vids, pos, bary, row_type: RowTypeLike = None):
     """K2 on CUDA tensors, :func:`stream_blend_gather_twin` on CPU tensors:
     the one-stream case of :func:`stream_blend_gather_batch`."""
-    return stream_blend_gather_batch(field, [(vids, pos, bary)])[0]
+    return stream_blend_gather_batch(field, [(vids, pos, bary)], row_type)[0]
 
 
 def _match(t0, t1, num_valid, ray_mask, distances):
@@ -211,25 +260,24 @@ def _stream_blend_backward_cuda(g, pos, bary, num_stream: int, out_dtype):
         or bary.dtype != torch.float32 or bary.shape != pos.shape
     ):
         raise ValueError("stream_blend_backward: unexpected shapes or dtypes")
-    out_dtype = out_dtype or torch.float32
-    if out_dtype not in KERNEL_CODES:
-        raise ValueError(f"stream_blend_backward: unsupported output dtype {out_dtype}")
-    gsf = torch.empty((num_rays, num_stream, num_feat), dtype=out_dtype, device=g.device)
+    out = stream_dtypes.row_type(out_dtype) or F32
+    gsf = torch.empty((num_rays, num_stream, num_feat), dtype=out.storage, device=g.device)
     if gsf.numel():
         cuda.launch(
-            "stream_blend_backward" + COUNTER_SUFFIX[out_dtype],
+            "stream_blend_backward" + out.suffix,
             "tetranerf_stream_blend_backward",
             g.device, *map(cuda.ptr, (g, pos, bary, gsf)),
-            num_rays, num_end, num_stream, num_feat, KERNEL_CODES[out_dtype],
+            num_rays, num_end, num_stream, num_feat, out.code,
         )
     return gsf
 
 
 def stream_blend_backward(g, pos, bary, num_stream: int, out_dtype=None):
     """K2b on CUDA tensors, :func:`stream_blend_backward_twin` on CPU tensors;
-    ``out_dtype`` a stream row type (bf16, f16, float8_e4m3fn, float8_e5m2)
-    is K2b's instance for that type (None: f32 on the card, ``g``'s dtype
-    in the twin)."""
+    ``out_dtype`` a stream row type (a :class:`~.stream_dtypes.StreamType`,
+    its name, or the torch dtype of bf16, f16 or an fp8 type) is K2b's
+    instance for that type, whose rows are in its storage dtype (None: f32
+    on the card, ``g``'s dtype in the twin)."""
     if g.is_cuda:
         return _stream_blend_backward_cuda(g, pos, bary, num_stream, out_dtype)
     if g.device.type == "cpu":
@@ -290,10 +338,10 @@ def split_streams(flat) -> List[Stream]:
 def _blend_forward(ctx, field, stream_dtype, scatter_ids, flat):
     ctx.save_for_backward(*flat)
     ctx.num_rows = field.shape[0]
-    ctx.stream_dtype = stream_dtype
+    ctx.stream_dtype = stream_dtypes.row_type(stream_dtype)
     ctx.scatter_ids = scatter_ids
-    rows = round_to(field, stream_dtype)
-    return tuple(stream_blend_gather_batch(rows, split_streams(flat)))
+    rows = round_to(field, ctx.stream_dtype)
+    return tuple(stream_blend_gather_batch(rows, split_streams(flat), ctx.stream_dtype))
 
 
 def _blend_backward(ctx, grads):
@@ -306,7 +354,7 @@ def _blend_backward(ctx, grads):
         ids = (vids.clamp_min(0) if ctx.scatter_ids is None
                else ctx.scatter_ids[i])
         jobs.append((ids.reshape(-1), gsf.reshape(-1, gsf.shape[-1])))
-    return scatter_add_rows_batch(jobs, ctx.num_rows)
+    return scatter_add_rows_batch(jobs, ctx.num_rows, ctx.stream_dtype)
 
 
 class StreamBlendGatherBatch(torch.autograd.Function):
@@ -317,8 +365,8 @@ class StreamBlendGatherBatch(torch.autograd.Function):
     vids_1, ...)``; returns one ``f32[R_j, E_j, F]`` per stream. The
     streams take no gradient. The two stream levers:
 
-    - ``stream_dtype`` a stream row type, bf16, f16, float8_e4m3fn or
-      float8_e5m2 (JAX ``gather_rows_lowp``): the field is rounded once to
+    - ``stream_dtype`` a stream row type, bf16, f16 or an 8- or 4-bit
+      float (JAX ``gather_rows_lowp``): the field is rounded once to
       a ``[V, F]`` copy in that type (:func:`~.stream_dtypes.round_to`)
       that K2's instance for the type blends in f32; the backward runs
       K2b's and K7's instances for the type, and K7 adds into the f32

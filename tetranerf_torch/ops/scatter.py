@@ -7,8 +7,9 @@ K7 is the second half of the stream blend's backward
 (:class:`~.interp.StreamBlendGatherBatch`): one launch scatters the
 stream-row gradients of every bucket of a step into the one ``[V, F]``
 field gradient. With a low-precision stream the rows are in the stream's
-type (bf16, f16, float8_e4m3fn or float8_e5m2) and K7's instance for that
-type adds them into the f32 table.
+row type and K7's instance for that type adds them into the f32 table;
+rows of the seven 8- and 4-bit types torch lacks are ``uint8`` codes, and
+the calls name their row type (``row_type``, :mod:`.stream_dtypes`).
 """
 
 from __future__ import annotations
@@ -18,40 +19,41 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import cuda
-from .stream_dtypes import COUNTER_SUFFIX, KERNEL_CODES
+from .stream_dtypes import RowTypeLike, rows_type, widen
 
 Job = Tuple[torch.Tensor, torch.Tensor]
 """``(indices i32[N], values [N, F])``: rows to add into the table, f32
 or a stream row type."""
 
 
-def scatter_add_rows_twin(indices, values, num_rows: int):
+def scatter_add_rows_twin(indices, values, num_rows: int, row_type: RowTypeLike = None):
     """``zeros[num_rows, F]`` with ``values[i]`` added into row
     ``indices[i]``, in f32 for values in a stream row type (widened
     exactly; f64 values sum in f64); rows whose index is ``< 0`` or ``>=
-    num_rows`` are dropped. ``indices i32[N]``, ``values f32[N, F]``, bf16,
-    f16, float8_e4m3fn or float8_e5m2."""
+    num_rows`` are dropped. ``indices i32[N]``, ``values f32[N, F]`` or
+    rows of a stream row type (``row_type``; where None, ``values``'
+    dtype's)."""
     keep = (indices >= 0) & (indices < num_rows)
     dtype = torch.float64 if values.dtype == torch.float64 else torch.float32
-    vals = values[keep].to(dtype)
+    vals = widen(values[keep], row_type)
     idx = indices[keep].long()[:, None].expand(-1, values.shape[1])
     out = torch.zeros((num_rows, values.shape[1]), dtype=dtype, device=values.device)
     return out.scatter_add_(0, idx, vals)
 
 
-def scatter_add_rows_batch_twin(jobs: Sequence[Job], num_rows: int):
+def scatter_add_rows_batch_twin(jobs: Sequence[Job], num_rows: int,
+                                row_type: RowTypeLike = None):
     """:func:`scatter_add_rows_twin` of the jobs' concatenation: one
     ``scatter_add_``."""
     return scatter_add_rows_twin(torch.cat([idx for idx, _ in jobs]),
-                                 torch.cat([vals for _, vals in jobs]), num_rows)
+                                 torch.cat([vals for _, vals in jobs]), num_rows, row_type)
 
 
-def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
+def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int, row_type: RowTypeLike):
     device = jobs[0][1].device
     num_feat = jobs[0][1].shape[-1]
     dtype = jobs[0][1].dtype
-    if dtype not in KERNEL_CODES:
-        raise ValueError(f"scatter_add_rows: unsupported values dtype {dtype}")
+    rows = rows_type(jobs[0][1], row_type)
     flat: List[tuple] = []
     for idx, vals in jobs:
         cuda.check_cuda_inputs("scatter_add_rows", indices=idx, values=vals)
@@ -68,40 +70,40 @@ def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int):
         return out
     if not flat:
         return out.zero_()
-    counter = "scatter_add_rows" + COUNTER_SUFFIX[dtype]
+    counter = "scatter_add_rows" + rows.suffix
     chunks = cuda.job_chunks(cuda.max_jobs("tetranerf_scatter_add_max_jobs"), flat)
     for i, (jobs_arr, num) in enumerate(chunks):
         # The first launch zeroes the table; later ones add into it.
         cuda.launch(counter, "tetranerf_scatter_add_rows_batch", device,
                     jobs_arr, num, cuda.ptr(out), num_rows, num_feat, int(i == 0),
-                    KERNEL_CODES[dtype])
+                    rows.code)
     return out
 
 
-def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int):
+def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int, row_type: RowTypeLike = None):
     """K7 on CUDA tensors, :func:`scatter_add_rows_batch_twin` on CPU
     tensors: ``zeros[num_rows, F]`` with every job's rows added in.
 
     ``jobs`` is a non-empty list of ``(indices i32[N_j], values [N_j,
     F])``, all contiguous, one device, one ``F``, the values all f32 or all
-    of one stream row type (bf16, f16, float8_e4m3fn, float8_e5m2: K7's
-    instance for that type; the table is f32 either way); rows whose
-    index is ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
+    rows of one stream row type (``row_type``, where None the values'
+    dtype's: K7's instance for that type; the table is f32 either way);
+    rows whose index is ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
     every job (more only past the kernel's job capacity, 64 jobs)."""
     if not jobs:
         raise ValueError("scatter_add_rows: no jobs (the row width is unknown)")
     device = jobs[0][1].device
     if device.type == "cuda":
-        return _scatter_add_rows_batch_cuda(jobs, num_rows)
+        return _scatter_add_rows_batch_cuda(jobs, num_rows, row_type)
     if device.type == "cpu":
-        return scatter_add_rows_batch_twin(jobs, num_rows)
+        return scatter_add_rows_batch_twin(jobs, num_rows, row_type)
     raise ValueError(f"scatter_add_rows: unsupported device {device}")
 
 
-def scatter_add_rows(indices, values, num_rows: int):
+def scatter_add_rows(indices, values, num_rows: int, row_type: RowTypeLike = None):
     """K7 on CUDA tensors, :func:`scatter_add_rows_twin` on CPU tensors: the
     one-job case of :func:`scatter_add_rows_batch`."""
-    return scatter_add_rows_batch([(indices, values)], num_rows)
+    return scatter_add_rows_batch([(indices, values)], num_rows, row_type)
 
 
 class _GatherRows(torch.autograd.Function):
