@@ -910,6 +910,23 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
     _check(err <= TOLERANCES["scatter_add_rows"],
            f"scatter_add_rows (8-job batch): max abs err {err}")
     del got
+    # The same jobs with a hot id, as padding slots give: 60% of the rows
+    # moved to id 0 with zero values (a step's padding rows are zero).
+    hot = []
+    for idx, vals in jobs:
+        pad = torch.rand(idx.shape, generator=gen, device=dev) < 0.6
+        hot.append((torch.where(pad, 0, idx).contiguous(),
+                    torch.where(pad[:, None], 0.0, vals).contiguous()))
+    hot_err = _max_err(scatter.scatter_add_rows_batch(hot, num_v),
+                       scatter.scatter_add_rows_batch_twin(hot, num_v))
+    _check(hot_err <= TOLERANCES["scatter_add_rows"],
+           f"scatter_add_rows (hot id): max abs err {hot_err}")
+    hot_ms = _time_ms(lambda: scatter.scatter_add_rows_batch(hot, num_v), 20)
+    hot_device_ms = _device_ms(lambda: scatter.scatter_add_rows_batch(hot, num_v))
+    print(f"scatter_add_rows: the 8 jobs with 60% of their rows moved to id 0 as zero rows: max "
+          f"abs err {hot_err:.3g}; {hot_ms:.4f} ms by CUDA events, kernels {hot_device_ms} ms "
+          f"by the profiler, bound {_scatter_batch_bound(hot, num_v)['bound_ms']:.4f}")
+    del hot
     idx_cat = torch.cat([idx for idx, _ in jobs]).long()
     vals_cat = torch.cat([vals for _, vals in jobs])
 
@@ -930,6 +947,7 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
         plain_ms=_time_ms(lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v), 3),
         library_ms=_time_ms(index_add, 20), library_device_ms=_device_ms(index_add),
         per_bucket_ms=_time_ms(per_bucket, 20), per_bucket_device_ms=_device_ms(per_bucket),
+        hot_id_max_abs_err=hot_err, hot_id_ms=hot_ms, hot_id_device_ms=hot_device_ms,
         **_scatter_batch_bound(jobs, num_v))
     scatter_entry["flagship_batch"] = batch
     scatter_entry["max_abs_err"] = max(scatter_entry["max_abs_err"], err)
@@ -1930,10 +1948,58 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms, march_kernels
           "profiler, bound ms from the step's own inputs, launches): " + "; ".join(
               f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} / "
               f"{v['bound_ms']:.4f} / {v['launches']}" for k, v in step_ms.items()))
-    print("flagship train: K2 and K2b per steady step against the earlier designs' "
+    print("flagship train: K2, K2b and K7 per steady step against the earlier designs' "
           "(PERF.md): " + "; ".join(
         f"{k} {step_ms[k]['ms']} (was {ms})" for k, ms in EARLIER_PHASE12_MS.items()))
+    _k7_step_jobs(trainer, batches[3])
     return trainer, launches, per_step, step_ms, cold
+
+
+def _k7_step_jobs(trainer, batch):
+    """What K7 gets in one ``trainer.train_step(batch)``: its jobs' rows,
+    nonzero rows and 16-byte vectors, distinct ids, id 0's rows and the
+    longest run of one id in input order; its kernel time on them, and on
+    the same ids with zero rows (the same bytes read, no atomic issued),
+    against the twin within the scatter tolerance."""
+    import torch
+    from tetranerf_torch.ops import interp, scatter
+
+    seen = []
+    real = interp.scatter_add_rows_batch
+
+    def spy(jobs, num_rows, row_type=None):
+        seen.append(([(i.clone(), v.clone()) for i, v in jobs], num_rows))
+        return real(jobs, num_rows, row_type)
+
+    interp.scatter_add_rows_batch = spy
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            trainer.train_step(batch)
+    finally:
+        interp.scatter_add_rows_batch = real
+    _check(len(seen) == 1, f"flagship train: K7 called {len(seen)} times in a step")
+    jobs, num_v = seen[0]
+    err = _max_err(scatter.scatter_add_rows_batch(jobs, num_v),
+                   scatter.scatter_add_rows_batch_twin(jobs, num_v))
+    _check(err <= TOLERANCES["scatter_add_rows"], f"flagship train: K7 of a step: err {err}")
+    ids = torch.cat([i for i, _ in jobs]).long()
+    vals = torch.cat([v for _, v in jobs])
+    change = torch.ones_like(ids, dtype=torch.bool)
+    change[1:] = ids[1:] != ids[:-1]
+    starts = torch.nonzero(change).flatten()
+    zeros = [(i, torch.zeros_like(v)) for i, v in jobs]
+    stats = dict(
+        jobs=len(jobs), rows=int(ids.numel()),
+        valid_rows=int(((ids >= 0) & (ids < num_v)).sum()),
+        nonzero_rows=int((vals != 0).any(dim=1).sum()),
+        nonzero_vectors=int((vals.reshape(vals.shape[0], -1, 4) != 0).any(dim=2).sum()),
+        vectors=int(vals.numel() // 4), distinct_ids=int(ids.unique().numel()),
+        id0_rows=int((ids == 0).sum()),
+        longest_run=int(torch.diff(starts, append=starts.new_tensor([ids.numel()])).max()),
+        max_abs_err=err,
+        device_ms=_device_ms(lambda: scatter.scatter_add_rows_batch(jobs, num_v)),
+        zero_rows_device_ms=_device_ms(lambda: scatter.scatter_add_rows_batch(zeros, num_v)))
+    print(f"flagship train: K7 on a steady step's jobs: {stats}")
 
 
 def flagship_render_phase(trainer, dev):
@@ -2869,8 +2935,17 @@ EARLIER_STEP_MS = {
     "stream_blend_backward_e5m2fnuz": 0.3799, "stream_blend_backward_e4m3b11fnuz": 0.3779,
     "stream_blend_backward_e3m4": 0.3737, "stream_blend_backward_e4m3": 0.3711,
     "stream_blend_backward_e8m0fnu": 0.7041, "stream_blend_backward_e2m1fn": 0.3736,
+    # K7 before its NaN rows skipped the float atomics (PERF.md rows 7,
+    # 7-bf16, 7-f16, 7-f8, 7-sw).
+    "scatter_add_rows": 0.1583, "scatter_add_rows_bf16": 0.1098,
+    "scatter_add_rows_f16": 0.0866, "scatter_add_rows_e4m3fn": 0.0833,
+    "scatter_add_rows_e5m2": 0.0836, "scatter_add_rows_e4m3fnuz": 0.1091,
+    "scatter_add_rows_e5m2fnuz": 0.1092, "scatter_add_rows_e4m3b11fnuz": 0.1091,
+    "scatter_add_rows_e3m4": 0.1110, "scatter_add_rows_e4m3": 0.1105,
+    "scatter_add_rows_e8m0fnu": 2.1484, "scatter_add_rows_e2m1fn": 0.0993,
 }
-EARLIER_PHASE12_MS = {"stream_blend_gather": 0.1280, "stream_blend_backward": 0.2135}
+EARLIER_PHASE12_MS = {"stream_blend_gather": 0.1280, "stream_blend_backward": 0.2135,
+                      "scatter_add_rows": 0.1346}
 # The path of each low-precision stream's flagship run.
 LOWP_PATHS = {"bfloat16": "stream_lp_train", "float16": "stream_f16_train",
               "float8_e4m3fn": "stream_e4m3fn_train", "float8_e5m2": "stream_e5m2_train",
@@ -3503,6 +3578,14 @@ def _lever_kernel_checks(mesh, origins, directions):
               lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v, t),
               lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
               _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+        if name == "float8_e8m0fnu":
+            e = entries[-1]
+            nan_rows = sum(int(v.isnan().any(dim=1).sum()) for _, v in jobs_f32)
+            print(f"scatter_add_rows{sfx}: on its {nan_rows} rows with a NaN (of "
+                  f"{sum(v.shape[0] for _, v in jobs_f32)}) {e['ms']:.4f} ms by CUDA events "
+                  f"({e['device_ms']} by the profiler), the f32 instance on the same rows "
+                  f"{e['f32_ms']:.4f} ms ({e['f32_device_ms']}); before NaN rows skipped "
+                  f"the float atomics (PERF.md rows 7 and 7-sw): 2.2784 and 2.3248 ms")
         for e in entries[-3:]:
             e["stream"] = name
         del gsf, jobs, jobs_f32

@@ -33,7 +33,9 @@ from tetranerf_torch.ops.scatter import (
     scatter_add_rows_batch_twin,
     scatter_add_rows_twin,
 )
+from tetranerf_torch.ops.stream_dtypes import STREAM_TYPES
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
+from test_torch_scatter_jax import hot_jobs
 
 FIELD_DIM = 16
 MAX_STEPS = 64
@@ -487,6 +489,111 @@ def test_scatter_batch_kernel_splits_a_long_job_list(cuda_device):
     torch.cuda.synchronize()
     assert cuda.launch_counts["scatter_add_rows"] == before + 2
     torch.testing.assert_close(out, scatter_add_rows_batch_twin(jobs, 300), atol=1e-4, rtol=0)
+
+
+def _twin_checked(jobs, num_rows, name=None, launches=1):
+    """K7 on ``jobs`` (on the card) in ``launches`` launches of its row
+    type's counter, against the twin on the CPU (on the card
+    ``scatter_add_`` flushes subnormals): NaN in the same places, the rest
+    to rounding (float atomics add in a run-dependent order). Returns the
+    table and the twin's, both on the CPU."""
+    counter = "scatter_add_rows" + (STREAM_TYPES[name].suffix if name else "")
+    before = cuda.launch_counts[counter]
+    out = scatter_add_rows_batch(jobs, num_rows, name).cpu()
+    assert cuda.launch_counts[counter] == before + launches
+    twin = scatter_add_rows_batch_twin([(i.cpu(), v.cpu()) for i, v in jobs], num_rows, name)
+    assert out.dtype == torch.float32 and torch.equal(out.isnan(), twin.isnan())
+    torch.testing.assert_close(out.nan_to_num(), twin.nan_to_num(), atol=1e-4, rtol=0)
+    return out, twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_matches_twin_on_a_hot_list(cuda_device, name):
+    """Every instance on a train step's kind of job list: 60% of the rows on
+    id 0 (mostly zero rows), ids out of range, empty jobs; float8_e8m0fnu's
+    zero rows are NaN, all on id 0, and its 2^-127 adds as a subnormal."""
+    jobs = hot_jobs(np.random.default_rng(20), (60_000, 0, 9_000, 1, 4_000), 1000, 64, name)
+    _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 1000, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float8_e4m3fnuz"])
+def test_scatter_kernel_matches_twin_at_model_shard_width(cuda_device, name):
+    """F = 32, a model shard's columns of the flagship field, and F = 33
+    (single floats)."""
+    for feat in (32, 33):
+        jobs = hot_jobs(np.random.default_rng(feat), [5_000] * 8, 2_000, feat, name)
+        _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 2_000, name)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_keeps_nan_rows_and_subnormals(cuda_device):
+    """f32 rows with NaN and infinities on a hot id and elsewhere: NaN where
+    the twin has it. float8_e8m0fnu rows of 2^-127 (code 0), 1 (127) and
+    NaN (255) on a few ids, NaN mostly: the twin's table exactly (sums of
+    2^-127 are exact, and below 1's last bit), the subnormal 2^-127 kept."""
+    jobs = hot_jobs(np.random.default_rng(21), (20_000, 3_000), 500, 64)
+    vals = jobs[0][1]
+    vals[::97, 5] = float("nan")
+    vals[::89, 7] = float("inf")
+    vals[::2][(jobs[0][0][::2] == 0)] = float("nan")
+    _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 500)
+    rng = np.random.default_rng(25)
+    ids = torch.from_numpy(rng.integers(0, 5, 30_000).astype(np.int32))
+    codes = torch.from_numpy(rng.choice(np.array([0, 127, 255], np.uint8), (30_000, 64),
+                                        p=[0.02, 0.01, 0.97]))
+    codes[ids == 4] = 0
+    # Row 5: one 2^-127, a subnormal sum.
+    jobs = [(ids, codes), (torch.tensor([5], dtype=torch.int32), codes[ids == 4][:1])]
+    jobs = [(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs]
+    out, twin = _twin_checked(jobs, 6, "float8_e8m0fnu")
+    assert torch.equal(out.nan_to_num(), twin.nan_to_num())
+    assert bool(out[:4].isnan().all())
+    assert bool((out[4] == int((ids == 4).sum()) * 2.0 ** -127).all())
+    assert bool((out[5] == 2.0 ** -127).all())
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_takes_more_than_64_jobs_of_a_hot_list(cuda_device):
+    """70 bf16 jobs of the hot-id kind: two launches, the second adding into
+    the first's table."""
+    jobs = hot_jobs(np.random.default_rng(22), [900] * 70, 300, 64, "bfloat16")
+    _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 300, "bfloat16",
+                  launches=2)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_alignment(cuda_device):
+    """Values one f32 off a 16-byte boundary take the narrower vectors; a
+    values address that is not a multiple of its element size is refused
+    with cudaErrorMisalignedAddress."""
+    (idx, vals), = hot_jobs(np.random.default_rng(23), (3_000,), 200, 64)
+    big = torch.zeros((vals.numel() + 1,), device=cuda_device)
+    big[1:] = vals.reshape(-1).to(cuda_device)
+    idx = idx.to(cuda_device)
+    _twin_checked([(idx, big[1:].view(vals.shape))], 200)
+    out = torch.empty((200, 64), device=cuda_device)
+    arr, num = next(cuda.job_chunks(64, [(idx.data_ptr(), big.data_ptr() + 2, 3_000)]))
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.launch("scatter_add_rows", "tetranerf_scatter_add_rows_batch", cuda_device, arr,
+                    num, out.data_ptr(), 200, 64, 1, 0)
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_is_the_scatter_of_clamped_ids(cuda_device):
+    """``gather_rows``' backward (ids clamped at 0, as JAX's ``gather_rows``
+    does) on the card: one K7 launch, the twin of the clamped ids."""
+    rng = np.random.default_rng(24)
+    ids = torch.from_numpy(rng.integers(-3, 300, (64, 40)).astype(np.int32)).to(cuda_device)
+    table = torch.randn((300, 64), device=cuda_device, requires_grad=True)
+    g = torch.randn((64, 40, 64), device=cuda_device)
+    before = cuda.launch_counts["scatter_add_rows"]
+    gather_rows(table, ids).backward(g)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["scatter_add_rows"] == before + 1
+    want = scatter_add_rows_batch_twin([(ids.clamp_min(0).reshape(-1), g.reshape(-1, 64))], 300)
+    torch.testing.assert_close(table.grad, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -274,22 +274,45 @@ def test_bucket_plan_splits_equal_quantile_chunks(setup):
 # ------------------------------------------------------ the eval forward
 
 
-def _eval(setup, jcfg, cfg, bucket_steps):
+# The eval forwards of this module's setup by configuration and bounds,
+# each computed once (several tests compare against the same one).
+_JAX_REFS, _PORT_OUTS = {}, {}
+
+
+def _jax_eval(setup, jcfg, bucket_steps):
     import jax.numpy as jnp
     from tetranerf_tpu.models.tetra_nerf import RayBundle
 
-    rays = RayBundle(jnp.asarray(setup["origins"]), jnp.asarray(setup["directions"]))
-    ref = _jax_model(setup, jcfg).get_outputs(
-        setup["params"], rays, rng=None, train=False, mesh=setup["jmesh"].on_device(),
-        occ_depth_cap=CAP, bucket_steps=bucket_steps,
-    )
-    with torch.inference_mode():
-        out = _port_model(setup, cfg).get_outputs(
-            torch.from_numpy(setup["origins"]), torch.from_numpy(setup["directions"]),
-            setup["mesh"], occ_depth_cap=CAP, bucket_steps=bucket_steps,
+    key = (id(setup), repr(jcfg), bucket_steps)
+    if key not in _JAX_REFS:
+        rays = RayBundle(jnp.asarray(setup["origins"]), jnp.asarray(setup["directions"]))
+        ref = _jax_model(setup, jcfg).get_outputs(
+            setup["params"], rays, rng=None, train=False, mesh=setup["jmesh"].on_device(),
+            occ_depth_cap=CAP, bucket_steps=bucket_steps,
         )
-    return ({k: v.numpy() for k, v in out.items()},
-            {k: np.asarray(v) for k, v in ref.items()})
+        _JAX_REFS[key] = {k: np.asarray(v) for k, v in ref.items()}
+    return _JAX_REFS[key]
+
+
+def _port_eval(setup, cfg, bucket_steps):
+    key = (id(setup), repr(cfg), bucket_steps)
+    if key not in _PORT_OUTS:
+        with torch.inference_mode():
+            out = _port_model(setup, cfg).get_outputs(
+                torch.from_numpy(setup["origins"]), torch.from_numpy(setup["directions"]),
+                setup["mesh"], occ_depth_cap=CAP, bucket_steps=bucket_steps,
+            )
+        _PORT_OUTS[key] = {k: v.numpy() for k, v in out.items()}
+    return _PORT_OUTS[key]
+
+
+def _eval(setup, jcfg, cfg, bucket_steps):
+    return _port_eval(setup, cfg, bucket_steps), _jax_eval(setup, jcfg, bucket_steps)
+
+
+def _plain(setup):
+    """The unbucketed eval forward (``ray_buckets=1``) of the port."""
+    return _port_eval(setup, _configs(ray_buckets=1)[1], None)
 
 
 def _assert_close_to_jax(out, ref):
@@ -311,7 +334,7 @@ def test_covering_buckets_match_jax_and_the_unbucketed_forward(setup):
     out, ref = _eval(setup, jcfg, cfg, setup["covering"])
     _assert_close_to_jax(out, ref)
     assert not out["traversal_overflow"].any()
-    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    plain = _plain(setup)
     np.testing.assert_array_equal(out["ray_mask"], plain["ray_mask"])
     np.testing.assert_array_equal(out["traversal_overflow"], plain["traversal_overflow"])
     # f32 throughout; only the MLP GEMMs' batch differs between the two.
@@ -325,7 +348,7 @@ def test_adaptive_budgets_match_jax(setup):
     jcfg, cfg = _configs(bucket_adaptive_samples=True)
     out, ref = _eval(setup, jcfg, cfg, setup["covering"])
     _assert_close_to_jax(out, ref)
-    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    plain = _plain(setup)
     np.testing.assert_array_equal(out["ray_mask"], plain["ray_mask"])
     assert float(np.mean((out["rgb"] - plain["rgb"]) ** 2)) < 1e-3
 
@@ -354,8 +377,8 @@ def test_untuned_bounds_and_the_full_bound_path(setup):
     jcfg, cfg = _configs(bucket_adaptive_samples=True)
     out, ref = _eval(setup, jcfg, cfg, None)
     _assert_close_to_jax(out, ref)
-    full, _ = _eval(setup, jcfg, cfg, (64, 64, 64))
-    plain, _ = _eval(setup, *_configs(ray_buckets=1), None)
+    full = _port_eval(setup, cfg, (64, 64, 64))
+    plain = _plain(setup)
     for k in full:
         np.testing.assert_array_equal(full[k], plain[k], err_msg=k)
 

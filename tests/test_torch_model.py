@@ -56,17 +56,25 @@ def setup():
                 origins=origins, directions=directions, jax=jax)
 
 
+# JAX models, parameters and eval outputs by configuration, each computed
+# once for the module (several tests share a configuration).
+_JAX = {}
+
+
 def _jax_model_and_params(setup, jcfg):
     from tetranerf_tpu.models.tetra_nerf import TetraNerf as JaxTetraNerf
 
-    jax = setup["jax"]
-    model = JaxTetraNerf(jcfg, setup["jmesh"])
-    params = model.init_params(jax.random.PRNGKey(0), point_colors=setup["colors"])
-    noise = np.random.default_rng(3).normal(
-        scale=0.5, size=params["tetrahedra_field"].shape
-    )
-    params["tetrahedra_field"] = params["tetrahedra_field"] + noise.astype(np.float32)
-    return model, jax.tree_util.tree_map(np.asarray, params)
+    key = ("params", id(setup), repr(jcfg))
+    if key not in _JAX:
+        jax = setup["jax"]
+        model = JaxTetraNerf(jcfg, setup["jmesh"])
+        params = model.init_params(jax.random.PRNGKey(0), point_colors=setup["colors"])
+        noise = np.random.default_rng(3).normal(
+            scale=0.5, size=params["tetrahedra_field"].shape
+        )
+        params["tetrahedra_field"] = params["tetrahedra_field"] + noise.astype(np.float32)
+        _JAX[key] = model, jax.tree_util.tree_map(np.asarray, params)
+    return _JAX[key]
 
 
 def _port_model(cfg, params, num_vertices):
@@ -79,13 +87,16 @@ def _jax_outputs(setup, jcfg):
     import jax.numpy as jnp
     from tetranerf_tpu.models.tetra_nerf import RayBundle
 
-    model, params = _jax_model_and_params(setup, jcfg)
-    rays = RayBundle(jnp.asarray(setup["origins"]), jnp.asarray(setup["directions"]))
-    out = model.get_outputs(
-        params, rays, rng=None, train=False, mesh=setup["jmesh"].on_device(),
-        occ_depth_cap=float(-np.log(THRESHOLD)),
-    )
-    return params, {k: np.asarray(v) for k, v in out.items()}
+    key = ("outputs", id(setup), repr(jcfg))
+    if key not in _JAX:
+        model, params = _jax_model_and_params(setup, jcfg)
+        rays = RayBundle(jnp.asarray(setup["origins"]), jnp.asarray(setup["directions"]))
+        out = model.get_outputs(
+            params, rays, rng=None, train=False, mesh=setup["jmesh"].on_device(),
+            occ_depth_cap=float(-np.log(THRESHOLD)),
+        )
+        _JAX[key] = params, {k: np.asarray(v) for k, v in out.items()}
+    return _JAX[key]
 
 
 def _port_outputs(setup, cfg, params):

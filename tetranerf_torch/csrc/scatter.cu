@@ -33,6 +33,16 @@
 // 4. The table is zeroed by cudaMemsetAsync on the same stream, once per
 //    entry-point call: the wrapper splits a list longer than kMaxJobs
 //    into several launches, and every later one adds into the same table.
+// 5. NaN components issue no float add. A float atomic whose value or
+//    target is NaN runs about 10x slower on the H100 (a flagship step's
+//    float8_e8m0fnu rows, all NaN: 2.148 ms against 0.083-0.111 for the
+//    other 8-bit types). A lane whose vector holds a NaN reads the target
+//    through L1 and writes the canonical NaN by an integer exchange where
+//    the target is not NaN yet: a target that is NaN stays NaN for the
+//    rest of the launch, so a stale read costs at most one more exchange,
+//    and padding's NaN rows on row 0 cost a cached read each. Its other
+//    components are added as before. The sum is what the float atomics
+//    gave: NaN wherever one of the rows is NaN.
 //
 // What bounds it on the H100: bytes. The indices and values are read once
 // and the table written once per launch, not once per bucket: at the train
@@ -96,16 +106,24 @@ struct Vec<4> {
   __device__ static bool nonzero(float4 v) {
     return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
   }
+  __device__ static bool has_nan(float4 v) {
+    return v.x != v.x || v.y != v.y || v.z != v.z || v.w != v.w;
+  }
+  __device__ static float4 load(const float* p) { return __ldca(reinterpret_cast<const float4*>(p)); }
 };
 template <>
 struct Vec<2> {
   __device__ static float2 zero() { return make_float2(0.0f, 0.0f); }
   __device__ static bool nonzero(float2 v) { return v.x != 0.0f || v.y != 0.0f; }
+  __device__ static bool has_nan(float2 v) { return v.x != v.x || v.y != v.y; }
+  __device__ static float2 load(const float* p) { return __ldca(reinterpret_cast<const float2*>(p)); }
 };
 template <>
 struct Vec<1> {
   __device__ static float zero() { return 0.0f; }
   __device__ static bool nonzero(float v) { return v != 0.0f; }
+  __device__ static bool has_nan(float v) { return v != v; }
+  __device__ static float load(const float* p) { return __ldca(p); }
 };
 
 // `v` added into `*p` in the ordinary f32 add, which keeps a subnormal
@@ -143,6 +161,26 @@ __device__ __forceinline__ void add_row(float* dst, const typename F32Vec<kVec>:
     }
   }
   atomicAdd(reinterpret_cast<typename F32Vec<kVec>::T*>(dst), x);
+}
+
+// A widened row unit `x` with a NaN component added into the table at
+// `dst` (header, 5.): its NaN components make the target NaN by an integer
+// exchange; its other nonzero components are added one by one as `add_row`
+// adds them. Both are skipped where the target already reads NaN.
+template <typename T, int kVec>
+__device__ __forceinline__ void add_nan_row(float* dst, const typename F32Vec<kVec>::T& x) {
+  const typename F32Vec<kVec>::T seen = Vec<kVec>::load(dst);
+  const float* xs = reinterpret_cast<const float*>(&x);
+  const float* ts = reinterpret_cast<const float*>(&seen);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    if (ts[k] != ts[k]) continue;
+    if (xs[k] != xs[k]) {
+      atomicExch(reinterpret_cast<unsigned*>(dst + k), __float_as_uint(CUDART_NAN_F));
+    } else if (xs[k] != 0.0f) {
+      add_row<T, 1>(dst + k, xs[k]);
+    }
+  }
 }
 
 // `T` is the values' row type: float, or a stream row type of common.cuh
@@ -192,7 +230,12 @@ __global__ void __launch_bounds__(kThreads) scatter_add_kernel(
 #pragma unroll
     for (int k = 0; k < kRowsInFlight; ++k) {
       if (v[k] >= 0 && Vec<kVec>::nonzero(x[k])) {
-        add_row<T, kVec>(out + static_cast<long long>(v[k]) * num_feat + c * kVec, x[k]);
+        float* dst = out + static_cast<long long>(v[k]) * num_feat + c * kVec;
+        if (Vec<kVec>::has_nan(x[k])) {
+          add_nan_row<T, kVec>(dst, x[k]);
+        } else {
+          add_row<T, kVec>(dst, x[k]);
+        }
       }
     }
   }
