@@ -556,13 +556,32 @@ def _blend_bwd_bound(g, pos, bary, num_stream, out_dtype=None):
                   + n_w * (16 + num_feat * 4), int((bary != 0).sum()) * num_feat * 2)
 
 
-def _scatter_batch_bound(jobs, num_rows):
+def _scatter_batch_bound(jobs, num_rows, row_type=None):
     """K7, one launch: each job's indices and values, the table once; one
-    add per nonzero element."""
-    return _bound(sum(idx.numel() * 4 + vals.numel() * vals.element_size()
-                      for idx, vals in jobs)
-                  + num_rows * jobs[0][1].shape[1] * 4,
-                  sum(int((vals != 0).sum()) for _, vals in jobs))
+    add per nonzero element. A march stream's job (with ``num_valid``, rows
+    of ``row_type``, where None their dtype's) counts what K7 reads: its
+    num_valid, its rays' used slots, and for a type without zero
+    (float8_e8m0fnu) the ids of its padding slots too."""
+    import torch
+    from tetranerf_torch.ops.scatter import STREAM_HEAD
+    from tetranerf_torch.ops.stream_dtypes import rows_type
+
+    moved, ops = num_rows * jobs[0][1].shape[1] * 4, 0
+    for job in jobs:
+        idx, vals = job[:2]
+        ids_read = idx.numel()
+        if len(job) == 3:
+            nv = job[2]
+            width = idx.numel() // max(nv.numel(), 1)
+            u = torch.arange(width, device=idx.device)
+            keep = (u[None, :] < nv[:, None].long() + STREAM_HEAD).reshape(-1)
+            vals = vals[keep]
+            moved += nv.numel() * 4
+            if rows_type(job[1], row_type).zero_mask is not None:
+                ids_read = vals.shape[0]
+        moved += ids_read * 4 + vals.numel() * vals.element_size()
+        ops += int((vals != 0).sum())
+    return _bound(moved, ops)
 
 
 def _scatter_bound(idx, vals, num_rows):
@@ -865,8 +884,8 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
     blend_entry["bucket_shapes"] = shapes
 
     res, order, plan = _cold_bucket_plan(mesh, origins, directions)
-    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
-               for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    slices = [sl for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary) for sl in slices]
     outs = interp.stream_blend_gather_batch(field, streams)
     err = max(_max_err(out, ref) for out, ref in
               zip(outs, interp.stream_blend_gather_batch_twin(field, streams)))
@@ -927,11 +946,23 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
           f"abs err {hot_err:.3g}; {hot_ms:.4f} ms by CUDA events, kernels {hot_device_ms} ms "
           f"by the profiler, bound {_scatter_batch_bound(hot, num_v)['bound_ms']:.4f}")
     del hot
+    # The same jobs as the train path passes them: each with its rays'
+    # num_valid, so that no padding slot is read.
+    stream_jobs = [job + (sl.num_valid,) for job, sl in zip(jobs, slices)]
+    stream_err = _max_err(scatter.scatter_add_rows_batch(stream_jobs, num_v),
+                          scatter.scatter_add_rows_batch_twin(stream_jobs, num_v))
+    _check(stream_err <= TOLERANCES["scatter_add_rows"],
+           f"scatter_add_rows (8 stream jobs): max abs err {stream_err}")
+    stream_bound = _scatter_batch_bound(stream_jobs, num_v)["bound_ms"]
+    read_rows = sum(scatter.used_rows(job)[0].numel() for job in stream_jobs)
     idx_cat = torch.cat([idx for idx, _ in jobs]).long()
     vals_cat = torch.cat([vals for _, vals in jobs])
 
     def k7_batch():
         return scatter.scatter_add_rows_batch(jobs, num_v)
+
+    def k7_stream_batch():
+        return scatter.scatter_add_rows_batch(stream_jobs, num_v)
 
     def per_bucket():
         return functools.reduce(torch.add, [scatter.scatter_add_rows(idx, vals, num_v)
@@ -948,7 +979,9 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
         library_ms=_time_ms(index_add, 20), library_device_ms=_device_ms(index_add),
         per_bucket_ms=_time_ms(per_bucket, 20), per_bucket_device_ms=_device_ms(per_bucket),
         hot_id_max_abs_err=hot_err, hot_id_ms=hot_ms, hot_id_device_ms=hot_device_ms,
-        **_scatter_batch_bound(jobs, num_v))
+        stream_max_abs_err=stream_err, stream_read_rows=read_rows,
+        stream_ms=_time_ms(k7_stream_batch, 20), stream_device_ms=_device_ms(k7_stream_batch),
+        stream_bound_ms=stream_bound, **_scatter_batch_bound(jobs, num_v))
     scatter_entry["flagship_batch"] = batch
     scatter_entry["max_abs_err"] = max(scatter_entry["max_abs_err"], err)
     print(f"scatter_add_rows: the {len(jobs)} buckets' stream gradients of a cold flagship "
@@ -958,7 +991,10 @@ def _flagship_batch_checks(mesh, origins, directions, gen, blend_entry, scatter_
           f"included; twin {batch['plain_ms']:.3f}; index_add_ {batch['library_ms']:.4f}, "
           f"kernels {batch['library_device_ms']}; per-bucket design "
           f"{batch['per_bucket_ms']:.4f}, kernels {batch['per_bucket_device_ms']}), bound "
-          f"{batch['bound_ms']:.4f}")
+          f"{batch['bound_ms']:.4f}; with each slice's num_valid, as the train path passes "
+          f"them ({read_rows} rows read, {rows - read_rows} padding rows not): max abs err "
+          f"{stream_err:.3g}, {batch['stream_ms']:.4f} ms by CUDA events, kernels "
+          f"{batch['stream_device_ms']}, bound {stream_bound:.4f}")
 
 
 def _bucket_slices(mesh, origins, directions):
@@ -1556,9 +1592,9 @@ def _recording_bounds():
                 "scatter_add_rows_batch": lambda a: rows_type(a[0][0][1], a[2])}
     arity = {"stream_blend_gather_batch": 3, "stream_blend_backward": 5,
              "scatter_add_rows_batch": 3}
-    # The arguments a bound reads: K2's and K7's not their row type (the
-    # rows' bytes give it).
-    bound_args = {"stream_blend_gather_batch": 2, "scatter_add_rows_batch": 2}
+    # The arguments a bound reads: K2's not its row type (the rows' bytes
+    # give it).
+    bound_args = {"stream_blend_gather_batch": 2}
 
     def record(fn, bound):
         name = fn.__name__
@@ -1957,10 +1993,13 @@ def flagship_train_phase(colors, mesh_plain, dev, plain_median_ms, march_kernels
 
 def _k7_step_jobs(trainer, batch):
     """What K7 gets in one ``trainer.train_step(batch)``: its jobs' rows,
-    nonzero rows and 16-byte vectors, distinct ids, id 0's rows and the
-    longest run of one id in input order; its kernel time on them, and on
-    the same ids with zero rows (the same bytes read, no atomic issued),
-    against the twin within the scatter tolerance."""
+    the rows it reads (each ray's used slots: every job carries its rays'
+    ``num_valid``) and the padding rows it does not, nonzero rows and
+    16-byte vectors of f32, distinct ids, id 0's rows and the longest run
+    of one id in input order; its kernel time on them (as the step runs
+    it), on the same jobs with every slot read, and on the same ids with
+    zero rows (the same bytes read, no atomic issued), against the twin
+    within the scatter tolerance."""
     import torch
     from tetranerf_torch.ops import interp, scatter
 
@@ -1968,7 +2007,7 @@ def _k7_step_jobs(trainer, batch):
     real = interp.scatter_add_rows_batch
 
     def spy(jobs, num_rows, row_type=None):
-        seen.append(([(i.clone(), v.clone()) for i, v in jobs], num_rows))
+        seen.append(([tuple(x.clone() for x in job) for job in jobs], num_rows))
         return real(jobs, num_rows, row_type)
 
     interp.scatter_add_rows_batch = spy
@@ -1979,17 +2018,21 @@ def _k7_step_jobs(trainer, batch):
         interp.scatter_add_rows_batch = real
     _check(len(seen) == 1, f"flagship train: K7 called {len(seen)} times in a step")
     jobs, num_v = seen[0]
+    _check(all(len(job) == 3 for job in jobs), "flagship train: K7 jobs without num_valid")
     err = _max_err(scatter.scatter_add_rows_batch(jobs, num_v),
                    scatter.scatter_add_rows_batch_twin(jobs, num_v))
     _check(err <= TOLERANCES["scatter_add_rows"], f"flagship train: K7 of a step: err {err}")
-    ids = torch.cat([i for i, _ in jobs]).long()
-    vals = torch.cat([v for _, v in jobs])
+    every_slot = [job[:2] for job in jobs]
+    ids = torch.cat([i for i, _ in every_slot]).long()
+    vals = torch.cat([v for _, v in every_slot])
+    read = sum(scatter.used_rows(job)[0].numel() for job in jobs)
     change = torch.ones_like(ids, dtype=torch.bool)
     change[1:] = ids[1:] != ids[:-1]
     starts = torch.nonzero(change).flatten()
-    zeros = [(i, torch.zeros_like(v)) for i, v in jobs]
+    zeros = [(i, torch.zeros_like(v), nv) for i, v, nv in jobs]
     stats = dict(
-        jobs=len(jobs), rows=int(ids.numel()),
+        jobs=len(jobs), rows=int(ids.numel()), read_rows=read,
+        padding_rows_not_read=int(ids.numel()) - read,
         valid_rows=int(((ids >= 0) & (ids < num_v)).sum()),
         nonzero_rows=int((vals != 0).any(dim=1).sum()),
         nonzero_vectors=int((vals.reshape(vals.shape[0], -1, 4) != 0).any(dim=2).sum()),
@@ -1997,9 +2040,22 @@ def _k7_step_jobs(trainer, batch):
         id0_rows=int((ids == 0).sum()),
         longest_run=int(torch.diff(starts, append=starts.new_tensor([ids.numel()])).max()),
         max_abs_err=err,
+        ms=_time_ms(lambda: scatter.scatter_add_rows_batch(jobs, num_v), 20),
+        every_slot_ms=_time_ms(lambda: scatter.scatter_add_rows_batch(every_slot, num_v), 20),
         device_ms=_device_ms(lambda: scatter.scatter_add_rows_batch(jobs, num_v)),
-        zero_rows_device_ms=_device_ms(lambda: scatter.scatter_add_rows_batch(zeros, num_v)))
+        every_slot_device_ms=_device_ms(
+            lambda: scatter.scatter_add_rows_batch(every_slot, num_v)),
+        zero_rows_device_ms=_device_ms(lambda: scatter.scatter_add_rows_batch(zeros, num_v)),
+        bound_ms=_scatter_batch_bound(jobs, num_v)["bound_ms"],
+        every_slot_bound_ms=_scatter_batch_bound(every_slot, num_v)["bound_ms"])
     print(f"flagship train: K7 on a steady step's jobs: {stats}")
+    print(f"flagship train: K7 on a steady step's jobs {stats['device_ms']} ms by the "
+          f"profiler, {stats['ms']:.4f} by CUDA events (the earlier design's per step, "
+          f"PERF.md: {EARLIER_PHASE12_MS['scatter_add_rows']}), bound {stats['bound_ms']:.4f}; "
+          f"{stats['padding_rows_not_read']} padding rows of {stats['rows']} not read; every "
+          f"slot read {stats['every_slot_device_ms']} ms by the profiler, "
+          f"{stats['every_slot_ms']:.4f} by CUDA events, bound "
+          f"{stats['every_slot_bound_ms']:.4f}")
 
 
 def flagship_render_phase(trainer, dev):
@@ -2935,17 +2991,17 @@ EARLIER_STEP_MS = {
     "stream_blend_backward_e5m2fnuz": 0.3799, "stream_blend_backward_e4m3b11fnuz": 0.3779,
     "stream_blend_backward_e3m4": 0.3737, "stream_blend_backward_e4m3": 0.3711,
     "stream_blend_backward_e8m0fnu": 0.7041, "stream_blend_backward_e2m1fn": 0.3736,
-    # K7 before its NaN rows skipped the float atomics (PERF.md rows 7,
-    # 7-bf16, 7-f16, 7-f8, 7-sw).
-    "scatter_add_rows": 0.1583, "scatter_add_rows_bf16": 0.1098,
-    "scatter_add_rows_f16": 0.0866, "scatter_add_rows_e4m3fn": 0.0833,
-    "scatter_add_rows_e5m2": 0.0836, "scatter_add_rows_e4m3fnuz": 0.1091,
-    "scatter_add_rows_e5m2fnuz": 0.1092, "scatter_add_rows_e4m3b11fnuz": 0.1091,
-    "scatter_add_rows_e3m4": 0.1110, "scatter_add_rows_e4m3": 0.1105,
-    "scatter_add_rows_e8m0fnu": 2.1484, "scatter_add_rows_e2m1fn": 0.0993,
+    # K7 before its 16-byte lanes (PERF.md rows 7, 7-bf16, 7-f16, 7-f8,
+    # 7-sw: a lane group of 16 a row, NaN components off the float atomics).
+    "scatter_add_rows": 0.1556, "scatter_add_rows_bf16": 0.1102,
+    "scatter_add_rows_f16": 0.0865, "scatter_add_rows_e4m3fn": 0.0813,
+    "scatter_add_rows_e5m2": 0.0813, "scatter_add_rows_e4m3fnuz": 0.1000,
+    "scatter_add_rows_e5m2fnuz": 0.0998, "scatter_add_rows_e4m3b11fnuz": 0.1000,
+    "scatter_add_rows_e3m4": 0.0934, "scatter_add_rows_e4m3": 0.0928,
+    "scatter_add_rows_e8m0fnu": 0.1359, "scatter_add_rows_e2m1fn": 0.0845,
 }
 EARLIER_PHASE12_MS = {"stream_blend_gather": 0.1280, "stream_blend_backward": 0.2135,
-                      "scatter_add_rows": 0.1346}
+                      "scatter_add_rows": 0.1319}
 # The path of each low-precision stream's flagship run.
 LOWP_PATHS = {"bfloat16": "stream_lp_train", "float16": "stream_f16_train",
               "float8_e4m3fn": "stream_e4m3fn_train", "float8_e5m2": "stream_e5m2_train",
@@ -3450,8 +3506,8 @@ def _lever_kernel_checks(mesh, origins, directions):
     bad_field[:, 32:] = torch.where(edge, 1e6 * torch.sign(field[:, 32:]),
                                     field[:, 32:].abs() + 0.25)
     res, order, plan = _cold_bucket_plan(mesh, origins, directions)
-    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary)
-               for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    slices = [sl for sl, _ in fused.slice_march_buckets(res, order, plan)]
+    streams = [(sl.stream.vids, sl.stream.pos, sl.stream.bary) for sl in slices]
     gs = [torch.randn((pos.shape[0], pos.shape[1], 64), generator=gen, device=dev)
           for _, pos, _ in streams]
     bwd = [(g, pos, bary, vids.shape[1]) for g, (vids, pos, bary) in zip(gs, streams)]
@@ -3562,9 +3618,10 @@ def _lever_kernel_checks(mesh, origins, directions):
               bound_sum(_blend_bwd_bound, t), bound_sum(_blend_bwd_bound),
               rounding_codes_checked=checked)
 
-        jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64))
-                for (vids, _, _), g in zip(streams, gsf)]
-        jobs_f32 = [(idx, widen(vals, t)) for idx, vals in jobs]
+        # As the train path passes them: with each slice's num_valid.
+        jobs = [(vids.reshape(-1).clamp_min(0), g.reshape(-1, 64), sl.num_valid)
+                for (vids, _, _), g, sl in zip(streams, gsf, slices)]
+        jobs_f32 = [(job[0], widen(job[1], t), *job[2:]) for job in jobs]
         got = scatter.scatter_add_rows_batch(jobs, num_v, t)
         want = scatter.scatter_add_rows_batch_twin(jobs, num_v, t)
         err = (_nan_aware_err(got, want, f"scatter_add_rows{sfx}") if mini
@@ -3577,12 +3634,12 @@ def _lever_kernel_checks(mesh, origins, directions):
               lambda: scatter.scatter_add_rows_batch(jobs, num_v, t),
               lambda: scatter.scatter_add_rows_batch_twin(jobs, num_v, t),
               lambda: scatter.scatter_add_rows_batch(jobs_f32, num_v),
-              _scatter_batch_bound(jobs, num_v), _scatter_batch_bound(jobs_f32, num_v))
+              _scatter_batch_bound(jobs, num_v, t), _scatter_batch_bound(jobs_f32, num_v))
         if name == "float8_e8m0fnu":
             e = entries[-1]
-            nan_rows = sum(int(v.isnan().any(dim=1).sum()) for _, v in jobs_f32)
+            nan_rows = sum(int(job[1].isnan().any(dim=1).sum()) for job in jobs_f32)
             print(f"scatter_add_rows{sfx}: on its {nan_rows} rows with a NaN (of "
-                  f"{sum(v.shape[0] for _, v in jobs_f32)}) {e['ms']:.4f} ms by CUDA events "
+                  f"{sum(job[1].shape[0] for job in jobs_f32)}) {e['ms']:.4f} ms by CUDA events "
                   f"({e['device_ms']} by the profiler), the f32 instance on the same rows "
                   f"{e['f32_ms']:.4f} ms ({e['f32_device_ms']}); before NaN rows skipped "
                   f"the float atomics (PERF.md rows 7 and 7-sw): 2.2784 and 2.3248 ms")
@@ -3711,6 +3768,16 @@ def lever_phase(colors, mesh_plain, dev):
               f"profiler (the earlier design's, PERF.md: {EARLIER_STEP_MS.get(name)}), bound "
               f"{e['flagship_step_bound_ms']}; f32 instance {e['f32_flagship_step_ms']} ms "
               f"(before: {EARLIER_STEP_MS.get(f32_name)}), bound {e['f32_flagship_step_bound_ms']}")
+        if f32_name == "scatter_add_rows" and e["flagship_step_ms"]:
+            # The bound's bytes over the kernel time (K7's bound is bytes).
+            e["flagship_step_bound_share"] = e["flagship_step_bound_ms"] / e["flagship_step_ms"]
+            e["flagship_step_gb_per_s"] = (e["flagship_step_bound_ms"] * HBM_BYTES_PER_S
+                                           / 1e9 / e["flagship_step_ms"])
+            print(f"levers: {name} per steady flagship step: {e['flagship_step_ms']:.4f} ms "
+                  f"against the earlier design's {EARLIER_STEP_MS.get(name)}, "
+                  f"{e['flagship_step_bound_share']:.0%} of its bound "
+                  f"{e['flagship_step_bound_ms']:.4f}, {e['flagship_step_gb_per_s']:.0f} GB/s "
+                  f"of the bytes it must move")
     print(f"levers: phase 19 took {time.perf_counter() - t_phase:.1f} s")
     return (entries, {LOWP_PATHS[name]: runs[name]["launches"]
                       for name in LOWP_STREAMS + MINI_STREAMS}, budget["launches"])

@@ -33,9 +33,10 @@ from tetranerf_torch.ops.scatter import (
     scatter_add_rows_batch_twin,
     scatter_add_rows_twin,
 )
-from tetranerf_torch.ops.stream_dtypes import STREAM_TYPES
+from tetranerf_torch.ops.stream_dtypes import STREAM_TYPES, round_to, widen
 from tetranerf_torch.utils.synthetic import make_sphere_scene, sample_sphere_rays
 from test_torch_scatter_jax import hot_jobs
+from test_torch_scatter_layout import all_codes, stream_job
 
 FIELD_DIM = 16
 MAX_STEPS = 64
@@ -309,7 +310,7 @@ def test_gradcheck_stream_blend_gather_batch():
     flat = [x for s in _tiny_streams(rng, 12) for x in s]
     field = torch.from_numpy(rng.standard_normal((12, 4))).requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda f: StreamBlendGatherBatch.apply(f, None, None, *flat), (field,)
+        lambda f: StreamBlendGatherBatch.apply(f, None, None, None, *flat), (field,)
     )
 
 
@@ -329,7 +330,7 @@ def test_batch_field_gradient_is_the_per_stream_sum_and_jax(scene):
           for _, pos, _ in streams]
     field = torch.from_numpy(scene["field"]).double().requires_grad_()
     outs = StreamBlendGatherBatch.apply(
-        field, None, None, *(x for s in streams for x in s)
+        field, None, None, None, *(x for s in streams for x in s)
     )
     assert len(outs) == 3 and len({o.grad_fn for o in outs}) == 1
     torch.autograd.backward(outs, gs)
@@ -445,50 +446,57 @@ def test_interp_backward_kernel_matches_twin(scene, cuda_device, order):
                                atol=1e-5, rtol=0)
 
 
+def _rows(vals, name):
+    """f32 rows ``vals`` in the row type ``name`` (float8_e8m0fnu, which has
+    no sign, from their magnitudes; its zero rows round to NaN)."""
+    if name == "float8_e8m0fnu":
+        vals = vals.abs()
+    return round_to(vals, name).contiguous()
+
+
+def _typed_jobs(jobs, name, device):
+    return [(i.to(device), _rows(v, name).to(device)) for i, v in jobs]
+
+
 @pytest.mark.cuda
-def test_scatter_kernel_matches_twin(cuda_device):
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_matches_twin(cuda_device, name):
+    """Every instance through the one-job entry point: ids -2 to past the
+    table, every third row zero (zero rows issue no atomics)."""
     rng = np.random.default_rng(10)
-    idx = torch.from_numpy(rng.integers(-2, 1100, 20000).astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-2, 1100, 20000).astype(np.int32))
     vals = torch.from_numpy(rng.standard_normal((20000, 64)).astype(np.float32))
-    vals[::3] = 0.0  # zero rows issue no atomics
-    vals = vals.to(cuda_device)
-    before = cuda.launch_counts["scatter_add_rows"]
-    out = scatter_add_rows(idx, vals, 1000)
-    torch.cuda.synchronize()
-    assert cuda.launch_counts["scatter_add_rows"] == before + 1
+    vals[::3] = 0.0
+    rows = _rows(vals, name)
+    counter = "scatter_add_rows" + STREAM_TYPES[name].suffix
+    before = cuda.launch_counts[counter]
+    out = scatter_add_rows(idx.to(cuda_device), rows.to(cuda_device), 1000, name).cpu()
+    assert cuda.launch_counts[counter] == before + 1
+    twin = scatter_add_rows_twin(idx, rows, 1000, name)
+    assert torch.equal(out.isnan(), twin.isnan())
     # Float atomics add in a run-dependent order: equal to rounding only.
-    torch.testing.assert_close(out, scatter_add_rows_twin(idx, vals, 1000),
-                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.nan_to_num(), twin.nan_to_num(), atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("feat", [64, 6, 3])
-def test_scatter_batch_kernel_matches_twin(cuda_device, feat):
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_batch_kernel_matches_twin(cuda_device, feat, name):
     """Eight jobs (one of them empty) into one table in one launch: -1,
-    out-of-range, repeated ids and zero rows; F=6 takes the float2 path,
-    F=3 single floats."""
+    out-of-range, repeated ids and zero rows; F=6 and 3 take narrower lane
+    loads (a 2-element table vector at 6, single elements at 3)."""
     jobs = _scatter_jobs(np.random.default_rng(feat), (20000, 7000, 0, 1, 3000, 12000, 64, 999),
                          1000, feat)
-    jobs = [(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs]
-    before = cuda.launch_counts["scatter_add_rows"]
-    out = scatter_add_rows_batch(jobs, 1000)
-    torch.cuda.synchronize()
-    assert cuda.launch_counts["scatter_add_rows"] == before + 1
-    # Float atomics add in a run-dependent order: equal to rounding only.
-    torch.testing.assert_close(out, scatter_add_rows_batch_twin(jobs, 1000), atol=1e-4, rtol=0)
+    _twin_checked(_typed_jobs(jobs, name, cuda_device), 1000, name)
 
 
 @pytest.mark.cuda
-def test_scatter_batch_kernel_splits_a_long_job_list(cuda_device):
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_batch_kernel_splits_a_long_job_list(cuda_device, name):
     """More jobs than one launch takes (64): two launches, the second adds
     into the table the first zeroed."""
     jobs = _scatter_jobs(np.random.default_rng(16), [500] * 70, 300, 64)
-    jobs = [(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs]
-    before = cuda.launch_counts["scatter_add_rows"]
-    out = scatter_add_rows_batch(jobs, 300)
-    torch.cuda.synchronize()
-    assert cuda.launch_counts["scatter_add_rows"] == before + 2
-    torch.testing.assert_close(out, scatter_add_rows_batch_twin(jobs, 300), atol=1e-4, rtol=0)
+    _twin_checked(_typed_jobs(jobs, name, cuda_device), 300, name, launches=2)
 
 
 def _twin_checked(jobs, num_rows, name=None, launches=1):
@@ -501,7 +509,8 @@ def _twin_checked(jobs, num_rows, name=None, launches=1):
     before = cuda.launch_counts[counter]
     out = scatter_add_rows_batch(jobs, num_rows, name).cpu()
     assert cuda.launch_counts[counter] == before + launches
-    twin = scatter_add_rows_batch_twin([(i.cpu(), v.cpu()) for i, v in jobs], num_rows, name)
+    twin = scatter_add_rows_batch_twin([tuple(x.cpu() for x in job) for job in jobs], num_rows,
+                                       name)
     assert out.dtype == torch.float32 and torch.equal(out.isnan(), twin.isnan())
     torch.testing.assert_close(out.nan_to_num(), twin.nan_to_num(), atol=1e-4, rtol=0)
     return out, twin
@@ -518,11 +527,11 @@ def test_scatter_kernel_matches_twin_on_a_hot_list(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["float32", "bfloat16", "float8_e4m3fnuz"])
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
 def test_scatter_kernel_matches_twin_at_model_shard_width(cuda_device, name):
-    """F = 32, a model shard's columns of the flagship field, and F = 33
-    (single floats)."""
-    for feat in (32, 33):
+    """F = 64, 32 (a model shard's columns of the flagship field: 32-byte
+    rows of a 1-byte type, two 16-byte lanes) and 33 (single elements)."""
+    for feat in (64, 32, 33):
         jobs = hot_jobs(np.random.default_rng(feat), [5_000] * 8, 2_000, feat, name)
         _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 2_000, name)
 
@@ -555,29 +564,144 @@ def test_scatter_kernel_keeps_nan_rows_and_subnormals(cuda_device):
 
 
 @pytest.mark.cuda
-def test_scatter_kernel_takes_more_than_64_jobs_of_a_hot_list(cuda_device):
-    """70 bf16 jobs of the hot-id kind: two launches, the second adding into
-    the first's table."""
-    jobs = hot_jobs(np.random.default_rng(22), [900] * 70, 300, 64, "bfloat16")
-    _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 300, "bfloat16",
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_keeps_nan_rows_of_every_type(cuda_device, name):
+    """Rows rounded from f32 values with NaN components on the hot id and
+    elsewhere (NaN codes where the type has them; float4_e2m1fn rounds NaN
+    to -0): NaN exactly where the twin's."""
+    jobs = hot_jobs(np.random.default_rng(26), (20_000, 3_000), 500, 64)
+    vals = jobs[0][1]
+    vals[::97, 5] = float("nan")
+    vals[::2][(jobs[0][0][::2] == 0)] = float("nan")
+    _twin_checked(_typed_jobs(jobs, name, cuda_device), 500, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_takes_more_than_64_jobs_of_a_hot_list(cuda_device, name):
+    """70 jobs of the hot-id kind: two launches, the second adding into the
+    first's table."""
+    jobs = hot_jobs(np.random.default_rng(22), [900] * 70, 300, 64, name)
+    _twin_checked([(i.to(cuda_device), v.to(cuda_device)) for i, v in jobs], 300, name,
                   launches=2)
 
 
 @pytest.mark.cuda
-def test_scatter_kernel_alignment(cuda_device):
-    """Values one f32 off a 16-byte boundary take the narrower vectors; a
-    values address that is not a multiple of its element size is refused
-    with cudaErrorMisalignedAddress."""
-    (idx, vals), = hot_jobs(np.random.default_rng(23), (3_000,), 200, 64)
-    big = torch.zeros((vals.numel() + 1,), device=cuda_device)
-    big[1:] = vals.reshape(-1).to(cuda_device)
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_alignment(cuda_device, name):
+    """Values one element and 8 bytes off a 16-byte boundary take the
+    narrower lane loads (one element, 8 bytes); a values address that is
+    not a multiple of its element size is refused with
+    cudaErrorMisalignedAddress."""
+    t = STREAM_TYPES[name]
+    (idx, vals), = hot_jobs(np.random.default_rng(23), (3_000,), 200, 64, name)
+    size = vals.element_size()
     idx = idx.to(cuda_device)
-    _twin_checked([(idx, big[1:].view(vals.shape))], 200)
-    out = torch.empty((200, 64), device=cuda_device)
-    arr, num = next(cuda.job_chunks(64, [(idx.data_ptr(), big.data_ptr() + 2, 3_000)]))
-    with pytest.raises(RuntimeError, match="misaligned"):
-        cuda.launch("scatter_add_rows", "tetranerf_scatter_add_rows_batch", cuda_device, arr,
-                    num, out.data_ptr(), 200, 64, 1, 0)
+    for shift in (1, 8 // size):
+        big = torch.zeros((vals.numel() + shift,), dtype=vals.dtype)
+        big[shift:] = vals.reshape(-1)
+        big = big.to(cuda_device)
+        _twin_checked([(idx, big[shift:].view(vals.shape))], 200, name)
+    if size > 1:
+        out = torch.empty((200, 64), device=cuda_device)
+        arr, num = next(cuda.job_chunks(64, [(idx.data_ptr(), big.data_ptr() + 1, 3_000, 0, 0)]))
+        with pytest.raises(RuntimeError, match="misaligned"):
+            cuda.launch("scatter_add_rows" + t.suffix, "tetranerf_scatter_add_rows_batch",
+                        cuda_device, arr, num, out.data_ptr(), 200, 64, 1, t.code)
+
+
+def _codes_by_kind(name):
+    """The codes of the row type ``name`` (f32: a few values) by what they
+    widen to: ``zero`` (+0 and -0), ``nan``, ``inf``, ``finite`` (nonzero,
+    at most 4 in magnitude)."""
+    if name == "float32":
+        codes = torch.tensor([0.0, -0.0, float("nan"), -float("nan"), float("inf"),
+                              -float("inf"), 0.5, -1.25, 3.0, 2.0 ** -10])
+    else:
+        codes = all_codes(name)
+    value = widen(codes, name)
+    return {"zero": codes[value == 0], "nan": codes[value.isnan()],
+            "inf": codes[value.isinf()],
+            "finite": codes[value.isfinite() & (value != 0) & (value.abs() <= 4)]}
+
+
+def _code_rows(rng, pools, probs, shape):
+    """Rows of codes drawn from the ``pools`` (of one dtype) with ``probs``."""
+    kinds = rng.choice(len(pools), size=shape, p=probs)
+    out = torch.empty(shape, dtype=pools[0].dtype)
+    for k, pool in enumerate(pools):
+        where = torch.from_numpy(kinds == k)
+        pick = torch.from_numpy(rng.integers(0, len(pool), int(where.sum())))
+        out[where] = pool[pick]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_adds_nothing_of_zero_codes(cuda_device, name):
+    """Rows of code 0 only, then rows of every code that encodes +-0 (both
+    signs, float4_e2m1fn's high nibble set too), on a hot id and elsewhere:
+    the table stays +0, bit for bit, in one launch. float8_e8m0fnu has no
+    zero: its code 0 is 2^-127, added as the twin adds it."""
+    rng = np.random.default_rng(27)
+    zero = _codes_by_kind(name)["zero"]
+    ids = torch.from_numpy(rng.integers(-1, 300, 12_000).astype(np.int32))
+    ids[rng.random(12_000) < 0.5] = 0
+    for pool in ((zero[:1] if name != "float8_e8m0fnu" else all_codes(name)[:1]), zero):
+        if not len(pool):
+            continue
+        rows = _code_rows(rng, [pool], [1.0], (12_000, 64))
+        jobs = [(ids.to(cuda_device), rows.to(cuda_device))]
+        out, twin = _twin_checked(jobs, 300, name)
+        assert torch.equal(out.view(torch.int32), twin.view(torch.int32))
+        if name != "float8_e8m0fnu":
+            assert not bool(out.view(torch.int32).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_nan_and_inf_codes_beside_zeros(cuda_device, name):
+    """16-byte lanes whose codes mix +-0 with NaN, infinity and finite codes
+    (each where the type has them): NaN where the twin's, infinities where
+    the twin's, the rest to rounding."""
+    rng = np.random.default_rng(28)
+    kinds = _codes_by_kind(name)
+    pools, probs = [], []
+    for kind, p in (("zero", 0.7), ("nan", 0.01), ("inf", 0.01), ("finite", 0.28)):
+        if len(kinds[kind]):
+            pools.append(kinds[kind])
+            probs.append(p)
+    probs = np.array(probs) / sum(probs)
+    ids = torch.from_numpy(rng.integers(0, 2_000, 20_000).astype(np.int32))
+    ids[rng.random(20_000) < 0.3] = 0
+    rows = _code_rows(rng, pools, probs, (20_000, 64))
+    out, twin = _twin_checked([(ids.to(cuda_device), rows.to(cuda_device))], 2_000, name)
+    assert torch.equal(out.isinf(), twin.isinf())
+    assert torch.equal(out[out.isinf()], twin[twin.isinf()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_TYPES))
+def test_scatter_kernel_skips_stream_padding(cuda_device, name):
+    """Stream jobs with ``num_valid`` (F = 64 and 32, 70 jobs: two
+    launches): garbage in the padding rows, which the kernel must not read,
+    the padding ids in runs; the twin's table (``used_rows``: nothing for a
+    type with a zero, NaN on every padding id for float8_e8m0fnu)."""
+    rng = np.random.default_rng(29)
+    for feat, count in ((64, 3), (32, 70)):
+        jobs = [stream_job(rng, 60, 37, 400, feat, name)[0] for _ in range(count)]
+        _twin_checked([tuple(x.to(cuda_device) for x in job) for job in jobs], 400, name,
+                      launches=1 if count <= 64 else 2)
+
+
+@pytest.mark.cuda
+def test_scatter_zero_codes_are_the_stream_types_table(cuda_device):
+    """The kernels' zero-code table (``common.cuh`` ``ZeroCode``) is
+    ``StreamType.zero_mask`` for every row type (-1: no zero)."""
+    fn = cuda.entry("tetranerf_row_zero_mask")
+    for t in STREAM_TYPES.values():
+        assert fn(t.code) == (-1 if t.zero_mask is None else t.zero_mask), t.name
+    assert fn(99) == -2
 
 
 @pytest.mark.cuda

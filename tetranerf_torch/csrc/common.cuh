@@ -111,6 +111,8 @@ struct Row<__nv_bfloat16> {
   using Raw = unsigned short;
   using Pair = unsigned;
   using Quad = uint2;
+  static constexpr bool kHasZero = true;
+  static constexpr unsigned kZeroMask = 0x7FFFu;
   __device__ static float widen(Raw r) { return __bfloat162float(__ushort_as_bfloat16(r)); }
   __device__ static float2 widen2(Pair p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p));
@@ -126,6 +128,8 @@ struct Row<__half> {
   using Raw = unsigned short;
   using Pair = unsigned;
   using Quad = uint2;
+  static constexpr bool kHasZero = true;
+  static constexpr unsigned kZeroMask = 0x7FFFu;
   __device__ static float widen(Raw r) { return __half2float(__ushort_as_half(r)); }
   __device__ static float2 widen2(Pair p) {
     return __half22float2(*reinterpret_cast<const __half2*>(&p));
@@ -147,6 +151,8 @@ struct Fp8Row {
   using Raw = unsigned char;
   using Pair = unsigned short;
   using Quad = unsigned;
+  static constexpr bool kHasZero = true;
+  static constexpr unsigned kZeroMask = 0x7Fu;
   __device__ static float widen(Raw r) {
     return __half2float(__half(__nv_cvt_fp8_to_halfraw(r, kFormat)));
   }
@@ -208,6 +214,10 @@ struct MiniRow {
   static constexpr unsigned kNan = kKind == kIeee   ? kInf | (1u << (kM - 1))
                                    : kKind == kPow2 ? 0xFFu
                                                     : kSign;  // kSat: -0
+  // The zero codes (ZeroCode below): +0 and -0 but for kFnuz (0x80 is its
+  // NaN) and kPow2 (no zero); kSat's bits above its 4 are not read.
+  static constexpr bool kHasZero = kKind != kPow2;
+  static constexpr unsigned kZeroMask = kKind == kFnuz ? 0xFFu : kSign - 1u;
 
   // The value of a code that is no NaN and no infinity: its exponent and
   // significand bits placed at f32's make the f32 of the same significand
@@ -292,6 +302,43 @@ template <>
 struct Row<row_e8m0fnu> : MiniRow<8, 0, 127, kPow2> {};
 template <>
 struct Row<row_e2m1fn> : MiniRow<2, 1, 1, kSat> {};
+
+// The codes of a row type that encode +0 or -0, one table a type (the same
+// as stream_dtypes.py `StreamType.zero_mask`): a code is +-0 exactly where
+// `code & kMask` is 0. float8_e8m0fnu has none (its code 0 is 2^-127):
+// +0 rounds to its NaN, kRoundedWord in every byte of a word. kWord is the
+// mask of every element of a 32-bit word of codes.
+template <typename T>
+constexpr unsigned zero_rounded_word() {
+  if constexpr (Row<T>::kHasZero) {
+    return 0u;
+  } else {
+    return Row<T>::kNan * 0x01010101u;  // a one-byte type
+  }
+}
+template <typename T>
+struct ZeroCode {
+  static constexpr bool kHas = Row<T>::kHasZero;
+  static constexpr unsigned kMask = Row<T>::kZeroMask;
+  static constexpr unsigned kWord = sizeof(T) == 1 ? kMask * 0x01010101u : kMask * 0x00010001u;
+  static constexpr unsigned kRoundedWord = zero_rounded_word<T>();
+};
+template <>
+struct ZeroCode<float> {
+  static constexpr bool kHas = true;
+  static constexpr unsigned kMask = 0x7FFFFFFFu;
+  static constexpr unsigned kWord = kMask;
+  static constexpr unsigned kRoundedWord = 0u;
+};
+// ZeroCode's mask of the row type `code` names on the host, -1 where the
+// type has no zero, -2 for an unknown code.
+inline int row_type_zero_mask(int code) {
+  if (row_type_size(code) == 0) return -2;
+  return with_row_type(code, [](auto tag) {
+    using Z = ZeroCode<typename decltype(tag)::type>;
+    return Z::kHas ? static_cast<int>(Z::kMask) : -1;
+  });
+}
 
 // Whether K2 gives a row type JAX's NaNs (ops/interp.py `dense_nan`): the
 // software types with a NaN or an infinity among their codes.

@@ -541,7 +541,8 @@ class TetraNerf(nn.Module):
                 for (_, lo, hi, t, *_), pos, s in zip(global_plan, positions, streams)])
         feats = endpoint_features_batch(self.tetrahedra_field, streams, stream_dtype,
                                         None if budget is None else [ids for ids, _ in budget],
-                                        self.field_group)
+                                        self.field_group,
+                                        [sliced.num_valid for sliced, _ in slices])
         jobs = [
             (o_k, d_k, sliced._replace(feats=feats_k), ns_k, nf_k,
              None if uniforms is None else uniforms[k],
@@ -657,7 +658,7 @@ class TetraNerf(nn.Module):
                 (0, nv.shape[0], res.t1.shape[1], positions, res.stream.vids)])
         res = res._replace(feats=endpoint_features(
             self.tetrahedra_field, res.stream, stream_dtype,
-            None if budget is None else budget[0], self.field_group))
+            None if budget is None else budget[0], self.field_group, res.num_valid))
         out = self._shade(origins, directions, res, n_coarse, n_fine, train,
                           generator, uniforms, camera_indices)
         if budget is not None:

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "tetranerf_sample_interp_backward": [_P] * 7 + [_I] * 4 + [_P],
     "tetranerf_scatter_add_rows_batch": [_P, _I, _P, _I, _I, _I, _I, _P],
     "tetranerf_scatter_add_max_jobs": [],
+    "tetranerf_row_zero_mask": [_I],
     "tetranerf_fused_mlp_forward": [_P] * 6 + [_I] * 9 + [_P],
     "tetranerf_fused_mlp_backward": [_P] * 11 + [_I] * 10 + [_P],
     "tetranerf_fused_mlp_forward_generic": [_P] * 6 + [_I] * 10 + [_P],

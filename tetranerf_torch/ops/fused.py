@@ -50,7 +50,9 @@ from .stream_dtypes import RowTypeLike, round_to, row_type
 def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
                             stream_dtype: RowTypeLike = None,
                             scatter_ids: Optional[Sequence[torch.Tensor]] = None,
-                            columns=None) -> List[torch.Tensor]:
+                            columns=None,
+                            num_valid: Optional[Sequence[torch.Tensor]] = None
+                            ) -> List[torch.Tensor]:
     """Interval-endpoint features ``f32[R_j, T_j+1, F]`` of each march
     stream, in one K2 launch; the only field-dependent part of the
     traversal. Where autograd records, the field gradient of all streams is
@@ -70,27 +72,37 @@ def endpoint_features_batch(field: torch.Tensor, streams: Sequence[MarchStream],
 
     ``columns`` (a :class:`~..parallel.Group` with model shards) says that
     ``field`` is this rank's ``[V, F/M]`` column block: K2 runs at ``F/M``
-    and one gather over the model group returns every stream at ``F``."""
+    and one gather over the model group returns every stream at ``F``.
+    ``num_valid`` (each stream's march ``num_valid``, ``i32[R_j]``) lets the
+    backward's K7 skip the slots past each ray's ``num_valid + 4``, which
+    no endpoint weights; the gradient is the same."""
     field = field.contiguous()
     stream_dtype = row_type(stream_dtype)
     flat = [x.contiguous() for s in streams for x in (s.vids, s.pos, s.bary)]
     if torch.is_grad_enabled() and field.requires_grad:
-        outs = StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids, *flat)
+        outs = StreamBlendGatherBatch.apply(field, stream_dtype, scatter_ids,
+                                            _int32(num_valid), *flat)
     else:
         outs = stream_blend_gather_batch(round_to(field, stream_dtype), split_streams(flat),
                                          stream_dtype)
     return gather_columns(columns, outs)
 
 
+def _int32(tensors):
+    return None if tensors is None else [t.to(torch.int32).contiguous() for t in tensors]
+
+
 def endpoint_features(field: torch.Tensor, stream: MarchStream,
                       stream_dtype: RowTypeLike = None,
                       scatter_ids: Optional[torch.Tensor] = None,
-                      columns=None) -> torch.Tensor:
+                      columns=None, num_valid: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Interval-endpoint features ``f32[R, T+1, F]`` of a march (K2): the
     one-stream case of :func:`endpoint_features_batch`."""
     return endpoint_features_batch(
         field, [stream], stream_dtype,
-        None if scatter_ids is None else [scatter_ids], columns)[0]
+        None if scatter_ids is None else [scatter_ids], columns,
+        None if num_valid is None else [num_valid])[0]
 
 
 def stream_budget_ids(vids: torch.Tensor, counts: torch.Tensor, offs: torch.Tensor,
@@ -141,7 +153,8 @@ def march_features(
     )
     if field is None:
         return res
-    return res._replace(feats=endpoint_features(field, res.stream, columns=columns))
+    return res._replace(feats=endpoint_features(field, res.stream, columns=columns,
+                                                num_valid=res.num_valid))
 
 
 def slice_march_jobs(res: FusedMarch, order: torch.Tensor, plan, rays=()):

@@ -348,17 +348,22 @@ def split_streams(flat) -> List[Stream]:
     return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
 
 
-def _blend_forward(ctx, field, stream_dtype, scatter_ids, flat):
+def _blend_forward(ctx, field, stream_dtype, scatter_ids, num_valid, flat):
     ctx.save_for_backward(*flat)
     ctx.num_rows = field.shape[0]
     ctx.stream_dtype = stream_dtypes.row_type(stream_dtype)
     ctx.scatter_ids = scatter_ids
+    ctx.num_valid = num_valid
     rows = round_to(field, ctx.stream_dtype)
     return tuple(stream_blend_gather_batch(rows, split_streams(flat), ctx.stream_dtype))
 
 
 def _blend_backward(ctx, grads):
-    """The field gradient: K2b per stream, one K7 over every stream."""
+    """The field gradient: K2b per stream, one K7 over every stream. With
+    the streams' ``num_valid``, K7 reads no padding slot's row: K2b wrote
+    the row type's rounding of 0 there, as no endpoint weights them (+0;
+    float8_e8m0fnu's NaN, which K7 still adds once, making row 0 NaN as in
+    JAX)."""
     flat = ctx.saved_tensors
     jobs = []
     for i, ((vids, pos, bary), g) in enumerate(zip(split_streams(flat), grads)):
@@ -366,7 +371,8 @@ def _blend_backward(ctx, grads):
                                     ctx.stream_dtype)
         ids = (vids.clamp_min(0) if ctx.scatter_ids is None
                else ctx.scatter_ids[i])
-        jobs.append((ids.reshape(-1), gsf.reshape(-1, gsf.shape[-1])))
+        job = (ids.reshape(-1), gsf.reshape(-1, gsf.shape[-1]))
+        jobs.append(job if ctx.num_valid is None else job + (ctx.num_valid[i],))
     return scatter_add_rows_batch(jobs, ctx.num_rows, ctx.stream_dtype)
 
 
@@ -374,9 +380,11 @@ class StreamBlendGatherBatch(torch.autograd.Function):
     """:func:`stream_blend_gather_batch` (one K2 launch) with the field
     gradient: K2b per stream onto its stream rows, then one K7 scatters all
     of them into one ``[V, F]`` gradient by vertex id. Called as
-    ``apply(field, stream_dtype, scatter_ids, vids_0, pos_0, bary_0,
-    vids_1, ...)``; returns one ``f32[R_j, E_j, F]`` per stream. The
-    streams take no gradient. The two stream levers:
+    ``apply(field, stream_dtype, scatter_ids, num_valid, vids_0, pos_0,
+    bary_0, vids_1, ...)``; returns one ``f32[R_j, E_j, F]`` per stream.
+    The streams take no gradient. ``num_valid`` (each march's ``i32[R_j]``
+    valid intervals, or None) lets K7 skip each ray's padding slots. The
+    two stream levers:
 
     - ``stream_dtype`` a stream row type, bf16, f16 or an 8- or 4-bit
       float (JAX ``gather_rows_lowp``): the field is rounded once to
@@ -393,12 +401,12 @@ class StreamBlendGatherBatch(torch.autograd.Function):
       and the zero rows of unused slots issue no atomics."""
 
     @staticmethod
-    def forward(ctx, field, stream_dtype, scatter_ids, *flat):
-        return _blend_forward(ctx, field, stream_dtype, scatter_ids, flat)
+    def forward(ctx, field, stream_dtype, scatter_ids, num_valid, *flat):
+        return _blend_forward(ctx, field, stream_dtype, scatter_ids, num_valid, flat)
 
     @staticmethod
     def backward(ctx, *grads):
-        return ((_blend_backward(ctx, grads), None, None)
+        return ((_blend_backward(ctx, grads), None, None, None)
                 + (None,) * len(ctx.saved_tensors))
 
 
@@ -408,7 +416,7 @@ class StreamBlendGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, field, vids, pos, bary):
-        return _blend_forward(ctx, field, None, None, (vids, pos, bary))[0]
+        return _blend_forward(ctx, field, None, None, None, (vids, pos, bary))[0]
 
     @staticmethod
     def backward(ctx, g):

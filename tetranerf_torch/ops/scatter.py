@@ -10,6 +10,12 @@ field gradient. With a low-precision stream the rows are in the stream's
 row type and K7's instance for that type adds them into the f32 table;
 rows of the seven 8- and 4-bit types torch lacks are ``uint8`` codes, and
 the calls name their row type (``row_type``, :mod:`.stream_dtypes`).
+
+A job of a march stream's rows (``[R, U]`` slots, flattened) may carry its
+rays' ``num_valid``: a ray's slots past ``num_valid + 4`` are padding that no
+endpoint weights, so K2b wrote the row type's rounding of 0 there, and K7
+reads none of their rows: +0 adds nothing, and float8_e8m0fnu's NaN (it has
+no zero) is added once for each run of one id among a ray's padding slots.
 """
 
 from __future__ import annotations
@@ -19,11 +25,40 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import cuda
-from .stream_dtypes import RowTypeLike, rows_type, widen
+from .stream_dtypes import F32, RowTypeLike, round_to, rows_type, widen
 
-Job = Tuple[torch.Tensor, torch.Tensor]
+Job = Tuple[torch.Tensor, ...]
 """``(indices i32[N], values [N, F])``: rows to add into the table, f32
-or a stream row type."""
+or a stream row type; or ``(indices, values, num_valid i32[R])`` for the
+``N = R * U`` slots of a march stream, whose rows at slots ``u >=
+num_valid[r] + 4`` of ray ``r`` are taken to be the row type's rounding of
+0 and not read (:data:`STREAM_HEAD`, :func:`used_rows`)."""
+
+STREAM_HEAD = 4
+"""A march stream's slots before its first step (the entry cell's
+vertices): ray ``r`` uses its first ``num_valid[r] + STREAM_HEAD``."""
+
+
+def used_rows(job: Job, row_type: RowTypeLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(indices, values)`` that K7 adds for ``job`` (rows in the row type
+    ``row_type``, where None their dtype's): all its rows, or for a stream
+    job those of each ray's used slots, and for a type without zero
+    (float8_e8m0fnu) its padding slots' ids with rows of its rounding of 0,
+    NaN (what K2b wrote there)."""
+    if len(job) == 2:
+        return job
+    idx, vals, num_valid = job
+    num_rays = num_valid.shape[0]
+    width = idx.shape[0] // num_rays if num_rays else 0
+    if num_rays * width != idx.shape[0]:
+        raise ValueError("scatter_add_rows: a stream job's rows are not rays x slots")
+    u = torch.arange(width, device=idx.device)
+    keep = (u[None, :] < num_valid[:, None].long() + STREAM_HEAD).reshape(-1)
+    t = F32 if vals.dtype == torch.float64 else rows_type(vals, row_type)
+    if t.zero_mask is not None:
+        return idx[keep], vals[keep]
+    zero = round_to(vals.new_zeros((1, vals.shape[1]), dtype=torch.float32), t)
+    return idx, torch.where(keep[:, None], vals, zero)
 
 
 def scatter_add_rows_twin(indices, values, num_rows: int, row_type: RowTypeLike = None):
@@ -43,10 +78,11 @@ def scatter_add_rows_twin(indices, values, num_rows: int, row_type: RowTypeLike 
 
 def scatter_add_rows_batch_twin(jobs: Sequence[Job], num_rows: int,
                                 row_type: RowTypeLike = None):
-    """:func:`scatter_add_rows_twin` of the jobs' concatenation: one
-    ``scatter_add_``."""
-    return scatter_add_rows_twin(torch.cat([idx for idx, _ in jobs]),
-                                 torch.cat([vals for _, vals in jobs]), num_rows, row_type)
+    """:func:`scatter_add_rows_twin` of the concatenation of the jobs' rows
+    (:func:`used_rows`): one ``scatter_add_``."""
+    rows = [used_rows(job, row_type) for job in jobs]
+    return scatter_add_rows_twin(torch.cat([idx for idx, _ in rows]),
+                                 torch.cat([vals for _, vals in rows]), num_rows, row_type)
 
 
 def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int, row_type: RowTypeLike):
@@ -55,16 +91,25 @@ def _scatter_add_rows_batch_cuda(jobs: Sequence[Job], num_rows: int, row_type: R
     dtype = jobs[0][1].dtype
     rows = rows_type(jobs[0][1], row_type)
     flat: List[tuple] = []
-    for idx, vals in jobs:
-        cuda.check_cuda_inputs("scatter_add_rows", indices=idx, values=vals)
+    for idx, vals, *stream in jobs:
+        cuda.check_cuda_inputs("scatter_add_rows", indices=idx, values=vals,
+                               **{"num_valid": nv for nv in stream})
         if (
             vals.device != device or idx.dtype != torch.int32
             or vals.dtype != dtype or idx.dim() != 1 or vals.dim() != 2
             or vals.shape != (idx.shape[0], num_feat)
         ):
             raise ValueError("scatter_add_rows: unexpected shapes or dtypes")
+        nv_ptr, width = 0, 0
+        if stream:
+            (nv,) = stream
+            if (nv.dtype != torch.int32 or nv.dim() != 1
+                    or (nv.shape[0] and idx.shape[0] % nv.shape[0])):
+                raise ValueError("scatter_add_rows: unexpected num_valid")
+            if nv.shape[0]:
+                nv_ptr, width = nv.data_ptr(), idx.shape[0] // nv.shape[0]
         if idx.shape[0]:
-            flat.append((idx.data_ptr(), vals.data_ptr(), idx.shape[0]))
+            flat.append((idx.data_ptr(), vals.data_ptr(), idx.shape[0], nv_ptr, width))
     out = torch.empty((num_rows, num_feat), dtype=torch.float32, device=device)
     if not out.numel():
         return out
@@ -88,8 +133,10 @@ def scatter_add_rows_batch(jobs: Sequence[Job], num_rows: int, row_type: RowType
     F])``, all contiguous, one device, one ``F``, the values all f32 or all
     rows of one stream row type (``row_type``, where None the values'
     dtype's: K7's instance for that type; the table is f32 either way);
-    rows whose index is ``< 0`` or ``>= num_rows`` are dropped. On the card one launch adds
-    every job (more only past the kernel's job capacity, 64 jobs)."""
+    rows whose index is ``< 0`` or ``>= num_rows`` are dropped. A job of
+    stream rows may carry ``num_valid`` (:data:`Job`): its rays' padding
+    slots are not read. On the card one launch adds every job (more only
+    past the kernel's job capacity, 64 jobs)."""
     if not jobs:
         raise ValueError("scatter_add_rows: no jobs (the row width is unknown)")
     device = jobs[0][1].device

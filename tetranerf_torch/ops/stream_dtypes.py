@@ -85,6 +85,21 @@ class StreamType(NamedTuple):
         return 1 - self.bias - self.significand_bits
 
     @property
+    def zero_mask(self) -> Optional[int]:
+        """The codes that encode +0 or -0: those with ``code & zero_mask``
+        0 (K7 adds none of them, tested before they are widened:
+        ``csrc/common.cuh`` ``ZeroCode``, the same table); None for a type
+        without zero (float8_e8m0fnu, whose code 0 is 2^-127). The mask
+        leaves out the sign bit where -0 has its own code, and is every bit
+        of the fnuz types' codes, whose 0x80 is their NaN; float4_e2m1fn's
+        bits above its 4 are not read, as :func:`widen` reads none."""
+        if self.zero == "nan":
+            return None
+        if self.zero == "unsigned":
+            return (1 << (8 * self.storage.itemsize)) - 1
+        return self.sign_bit - 1
+
+    @property
     def minifloat(self) -> bool:
         """Whether the rows are codes in ``uint8`` (rounded and widened in
         software)."""
